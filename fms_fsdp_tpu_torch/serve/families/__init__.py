@@ -1,0 +1,192 @@
+"""Family adapters: one serving engine, per-family device work.
+
+Counterpart of ``fms_fsdp_tpu/serve/families/__init__.py``, Llama part.
+The engine owns admission, continuous batching, eviction, sampling and
+metrics; a :class:`FamilyAdapter` owns what differs per model family:
+the decode state a stream holds, how a prompt prefills into it, what one
+ragged batched decode step computes, and how params resolve to a family.
+
+Only ``llama`` (paged KV, ragged paged-decode kernel) is ported. The
+Mamba and Mixtral families raise, naming the ROADMAP.md item that brings
+them.
+"""
+
+from typing import Optional
+
+from fms_fsdp_tpu_torch.models.configs import LlamaConfig
+
+# the wire encoding of a family in numeric-only maps (serving_stats)
+FAMILY_CODES = {"llama": 0, "mamba": 1, "mixtral": 2}
+
+_NOT_PORTED = {
+    "mamba": "ROADMAP.md A.3 (Mamba2 hybrid, with its serving family)",
+    "mixtral": "ROADMAP.md A.4 (Mixtral MoE, with its serving family)",
+}
+
+
+def _not_ported(family: str):
+    return NotImplementedError(
+        f"the {family} serving family is not ported yet: {_NOT_PORTED[family]}"
+    )
+
+
+def family_of(model_cfg) -> str:
+    """Model config dataclass -> family name."""
+    if isinstance(model_cfg, LlamaConfig):
+        return "llama"
+    name = type(model_cfg).__name__
+    if name in ("MambaConfig", "MixtralConfig"):
+        raise _not_ported(name[: -len("Config")].lower())
+    raise ValueError(
+        f"unknown model config type {name}: expected LlamaConfig "
+        f"(fms_fsdp_tpu_torch/models/configs.py)"
+    )
+
+
+def load_model_config(d: dict):
+    """Plain dict (a fleet model_cfg.json) -> the right config dataclass.
+
+    An explicit ``"family"`` key wins; otherwise the family is inferred
+    from architecture-distinguishing keys (``d_model`` -> mamba,
+    ``num_experts`` -> mixtral, else llama)."""
+    d = dict(d)
+    family = d.pop("family", None)
+    if family is None:
+        if "d_model" in d or "n_layer" in d:
+            family = "mamba"
+        elif "num_experts" in d or "top_k" in d:
+            family = "mixtral"
+        else:
+            family = "llama"
+    if family not in FAMILY_CODES:
+        raise ValueError(
+            f"unknown model family {family!r} in model config: expected "
+            f"one of {sorted(FAMILY_CODES)} — set \"family\" explicitly "
+            f"or drop it to infer from the config keys"
+        )
+    if family != "llama":
+        raise _not_ported(family)
+    try:
+        return LlamaConfig(**d)
+    except TypeError as e:
+        raise ValueError(
+            f"model config keys do not match the {family} family "
+            f"({type(e).__name__}: {e}) — if the family was inferred "
+            f"wrongly, set \"family\" explicitly in the model config"
+        ) from None
+
+
+def check_params_family(params, family: str) -> None:
+    """Validate a params dict actually belongs to ``family``: mamba
+    stacks layers as a list of per-layer dicts, mixtral's stacked layer
+    dict carries the router ``gate``, llama's carries ``wq`` without it."""
+    layers = params.get("layers") if hasattr(params, "get") else None
+    if isinstance(layers, (list, tuple)):
+        actual = "mamba"
+    elif isinstance(layers, dict) and "gate" in layers:
+        actual = "mixtral"
+    elif isinstance(layers, dict) and "wq" in layers:
+        actual = "llama"
+    else:
+        raise ValueError(
+            "params do not look like any serveable family (no "
+            "recognizable 'layers' structure): expected init_llama_params"
+            " output or a checkpoint thereof"
+        )
+    if actual != family:
+        raise ValueError(
+            f"checkpoint/model-config family mismatch: params look like "
+            f"{actual!r} but the model config says {family!r} — pass the "
+            f"matching config dataclass (or fix \"family\" in "
+            f"model_cfg.json)"
+        )
+
+
+def init_params_for(model_cfg):
+    """Family -> its params initializer, ``fn(generator) -> params``."""
+    family_of(model_cfg)
+    from fms_fsdp_tpu_torch.models.llama import init_llama_params
+
+    return lambda generator: init_llama_params(generator, model_cfg)
+
+
+def resolve_adapter(params, model_cfg, serve_cfg, compute_dtype, device):
+    """Params + config -> the family's adapter."""
+    family = family_of(model_cfg)
+    check_params_family(params, family)
+    from fms_fsdp_tpu_torch.serve.families.llama import LlamaAdapter
+
+    return LlamaAdapter(params, model_cfg, serve_cfg, compute_dtype, device)
+
+
+class FamilyAdapter:
+    """The protocol the engine drives:
+
+    - ``admission_error(prompt_len, max_new)`` — worst-case capacity
+      check at submit; a message means reject (reason=too_large).
+    - ``can_admit(rid, prompt_len)`` — would a prefill of this resumed
+      prompt fit right now (nothing allocated yet)?
+    - ``prefill(rid, slot, prompt)`` — allocate the stream's state, run
+      the family prefill; returns the (V,) logits row of the last real
+      prompt position.
+    - ``grow(rid, n_tokens)`` — make room for the next token; False
+      triggers the engine's LIFO eviction loop.
+    - ``release(rid, slot)`` — return the stream's state.
+    - ``decode(slot_rids, lens, tokens, generator)`` — one ragged decode
+      step over all max_batch slots; returns (sampled tokens (B,)
+      np.int32, logits (B, V)).
+    - ``pages_in_use`` / ``state_bytes_per_stream`` — obs.
+
+    Handoff, speculative decode, chunked prefill and serving layouts
+    come with the serving extensions (ROADMAP.md A.9, A.10).
+    """
+
+    family: str = "?"
+    cache = None  # PagedKVCache when the family uses pages, else None
+    page_size: int = 0
+    max_pages: int = 0
+    attn_impl: str = "none"
+    block_kv: int = 0
+
+    def admission_error(self, prompt_len: int, max_new: int) -> Optional[str]:
+        raise NotImplementedError
+
+    def can_admit(self, rid: int, prompt_len: int) -> bool:
+        raise NotImplementedError
+
+    def prefill(self, rid: int, slot: int, prompt):
+        raise NotImplementedError
+
+    def grow(self, rid: int, n_tokens: int) -> bool:
+        raise NotImplementedError
+
+    def release(self, rid: int, slot: int) -> None:
+        raise NotImplementedError
+
+    def decode(self, slot_rids, lens, tokens, generator):
+        raise NotImplementedError
+
+    @property
+    def pages_in_use(self) -> int:
+        return self.cache.pages_in_use if self.cache is not None else 0
+
+    @property
+    def state_bytes_per_stream(self) -> int:
+        """Constant per-stream recurrent-state bytes (0 for families
+        whose only decode state is paged KV)."""
+        return 0
+
+    def _padded_len(self, n: int, bucket: int) -> int:
+        b = max(1, bucket)
+        return -(-n // b) * b
+
+
+__all__ = [
+    "FAMILY_CODES",
+    "FamilyAdapter",
+    "check_params_family",
+    "family_of",
+    "init_params_for",
+    "load_model_config",
+    "resolve_adapter",
+]

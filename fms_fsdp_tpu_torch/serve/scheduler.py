@@ -1,0 +1,245 @@
+"""Continuous batching: token-granular admission, eviction, deadlines.
+
+The engine's decode batch has a fixed shape (``max_batch`` slots) but
+membership changes every token: a request joins as soon as a slot and
+enough pages exist (its prompt is prefilled and merged into the running
+batch — no waiting for the batch to drain), and leaves the moment it
+finishes (its pages free immediately). That is the continuous-batching
+model (Orca / vLLM); the alternative — static batches that run to the
+longest member — wastes decode slots exactly when load is high.
+
+Policy pieces, all deterministic (the clock is injected):
+
+- **Admission**: FIFO over the queue, gated on (a) a free decode slot,
+  (b) the allocator covering prompt + 1 token (the engine's page check
+  callback), (c) at most ``max_prefill_per_step`` admissions per engine
+  iteration — prefill work is interleaved with decode steps, never
+  allowed to starve running sequences (the prefill–decode interleave
+  knob).
+- **Deadlines**: a request may carry an absolute deadline; requests
+  whose deadline passes while still queued are expired (rejected
+  without compute) — queue pressure sheds load at the cheap end first.
+  A request whose deadline passes while *in flight* is expired at the
+  engine's step boundary too (``expire_inflight``): its answer can no
+  longer be useful, so every further decode token it would consume is
+  stolen from streams that can still meet theirs. Its pages free
+  immediately (``serve.requests_expired_inflight``).
+- **Typed admission rejection**: ``submit`` on the engine raises
+  :class:`RequestRejected` with a machine-readable ``reason`` —
+  ``too_large`` (can never fit the pool), ``overloaded`` (bounded
+  queue full: load is shed at admission with a typed error the client
+  can back off on, never an unbounded queue collapse), or
+  ``deadline_unmeetable`` (the deadline cannot be met even by an idle
+  engine). One counter per reason
+  (``serve.requests_rejected.<reason>``).
+- **Eviction** (token-granular): when a *running* sequence cannot get
+  its next page, the engine evicts the most-recently-admitted running
+  request (LIFO preemption — it has the least sunk decode work), frees
+  its pages, and requeues it at the FRONT of the queue with its
+  generated tokens folded into the prompt (recompute-on-resume: its
+  next admission prefills prompt + generated-so-far and continues).
+
+Requests move QUEUED -> RUNNING -> FINISHED, with EVICTED -> QUEUED
+loops and QUEUED -> EXPIRED exits. Counters for every transition feed
+the serve.* registry metrics (docs/serving.md).
+"""
+
+import itertools
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Callable, List, Optional, Sequence
+
+QUEUED = "queued"
+RUNNING = "running"
+FINISHED = "finished"
+EVICTED = "evicted"
+EXPIRED = "expired"
+
+_rid = itertools.count()
+
+# RequestRejected.reason values (the typed-admission enum)
+REJECT_TOO_LARGE = "too_large"
+REJECT_OVERLOADED = "overloaded"
+REJECT_DEADLINE_UNMEETABLE = "deadline_unmeetable"
+REJECT_REASONS = (
+    REJECT_TOO_LARGE, REJECT_OVERLOADED, REJECT_DEADLINE_UNMEETABLE,
+)
+
+
+class RequestRejected(ValueError):
+    """Typed admission rejection: ``reason`` is one of REJECT_REASONS.
+
+    Subclasses ValueError so pre-typed callers that caught the bare
+    raise keep working; new callers switch on ``reason`` (a shed
+    ``overloaded`` request should back off and retry, a ``too_large``
+    one never should)."""
+
+    def __init__(self, reason: str, msg: str):
+        assert reason in REJECT_REASONS, reason
+        super().__init__(msg)
+        self.reason = reason
+
+
+@dataclass
+class Request:
+    prompt: Sequence[int]
+    max_new_tokens: int
+    deadline: Optional[float] = None  # absolute, engine-clock seconds
+    rid: int = field(default_factory=lambda: next(_rid))
+    state: str = QUEUED
+    # runtime bookkeeping (engine-owned)
+    generated: List[int] = field(default_factory=list)
+    submit_time: float = 0.0
+    first_token_time: Optional[float] = None
+    finish_time: Optional[float] = None
+    evictions: int = 0
+    # disaggregation (serve/disagg/): a decode-role engine admits this
+    # request by importing packed KV pages instead of prefilling —
+    # ``handoff_in`` holds (header, arrays, nbytes) from unpack_handoff
+    # until consumed at admission (eviction afterwards falls back to
+    # recompute-on-resume); a prefill-role engine finishes a request by
+    # packing its pages into ``handoff_out`` wire bytes
+    handoff_in: Optional[tuple] = None
+    handoff_out: Optional[bytes] = None
+
+    @property
+    def ttft(self) -> Optional[float]:
+        if self.first_token_time is None:
+            return None
+        return self.first_token_time - self.submit_time
+
+    @property
+    def latency(self) -> Optional[float]:
+        if self.finish_time is None:
+            return None
+        return self.finish_time - self.submit_time
+
+    def resume_prompt(self) -> List[int]:
+        """What a re-admission after eviction must prefill: the original
+        prompt plus everything generated before the eviction."""
+        return list(self.prompt) + list(self.generated)
+
+
+class ContinuousBatchingScheduler:
+    def __init__(
+        self,
+        max_batch: int,
+        max_prefill_per_step: int = 1,
+        clock: Callable[[], float] = None,
+    ):
+        import time
+
+        self.max_batch = max_batch
+        self.max_prefill_per_step = max_prefill_per_step
+        self.clock = clock or time.monotonic
+        self.queue: deque = deque()
+        # counters (engine drains into the serve.* registry)
+        self.submitted = 0
+        self.admitted = 0
+        self.completed = 0
+        self.evicted = 0
+        self.expired = 0
+        self.expired_inflight = 0
+
+    # -- queue side --------------------------------------------------------
+
+    def submit(self, req: Request) -> Request:
+        req.state = QUEUED
+        req.submit_time = self.clock()
+        self.queue.append(req)
+        self.submitted += 1
+        return req
+
+    def queue_depth(self) -> int:
+        return len(self.queue)
+
+    def expire_queued(self, now: Optional[float] = None) -> List[Request]:
+        """Drop queued requests whose deadline already passed.
+
+        Only *unserved* requests expire (no first token yet): an evicted
+        mid-stream request waiting for re-admission has sunk prefill and
+        decode work and delivered output — load shedding drops the cheap
+        end, never the most-invested work (docs/serving.md)."""
+        now = self.clock() if now is None else now
+        dead = [
+            r for r in self.queue
+            if r.deadline is not None
+            and now > r.deadline
+            and r.first_token_time is None
+        ]
+        for r in dead:
+            self.queue.remove(r)
+            r.state = EXPIRED
+            r.finish_time = now
+            self.expired += 1
+        return dead
+
+    def expire_inflight(
+        self, running: List[Request], now: Optional[float] = None
+    ) -> List[Request]:
+        """The in-flight half of deadline expiry: RUNNING requests whose
+        absolute deadline already passed. Unlike queued expiry (which
+        spares served work — see ``expire_queued``), a past-deadline
+        running request is expired regardless of sunk cost: its answer
+        can no longer arrive in time, so every further decode step it
+        takes is stolen from streams that can still meet their
+        deadlines. The engine calls this at the step boundary and frees
+        the victims' pages (``serve.requests_expired_inflight``)."""
+        now = self.clock() if now is None else now
+        dead = [
+            r for r in running
+            if r.deadline is not None and now > r.deadline
+        ]
+        for r in dead:
+            r.state = EXPIRED
+            r.finish_time = now
+            self.expired_inflight += 1
+        return dead
+
+    # -- admission ---------------------------------------------------------
+
+    def admit(
+        self,
+        free_slots: int,
+        can_fit: Callable[[Request], bool],
+    ) -> List[Request]:
+        """FIFO admission for this engine iteration: up to
+        ``max_prefill_per_step`` requests, bounded by free decode slots
+        and the engine's page-capacity check. A head-of-queue request
+        that does not fit blocks the queue (no head-of-line bypass: a
+        large request must not starve behind a stream of small ones)."""
+        out: List[Request] = []
+        while (
+            self.queue
+            and len(out) < self.max_prefill_per_step
+            and free_slots > 0
+        ):
+            head = self.queue[0]
+            if not can_fit(head):
+                break
+            self.queue.popleft()
+            head.state = RUNNING
+            out.append(head)
+            free_slots -= 1
+            self.admitted += 1
+        return out
+
+    # -- running side ------------------------------------------------------
+
+    def evict_victim(self, running: List[Request]) -> Optional[Request]:
+        """LIFO preemption: the most recently admitted running request
+        (least sunk decode work) goes back to the queue front."""
+        if not running:
+            return None
+        return running[-1]
+
+    def mark_evicted(self, req: Request) -> None:
+        req.state = QUEUED
+        req.evictions += 1
+        self.evicted += 1
+        self.queue.appendleft(req)
+
+    def mark_finished(self, req: Request, now: Optional[float] = None) -> None:
+        req.state = FINISHED
+        req.finish_time = self.clock() if now is None else now
+        self.completed += 1

@@ -1,0 +1,118 @@
+"""The model-variant table, Llama part.
+
+A copy of the Llama rows of ``fms_fsdp_tpu/utils/config_utils.py``
+(reference: fms_fsdp/utils/config_utils.py:25-161): llama2 {1.4b, 7b,
+13b, 34b, 70b} and llama3 {194m_4k, 1.8b, 3.2b, 8b, 70b} with their
+``_4k`` context variants. ``mamba_9.8b`` and ``mixtral_8x7b`` arrive with
+the Mamba and Mixtral slices (ROADMAP.md A.3, A.4).
+"""
+
+from fms_fsdp_tpu_torch.models.configs import LlamaConfig
+
+_LLAMA_VARIANTS = {
+    "llama2_70b": dict(
+        emb_dim=8192,
+        multiple_of=4096,
+        nheads=64,
+        kvheads=8,
+        nlayers=80,
+        hidden_grow_factor=28672 / 8192,
+    ),
+    "llama2_34b": dict(
+        emb_dim=8192,
+        nheads=64,
+        kvheads=8,
+        nlayers=48,
+        hidden_grow_factor=22016 / 8192,
+        max_expected_seq_len=16384,
+        rope_theta=1000000.0,
+    ),
+    "llama2_13b": dict(
+        emb_dim=5120,
+        nheads=40,
+        nlayers=40,
+        hidden_grow_factor=13824 / 5120,
+    ),
+    "llama2_7b": dict(
+        hidden_grow_factor=11008 / 4096,
+        kvheads=32,
+    ),
+    "llama2_1.4b": dict(
+        emb_dim=2048,
+        nheads=16,
+        nlayers=24,
+        hidden_grow_factor=3,
+        kvheads=4,
+    ),
+    "llama3_8b": dict(
+        src_vocab_size=128256,
+        emb_dim=4096,
+        nheads=32,
+        kvheads=8,
+        nlayers=32,
+        hidden_grow_factor=3.5,
+        max_expected_seq_len=8192,
+        rope_theta=500000.0,
+    ),
+    "llama3_1.8b": dict(
+        src_vocab_size=128256,
+        emb_dim=2048,
+        nheads=16,
+        kvheads=8,
+        nlayers=24,
+        hidden_grow_factor=3.5,
+        max_expected_seq_len=8192,
+        rope_theta=500000.0,
+    ),
+    "llama3_3.2b": dict(
+        src_vocab_size=128256,
+        emb_dim=3072,
+        nheads=24,
+        kvheads=8,
+        nlayers=24,
+        hidden_grow_factor=8 / 3,
+        max_expected_seq_len=8192,
+        rope_theta=500000.0,
+    ),
+    "llama3_70b": dict(
+        src_vocab_size=128256,
+        emb_dim=8192,
+        nheads=64,
+        kvheads=8,
+        nlayers=80,
+        hidden_grow_factor=3.5,
+        max_expected_seq_len=8192,
+        rope_theta=500000.0,
+    ),
+    "llama3_194m_4k": dict(
+        src_vocab_size=128256,
+        emb_dim=1024,
+        nheads=8,
+        nlayers=10,
+        max_expected_seq_len=4096,
+        rope_theta=500000.0,
+    ),
+}
+
+# llama3 *_4k variants: same architecture with a 4096 context window
+# (reference: fms_fsdp/utils/config_utils.py:76-86,98-108,120-130,142-152).
+for _name in ["llama3_8b", "llama3_1.8b", "llama3_3.2b", "llama3_70b"]:
+    _LLAMA_VARIANTS[_name + "_4k"] = dict(
+        _LLAMA_VARIANTS[_name], max_expected_seq_len=4096
+    )
+
+_LATER = {
+    "mamba_9.8b": "ROADMAP.md A.3 (Mamba2 hybrid)",
+    "mixtral_8x7b": "ROADMAP.md A.4 (Mixtral MoE)",
+}
+
+
+def get_model_config(model_variant):
+    if model_variant in _LLAMA_VARIANTS:
+        return LlamaConfig(**_LLAMA_VARIANTS[model_variant])
+    if model_variant in _LATER:
+        raise NotImplementedError(
+            f"model variant {model_variant} is not ported yet: "
+            f"{_LATER[model_variant]}"
+        )
+    raise ValueError(f"model variant {model_variant} not supported.")
