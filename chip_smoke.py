@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA card and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA card
+and check them.
 
     python chip_smoke.py                 # every phase, one card
     python chip_smoke.py --phases device,build,kernels
@@ -23,6 +24,27 @@ Phases, one JSON line each; any failure exits non-zero:
    the reference attention and an fp32 step, and profiles one step.
 5. serve-int8 — the same engine with int8 pools on a shorter wave, so
    the quantized (v2) contract runs end to end.
+6. flash   — the three flash-attention kernels (forward, dq, dk/dv)
+   against their plain versions for bf16 and fp32: the training shape
+   (B=2, Nq=32, Nkv=8, S=4096, H=128, causal, group 4), the kvgrid
+   contract (B=1, S=16384), a causal cross-length case (Sq=2048,
+   Sk=4096) and group 1; o, lse, dq, dk and dv each within tolerance:
+   fp32 within 1e-4 x max(1, |value|); bf16 within twice the plain bf16
+   version's distance from fp32, and within the relative error
+   ``flash_attention.BF16_REL_TOL`` of the plain bf16 version, which a
+   control (the plain version with its scores rounded to bf16) must
+   exceed; CUDA-event times of the first two shapes beside the plain
+   versions, the bound, and SDPA (flash backend) forward and backward.
+7. train   — ``fms_fsdp_tpu_torch.main_training_llama.main`` at
+   llama3_8b_4k width (4096 wide, 32/8 heads, hidden 14336, vocab
+   128256) and 8 layers, seq 4096, batch 2, selective AC 1/2, dummy
+   data, 12 steps: finite and decreasing loss, no skipped batch, launches
+   == steps x (layers + rematerialised layers) forward and steps x layers
+   dq and dk/dv; tokens per card per second, MFU/HFU, peak memory and a
+   profile of one step.
+8. train-kvgrid — the same trainer for one step with
+   ``flash_kernel_variant="kvgrid"``, so the launches of the kv-streamed
+   contracts are counted on the main path too.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -30,14 +52,17 @@ package beside it, the script exits non-zero and prints no result.
 """
 
 import argparse
+import gc
 import json
+import math
 import os
 import subprocess
 import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "serve", "serve-int8")
+PHASES = ("device", "build", "kernels", "serve", "serve-int8", "flash", "train",
+          "train-kvgrid")
 
 # llama3_8b decode shapes of the kernel phase
 B, NQ, NKV, H, PAGE, MAXP = 8, 32, 8, 128, 64, 32
@@ -47,10 +72,16 @@ POOL_COPIES = 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}  # dense bf16 tensor / fp32 SIMT
 TOL = {"bf16": 2e-2, "fp32": 1e-5, "int8": 2e-2, "e4m3": 2e-2}
-# Pallas kernels this port's kernel replaces
+# Pallas kernels the port's kernels replace, by the contract a launch
+# fulfils
 REPLACES = {
     "v1": "fms_fsdp_tpu/ops/paged_attention.py:129",
     "v2": "fms_fsdp_tpu/ops/paged_attention.py:195",
+    "fwd": "fms_fsdp_tpu/ops/flash_attention.py:62",
+    "fwd_kvgrid": "fms_fsdp_tpu/ops/flash_attention.py:179",
+    "dq": "fms_fsdp_tpu/ops/flash_attention.py:318",
+    "dq_kvgrid": "fms_fsdp_tpu/ops/flash_attention.py:368",
+    "dkv": "fms_fsdp_tpu/ops/flash_attention.py:484",
 }
 
 
@@ -363,6 +394,23 @@ def _step_inputs(eng):
     return table, lens, toks
 
 
+def _kernel_rows(prof, steps):
+    """(ms per step, name, calls per step) of every device kernel, copy
+    and set in a profile, longest first. A device-side annotation named
+    after its op ("aten::mm") spans that op's kernels and would count
+    their time twice, so those rows are left out."""
+    per_name = {}
+    for e in prof.events():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        if getattr(e, "is_user_annotation", False) or e.name.startswith("aten::"):
+            continue
+        ms, n = per_name.get(e.name, (0.0, 0))
+        per_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return sorted(((ms / steps, name, n // steps) for name, (ms, n) in per_name.items()),
+                  reverse=True)
+
+
 def _profile_step(eng, paged_decode_step, steps=5):
     """Where one full-batch decode step's time goes: host wall per step
     (no profiler), device kernel time per step and the paged-decode
@@ -393,19 +441,7 @@ def _profile_step(eng, paged_decode_step, steps=5):
         for _ in range(steps):
             one()
         torch.cuda.synchronize()
-    per_name = {}
-    for e in prof.events():
-        # device activity only (kernels, copies, sets); a device-side
-        # annotation named after its op ("aten::mm") spans that op's
-        # kernels and would count their time twice
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        if getattr(e, "is_user_annotation", False) or e.name.startswith("aten::"):
-            continue
-        ms, n = per_name.get(e.name, (0.0, 0))
-        per_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    rows = sorted(((ms / steps, name, n // steps) for name, (ms, n) in per_name.items()),
-                  reverse=True)
+    rows = _kernel_rows(prof, steps)
     device_ms = sum(r[0] for r in rows)
     attn_ms = sum(r[0] for r in rows if "paged_decode_kernel" in r[1])
     del pools
@@ -483,6 +519,368 @@ def phase_serve_int8(state):
            max_new=32, seed=1)
 
 
+# ---------------------------------------------------------------------------
+# training: the flash kernels and the trainer
+# ---------------------------------------------------------------------------
+
+# (name, B, Sq, Sk, Nq, Nkv), causal; the first two are timed
+FLASH_CASES = (
+    ("train", 2, 4096, 4096, 32, 8),
+    ("kvgrid", 1, 16384, 16384, 32, 8),
+    ("cross", 1, 2048, 4096, 32, 8),
+    ("group1", 1, 4096, 4096, 8, 8),
+)
+FLASH_TIMED = ("train", "kvgrid")
+# fp32: sums in another order over up to 16384 keys and a GQA group of 4
+FLASH_FP32_REL_TOL = 1e-4
+# the products of each kernel (fwd: QK^T, PV; dq: QK^T, dP, dQ; dk/dv:
+# QK^T, dP, dK, dV)
+FLASH_PRODUCTS = {"fwd": 2, "dq": 3, "dkv": 4}
+TRAIN_KW = {
+    "model_variant": "llama3_8b_4k", "LlamaConfig.nlayers": 8, "seq_length": 4096,
+    "batch_size": 2, "vocab_size": 128256, "fsdp_activation_checkpointing": True,
+    "selective_checkpointing": 0.5, "use_dummy_dataset": True, "num_steps": 12,
+    "report_interval": 4, "checkpoint_interval": 1000,
+}
+
+
+def _flash_all(fa, q, k, v, do, kernel):
+    """[o, lse, dq, dk, dv] through the kernels or the plain versions,
+    delta from that path's own o."""
+    fwd, dq_fn, dkv_fn = ((fa.flash_fwd, fa.flash_dq, fa.flash_dkv) if kernel else
+                          (fa.flash_fwd_plain, fa.flash_dq_plain, fa.flash_dkv_plain))
+    o, lse = fwd(q, k, v, causal=True)
+    delta = _delta(o, do)
+    dq = dq_fn(q, k, v, do, lse, delta, causal=True)
+    dk, dv = dkv_fn(q, k, v, do, lse, delta, causal=True)
+    return [o, lse, dq, dk, dv]
+
+
+def _flash_control(fa, q, k, v, do):
+    """The plain versions with their scores rounded to bf16 before exp2: a
+    fault of the kind a loose tolerance lets through, which the bf16
+    check must catch."""
+    import torch
+
+    scores = fa._scores2
+    fa._scores2 = lambda *a: scores(*a).to(torch.bfloat16).float()
+    try:
+        return _flash_all(fa, q, k, v, do, kernel=False)
+    finally:
+        fa._scores2 = scores
+
+
+def _rel_err(a, r) -> float:
+    """||a - r|| / ||r|| over the whole tensor, in fp32."""
+    r = r.float()
+    return ((a.float() - r).norm() / r.norm()).item()
+
+
+def _delta(o, do):
+    import torch
+
+    return torch.einsum("bsnh,bsnh->bns", o.float(), do.float()).contiguous()
+
+
+def _timed_ms(fn, budget_ms=400.0, max_reps=20):
+    """CUDA-event mean over as many calls as fit the budget (2 at least)."""
+    first = cuda_time_ms(fn, reps=1, warmup=1)
+    reps = int(max(2, min(max_reps, budget_ms / max(first, 1e-3))))
+    return cuda_time_ms(fn, reps=reps, warmup=0)
+
+
+def _attention_flops(b, sq, sk, nq, h, products):
+    """Operations of ``products`` (query x key x head) products over the
+    causally attended (query, key) pairs (top-left diagonal), 2 flops a
+    multiply-add."""
+    n = min(sq, sk)
+    pairs = n * (n + 1) // 2 + (sq - n) * sk
+    return float(2 * products * b * nq * h * pairs)
+
+
+def _flash_bound(kind, shape, products, nbytes):
+    b, sq, sk, nq, _ = shape
+    ops = _attention_flops(b, sq, sk, nq, 128, products)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS[kind] * 1e3
+    return (bytes_ms, "bytes", ops) if bytes_ms >= ops_ms else (ops_ms, "operations", ops)
+
+
+def _flash_times(fa, kind, dtype, shape, gen):
+    """Kernel, plain and SDPA times of the three kernels at one shape,
+    rotating over two input sets."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    b, sq, sk, nq, nkv = shape
+    sets = []
+    for _ in range(2):
+        q = torch.randn((b, sq, nq, 128), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((b, sk, nkv, 128), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((b, sk, nkv, 128), generator=gen, device="cuda").to(dtype)
+        do = torch.randn((b, sq, nq, 128), generator=gen, device="cuda").to(dtype)
+        o, lse = fa.flash_fwd(q, k, v)
+        sets.append((q, k, v, do, o, lse, _delta(o, do)))
+
+    def pick(i):
+        return sets[i % len(sets)]
+
+    out = {}
+    out["fwd"] = _timed_ms(lambda i: fa.flash_fwd(*pick(i)[:3]))
+    out["dq"] = _timed_ms(lambda i: fa.flash_dq(*pick(i)[:4], *pick(i)[5:]))
+    out["dkv"] = _timed_ms(lambda i: fa.flash_dkv(*pick(i)[:4], *pick(i)[5:]))
+    plain = {
+        "fwd": _timed_ms(lambda i: fa.flash_fwd_plain(*pick(i)[:3]), 0, 2),
+        "dq": _timed_ms(lambda i: fa.flash_dq_plain(*pick(i)[:4], *pick(i)[5:]), 0, 2),
+        "dkv": _timed_ms(lambda i: fa.flash_dkv_plain(*pick(i)[:4], *pick(i)[5:]), 0, 2),
+    }
+    # yardstick only (the port never calls it): SDPA, flash backend for
+    # 16-bit inputs; forward, the backward of a retained graph (one
+    # autograd call that gives dq, dk and dv together), and both
+    backends = ([SDPBackend.FLASH_ATTENTION] if dtype != torch.float32
+                else [SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH])
+    lib = {"backend": [str(x) for x in backends]}
+    try:
+        graphs = []
+        for q, k, v, do, *_ in sets:
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+            with sdpa_kernel(backends):
+                ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                    enable_gqa=True)
+            graphs.append((qt, kt, vt, ot, do.transpose(1, 2)))
+
+        def lib_fwd(i):
+            qt, kt, vt, _, _ = graphs[i % 2]
+            with sdpa_kernel(backends), torch.no_grad():
+                F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+        def lib_bwd(i):
+            qt, kt, vt, ot, dot = graphs[i % 2]
+            torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+
+        def lib_fwd_bwd(i):
+            qt, kt, vt, _, dot = graphs[i % 2]
+            with sdpa_kernel(backends):
+                ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                    enable_gqa=True)
+            torch.autograd.grad(ot, (qt, kt, vt), dot)
+
+        lib["fwd_ms"] = _timed_ms(lib_fwd)
+        lib["bwd_ms"] = _timed_ms(lib_bwd)
+        lib["fwd_bwd_ms"] = _timed_ms(lib_fwd_bwd)
+        del graphs
+    except RuntimeError as e:  # no SDPA kernel for this dtype/shape
+        lib.update(fwd_ms=None, bwd_ms=None, fwd_bwd_ms=None, error=str(e)[:200])
+    elem = 4 if dtype == torch.float32 else 2
+    qb, kvb, stat = b * sq * nq * 128 * elem, b * sk * nkv * 128 * elem, b * nq * sq * 4
+    nbytes = {"fwd": qb + 2 * kvb + qb + stat,
+              "dq": 2 * qb + 2 * kvb + 2 * stat + qb,
+              "dkv": 2 * qb + 2 * kvb + 2 * stat + 2 * (kvb // elem) * 4}
+    for name in ("fwd", "dq", "dkv"):
+        bound_ms, bound_by, ops = _flash_bound(kind, shape, FLASH_PRODUCTS[name], nbytes[name])
+        out[name] = {"ms": out[name], "plain_ms": plain[name], "bound_ms": bound_ms,
+                     "bound_by": bound_by, "ops": ops, "bytes": nbytes[name],
+                     "achieved_tflops": ops / out[name] / 1e9,
+                     "library_ms": lib["fwd_ms"] if name == "fwd" else lib["bwd_ms"]}
+    out["sdpa"] = lib
+    del sets
+    return out
+
+
+def phase_flash(state):
+    import torch
+
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+
+    state.pop("params", None)  # the serve phases' weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    results, bad = {}, []
+    for kind, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        for name, b, sq, sk, nq, nkv in FLASH_CASES:
+            q = torch.randn((b, sq, nq, 128), generator=gen, device="cuda").to(dtype)
+            k = torch.randn((b, sk, nkv, 128), generator=gen, device="cuda").to(dtype)
+            v = torch.randn((b, sk, nkv, 128), generator=gen, device="cuda").to(dtype)
+            do = torch.randn((b, sq, nq, 128), generator=gen, device="cuda").to(dtype)
+            fa.reset_launches()
+            got = _flash_all(fa, q, k, v, do, kernel=True)
+            torch.cuda.synchronize()
+            kv = "_kvgrid" if fa._use_kvgrid(sk) else ""
+            launched = dict(fa.LAUNCHES)
+            ref = _flash_all(fa, q, k, v, do, kernel=False)
+            names = ("o", "lse", "dq", "dk", "dv")
+            rel_ok = True
+            if kind == "fp32":
+                tols = [FLASH_FP32_REL_TOL * max(1.0, r.abs().max().item()) for r in ref]
+                dist = rel = None
+            else:
+                wide = _flash_all(fa, q.float(), k.float(), v.float(), do.float(), kernel=False)
+                dist = [(r.float() - w).abs().max().item() for r, w in zip(ref, wide)]
+                tols = [2 * d for d in dist]
+                del wide
+                control = _flash_control(fa, q, k, v, do)
+                rel = {n: {"kernel": _rel_err(a, r_), "control": _rel_err(c, r_),
+                           "tol": fa.BF16_REL_TOL[n]}
+                       for n, a, c, r_ in zip(names, got, control, ref)}
+                del control
+                rel_ok = all(x["kernel"] <= x["tol"] < x["control"] for x in rel.values())
+            errs = [(a.float() - r.float()).abs().max().item() for a, r in zip(got, ref)]
+            finite = all(bool(torch.isfinite(a).all()) for a in got)
+            zero_tail = (sk <= sq or (torch.count_nonzero(got[3][:, sq:]) == 0
+                                      and torch.count_nonzero(got[4][:, sq:]) == 0))
+            r = {
+                "shape": {"B": b, "Sq": sq, "Sk": sk, "Nq": nq, "Nkv": nkv, "H": 128},
+                "contract": "kvgrid" if kv else "resident",
+                "launches": launched,
+                "max_abs_err": dict(zip(names, errs)), "tol": dict(zip(names, tols)),
+                "plain_bf16_vs_fp32": dict(zip(names, dist)) if dist else None,
+                "rel_err_vs_plain_bf16": rel,
+                "finite": finite, "zero_dkv_past_last_query": bool(zero_tail),
+            }
+            r["ok"] = (finite and bool(zero_tail) and rel_ok
+                       and all(e <= t for e, t in zip(errs, tols))
+                       and launched["fwd" + kv] == 1 and launched["dq" + kv] == 1
+                       and launched["dkv"] == 1)
+            del q, k, v, do, got, ref
+            torch.cuda.empty_cache()
+            if name in FLASH_TIMED:
+                r["times"] = _flash_times(fa, kind, dtype, (b, sq, sk, nq, nkv), gen)
+                torch.cuda.empty_cache()
+            emit("flash", dtype=kind, case=name, **r)
+            results[(kind, name)] = r
+            if not r["ok"]:
+                bad.append(f"{kind}/{name}")
+    state["flash"] = results
+    if bad:
+        raise AssertionError(f"flash kernels disagree with their plain versions: {bad}")
+
+
+def _train_step_profile(res, steps=2):
+    """Host wall per step (no profiler) and device time per step by
+    kernel (torch.profiler) of the trained state's next steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fms_fsdp_tpu_torch.data.device_feed import DeviceFeed
+    from fms_fsdp_tpu_torch.data.loader import get_dummy_loader
+    from fms_fsdp_tpu_torch.train.step import make_train_step
+
+    cfg, state = res["cfg"], res["state"]
+    step_fn = make_train_step(res["model_cfg"], cfg)
+    batch = next(iter(DeviceFeed(get_dummy_loader(cfg, 0, 1), "cuda")))
+    step_fn(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step_fn(state, batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step_fn(state, batch)
+        torch.cuda.synchronize()
+    rows = _kernel_rows(prof, steps)
+    device_ms = sum(r[0] for r in rows)
+    flash = {key: sum(r[0] for r in rows if f"flash_{key}_kernel" in r[1])
+             for key in ("fwd", "dq", "dkv")}
+    return {
+        "wall_ms_per_step": wall_ms,
+        "device_ms_per_step": device_ms if rows else None,
+        "device_busy_share": device_ms / wall_ms if rows else None,
+        "flash_ms_per_step": flash if rows else None,
+        "top_device_ms_per_step": [
+            {"name": name[:80], "ms": ms, "calls": calls} for ms, name, calls in rows[:10]
+        ],
+    }
+
+
+def _train(state, phase, overrides, expect):
+    """Run the trainer through its entry point and check its launches:
+    ``expect(model_cfg, cfg, steps)`` gives the expected LAUNCHES."""
+    import torch
+
+    from fms_fsdp_tpu_torch.main_training_llama import main
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+
+    kw = dict(TRAIN_KW, **overrides)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    res = main(**kw)
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    reports = res["reports"]
+    want = expect(res["model_cfg"], res["cfg"], res["steps"])
+    losses = [r["loss"] for r in reports]
+    last = reports[-1]
+    result = dict(
+        config={k: kw[k] for k in sorted(kw)},
+        params=res["model_cfg"].n_params(), steps=res["steps"], wall_s=wall,
+        losses=losses, gnorms=[r["gnorm"] for r in reports],
+        lrs=[r["lr"] for r in reports],
+        step_time_s=[r["step_time_s"] for r in reports],
+        tokens_per_card_per_s=last["tokens_per_card_per_s"],
+        mfu=last["mfu"], hfu=last["hfu"], peak_flops=989e12,
+        skipped_batches=res["skipped_batches"], launches=launches,
+        expected_launches=want, max_memory_allocated=peak,
+        nvidia_smi=state["smi"],
+    )
+    problems = []
+    if not all(math.isfinite(x) for x in losses):
+        problems.append(f"non-finite loss {losses}")
+    if phase == "train" and not losses[-1] < losses[0]:
+        problems.append(f"loss did not decrease: {losses}")
+    if res["skipped_batches"]:
+        problems.append(f"{res['skipped_batches']} skipped batches")
+    if launches != want:
+        problems.append(f"launches {launches} != expected {want}")
+    if phase == "train":
+        result["step_profile"] = _train_step_profile(res)
+    emit(phase, **result)
+    state[phase] = result
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError(f"{phase}: " + "; ".join(problems))
+
+
+def _n_remat(model_cfg, cfg):
+    from fms_fsdp_tpu_torch.parallel.ac import selective_ac_mask
+
+    if not cfg.fsdp_activation_checkpointing:
+        return 0
+    return sum(selective_ac_mask(model_cfg.nlayers, cfg.selective_checkpointing))
+
+
+def phase_train(state):
+    def expect(m, cfg, steps):
+        n = m.nlayers
+        return {"fwd": steps * (n + _n_remat(m, cfg)), "fwd_kvgrid": 0,
+                "dq": steps * n, "dq_kvgrid": 0, "dkv": steps * n}
+
+    _train(state, "train", {}, expect)
+
+
+def phase_train_kvgrid(state):
+    def expect(m, cfg, steps):
+        n = m.nlayers
+        return {"fwd": 0, "fwd_kvgrid": steps * (n + _n_remat(m, cfg)),
+                "dq": 0, "dq_kvgrid": steps * n, "dkv": steps * n}
+
+    # one step: the kernels are those of the train phase, and the flash
+    # phase holds them against their plain versions at S=16384; this run
+    # only counts the kv-streamed contracts' launches on the main path
+    _train(state, "train-kvgrid",
+           {"flash_kernel_variant": "kvgrid", "num_steps": 1, "report_interval": 1},
+           expect)
+
+
 def kernels_line(state):
     k, s, s8 = state["kernels"], state["serve"], state["serve-int8"]
     entries = []
@@ -498,6 +896,26 @@ def kernels_line(state):
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
+    # bf16 readings: the training shape for the resident contracts, the
+    # 16384-token shape for the kvgrid ones; launches from the trainer
+    for contract, kernel, case, phase, outs in (
+        ("fwd", "fwd", "train", "train", ("o", "lse")),
+        ("fwd_kvgrid", "fwd", "kvgrid", "train-kvgrid", ("o", "lse")),
+        ("dq", "dq", "train", "train", ("dq",)),
+        ("dq_kvgrid", "dq", "kvgrid", "train-kvgrid", ("dq",)),
+        ("dkv", "dkv", "train", "train", ("dk", "dv")),
+    ):
+        r = state["flash"][("bf16", case)]
+        t = r["times"][kernel]
+        entries.append({
+            "name": f"flash_{contract}", "route": "cuda",
+            "source": "fms_fsdp_tpu_torch/csrc/flash_attention.cu",
+            "replaces": REPLACES[contract],
+            "launches": state[phase]["launches"][contract],
+            "max_abs_err": max(r["max_abs_err"][o] for o in outs),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
     return {"kernels": entries}
 
@@ -527,14 +945,15 @@ def main(argv=None) -> int:
     run = {
         "device": phase_device, "build": phase_build,
         "kernels": phase_kernels, "serve": phase_serve,
-        "serve-int8": phase_serve_int8,
+        "serve-int8": phase_serve_int8, "flash": phase_flash,
+        "train": phase_train, "train-kvgrid": phase_train_kvgrid,
     }
     if "device" not in phases:
         phases.insert(0, "device")
     for p in PHASES:
         if p in phases:
             run[p](state)
-    if all(p in phases for p in ("kernels", "serve", "serve-int8")):
+    if all(p in phases for p in PHASES):
         print(json.dumps(kernels_line(state)), flush=True)
     print(state["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -42,6 +42,7 @@ from fms_fsdp_tpu_torch.serve.scheduler import (
     Request,
     RequestRejected,
 )
+from fms_fsdp_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {
     "bfloat16": torch.bfloat16,
@@ -84,21 +85,6 @@ class ServeConfig:
     speculator_path: str = ""  # not served yet (ROADMAP.md A.9)
     serve_layout: str = ""  # not served yet (ROADMAP.md A.10)
     role: str = "unified"  # only "unified" is served (ROADMAP.md A.10)
-
-
-def resolve_device(device=None) -> torch.device:
-    """``cuda`` unless the caller names a device; never a silent CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available: pass device='cpu' to run "
-                "on the CPU"
-            )
-        return torch.device("cuda")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but CUDA is not available")
-    return device
 
 
 def _check_supported(scfg: ServeConfig) -> None:

@@ -29,6 +29,10 @@ JAX's ``.at[].set`` on donated buffers, which XLA also turns into an
 in-place write. Quantized storage (``quant="int8"|"fp8"``) keeps 1-byte
 values plus fp32 per-row scales (``ops/quant.py``).
 
+The pools live on ``cuda`` unless the caller passes ``device="cpu"``;
+without a card and without that request the constructor raises, like
+every entry point of the port (``utils/device.py``).
+
 Page handoff (export/import) and defrag come with the serving extensions
 (ROADMAP.md A.10).
 """
@@ -40,6 +44,7 @@ import numpy as np
 import torch
 
 from fms_fsdp_tpu_torch.ops.quant import FP8_E4M3, kv_quantize
+from fms_fsdp_tpu_torch.utils.device import resolve_device
 
 ZERO_PAGE = 0
 SCRATCH_PAGE = 1
@@ -60,7 +65,7 @@ class PagedKVCache:
         head_dim: int,
         dtype=torch.bfloat16,
         quant: str = "none",
-        device="cpu",
+        device=None,
     ):
         if num_pages <= RESERVED_PAGES:
             raise ValueError(
@@ -76,7 +81,7 @@ class PagedKVCache:
         self.head_dim = head_dim
         self.dtype = dtype
         self.quant = quant
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
         store = _QUANT_STORE_DTYPE.get(quant, dtype)
         shape = (n_layers, num_pages, page_size, n_kv_heads, head_dim)

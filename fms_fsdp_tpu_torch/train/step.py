@@ -1,0 +1,245 @@
+"""The train step and its pieces.
+
+Counterpart of ``fms_fsdp_tpu/train/step.py``: the reference's hot loop —
+forward / CE loss / backward / clip_grad_norm / AdamW step / scheduler
+step (ref:fms_fsdp/utils/train_utils.py:87-98) — on one card, eager.
+
+- The forward and backward run on a compute-dtype copy of the params
+  (``step.py:374`` in JAX), so under bfSixteen the gradients come out
+  bf16. The copy is made per layer, and those per-layer tensors are the
+  leaves that are differentiated.
+- Global-norm clipping at ``grad_clip_thresh`` with the norm summed in
+  fp32 (torch ``clip_grad_norm_``); the pre-clip norm is what is logged.
+- AdamW(0.9, 0.95, eps 1e-8, weight decay 0.1 on every leaf), the
+  decoupled decay and bias correction of optax's ``adamw``; gradients are
+  upcast per leaf to the param dtype for the update; the learning rate is
+  set every step from the schedule at the trainer's own step counter.
+- Non-finite guard (``anomaly_skip_updates``): a batch whose loss or
+  gradient norm is not finite applies no update at all — params and Adam
+  moments stay bit-identical and Adam's count does not advance — while the
+  trainer's step still does. Deciding that takes one host sync per step
+  (JAX selects on device inside its jitted step).
+
+The DCN overlap, the quantized reduce and the fault-injection site belong
+to ROADMAP.md A.6, A.7 and A.12.
+"""
+
+import math
+from typing import Dict
+
+import torch
+
+from fms_fsdp_tpu_torch.models import get_model_api
+from fms_fsdp_tpu_torch.ops.flash_attention import VARIANTS, set_kernel_variant
+from fms_fsdp_tpu_torch.ops.fused_ce import (
+    cross_entropy_loss,
+    fused_linear_cross_entropy,
+)
+from fms_fsdp_tpu_torch.parallel.ac import selective_ac_mask
+from fms_fsdp_tpu_torch.parallel.mixed_precision import get_dtype_policy
+
+# (TrainConfig field, is it set to something this port does not run yet,
+# the ROADMAP.md item that brings it): options of the step, then of the run
+_UNPORTED_STEP = (
+    ("quantized_matmuls", lambda v: v != "none", "A.7 (quantized training)"),
+    ("quantized_reduce", lambda v: v != "none", "A.7 (quantized training)"),
+    ("tensor_parallel_size", lambda v: v > 1, "A.6 (multi-GPU sharding)"),
+    ("context_parallel_size", lambda v: v > 1, "A.8 (long context)"),
+    ("expert_parallel_size", lambda v: v > 1, "A.4/A.6 (MoE, sharding)"),
+    ("num_slices", lambda v: v > 1, "A.6 (multi-GPU sharding)"),
+)
+_UNPORTED_RUN = (
+    ("use_dummy_dataset", lambda v: not v, "A.15 (the streaming loader)"),
+    ("resuming_dataset", bool, "A.5 (checkpoint and resume)"),
+    ("ckpt_local_interval", lambda v: v > 0, "A.5 (checkpoint and resume)"),
+    ("use_profiler", bool, "A.12 (device-touching obs)"),
+    ("tracker", lambda v: v is not None, "A.12 (device-touching obs)"),
+    ("obs_dir", bool, "A.12 (device-touching obs)"),
+    ("step_timeout_s", lambda v: v > 0, "A.12 (resilience)"),
+    ("scrub_interval_steps", lambda v: v > 0, "A.12 (resilience)"),
+    ("divergence_check_interval", lambda v: v > 0, "A.12 (resilience)"),
+    ("faults", bool, "A.12 (resilience)"),
+)
+
+
+def _refuse(cfg, table) -> None:
+    for field, unported, item in table:
+        value = getattr(cfg, field)
+        if unported(value):
+            raise NotImplementedError(
+                f"{field}={value!r} is not ported yet: ROADMAP.md {item}"
+            )
+
+
+def check_step_options(cfg) -> None:
+    """The step's options: ``NotImplementedError`` naming the ROADMAP.md
+    item for each one this port does not run yet, rather than ignore it."""
+    _refuse(cfg, _UNPORTED_STEP)
+    if cfg.flash_kernel_variant not in VARIANTS:
+        raise ValueError(
+            f"flash_kernel_variant={cfg.flash_kernel_variant!r}: expected one "
+            f"of {VARIANTS}"
+        )
+
+
+def check_supported(cfg) -> None:
+    """Every option of a training run (the entry point's check). A run
+    whose checkpoint interval falls inside it would save (ROADMAP.md
+    A.5); the final save the JAX trainer writes at ``num_steps`` is not
+    made."""
+    check_step_options(cfg)
+    _refuse(cfg, _UNPORTED_RUN)
+    if cfg.checkpoint_interval <= cfg.num_steps:
+        raise NotImplementedError(
+            f"checkpoint_interval={cfg.checkpoint_interval} <= num_steps="
+            f"{cfg.num_steps} would save a checkpoint, which is not ported "
+            "yet: ROADMAP.md A.5 (checkpoint and resume); set it above "
+            "num_steps"
+        )
+
+
+def get_lr_schedule(cfg, start_step: int = 0):
+    """Return the schedule: step -> lr (``step.py:61``).
+
+    initial stage: lr * min(1 - (1 - x/w)^2, 0.1 + 0.45*(1 + cos(pi x/T)))
+    with w = min(2000, T/20) (quadratic warmup into cosine with 0.1 floor);
+    annealing stage: lr * (1 - x/T). (ref:main_training_llama.py:137-148)
+    """
+    T = cfg.num_steps
+    lr = cfg.learning_rate
+
+    if cfg.training_stage == "annealing":
+
+        def schedule(count):
+            x = count + start_step
+            return lr * (1 - x / T)
+
+    else:
+        warmup = max(1, min(2000, T // 20))
+
+        def schedule(count):
+            x = count + start_step
+            wx = min(x, warmup)
+            warm = 1 - (1 - wx / warmup) ** 2
+            cos = 0.1 + 0.5 * (1 - 0.1) * (1 + math.cos(min(x, T) / T * math.pi))
+            return lr * min(warm, cos)
+
+    return schedule
+
+
+def _per_layer(params: Dict, fn):
+    """The forward's param dict with every layer's weights taken off the
+    stacked (L, ...) tensors and ``fn`` applied to each leaf, and the
+    leaves in one fixed order: embedding, norm, lm_head, then layer by
+    layer. The optimizer and the differentiated copy share that order."""
+    leaves = []
+
+    def take(w):
+        leaves.append(fn(w))
+        return leaves[-1]
+
+    top = {k: take(params[k]) for k in ("embedding", "norm", "lm_head")}
+    layers = params["layers"]
+    per_layer = [{name: take(w[i]) for name, w in layers.items()}
+                 for i in range(layers["wq"].shape[0])]
+    return {**top, "layers": per_layer}, leaves
+
+
+def make_optimizer(params: Dict, cfg) -> torch.optim.AdamW:
+    """AdamW(0.9, 0.95, eps 1e-8, wd 0.1) over every leaf, each layer's
+    weights as views of the stacked tensors, so an update writes the
+    JAX-layout params in place; the lr is set each step by the train
+    step."""
+    _, leaves = _per_layer(params, lambda w: w)
+    return torch.optim.AdamW(
+        leaves, lr=cfg.learning_rate,
+        betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1, foreach=False,
+    )
+
+
+def init_train_state(generator: torch.Generator, model_cfg, cfg) -> Dict:
+    """{params, optimizer, step}: params made on the generator's device
+    in the policy's param dtype, Adam moments zero (created lazily by the
+    first update), step 0."""
+    policy = get_dtype_policy(cfg)
+    init_params, _, _ = get_model_api(model_cfg)
+    params = init_params(generator, model_cfg, dtype=policy.param_dtype)
+    return state_from_params(params, cfg)
+
+
+def state_from_params(params: Dict, cfg) -> Dict:
+    """A train state over existing params (the tests start from JAX's)."""
+    return {"params": params, "optimizer": make_optimizer(params, cfg), "step": 0}
+
+
+def _compute_copy(params: Dict, dtype):
+    """Per-layer compute-dtype leaves that require grad, and the forward's
+    param dict over them. Under the fp32 policy a leaf is a detached
+    alias of the param, which the update writes only after the backward
+    has released the graph."""
+    return _per_layer(params, lambda w: w.detach().to(dtype).requires_grad_(True))
+
+
+def make_train_step(model_cfg, cfg, start_step: int = 0):
+    """Build the step: (state, (inputs, labels)) -> metrics.
+
+    metrics = {loss, gnorm (the pre-clip global gradient norm, fp32), lr,
+    nonfinite (1.0 when the batch's loss or gradient norm was not finite;
+    its update was skipped when ``anomaly_skip_updates``)}; loss and gnorm
+    stay tensors on the device until the loop fetches a report window.
+    """
+    check_step_options(cfg)
+    set_kernel_variant(cfg.flash_kernel_variant)
+    policy = get_dtype_policy(cfg)
+    _, forward_fn, n_layers = get_model_api(model_cfg)
+    ac_mask = None
+    if cfg.fsdp_activation_checkpointing:
+        ac_mask = selective_ac_mask(n_layers, cfg.selective_checkpointing)
+    schedule = get_lr_schedule(cfg, start_step)
+    fused = cfg.fused_loss
+    guard_updates = bool(cfg.anomaly_skip_updates)
+
+    def loss_fn(params_c, inputs, labels):
+        out = forward_fn(
+            params_c, inputs, model_cfg, compute_dtype=policy.compute_dtype,
+            attn_impl=cfg.attention_kernel, ac_mask=ac_mask,
+            return_hidden=fused,
+        )
+        if fused:
+            return fused_linear_cross_entropy(
+                out, params_c["lm_head"], labels, cfg.loss_chunk_size
+            )
+        return cross_entropy_loss(out, labels)
+
+    def train_step(state, batch):
+        inputs, labels = batch
+        params_c, leaves = _compute_copy(state["params"], policy.compute_dtype)
+        loss = loss_fn(params_c, inputs, labels)
+        grads = torch.autograd.grad(loss, leaves)
+        del params_c, leaves
+        gnorm = torch.linalg.vector_norm(torch.stack([
+            torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads
+        ]))
+        # the one host sync of the step: whether to apply the update
+        nonfinite = not bool(torch.isfinite(loss) & torch.isfinite(gnorm))
+        lr = schedule(state["step"])
+        if not (nonfinite and guard_updates):
+            clip = torch.clamp(cfg.grad_clip_thresh / (gnorm + 1e-6), max=1.0)
+            opt = state["optimizer"]
+            params = opt.param_groups[0]["params"]
+            for p, g in zip(params, grads):
+                p.grad = (g * clip.to(g.dtype)).to(p.dtype)
+            del grads
+            for group in opt.param_groups:
+                group["lr"] = lr
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+        state["step"] += 1
+        return {
+            "loss": loss.detach(),
+            "gnorm": gnorm,
+            "lr": lr,
+            "nonfinite": float(nonfinite),
+        }
+
+    return train_step

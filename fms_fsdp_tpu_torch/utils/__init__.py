@@ -1,1 +1,1 @@
-"""Config helpers: the model-variant table."""
+"""Config and CLI helpers, FLOPs accounting, the train loop."""

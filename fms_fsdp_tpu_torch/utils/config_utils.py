@@ -1,4 +1,8 @@
-"""The model-variant table, Llama part.
+"""Config overrides and the model-variant table, Llama part.
+
+``update_config`` is a copy of ``fms_fsdp_tpu/utils/config_utils.py:33``
+(ref:fms_fsdp/utils/config_utils.py:6-22): set matching attributes,
+support dotted ``ClassName.param`` addressing, warn on unknown keys.
 
 A copy of the Llama rows of ``fms_fsdp_tpu/utils/config_utils.py``
 (reference: fms_fsdp/utils/config_utils.py:25-161): llama2 {1.4b, 7b,
@@ -7,7 +11,38 @@ A copy of the Llama rows of ``fms_fsdp_tpu/utils/config_utils.py``
 the Mamba and Mixtral slices (ROADMAP.md A.3, A.4).
 """
 
+import dataclasses
+
+from fms_fsdp_tpu_torch.config import TrainConfig
 from fms_fsdp_tpu_torch.models.configs import LlamaConfig
+
+
+def _set(config, name, value):
+    # model configs are frozen dataclasses; the CLI override path is the
+    # one sanctioned mutation site
+    if dataclasses.is_dataclass(config) and config.__dataclass_params__.frozen:
+        object.__setattr__(config, name, value)
+    else:
+        setattr(config, name, value)
+
+
+def update_config(config, **kwargs):
+    if isinstance(config, (tuple, list)):
+        for c in config:
+            update_config(c, **kwargs)
+        return
+    for k, v in kwargs.items():
+        if hasattr(config, k):
+            _set(config, k, v)
+        elif "." in k:
+            config_name, param_name = k.split(".")
+            if type(config).__name__ == config_name:
+                if hasattr(config, param_name):
+                    _set(config, param_name, v)
+                else:
+                    print(f"Warning: {config_name} does not accept parameter: {k}")
+        elif isinstance(config, TrainConfig):
+            print(f"Warning: unknown parameter {k}")
 
 _LLAMA_VARIANTS = {
     "llama2_70b": dict(

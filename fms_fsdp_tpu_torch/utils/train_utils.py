@@ -1,0 +1,134 @@
+"""The training hot loop.
+
+Counterpart of the loop of ``fms_fsdp_tpu/utils/train_utils.py:307-600``
+(``train`` / ``_train_loop``) on one card, without a checkpointer: steps
+until ``num_steps``, keeps each step's metrics as device tensors, and at
+every ``report_interval`` fetches the window, feeds the non-finite flags
+to the anomaly guard and prints the reference's report lines (step, loss,
+LR, tokens seen, gradient norm, memory, step time, tokens per card per
+second) plus MFU and HFU against the card's peak. It aborts after
+``anomaly_max_consecutive`` non-finite steps in a row. The obs sinks,
+watchdog, slice monitor, scrubber and divergence check wait for
+ROADMAP.md A.12, checkpoints for A.5.
+"""
+
+import time
+from typing import Dict, List
+
+import torch
+
+from fms_fsdp_tpu_torch.parallel.ac import selective_ac_mask
+from fms_fsdp_tpu_torch.resilience.guards import AnomalyGuard
+from fms_fsdp_tpu_torch.utils.flops import (
+    llama_train_flops_per_token,
+    peak_flops_per_card,
+)
+
+
+class AnomalyAbort(RuntimeError):
+    """The guard saw ``anomaly_max_consecutive`` non-finite steps in a row."""
+
+
+def _memory_stats(device):
+    if device.type != "cuda":
+        return 0, 0, 0
+    return (torch.cuda.memory_reserved(device), torch.cuda.memory_allocated(device),
+            torch.cuda.max_memory_allocated(device))
+
+
+def train(cfg, state, step_fn, rank, train_loader, start_step: int = 0,
+          tokens_seen: int = 0, model_cfg=None, device=None) -> Dict:
+    """Run the hot loop to ``cfg.num_steps``. Returns {"final_loss",
+    "reports": one dict per report window, "skipped_batches", "steps"}.
+
+    MFU counts the model FLOPs of a step (PaLM appendix B, no remat); HFU
+    adds the recomputed forward of the layers ``selective_checkpointing``
+    rematerialises. Both are against the card's dense bf16 peak, and only
+    where the run is on a card; on the CPU they are None.
+    """
+    device = torch.device(device) if device is not None else torch.device("cpu")
+    guard = AnomalyGuard(max_consecutive=max(1, cfg.anomaly_max_consecutive))
+    flops = hflops = peak = None
+    if model_cfg is not None and device.type == "cuda":
+        ac = 0.0
+        if cfg.fsdp_activation_checkpointing:
+            mask = selective_ac_mask(model_cfg.nlayers, cfg.selective_checkpointing)
+            ac = sum(mask) / len(mask)
+        flops = llama_train_flops_per_token(model_cfg, cfg.seq_length)
+        hflops = llama_train_flops_per_token(model_cfg, cfg.seq_length, ac)
+        peak = peak_flops_per_card(torch.cuda.get_device_name(device))
+    tokens_per_step = cfg.batch_size * cfg.seq_length
+    window: List[Dict] = []
+    reports: List[Dict] = []
+    train_loss = float("nan")
+    g_norm = float("nan")
+    loop_start = start = time.time()
+    step = start_step
+
+    def flush(step):
+        nonlocal window, start, train_loss, g_norm
+        if not window:
+            return
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        fetched = [{k: float(v) for k, v in m.items()} for m in window]
+        window = []
+        flags = [m["nonfinite"] for m in fetched]
+        window_skips = guard.observe(flags)
+        good = [m for m, f in zip(fetched, flags) if not f]
+        if good:
+            train_loss = sum(m["loss"] for m in good) / len(good)
+            g_norm = sum(m["gnorm"] for m in good) / len(good)
+        now = time.time()
+        step_time = (now - start) / len(fetched)
+        overall_step_time = (now - loop_start) / max(1, step - start_step)
+        throughput = tokens_per_step / step_time
+        reserved, allocated, peak_alloc = _memory_stats(device)
+        record = {
+            "step": step, "loss": train_loss, "lr": fetched[-1]["lr"],
+            "tokens_seen": tokens_seen + (step - start_step) * tokens_per_step,
+            "gnorm": g_norm, "steps_in_window": len(fetched),
+            "step_time_s": step_time, "overall_step_time_s": overall_step_time,
+            "tokens_per_card_per_s": throughput,
+            "mfu": flops * throughput / peak if flops else None,
+            "hfu": hflops * throughput / peak if hflops else None,
+            "memory_reserved_bytes": reserved,
+            "memory_allocated_bytes": allocated,
+            "max_memory_allocated_bytes": peak_alloc,
+            "skipped_batches": guard.skipped_batches,
+            "skipped_window": window_skips,
+        }
+        reports.append(record)
+        if rank == 0:
+            print("step:", step)
+            print("loss:", train_loss)
+            print("LR:", record["lr"])
+            print("tokens seen:", record["tokens_seen"])
+            print("gradient norm:", g_norm)
+            print("reserved memory:", reserved)
+            print("allocated memory:", allocated)
+            print("current step time:", step_time)
+            print("overall step time:", overall_step_time)
+            print("current token per card per sec:", int(throughput))
+            if flops:
+                print("MFU:", record["mfu"])
+                print("HFU:", record["hfu"])
+            if guard.skipped_batches:
+                print("skipped batches:", guard.skipped_batches)
+        start = time.time()
+
+    for step, batch in enumerate(train_loader, start=start_step + 1):
+        if step > cfg.num_steps:
+            step -= 1  # this batch was never trained on
+            break
+        window.append(step_fn(state, batch))
+        if step % cfg.report_interval == 0:
+            flush(step)
+            if guard.should_abort():
+                raise AnomalyAbort(
+                    f"anomaly guard: {guard.consecutive} consecutive non-finite "
+                    f"steps (threshold {guard.max_consecutive}) at step {step}"
+                )
+    flush(step)
+    return {"final_loss": train_loss, "reports": reports,
+            "skipped_batches": guard.skipped_batches, "steps": step - start_step}

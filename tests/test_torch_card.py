@@ -1,6 +1,8 @@
-"""PyTorch port on an NVIDIA card: the CUDA paged-decode kernel against its
-plain version, and the engine through the kernel against the engine
-through the reference attention.
+"""PyTorch port on an NVIDIA card: the CUDA paged-decode and flash-attention
+kernels against their plain versions, the engine through the kernel
+against the engine through the reference attention, and one full-width
+train step through the flash kernels against the same step through the
+einsum attention.
 
 Every test here is marked ``card`` and asks for a card inside a fixture,
 so it skips where there is none. The file imports no JAX, so it runs on
@@ -121,3 +123,159 @@ def test_card_engine_kernel_tokens_match_reference(cuda_device, kv_quant):
             key = "v2" if kv_quant != "none" else "v1"
             assert t_paged.LAUNCHES[key] == eng.decode_steps * _SMALL.nlayers
     assert out["kernel"] == out["reference"]
+
+
+# ---------------------------------------------------------------------------
+# flash attention (training path)
+# ---------------------------------------------------------------------------
+
+
+def _flash_case(device, dtype, b, sq, sk, nq, nkv, seed=21):
+    rng = np.random.default_rng(seed)
+    shapes = [(b, sq, nq, 128), (b, sk, nkv, 128), (b, sk, nkv, 128), (b, sq, nq, 128)]
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(device, dtype)
+            for s in shapes]
+
+
+def _flash_all(fa, q, k, v, do, kernel):
+    """o, lse, dq, dk, dv of one call through the kernels or the plain
+    versions, with delta from the output of the same path."""
+    fwd, dq_fn, dkv_fn = ((fa.flash_fwd, fa.flash_dq, fa.flash_dkv) if kernel else
+                          (fa.flash_fwd_plain, fa.flash_dq_plain, fa.flash_dkv_plain))
+    o, lse = fwd(q, k, v, causal=True)
+    delta = torch.einsum("bsnh,bsnh->bns", o.float(), do.float()).contiguous()
+    dq = dq_fn(q, k, v, do, lse, delta, causal=True)
+    dk, dv = dkv_fn(q, k, v, do, lse, delta, causal=True)
+    return [o, lse, dq, dk, dv]
+
+
+def _rel_err(a, r):
+    r = r.float()
+    return ((a.float() - r).norm() / r.norm()).item()
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,sq,sk,nq,nkv", [
+    (2, 256, 256, 4, 1),     # group 4
+    (1, 512, 512, 2, 2),     # group 1
+    (1, 256, 512, 4, 2),     # causal cross length: keys past the last query
+    (1, 8448, 8448, 2, 1),   # the kvgrid contract (seq_k > 8192)
+])
+def test_card_flash_kernels_match_plain(cuda_device, dtype, b, sq, sk, nq, nkv):
+    """fp32: within 1e-4 of the plain version (fp32 sums in another order
+    over up to 8448 keys). bf16: within twice the plain bf16 version's own
+    distance from the plain version on the same inputs widened to fp32,
+    and each output within ``BF16_REL_TOL`` relative error of the plain
+    bf16 version, a bound that the plain version with its scores rounded
+    to bf16 before exp2 (the control) exceeds."""
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_case(cuda_device, dtype, b, sq, sk, nq, nkv)
+    fa.reset_launches()
+    got = _flash_all(fa, q, k, v, do, kernel=True)
+    torch.cuda.synchronize()
+    kv = "_kvgrid" if sk > fa.MAX_KERNEL_SEQ else ""
+    assert fa.LAUNCHES == {"fwd": 0, "fwd_kvgrid": 0, "dq": 0, "dq_kvgrid": 0, "dkv": 0,
+                           "fwd" + kv: 1, "dq" + kv: 1, "dkv": 1}
+    ref = _flash_all(fa, q, k, v, do, kernel=False)
+    names = ("o", "lse", "dq", "dk", "dv")
+    if dtype == torch.float32:
+        tols = [1e-4] * 5
+    else:
+        wide = _flash_all(fa, q.float(), k.float(), v.float(), do.float(), kernel=False)
+        tols = [2 * (r.float() - w).abs().max().item() + 1e-6 for r, w in zip(ref, wide)]
+        scores = fa._scores2
+        fa._scores2 = lambda *x: scores(*x).to(torch.bfloat16).float()
+        try:
+            control = _flash_all(fa, q, k, v, do, kernel=False)
+        finally:
+            fa._scores2 = scores
+        for name, a, c, r in zip(names, got, control, ref):
+            rel, rel_control = _rel_err(a, r), _rel_err(c, r)
+            assert rel <= fa.BF16_REL_TOL[name] < rel_control, (name, rel, rel_control)
+    for name, a, r, tol in zip(names, got, ref, tols):
+        assert torch.isfinite(a).all(), name
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= tol, (name, err, tol)
+    if sk > sq:
+        assert torch.count_nonzero(got[3][:, sq:]) == 0
+        assert torch.count_nonzero(got[4][:, sq:]) == 0
+
+
+@pytest.mark.card
+def test_card_auto_attention_launches_or_raises(cuda_device):
+    """impl="auto" on CUDA tensors launches the kernels or raises; it never
+    takes the einsum path there."""
+    from fms_fsdp_tpu_torch.ops import attention as attn
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, _ = _flash_case(cuda_device, torch.bfloat16, 1, 256, 256, 4, 2)
+    fa.reset_launches()
+    attn.attention(q, k, v, impl="auto")
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["fwd"] == 1
+    with pytest.raises(NotImplementedError, match="xla"):
+        attn.attention(q[:, :100], k[:, :100], v[:, :100], impl="auto")
+
+
+@pytest.mark.card
+def test_card_flash_rejects_bad_input(cuda_device):
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, _ = _flash_case(cuda_device, torch.bfloat16, 1, 256, 256, 4, 2)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_fwd(q[..., :64].contiguous(), k[..., :64].contiguous(),
+                     v[..., :64].contiguous())
+    with pytest.raises(ValueError, match="multiples"):
+        fa.flash_fwd(q[:, :100].contiguous(), k[:, :100].contiguous(), v[:, :100].contiguous())
+    with pytest.raises(ValueError, match="share"):
+        fa.flash_fwd(q, k.float(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(q.transpose(1, 2), k, v)
+
+
+def _params_clone(tree):
+    return {k: _params_clone(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+@pytest.mark.card
+def test_card_full_width_step_kernel_vs_einsum(cuda_device):
+    """One train step at llama3_8b_4k width (2 layers, seq 4096, batch 1,
+    the same random weights and dummy batch) three ways: bf16 through the
+    flash kernels, bf16 through the einsum attention (``impl="xla"``),
+    and fp32 through the einsum attention. The kernel step's loss and
+    gradient norm must lie within three times the einsum bf16 step's own
+    distance from the fp32 step, plus 1e-4 relative: the two bf16 steps
+    round at different places, each about as far from fp32."""
+    from fms_fsdp_tpu_torch.config import TrainConfig
+    from fms_fsdp_tpu_torch.data.device_feed import DeviceFeed
+    from fms_fsdp_tpu_torch.data.loader import get_dummy_loader
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+    from fms_fsdp_tpu_torch.train.step import make_train_step, state_from_params
+    from fms_fsdp_tpu_torch.utils.config_utils import get_model_config, update_config
+
+    model = get_model_config("llama3_8b_4k")
+    update_config(model, **{"LlamaConfig.nlayers": 2})
+    params0 = init_llama_params(torch.Generator(device=cuda_device).manual_seed(0), model)
+
+    def step(attn, mixed):
+        cfg = TrainConfig(seq_length=4096, batch_size=1, vocab_size=128256,
+                          attention_kernel=attn, mixed_precision=mixed,
+                          use_dummy_dataset=True, num_steps=12)
+        state = state_from_params(_params_clone(params0), cfg)
+        batch = next(iter(DeviceFeed(get_dummy_loader(cfg, 0, 1), cuda_device)))
+        fa.reset_launches()
+        m = make_train_step(model, cfg)(state, batch)
+        out = (float(m["loss"]), float(m["gnorm"]), dict(fa.LAUNCHES))
+        del state
+        torch.cuda.empty_cache()
+        return out
+
+    kernel, einsum, fp32 = step("pallas", True), step("xla", True), step("xla", False)
+    assert kernel[2]["fwd"] == 2 and kernel[2]["dq"] == 2 and kernel[2]["dkv"] == 2
+    assert sum(einsum[2].values()) == 0 and sum(fp32[2].values()) == 0
+    for i in (0, 1):
+        tol = 3 * abs(einsum[i] - fp32[i]) + 1e-4 * abs(fp32[i])
+        assert np.isfinite(kernel[i])
+        assert abs(kernel[i] - einsum[i]) <= tol, (i, kernel, einsum, fp32)

@@ -199,7 +199,7 @@ def test_paged_decode_step_matches_jax(params, np_params, quant, impl):
     jc = JPagedKVCache(J_TINY.nlayers, 12, 8, J_TINY.n_kv_heads, J_TINY.head_dim,
                        dtype=jnp.float32, quant=quant)
     tcache = PagedKVCache(TINY.nlayers, 12, 8, TINY.n_kv_heads, TINY.head_dim,
-                          dtype=torch.float32, quant=quant)
+                          dtype=torch.float32, quant=quant, device="cpu")
     for i, p in enumerate(prompts):
         _, _, cache = j_prefill(np_params, jnp.asarray([p], jnp.int32), J_TINY,
                                 max_seq_len=8, compute_dtype=jnp.float32)
@@ -244,7 +244,7 @@ def test_write_prompt_gathers_to_the_dense_cache(params):
     _, _, cache = prefill(params, torch.tensor([prompt]), TINY, max_seq_len=32,
                           compute_dtype=torch.float32)
     c = PagedKVCache(TINY.nlayers, 10, 8, TINY.n_kv_heads, TINY.head_dim,
-                     dtype=torch.float32)
+                     dtype=torch.float32, device="cpu")
     c.ensure(1, len(prompt))
     c.write_prompt(1, cache["k"][:, 0, :8], cache["v"][:, 0, :8])
     table = torch.from_numpy(c.page_table([1], max_pages=4))
@@ -260,7 +260,7 @@ def test_write_prompt_gathers_to_the_dense_cache(params):
 
 
 def test_allocator_alloc_free_reuse():
-    c = PagedKVCache(1, 10, 4, 2, 8)
+    c = PagedKVCache(1, 10, 4, 2, 8, device="cpu")
     assert c.pages_free == 8  # pages 0/1 reserved
     assert c.ensure(7, 9)  # 3 pages
     assert c.pages_of(7) == [2, 3, 4]
@@ -274,7 +274,7 @@ def test_allocator_alloc_free_reuse():
 
 
 def test_allocator_all_or_nothing_oom():
-    c = PagedKVCache(1, 4, 4, 2, 8)  # 2 allocatable pages
+    c = PagedKVCache(1, 4, 4, 2, 8, device="cpu")  # 2 allocatable pages
     assert c.ensure(1, 8)
     before = c.pages_of(1)
     assert not c.ensure(2, 5)
@@ -284,7 +284,7 @@ def test_allocator_all_or_nothing_oom():
 
 
 def test_page_table_zero_and_scratch_fill():
-    c = PagedKVCache(1, 10, 4, 2, 8)
+    c = PagedKVCache(1, 10, 4, 2, 8, device="cpu")
     c.ensure(1, 6)
     t = c.page_table([1, None], max_pages=4)
     assert t.dtype == np.int32
@@ -293,7 +293,7 @@ def test_page_table_zero_and_scratch_fill():
 
 
 def test_fragmentation_tail_waste():
-    c = PagedKVCache(1, 10, 4, 2, 8)
+    c = PagedKVCache(1, 10, 4, 2, 8, device="cpu")
     c.ensure(1, 5)
     assert c.fragmentation() == pytest.approx(3 / 8)
     c.free(1)
@@ -301,14 +301,24 @@ def test_fragmentation_tail_waste():
 
 
 def test_pool_layout_and_quantized_storage():
-    c = PagedKVCache(2, 6, 4, 2, 8, dtype=torch.float32, quant="fp8")
+    c = PagedKVCache(2, 6, 4, 2, 8, dtype=torch.float32, quant="fp8", device="cpu")
     assert c.pools["k"].shape == (2, 6, 4, 2, 8)
     assert c.pools["k"].dtype == torch.float8_e4m3fn
     assert c.pools["k_scale"].shape == (2, 6, 4, 2, 1)
     with pytest.raises(ValueError):
-        PagedKVCache(1, 2, 4, 2, 8)
+        PagedKVCache(1, 2, 4, 2, 8, device="cpu")
     with pytest.raises(ValueError):
-        PagedKVCache(1, 4, 4, 2, 8, quant="int4")
+        PagedKVCache(1, 4, 4, 2, 8, quant="int4", device="cpu")
+
+
+def test_cache_defaults_to_the_card():
+    """Like every entry point of the port, the cache runs on cuda unless
+    asked for the CPU, and raises without a card."""
+    if torch.cuda.is_available():
+        assert PagedKVCache(1, 4, 4, 2, 8).pools["k"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            PagedKVCache(1, 4, 4, 2, 8)
 
 
 def test_resolve_paged_decode_static():
@@ -433,7 +443,7 @@ def test_port_imports_no_jax_and_no_jax_package():
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'fms_fsdp_tpu')]\n"
         "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 20 else 0)\n"
+        "sys.exit(1 if bad or len(mods) < 44 else 0)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
