@@ -46,6 +46,33 @@ Phases, one JSON line each; any failure exits non-zero:
    ``flash_kernel_variant="kvgrid"``, so the launches of the kv-streamed
    contracts are counted on the main path too.
 
+9. ssd     — the fused SSD scan kernel against its plain version at the
+   Mamba training shape (B=2, S=4096, H=128, P=64, G=1, N=128, L=256), at
+   G=8 and at S=L (one chunk), bf16 and fp32, dt and A in the ranges of
+   ``init_mamba_params``: fp32 within 1e-4 x max(1, |value|); bf16 within
+   twice the plain bf16 version's distance from an fp32 run and within
+   ``ssd.BF16_REL_TOL`` (relative error against the plain bf16 version),
+   which a control (the plain version with dt rounded to bf16) must
+   exceed; CUDA-event times of the kernel, the plain version and the
+   whole ``ssd_scan`` through the kernel and through the chunked einsums,
+   the bound, and the other pieces of a Mamba layer at that shape (the
+   scan's einsum backward, the conv forward and backward).
+10. train-mamba — ``fms_fsdp_tpu_torch.main_training_mamba.main`` at
+   mamba_9.8b width, 6 layers with attention at layer 3, seq 4096, batch
+   2, selective AC 1/2, 16 steps (over the first 8 the loss of this
+   model only wobbles, through the kernel and through the einsums alike):
+   finite falling loss, no skipped batch,
+   SSD launches == steps x (Mamba layers + rematerialised Mamba layers),
+   flash launches == the one attention layer's; tokens per card per
+   second, MFU/HFU, peak memory and a profile of one step.
+11. serve-mamba — ``ServingEngine`` on mamba_9.8b at full width and depth
+   (32 layers, 3 of them attention; random bf16 weights), 8 requests of
+   16-128 prompt tokens and 32 new tokens each: all complete, finite
+   logits, a constant ``state_bytes_per_stream``, slab slices zero after
+   completion, one decode step held against the same step in fp32. This
+   path launches no SSD kernel (the prefill is the per-token recurrence),
+   and the phase checks that.
+
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
@@ -62,7 +89,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "serve", "serve-int8", "flash", "train",
-          "train-kvgrid")
+          "train-kvgrid", "ssd", "train-mamba", "serve-mamba")
 
 # llama3_8b decode shapes of the kernel phase
 B, NQ, NKV, H, PAGE, MAXP = 8, 32, 8, 128, 64, 32
@@ -82,6 +109,7 @@ REPLACES = {
     "dq": "fms_fsdp_tpu/ops/flash_attention.py:318",
     "dq_kvgrid": "fms_fsdp_tpu/ops/flash_attention.py:368",
     "dkv": "fms_fsdp_tpu/ops/flash_attention.py:484",
+    "ssd_fused": "fms_fsdp_tpu/ops/ssd.py:51",
 }
 
 
@@ -287,6 +315,8 @@ def phase_kernels(state):
 def _nbytes(tree) -> int:
     if isinstance(tree, dict):
         return sum(_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_nbytes(v) for v in tree)
     return tree.numel() * tree.element_size()
 
 
@@ -785,37 +815,62 @@ def _train_step_profile(res, steps=2):
     device_ms = sum(r[0] for r in rows)
     flash = {key: sum(r[0] for r in rows if f"flash_{key}_kernel" in r[1])
              for key in ("fwd", "dq", "dkv")}
+    by_kind = {}
+    for ms, name, _ in rows:
+        kind = _kernel_kind(name)
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
     return {
+        "device_ms_per_step_by_kind": by_kind if rows else None,
         "wall_ms_per_step": wall_ms,
         "device_ms_per_step": device_ms if rows else None,
         "device_busy_share": device_ms / wall_ms if rows else None,
         "flash_ms_per_step": flash if rows else None,
         "top_device_ms_per_step": [
-            {"name": name[:80], "ms": ms, "calls": calls} for ms, name, calls in rows[:10]
+            {"name": name[:80], "ms": ms, "calls": calls} for ms, name, calls in rows[:16]
         ],
     }
 
 
-def _train(state, phase, overrides, expect):
-    """Run the trainer through its entry point and check its launches:
-    ``expect(model_cfg, cfg, steps)`` gives the expected LAUNCHES."""
+def _kernel_kind(name: str) -> str:
+    """A device kernel's family by its name: the repo's own kernels, the
+    library's matrix products by element type, and the rest."""
+    low = name.lower()
+    if "ssd_fused_kernel" in low:
+        return "ssd_fused"
+    if "flash_" in low and "_kernel" in low:
+        return "flash"
+    if "gemm" in low or "nvjet" in low or "cutlass" in low or "xmma" in low:
+        fp32 = "sgemm" in low or "f32f32" in low or "s1688" in low or "simt" in low
+        return "gemm_fp32" if fp32 else "gemm_16bit"
+    return "other"
+
+
+def _train(state, phase, overrides, expect, main=None, base=None, profile=False):
+    """Run a trainer through its entry point (the Llama one unless
+    ``main`` is given) and check its launches: ``expect(model_cfg, cfg,
+    steps)`` gives the expected counts of the flash contracts; the SSD
+    kernel's count is expected 0 unless it names ``ssd_fused``."""
     import torch
 
-    from fms_fsdp_tpu_torch.main_training_llama import main
     from fms_fsdp_tpu_torch.ops import flash_attention as fa
+    from fms_fsdp_tpu_torch.ops import ssd
 
-    kw = dict(TRAIN_KW, **overrides)
+    if main is None:
+        from fms_fsdp_tpu_torch.main_training_llama import main
+
+    kw = dict(TRAIN_KW if base is None else base, **overrides)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
+    ssd.reset_launches()
     t0 = time.perf_counter()
     res = main(**kw)
     wall = time.perf_counter() - t0
-    launches = dict(fa.LAUNCHES)
+    launches = dict(fa.LAUNCHES, ssd_fused=ssd.LAUNCHES["fused"])
     peak = torch.cuda.max_memory_allocated()
     reports = res["reports"]
-    want = expect(res["model_cfg"], res["cfg"], res["steps"])
+    want = {"ssd_fused": 0, **expect(res["model_cfg"], res["cfg"], res["steps"])}
     losses = [r["loss"] for r in reports]
     last = reports[-1]
     result = dict(
@@ -833,13 +888,13 @@ def _train(state, phase, overrides, expect):
     problems = []
     if not all(math.isfinite(x) for x in losses):
         problems.append(f"non-finite loss {losses}")
-    if phase == "train" and not losses[-1] < losses[0]:
+    if profile and not losses[-1] < losses[0]:
         problems.append(f"loss did not decrease: {losses}")
     if res["skipped_batches"]:
         problems.append(f"{res['skipped_batches']} skipped batches")
     if launches != want:
         problems.append(f"launches {launches} != expected {want}")
-    if phase == "train":
+    if profile:
         result["step_profile"] = _train_step_profile(res)
     emit(phase, **result)
     state[phase] = result
@@ -851,11 +906,18 @@ def _train(state, phase, overrides, expect):
 
 
 def _n_remat(model_cfg, cfg):
+    return sum(_remat_mask(model_cfg, cfg))
+
+
+def _remat_mask(model_cfg, cfg):
+    """The trainer's per-layer rematerialisation mask, for any family."""
+    from fms_fsdp_tpu_torch.models import get_model_api
     from fms_fsdp_tpu_torch.parallel.ac import selective_ac_mask
 
+    n_layers = get_model_api(model_cfg)[2]
     if not cfg.fsdp_activation_checkpointing:
-        return 0
-    return sum(selective_ac_mask(model_cfg.nlayers, cfg.selective_checkpointing))
+        return [False] * n_layers
+    return selective_ac_mask(n_layers, cfg.selective_checkpointing)
 
 
 def phase_train(state):
@@ -864,7 +926,7 @@ def phase_train(state):
         return {"fwd": steps * (n + _n_remat(m, cfg)), "fwd_kvgrid": 0,
                 "dq": steps * n, "dq_kvgrid": 0, "dkv": steps * n}
 
-    _train(state, "train", {}, expect)
+    _train(state, "train", {}, expect, profile=True)
 
 
 def phase_train_kvgrid(state):
@@ -879,6 +941,356 @@ def phase_train_kvgrid(state):
     _train(state, "train-kvgrid",
            {"flash_kernel_variant": "kvgrid", "num_steps": 1, "report_interval": 1},
            expect)
+
+# ---------------------------------------------------------------------------
+# the Mamba2 hybrid: the SSD scan kernel, the trainer, the server
+# ---------------------------------------------------------------------------
+
+# (name, B, S, H, G, L); P = 64 and N = 128 (mamba_9.8b); the first is timed
+SSD_CASES = (
+    ("train", 2, 4096, 128, 1, 256),
+    ("g8", 2, 1024, 128, 8, 256),
+    ("one-chunk", 2, 256, 128, 1, 256),
+)
+SSD_FP32_REL_TOL = 1e-4  # sums in another order over a 256-token chunk
+MAMBA_TRAIN_KW = {
+    "MambaConfig.n_layer": 6, "MambaConfig.attn_layer_idx": (3,), "seq_length": 4096,
+    "batch_size": 2, "fsdp_activation_checkpointing": True,
+    "selective_checkpointing": 0.5, "use_dummy_dataset": True, "num_steps": 16,
+    "report_interval": 4, "checkpoint_interval": 1000,
+}
+
+
+def _ssd_inputs(gen, dtype, b, s, h, g, p=64, n=128):
+    """x, dt, a = dt * A, Bm, Cm, A on the card; dt ~ LogUniform[1e-3, 1e-1]
+    and A ~ -Uniform[1, 16], the ranges of ``init_mamba_params``."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    x, bm, cm = randn(b, s, h, p), randn(b, s, g, n), randn(b, s, g, n)
+    dt = torch.exp(rand(b, s, h) * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    a_neg = -(rand(h) * 15.0 + 1.0)
+    return x.to(dtype), dt, dt * a_neg, bm.to(dtype), cm.to(dtype), a_neg
+
+
+def _ssd_bound(kind, b, s, h, g, chunk, p=64, n=128):
+    """Bytes: x, Bm, Cm read once in their type, dt and a in fp32, y written
+    fp32. Operations: the chunked algorithm's (``utils/flops.py``)."""
+    elem = 4 if kind == "fp32" else 2
+    nbytes = b * s * (h * p * elem + 2 * g * n * elem + 2 * h * 4 + h * p * 4)
+    ops = float(b * s * (2 * chunk * g * n + 2 * chunk * h * p + 4 * n * h * p))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS[kind] * 1e3
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    return max(bytes_ms, ops_ms), by, nbytes, ops
+
+
+def _ssd_times(ssd, kind, dtype, shape, gen):
+    """Times at one shape, rotating over two input sets: the kernel, its
+    plain version, ``ssd_scan`` whole through the kernel and through the
+    chunked einsums, the scan's backward (the einsums, for either route)
+    and the causal conv forward and backward of the same layer."""
+    import torch
+
+    b, s, h, g, chunk = shape
+    sets = [_ssd_inputs(gen, dtype, b, s, h, g) for _ in range(2)]
+    d_skip = torch.ones(h, device="cuda", dtype=dtype)
+
+    def pick(i):
+        return sets[i % 2]
+
+    def scan(i, kernel):
+        x, dt, _, bm, cm, a_neg = pick(i)
+        return ssd.ssd_scan(x, dt, a_neg, bm, cm, d_skip, chunk_size=chunk, kernel=kernel)
+
+    out = {
+        "ms": _timed_ms(lambda i: ssd.ssd_fused(*pick(i)[:5], chunk)),
+        "plain_ms": _timed_ms(lambda i: ssd.ssd_core_plain(*pick(i)[:5], chunk), 0, 2),
+        "scan_kernel_ms": _timed_ms(lambda i: scan(i, "pallas")),
+        "scan_xla_ms": _timed_ms(lambda i: scan(i, "xla"), 0, 2),
+    }
+
+    def scan_fwd_bwd(i):
+        x, dt, _, bm, cm, a_neg = pick(i)
+        leaves = [t.detach().requires_grad_() for t in (x, dt, bm, cm)]
+        y = ssd.ssd_scan(leaves[0], leaves[1], a_neg, leaves[2], leaves[3], d_skip,
+                         chunk_size=chunk, kernel="pallas")
+        torch.autograd.grad(y, leaves, y)
+
+    out["scan_kernel_fwd_bwd_ms"] = _timed_ms(scan_fwd_bwd, 0, 2)
+    # the conv of the same layer: (B, S, d_inner + 2 G N) channels, width 4
+    conv_dim = h * 64 + 2 * g * 128
+    xc = torch.randn((b, s, conv_dim), generator=gen, device="cuda").to(dtype)
+    w = torch.randn((conv_dim, 4), generator=gen, device="cuda").to(dtype)
+    bias = torch.zeros(conv_dim, device="cuda", dtype=dtype)
+
+    def conv_fwd_bwd(i):
+        leaves = [t.detach().requires_grad_() for t in (xc, w, bias)]
+        y = ssd.causal_conv1d(*leaves)
+        torch.autograd.grad(y, leaves, y)
+
+    out["conv_fwd_ms"] = _timed_ms(lambda i: ssd.causal_conv1d(xc, w, bias))
+    out["conv_fwd_bwd_ms"] = _timed_ms(conv_fwd_bwd)
+    return out
+
+
+def phase_ssd(state):
+    import torch
+
+    from fms_fsdp_tpu_torch.ops import ssd
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    results, bad = {}, []
+    for kind, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        for name, b, s, h, g, chunk in SSD_CASES:
+            x, dt, a, bm, cm, _ = _ssd_inputs(gen, dtype, b, s, h, g)
+            ssd.reset_launches()
+            got = ssd.ssd_fused(x, dt, a, bm, cm, chunk)
+            torch.cuda.synchronize()
+            launched = ssd.LAUNCHES["fused"]
+            ref = ssd.ssd_core_plain(x, dt, a, bm, cm, chunk)
+            err = (got - ref).abs().max().item()
+            scale = max(1.0, ref.abs().max().item())
+            rel = rel_ok = dist = None
+            if kind == "fp32":
+                tol = SSD_FP32_REL_TOL * scale
+                rel_ok = True
+            else:
+                wide = ssd.ssd_core_plain(x.float(), dt, a, bm.float(), cm.float(), chunk)
+                dist = (ref - wide).abs().max().item()
+                tol = 2 * dist
+                del wide
+                # the control: dt rounded to bf16 before the weights, a
+                # fault a loose tolerance lets through
+                control = ssd.ssd_core_plain(x, dt.bfloat16().float(), a, bm, cm, chunk)
+                rel = {"kernel": _rel_err(got, ref), "control": _rel_err(control, ref),
+                       "tol": ssd.BF16_REL_TOL}
+                del control
+                rel_ok = rel["kernel"] <= rel["tol"] < rel["control"]
+            finite = bool(torch.isfinite(got).all())
+            r = {
+                "shape": {"B": b, "S": s, "H": h, "P": 64, "G": g, "N": 128, "L": chunk},
+                "launches": launched, "max_abs_err": err, "tol": tol,
+                "value_absmax": scale, "plain_bf16_vs_fp32": dist,
+                "rel_err_vs_plain_bf16": rel, "finite": finite,
+            }
+            r["ok"] = finite and bool(rel_ok) and err <= tol and launched == 1
+            del x, dt, a, bm, cm, got, ref
+            torch.cuda.empty_cache()
+            if name == "train":
+                t = _ssd_times(ssd, kind, dtype, (b, s, h, g, chunk), gen)
+                bound_ms, by, nbytes, ops = _ssd_bound(kind, b, s, h, g, chunk)
+                t.update(bound_ms=bound_ms, bound_by=by, bytes=nbytes, ops=ops,
+                         achieved_tflops=ops / t["ms"] / 1e9,
+                         achieved_gbytes_per_s=nbytes / t["ms"] / 1e6, library_ms=None)
+                r["times"] = t
+                torch.cuda.empty_cache()
+            emit("ssd", dtype=kind, case=name, **r)
+            results[(kind, name)] = r
+            if not r["ok"]:
+                bad.append(f"{kind}/{name}")
+    state["ssd"] = results
+    if bad:
+        raise AssertionError(f"the SSD kernel disagrees with its plain version: {bad}")
+
+
+def phase_train_mamba(state):
+    from fms_fsdp_tpu_torch.main_training_mamba import main
+
+    def expect(m, cfg, steps):
+        mask = _remat_mask(m, cfg)
+        runs = [1 + int(remat) for remat in mask]  # forward passes per layer
+        attn = [i for i in range(m.n_layer) if i in m.attn_layer_idx]
+        mamba = [i for i in range(m.n_layer) if i not in m.attn_layer_idx]
+        return {"fwd": steps * sum(runs[i] for i in attn), "fwd_kvgrid": 0,
+                "dq": steps * len(attn), "dq_kvgrid": 0, "dkv": steps * len(attn),
+                # the scan's own backward launches no kernel
+                "ssd_fused": steps * sum(runs[i] for i in mamba)}
+
+    _train(state, "train-mamba", {}, expect, main=main, base=MAMBA_TRAIN_KW,
+           profile=True)
+
+
+def _slab_all_zero(adapter) -> bool:
+    return not any(
+        bool(leaf.any()) for layer in adapter._state for leaf in layer.values()
+    )
+
+
+def phase_serve_mamba(state):
+    import numpy as np
+    import torch
+
+    from fms_fsdp_tpu_torch.models.mamba import init_mamba_params, mamba_decode_step
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+    from fms_fsdp_tpu_torch.ops import paged_attention as pa
+    from fms_fsdp_tpu_torch.ops import ssd
+    from fms_fsdp_tpu_torch.serve import ServeConfig, ServingEngine
+    from fms_fsdp_tpu_torch.utils.config_utils import get_model_config
+    from fms_fsdp_tpu_torch.utils.tree import tree_map
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_model_config("mamba_9.8b")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_mamba_params(gen, cfg, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_requests, max_new = 8, 32
+    eng = ServingEngine(params, cfg, ServeConfig(max_batch=8, max_seq_len=256), seed=0)
+    ad = eng.adapter
+    bytes_before = ad.state_bytes_per_stream
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.randint(16, 129, size=n_requests)]
+    reqs = [eng.submit(p, max_new) for p in prompts]
+    ssd.reset_launches()
+    fa.reset_launches()
+    pa.reset_launches()
+    compare = step_profile = None
+    t0 = time.perf_counter()
+    while eng.has_work():
+        eng.step()
+        if eng.last_logits is not None and not torch.isfinite(eng.last_logits).all():
+            raise AssertionError("serve-mamba: non-finite decode logits")
+        active = sum(r is not None for r in eng._slots)
+        if compare is None and active == 8 and eng.decode_steps >= 4:
+            compare = _compare_mamba_step(eng, mamba_decode_step, tree_map)
+            step_profile = _profile_mamba_step(eng, mamba_decode_step, tree_map)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = eng.serving_stats()
+    ttft = sorted(eng.registry.hist("serve.ttft_s").samples)
+    result = dict(
+        requests=n_requests, max_new_tokens=max_new,
+        prompt_tokens=sum(len(p) for p in prompts),
+        finished=sum(r.state == "finished" for r in reqs),
+        all_lengths_ok=all(len(r.generated) == max_new for r in reqs),
+        decode_steps=eng.decode_steps, layers=cfg.n_layer,
+        attn_layers=len(cfg.attn_layer_idx), page_size=eng.page_size,
+        state_bytes_per_stream=ad.state_bytes_per_stream,
+        state_bytes_constant=ad.state_bytes_per_stream == bytes_before
+        == int(stats["state_bytes_per_stream"]),
+        slab_zero_after_completion=_slab_all_zero(ad),
+        pages_in_use_after=ad.pages_in_use,
+        # this path launches no kernel of the repo: the prefill is the
+        # per-token recurrence and the hybrid layers attend through
+        # gather_pages + gqa_attend
+        ssd_launches=ssd.LAUNCHES["fused"], flash_launches=sum(fa.LAUNCHES.values()),
+        paged_launches=sum(pa.LAUNCHES.values()),
+        decode_tokens_per_s=stats["tokens_per_s"],
+        ttft_mean_s=float(np.mean(ttft)) if ttft else None,
+        wall_s=wall, param_init_s=init_s,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        weight_bytes=_nbytes(eng.params), compare=compare,
+        step_profile=step_profile, nvidia_smi=state["smi"],
+    )
+    emit("serve-mamba", **result)
+    state["serve-mamba"] = result
+    problems = []
+    if result["finished"] != n_requests or not result["all_lengths_ok"]:
+        problems.append("not every request finished with max_new_tokens")
+    if not result["state_bytes_constant"]:
+        problems.append("state_bytes_per_stream changed")
+    if not result["slab_zero_after_completion"] or result["pages_in_use_after"]:
+        problems.append("slab or pages not released after completion")
+    if result["ssd_launches"] or result["flash_launches"] or result["paged_launches"]:
+        problems.append("the Mamba serving path launched a kernel")
+    if compare is None or not compare["ok"]:
+        problems.append(f"bf16 step vs fp32 step: {compare}")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("serve-mamba: " + "; ".join(problems))
+
+
+def _profile_mamba_step(eng, mamba_decode_step, tree_map, steps=3):
+    """Where one full-batch Mamba decode step's time goes: host wall per
+    step (no profiler), then device kernel time per step (torch.profiler),
+    on copies of the slab and the pages."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ad = eng.adapter
+    table, lens, toks = _step_inputs(eng)
+    slab = tree_map(lambda s: s.clone(), ad._state)
+    pools = {n: p.clone() for n, p in ad.cache.pools.items()}
+
+    def one():
+        mamba_decode_step(
+            eng.params, slab, pools, table, lens, toks, eng.model_cfg,
+            page_size=ad.page_size, compute_dtype=eng.compute_dtype, rope=ad.rope,
+        )
+
+    one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        one()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            one()
+        torch.cuda.synchronize()
+    rows = _kernel_rows(prof, steps)
+    device_ms = sum(r[0] for r in rows)
+    return {
+        "active_rows": int(sum(r is not None for r in eng._slots)),
+        "wall_ms_per_step": wall_ms,
+        "device_ms_per_step": device_ms if rows else None,
+        "device_busy_share": device_ms / wall_ms if rows else None,
+        "device_kernels_per_step": sum(r[2] for r in rows),
+        "top_device_ms_per_step": [
+            {"name": name[:80], "ms": ms, "calls": calls} for ms, name, calls in rows[:6]
+        ],
+    }
+
+
+def _compare_mamba_step(eng, mamba_decode_step, tree_map):
+    """One decode step on the engine's current state two ways: in the
+    engine's bf16, and in fp32 (the same weights, slab and pages widened).
+    The step is a chain of 32 layers without a kernel of the repo, so the
+    check is that the bf16 logits stay within a tenth of the largest fp32
+    logit of the fp32 step's and pick mostly the same tokens."""
+    import torch
+
+    ad = eng.adapter
+    table, lens, toks = _step_inputs(eng)
+
+    def step(dtype):
+        params = tree_map(lambda w: w.to(dtype), eng.params)
+        slab = tree_map(lambda s: s.clone() if s.dtype == torch.float32 else s.to(dtype),
+                        ad._state)
+        pools = {n: p.to(dtype, copy=True) for n, p in ad.cache.pools.items()}
+        out, _, _ = mamba_decode_step(
+            params, slab, pools, table, lens, toks, eng.model_cfg,
+            page_size=ad.page_size, compute_dtype=dtype,
+        )
+        return out.float()
+
+    low = step(eng.compute_dtype)
+    wide = step(torch.float32)
+    torch.cuda.empty_cache()
+    absmax = wide.abs().max().item()
+    diff = (low - wide).abs().max().item()
+    out = {
+        "bf16_vs_fp32": diff, "logit_absmax": absmax, "tolerance": 0.1 * absmax,
+        "argmax_bf16_vs_fp32": (low.argmax(-1) == wide.argmax(-1)).float().mean().item(),
+        "active_rows": int(sum(r is not None for r in eng._slots)),
+    }
+    out["ok"] = bool(torch.isfinite(low).all()) and diff <= out["tolerance"]
+    return out
 
 
 def kernels_line(state):
@@ -917,6 +1329,18 @@ def kernels_line(state):
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
+    r = state["ssd"][("bf16", "train")]
+    t = r["times"]
+    entries.append({
+        "name": "ssd_fused", "route": "cuda",
+        "source": "fms_fsdp_tpu_torch/csrc/ssd.cu",
+        "replaces": REPLACES["ssd_fused"],
+        "launches": state["train-mamba"]["launches"]["ssd_fused"],
+        "max_abs_err": r["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        # no single PyTorch call computes the chunked scan
+        "library_ms": None,
+    })
     return {"kernels": entries}
 
 
@@ -947,6 +1371,8 @@ def main(argv=None) -> int:
         "kernels": phase_kernels, "serve": phase_serve,
         "serve-int8": phase_serve_int8, "flash": phase_flash,
         "train": phase_train, "train-kvgrid": phase_train_kvgrid,
+        "ssd": phase_ssd, "train-mamba": phase_train_mamba,
+        "serve-mamba": phase_serve_mamba,
     }
     if "device" not in phases:
         phases.insert(0, "device")

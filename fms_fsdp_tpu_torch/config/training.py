@@ -118,7 +118,10 @@ class TrainConfig:
     # by-sequence-length dispatch (resident under the 8k VMEM cap,
     # kv-streamed past it); None = auto. Resolved at every step build.
     flash_kernel_variant: Optional[str] = None
-    mamba_kernel: str = "auto"  # "auto" | "pallas" | "xla"
+    # the SSD scan of the Mamba mixers (ops/ssd.py): "pallas" and "auto"
+    # run the fused CUDA kernel for CUDA tensors (its plain version on the
+    # CPU), "xla" the chunked einsums, "reference" the per-token recurrence
+    mamba_kernel: str = "auto"
     # Chunked lm-head+CE (never materializes (B,S,V) logits). Costs one
     # extra lm-head pass (~+33% of lm-head FLOPs): a win for models where
     # the head is a small fraction (7B+ at 32k vocab) or when logits memory

@@ -1,9 +1,9 @@
-"""Model families of the port: Llama (Mamba and Mixtral come with their
-slices, ROADMAP.md A.3 and A.4)."""
+"""Model families of the port: Llama and the Mamba2 hybrid (Mixtral comes
+with its slice, ROADMAP.md A.4)."""
 
-from fms_fsdp_tpu_torch.models.configs import LlamaConfig
+from fms_fsdp_tpu_torch.models.configs import LlamaConfig, MambaConfig
 
-__all__ = ["LlamaConfig", "get_model_api"]
+__all__ = ["LlamaConfig", "MambaConfig", "get_model_api"]
 
 
 def get_model_api(model_cfg):
@@ -14,9 +14,11 @@ def get_model_api(model_cfg):
         from fms_fsdp_tpu_torch.models.llama import init_llama_params, llama_forward
 
         return init_llama_params, llama_forward, model_cfg.nlayers
+    if isinstance(model_cfg, MambaConfig):
+        from fms_fsdp_tpu_torch.models.mamba import init_mamba_params, mamba_forward
+
+        return init_mamba_params, mamba_forward, model_cfg.n_layer
     name = type(model_cfg).__name__
-    if "Mamba" in name:
-        raise NotImplementedError(f"{name} is not ported yet: ROADMAP.md A.3")
     if "Mixtral" in name:
         raise NotImplementedError(f"{name} is not ported yet: ROADMAP.md A.4")
     raise TypeError(f"unknown model config type: {name}")

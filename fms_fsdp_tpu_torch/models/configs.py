@@ -1,13 +1,16 @@
-"""Model architecture configs (Llama; Mamba and Mixtral come with their
-slices).
+"""Model architecture configs (Llama and the Mamba2 hybrid; Mixtral comes
+with its slice).
 
-A copy of ``fms_fsdp_tpu/models/configs.py::LlamaConfig``: the same
+Copies of ``fms_fsdp_tpu/models/configs.py``. ``LlamaConfig``: the same
 architectural degrees of freedom the reference variant table exercises
 (emb_dim, nheads, kvheads for GQA, nlayers, hidden_grow_factor +
 multiple_of SwiGLU rounding, max_expected_seq_len, rope_theta, vocab).
+``MambaAttnConfig`` / ``MambaConfig``: the hybrid Mamba2 stack of
+``models/mamba.py`` with the mamba_ssm layer defaults.
 """
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Tuple
 
 
 @dataclass(frozen=True)
@@ -56,4 +59,80 @@ class LlamaConfig:
         total = self.nlayers * per_layer + d  # final norm
         if include_embeddings:
             total += 2 * self.src_vocab_size * d  # embed + lm head
+        return int(total)
+
+
+@dataclass(frozen=True)
+class MambaAttnConfig:
+    """Attention sub-config for hybrid Mamba (ref:config_utils.py:170-179)."""
+
+    causal: bool = True
+    d_conv: int = 0
+    head_dim: int = 128
+    num_heads: int = 32
+    num_heads_kv: int = 8
+    out_proj_bias: bool = False
+    qkv_proj_bias: bool = False
+    rotary_emb_dim: int = 64
+
+
+@dataclass(frozen=True)
+class MambaConfig:
+    d_model: int = 4096
+    d_intermediate: int = 14336  # MLP width; 0 -> no MLP block
+    n_layer: int = 32
+    vocab_size: int = 128256
+    ssm_layer: str = "Mamba2"
+    attn_layer_idx: Tuple[int, ...] = ()
+    attn_cfg: MambaAttnConfig = field(default_factory=MambaAttnConfig)
+    rms_norm: bool = True
+    residual_in_fp32: bool = True
+    fused_add_norm: bool = True
+    pad_vocab_size_multiple: int = 16
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+    # Mamba2 layer hyperparameters (mamba_ssm defaults)
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    headdim: int = 64
+    ngroups: int = 1
+    chunk_size: int = 256
+
+    @property
+    def padded_vocab_size(self) -> int:
+        m = self.pad_vocab_size_multiple
+        return m * ((self.vocab_size + m - 1) // m)
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def nheads(self) -> int:
+        return self.d_inner // self.headdim
+
+    def n_params(self) -> int:
+        """Exact parameter count of the hybrid stack (see models/mamba.py)."""
+        d = self.d_model
+        conv_dim = self.d_inner + 2 * self.ngroups * self.d_state
+        in_proj = 2 * self.d_inner + 2 * self.ngroups * self.d_state + self.nheads
+        per_mamba = (
+            d * in_proj
+            + conv_dim * (self.d_conv + 1)  # conv weight + bias
+            + 3 * self.nheads  # dt_bias, A_log, D
+            + self.d_inner  # gated norm
+            + self.d_inner * d  # out_proj
+        )
+        a = self.attn_cfg
+        per_attn = d * a.head_dim * (a.num_heads * 2 + a.num_heads_kv * 2)
+        per_mlp = 3 * d * self.d_intermediate + d if self.d_intermediate else 0
+        n_attn = len(self.attn_layer_idx)
+        total = (
+            (self.n_layer - n_attn) * per_mamba
+            + n_attn * per_attn
+            + self.n_layer * (per_mlp + d)  # mlp (+norm2) and mixer norm
+            + d  # final norm
+            + 2 * self.padded_vocab_size * d
+        )
         return int(total)

@@ -30,6 +30,7 @@ from fms_fsdp_tpu_torch.models.configs import LlamaConfig
 from fms_fsdp_tpu_torch.ops.attention import attention
 from fms_fsdp_tpu_torch.ops.norms import rms_norm
 from fms_fsdp_tpu_torch.ops.rope import apply_rotary, rope_table
+from fms_fsdp_tpu_torch.utils.tree import tree_map
 
 
 def init_llama_params(
@@ -138,14 +139,6 @@ def n_layers_of(params) -> int:
     return layers["wq"].shape[0]
 
 
-def _cast(tree, dtype):
-    if isinstance(tree, dict):
-        return {k: _cast(v, dtype) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_cast(v, dtype) for v in tree]
-    return tree.to(dtype)
-
-
 def llama_forward(
     params: Dict,
     tokens: torch.Tensor,
@@ -173,7 +166,7 @@ def llama_forward(
     """
     del scan_layers
     nlayers = n_layers_of(params)
-    params = _cast(params, compute_dtype)
+    params = tree_map(lambda w: w.to(compute_dtype), params)
     x = F.embedding(tokens, params["embedding"])
     seq_len = tokens.shape[1]
     cos, sin = rope_table(seq_len, cfg.head_dim, cfg.rope_theta, device=tokens.device)

@@ -43,6 +43,7 @@ from fms_fsdp_tpu_torch.serve.scheduler import (
     RequestRejected,
 )
 from fms_fsdp_tpu_torch.utils.device import resolve_device
+from fms_fsdp_tpu_torch.utils.tree import tree_map
 
 _DTYPES = {
     "bfloat16": torch.bfloat16,
@@ -113,9 +114,7 @@ def _check_supported(scfg: ServeConfig) -> None:
 def _to_device(params, device, dtype):
     """Nested params -> ``device`` and ``dtype``: one cast per leaf, none
     at all where a leaf already matches."""
-    if isinstance(params, dict):
-        return {k: _to_device(v, device, dtype) for k, v in params.items()}
-    return params.to(device=device, dtype=dtype)
+    return tree_map(lambda w: w.to(device=device, dtype=dtype), params)
 
 
 class ServingEngine:

@@ -1,25 +1,30 @@
 """Family adapters: one serving engine, per-family device work.
 
-Counterpart of ``fms_fsdp_tpu/serve/families/__init__.py``, Llama part.
+Counterpart of ``fms_fsdp_tpu/serve/families/__init__.py``, Llama and
+Mamba part.
 The engine owns admission, continuous batching, eviction, sampling and
 metrics; a :class:`FamilyAdapter` owns what differs per model family:
 the decode state a stream holds, how a prompt prefills into it, what one
 ragged batched decode step computes, and how params resolve to a family.
 
-Only ``llama`` (paged KV, ragged paged-decode kernel) is ported. The
-Mamba and Mixtral families raise, naming the ROADMAP.md item that brings
-them.
+``llama`` (paged KV, ragged paged-decode kernel) and ``mamba`` (a
+constant recurrent slab, plus paged KV for the hybrid attention layers)
+are ported. The Mixtral family raises, naming the ROADMAP.md item that
+brings it.
 """
 
 from typing import Optional
 
-from fms_fsdp_tpu_torch.models.configs import LlamaConfig
+from fms_fsdp_tpu_torch.models.configs import (
+    LlamaConfig,
+    MambaAttnConfig,
+    MambaConfig,
+)
 
 # the wire encoding of a family in numeric-only maps (serving_stats)
 FAMILY_CODES = {"llama": 0, "mamba": 1, "mixtral": 2}
 
 _NOT_PORTED = {
-    "mamba": "ROADMAP.md A.3 (Mamba2 hybrid, with its serving family)",
     "mixtral": "ROADMAP.md A.4 (Mixtral MoE, with its serving family)",
 }
 
@@ -34,12 +39,14 @@ def family_of(model_cfg) -> str:
     """Model config dataclass -> family name."""
     if isinstance(model_cfg, LlamaConfig):
         return "llama"
+    if isinstance(model_cfg, MambaConfig):
+        return "mamba"
     name = type(model_cfg).__name__
-    if name in ("MambaConfig", "MixtralConfig"):
-        raise _not_ported(name[: -len("Config")].lower())
+    if name == "MixtralConfig":
+        raise _not_ported("mixtral")
     raise ValueError(
-        f"unknown model config type {name}: expected LlamaConfig "
-        f"(fms_fsdp_tpu_torch/models/configs.py)"
+        f"unknown model config type {name}: expected LlamaConfig or "
+        f"MambaConfig (fms_fsdp_tpu_torch/models/configs.py)"
     )
 
 
@@ -64,9 +71,17 @@ def load_model_config(d: dict):
             f"one of {sorted(FAMILY_CODES)} — set \"family\" explicitly "
             f"or drop it to infer from the config keys"
         )
-    if family != "llama":
+    if family in _NOT_PORTED:
         raise _not_ported(family)
     try:
+        if family == "mamba":
+            # JSON round-trips tuples as lists and the nested attn
+            # config as a dict
+            if isinstance(d.get("attn_cfg"), dict):
+                d["attn_cfg"] = MambaAttnConfig(**d["attn_cfg"])
+            if d.get("attn_layer_idx") is not None:
+                d["attn_layer_idx"] = tuple(d["attn_layer_idx"])
+            return MambaConfig(**d)
         return LlamaConfig(**d)
     except TypeError as e:
         raise ValueError(
@@ -91,7 +106,7 @@ def check_params_family(params, family: str) -> None:
         raise ValueError(
             "params do not look like any serveable family (no "
             "recognizable 'layers' structure): expected init_llama_params"
-            " output or a checkpoint thereof"
+            " / init_mamba_params output or a checkpoint thereof"
         )
     if actual != family:
         raise ValueError(
@@ -104,7 +119,10 @@ def check_params_family(params, family: str) -> None:
 
 def init_params_for(model_cfg):
     """Family -> its params initializer, ``fn(generator) -> params``."""
-    family_of(model_cfg)
+    if family_of(model_cfg) == "mamba":
+        from fms_fsdp_tpu_torch.models.mamba import init_mamba_params
+
+        return lambda generator: init_mamba_params(generator, model_cfg)
     from fms_fsdp_tpu_torch.models.llama import init_llama_params
 
     return lambda generator: init_llama_params(generator, model_cfg)
@@ -114,6 +132,10 @@ def resolve_adapter(params, model_cfg, serve_cfg, compute_dtype, device):
     """Params + config -> the family's adapter."""
     family = family_of(model_cfg)
     check_params_family(params, family)
+    if family == "mamba":
+        from fms_fsdp_tpu_torch.serve.families.mamba import MambaAdapter
+
+        return MambaAdapter(params, model_cfg, serve_cfg, compute_dtype, device)
     from fms_fsdp_tpu_torch.serve.families.llama import LlamaAdapter
 
     return LlamaAdapter(params, model_cfg, serve_cfg, compute_dtype, device)
@@ -142,6 +164,7 @@ class FamilyAdapter:
     """
 
     family: str = "?"
+    supports_handoff: bool = False
     cache = None  # PagedKVCache when the family uses pages, else None
     page_size: int = 0
     max_pages: int = 0

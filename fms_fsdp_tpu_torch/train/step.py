@@ -30,6 +30,7 @@ from typing import Dict
 import torch
 
 from fms_fsdp_tpu_torch.models import get_model_api
+from fms_fsdp_tpu_torch.models.configs import MambaConfig
 from fms_fsdp_tpu_torch.ops.flash_attention import VARIANTS, set_kernel_variant
 from fms_fsdp_tpu_torch.ops.fused_ce import (
     cross_entropy_loss,
@@ -127,28 +128,42 @@ def get_lr_schedule(cfg, start_step: int = 0):
     return schedule
 
 
+_TOP_LEAVES = ("embedding", "norm", "norm_f", "lm_head")
+
+
 def _per_layer(params: Dict, fn):
-    """The forward's param dict with every layer's weights taken off the
-    stacked (L, ...) tensors and ``fn`` applied to each leaf, and the
-    leaves in one fixed order: embedding, norm, lm_head, then layer by
-    layer. The optimizer and the differentiated copy share that order."""
+    """The forward's param dict with ``fn`` applied to each leaf, layer by
+    layer, and the leaves in one fixed order: the top-level leaves
+    (embedding, the final norm, lm_head), then layer by layer. Llama's
+    stacked (L, ...) tensors are taken apart into per-layer dicts; a list
+    of per-layer dicts (Mamba's unlike layers) is walked as it is nested.
+    The optimizer and the differentiated copy share that order."""
     leaves = []
 
     def take(w):
         leaves.append(fn(w))
         return leaves[-1]
 
-    top = {k: take(params[k]) for k in ("embedding", "norm", "lm_head")}
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {name: walk(sub) for name, sub in tree.items()}
+        return take(tree)
+
+    top = {k: take(params[k]) for k in _TOP_LEAVES if k in params}
     layers = params["layers"]
-    per_layer = [{name: take(w[i]) for name, w in layers.items()}
-                 for i in range(layers["wq"].shape[0])]
+    if isinstance(layers, dict):
+        n_layers = next(iter(layers.values())).shape[0]
+        per_layer = [{name: take(w[i]) for name, w in layers.items()}
+                     for i in range(n_layers)]
+    else:
+        per_layer = [walk(layer) for layer in layers]
     return {**top, "layers": per_layer}, leaves
 
 
 def make_optimizer(params: Dict, cfg) -> torch.optim.AdamW:
-    """AdamW(0.9, 0.95, eps 1e-8, wd 0.1) over every leaf, each layer's
-    weights as views of the stacked tensors, so an update writes the
-    JAX-layout params in place; the lr is set each step by the train
+    """AdamW(0.9, 0.95, eps 1e-8, wd 0.1) over every leaf, each Llama
+    layer's weights as views of the stacked tensors, so an update writes
+    the JAX-layout params in place; the lr is set each step by the train
     step."""
     _, leaves = _per_layer(params, lambda w: w)
     return torch.optim.AdamW(
@@ -198,12 +213,15 @@ def make_train_step(model_cfg, cfg, start_step: int = 0):
     schedule = get_lr_schedule(cfg, start_step)
     fused = cfg.fused_loss
     guard_updates = bool(cfg.anomaly_skip_updates)
+    extra_kwargs = {}
+    if isinstance(model_cfg, MambaConfig):
+        extra_kwargs = {"mamba_kernel": cfg.mamba_kernel}
 
     def loss_fn(params_c, inputs, labels):
         out = forward_fn(
             params_c, inputs, model_cfg, compute_dtype=policy.compute_dtype,
             attn_impl=cfg.attention_kernel, ac_mask=ac_mask,
-            return_hidden=fused,
+            return_hidden=fused, quant=cfg.quantized_matmuls, **extra_kwargs,
         )
         if fused:
             return fused_linear_cross_entropy(

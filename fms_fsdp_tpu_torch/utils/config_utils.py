@@ -1,4 +1,4 @@
-"""Config overrides and the model-variant table, Llama part.
+"""Config overrides and the model-variant table, Llama and Mamba part.
 
 ``update_config`` is a copy of ``fms_fsdp_tpu/utils/config_utils.py:33``
 (ref:fms_fsdp/utils/config_utils.py:6-22): set matching attributes,
@@ -7,14 +7,18 @@ support dotted ``ClassName.param`` addressing, warn on unknown keys.
 A copy of the Llama rows of ``fms_fsdp_tpu/utils/config_utils.py``
 (reference: fms_fsdp/utils/config_utils.py:25-161): llama2 {1.4b, 7b,
 13b, 34b, 70b} and llama3 {194m_4k, 1.8b, 3.2b, 8b, 70b} with their
-``_4k`` context variants. ``mamba_9.8b`` and ``mixtral_8x7b`` arrive with
-the Mamba and Mixtral slices (ROADMAP.md A.3, A.4).
+``_4k`` context variants, and ``mamba_9.8b`` (``:148-172``).
+``mixtral_8x7b`` arrives with the Mixtral slice (ROADMAP.md A.4).
 """
 
 import dataclasses
 
 from fms_fsdp_tpu_torch.config import TrainConfig
-from fms_fsdp_tpu_torch.models.configs import LlamaConfig
+from fms_fsdp_tpu_torch.models.configs import (
+    LlamaConfig,
+    MambaAttnConfig,
+    MambaConfig,
+)
 
 
 def _set(config, name, value):
@@ -137,7 +141,6 @@ for _name in ["llama3_8b", "llama3_1.8b", "llama3_3.2b", "llama3_70b"]:
     )
 
 _LATER = {
-    "mamba_9.8b": "ROADMAP.md A.3 (Mamba2 hybrid)",
     "mixtral_8x7b": "ROADMAP.md A.4 (Mixtral MoE)",
 }
 
@@ -145,6 +148,31 @@ _LATER = {
 def get_model_config(model_variant):
     if model_variant in _LLAMA_VARIANTS:
         return LlamaConfig(**_LLAMA_VARIANTS[model_variant])
+    if model_variant == "mamba_9.8b":
+        # ref:fms_fsdp/utils/config_utils.py:162-185
+        return MambaConfig(
+            d_model=4096,
+            d_intermediate=14336,
+            n_layer=32,
+            vocab_size=128256,
+            ssm_layer="Mamba2",
+            attn_layer_idx=(9, 18, 27),
+            attn_cfg=MambaAttnConfig(
+                causal=True,
+                d_conv=0,
+                head_dim=128,
+                num_heads=32,
+                num_heads_kv=8,
+                out_proj_bias=False,
+                qkv_proj_bias=False,
+                rotary_emb_dim=64,
+            ),
+            rms_norm=True,
+            residual_in_fp32=True,
+            fused_add_norm=True,
+            pad_vocab_size_multiple=16,
+            tie_embeddings=False,
+        )
     if model_variant in _LATER:
         raise NotImplementedError(
             f"model variant {model_variant} is not ported yet: "

@@ -19,10 +19,8 @@ import torch
 
 from fms_fsdp_tpu_torch.parallel.ac import selective_ac_mask
 from fms_fsdp_tpu_torch.resilience.guards import AnomalyGuard
-from fms_fsdp_tpu_torch.utils.flops import (
-    llama_train_flops_per_token,
-    peak_flops_per_card,
-)
+from fms_fsdp_tpu_torch.models import get_model_api
+from fms_fsdp_tpu_torch.utils.flops import peak_flops_per_card, train_flops_per_token
 
 
 class AnomalyAbort(RuntimeError):
@@ -52,10 +50,11 @@ def train(cfg, state, step_fn, rank, train_loader, start_step: int = 0,
     if model_cfg is not None and device.type == "cuda":
         ac = 0.0
         if cfg.fsdp_activation_checkpointing:
-            mask = selective_ac_mask(model_cfg.nlayers, cfg.selective_checkpointing)
+            n_layers = get_model_api(model_cfg)[2]
+            mask = selective_ac_mask(n_layers, cfg.selective_checkpointing)
             ac = sum(mask) / len(mask)
-        flops = llama_train_flops_per_token(model_cfg, cfg.seq_length)
-        hflops = llama_train_flops_per_token(model_cfg, cfg.seq_length, ac)
+        flops = train_flops_per_token(model_cfg, cfg.seq_length)
+        hflops = train_flops_per_token(model_cfg, cfg.seq_length, ac)
         peak = peak_flops_per_card(torch.cuda.get_device_name(device))
     tokens_per_step = cfg.batch_size * cfg.seq_length
     window: List[Dict] = []

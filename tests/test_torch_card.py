@@ -279,3 +279,92 @@ def test_card_full_width_step_kernel_vs_einsum(cuda_device):
         tol = 3 * abs(einsum[i] - fp32[i]) + 1e-4 * abs(fp32[i])
         assert np.isfinite(kernel[i])
         assert abs(kernel[i] - einsum[i]) <= tol, (i, kernel, einsum, fp32)
+
+
+# ---------------------------------------------------------------------------
+# the fused SSD scan kernel (csrc/ssd.cu)
+# ---------------------------------------------------------------------------
+
+
+def _ssd_inputs(device, dtype, B, S, H, G, seed=0):
+    """x, dt, a, Bm, Cm with dt and A in the ranges of init_mamba_params
+    (dt in [1e-3, 1e-1], A in [-16, -1])."""
+    from fms_fsdp_tpu_torch.ops import ssd as t_ssd
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((B, S, H, 64)).astype(np.float32))
+    Bm = torch.from_numpy(rng.standard_normal((B, S, G, 128)).astype(np.float32))
+    Cm = torch.from_numpy(rng.standard_normal((B, S, G, 128)).astype(np.float32))
+    dt = torch.from_numpy(np.exp(rng.uniform(np.log(1e-3), np.log(1e-1),
+                                             (B, S, H))).astype(np.float32))
+    A = -torch.from_numpy(rng.uniform(1.0, 16.0, (H,)).astype(np.float32))
+    dev = lambda t, d=torch.float32: t.to(device, d)  # noqa: E731
+    return t_ssd, dev(x, dtype), dev(dt), dev(dt * A), dev(Bm, dtype), dev(Cm, dtype), dev(A)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("kind", ["bf16", "fp32"])
+@pytest.mark.parametrize("shape", [(2, 1024, 16, 1, 256), (1, 512, 16, 8, 64),
+                                   (1, 256, 8, 2, 256), (1, 384, 8, 1, 128)])
+def test_card_ssd_kernel_matches_plain(cuda_device, kind, shape):
+    """B, S, H, G, chunk: several chunks at G=1, G>1, one chunk (S=L), and
+    a chunk of two tiles. fp32 within 1e-4 of the largest value (sums in
+    another order over a 256-token chunk); bf16 within 1e-2 of it (the
+    same rounding points, other summation order)."""
+    B, S, H, G, L = shape
+    dtype = torch.float32 if kind == "fp32" else torch.bfloat16
+    t_ssd, x, dt, a, Bm, Cm, _ = _ssd_inputs(cuda_device, dtype, B, S, H, G)
+    t_ssd.reset_launches()
+    y = t_ssd.ssd_fused(x, dt, a, Bm, Cm, L)
+    torch.cuda.synchronize()
+    assert t_ssd.LAUNCHES == {"fused": 1}
+    ref = t_ssd.ssd_core_plain(x, dt, a, Bm, Cm, L)
+    assert y.dtype == torch.float32 and y.shape == x.shape
+    assert torch.isfinite(y).all()
+    tol = (1e-4 if kind == "fp32" else 1e-2) * max(1.0, ref.abs().max().item())
+    assert (y - ref).abs().max().item() <= tol
+
+
+@pytest.mark.card
+def test_card_ssd_kernel_reads_strided_views(cuda_device):
+    """x, Bm and Cm as the mixer hands them over: views into one
+    (B, S, conv_dim) tensor, read through their strides."""
+    B, S, H, G, L = 2, 512, 16, 2, 256
+    t_ssd, x, dt, a, Bm, Cm, _ = _ssd_inputs(cuda_device, torch.bfloat16, B, S, H, G)
+    packed = torch.cat([x.reshape(B, S, -1), Bm.reshape(B, S, -1),
+                        Cm.reshape(B, S, -1)], dim=-1)
+    d_inner, gn = H * 64, G * 128
+    xv = packed[..., :d_inner].reshape(B, S, H, 64)
+    bv = packed[..., d_inner:d_inner + gn].reshape(B, S, G, 128)
+    cv = packed[..., d_inner + gn:].reshape(B, S, G, 128)
+    assert not xv.is_contiguous() and xv.data_ptr() == packed.data_ptr()
+    y = t_ssd.ssd_fused(xv, dt, a, bv, cv, L)
+    assert torch.equal(y, t_ssd.ssd_fused(x, dt, a, Bm, Cm, L))
+
+
+@pytest.mark.card
+def test_card_ssd_scan_auto_launches_or_raises(cuda_device):
+    B, S, H, G = 1, 256, 8, 1
+    t_ssd, x, dt, a, Bm, Cm, A = _ssd_inputs(cuda_device, torch.float32, B, S, H, G)
+    D = torch.ones(H, device=cuda_device)
+    for kernel in ("auto", "pallas"):
+        t_ssd.reset_launches()
+        leaves = [t.clone().requires_grad_() for t in (x, dt, Bm, Cm)]
+        y = t_ssd.ssd_scan(leaves[0], leaves[1], A, leaves[2], leaves[3], D,
+                           chunk_size=256, kernel=kernel)
+        (y ** 2).mean().backward()
+        assert t_ssd.LAUNCHES == {"fused": 1}  # the backward launches none
+        ref_leaves = [t.clone().requires_grad_() for t in (x, dt, Bm, Cm)]
+        ref = t_ssd.ssd_scan(ref_leaves[0], ref_leaves[1], A, ref_leaves[2],
+                             ref_leaves[3], D, chunk_size=256, kernel="xla")
+        (ref ** 2).mean().backward()
+        assert t_ssd.LAUNCHES == {"fused": 1}
+        assert (y - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())
+        for got, want in zip(leaves, ref_leaves):
+            assert torch.allclose(got.grad, want.grad, atol=1e-5, rtol=1e-4)
+    # a shape the kernel does not take raises on the card: no fallback
+    with pytest.raises(NotImplementedError, match="headdim 64"):
+        t_ssd.ssd_scan(x[..., :32].contiguous(), dt, A, Bm, Cm, chunk_size=256,
+                       kernel="auto")
+    with pytest.raises(NotImplementedError, match="chunk"):
+        t_ssd.ssd_scan(x, dt, A, Bm, Cm, chunk_size=32, kernel="pallas")

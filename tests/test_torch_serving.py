@@ -91,8 +91,12 @@ def test_llama_variant_table_matches_jax():
         assert dataclasses.asdict(port) == dataclasses.asdict(ref), name
         assert port.hidden_dim == ref.hidden_dim and port.head_dim == ref.head_dim
         assert port.n_params() == ref.n_params()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        config_utils.get_model_config("mamba_9.8b")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.4"):
+        config_utils.get_model_config("mixtral_8x7b")
+    port = config_utils.get_model_config("mamba_9.8b")
+    ref = j_config_utils.get_model_config("mamba_9.8b")
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert port.n_params() == ref.n_params()
 
 
 def test_bridge_round_trip_bit_exact(np_params):
@@ -419,9 +423,10 @@ def test_engine_refuses_unported_options(params, field, value):
 def test_families_llama_only():
     assert family_of(TINY) == "llama"
     assert load_model_config(dict(_TINY_KW)) == TINY
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_model_config({"d_model": 64})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the Mamba family resolves now; Mixtral still names its item
+    mamba = load_model_config({"d_model": 64, "attn_layer_idx": [1]})
+    assert family_of(mamba) == "mamba" and mamba.attn_layer_idx == (1,)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.4"):
         load_model_config({"num_experts": 8})
 
 
@@ -442,8 +447,11 @@ def test_port_imports_no_jax_and_no_jax_package():
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'fms_fsdp_tpu')]\n"
-        "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 44 else 0)\n"
+        "need = {'fms_fsdp_tpu_torch.' + m for m in (\n"
+        "    'ops.ssd', 'models.mamba', 'serve.families.mamba',\n"
+        "    'main_training_mamba')}\n"
+        "print(len(mods), bad, need - set(mods))\n"
+        "sys.exit(1 if bad or len(mods) < 48 or need - set(mods) else 0)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

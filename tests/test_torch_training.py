@@ -305,7 +305,7 @@ def test_entry_needs_a_card_unless_cpu():
     ({"use_dummy_dataset": False}, "A.15"),
     ({"checkpoint_interval": 2}, "A.5"),
     ({"resuming_dataset": True}, "A.5"),
-    ({"model_variant": "mamba_9.8b"}, "A.3"),
+    ({"model_variant": "mamba_9.8b", "quantized_matmuls": "int8"}, "A.7"),
     ({"model_variant": "mixtral_8x7b"}, "A.4"),
 ])
 def test_unported_options_raise(overrides, item):
