@@ -14,7 +14,14 @@ Phases, one JSON line each; any failure exits non-zero:
 3. kernels — the paged-decode kernel against its plain PyTorch version at
    llama3_8b decode shapes (B=8, Nq=32, Nkv=8, H=128, page 64, 32 pages
    per row, seeded ragged lengths with 0 and page-boundary values), for
-   bf16, fp32, int8 and e4m3 pools, with times from CUDA events.
+   bf16, fp32, int8 and e4m3 pools, and at one bf16 row of 16,383 keys:
+   within ``TOL`` (max abs) and, row by row, within the relative error
+   ``paged_attention.REL_TOL``, which a control (the plain version with
+   each row's first split of keys left out) must exceed on every row it
+   changes; device times (CUDA events around CUDA-graph replay over pool
+   copies that span three times the L2; eager event times beside them)
+   of the kernel and of SDPA, the planned splits and blocks, achieved
+   GB/s and the share of the bytes bound.
 4. serve   — ``ServingEngine`` on llama3_8b at full width (32 layers,
    vocab 128256, random bf16 weights from a seeded generator), 16
    requests of 64-1024 prompt tokens and 64 new tokens each, through
@@ -24,8 +31,9 @@ Phases, one JSON line each; any failure exits non-zero:
    the reference attention and an fp32 step, and profiles one step.
 5. serve-int8 — the same engine with int8 pools on a shorter wave, so
    the quantized (v2) contract runs end to end.
-6. flash   — the three flash-attention kernels (forward, dq, dk/dv)
-   against their plain versions for bf16 and fp32: the training shape
+6. flash   — the flash-attention kernels (forward: wgmma + TMA for bf16,
+   scalar for fp32; dq; dk/dv) against their plain versions for bf16 and
+   fp32: the training shape
    (B=2, Nq=32, Nkv=8, S=4096, H=128, causal, group 4), the kvgrid
    contract (B=1, S=16384), a causal cross-length case (Sq=2048,
    Sk=4096) and group 1; o, lse, dq, dk and dv each within tolerance:
@@ -34,7 +42,8 @@ Phases, one JSON line each; any failure exits non-zero:
    ``flash_attention.BF16_REL_TOL`` of the plain bf16 version, which a
    control (the plain version with its scores rounded to bf16) must
    exceed; CUDA-event times of the first two shapes beside the plain
-   versions, the bound, and SDPA (flash backend) forward and backward.
+   versions, the bound, and SDPA (flash backend) forward and backward;
+   achieved TF/s and share of the bound of the forward beside SDPA's.
 7. train   — ``fms_fsdp_tpu_torch.main_training_llama.main`` at
    llama3_8b_4k width (4096 wide, 32/8 heads, hidden 14336, vocab
    128256) and 8 layers, seq 4096, batch 2, selective AC 1/2, dummy
@@ -93,9 +102,10 @@ PHASES = ("device", "build", "kernels", "serve", "serve-int8", "flash", "train",
 
 # llama3_8b decode shapes of the kernel phase
 B, NQ, NKV, H, PAGE, MAXP = 8, 32, 8, 128, 64, 32
-# copies of the pools the timed loops rotate through, as the layers of a
-# decode step do, so K/V reads are not served from a warm L2 (50 MB)
-POOL_COPIES = 4
+# the timed loops rotate through copies of the pools, as the layers of a
+# decode step do, enough of them that the live K/V of all copies is at
+# least this many times the card's L2: no call reads a warm L2
+L2_SPAN = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}  # dense bf16 tensor / fp32 SIMT
 TOL = {"bf16": 2e-2, "fp32": 1e-5, "int8": 2e-2, "e4m3": 2e-2}
@@ -141,6 +151,37 @@ def cuda_time_ms(fn, reps: int, warmup: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_time_ms(fn, reps: int, replays: int = 5) -> float:
+    """Device time per call: ``reps`` calls captured in one CUDA graph,
+    replayed ``replays`` times between CUDA events. Eager timing of a call
+    that is shorter than its host-side launch work measures the host;
+    the replay does not wait for it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * reps)
+    del graph
+    return ms
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -183,22 +224,41 @@ def phase_build(state):
         built = cuda_build.load(name)
         report[name] = {"library": os.path.relpath(built.path, REPO),
                         "kernels": cuda_build.ptxas_summary(built.ptxas)}
+    # dynamic shared memory, which -Xptxas -v does not see
+    lib = cuda_build.load("paged_decode").lib
+    report["paged_decode"]["dynamic_smem_bytes"] = {
+        f"q {q}, pools {kv}": lib.paged_decode_smem_bytes(qc, kc)
+        for q, kv, qc, kc in (("bf16", "bf16", 1, 1), ("fp32", "fp32", 0, 0),
+                              ("bf16", "int8", 1, 3), ("bf16", "e4m3", 1, 4))
+    }
+    report["flash_fwd_sm90"]["dynamic_smem_bytes"] = (
+        cuda_build.load("flash_fwd_sm90").lib.flash_fwd_sm90_smem_bytes())
     state["build_s"] = wall
     emit("build", seconds=wall, sources=report)
 
 
-def _kernel_inputs(kind, gen):
-    """Seeded decode inputs: q, POOL_COPIES layers of pools (+scales),
-    page table, seq_lens."""
+def _kernel_lens(gen, batch=B, maxp=MAXP):
+    """Seeded ragged positions with 0 and page-boundary values."""
+    import torch
+
+    lens = [0, PAGE - 1, PAGE, 2 * PAGE - 1, maxp * PAGE - 1]
+    return lens + torch.randint(1, maxp * PAGE, (batch - len(lens),), generator=gen,
+                                device="cuda").tolist()
+
+
+def _kernel_inputs(kind, gen, lens, copies, maxp=MAXP):
+    """Seeded decode inputs at positions ``lens``: q, ``copies`` layers of
+    pools (+scales), page table, seq_lens."""
     import torch
 
     from fms_fsdp_tpu_torch.ops.quant import kv_quantize
 
     dev = "cuda"
+    batch = len(lens)
     q_dtype = torch.float32 if kind == "fp32" else torch.bfloat16
-    num_pages = B * MAXP + 2
-    shape = (POOL_COPIES, num_pages, PAGE, NKV, H)
-    q = torch.randn((B, NQ, H), generator=gen, device=dev).to(q_dtype)
+    num_pages = batch * maxp + 2
+    shape = (copies, num_pages, PAGE, NKV, H)
+    q = torch.randn((batch, NQ, H), generator=gen, device=dev).to(q_dtype)
     k = torch.randn(shape, generator=gen, device=dev)
     v = torch.randn(shape, generator=gen, device=dev)
     if kind in ("int8", "e4m3"):
@@ -209,33 +269,70 @@ def _kernel_inputs(kind, gen):
         k, v, ks, vs = k.to(q_dtype), v.to(q_dtype), None, None
     # rows own disjoint pages (a permutation of the allocatable ones);
     # slots past a row's length point at the zero page
-    lens = [0, PAGE - 1, PAGE, 2 * PAGE - 1, MAXP * PAGE - 1]
-    lens += torch.randint(1, MAXP * PAGE, (B - len(lens),), generator=gen,
-                          device=dev).tolist()
     perm = (torch.randperm(num_pages - 2, generator=gen, device=dev) + 2).tolist()
-    table = torch.zeros((B, MAXP), dtype=torch.int32)
+    table = torch.zeros((batch, maxp), dtype=torch.int32)
     for b, pos in enumerate(lens):
         n = pos // PAGE + 1
-        table[b, :n] = torch.tensor(perm[b * MAXP: b * MAXP + n])
+        table[b, :n] = torch.tensor(perm[b * maxp: b * maxp + n])
     seq_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
     return q, k, v, ks, vs, table.to(dev), seq_lens
 
 
-def _bound(kind, lens):
+def _live_kv_bytes(kind, lens, maxp=MAXP):
+    """Bytes of the K/V rows (and row scales) a call's rows attend."""
+    elem = {"bf16": 2, "fp32": 4, "int8": 1, "e4m3": 1}[kind]
+    keys = sum(min(p + 1, maxp * PAGE) for p in lens)
+    return 2 * keys * (NKV * H * elem + (NKV * 4 if kind in ("int8", "e4m3") else 0))
+
+
+def _bound(kind, lens, maxp=MAXP):
     """Least time for one call: bytes (each live K/V row, q, out, table
     and lens once) over HBM rate vs operations over the peak of their
     type; the larger one bounds."""
-    elem = {"bf16": 2, "fp32": 4, "int8": 1, "e4m3": 1}[kind]
     q_elem = 4 if kind == "fp32" else 2
-    keys = sum(min(p + 1, MAXP * PAGE) for p in lens)
-    row = NKV * H * elem + (NKV * 4 if kind in ("int8", "e4m3") else 0)
-    nbytes = 2 * keys * row + 2 * B * NQ * H * q_elem + B * MAXP * 4 + B * 4
+    batch = len(lens)
+    keys = sum(min(p + 1, maxp * PAGE) for p in lens)
+    nbytes = (_live_kv_bytes(kind, lens, maxp) + 2 * batch * NQ * H * q_elem
+              + batch * maxp * 4 + batch * 4)
     ops = 4 * keys * NQ * H  # QK^T and PV, 2 flops per MAC
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / PEAK_OPS["fp32" if kind == "fp32" else "bf16"] * 1e3
     if bytes_ms >= ops_ms:
         return bytes_ms, "bytes", nbytes, ops
     return ops_ms, "operations", nbytes, ops
+
+
+# (label, pool type, pages per row, lengths): the four pool types at the
+# llama3_8b decode shape (seeded ragged lengths), and one bf16 row of
+# 16,383 keys
+KERNEL_CASES = (
+    ("bf16", "bf16", MAXP, None),
+    ("fp32", "fp32", MAXP, None),
+    ("int8", "int8", MAXP, None),
+    ("e4m3", "e4m3", MAXP, None),
+    ("bf16_b1_16383", "bf16", 256, [16382]),
+)
+
+
+def _row_rel_err(out, ref):
+    """Per row: ||out - ref|| / ||ref|| over all its query heads."""
+    ref = ref.float().flatten(1)
+    return (out.float().flatten(1) - ref).norm(dim=1) / ref.norm(dim=1)
+
+
+def _drop_split_control(pa, q, kp, vp, table, lens, ksp, vsp, split_keys):
+    """The plain version with each row's first split of keys left out,
+    and the rows that have keys past that split (the others have none
+    left). A kernel that skipped or misread one split of a row would land
+    about here."""
+    pages = split_keys // kp.shape[1]
+    rows = (lens >= split_keys).nonzero().flatten()
+    if pages >= table.shape[1] or rows.numel() == 0:
+        return None, rows
+    out = pa.paged_attention_plain(q[rows].contiguous(), kp, vp,
+                                   table[rows, pages:].contiguous(),
+                                   lens[rows] - split_keys, ksp, vsp)
+    return out, rows
 
 
 def phase_kernels(state):
@@ -245,21 +342,38 @@ def phase_kernels(state):
     from fms_fsdp_tpu_torch.ops import paged_attention as pa
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    props = torch.cuda.get_device_properties(0)
+    sm_count = props.multi_processor_count
     results = {}
-    for kind in ("bf16", "fp32", "int8", "e4m3"):
-        q, k, v, ks, vs, table, lens = _kernel_inputs(kind, gen)
+    for label, kind, maxp, case_lens in KERNEL_CASES:
+        lens_list = case_lens or _kernel_lens(gen, B, maxp)
+        batch = len(lens_list)
+        copies = max(2, math.ceil(L2_SPAN * props.L2_cache_size
+                                  / _live_kv_bytes(kind, lens_list, maxp)))
+        q, k, v, ks, vs, table, lens = _kernel_inputs(kind, gen, lens_list, copies, maxp)
         scaled = ks is not None
-        layer = lambda i: (k[i % POOL_COPIES], v[i % POOL_COPIES],  # noqa: E731
-                           ks[i % POOL_COPIES] if scaled else None,
-                           vs[i % POOL_COPIES] if scaled else None)
+        layer = lambda i: (k[i % copies], v[i % copies],  # noqa: E731
+                           ks[i % copies] if scaled else None,
+                           vs[i % copies] if scaled else None)
         kp, vp, ksp, vsp = layer(0)
+        split_keys, n_splits = pa.decode_splits(batch, NKV, maxp * PAGE, PAGE, sm_count)
         out = pa.paged_attention_kernel(q, kp, vp, table, lens,
                                         k_scales=ksp, v_scales=vsp)
         torch.cuda.synchronize()
         ref = pa.paged_attention_plain(q, kp, vp, table, lens, ksp, vsp)
         err = (out.float() - ref.float()).abs().max().item()
         finite = bool(torch.isfinite(out).all())
-        ok = finite and err <= TOL[kind]
+        # the relative error per row, and that of the control (the first
+        # split of each row left out) on the rows it changes: every one
+        # must exceed the tolerance the kernel meets
+        rel = _row_rel_err(out, ref)
+        control, rows = _drop_split_control(pa, q, kp, vp, table, lens, ksp, vsp, split_keys)
+        if control is None:
+            raise AssertionError(f"{label}: no row has keys past its first split")
+        rel_tol = pa.REL_TOL[q.dtype]
+        rel_control = _row_rel_err(control, ref[rows]).min().item()
+        ok = (finite and err <= TOL[kind] and rel.max().item() <= rel_tol < rel_control)
+        del out, ref, control
 
         def kernel(i):
             kp, vp, ksp, vsp = layer(i)
@@ -270,12 +384,15 @@ def phase_kernels(state):
             kp, vp, ksp, vsp = layer(i)
             pa.paged_attention_plain(q, kp, vp, table, lens, ksp, vsp)
 
-        ms = cuda_time_ms(kernel, reps=200, warmup=10)
+        # the kernel and SDPA through graph replay (device time); eager
+        # CUDA-event times beside them include the host's launch work
+        eager_ms = cuda_time_ms(kernel, reps=200, warmup=10)
+        ms = graph_time_ms(kernel, reps=64)
         plain_ms = cuda_time_ms(plain, reps=20, warmup=3)
         # yardstick only (the port never calls it): SDPA over the
         # gathered (and dequantised) cache with a ragged-length mask
         caches = []
-        for i in range(POOL_COPIES):
+        for i in range(copies):
             kp, vp, ksp, vsp = layer(i)
             if scaled:
                 kg = pa.kv_dequantize(pa.gather_pages(kp, table),
@@ -286,28 +403,35 @@ def phase_kernels(state):
                 kg, vg = pa.gather_pages(kp, table), pa.gather_pages(vp, table)
             caches.append((kg.transpose(1, 2).contiguous(),
                            vg.transpose(1, 2).contiguous()))
-        mask = (torch.arange(MAXP * PAGE, device="cuda")[None, :]
+        mask = (torch.arange(maxp * PAGE, device="cuda")[None, :]
                 <= lens[:, None].long())[:, None, None, :]
         q4 = q[:, :, None, :]
 
         def library(i):
-            kg, vg = caches[i % POOL_COPIES]
+            kg, vg = caches[i % copies]
             F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask,
                                            enable_gqa=True)
 
-        library_ms = cuda_time_ms(library, reps=50, warmup=5)
-        lens_list = lens.tolist()
-        bound_ms, bound_by, nbytes, ops = _bound(kind, lens_list)
-        results[kind] = dict(
-            max_abs_err=err, tol=TOL[kind], finite=finite, ok=ok, ms=ms,
-            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-            bound_by=bound_by, bytes=nbytes, ops=ops, seq_lens=lens_list,
+        library_eager_ms = cuda_time_ms(library, reps=50, warmup=5)
+        library_ms = graph_time_ms(library, reps=64)
+        bound_ms, bound_by, nbytes, ops = _bound(kind, lens_list, maxp)
+        live = sum(-(-min(p + 1, maxp * PAGE) // split_keys) for p in lens_list)
+        results[label] = dict(
+            pools=kind, batch=batch, max_abs_err=err, tol=TOL[kind], finite=finite,
+            rel_err_rows=rel.tolist(), rel_tol=rel_tol, rel_err_control_min=rel_control,
+            control_rows=rows.tolist(), ok=ok, pool_copies=copies, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, library_ms=library_ms,
+            library_eager_ms=library_eager_ms,
+            kernel_over_library=ms / library_ms, bound_ms=bound_ms,
+            bound_by=bound_by, bound_share=bound_ms / ms,
+            achieved_gbytes_per_s=nbytes / ms / 1e6, bytes=nbytes, ops=ops,
+            split_keys=split_keys, splits=n_splits, blocks=batch * NKV * n_splits,
+            live_blocks=live * NKV, seq_lens=lens_list,
         )
-        emit("kernels", pools=kind, **results[kind])
+        emit("kernels", case=label, **results[label])
         del q, k, v, ks, vs, caches
         torch.cuda.empty_cache()
     state["kernels"] = results
-    bad = [kind for kind, r in results.items() if not r["ok"]]
+    bad = [label for label, r in results.items() if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
 
@@ -473,7 +597,8 @@ def _profile_step(eng, paged_decode_step, steps=5):
         torch.cuda.synchronize()
     rows = _kernel_rows(prof, steps)
     device_ms = sum(r[0] for r in rows)
-    attn_ms = sum(r[0] for r in rows if "paged_decode_kernel" in r[1])
+    # the split kernel and the merge kernel of each call
+    attn_ms = sum(r[0] for r in rows if "paged_decode_" in r[1])
     del pools
     return {
         "active_rows": int(sum(r is not None for r in eng._slots)),
@@ -709,10 +834,22 @@ def _flash_times(fa, kind, dtype, shape, gen):
               "dkv": 2 * qb + 2 * kvb + 2 * stat + 2 * (kvb // elem) * 4}
     for name in ("fwd", "dq", "dkv"):
         bound_ms, bound_by, ops = _flash_bound(kind, shape, FLASH_PRODUCTS[name], nbytes[name])
+        lib_ms = lib["fwd_ms"] if name == "fwd" else lib["bwd_ms"]
         out[name] = {"ms": out[name], "plain_ms": plain[name], "bound_ms": bound_ms,
                      "bound_by": bound_by, "ops": ops, "bytes": nbytes[name],
                      "achieved_tflops": ops / out[name] / 1e9,
-                     "library_ms": lib["fwd_ms"] if name == "fwd" else lib["bwd_ms"]}
+                     "bound_share": bound_ms / out[name], "library_ms": lib_ms}
+    # the forward beside SDPA's forward (the same operations); the backward
+    # pair (dq + dk/dv) beside SDPA's one backward call
+    if lib["fwd_ms"]:
+        f = out["fwd"]
+        f.update(library_tflops=f["ops"] / lib["fwd_ms"] / 1e9,
+                 library_bound_share=f["bound_ms"] / lib["fwd_ms"],
+                 kernel_over_library=f["ms"] / lib["fwd_ms"])
+    if lib["bwd_ms"]:
+        pair = out["dq"]["ms"] + out["dkv"]["ms"]
+        out["bwd_pair"] = {"ms": pair, "library_ms": lib["bwd_ms"],
+                           "kernel_over_library": pair / lib["bwd_ms"]}
     out["sdpa"] = lib
     del sets
     return out
@@ -1322,7 +1459,8 @@ def kernels_line(state):
         t = r["times"][kernel]
         entries.append({
             "name": f"flash_{contract}", "route": "cuda",
-            "source": "fms_fsdp_tpu_torch/csrc/flash_attention.cu",
+            "source": ("fms_fsdp_tpu_torch/csrc/flash_fwd_sm90.cu" if kernel == "fwd"
+                       else "fms_fsdp_tpu_torch/csrc/flash_attention.cu"),
             "replaces": REPLACES[contract],
             "launches": state[phase]["launches"][contract],
             "max_abs_err": max(r["max_abs_err"][o] for o in outs),

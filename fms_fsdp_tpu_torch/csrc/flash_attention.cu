@@ -1,9 +1,12 @@
 // Causal / full grouped-query flash attention for Hopper (sm_90a): the
-// forward, the dq backward and the dk/dv backward.
+// dq backward, the dk/dv backward, and the fp32 forward. The 16-bit forward
+// is flash_fwd_sm90.cu (wgmma + TMA); ops/flash_attention.py dispatches by
+// dtype.
 //
 // Replaces the five Pallas kernels of fms_fsdp_tpu/ops/flash_attention.py:
-//   - flash_fwd: _fwd_kernel (:62, KV resident in VMEM) and
-//     _fwd_kernel_kvgrid (:179, KV streamed over a grid axis);
+//   - flash_fwd (fp32 here, 16-bit in flash_fwd_sm90.cu): _fwd_kernel (:62,
+//     KV resident in VMEM) and _fwd_kernel_kvgrid (:179, KV streamed over a
+//     grid axis);
 //   - flash_dq:  _dq_kernel (:318) and _dq_kernel_kvgrid (:368);
 //   - flash_dkv: _dkv_kernel (:484).
 // The resident/kvgrid split exists on the TPU only because of VMEM. No
@@ -31,7 +34,7 @@
 // 4 * 64 * 128 flops per key row of 2 * 128 * 2 bytes, far above the ~295
 // flops per byte where the card stops being memory-bound. What the design
 // does about it:
-//   - bf16/fp16 products run on the tensor cores through mma.sync
+//   - bf16/fp16 products (dq, dk/dv) run on the tensor cores through mma.sync
 //     m16n8k16 with fp32 accumulation. Each of the four warps of a block
 //     owns 16 rows; scores, probabilities and the output accumulator stay
 //     in registers in the mma accumulator layout, so the softmax reads no
@@ -50,8 +53,8 @@
 // fp32 inputs take a scalar-FMA path with the same tiling (TF32 would
 // change the numbers), with P and dS staged through a per-warp scratch.
 // Fragments are read from shared memory with ldmatrix (.trans for the
-// row-major B operands of P.V, dS.K, P^T.dO and dS^T.Q). Not done yet:
-// wgmma, TMA and warp specialisation.
+// row-major B operands of P.V, dS.K, P^T.dO and dS^T.Q). Not done yet in
+// the backward: wgmma, TMA and warp specialisation.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -60,6 +63,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "common.cuh"
 
 namespace {
 
@@ -89,27 +94,6 @@ struct Traits<float> {
   static constexpr int kStages = 1;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half_rn(x); }
-
-__device__ __forceinline__ uint16_t bits(__nv_bfloat16 x) { return __bfloat16_as_ushort(x); }
-__device__ __forceinline__ uint16_t bits(__half x) { return __half_as_ushort(x); }
-
-// two fp32 values rounded to T and packed, the first in the low half
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  return static_cast<uint32_t>(bits(from_f<T>(lo))) |
-         (static_cast<uint32_t>(bits(from_f<T>(hi))) << 16);
-}
-
 // store two consecutive values of a row
 template <typename T>
 __device__ __forceinline__ void store2(T* p, float a, float b) {
@@ -120,49 +104,9 @@ __device__ __forceinline__ void store2<float>(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-// D = A * B + D, m16n8k16, fp32 accumulators
-template <typename T>
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  if constexpr (std::is_same<T, __half>::value) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-}
-
-// four 8x8 b16 matrices from shared memory; lanes 8i..8i+7 give the row
-// addresses of matrix i. Lane (g, t) receives row g, columns 2t and 2t + 1
-// of each matrix, or with .trans rows 2t and 2t + 1 of column g.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Copy kRows rows of H elements into shared memory (row stride ld):
@@ -299,44 +243,32 @@ __device__ __forceinline__ void gemm_pb2(float (&acc)[NT][4], const float (&p)[K
   }
 }
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 template <typename T>
 constexpr int scratch_floats(int k) {
   return Traits<T>::kMma ? 0 : 4 * 16 * (k + 4);
 }
 
 // ---------------------------------------------------------------------------
-// forward
+// forward, fp32 (the 16-bit forward is flash_fwd_sm90.cu)
 // ---------------------------------------------------------------------------
 
-template <typename T>
-constexpr int fwd_smem_bytes() {
-  constexpr int kLd = Traits<T>::kLd;
-  return (kBQ + 2 * Traits<T>::kStages * kBK) * kLd * static_cast<int>(sizeof(T)) +
-         scratch_floats<T>(kBK) * 4;
-}
+// Q, one K/V tile and the per-warp P scratch
+constexpr int kFwdSmemBytes =
+    (kBQ + 2 * kBK) * Traits<float>::kLd * 4 + scratch_floats<float>(kBK) * 4;
 
-// grid (Sq / 64, Nq, B): one block per (q tile, q head, batch)
-template <typename T>
+// grid (Sq / 64, Nq, B): one block per (q tile, q head, batch). The one
+// K/V tile is refilled once its products are done.
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, float* __restrict__ lse, int sq, int sk, int nq, int nkv, int causal,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ o, float* __restrict__ lse, int sq, int sk, int nq, int nkv, int causal,
     float q_scale) {
+  using T = float;
   constexpr int kLd = Traits<T>::kLd;
-  constexpr int kStages = Traits<T>::kStages;
   extern __shared__ __align__(16) unsigned char smem[];
   T* q_s = reinterpret_cast<T*>(smem);
   T* k_s = q_s + kBQ * kLd;
-  T* v_s = k_s + kStages * kBK * kLd;
-  float* scratch = reinterpret_cast<float*>(v_s + kStages * kBK * kLd);
+  T* v_s = k_s + kBK * kLd;
+  float* scratch = reinterpret_cast<float*>(v_s + kBK * kLd);
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
   const int h = blockIdx.y;
@@ -372,30 +304,18 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   float* wscratch = scratch + warp * 16 * (kBK + 4);
 
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int buf = kStages == 2 ? (kt & 1) : 0;
-    if (kStages == 2 && kt + 1 < n_kt) {
-      const int nb = buf ^ 1;
-      const int64_t off = kv_base + static_cast<int64_t>(kt + 1) * kBK * kv_stride;
-      load_rows<T, kBK>(k_s + nb * kBK * kLd, k, off, kv_stride, tid);
-      load_rows<T, kBK>(v_s + nb * kBK * kLd, v, off, kv_stride, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    cp_async_wait<0>();
     __syncthreads();
     if (kt == 0) {
       scale_rows<T, kBQ>(q_s, q_s, q_scale, tid);
       __syncthreads();
     }
-    const T* kb = k_s + buf * kBK * kLd;
-    const T* vb = v_s + buf * kBK * kLd;
 
     // scores in the base-2 domain: s = q2 . k
     float s[kBK / 8][4];
 #pragma unroll
     for (int j = 0; j < kBK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    gemm_ab1<T, kBK / 8, kHead>(s, qw, kLd, kb, kLd, lane);
+    gemm_ab1<T, kBK / 8, kHead>(s, qw, kLd, k_s, kLd, lane);
 
     if (causal && kt * kBK + kBK - 1 > q0) {
 #pragma unroll
@@ -440,9 +360,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       acc[j][3] *= al1;
     }
     // acc += round_T(p) . v
-    gemm_pb2<T, kHead / 8, kBK>(acc, s, vb, kLd, wscratch, lane);
-    __syncthreads();  // the buffer is refilled next
-    if (kStages == 1 && kt + 1 < n_kt) {
+    gemm_pb2<T, kHead / 8, kBK>(acc, s, v_s, kLd, wscratch, lane);
+    __syncthreads();  // the tile is refilled next
+    if (kt + 1 < n_kt) {
       const int64_t off = kv_base + static_cast<int64_t>(kt + 1) * kBK * kv_stride;
       load_rows<T, kBK>(k_s, k, off, kv_stride, tid);
       load_rows<T, kBK>(v_s, v, off, kv_stride, tid);
@@ -787,15 +707,13 @@ bool bad_shape(int batch, int sq, int sk, int nq, int nkv, int head_dim) {
          sk <= 0 || sq % kBQ != 0 || sk % kBK != 0;
 }
 
-template <typename T>
-cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
-                int sq, int sk, int nq, int nkv, int causal, float q_scale, cudaStream_t s) {
-  constexpr int bytes = fwd_smem_bytes<T>();
-  cudaError_t err = allow_smem(flash_fwd_kernel<T>, bytes);
+cudaError_t fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
+                    int sq, int sk, int nq, int nkv, int causal, float q_scale, cudaStream_t s) {
+  cudaError_t err = allow_smem(flash_fwd_kernel, kFwdSmemBytes);
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<T><<<dim3(sq / kBQ, nq, batch), kThreads, bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), sq, sk, nq, nkv, causal, q_scale);
+  flash_fwd_kernel<<<dim3(sq / kBQ, nq, batch), kThreads, kFwdSmemBytes, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<float*>(lse), sq, sk, nq, nkv, causal, q_scale);
   return cudaGetLastError();
 }
 
@@ -833,6 +751,7 @@ cudaError_t dkv(const void* q, const void* q2, const void* k, const void* v, con
 
 // Plain C entry points, bound with ctypes. Pointers and the stream travel
 // as void*; each returns the cudaError_t of its launch (0 on success).
+// flash_fwd takes fp32 only: 16-bit inputs go to flash_fwd_sm90.
 // q_scale is scale * log2(e), already rounded to the inputs' dtype; scale
 // is the softmax scale in fp32; flash_dkv takes q already scaled (q2).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
@@ -840,16 +759,8 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, v
                          int dtype, float q_scale, void* stream) {
   if (bad_shape(batch, sq, sk, nq, nkv, head_dim)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32:
-      return fwd<float>(q, k, v, o, lse, batch, sq, sk, nq, nkv, causal, q_scale, s);
-    case kBF16:
-      return fwd<__nv_bfloat16>(q, k, v, o, lse, batch, sq, sk, nq, nkv, causal, q_scale, s);
-    case kF16:
-      return fwd<__half>(q, k, v, o, lse, batch, sq, sk, nq, nkv, causal, q_scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (dtype != kF32) return cudaErrorInvalidValue;
+  return fwd_f32(q, k, v, o, lse, batch, sq, sk, nq, nkv, causal, q_scale, s);
 }
 
 extern "C" int flash_dq(const void* q, const void* k, const void* v, const void* dout,

@@ -3,8 +3,9 @@
 Each kernel lives in ``fms_fsdp_tpu_torch/csrc/*.cu`` behind a plain C
 interface. At first use it is compiled for Hopper into a shared library
 under ``build/fms_fsdp_tpu_torch/<name>-<hash>/`` at the repo root, keyed
-by a hash of the source and the flags, so an edited source rebuilds and
-an unchanged one loads what is there. The compiler's ``-Xptxas -v``
+by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds and an unchanged one loads
+what is there. The compiler's ``-Xptxas -v``
 report (registers, shared memory, spills) is kept beside the library.
 
 Nothing here runs at import: the CPU tests import every module, and a
@@ -57,9 +58,13 @@ def find_nvcc() -> str:
 
 def _paths(name: str) -> Tuple[str, str]:
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return src, os.path.join(BUILD_ROOT, f"{name}-{digest[:16]}")
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, os.path.join(BUILD_ROOT, f"{name}-{h.hexdigest()[:16]}")
 
 
 def compile_source(name: str) -> Tuple[str, str]:

@@ -18,7 +18,8 @@ Each of :func:`flash_fwd`, :func:`flash_dq` and :func:`flash_dkv` runs its
 plain PyTorch version for CPU tensors and the hand-written CUDA kernel of
 ``csrc/flash_attention.cu`` for CUDA tensors, and raises on any other
 device. The kernels replace the five Pallas kernels: ``_fwd_kernel`` and
-``_fwd_kernel_kvgrid`` (flash_fwd), ``_dq_kernel`` and
+``_fwd_kernel_kvgrid`` (flash_fwd: wgmma + TMA in ``csrc/flash_fwd_sm90.cu``
+for 16-bit inputs, scalar FMA for fp32), ``_dq_kernel`` and
 ``_dq_kernel_kvgrid`` (flash_dq), ``_dkv_kernel`` (flash_dkv). On the TPU
 the resident/kvgrid split is a VMEM limit; the CUDA forward and dq kernels
 always stream K/V, so one kernel fulfils both contracts. ``LAUNCHES``
@@ -259,6 +260,18 @@ def _library():
     return lib
 
 
+def _library_sm90():
+    """``csrc/flash_fwd_sm90.cu``: the 16-bit forward (wgmma + TMA)."""
+    from fms_fsdp_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load("flash_fwd_sm90").lib
+    if lib.flash_fwd_sm90.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_fwd_sm90.argtypes = [p] * 5 + [i] * 8 + [f, p]
+        lib.flash_fwd_sm90.restype = ctypes.c_int
+    return lib
+
+
 def _check_cuda(q, k, v, **extra):
     tensors = {"q": q, "k": k, "v": v, **extra}
     for name, t in tensors.items():
@@ -314,7 +327,9 @@ def _raise_on(err, name):
 
 def flash_fwd(q, k, v, *, causal=True, scale=None):
     """Forward: (o (B, Sq, Nq, H), lse (B, Nq, Sq) fp32). CPU tensors run
-    :func:`flash_fwd_plain`; CUDA tensors launch ``flash_fwd``."""
+    :func:`flash_fwd_plain`; CUDA tensors launch ``flash_fwd_sm90``
+    (``csrc/flash_fwd_sm90.cu``) for bf16/fp16 and ``flash_fwd``
+    (``csrc/flash_attention.cu``) for fp32."""
     if _device_of(q) == "cpu":
         return flash_fwd_plain(q, k, v, causal=causal, scale=scale)
     _check_cuda(q, k, v)
@@ -324,12 +339,16 @@ def flash_fwd(q, k, v, *, causal=True, scale=None):
     o = torch.empty_like(q)
     lse = torch.empty((b, nq, sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _library().flash_fwd(
+    if q.dtype == torch.float32:
+        fn, name = _library().flash_fwd, "flash_fwd"
+    else:
+        fn, name = _library_sm90().flash_fwd_sm90, "flash_fwd_sm90"
+    err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b, sq, sk, nq, nkv, h, int(causal), _CODES[q.dtype],
         q_scale_for(scale, q.dtype), stream,
     )
-    _raise_on(err, "flash_fwd")
+    _raise_on(err, name)
     LAUNCHES["fwd_kvgrid" if _use_kvgrid(sk) else "fwd"] += 1
     return o, lse
 

@@ -22,6 +22,7 @@ tensors and the reference for CPU tensors.
 """
 
 import ctypes
+import math
 
 import torch
 
@@ -47,11 +48,56 @@ _COMPUTE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 _HEAD_DIM = 128  # kHead in the kernel: every Llama variant of the repo
 _MAX_GROUP = 8  # kMaxGroup: query heads per kv head
+STAGE_KEYS = 64  # kStageKeys: keys per cp.async stage of the kernel
+SPLIT_KEYS = 256  # keys of one split, before the planner shrinks it
+# bound on the kernel's relative error per row, ||kernel - plain|| / ||plain||
+# over all the row's query heads, against the plain version, by q's dtype
+# (quantized pools compute in q's 16-bit dtype). Set between readings of
+# chip_smoke.py's kernels phase on an H100 (B=8 rows up to 2,048 keys in
+# four pool types, one row of 16,383 keys): the kernel's error (16-bit
+# compute 4.4e-3 to 6.1e-3, fp32 5.7e-7 at most) and that of a control,
+# the plain version with the row's first split of keys left out (0.13 at
+# least, on the row of 64 splits; 0.35 on the B=8 rows), which must fail.
+REL_TOL = {torch.bfloat16: 1e-2, torch.float16: 1e-2, torch.float32: 1e-5}
 
 
 def reset_launches() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+
+
+def decode_splits(batch, nkv, capacity, page_size, sm_count):
+    """(split_keys, n_splits) of the kernel's grid (splits, Nkv, B).
+
+    A split is a run of keys that is a whole number of pages and of
+    ``STAGE_KEYS``-key stages, ``SPLIT_KEYS`` to start with; it shrinks by
+    that unit while the grid has fewer than two blocks per SM and a smaller
+    split is possible. ``n_splits`` covers ``capacity`` (max_pages *
+    page_size). Shapes alone decide: the rows' lengths are on the card and
+    reading them would cost a host sync in every decode step.
+    """
+    if min(batch, nkv, capacity, page_size, sm_count) <= 0:
+        raise ValueError(
+            f"decode_splits needs positive sizes; got batch={batch}, nkv={nkv}, "
+            f"capacity={capacity}, page_size={page_size}, sm_count={sm_count}"
+        )
+    unit = math.lcm(STAGE_KEYS, page_size)
+    split = max(unit, -(-SPLIT_KEYS // unit) * unit)
+    # no split longer than the cache
+    split = min(split, -(-capacity // unit) * unit)
+    while split > unit and batch * nkv * -(-capacity // split) < 2 * sm_count:
+        split -= unit
+    return split, -(-capacity // split)
+
+
+_SM_COUNT = {}
+
+
+def _sm_count(device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SM_COUNT:
+        _SM_COUNT[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SM_COUNT[index]
 
 
 # ---------------------------------------------------------------------------
@@ -130,7 +176,7 @@ def _library():
     if fn.argtypes is None:
         # pointers and the stream as c_void_p: a default int would cut
         # them to 32 bits
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [
             ctypes.c_float, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
@@ -207,7 +253,15 @@ def _check_cuda_args(q, k_pages, v_pages, page_table, seq_lens, k_scales,
 def _launch(q, k_pages, v_pages, page_table, seq_lens, k_scales, v_scales):
     b, nq, hd = q.shape
     _, ps, nkv, _ = k_pages.shape
+    maxp = page_table.shape[1]
+    group = nq // nkv
     out = torch.empty((b, nq * hd), dtype=q.dtype, device=q.device)
+    split_keys, n_splits = decode_splits(b, nkv, maxp * ps, ps, _sm_count(q.device))
+    # fp32 partials of every (row, kv head, split, query head): o, then m, l
+    part_o = torch.empty((b, nkv, n_splits, group, hd), dtype=torch.float32,
+                         device=q.device)
+    part_ml = torch.empty((2, b, nkv, n_splits, group), dtype=torch.float32,
+                          device=q.device)
     # scale * log2(e) folded into q; the constant is first rounded to q's
     # dtype, as JAX rounds a weakly typed python scalar
     q_scale = torch.tensor(hd**-0.5 * LOG2E, dtype=q.dtype).item()
@@ -218,7 +272,8 @@ def _launch(q, k_pages, v_pages, page_table, seq_lens, k_scales, v_scales):
         k_scales.data_ptr() if k_scales is not None else None,
         v_scales.data_ptr() if v_scales is not None else None,
         page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        b, nq, nkv, hd, ps, page_table.shape[1],
+        part_o.data_ptr(), part_ml.data_ptr(),
+        b, nq, nkv, hd, ps, maxp, split_keys, n_splits,
         _CODES[q.dtype], _CODES[k_pages.dtype], q_scale, stream,
     )
     if err != 0:
@@ -233,15 +288,16 @@ def paged_attention_kernel(
     """Ragged paged-attention decode; contract of
     :func:`paged_attention_reference` (same shapes, same masking rule).
 
-    CUDA tensors launch ``csrc/paged_decode.cu``: one block per (row, kv
-    head) walks the row's live keys in tiles staged through shared
-    memory, dequantising int8/e4m3 pools (with ``k_scales``/``v_scales``,
-    per-row fp32 absmax scales (P, ps, Nkv, 1)) as it stages them. CPU
-    tensors run :func:`paged_attention_plain`.
+    CUDA tensors launch ``csrc/paged_decode.cu``: one block per (key
+    split, kv head, row) of the grid :func:`decode_splits` plans, each
+    writing fp32 partials that a second kernel of the same call merges;
+    int8/e4m3 pools (with ``k_scales``/``v_scales``, per-row fp32 absmax
+    scales (P, ps, Nkv, 1)) are dequantised in registers. CPU tensors run
+    :func:`paged_attention_plain`.
 
     ``block_kv`` keeps the JAX contract — a positive multiple of the page
     size, default the page size — and picks which Pallas kernel's launch
-    count a call adds to; the CUDA kernel's tile is 32 keys either way.
+    count a call adds to; the CUDA kernel stages 64 keys either way.
     ``compute_dtype`` must be q's dtype when given.
     """
     page_size = k_pages.shape[1]

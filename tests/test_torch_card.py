@@ -64,36 +64,74 @@ def _case(device, kind):
     return q, k, v, table, lens, ks, vs
 
 
-@pytest.mark.card
-@pytest.mark.parametrize("kind,atol", [("bf16", 2e-2), ("fp32", 1e-5),
-                                       ("int8", 2e-2), ("fp8", 2e-2)])
-def test_card_kernel_matches_plain(cuda_device, kind, atol):
-    """Tolerances: fp32 as tests/test_serving.py:215; bf16 and the
-    quantized pools (bf16 compute) at 2e-2, a few bf16 ulps at |out| ~ 1."""
-    q, k, v, table, lens, ks, vs = _case(cuda_device, kind)
-    t_paged.reset_launches()
-    out = t_paged.paged_attention_kernel(q, k, v, table, lens, k_scales=ks, v_scales=vs)
-    torch.cuda.synchronize()
-    assert t_paged.LAUNCHES["v2" if ks is not None else "v1"] == 1
+def _split_case(device, kind, nq, nkv, ps, maxp, lens, seed=31):
+    """A ragged decode batch whose rows own disjoint pages; table slots
+    past a row's length point at the zero page 0."""
+    B = len(lens)
+    P = B * maxp + 2
+    rng = np.random.default_rng(seed)
+    q_dtype = torch.float32 if kind == "fp32" else torch.bfloat16
+    q = torch.from_numpy(rng.standard_normal((B, nq, 128)).astype(np.float32)).to(device, q_dtype)
+    k = torch.from_numpy(rng.standard_normal((P, ps, nkv, 128)).astype(np.float32)).to(device)
+    v = torch.from_numpy(rng.standard_normal((P, ps, nkv, 128)).astype(np.float32)).to(device)
+    k[0].zero_()
+    v[0].zero_()
+    ks = vs = None
+    if kind in ("int8", "fp8"):
+        k, ks = t_quant.kv_quantize(k, kind)
+        v, vs = t_quant.kv_quantize(v, kind)
+    else:
+        k, v = k.to(q_dtype), v.to(q_dtype)
+    perm = rng.permutation(P - 2) + 2
+    table = np.zeros((B, maxp), np.int32)
+    for b, pos in enumerate(lens):
+        n = max(pos, 0) // ps + 1
+        table[b, :n] = perm[b * maxp: b * maxp + n]
+    return (q, k, v, torch.from_numpy(table).to(device),
+            torch.tensor(lens, dtype=torch.int32, device=device), ks, vs)
+
+
+# (nq, nkv, page, pages per row, positions): the split planner's corners at
+# 256-key splits: one key, two, a page boundary, exactly one split, one
+# past it, many splits, every row inside one split, group 1 / 4 / 8, page
+# 16 and 64, and one row of 16,383 keys (64 splits)
+_SPLIT_CASES = {
+    "corners-g4-p64": (32, 8, 64, 32, [0, 1, 63, 64, 255, 256, 2047, 1000]),
+    "short-g4-p16": (32, 8, 16, 128, [0, 5, 15, 16, 100, 200, 254, 31]),
+    "g1-p16": (8, 8, 16, 32, [0, 17, 255, 511, 300]),
+    "g8-p64": (32, 4, 64, 16, [1023, 0, 255, 256, 640]),
+    "long-b1": (32, 8, 64, 256, [16382]),
+}
+
+
+def _row_rel_err(out, ref):
+    """Per row: ||out - ref|| / ||ref|| over all its query heads."""
+    ref = ref.float().flatten(1)
+    return (out.float().flatten(1) - ref).norm(dim=1) / ref.norm(dim=1)
+
+
+def _check_paged(q, k, v, table, lens, ks, vs, out, atol):
+    """``out`` against the plain version: max abs within ``atol``; per row
+    within ``REL_TOL``, which the control (the plain version with each
+    row's first split of keys left out) exceeds on every row with keys
+    past that split."""
     ref = t_paged.paged_attention_plain(q, k, v, table, lens, ks, vs)
     assert torch.isfinite(out).all()
     assert (out.float() - ref.float()).abs().max().item() <= atol
-
-
-@pytest.mark.card
-def test_card_kernel_rejects_bad_input(cuda_device):
-    q, k, v, table, lens, _, _ = _case(cuda_device, "bf16")
-    with pytest.raises(ValueError, match="int32"):
-        t_paged.paged_attention_kernel(q, k, v, table.long(), lens)
-    with pytest.raises(ValueError, match="contiguous"):
-        t_paged.paged_attention_kernel(
-            q.transpose(0, 1).contiguous().transpose(0, 1), k, v, table, lens
-        )
-    with pytest.raises(ValueError, match="dtype"):
-        t_paged.paged_attention_kernel(q.float(), k, v, table, lens)
-    with pytest.raises(ValueError, match="head_dim"):
-        t_paged.paged_attention_kernel(q[..., :64].contiguous(), k[..., :64].contiguous(),
-                                       v[..., :64].contiguous(), table, lens)
+    tol = t_paged.REL_TOL[q.dtype]
+    rel = _row_rel_err(out, ref)
+    assert rel.max().item() <= tol, rel.tolist()
+    split_keys, _ = t_paged.decode_splits(
+        q.shape[0], k.shape[2], table.shape[1] * k.shape[1], k.shape[1],
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    pages = split_keys // k.shape[1]
+    rows = (lens >= split_keys).nonzero().flatten()
+    if rows.numel():
+        control = t_paged.paged_attention_plain(
+            q[rows].contiguous(), k, v, table[rows, pages:].contiguous(),
+            lens[rows] - split_keys, ks, vs)
+        rel_control = _row_rel_err(control, ref[rows])
+        assert rel_control.min().item() > tol, rel_control.tolist()
 
 
 # head_dim 128 (the kernel's), two layers, tiny vocab
@@ -101,28 +139,92 @@ _SMALL = LlamaConfig(src_vocab_size=128, emb_dim=256, nheads=2, kvheads=1,
                      nlayers=2, max_expected_seq_len=256)
 
 
-@pytest.mark.card
-@pytest.mark.parametrize("kv_quant", ["none", "int8"])
-def test_card_engine_kernel_tokens_match_reference(cuda_device, kv_quant):
-    """fp32 greedy decode through the kernel picks the same tokens as
-    through the reference attention, and launches once per layer per
-    decode step."""
-    params = init_llama_params(torch.Generator(device=cuda_device).manual_seed(0), _SMALL)
-    plans = [([5, 9, 2, 7], 6), ([11, 3, 8, 1, 4, 4, 9], 9), ([7] * 20, 5)]
-    out = {}
-    for impl in ("reference", "kernel"):
-        eng = ServingEngine(params, _SMALL, ServeConfig(
-            max_batch=2, max_seq_len=64, page_size=16, compute_dtype="float32",
-            attn_impl=impl, kv_quant=kv_quant, max_prefill_per_step=2,
-        ))
-        reqs = [eng.submit(p, n) for p, n in plans]
+class TestPagedDecodeCard:
+    """The paged-decode kernel (csrc/paged_decode.cu): ``-k paged``."""
+
+    @pytest.mark.card
+    @pytest.mark.parametrize("kind,atol", [("bf16", 2e-2), ("fp32", 1e-5),
+                                           ("int8", 2e-2), ("fp8", 2e-2)])
+    def test_card_kernel_matches_plain(self, cuda_device, kind, atol):
+        """Tolerances: fp32 as tests/test_serving.py:215; bf16 and the
+        quantized pools (bf16 compute) at 2e-2, a few bf16 ulps at |out| ~ 1;
+        and per row ``REL_TOL``, which the first-split-dropped control fails."""
+        q, k, v, table, lens, ks, vs = _case(cuda_device, kind)
         t_paged.reset_launches()
-        eng.run()
-        out[impl] = [r.generated for r in reqs]
-        if impl == "kernel":
-            key = "v2" if kv_quant != "none" else "v1"
-            assert t_paged.LAUNCHES[key] == eng.decode_steps * _SMALL.nlayers
-    assert out["kernel"] == out["reference"]
+        out = t_paged.paged_attention_kernel(q, k, v, table, lens, k_scales=ks, v_scales=vs)
+        torch.cuda.synchronize()
+        assert t_paged.LAUNCHES["v2" if ks is not None else "v1"] == 1
+        _check_paged(q, k, v, table, lens, ks, vs, out, atol)
+
+    @pytest.mark.card
+    @pytest.mark.parametrize("kind,atol", [("bf16", 2e-2), ("fp32", 1e-5),
+                                           ("int8", 2e-2), ("fp8", 2e-2)])
+    @pytest.mark.parametrize("case", sorted(_SPLIT_CASES))
+    def test_card_kernel_split_cases_match_plain(self, cuda_device, case, kind, atol):
+        """The split-KV kernel against its plain version at the planner's
+        corner cases, with the tolerances and the control of
+        test_card_kernel_matches_plain."""
+        nq, nkv, ps, maxp, lens = _SPLIT_CASES[case]
+        q, k, v, table, lens_t, ks, vs = _split_case(cuda_device, kind, nq, nkv, ps, maxp, lens)
+        split_keys, n_splits = t_paged.decode_splits(
+            len(lens), nkv, maxp * ps, ps, torch.cuda.get_device_properties(0).multi_processor_count)
+        assert split_keys % ps == 0 and split_keys * n_splits >= maxp * ps
+        t_paged.reset_launches()
+        out = t_paged.paged_attention_kernel(q, k, v, table, lens_t, k_scales=ks, v_scales=vs)
+        torch.cuda.synchronize()
+        assert t_paged.LAUNCHES["v2" if ks is not None else "v1"] == 1
+        _check_paged(q, k, v, table, lens_t, ks, vs, out, atol)
+
+    @pytest.mark.card
+    def test_card_kernel_row_without_keys_writes_zeros(self, cuda_device):
+        """A row whose position is negative attends no key (l == 0): the
+        kernel writes zeros there, not NaN, and the other rows are unchanged."""
+        q, k, v, table, lens, _, _ = _split_case(cuda_device, "bf16", 32, 8, 64, 8, [100, 300])
+        want = t_paged.paged_attention_kernel(q, k, v, table, lens)
+        lens_neg = lens.clone()
+        lens_neg[0] = -1
+        out = t_paged.paged_attention_kernel(q, k, v, table, lens_neg)
+        torch.cuda.synchronize()
+        assert torch.count_nonzero(out[0]) == 0
+        assert torch.equal(out[1], want[1])
+
+    @pytest.mark.card
+    def test_card_kernel_rejects_bad_input(self, cuda_device):
+        q, k, v, table, lens, _, _ = _case(cuda_device, "bf16")
+        with pytest.raises(ValueError, match="int32"):
+            t_paged.paged_attention_kernel(q, k, v, table.long(), lens)
+        with pytest.raises(ValueError, match="contiguous"):
+            t_paged.paged_attention_kernel(
+                q.transpose(0, 1).contiguous().transpose(0, 1), k, v, table, lens
+            )
+        with pytest.raises(ValueError, match="dtype"):
+            t_paged.paged_attention_kernel(q.float(), k, v, table, lens)
+        with pytest.raises(ValueError, match="head_dim"):
+            t_paged.paged_attention_kernel(q[..., :64].contiguous(), k[..., :64].contiguous(),
+                                           v[..., :64].contiguous(), table, lens)
+
+    @pytest.mark.card
+    @pytest.mark.parametrize("kv_quant", ["none", "int8"])
+    def test_card_engine_kernel_tokens_match_reference(self, cuda_device, kv_quant):
+        """fp32 greedy decode through the kernel picks the same tokens as
+        through the reference attention, and launches once per layer per
+        decode step."""
+        params = init_llama_params(torch.Generator(device=cuda_device).manual_seed(0), _SMALL)
+        plans = [([5, 9, 2, 7], 6), ([11, 3, 8, 1, 4, 4, 9], 9), ([7] * 20, 5)]
+        out = {}
+        for impl in ("reference", "kernel"):
+            eng = ServingEngine(params, _SMALL, ServeConfig(
+                max_batch=2, max_seq_len=64, page_size=16, compute_dtype="float32",
+                attn_impl=impl, kv_quant=kv_quant, max_prefill_per_step=2,
+            ))
+            reqs = [eng.submit(p, n) for p, n in plans]
+            t_paged.reset_launches()
+            eng.run()
+            out[impl] = [r.generated for r in reqs]
+            if impl == "kernel":
+                key = "v2" if kv_quant != "none" else "v1"
+                assert t_paged.LAUNCHES[key] == eng.decode_steps * _SMALL.nlayers
+        assert out["kernel"] == out["reference"]
 
 
 # ---------------------------------------------------------------------------
@@ -137,15 +239,15 @@ def _flash_case(device, dtype, b, sq, sk, nq, nkv, seed=21):
             for s in shapes]
 
 
-def _flash_all(fa, q, k, v, do, kernel):
+def _flash_all(fa, q, k, v, do, kernel, causal=True):
     """o, lse, dq, dk, dv of one call through the kernels or the plain
     versions, with delta from the output of the same path."""
     fwd, dq_fn, dkv_fn = ((fa.flash_fwd, fa.flash_dq, fa.flash_dkv) if kernel else
                           (fa.flash_fwd_plain, fa.flash_dq_plain, fa.flash_dkv_plain))
-    o, lse = fwd(q, k, v, causal=True)
+    o, lse = fwd(q, k, v, causal=causal)
     delta = torch.einsum("bsnh,bsnh->bns", o.float(), do.float()).contiguous()
-    dq = dq_fn(q, k, v, do, lse, delta, causal=True)
-    dk, dv = dkv_fn(q, k, v, do, lse, delta, causal=True)
+    dq = dq_fn(q, k, v, do, lse, delta, causal=causal)
+    dk, dv = dkv_fn(q, k, v, do, lse, delta, causal=causal)
     return [o, lse, dq, dk, dv]
 
 
@@ -201,6 +303,96 @@ def test_card_flash_kernels_match_plain(cuda_device, dtype, b, sq, sk, nq, nkv):
     if sk > sq:
         assert torch.count_nonzero(got[3][:, sq:]) == 0
         assert torch.count_nonzero(got[4][:, sq:]) == 0
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,sq,sk,nq,nkv,causal", [
+    (1, 192, 192, 4, 1, True),      # a 64-row tail of the 128-row forward block
+    (1, 192, 192, 4, 4, False),     # the tail, group 1, non-causal
+    (1, 2048, 4096, 4, 1, True),    # cross length: keys past the last query
+    (2, 256, 512, 8, 2, False),     # non-causal cross length, group 4
+    (1, 8448, 8448, 4, 1, True),    # the kvgrid length, group 4
+])
+def test_card_flash_more_shapes_match_plain(cuda_device, dtype, b, sq, sk, nq, nkv, causal):
+    """The shapes the 128-row wgmma forward block must also get right,
+    with the checks of test_card_flash_kernels_match_plain: fp32 within
+    1e-4; bf16 within twice the plain bf16 version's distance from fp32
+    and within ``BF16_REL_TOL`` of the plain bf16 version, which the
+    control (scores rounded to bf16) exceeds."""
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_case(cuda_device, dtype, b, sq, sk, nq, nkv, seed=23)
+    fa.reset_launches()
+    got = _flash_all(fa, q, k, v, do, kernel=True, causal=causal)
+    torch.cuda.synchronize()
+    kv = "_kvgrid" if sk > fa.MAX_KERNEL_SEQ else ""
+    assert fa.LAUNCHES["fwd" + kv] == 1 and fa.LAUNCHES["dq" + kv] == 1
+    ref = _flash_all(fa, q, k, v, do, kernel=False, causal=causal)
+    names = ("o", "lse", "dq", "dk", "dv")
+    if dtype == torch.float32:
+        tols = [1e-4] * 5
+    else:
+        wide = _flash_all(fa, q.float(), k.float(), v.float(), do.float(), kernel=False,
+                          causal=causal)
+        tols = [2 * (r.float() - w).abs().max().item() + 1e-6 for r, w in zip(ref, wide)]
+        scores = fa._scores2
+        fa._scores2 = lambda *x: scores(*x).to(torch.bfloat16).float()
+        try:
+            control = _flash_all(fa, q, k, v, do, kernel=False, causal=causal)
+        finally:
+            fa._scores2 = scores
+        for name, a, c, r in zip(names, got, control, ref):
+            rel, rel_control = _rel_err(a, r), _rel_err(c, r)
+            assert rel <= fa.BF16_REL_TOL[name] < rel_control, (name, rel, rel_control)
+    for name, a, r, tol in zip(names, got, ref, tols):
+        assert torch.isfinite(a).all(), name
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= tol, (name, err, tol)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("b,sq,sk,nq,nkv,causal", [
+    (1, 192, 192, 4, 1, True),
+    (2, 256, 512, 8, 2, False),
+])
+def test_card_flash_fwd_fp16_matches_plain(cuda_device, b, sq, sk, nq, nkv, causal):
+    """The fp16 instantiation of the wgmma forward: o and lse within twice
+    the plain fp16 version's own distance from fp32 (plus 1e-6)."""
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, _ = _flash_case(cuda_device, torch.float16, b, sq, sk, nq, nkv, seed=27)
+    got = fa.flash_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ref = fa.flash_fwd_plain(q, k, v, causal=causal)
+    wide = fa.flash_fwd_plain(q.float(), k.float(), v.float(), causal=causal)
+    for a, r, w in zip(got, ref, wide):
+        assert torch.isfinite(a).all()
+        tol = 2 * (r.float() - w).abs().max().item() + 1e-6
+        assert (a.float() - r.float()).abs().max().item() <= tol
+
+
+@pytest.mark.card
+def test_card_flash_autograd_grads_are_the_kernels(cuda_device):
+    """dq, dk, dv through the autograd Function are the backward kernels'
+    results on the forward kernel's o and lse, bit for bit."""
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_case(cuda_device, torch.bfloat16, 2, 256, 256, 8, 2, seed=25)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    fa.reset_launches()
+    o = fa.flash_attention(*leaves)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["fwd"] == 1 and fa.LAUNCHES["dq"] == 1 and fa.LAUNCHES["dkv"] == 1
+    o2, lse = fa.flash_fwd(q, k, v)
+    delta = torch.einsum("bsnh,bsnh->bns", o2.float(), do.float()).contiguous()
+    dq = fa.flash_dq(q, k, v, do, lse, delta)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta)
+    assert torch.equal(o, o2)
+    assert torch.equal(leaves[0].grad, dq)
+    assert torch.equal(leaves[1].grad, dk.to(k.dtype))
+    assert torch.equal(leaves[2].grad, dv.to(v.dtype))
 
 
 @pytest.mark.card

@@ -255,8 +255,151 @@ def test_paged_dispatch_auto_is_reference_on_cpu():
 
 
 # ---------------------------------------------------------------------------
+# split-KV: the kernel's grid planner and its merge rule, in plain fp32
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("batch,nkv,capacity,page,sm,want", [
+    (8, 8, 2048, 64, 132, (256, 8)),       # the kernels phase: 512 blocks
+    (1, 8, 16384, 64, 132, (256, 64)),     # one long row
+    (8, 8, 2048, 16, 132, (256, 8)),       # page 16: 16 pages a split
+    (1, 8, 2048, 16, 132, (64, 32)),       # few rows: splits shrink to fill the card
+    (2, 1, 64, 16, 132, (64, 1)),          # a cache shorter than one split
+    (1, 1, 80, 16, 132, (64, 2)),          # capacity not a multiple of the stage
+    (8, 8, 2048, 512, 132, (512, 4)),      # a page longer than a split
+    (4, 2, 96, 32, 132, (64, 2)),
+])
+def test_decode_splits_shapes(batch, nkv, capacity, page, sm, want):
+    split, n = t_paged.decode_splits(batch, nkv, capacity, page, sm)
+    assert (split, n) == want
+    assert split % page == 0 and split % t_paged.STAGE_KEYS == 0
+    assert split * n >= capacity > split * (n - 1)
+
+
+def test_decode_splits_fill_the_card_and_reject_bad_sizes():
+    # at least two blocks per SM wherever a split can still shrink
+    for batch in (1, 2, 8, 32):
+        split, n = t_paged.decode_splits(batch, 8, 4096, 16, 132)
+        assert batch * 8 * n >= 2 * 132 or split == t_paged.STAGE_KEYS
+    for bad in ((0, 8, 2048, 64, 132), (8, 8, 0, 64, 132), (8, 8, 2048, 64, 0)):
+        with pytest.raises(ValueError, match="positive"):
+            t_paged.decode_splits(*bad)
+
+
+def _split_merge(q, kp, vp, table, lens, split_keys, n_splits):
+    """The kernel's algorithm in plain fp32: each split's base-2 (m, l, o)
+    over its keys, a split past the row's length skipped, then the merge
+    o = sum(o_s 2^(m_s - M)) / sum(l_s 2^(m_s - M)), zeros where l == 0."""
+    b, nq, hd = q.shape
+    nkv = kp.shape[2]
+    g = nq // nkv
+    k = t_paged.gather_pages(kp, table).float()
+    v = t_paged.gather_pages(vp, table).float()
+    q2 = q.float() * (hd**-0.5 * t_paged.LOG2E)
+    s = torch.einsum("bkgh,bskh->bkgs", q2.reshape(b, nkv, g, hd), k)
+    out = torch.zeros(b, nkv, g, hd)
+    for row in range(b):
+        pos = int(lens[row])
+        n_keys = 0 if pos < 0 else min(pos + 1, k.shape[1])
+        parts = []
+        for sp in range(n_splits):
+            lo, hi = sp * split_keys, min((sp + 1) * split_keys, n_keys)
+            if lo >= n_keys:
+                continue
+            ss = s[row, ..., lo:hi]
+            m = ss.amax(-1)
+            p = torch.exp2(ss - m[..., None])
+            parts.append((m, p.sum(-1), torch.einsum("kgs,skh->kgh", p, v[row, lo:hi])))
+        if not parts:
+            continue
+        mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        f = [torch.exp2(m - mx) for m, _, _ in parts]
+        l_sum = sum(l * fi for (_, l, _), fi in zip(parts, f))
+        o_sum = sum(o * fi[..., None] for (_, _, o), fi in zip(parts, f))
+        out[row] = torch.where(l_sum[..., None] == 0, torch.zeros(()), o_sum / l_sum[..., None])
+    return out.reshape(b, nq * hd)
+
+
+@pytest.mark.parametrize("nq,nkv", [(4, 2), (8, 1), (8, 8)])
+def test_split_merge_matches_references(nq, nkv):
+    """Four 64-key splits over a 256-key cache (page 8): rows of one key,
+    across a page and a split boundary, the whole cache, and a row at -1
+    (no key, l == 0) whose splits are all empty. fp32 against the port's
+    reference and JAX's at the paged tests' 1e-5."""
+    ps, maxp = 8, 32
+    lens = [0, 70, 255, 130, -1]
+    table = np.zeros((len(lens), maxp), np.int32)
+    perm = np.random.default_rng(9).permutation(len(lens) * maxp) + 2
+    for r, pos in enumerate(lens):
+        n = max(pos, 0) // ps + 1
+        table[r, :n] = perm[r * maxp: r * maxp + n]
+    q, kp, vp, table, lens = _paged_case(nq, nkv, P=len(lens) * maxp + 2, ps=ps, seed=4,
+                                         table=table, lens=lens)
+    split_keys, n_splits = t_paged.decode_splits(len(lens), nkv, maxp * ps, ps, 132)
+    assert (split_keys, n_splits) == (64, 4)
+    targs = [torch.from_numpy(a) for a in (q, kp, vp, table, lens)]
+    got = _split_merge(*targs, split_keys, n_splits)
+    assert torch.count_nonzero(got[-1]) == 0
+    live = slice(0, len(lens) - 1)
+    tq, tk, tv, tt, tl = targs
+    port = t_paged.paged_attention_reference(tq[live], tk, tv, tt[live], tl[live])
+    _close(got[live], port, ATOL_PAGED)
+    jax_ref = j_paged.paged_attention_reference(
+        *[jnp.asarray(a) for a in (q[live], kp, vp, table[live], lens[live])])
+    _close(got[live], jax_ref, ATOL_PAGED)
+
+
+def test_drop_split_control_attends_the_keys_past_the_split():
+    """The control of the card checks (chip_smoke.py, tests/test_torch_card.py):
+    the plain version over the page table without a row's first split and
+    the position moved back by it attends exactly keys split_keys..pos; on
+    rows of two to four 64-key splits it moves the output by more than
+    ``REL_TOL`` of the 16-bit types."""
+    ps, maxp = 8, 32
+    lens = [70, 255, 130, 64]
+    table = np.zeros((len(lens), maxp), np.int32)
+    perm = np.random.default_rng(5).permutation(len(lens) * maxp) + 2
+    for r, pos in enumerate(lens):
+        table[r, :pos // ps + 1] = perm[r * maxp: r * maxp + pos // ps + 1]
+    q, kp, vp, table, lens = [torch.from_numpy(a) for a in _paged_case(
+        4, 2, P=len(lens) * maxp + 2, ps=ps, seed=6, table=table, lens=lens)]
+    split_keys, _ = t_paged.decode_splits(len(lens), 2, maxp * ps, ps, 132)
+    assert split_keys == 64
+    control = t_paged.paged_attention_plain(
+        q, kp, vp, table[:, split_keys // ps:].contiguous(), lens - split_keys)
+    k, v = t_paged.gather_pages(kp, table), t_paged.gather_pages(vp, table)
+    for r, pos in enumerate(lens.tolist()):
+        kr, vr = k[r, split_keys:pos + 1], v[r, split_keys:pos + 1]  # (n, 2, H)
+        qr = q[r].reshape(2, 2, -1)
+        s = torch.einsum("kgh,nkh->kgn", qr, kr) * q.shape[-1] ** -0.5
+        want = torch.einsum("kgn,nkh->kgh", torch.softmax(s, -1), vr).reshape(-1)
+        _close(control[r], want, ATOL_PAGED)
+    ref = t_paged.paged_attention_reference(q, kp, vp, table, lens)
+    rel = (control - ref).norm(dim=1) / ref.norm(dim=1)
+    assert rel.min().item() > t_paged.REL_TOL[torch.bfloat16]
+
+
+# ---------------------------------------------------------------------------
 # the kernel build (the card compiles; the report parsing runs anywhere)
 # ---------------------------------------------------------------------------
+
+
+def test_build_key_covers_the_shared_headers(monkeypatch, tmp_path):
+    """An edit to a source or to a shared ``csrc/*.cuh`` header gives a new
+    build directory; any other file of the directory does not."""
+    from fms_fsdp_tpu_torch.ops import cuda_build
+
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", str(tmp_path))
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    first = cuda_build._paths("k")[1]
+    (tmp_path / "notes.txt").write_text("x")
+    assert cuda_build._paths("k")[1] == first
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    second = cuda_build._paths("k")[1]
+    assert second != first
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n// edited\n')
+    assert cuda_build._paths("k")[1] not in (first, second)
 
 
 def test_ptxas_report_parsing_and_missing_nvcc(monkeypatch, tmp_path):
