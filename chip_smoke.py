@@ -10,7 +10,8 @@ Phases, one JSON line each; any failure exits non-zero:
 1. device  — card name and count, ``nvidia-smi`` name and power limit.
 2. build   — compiles ``fms_fsdp_tpu_torch/csrc/*.cu`` (one nvcc per
    source, all started together) and reports each kernel's registers,
-   shared memory and spills from ``-Xptxas -v``.
+   shared memory and spills from ``-Xptxas -v``, and the compiler's
+   warnings; a wgmma kernel (``*_sm90.cu``) that spills fails the phase.
 3. kernels — the paged-decode kernel against its plain PyTorch version at
    llama3_8b decode shapes (B=8, Nq=32, Nkv=8, H=128, page 64, 32 pages
    per row, seeded ragged lengths with 0 and page-boundary values), for
@@ -31,8 +32,8 @@ Phases, one JSON line each; any failure exits non-zero:
    the reference attention and an fp32 step, and profiles one step.
 5. serve-int8 — the same engine with int8 pools on a shorter wave, so
    the quantized (v2) contract runs end to end.
-6. flash   — the flash-attention kernels (forward: wgmma + TMA for bf16,
-   scalar for fp32; dq; dk/dv) against their plain versions for bf16 and
+6. flash   — the flash-attention kernels (wgmma + TMA for bf16: forward,
+   dq, dk/dv; scalar for fp32) against their plain versions for bf16 and
    fp32: the training shape
    (B=2, Nq=32, Nkv=8, S=4096, H=128, causal, group 4), the kvgrid
    contract (B=1, S=16384), a causal cross-length case (Sq=2048,
@@ -41,9 +42,15 @@ Phases, one JSON line each; any failure exits non-zero:
    version's distance from fp32, and within the relative error
    ``flash_attention.BF16_REL_TOL`` of the plain bf16 version, which a
    control (the plain version with its scores rounded to bf16) must
-   exceed; CUDA-event times of the first two shapes beside the plain
-   versions, the bound, and SDPA (flash backend) forward and backward;
-   achieved TF/s and share of the bound of the forward beside SDPA's.
+   exceed; bf16 dq per 128-row block and dk/dv per 128-key block within
+   ``flash_attention.BF16_BLOCK_REL_TOL`` (relative error against the
+   plain backward on the same lse and delta), which a control (that
+   plain backward with one 64-row query tile left out of one key block's
+   walk) must exceed on every block it changes; CUDA-event times of the
+   first two shapes beside the plain versions, the bound, and SDPA (flash
+   backend) forward and backward; achieved TF/s and share of the bound of
+   each kernel, the pair dq + dk/dv and the whole autograd backward
+   beside SDPA's backward.
 7. train   — ``fms_fsdp_tpu_torch.main_training_llama.main`` at
    llama3_8b_4k width (4096 wide, 32/8 heads, hidden 14336, vocab
    128256) and 8 layers, seq 4096, batch 2, selective AC 1/2, dummy
@@ -220,10 +227,15 @@ def phase_build(state):
             raise RuntimeError(f"build of {name} failed:\n{err}")
     wall = time.perf_counter() - t0
     report = {}
+    spills = []
     for name in sources:
         built = cuda_build.load(name)
-        report[name] = {"library": os.path.relpath(built.path, REPO),
-                        "kernels": cuda_build.ptxas_summary(built.ptxas)}
+        kernels = cuda_build.ptxas_summary(built.ptxas)
+        report[name] = {"library": os.path.relpath(built.path, REPO), "kernels": kernels,
+                        "warnings": [line for line in built.ptxas.splitlines()
+                                     if "warning" in line.lower()]}
+        if name.endswith("_sm90"):  # the wgmma kernels
+            spills += [k for k, r in kernels.items() if r["spill_stores"] or r["spill_loads"]]
     # dynamic shared memory, which -Xptxas -v does not see
     lib = cuda_build.load("paged_decode").lib
     report["paged_decode"]["dynamic_smem_bytes"] = {
@@ -233,8 +245,13 @@ def phase_build(state):
     }
     report["flash_fwd_sm90"]["dynamic_smem_bytes"] = (
         cuda_build.load("flash_fwd_sm90").lib.flash_fwd_sm90_smem_bytes())
+    bwd = cuda_build.load("flash_bwd_sm90").lib
+    report["flash_bwd_sm90"]["dynamic_smem_bytes"] = {
+        "dq": bwd.flash_bwd_sm90_smem_bytes(0), "dkv": bwd.flash_bwd_sm90_smem_bytes(1)}
     state["build_s"] = wall
-    emit("build", seconds=wall, sources=report)
+    emit("build", seconds=wall, sources=report, spilling_kernels=spills)
+    if spills:
+        raise AssertionError(f"kernels spill registers: {spills}")
 
 
 def _kernel_lens(gen, batch=B, maxp=MAXP):
@@ -725,6 +742,32 @@ def _flash_control(fa, q, k, v, do):
         fa._scores2 = scores
 
 
+def _bwd_block_check(fa, q, k, v, do, got):
+    """dq per 128-row block and dk/dv per 128-key block of the backward
+    kernels against the plain backward on the same inputs (the kernel
+    forward's lse and delta), each within ``BF16_BLOCK_REL_TOL``; and the
+    control, that plain backward with the last 64-row query tile of head 0
+    (batch 0) left out of key block 0's walk, which must exceed that bound
+    on every block it changes (one of each output)."""
+    lse, delta = got[1], _delta(got[0], do)
+    ref = [fa.flash_dq_plain(q, k, v, do, lse, delta),
+           *fa.flash_dkv_plain(q, k, v, do, lse, delta)]
+    control = fa.flash_bwd_drop_tile_plain(
+        q, k, v, do, lse, delta, *ref, batch=0, head=0,
+        q_tile=q.shape[1] // fa.BWD_Q_TILE - 1, k_block=0)
+    out = {}
+    for name, a, r, c in zip(("dq", "dk", "dv"), got[2:], ref, control):
+        rel, ctl = fa.block_rel_err(a, r), fa.block_rel_err(c, r)
+        changed = ctl > 0
+        tol = fa.BF16_BLOCK_REL_TOL[name]
+        ctl_min = ctl[changed].min().item() if changed.any() else None
+        out[name] = {"kernel_max": rel.max().item(), "blocks": rel.numel(), "tol": tol,
+                     "control_min": ctl_min, "control_blocks": int(changed.sum())}
+        out[name]["ok"] = (out[name]["kernel_max"] <= tol and int(changed.sum()) == 1
+                           and ctl_min > tol)
+    return out
+
+
 def _rel_err(a, r) -> float:
     """||a - r|| / ||r|| over the whole tensor, in fp32."""
     r = r.float()
@@ -785,6 +828,19 @@ def _flash_times(fa, kind, dtype, shape, gen):
     out["fwd"] = _timed_ms(lambda i: fa.flash_fwd(*pick(i)[:3]))
     out["dq"] = _timed_ms(lambda i: fa.flash_dq(*pick(i)[:4], *pick(i)[5:]))
     out["dkv"] = _timed_ms(lambda i: fa.flash_dkv(*pick(i)[:4], *pick(i)[5:]))
+    # the whole backward through autograd (delta, q2, both kernels, the
+    # dk/dv casts) on retained graphs of the forward
+    graphs = []
+    for q, k, v, do, *_ in sets:
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        graphs.append((leaves, fa.flash_attention(*leaves), do))
+
+    def autograd_bwd(i):
+        leaves, o, do = graphs[i % 2]
+        torch.autograd.grad(o, leaves, do, retain_graph=True)
+
+    bwd_ms = _timed_ms(autograd_bwd)
+    del graphs
     plain = {
         "fwd": _timed_ms(lambda i: fa.flash_fwd_plain(*pick(i)[:3]), 0, 2),
         "dq": _timed_ms(lambda i: fa.flash_dq_plain(*pick(i)[:4], *pick(i)[5:]), 0, 2),
@@ -846,10 +902,13 @@ def _flash_times(fa, kind, dtype, shape, gen):
         f.update(library_tflops=f["ops"] / lib["fwd_ms"] / 1e9,
                  library_bound_share=f["bound_ms"] / lib["fwd_ms"],
                  kernel_over_library=f["ms"] / lib["fwd_ms"])
-    if lib["bwd_ms"]:
-        pair = out["dq"]["ms"] + out["dkv"]["ms"]
-        out["bwd_pair"] = {"ms": pair, "library_ms": lib["bwd_ms"],
-                           "kernel_over_library": pair / lib["bwd_ms"]}
+    pair = out["dq"]["ms"] + out["dkv"]["ms"]
+    out["bwd_pair"] = {"ms": pair, "library_ms": lib["bwd_ms"],
+                       "achieved_tflops": (out["dq"]["ops"] + out["dkv"]["ops"]) / pair / 1e9,
+                       "kernel_over_library": pair / lib["bwd_ms"] if lib["bwd_ms"] else None}
+    out["bwd_autograd"] = {"ms": bwd_ms, "library_ms": lib["bwd_ms"],
+                           "over_pair_ms": bwd_ms - pair,
+                           "kernel_over_library": bwd_ms / lib["bwd_ms"] if lib["bwd_ms"] else None}
     out["sdpa"] = lib
     del sets
     return out
@@ -881,7 +940,7 @@ def phase_flash(state):
             rel_ok = True
             if kind == "fp32":
                 tols = [FLASH_FP32_REL_TOL * max(1.0, r.abs().max().item()) for r in ref]
-                dist = rel = None
+                dist = rel = per_block = None
             else:
                 wide = _flash_all(fa, q.float(), k.float(), v.float(), do.float(), kernel=False)
                 dist = [(r.float() - w).abs().max().item() for r, w in zip(ref, wide)]
@@ -893,6 +952,8 @@ def phase_flash(state):
                        for n, a, c, r_ in zip(names, got, control, ref)}
                 del control
                 rel_ok = all(x["kernel"] <= x["tol"] < x["control"] for x in rel.values())
+                per_block = _bwd_block_check(fa, q, k, v, do, got)
+                rel_ok = rel_ok and all(x["ok"] for x in per_block.values())
             errs = [(a.float() - r.float()).abs().max().item() for a, r in zip(got, ref)]
             finite = all(bool(torch.isfinite(a).all()) for a in got)
             zero_tail = (sk <= sq or (torch.count_nonzero(got[3][:, sq:]) == 0
@@ -903,7 +964,7 @@ def phase_flash(state):
                 "launches": launched,
                 "max_abs_err": dict(zip(names, errs)), "tol": dict(zip(names, tols)),
                 "plain_bf16_vs_fp32": dict(zip(names, dist)) if dist else None,
-                "rel_err_vs_plain_bf16": rel,
+                "rel_err_vs_plain_bf16": rel, "per_block_rel_err": per_block,
                 "finite": finite, "zero_dkv_past_last_query": bool(zero_tail),
             }
             r["ok"] = (finite and bool(zero_tail) and rel_ok
@@ -950,8 +1011,7 @@ def _train_step_profile(res, steps=2):
         torch.cuda.synchronize()
     rows = _kernel_rows(prof, steps)
     device_ms = sum(r[0] for r in rows)
-    flash = {key: sum(r[0] for r in rows if f"flash_{key}_kernel" in r[1])
-             for key in ("fwd", "dq", "dkv")}
+    flash = _flash_ms(rows)
     by_kind = {}
     for ms, name, _ in rows:
         kind = _kernel_kind(name)
@@ -966,6 +1026,14 @@ def _train_step_profile(res, steps=2):
             {"name": name[:80], "ms": ms, "calls": calls} for ms, name, calls in rows[:16]
         ],
     }
+
+
+def _flash_ms(rows):
+    """Device ms of the flash forward, dq and dk/dv kernels among profile
+    rows (ms, kernel name, calls), by name: ``flash_dq_kernel`` counts the
+    fp32 kernel and ``flash_dq_kernel_sm90`` alike."""
+    return {key: sum(r[0] for r in rows if f"flash_{key}_kernel" in r[1])
+            for key in ("fwd", "dq", "dkv")}
 
 
 def _kernel_kind(name: str) -> str:
@@ -1457,16 +1525,20 @@ def kernels_line(state):
     ):
         r = state["flash"][("bf16", case)]
         t = r["times"][kernel]
-        entries.append({
+        entry = {
             "name": f"flash_{contract}", "route": "cuda",
-            "source": ("fms_fsdp_tpu_torch/csrc/flash_fwd_sm90.cu" if kernel == "fwd"
-                       else "fms_fsdp_tpu_torch/csrc/flash_attention.cu"),
+            "source": f"fms_fsdp_tpu_torch/csrc/flash_{'fwd' if kernel == 'fwd' else 'bwd'}_sm90.cu",
             "replaces": REPLACES[contract],
             "launches": state[phase]["launches"][contract],
             "max_abs_err": max(r["max_abs_err"][o] for o in outs),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-        })
+        }
+        if kernel != "fwd":
+            # SDPA's one backward call computes dq, dk and dv together: set
+            # it against the pair
+            entry["pair_ms"] = r["times"]["bwd_pair"]["ms"]
+        entries.append(entry)
     r = state["ssd"][("bf16", "train")]
     t = r["times"]
     entries.append({

@@ -1,12 +1,12 @@
-// Causal / full grouped-query flash attention for Hopper (sm_90a): the
-// dq backward, the dk/dv backward, and the fp32 forward. The 16-bit forward
-// is flash_fwd_sm90.cu (wgmma + TMA); ops/flash_attention.py dispatches by
-// dtype.
+// Causal / full grouped-query flash attention for fp32 inputs: the
+// forward, the dq backward and the dk/dv backward, on the CUDA cores. The
+// 16-bit kernels are flash_fwd_sm90.cu (forward) and flash_bwd_sm90.cu (dq,
+// dk/dv), wgmma fed by TMA; ops/flash_attention.py dispatches by dtype.
 //
-// Replaces the five Pallas kernels of fms_fsdp_tpu/ops/flash_attention.py:
-//   - flash_fwd (fp32 here, 16-bit in flash_fwd_sm90.cu): _fwd_kernel (:62,
-//     KV resident in VMEM) and _fwd_kernel_kvgrid (:179, KV streamed over a
-//     grid axis);
+// Replaces, for fp32, the five Pallas kernels of
+// fms_fsdp_tpu/ops/flash_attention.py:
+//   - flash_fwd: _fwd_kernel (:62, KV resident in VMEM) and
+//     _fwd_kernel_kvgrid (:179, KV streamed over a grid axis);
 //   - flash_dq:  _dq_kernel (:318) and _dq_kernel_kvgrid (:368);
 //   - flash_dkv: _dkv_kernel (:484).
 // The resident/kvgrid split exists on the TPU only because of VMEM. No
@@ -22,47 +22,28 @@
 // h / (Nq / Nkv)). Causal masking is top-left aligned: query i sees keys
 // <= i, also when Sq != Sk.
 //
-// Numerics, the same rounding points as the TPU kernels:
-//   - q is scaled by scale * log2(e) (the constant rounded to q's dtype by
-//     the wrapper) and rounded back to q's dtype; the online softmax runs
-//     in base 2 in fp32; lse is returned in natural log;
-//   - p is rounded to v's dtype before P.V; ds is rounded to k's dtype
-//     before dS.K and dS^T.Q; every product accumulates in fp32.
+// Numerics, the same rounding points as the TPU kernels (at fp32 the
+// roundings to the input type are exact): q is scaled by scale * log2(e);
+// the online softmax runs in base 2; lse is returned in natural log; ds =
+// p * (dp - delta) * scale.
 //
-// What bounds these kernels on the H100: tensor-core operations. At head
-// 128 each K/V tile is reused by 64 query rows, so the work is about
-// 4 * 64 * 128 flops per key row of 2 * 128 * 2 bytes, far above the ~295
-// flops per byte where the card stops being memory-bound. What the design
-// does about it:
-//   - bf16/fp16 products (dq, dk/dv) run on the tensor cores through mma.sync
-//     m16n8k16 with fp32 accumulation. Each of the four warps of a block
-//     owns 16 rows; scores, probabilities and the output accumulator stay
-//     in registers in the mma accumulator layout, so the softmax reads no
-//     shared memory and P (or dS) feeds the next product as the A operand
-//     without a round trip through shared memory;
-//   - K/V (or Q/dO in the dk/dv walk) tiles are staged in shared memory
-//     with cp.async, double-buffered so the next tile's loads overlap the
-//     current tile's products; rows are padded so fragment loads are free
-//     of bank conflicts;
-//   - causal blocks skip the tiles above the diagonal and mask only the
-//     diagonal tile; forward and dq blocks start with the longest rows;
-//   - dk/dv accumulate in fp32 registers over the GQA group and the q walk
-//     inside one block per (batch, kv head, k tile): no atomics, so the
-//     result is deterministic. A k tile that no query reaches (causal,
-//     Sk > Sq) writes zeros.
-// fp32 inputs take a scalar-FMA path with the same tiling (TF32 would
-// change the numbers), with P and dS staged through a per-warp scratch.
-// Fragments are read from shared memory with ldmatrix (.trans for the
-// row-major B operands of P.V, dS.K, P^T.dO and dS^T.Q). Not done yet in
-// the backward: wgmma, TMA and warp specialisation.
+// What bounds these kernels on the H100: fp32 operations on the CUDA cores
+// (TF32 tensor cores would change the numbers). Each of the four warps of
+// a block owns 16 rows; thread (g = lane / 4, t = lane % 4) holds rows g
+// and g + 8 of its warp, columns 8j + 2t and 8j + 2t + 1 (the layout of an
+// mma accumulator), so scores and sums stay in registers; P and dS pass
+// through a per-warp scratch to the next product. Tiles are staged in
+// shared memory with cp.async, rows padded by 4 floats against bank
+// conflicts. Causal blocks skip the tiles above the diagonal and mask only
+// the diagonal tile; forward and dq blocks start with the longest rows;
+// dk/dv accumulate in fp32 registers over the GQA group and the q walk
+// inside one block per (batch, kv head, k tile): no atomics, so the result
+// is deterministic. A k tile that no query reaches (causal, Sk > Sq)
+// writes zeros.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -73,34 +54,15 @@ constexpr int kThreads = 128; // four warps
 constexpr int kBQ = 64;       // query rows of a forward / dq block, 16 per warp
 constexpr int kBK = 64;       // keys per tile, and keys of a dk/dv block
 constexpr int kBQd = 32;      // query rows per step of the dk/dv walk
+constexpr int kLd = kHead + 4;  // row stride of a staged tile, floats
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// dtype codes shared with the Python wrapper
-enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
+// dtype code shared with the Python wrapper: the only one these kernels
+// take
+constexpr int kF32 = 0;
 
-template <typename T>
-struct Traits {
-  // 16-bit types: tensor cores, rows padded by 8 elements (16 bytes), two
-  // pipeline stages
-  static constexpr bool kMma = true;
-  static constexpr int kLd = kHead + 8;
-  static constexpr int kStages = 2;
-};
-template <>
-struct Traits<float> {
-  static constexpr bool kMma = false;
-  static constexpr int kLd = kHead + 4;
-  static constexpr int kStages = 1;
-};
-
-// store two consecutive values of a row
-template <typename T>
-__device__ __forceinline__ void store2(T* p, float a, float b) {
-  *reinterpret_cast<uint32_t*>(p) = pack2<T>(a, b);
-}
-template <>
-__device__ __forceinline__ void store2<float>(float* p, float a, float b) {
+__device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
@@ -109,18 +71,16 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
 
-// Copy kRows rows of H elements into shared memory (row stride ld):
-// row r of the tile starts at element row0 + r * stride of g.
-template <typename T, int kRows>
-__device__ __forceinline__ void load_rows(T* sm, const T* __restrict__ g, int64_t row0,
+// Copy kRows rows of H floats into shared memory (row stride kLd): row r
+// of the tile starts at element row0 + r * stride of g.
+template <int kRows>
+__device__ __forceinline__ void load_rows(float* sm, const float* __restrict__ g, int64_t row0,
                                           int64_t stride, int tid) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = kHead / kVec;
-  constexpr int kLd = Traits<T>::kLd;
+  constexpr int kChunks = kHead / 4;
 #pragma unroll
   for (int c = tid; c < kRows * kChunks; c += kThreads) {
     const int r = c / kChunks;
-    const int col = (c % kChunks) * kVec;
+    const int col = (c % kChunks) * 4;
     cp_async16(sm + r * kLd + col, g + row0 + r * stride + col);
   }
 }
@@ -130,131 +90,82 @@ __device__ __forceinline__ void load_f32(float* sm, const float* __restrict__ g,
   for (int c = tid; c < n / 4; c += kThreads) cp_async16(sm + 4 * c, g + 4 * c);
 }
 
-// dst = round_T(src * c) over a tile of kRows rows
-template <typename T, int kRows>
-__device__ __forceinline__ void scale_rows(T* dst, const T* src, float c, int tid) {
-  constexpr int kLd = Traits<T>::kLd;
+// dst = src * c over a tile of kRows rows
+template <int kRows>
+__device__ __forceinline__ void scale_rows(float* dst, const float* src, float c, int tid) {
   for (int i = tid; i < kRows * kHead; i += kThreads) {
     const int r = i / kHead;
     const int col = i - r * kHead;
-    dst[r * kLd + col] = from_f<T>(to_f(src[r * kLd + col]) * c);
+    dst[r * kLd + col] = src[r * kLd + col] * c;
   }
 }
 
-// acc (16 x 8*NT, mma accumulator layout) += A * B1.
+// acc (16 x 8*NT, accumulator layout) += A * B1.
 // A: the warp's 16 rows (row-major, stride lda) over K columns.
 // B1(k, n) = Bs[n * ldb + k]: the product runs against the rows of Bs.
-// Thread (g = lane / 4, t = lane % 4) owns acc[j] = rows g and g + 8,
-// columns 8j + 2t and 8j + 2t + 1.
-template <typename T, int NT, int K>
-__device__ __forceinline__ void gemm_ab1(float (&acc)[NT][4], const T* A, int lda, const T* Bs,
-                                         int ldb, int lane) {
+template <int NT, int K>
+__device__ __forceinline__ void gemm_ab1(float (&acc)[NT][4], const float* A, int lda,
+                                         const float* Bs, int ldb, int lane) {
   const int g = lane >> 2;
   const int t = lane & 3;
-  if constexpr (Traits<T>::kMma) {
-    static_assert(NT % 2 == 0, "n tiles come in pairs");
-    // ldmatrix row addresses: A rows (lane & 15), columns +8 for lanes
-    // 16..31; B rows of tile pair (lane & 7) + 8 * (lane >> 4), columns +8
-    // for lanes 8..15 and 24..31
-    const T* a_row = A + (lane & 15) * lda + 8 * (lane >> 4);
-    const T* b_row = Bs + ((lane & 7) + 8 * (lane >> 4)) * ldb + 8 * ((lane >> 3) & 1);
-#pragma unroll
-    for (int kk = 0; kk < K; kk += 16) {
-      uint32_t a[4];
-      ldsm_x4(a, a_row + kk);
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t b[4];
-        ldsm_x4(b, b_row + j * 8 * ldb + kk);
-        mma16816<T>(acc[j], a, b[0], b[1]);
-        mma16816<T>(acc[j + 1], a, b[2], b[3]);
-      }
-    }
-  } else {
 #pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const float a0 = to_f(A[g * lda + k]);
-      const float a1 = to_f(A[(g + 8) * lda + k]);
+  for (int k = 0; k < K; ++k) {
+    const float a0 = A[g * lda + k];
+    const float a1 = A[(g + 8) * lda + k];
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const float b0 = to_f(Bs[(j * 8 + 2 * t) * ldb + k]);
-        const float b1 = to_f(Bs[(j * 8 + 2 * t + 1) * ldb + k]);
-        acc[j][0] = fmaf(a0, b0, acc[j][0]);
-        acc[j][1] = fmaf(a0, b1, acc[j][1]);
-        acc[j][2] = fmaf(a1, b0, acc[j][2]);
-        acc[j][3] = fmaf(a1, b1, acc[j][3]);
-      }
+    for (int j = 0; j < NT; ++j) {
+      const float b0 = Bs[(j * 8 + 2 * t) * ldb + k];
+      const float b1 = Bs[(j * 8 + 2 * t + 1) * ldb + k];
+      acc[j][0] = fmaf(a0, b0, acc[j][0]);
+      acc[j][1] = fmaf(a0, b1, acc[j][1]);
+      acc[j][2] = fmaf(a1, b0, acc[j][2]);
+      acc[j][3] = fmaf(a1, b1, acc[j][3]);
     }
   }
 }
 
-// acc (16 x 8*NT) += round_T(P) * B2, with P (16 x K) held in the
-// accumulator layout (p[K / 8][4]) and B2(k, n) = Bs[k * ldb + n].
-// 16-bit types pack P straight into A fragments; fp32 stages it through
-// the warp's scratch (16 x (K + 4) floats).
-template <typename T, int NT, int K>
+// acc (16 x 8*NT) += P * B2, with P (16 x K) held in the accumulator
+// layout (p[K / 8][4]) and B2(k, n) = Bs[k * ldb + n]. P is staged
+// through the warp's scratch (16 x (K + 4) floats).
+template <int NT, int K>
 __device__ __forceinline__ void gemm_pb2(float (&acc)[NT][4], const float (&p)[K / 8][4],
-                                         const T* Bs, int ldb, float* scratch, int lane) {
+                                         const float* Bs, int ldb, float* scratch, int lane) {
   const int g = lane >> 2;
   const int t = lane & 3;
-  if constexpr (Traits<T>::kMma) {
+  constexpr int kLds = K + 4;
 #pragma unroll
-    for (int kk = 0; kk < K / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack2<T>(p[2 * kk][0], p[2 * kk][1]);
-      a[1] = pack2<T>(p[2 * kk][2], p[2 * kk][3]);
-      a[2] = pack2<T>(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-      a[3] = pack2<T>(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        // rows kk*16 + (lane & 15) of Bs, columns of tiles j (lanes 0..15)
-        // and j + 1 (lanes 16..31), transposed into B fragments
-        uint32_t b[4];
-        ldsm_x4_trans(b, Bs + (kk * 16 + (lane & 15)) * ldb + (j + (lane >> 4)) * 8);
-        mma16816<T>(acc[j], a, b[0], b[1]);
-        mma16816<T>(acc[j + 1], a, b[2], b[3]);
-      }
-    }
-  } else {
-    constexpr int kLds = K + 4;
-#pragma unroll
-    for (int j = 0; j < K / 8; ++j) {
-      scratch[g * kLds + j * 8 + 2 * t] = p[j][0];
-      scratch[g * kLds + j * 8 + 2 * t + 1] = p[j][1];
-      scratch[(g + 8) * kLds + j * 8 + 2 * t] = p[j][2];
-      scratch[(g + 8) * kLds + j * 8 + 2 * t + 1] = p[j][3];
-    }
-    __syncwarp();
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const float a0 = scratch[g * kLds + k];
-      const float a1 = scratch[(g + 8) * kLds + k];
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const float b0 = to_f(Bs[k * ldb + j * 8 + 2 * t]);
-        const float b1 = to_f(Bs[k * ldb + j * 8 + 2 * t + 1]);
-        acc[j][0] = fmaf(a0, b0, acc[j][0]);
-        acc[j][1] = fmaf(a0, b1, acc[j][1]);
-        acc[j][2] = fmaf(a1, b0, acc[j][2]);
-        acc[j][3] = fmaf(a1, b1, acc[j][3]);
-      }
-    }
-    __syncwarp();  // the scratch is rewritten by the next call
+  for (int j = 0; j < K / 8; ++j) {
+    scratch[g * kLds + j * 8 + 2 * t] = p[j][0];
+    scratch[g * kLds + j * 8 + 2 * t + 1] = p[j][1];
+    scratch[(g + 8) * kLds + j * 8 + 2 * t] = p[j][2];
+    scratch[(g + 8) * kLds + j * 8 + 2 * t + 1] = p[j][3];
   }
+  __syncwarp();
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    const float a0 = scratch[g * kLds + k];
+    const float a1 = scratch[(g + 8) * kLds + k];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float b0 = Bs[k * ldb + j * 8 + 2 * t];
+      const float b1 = Bs[k * ldb + j * 8 + 2 * t + 1];
+      acc[j][0] = fmaf(a0, b0, acc[j][0]);
+      acc[j][1] = fmaf(a0, b1, acc[j][1]);
+      acc[j][2] = fmaf(a1, b0, acc[j][2]);
+      acc[j][3] = fmaf(a1, b1, acc[j][3]);
+    }
+  }
+  __syncwarp();  // the scratch is rewritten by the next call
 }
 
-template <typename T>
-constexpr int scratch_floats(int k) {
-  return Traits<T>::kMma ? 0 : 4 * 16 * (k + 4);
-}
+constexpr int scratch_floats(int k) { return 4 * 16 * (k + 4); }
 
 // ---------------------------------------------------------------------------
-// forward, fp32 (the 16-bit forward is flash_fwd_sm90.cu)
+// forward
 // ---------------------------------------------------------------------------
 
 // Q, one K/V tile and the per-warp P scratch
-constexpr int kFwdSmemBytes =
-    (kBQ + 2 * kBK) * Traits<float>::kLd * 4 + scratch_floats<float>(kBK) * 4;
+constexpr int kFwdSmemBytes = (kBQ + 2 * kBK) * kLd * 4 + scratch_floats(kBK) * 4;
 
 // grid (Sq / 64, Nq, B): one block per (q tile, q head, batch). The one
 // K/V tile is refilled once its products are done.
@@ -262,13 +173,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     float* __restrict__ o, float* __restrict__ lse, int sq, int sk, int nq, int nkv, int causal,
     float q_scale) {
-  using T = float;
-  constexpr int kLd = Traits<T>::kLd;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem);
-  T* k_s = q_s + kBQ * kLd;
-  T* v_s = k_s + kBK * kLd;
-  float* scratch = reinterpret_cast<float*>(v_s + kBK * kLd);
+  float* q_s = reinterpret_cast<float*>(smem);
+  float* k_s = q_s + kBQ * kLd;
+  float* v_s = k_s + kBK * kLd;
+  float* scratch = v_s + kBK * kLd;
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
   const int h = blockIdx.y;
@@ -288,9 +197,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   int n_kt = sk / kBK;
   if (causal) n_kt = min(n_kt, (q0 + kBQ - 1) / kBK + 1);
 
-  load_rows<T, kBQ>(q_s, q, q_base, q_stride, tid);
-  load_rows<T, kBK>(k_s, k, kv_base, kv_stride, tid);
-  load_rows<T, kBK>(v_s, v, kv_base, kv_stride, tid);
+  load_rows<kBQ>(q_s, q, q_base, q_stride, tid);
+  load_rows<kBK>(k_s, k, kv_base, kv_stride, tid);
+  load_rows<kBK>(v_s, v, kv_base, kv_stride, tid);
   cp_async_commit();
 
   float acc[kHead / 8][4];
@@ -300,14 +209,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   float l0 = 0.f, l1 = 0.f;              // this thread's share of the denominators
   const int r0 = q0 + warp * 16 + g;     // the thread's two query rows
   const int r1 = r0 + 8;
-  const T* qw = q_s + warp * 16 * kLd;
+  const float* qw = q_s + warp * 16 * kLd;
   float* wscratch = scratch + warp * 16 * (kBK + 4);
 
   for (int kt = 0; kt < n_kt; ++kt) {
     cp_async_wait<0>();
     __syncthreads();
     if (kt == 0) {
-      scale_rows<T, kBQ>(q_s, q_s, q_scale, tid);
+      scale_rows<kBQ>(q_s, q_s, q_scale, tid);
       __syncthreads();
     }
 
@@ -315,7 +224,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     float s[kBK / 8][4];
 #pragma unroll
     for (int j = 0; j < kBK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    gemm_ab1<T, kBK / 8, kHead>(s, qw, kLd, k_s, kLd, lane);
+    gemm_ab1<kBK / 8, kHead>(s, qw, kLd, k_s, kLd, lane);
 
     if (causal && kt * kBK + kBK - 1 > q0) {
 #pragma unroll
@@ -359,13 +268,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       acc[j][2] *= al1;
       acc[j][3] *= al1;
     }
-    // acc += round_T(p) . v
-    gemm_pb2<T, kHead / 8, kBK>(acc, s, v_s, kLd, wscratch, lane);
+    // acc += p . v
+    gemm_pb2<kHead / 8, kBK>(acc, s, v_s, kLd, wscratch, lane);
     __syncthreads();  // the tile is refilled next
     if (kt + 1 < n_kt) {
       const int64_t off = kv_base + static_cast<int64_t>(kt + 1) * kBK * kv_stride;
-      load_rows<T, kBK>(k_s, k, off, kv_stride, tid);
-      load_rows<T, kBK>(v_s, v, off, kv_stride, tid);
+      load_rows<kBK>(k_s, k, off, kv_stride, tid);
+      load_rows<kBK>(v_s, v, off, kv_stride, tid);
       cp_async_commit();
     }
   }
@@ -374,13 +283,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   l1 = quad_sum(l1);
   const float inv0 = 1.f / l0;
   const float inv1 = 1.f / l1;
-  T* o0 = o + q_base + static_cast<int64_t>(warp * 16 + g) * q_stride;
-  T* o1 = o0 + 8 * q_stride;
+  float* o0 = o + q_base + static_cast<int64_t>(warp * 16 + g) * q_stride;
+  float* o1 = o0 + 8 * q_stride;
 #pragma unroll
   for (int j = 0; j < kHead / 8; ++j) {
     const int col = j * 8 + 2 * t;
-    store2<T>(o0 + col, acc[j][0] * inv0, acc[j][1] * inv0);
-    store2<T>(o1 + col, acc[j][2] * inv1, acc[j][3] * inv1);
+    store2(o0 + col, acc[j][0] * inv0, acc[j][1] * inv0);
+    store2(o1 + col, acc[j][2] * inv1, acc[j][3] * inv1);
   }
   if (t == 0) {
     float* lrow = lse + (static_cast<int64_t>(b) * nq + h) * sq;
@@ -393,29 +302,22 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 // backward: dq
 // ---------------------------------------------------------------------------
 
-template <typename T>
-constexpr int dq_smem_bytes() {
-  constexpr int kLd = Traits<T>::kLd;
-  return (2 * kBQ + 2 * Traits<T>::kStages * kBK) * kLd * static_cast<int>(sizeof(T)) +
-         scratch_floats<T>(kBK) * 4;
-}
+// Q, dO, one K/V tile and the per-warp dS scratch
+constexpr int kDqSmemBytes = (2 * kBQ + 2 * kBK) * kLd * 4 + scratch_floats(kBK) * 4;
 
-// grid (Sq / 64, Nq, B). dq = sum over key tiles of round_T(ds) . k with
+// grid (Sq / 64, Nq, B). dq = sum over key tiles of ds . k with
 // ds = p * (dp - delta) * scale, p = exp2(s - lse * log2(e)), dp = do . v
-template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dq, int sq, int sk, int nq, int nkv,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dq, int sq, int sk, int nq, int nkv,
     int causal, float q_scale, float scale) {
-  constexpr int kLd = Traits<T>::kLd;
-  constexpr int kStages = Traits<T>::kStages;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem);
-  T* do_s = q_s + kBQ * kLd;
-  T* k_s = do_s + kBQ * kLd;
-  T* v_s = k_s + kStages * kBK * kLd;
-  float* scratch = reinterpret_cast<float*>(v_s + kStages * kBK * kLd);
+  float* q_s = reinterpret_cast<float*>(smem);
+  float* do_s = q_s + kBQ * kLd;
+  float* k_s = do_s + kBQ * kLd;
+  float* v_s = k_s + kBK * kLd;
+  float* scratch = v_s + kBK * kLd;
 
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y;
@@ -435,10 +337,10 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
   int n_kt = sk / kBK;
   if (causal) n_kt = min(n_kt, (q0 + kBQ - 1) / kBK + 1);
 
-  load_rows<T, kBQ>(q_s, q, q_base, q_stride, tid);
-  load_rows<T, kBQ>(do_s, dout, q_base, q_stride, tid);
-  load_rows<T, kBK>(k_s, k, kv_base, kv_stride, tid);
-  load_rows<T, kBK>(v_s, v, kv_base, kv_stride, tid);
+  load_rows<kBQ>(q_s, q, q_base, q_stride, tid);
+  load_rows<kBQ>(do_s, dout, q_base, q_stride, tid);
+  load_rows<kBK>(k_s, k, kv_base, kv_stride, tid);
+  load_rows<kBK>(v_s, v, kv_base, kv_stride, tid);
   cp_async_commit();
 
   const int r0 = q0 + warp * 16 + g;
@@ -452,29 +354,17 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
   float acc[kHead / 8][4];
 #pragma unroll
   for (int j = 0; j < kHead / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  const T* qw = q_s + warp * 16 * kLd;
-  const T* dow = do_s + warp * 16 * kLd;
+  const float* qw = q_s + warp * 16 * kLd;
+  const float* dow = do_s + warp * 16 * kLd;
   float* wscratch = scratch + warp * 16 * (kBK + 4);
 
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int buf = kStages == 2 ? (kt & 1) : 0;
-    if (kStages == 2 && kt + 1 < n_kt) {
-      const int nb = buf ^ 1;
-      const int64_t off = kv_base + static_cast<int64_t>(kt + 1) * kBK * kv_stride;
-      load_rows<T, kBK>(k_s + nb * kBK * kLd, k, off, kv_stride, tid);
-      load_rows<T, kBK>(v_s + nb * kBK * kLd, v, off, kv_stride, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    cp_async_wait<0>();
     __syncthreads();
     if (kt == 0) {
-      scale_rows<T, kBQ>(q_s, q_s, q_scale, tid);
+      scale_rows<kBQ>(q_s, q_s, q_scale, tid);
       __syncthreads();
     }
-    const T* kb = k_s + buf * kBK * kLd;
-    const T* vb = v_s + buf * kBK * kLd;
 
     float s[kBK / 8][4];
     float dp[kBK / 8][4];
@@ -483,7 +373,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
       s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
       dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
     }
-    gemm_ab1<T, kBK / 8, kHead>(s, qw, kLd, kb, kLd, lane);
+    gemm_ab1<kBK / 8, kHead>(s, qw, kLd, k_s, kLd, lane);
     if (causal && kt * kBK + kBK - 1 > q0) {
 #pragma unroll
       for (int j = 0; j < kBK / 8; ++j) {
@@ -494,7 +384,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
         if (key + 1 > r1) s[j][3] = -INFINITY;
       }
     }
-    gemm_ab1<T, kBK / 8, kHead>(dp, dow, kLd, vb, kLd, lane);  // dp = do . v
+    gemm_ab1<kBK / 8, kHead>(dp, dow, kLd, v_s, kLd, lane);  // dp = do . v
 #pragma unroll
     for (int j = 0; j < kBK / 8; ++j) {
       s[j][0] = exp2f(s[j][0] - lse0) * (dp[j][0] - dl0) * scale;
@@ -502,24 +392,24 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
       s[j][2] = exp2f(s[j][2] - lse1) * (dp[j][2] - dl1) * scale;
       s[j][3] = exp2f(s[j][3] - lse1) * (dp[j][3] - dl1) * scale;
     }
-    // dq += round_T(ds) . k
-    gemm_pb2<T, kHead / 8, kBK>(acc, s, kb, kLd, wscratch, lane);
+    // dq += ds . k
+    gemm_pb2<kHead / 8, kBK>(acc, s, k_s, kLd, wscratch, lane);
     __syncthreads();
-    if (kStages == 1 && kt + 1 < n_kt) {
+    if (kt + 1 < n_kt) {
       const int64_t off = kv_base + static_cast<int64_t>(kt + 1) * kBK * kv_stride;
-      load_rows<T, kBK>(k_s, k, off, kv_stride, tid);
-      load_rows<T, kBK>(v_s, v, off, kv_stride, tid);
+      load_rows<kBK>(k_s, k, off, kv_stride, tid);
+      load_rows<kBK>(v_s, v, off, kv_stride, tid);
       cp_async_commit();
     }
   }
 
-  T* d0 = dq + q_base + static_cast<int64_t>(warp * 16 + g) * q_stride;
-  T* d1 = d0 + 8 * q_stride;
+  float* d0 = dq + q_base + static_cast<int64_t>(warp * 16 + g) * q_stride;
+  float* d1 = d0 + 8 * q_stride;
 #pragma unroll
   for (int j = 0; j < kHead / 8; ++j) {
     const int col = j * 8 + 2 * t;
-    store2<T>(d0 + col, acc[j][0], acc[j][1]);
-    store2<T>(d1 + col, acc[j][2], acc[j][3]);
+    store2(d0 + col, acc[j][0], acc[j][1]);
+    store2(d1 + col, acc[j][2], acc[j][3]);
   }
 }
 
@@ -527,36 +417,30 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
 // backward: dk, dv
 // ---------------------------------------------------------------------------
 
-template <typename T>
-constexpr int dkv_smem_bytes() {
-  constexpr int kLd = Traits<T>::kLd;
-  constexpr int kStage = 3 * kBQd * kLd * static_cast<int>(sizeof(T)) + 2 * kBQd * 4;
-  return 2 * kBK * kLd * static_cast<int>(sizeof(T)) + Traits<T>::kStages * kStage +
-         scratch_floats<T>(kBQd) * 4;
-}
+// per step: q, q2 and do tiles, then the lse and delta of its rows
+constexpr int kStageBytes = 3 * kBQd * kLd * 4 + 2 * kBQd * 4;
+constexpr int kDkvSmemBytes = 2 * kBK * kLd * 4 + kStageBytes + scratch_floats(kBQd) * 4;
 
 // grid (Sk / 64, Nkv, B): one block per (k tile, kv head, batch). The
 // block keeps its K and V tiles and walks the query heads of its group and,
 // under causality, the query tiles from the diagonal on; dk and dv sum in
-// fp32 registers and are written once, fp32. q2 is q scaled by
-// scale * log2(e) and rounded to T, made once by the wrapper: each q tile
-// is read by every k tile of its head, so scaling it here would repeat
-// the work Sk / 64 times.
-template <typename T>
+// fp32 registers and are written once. q2 is q scaled by scale * log2(e),
+// made once by the wrapper: each q tile is read by every k tile of its
+// head, so scaling it here would repeat the work Sk / 64 times.
 __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ q2, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ q, const float* __restrict__ q2, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int sq,
     int sk, int nq, int nkv, int causal, float scale) {
-  constexpr int kLd = Traits<T>::kLd;
-  constexpr int kStages = Traits<T>::kStages;
-  // per stage: q, q2 and do tiles, then the lse and delta of its rows
-  constexpr int kStageBytes = 3 * kBQd * kLd * static_cast<int>(sizeof(T)) + 2 * kBQd * 4;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* k_s = reinterpret_cast<T*>(smem);
-  T* v_s = k_s + kBK * kLd;
-  unsigned char* stages = reinterpret_cast<unsigned char*>(v_s + kBK * kLd);
-  float* scratch = reinterpret_cast<float*>(stages + kStages * kStageBytes);
+  float* k_s = reinterpret_cast<float*>(smem);
+  float* v_s = k_s + kBK * kLd;
+  float* q_b = v_s + kBK * kLd;  // the step's q, q2, do, lse, delta
+  float* q2_b = q_b + kBQd * kLd;
+  float* do_b = q2_b + kBQd * kLd;
+  float* lse_b = do_b + kBQd * kLd;
+  float* dl_b = lse_b + kBQd;
+  float* scratch = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(q_b) + kStageBytes);
 
   const int kt = blockIdx.x;
   const int kvh = blockIdx.y;
@@ -577,26 +461,21 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
   const int n_q = n_qd - qi_lo;
   const int n_it = group * n_q;
 
-  auto stage_q = [&](int s) { return reinterpret_cast<T*>(stages + s * kStageBytes); };
-  auto stage_q2 = [&](int s) { return stage_q(s) + kBQd * kLd; };
-  auto stage_do = [&](int s) { return stage_q2(s) + kBQd * kLd; };
-  auto stage_lse = [&](int s) { return reinterpret_cast<float*>(stage_do(s) + kBQd * kLd); };
-  auto stage_dl = [&](int s) { return stage_lse(s) + kBQd; };
-  auto fetch = [&](int it, int s) {
+  auto fetch = [&](int it) {
     const int h = kvh * group + it / n_q;
     const int q0 = (qi_lo + it % n_q) * kBQd;
     const int64_t q_base = ((static_cast<int64_t>(b) * sq + q0) * nq + h) * kHead;
     const int64_t stat = (static_cast<int64_t>(b) * nq + h) * sq + q0;
-    load_rows<T, kBQd>(stage_q(s), q, q_base, q_stride, tid);
-    load_rows<T, kBQd>(stage_q2(s), q2, q_base, q_stride, tid);
-    load_rows<T, kBQd>(stage_do(s), dout, q_base, q_stride, tid);
-    load_f32(stage_lse(s), lse + stat, kBQd, tid);
-    load_f32(stage_dl(s), delta + stat, kBQd, tid);
+    load_rows<kBQd>(q_b, q, q_base, q_stride, tid);
+    load_rows<kBQd>(q2_b, q2, q_base, q_stride, tid);
+    load_rows<kBQd>(do_b, dout, q_base, q_stride, tid);
+    load_f32(lse_b, lse + stat, kBQd, tid);
+    load_f32(dl_b, delta + stat, kBQd, tid);
   };
 
-  load_rows<T, kBK>(k_s, k, kv_base, kv_stride, tid);
-  load_rows<T, kBK>(v_s, v, kv_base, kv_stride, tid);
-  if (n_it > 0) fetch(0, 0);
+  load_rows<kBK>(k_s, k, kv_base, kv_stride, tid);
+  load_rows<kBK>(v_s, v, kv_base, kv_stride, tid);
+  if (n_it > 0) fetch(0);
   cp_async_commit();
 
   float dk_acc[kHead / 8][4];
@@ -608,25 +487,13 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
   }
   const int key0 = k0 + warp * 16 + g;  // the thread's two key rows
   const int key1 = key0 + 8;
-  const T* kw = k_s + warp * 16 * kLd;
-  const T* vw = v_s + warp * 16 * kLd;
+  const float* kw = k_s + warp * 16 * kLd;
+  const float* vw = v_s + warp * 16 * kLd;
   float* wscratch = scratch + warp * 16 * (kBQd + 4);
 
   for (int it = 0; it < n_it; ++it) {
-    const int s = kStages == 2 ? (it & 1) : 0;
-    if (kStages == 2 && it + 1 < n_it) {
-      fetch(it + 1, s ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    cp_async_wait<0>();
     __syncthreads();
-    const T* qb = stage_q(s);
-    const T* q2b = stage_q2(s);
-    const T* dob = stage_do(s);
-    const float* lse_b = stage_lse(s);
-    const float* dl_b = stage_dl(s);
     const int q0 = (qi_lo + it % n_q) * kBQd;
 
     // transposed scores s^T = k . q2 (keys x queries), base-2 domain
@@ -637,7 +504,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
       st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.f;
       dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
     }
-    gemm_ab1<T, kBQd / 8, kHead>(st, kw, kLd, q2b, kLd, lane);
+    gemm_ab1<kBQd / 8, kHead>(st, kw, kLd, q2_b, kLd, lane);
     const bool masked = causal && q0 < k0 + kBK - 1;
 #pragma unroll
     for (int j = 0; j < kBQd / 8; ++j) {
@@ -655,10 +522,10 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
       st[j][2] = exp2f(st[j][2] - la);
       st[j][3] = exp2f(st[j][3] - lb);
     }
-    // dv += round_T(p^T) . do
-    gemm_pb2<T, kHead / 8, kBQd>(dv_acc, st, dob, kLd, wscratch, lane);
+    // dv += p^T . do
+    gemm_pb2<kHead / 8, kBQd>(dv_acc, st, do_b, kLd, wscratch, lane);
     // dp^T = v . do
-    gemm_ab1<T, kBQd / 8, kHead>(dpt, vw, kLd, dob, kLd, lane);
+    gemm_ab1<kBQd / 8, kHead>(dpt, vw, kLd, do_b, kLd, lane);
 #pragma unroll
     for (int j = 0; j < kBQd / 8; ++j) {
       const int c = j * 8 + 2 * t;
@@ -669,11 +536,11 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
       st[j][2] = st[j][2] * (dpt[j][2] - da) * scale;
       st[j][3] = st[j][3] * (dpt[j][3] - db) * scale;
     }
-    // dk += round_T(ds^T) . q (q unscaled)
-    gemm_pb2<T, kHead / 8, kBQd>(dk_acc, st, qb, kLd, wscratch, lane);
+    // dk += ds^T . q (q unscaled)
+    gemm_pb2<kHead / 8, kBQd>(dk_acc, st, q_b, kLd, wscratch, lane);
     __syncthreads();
-    if (kStages == 1 && it + 1 < n_it) {
-      fetch(it + 1, 0);
+    if (it + 1 < n_it) {
+      fetch(it + 1);
       cp_async_commit();
     }
   }
@@ -686,10 +553,10 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
 #pragma unroll
   for (int j = 0; j < kHead / 8; ++j) {
     const int col = j * 8 + 2 * t;
-    store2<float>(dk0 + col, dk_acc[j][0], dk_acc[j][1]);
-    store2<float>(dk1 + col, dk_acc[j][2], dk_acc[j][3]);
-    store2<float>(dv0 + col, dv_acc[j][0], dv_acc[j][1]);
-    store2<float>(dv1 + col, dv_acc[j][2], dv_acc[j][3]);
+    store2(dk0 + col, dk_acc[j][0], dk_acc[j][1]);
+    store2(dk1 + col, dk_acc[j][2], dk_acc[j][3]);
+    store2(dv0 + col, dv_acc[j][0], dv_acc[j][1]);
+    store2(dv1 + col, dv_acc[j][2], dv_acc[j][3]);
   }
 }
 
@@ -702,105 +569,60 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-bool bad_shape(int batch, int sq, int sk, int nq, int nkv, int head_dim) {
-  return batch <= 0 || nkv <= 0 || nq % nkv != 0 || head_dim != kHead || sq <= 0 ||
-         sk <= 0 || sq % kBQ != 0 || sk % kBK != 0;
-}
-
-cudaError_t fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
-                    int sq, int sk, int nq, int nkv, int causal, float q_scale, cudaStream_t s) {
-  cudaError_t err = allow_smem(flash_fwd_kernel, kFwdSmemBytes);
-  if (err != cudaSuccess) return err;
-  flash_fwd_kernel<<<dim3(sq / kBQ, nq, batch), kThreads, kFwdSmemBytes, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), static_cast<float*>(lse), sq, sk, nq, nkv, causal, q_scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* delta, void* dq_out, int batch, int sq, int sk, int nq, int nkv,
-               int causal, float q_scale, float scale, cudaStream_t s) {
-  constexpr int bytes = dq_smem_bytes<T>();
-  cudaError_t err = allow_smem(flash_dq_kernel<T>, bytes);
-  if (err != cudaSuccess) return err;
-  flash_dq_kernel<T><<<dim3(sq / kBQ, nq, batch), kThreads, bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq_out), sq, sk, nq, nkv, causal,
-      q_scale, scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dkv(const void* q, const void* q2, const void* k, const void* v, const void* dout,
-                const void* lse, const void* delta, void* dk, void* dv, int batch, int sq,
-                int sk, int nq, int nkv, int causal, float scale, cudaStream_t s) {
-  constexpr int bytes = dkv_smem_bytes<T>();
-  cudaError_t err = allow_smem(flash_dkv_kernel<T>, bytes);
-  if (err != cudaSuccess) return err;
-  flash_dkv_kernel<T><<<dim3(sk / kBK, nkv, batch), kThreads, bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(q2), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), sq,
-      sk, nq, nkv, causal, scale);
-  return cudaGetLastError();
+bool bad_input(int batch, int sq, int sk, int nq, int nkv, int head_dim, int dtype) {
+  return dtype != kF32 || batch <= 0 || nkv <= 0 || nq % nkv != 0 || head_dim != kHead ||
+         sq <= 0 || sk <= 0 || sq % kBQ != 0 || sk % kBK != 0;
 }
 
 }  // namespace
 
 // Plain C entry points, bound with ctypes. Pointers and the stream travel
-// as void*; each returns the cudaError_t of its launch (0 on success).
-// flash_fwd takes fp32 only: 16-bit inputs go to flash_fwd_sm90.
-// q_scale is scale * log2(e), already rounded to the inputs' dtype; scale
-// is the softmax scale in fp32; flash_dkv takes q already scaled (q2).
+// as void*; each returns the cudaError_t of its launch (0 on success), and
+// cudaErrorInvalidValue for a dtype other than fp32 (16-bit inputs go to
+// flash_fwd_sm90, flash_dq_sm90 and flash_dkv_sm90) or a shape the kernels
+// do not take. q_scale is scale * log2(e); scale is the softmax scale;
+// flash_dkv takes q already scaled (q2) beside q.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                          int batch, int sq, int sk, int nq, int nkv, int head_dim, int causal,
                          int dtype, float q_scale, void* stream) {
-  if (bad_shape(batch, sq, sk, nq, nkv, head_dim)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != kF32) return cudaErrorInvalidValue;
-  return fwd_f32(q, k, v, o, lse, batch, sq, sk, nq, nkv, causal, q_scale, s);
+  if (bad_input(batch, sq, sk, nq, nkv, head_dim, dtype)) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(flash_fwd_kernel, kFwdSmemBytes);
+  if (err != cudaSuccess) return err;
+  flash_fwd_kernel<<<dim3(sq / kBQ, nq, batch), kThreads, kFwdSmemBytes,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<float*>(lse), sq, sk, nq, nkv, causal, q_scale);
+  return cudaGetLastError();
 }
 
 extern "C" int flash_dq(const void* q, const void* k, const void* v, const void* dout,
                         const void* lse, const void* delta, void* dq_out, int batch, int sq,
                         int sk, int nq, int nkv, int head_dim, int causal, int dtype,
                         float q_scale, float scale, void* stream) {
-  if (bad_shape(batch, sq, sk, nq, nkv, head_dim)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32:
-      return dq<float>(q, k, v, dout, lse, delta, dq_out, batch, sq, sk, nq, nkv, causal,
-                       q_scale, scale, s);
-    case kBF16:
-      return dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq_out, batch, sq, sk, nq, nkv,
-                               causal, q_scale, scale, s);
-    case kF16:
-      return dq<__half>(q, k, v, dout, lse, delta, dq_out, batch, sq, sk, nq, nkv, causal,
-                        q_scale, scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (bad_input(batch, sq, sk, nq, nkv, head_dim, dtype)) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(flash_dq_kernel, kDqSmemBytes);
+  if (err != cudaSuccess) return err;
+  flash_dq_kernel<<<dim3(sq / kBQ, nq, batch), kThreads, kDqSmemBytes,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq_out), sq, sk, nq, nkv, causal,
+      q_scale, scale);
+  return cudaGetLastError();
 }
 
 extern "C" int flash_dkv(const void* q, const void* q2, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta, void* dk,
                          void* dv, int batch, int sq, int sk, int nq, int nkv, int head_dim,
                          int causal, int dtype, float scale, void* stream) {
-  if (bad_shape(batch, sq, sk, nq, nkv, head_dim)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32:
-      return dkv<float>(q, q2, k, v, dout, lse, delta, dk, dv, batch, sq, sk, nq, nkv, causal,
-                        scale, s);
-    case kBF16:
-      return dkv<__nv_bfloat16>(q, q2, k, v, dout, lse, delta, dk, dv, batch, sq, sk, nq, nkv,
-                                causal, scale, s);
-    case kF16:
-      return dkv<__half>(q, q2, k, v, dout, lse, delta, dk, dv, batch, sq, sk, nq, nkv, causal,
-                         scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (bad_input(batch, sq, sk, nq, nkv, head_dim, dtype)) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(flash_dkv_kernel, kDkvSmemBytes);
+  if (err != cudaSuccess) return err;
+  flash_dkv_kernel<<<dim3(sk / kBK, nkv, batch), kThreads, kDkvSmemBytes,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(q2), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), sq, sk, nq, nkv, causal, scale);
+  return cudaGetLastError();
 }

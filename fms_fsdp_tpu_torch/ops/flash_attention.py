@@ -15,11 +15,12 @@ reads kv head h // (Nq // Nkv). The numbers are those of the TPU kernels:
   walk, and :func:`flash_dkv` returns them fp32, as ``flash_dkv`` in JAX.
 
 Each of :func:`flash_fwd`, :func:`flash_dq` and :func:`flash_dkv` runs its
-plain PyTorch version for CPU tensors and the hand-written CUDA kernel of
-``csrc/flash_attention.cu`` for CUDA tensors, and raises on any other
-device. The kernels replace the five Pallas kernels: ``_fwd_kernel`` and
-``_fwd_kernel_kvgrid`` (flash_fwd: wgmma + TMA in ``csrc/flash_fwd_sm90.cu``
-for 16-bit inputs, scalar FMA for fp32), ``_dq_kernel`` and
+plain PyTorch version for CPU tensors and a hand-written CUDA kernel for
+CUDA tensors, and raises on any other device: for bf16/fp16 the wgmma +
+TMA kernels of ``csrc/flash_fwd_sm90.cu`` (forward) and
+``csrc/flash_bwd_sm90.cu`` (dq, dk/dv), for fp32 the scalar kernels of
+``csrc/flash_attention.cu``. The kernels replace the five Pallas kernels:
+``_fwd_kernel`` and ``_fwd_kernel_kvgrid`` (flash_fwd), ``_dq_kernel`` and
 ``_dq_kernel_kvgrid`` (flash_dq), ``_dkv_kernel`` (flash_dkv). On the TPU
 the resident/kvgrid split is a VMEM limit; the CUDA forward and dq kernels
 always stream K/V, so one kernel fulfils both contracts. ``LAUNCHES``
@@ -54,7 +55,7 @@ _VARIANT = None
 # counted where a kernel launches and nowhere else
 LAUNCHES = {"fwd": 0, "fwd_kvgrid": 0, "dq": 0, "dq_kvgrid": 0, "dkv": 0}
 
-# dtype codes of csrc/flash_attention.cu
+# dtype codes of the csrc/flash_*.cu entry points
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIM = 128  # kHead in the kernels
 _TILE = 64  # kBQ / kBK: Sq and Sk must be multiples of it
@@ -71,6 +72,20 @@ _PLAIN_CHUNK_ELEMS = 1 << 27
 # plain version against the final one; dq and dk inherit o's error
 # through delta = sum(o * do).
 BF16_REL_TOL = {"o": 2.5e-3, "lse": 1e-6, "dq": 2e-3, "dk": 1.5e-3, "dv": 5e-4}
+# bf16/fp16: bound on the relative error of each 128-row dq block and
+# 128-key dk/dv block of the backward kernels against the plain backward on
+# the same lse and delta. Set between readings of chip_smoke.py's flash
+# phase on an H100 (four shapes, S up to 16384): the kernels' largest (dq
+# 8.9e-4, dk 3.8e-4, dv 4.5e-4: small blocks of few terms, group 1) and
+# the smallest of the control, the plain backward with one 64-row query
+# tile left out of key block 0's walk (dq 6.3e-2, dk 1.58e-3, dv 1.39e-3
+# at S=16384, where that tile is one step of 1024), which must fail.
+BF16_BLOCK_REL_TOL = {"dq": 2e-3, "dk": 8e-4, "dv": 8e-4}
+# rows of a dq block and keys of a dk/dv block of csrc/flash_bwd_sm90.cu,
+# and the query rows of one step of a dk/dv block's walk: the units of the
+# per-block checks and of the leave-one-tile-out control
+BWD_BLOCK = 128
+BWD_Q_TILE = 64
 
 
 def reset_launches() -> None:
@@ -239,37 +254,88 @@ def flash_dkv_plain(q, k, v, dout, lse, delta, *, causal=True, scale=None):
     return dk, dv
 
 
+def block_rel_err(a, r, block=BWD_BLOCK):
+    """Relative error ``||a - r|| / ||r||`` of every block of ``block`` rows
+    of one head: a, r (B, S, N, H) -> (B, ceil(S / block), N) fp32. A block
+    whose reference is zero reads 0 if ``a`` is zero there too, else inf."""
+    b, s, n, h = r.shape
+    nb = -(-s // block)
+    diff = torch.zeros((b, nb * block, n, h), dtype=torch.float32, device=r.device)
+    ref = torch.zeros_like(diff)
+    diff[:, :s] = a.float() - r.float()
+    ref[:, :s] = r.float()
+    d = diff.reshape(b, nb, block, n, h).square().sum((2, 4)).sqrt()
+    rn = ref.reshape(b, nb, block, n, h).square().sum((2, 4)).sqrt()
+    zero = torch.where(d > 0, float("inf"), 0.0)
+    return torch.where(rn > 0, d / rn.clamp_min(torch.finfo(torch.float32).tiny), zero)
+
+
+def flash_bwd_drop_tile_plain(q, k, v, dout, lse, delta, dq, dk, dv, *, batch, head,
+                              q_tile, k_block, causal=True, scale=None):
+    """The plain backward with one step of a dk/dv block's walk left out: the
+    ``BWD_Q_TILE`` query rows ``q_tile`` of query head ``head`` (batch
+    ``batch``) no longer reach the ``BWD_BLOCK`` keys ``k_block`` of its kv
+    head. ``dq, dk, dv`` are the plain versions' results on these inputs
+    and their ``lse``, ``delta``; returns new (dq, dk, dv) that differ from
+    them only in that dq tile and that dk/dv block. A kernel that skipped
+    or misread one step of its walk would land about here: the control of
+    the per-block checks, which it must fail."""
+    nq, hd = q.shape[2], q.shape[3]
+    sk, nkv = k.shape[1], k.shape[2]
+    kvh = head // (nq // nkv)
+    scale = float(scale if scale is not None else hd**-0.5)
+    q0, q1 = q_tile * BWD_Q_TILE, (q_tile + 1) * BWD_Q_TILE
+    k0, k1 = k_block * BWD_BLOCK, min(sk, (k_block + 1) * BWD_BLOCK)
+    qr = q[batch, q0:q1, head]
+    dor = dout[batch, q0:q1, head].float()
+    kf, vf = k[batch, k0:k1, kvh].float(), v[batch, k0:k1, kvh].float()
+    s = (qr * q_scale_for(scale, q.dtype)).to(q.dtype).float() @ kf.T
+    if causal:
+        qpos = torch.arange(q0, q1, device=q.device)[:, None]
+        kpos = torch.arange(k0, k1, device=q.device)[None, :]
+        s = s.masked_fill(kpos > qpos, float("-inf"))
+    p = torch.exp2(s - lse[batch, head, q0:q1, None] * LOG2E)
+    dp = dor @ vf.T
+    ds = (p * (dp - delta[batch, head, q0:q1, None]) * scale).to(k.dtype).float()
+    dq, dk, dv = dq.clone(), dk.clone(), dv.clone()
+    dq[batch, q0:q1, head] = (dq[batch, q0:q1, head].float() - ds @ kf).to(dq.dtype)
+    dk[batch, k0:k1, kvh] -= ds.T @ qr.float()
+    dv[batch, k0:k1, kvh] -= p.to(dout.dtype).float().T @ dor
+    return dq, dk, dv
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels
 # ---------------------------------------------------------------------------
 
 
-def _library():
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# argument types of each kernel's C entry point; pointers and the stream as
+# c_void_p: a default int would cut them to 32 bits
+_ARGTYPES = {
+    "fwd": [_P] * 5 + [_I] * 8 + [_F, _P],
+    "dq": [_P] * 7 + [_I] * 8 + [_F, _F, _P],
+    "dkv": [_P] * 9 + [_I] * 8 + [_F, _P],
+}
+
+
+def _entry(op: str, dtype: torch.dtype):
+    """(C entry point, its name) of ``op`` ("fwd", "dq", "dkv") for
+    ``dtype``: ``flash_<op>_sm90`` of ``csrc/flash_fwd_sm90.cu`` (fwd) or
+    ``csrc/flash_bwd_sm90.cu`` (dq, dkv) for bf16/fp16, ``flash_<op>`` of
+    ``csrc/flash_attention.cu`` for fp32."""
     from fms_fsdp_tpu_torch.ops import cuda_build
 
-    lib = cuda_build.load("flash_attention").lib
-    if lib.flash_fwd.argtypes is None:
-        # pointers and the stream as c_void_p: a default int would cut
-        # them to 32 bits
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_fwd.argtypes = [p] * 5 + [i] * 8 + [f, p]
-        lib.flash_dq.argtypes = [p] * 7 + [i] * 8 + [f, f, p]
-        lib.flash_dkv.argtypes = [p] * 9 + [i] * 8 + [f, p]
-        for fn in (lib.flash_fwd, lib.flash_dq, lib.flash_dkv):
-            fn.restype = ctypes.c_int
-    return lib
-
-
-def _library_sm90():
-    """``csrc/flash_fwd_sm90.cu``: the 16-bit forward (wgmma + TMA)."""
-    from fms_fsdp_tpu_torch.ops import cuda_build
-
-    lib = cuda_build.load("flash_fwd_sm90").lib
-    if lib.flash_fwd_sm90.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_fwd_sm90.argtypes = [p] * 5 + [i] * 8 + [f, p]
-        lib.flash_fwd_sm90.restype = ctypes.c_int
-    return lib
+    if dtype == torch.float32:
+        source, name = "flash_attention", f"flash_{op}"
+    else:
+        source = "flash_fwd_sm90" if op == "fwd" else "flash_bwd_sm90"
+        name = f"flash_{op}_sm90"
+    fn = getattr(cuda_build.load(source).lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES[op]
+        fn.restype = ctypes.c_int
+    return fn, name
 
 
 def _check_cuda(q, k, v, **extra):
@@ -339,10 +405,7 @@ def flash_fwd(q, k, v, *, causal=True, scale=None):
     o = torch.empty_like(q)
     lse = torch.empty((b, nq, sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if q.dtype == torch.float32:
-        fn, name = _library().flash_fwd, "flash_fwd"
-    else:
-        fn, name = _library_sm90().flash_fwd_sm90, "flash_fwd_sm90"
+    fn, name = _entry("fwd", q.dtype)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b, sq, sk, nq, nkv, h, int(causal), _CODES[q.dtype],
@@ -355,7 +418,9 @@ def flash_fwd(q, k, v, *, causal=True, scale=None):
 
 def flash_dq(q, k, v, dout, lse, delta, *, causal=True, scale=None):
     """dq (B, Sq, Nq, H) in q's dtype from the softmax stats lse and delta
-    (B, Nq, Sq) fp32. CPU: :func:`flash_dq_plain`; CUDA: ``flash_dq``."""
+    (B, Nq, Sq) fp32. CPU: :func:`flash_dq_plain`; CUDA: ``flash_dq_sm90``
+    (``csrc/flash_bwd_sm90.cu``) for bf16/fp16, ``flash_dq``
+    (``csrc/flash_attention.cu``) for fp32."""
     if _device_of(q) == "cpu":
         return flash_dq_plain(q, k, v, dout, lse, delta, causal=causal, scale=scale)
     _check_cuda(q, k, v, dout=dout, lse=lse, delta=delta)
@@ -364,20 +429,22 @@ def flash_dq(q, k, v, dout, lse, delta, *, causal=True, scale=None):
     scale = float(scale if scale is not None else h**-0.5)
     dq = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _library().flash_dq(
+    fn, name = _entry("dq", q.dtype)
+    err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         b, sq, sk, nq, nkv, h, int(causal), _CODES[q.dtype],
         q_scale_for(scale, q.dtype), scale, stream,
     )
-    _raise_on(err, "flash_dq")
+    _raise_on(err, name)
     LAUNCHES["dq_kvgrid" if _use_kvgrid(sk) else "dq"] += 1
     return dq
 
 
 def flash_dkv(q, k, v, dout, lse, delta, *, causal=True, scale=None):
     """(dk, dv), each (B, Sk, Nkv, H) fp32. CPU: :func:`flash_dkv_plain`;
-    CUDA: ``flash_dkv`` (one contract: JAX has no kv-streamed dk/dv)."""
+    CUDA: ``flash_dkv_sm90`` for bf16/fp16, ``flash_dkv`` for fp32 (one
+    contract: JAX has no kv-streamed dk/dv)."""
     if _device_of(q) == "cpu":
         return flash_dkv_plain(q, k, v, dout, lse, delta, causal=causal, scale=scale)
     _check_cuda(q, k, v, dout=dout, lse=lse, delta=delta)
@@ -390,12 +457,13 @@ def flash_dkv(q, k, v, dout, lse, delta, *, causal=True, scale=None):
     # the kernels' rounding: the fp32 product rounded to q's dtype
     q2 = (q * q_scale_for(scale, q.dtype)).to(q.dtype)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _library().flash_dkv(
+    fn, name = _entry("dkv", q.dtype)
+    err = fn(
         q.data_ptr(), q2.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, sq, sk, nq, nkv, h, int(causal), _CODES[q.dtype], scale, stream,
     )
-    _raise_on(err, "flash_dkv")
+    _raise_on(err, name)
     LAUNCHES["dkv"] += 1
     return dk, dv
 

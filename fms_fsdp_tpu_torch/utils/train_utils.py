@@ -34,17 +34,27 @@ def _memory_stats(device):
             torch.cuda.max_memory_allocated(device))
 
 
+def state_device(state) -> torch.device:
+    """The device of a train state: that of its first parameter tensor."""
+    tree = state["params"]
+    while not isinstance(tree, torch.Tensor):
+        tree = next(iter(tree.values() if isinstance(tree, dict) else tree))
+    return tree.device
+
+
 def train(cfg, state, step_fn, rank, train_loader, start_step: int = 0,
           tokens_seen: int = 0, model_cfg=None, device=None) -> Dict:
     """Run the hot loop to ``cfg.num_steps``. Returns {"final_loss",
     "reports": one dict per report window, "skipped_batches", "steps"}.
 
-    MFU counts the model FLOPs of a step (PaLM appendix B, no remat); HFU
-    adds the recomputed forward of the layers ``selective_checkpointing``
+    ``device`` defaults to the state's (:func:`state_device`): a window's
+    clock is read after the card has finished its steps. MFU counts the
+    model FLOPs of a step (PaLM appendix B, no remat); HFU adds the
+    recomputed forward of the layers ``selective_checkpointing``
     rematerialises. Both are against the card's dense bf16 peak, and only
     where the run is on a card; on the CPU they are None.
     """
-    device = torch.device(device) if device is not None else torch.device("cpu")
+    device = torch.device(device) if device is not None else state_device(state)
     guard = AnomalyGuard(max_consecutive=max(1, cfg.anomaly_max_consecutive))
     flops = hflops = peak = None
     if model_cfg is not None and device.type == "cuda":

@@ -1,5 +1,5 @@
-"""PyTorch port on an NVIDIA card: the CUDA paged-decode and flash-attention
-kernels against their plain versions, the engine through the kernel
+"""PyTorch port on an NVIDIA card: the CUDA paged-decode, flash-attention
+and SSD kernels against their plain versions, the engine through the kernel
 against the engine through the reference attention, and one full-width
 train step through the flash kernels against the same step through the
 einsum attention.
@@ -256,86 +256,50 @@ def _rel_err(a, r):
     return ((a.float() - r).norm() / r.norm()).item()
 
 
-@pytest.mark.card
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,sq,sk,nq,nkv", [
-    (2, 256, 256, 4, 1),     # group 4
-    (1, 512, 512, 2, 2),     # group 1
-    (1, 256, 512, 4, 2),     # causal cross length: keys past the last query
-    (1, 8448, 8448, 2, 1),   # the kvgrid contract (seq_k > 8192)
-])
-def test_card_flash_kernels_match_plain(cuda_device, dtype, b, sq, sk, nq, nkv):
-    """fp32: within 1e-4 of the plain version (fp32 sums in another order
-    over up to 8448 keys). bf16: within twice the plain bf16 version's own
-    distance from the plain version on the same inputs widened to fp32,
-    and each output within ``BF16_REL_TOL`` relative error of the plain
-    bf16 version, a bound that the plain version with its scores rounded
-    to bf16 before exp2 (the control) exceeds."""
-    from fms_fsdp_tpu_torch.ops import flash_attention as fa
-
-    q, k, v, do = _flash_case(cuda_device, dtype, b, sq, sk, nq, nkv)
-    fa.reset_launches()
-    got = _flash_all(fa, q, k, v, do, kernel=True)
-    torch.cuda.synchronize()
-    kv = "_kvgrid" if sk > fa.MAX_KERNEL_SEQ else ""
-    assert fa.LAUNCHES == {"fwd": 0, "fwd_kvgrid": 0, "dq": 0, "dq_kvgrid": 0, "dkv": 0,
-                           "fwd" + kv: 1, "dq" + kv: 1, "dkv": 1}
-    ref = _flash_all(fa, q, k, v, do, kernel=False)
-    names = ("o", "lse", "dq", "dk", "dv")
-    if dtype == torch.float32:
-        tols = [1e-4] * 5
-    else:
-        wide = _flash_all(fa, q.float(), k.float(), v.float(), do.float(), kernel=False)
-        tols = [2 * (r.float() - w).abs().max().item() + 1e-6 for r, w in zip(ref, wide)]
-        scores = fa._scores2
-        fa._scores2 = lambda *x: scores(*x).to(torch.bfloat16).float()
-        try:
-            control = _flash_all(fa, q, k, v, do, kernel=False)
-        finally:
-            fa._scores2 = scores
-        for name, a, c, r in zip(names, got, control, ref):
-            rel, rel_control = _rel_err(a, r), _rel_err(c, r)
-            assert rel <= fa.BF16_REL_TOL[name] < rel_control, (name, rel, rel_control)
-    for name, a, r, tol in zip(names, got, ref, tols):
-        assert torch.isfinite(a).all(), name
-        err = (a.float() - r.float()).abs().max().item()
-        assert err <= tol, (name, err, tol)
-    if sk > sq:
-        assert torch.count_nonzero(got[3][:, sq:]) == 0
-        assert torch.count_nonzero(got[4][:, sq:]) == 0
+def _bwd_per_block(fa, q, k, v, do, got, causal):
+    """Each 128-row dq block and 128-key dk/dv block of the backward
+    kernels (``got``: the kernels' o, lse, dq, dk, dv) within
+    ``BF16_BLOCK_REL_TOL`` of the plain backward on the same inputs, the
+    kernel forward's lse and delta; the control (that plain backward with
+    the last 64-row query tile of the last head and batch left out of key
+    block 0's walk) beyond it on the one block of each output it changes."""
+    lse = got[1]
+    delta = torch.einsum("bsnh,bsnh->bns", got[0].float(), do.float()).contiguous()
+    kw = dict(causal=causal)
+    ref = [fa.flash_dq_plain(q, k, v, do, lse, delta, **kw),
+           *fa.flash_dkv_plain(q, k, v, do, lse, delta, **kw)]
+    control = fa.flash_bwd_drop_tile_plain(
+        q, k, v, do, lse, delta, *ref, batch=q.shape[0] - 1, head=q.shape[2] - 1,
+        q_tile=q.shape[1] // fa.BWD_Q_TILE - 1, k_block=0, causal=causal)
+    for name, a, r, c in zip(("dq", "dk", "dv"), got[2:], ref, control):
+        tol = fa.BF16_BLOCK_REL_TOL[name]
+        rel, ctl = fa.block_rel_err(a, r), fa.block_rel_err(c, r)
+        assert rel.max().item() <= tol, (name, rel.max().item(), tol)
+        changed = ctl > 0
+        assert int(changed.sum()) == 1, (name, int(changed.sum()))
+        assert ctl[changed].min().item() > tol, (name, ctl[changed].min().item(), tol)
 
 
-@pytest.mark.card
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,sq,sk,nq,nkv,causal", [
-    (1, 192, 192, 4, 1, True),      # a 64-row tail of the 128-row forward block
-    (1, 192, 192, 4, 4, False),     # the tail, group 1, non-causal
-    (1, 2048, 4096, 4, 1, True),    # cross length: keys past the last query
-    (2, 256, 512, 8, 2, False),     # non-causal cross length, group 4
-    (1, 8448, 8448, 4, 1, True),    # the kvgrid length, group 4
-])
-def test_card_flash_more_shapes_match_plain(cuda_device, dtype, b, sq, sk, nq, nkv, causal):
-    """The shapes the 128-row wgmma forward block must also get right,
-    with the checks of test_card_flash_kernels_match_plain: fp32 within
-    1e-4; bf16 within twice the plain bf16 version's distance from fp32
-    and within ``BF16_REL_TOL`` of the plain bf16 version, which the
-    control (scores rounded to bf16) exceeds."""
-    from fms_fsdp_tpu_torch.ops import flash_attention as fa
-
-    q, k, v, do = _flash_case(cuda_device, dtype, b, sq, sk, nq, nkv, seed=23)
-    fa.reset_launches()
-    got = _flash_all(fa, q, k, v, do, kernel=True, causal=causal)
-    torch.cuda.synchronize()
-    kv = "_kvgrid" if sk > fa.MAX_KERNEL_SEQ else ""
-    assert fa.LAUNCHES["fwd" + kv] == 1 and fa.LAUNCHES["dq" + kv] == 1
+def _check_flash(fa, q, k, v, do, got, causal):
+    """o, lse, dq, dk, dv of the kernels (``got``; the forward's o and lse
+    feed the backward) against the plain version on the same inputs. fp32:
+    within 1e-4 (fp32 sums in another order over up to 8448 keys). 16-bit:
+    within twice the plain version's own distance from the plain version
+    on the inputs widened to fp32 (plus 1e-6), and per block as in
+    :func:`_bwd_per_block`; bf16 also within ``BF16_REL_TOL`` relative
+    error of the plain bf16 version, a bound that the plain version with
+    its scores rounded to bf16 before exp2 (the control) exceeds. Keys
+    past the last query (causal) get zero dk and dv."""
     ref = _flash_all(fa, q, k, v, do, kernel=False, causal=causal)
     names = ("o", "lse", "dq", "dk", "dv")
-    if dtype == torch.float32:
+    if q.dtype == torch.float32:
         tols = [1e-4] * 5
     else:
         wide = _flash_all(fa, q.float(), k.float(), v.float(), do.float(), kernel=False,
                           causal=causal)
         tols = [2 * (r.float() - w).abs().max().item() + 1e-6 for r, w in zip(ref, wide)]
+        _bwd_per_block(fa, q, k, v, do, got, causal)
+    if q.dtype == torch.bfloat16:
         scores = fa._scores2
         fa._scores2 = lambda *x: scores(*x).to(torch.bfloat16).float()
         try:
@@ -349,27 +313,87 @@ def test_card_flash_more_shapes_match_plain(cuda_device, dtype, b, sq, sk, nq, n
         assert torch.isfinite(a).all(), name
         err = (a.float() - r.float()).abs().max().item()
         assert err <= tol, (name, err, tol)
+    sq = q.shape[1]
+    if causal and k.shape[1] > sq:
+        assert torch.count_nonzero(got[3][:, sq:]) == 0
+        assert torch.count_nonzero(got[4][:, sq:]) == 0
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("b,sq,sk,nq,nkv,causal", [
-    (1, 192, 192, 4, 1, True),
-    (2, 256, 512, 8, 2, False),
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,sq,sk,nq,nkv", [
+    (2, 256, 256, 4, 1),     # group 4
+    (1, 512, 512, 2, 2),     # group 1
+    (1, 256, 512, 4, 2),     # causal cross length: keys past the last query
+    (1, 8448, 8448, 2, 1),   # the kvgrid contract (seq_k > 8192)
 ])
-def test_card_flash_fwd_fp16_matches_plain(cuda_device, b, sq, sk, nq, nkv, causal):
-    """The fp16 instantiation of the wgmma forward: o and lse within twice
-    the plain fp16 version's own distance from fp32 (plus 1e-6)."""
+def test_card_flash_kernels_match_plain(cuda_device, dtype, b, sq, sk, nq, nkv):
+    """Causal: each launch counted once under its contract, and the checks
+    of :func:`_check_flash`."""
     from fms_fsdp_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, _ = _flash_case(cuda_device, torch.float16, b, sq, sk, nq, nkv, seed=27)
-    got = fa.flash_fwd(q, k, v, causal=causal)
+    q, k, v, do = _flash_case(cuda_device, dtype, b, sq, sk, nq, nkv)
+    fa.reset_launches()
+    got = _flash_all(fa, q, k, v, do, kernel=True)
     torch.cuda.synchronize()
-    ref = fa.flash_fwd_plain(q, k, v, causal=causal)
-    wide = fa.flash_fwd_plain(q.float(), k.float(), v.float(), causal=causal)
-    for a, r, w in zip(got, ref, wide):
-        assert torch.isfinite(a).all()
-        tol = 2 * (r.float() - w).abs().max().item() + 1e-6
-        assert (a.float() - r.float()).abs().max().item() <= tol
+    kv = "_kvgrid" if sk > fa.MAX_KERNEL_SEQ else ""
+    assert fa.LAUNCHES == {"fwd": 0, "fwd_kvgrid": 0, "dq": 0, "dq_kvgrid": 0, "dkv": 0,
+                           "fwd" + kv: 1, "dq" + kv: 1, "dkv": 1}
+    _check_flash(fa, q, k, v, do, got, causal=True)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("b,sq,sk,nq,nkv,causal", [
+    (1, 192, 192, 4, 1, True),      # a 64-row tail of a 128-row block, group 4
+    (1, 192, 192, 4, 4, False),     # the tail, group 1, non-causal
+    (1, 2048, 4096, 4, 1, True),    # cross length: keys past the last query
+    (2, 256, 512, 8, 2, False),     # non-causal cross length, group 4
+    (1, 8448, 8448, 4, 1, True),    # the kvgrid length, group 4
+    # the 64-row tail of a dq block and the 64-key tail of a dk/dv block
+    (1, 192, 192, 4, 4, True),
+    (1, 192, 192, 4, 1, False),
+    (1, 320, 320, 4, 4, True),
+    (1, 320, 320, 4, 1, True),
+    (1, 320, 320, 4, 4, False),
+    (1, 320, 320, 4, 1, False),
+    (1, 192, 320, 4, 4, True),      # and Sq != Sk
+    (1, 192, 320, 4, 1, True),
+    (1, 192, 320, 4, 4, False),
+    (1, 192, 320, 4, 1, False),
+])
+def test_card_flash_more_shapes_match_plain(cuda_device, dtype, b, sq, sk, nq, nkv, causal):
+    """The shapes the 128-row wgmma blocks (the forward's and dq's 128
+    query rows, dk/dv's 128 keys) must also get right, in bf16, fp16
+    (the fp16 instantiations of the three wgmma kernels) and fp32, with
+    the checks of :func:`_check_flash`."""
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_case(cuda_device, dtype, b, sq, sk, nq, nkv, seed=23)
+    fa.reset_launches()
+    got = _flash_all(fa, q, k, v, do, kernel=True, causal=causal)
+    torch.cuda.synchronize()
+    kv = "_kvgrid" if sk > fa.MAX_KERNEL_SEQ else ""
+    assert fa.LAUNCHES["fwd" + kv] == 1 and fa.LAUNCHES["dq" + kv] == 1
+    assert fa.LAUNCHES["dkv"] == 1
+    _check_flash(fa, q, k, v, do, got, causal)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_card_flash_bwd_is_deterministic(cuda_device, dtype):
+    """dq, dk and dv of two calls on the same inputs are equal bit for bit:
+    no atomics, one fixed order of sums."""
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_case(cuda_device, dtype, 2, 1024, 1024, 8, 2, seed=35)
+    o, lse = fa.flash_fwd(q, k, v)
+    delta = torch.einsum("bsnh,bsnh->bns", o.float(), do.float()).contiguous()
+    first = [fa.flash_dq(q, k, v, do, lse, delta), *fa.flash_dkv(q, k, v, do, lse, delta)]
+    second = [fa.flash_dq(q, k, v, do, lse, delta), *fa.flash_dkv(q, k, v, do, lse, delta)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.card

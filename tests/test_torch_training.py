@@ -39,7 +39,7 @@ from fms_fsdp_tpu_torch.train.step import (
 )
 from fms_fsdp_tpu_torch.utils.cli import parse_cli_args
 from fms_fsdp_tpu_torch.utils.config_utils import get_model_config, update_config
-from fms_fsdp_tpu_torch.utils.train_utils import train
+from fms_fsdp_tpu_torch.utils.train_utils import state_device, train
 
 # head dim 128, the flash kernels' width
 _SMALL_KW = dict(src_vocab_size=512, emb_dim=256, nheads=2, kvheads=1, nlayers=2,
@@ -269,6 +269,31 @@ def test_nonfinite_guard_skips_the_update_bit_identically(np_params):
                     tokens_seen=0)
     assert summary["skipped_batches"] == 1 and summary["steps"] == 3
     assert np.isfinite(summary["final_loss"])
+
+
+def test_train_takes_the_device_from_the_state():
+    """Without ``device=``, ``train`` takes the device of the state's
+    parameters (a card state then gets its synchronize before each window's
+    clock and its MFU); Llama's stacked layer dict and Mamba's layer list
+    alike."""
+    meta = torch.empty(2, device="meta")
+    assert state_device({"params": {"embedding": meta, "layers": {}}}) == meta.device
+    assert state_device({"params": {"layers": [{"mixer": {"A": meta}}]}}) == meta.device
+    cpu = torch.zeros(1)
+    assert state_device({"params": {"layers": {"wq": cpu}}}) == torch.device("cpu")
+
+    cfg = TrainConfig(num_steps=2, report_interval=1)
+    batches = iter([None] * 3)
+
+    def step_fn(state, batch):
+        state["step"] += 1
+        one = torch.ones((), device=state_device(state))
+        return {"loss": one, "gnorm": one, "lr": one, "nonfinite": one * 0}
+
+    state = {"params": {"embedding": cpu}, "step": 0}
+    out = train(cfg, state, step_fn, 1, batches, model_cfg=LlamaConfig())
+    assert out["steps"] == 2 and state["step"] == 2
+    assert all(r["mfu"] is None for r in out["reports"])  # a CPU state
 
 
 # ---------------------------------------------------------------------------
