@@ -62,14 +62,19 @@ Phases, one JSON line each; any failure exits non-zero:
    ``flash_kernel_variant="kvgrid"``, so the launches of the kv-streamed
    contracts are counted on the main path too.
 
-9. ssd     — the fused SSD scan kernel against its plain version at the
+9. ssd     — the fused SSD scan kernels (``ssd_sm90.cu`` for bf16,
+   ``ssd.cu`` for fp32) against their plain version at the
    Mamba training shape (B=2, S=4096, H=128, P=64, G=1, N=128, L=256), at
    G=8 and at S=L (one chunk), bf16 and fp32, dt and A in the ranges of
    ``init_mamba_params``: fp32 within 1e-4 x max(1, |value|); bf16 within
    twice the plain bf16 version's distance from an fp32 run and within
    ``ssd.BF16_REL_TOL`` (relative error against the plain bf16 version),
    which a control (the plain version with dt rounded to bf16) must
-   exceed; CUDA-event times of the kernel, the plain version and the
+   exceed; both dtypes per (batch, chunk, head) within
+   ``ssd.BF16_CHUNK_REL_TOL`` (``ssd.chunk_check``), which a control (the
+   plain version with the last 64-token tile of the next-to-last chunk
+   left out of the state it hands on) must exceed on the one chunk it
+   changes; CUDA-event times of the kernel, the plain version and the
    whole ``ssd_scan`` through the kernel and through the chunked einsums,
    the bound, and the other pieces of a Mamba layer at that shape (the
    scan's einsum backward, the conv forward and backward).
@@ -248,6 +253,10 @@ def phase_build(state):
     bwd = cuda_build.load("flash_bwd_sm90").lib
     report["flash_bwd_sm90"]["dynamic_smem_bytes"] = {
         "dq": bwd.flash_bwd_sm90_smem_bytes(0), "dkv": bwd.flash_bwd_sm90_smem_bytes(1)}
+    scan = cuda_build.load("ssd_sm90").lib
+    report["ssd_sm90"]["dynamic_smem_bytes"] = {
+        f"{hb} heads a block, L={chunk}": scan.ssd_sm90_smem_bytes(hb, chunk)
+        for hb in (1, 2) for chunk in (64, 256)}
     state["build_s"] = wall
     emit("build", seconds=wall, sources=report, spilling_kernels=spills)
     if spills:
@@ -1040,7 +1049,7 @@ def _kernel_kind(name: str) -> str:
     """A device kernel's family by its name: the repo's own kernels, the
     library's matrix products by element type, and the rest."""
     low = name.lower()
-    if "ssd_fused_kernel" in low:
+    if "ssd_fused" in low and "_kernel" in low:  # ssd_fused_kernel, ssd_fused_sm90_kernel
         return "ssd_fused"
     if "flash_" in low and "_kernel" in low:
         return "flash"
@@ -1264,6 +1273,8 @@ def phase_ssd(state):
             err = (got - ref).abs().max().item()
             scale = max(1.0, ref.abs().max().item())
             rel = rel_ok = dist = None
+            # per (batch, chunk, head), with the drop-tile control
+            per_chunk = ssd.chunk_check(got, ref, x, dt, a, bm, cm, chunk)
             if kind == "fp32":
                 tol = SSD_FP32_REL_TOL * scale
                 rel_ok = True
@@ -1284,9 +1295,11 @@ def phase_ssd(state):
                 "shape": {"B": b, "S": s, "H": h, "P": 64, "G": g, "N": 128, "L": chunk},
                 "launches": launched, "max_abs_err": err, "tol": tol,
                 "value_absmax": scale, "plain_bf16_vs_fp32": dist,
-                "rel_err_vs_plain_bf16": rel, "finite": finite,
+                "rel_err_vs_plain_bf16": rel, "per_chunk": per_chunk, "finite": finite,
+                "source": "fms_fsdp_tpu_torch/csrc/%s.cu" % ssd.kernel_source(dtype)[0],
             }
-            r["ok"] = finite and bool(rel_ok) and err <= tol and launched == 1
+            r["ok"] = (finite and bool(rel_ok) and err <= tol and launched == 1
+                       and per_chunk["ok"])
             del x, dt, a, bm, cm, got, ref
             torch.cuda.empty_cache()
             if name == "train":
@@ -1543,7 +1556,7 @@ def kernels_line(state):
     t = r["times"]
     entries.append({
         "name": "ssd_fused", "route": "cuda",
-        "source": "fms_fsdp_tpu_torch/csrc/ssd.cu",
+        "source": r["source"],
         "replaces": REPLACES["ssd_fused"],
         "launches": state["train-mamba"]["launches"]["ssd_fused"],
         "max_abs_err": r["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],

@@ -1,8 +1,9 @@
 // Fused whole-sequence Mamba2 SSD (state-space dual) scan for Hopper
-// (sm_90a), forward.
+// (sm_90a), forward, fp32 inputs. bf16 and fp16 inputs run the kernel of
+// ssd_sm90.cu.
 //
-// Replaces the Pallas kernel fms_fsdp_tpu/ops/ssd.py:51 `_fused_kernel`
-// (call :186). Per chunk of L tokens of one head it computes
+// Replaces, for fp32, the Pallas kernel fms_fsdp_tpu/ops/ssd.py:51
+// `_fused_kernel` (call :186). Per chunk of L tokens of one head it computes
 //
 //   cum_i = sum(a[0..i])                (chunk-local, fp32)
 //   w_ij  = (C_i . B_j) * exp(cum_i - cum_j) * dt_j   for i >= j, else 0
@@ -12,7 +13,7 @@
 //
 // with s (N, P) fp32 carried from chunk to chunk (zero before the first),
 // every product accumulated in fp32, and the three casts to the input type
-// T exactly where the TPU kernel makes them. y has no D term and is fp32.
+// T where the TPU kernel makes them (no-ops for fp32). y has no D term.
 //
 // Layout: x (B, S, H, P) and Bm/Cm (B, S, G, N) of type T, read through
 // their batch and token strides as the model produces them (views into the
@@ -45,24 +46,16 @@
 //   - The state stays in shared memory for the whole sweep: fp32 (N, P),
 //     plus its copy rounded to T, which is the operand of C . s_prev.
 //
-// What bounds it on the H100: bytes. At B=2, S=4096, H=128, P=64, N=128,
-// G=1, L=256 the operands are 0.41 GB (x 134 MB in bf16, y 268 MB fp32, dt
-// and a 4 MB each, B and C 2 MB each), 0.12 ms at 3.35 TB/s, against 69
-// GFLOP of the chunked algorithm, 0.07 ms at the bf16 tensor rate. This
-// kernel is a first, simple one and does not reach that: 16-bit products
-// run on the tensor cores through mma.sync m16n8k16 with fragments from
-// ldmatrix, tiles are staged with cp.async without a pipeline (the second
-// block of the SM hides some of the latency), and fp32 inputs take a scalar
-// FMA path with the same tiling (TF32 would change the numbers). wgmma, TMA
-// and a C.B^T shared across the heads of a group are later work.
+// What bounds it on the H100: operations. At B=2, S=4096, H=128, P=64,
+// N=128, G=1, L=256 the chunked algorithm is 69 GFLOP, 1.03 ms at the fp32
+// SIMT rate (TF32 tensor cores would change the numbers), against 0.55 GB
+// of operands. It is a first, simple kernel: scalar FMA in the mma
+// accumulator layout, tiles staged with cp.async without a pipeline (the
+// second block of the SM hides some of the latency).
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -75,20 +68,9 @@ constexpr int kMaxL = 256;     // longest chunk
 constexpr int kThreads = 128;  // four warps
 constexpr int kLdS = kP + 4;   // row stride of the fp32 state
 
-// dtype codes shared with the Python wrapper
-enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
+constexpr int kF32 = 0;  // dtype code of the Python wrapper
 
-template <typename T>
-struct Traits {
-  // 16-bit types: tensor cores, rows padded by 8 elements (16 bytes)
-  static constexpr bool kMma = true;
-  static constexpr int kPad = 8;
-};
-template <>
-struct Traits<float> {
-  static constexpr bool kMma = false;
-  static constexpr int kPad = 4;
-};
+constexpr int kPad = 4;  // row padding of the staged tiles, in elements
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -121,36 +103,18 @@ __device__ __forceinline__ void gemm_ab1(float (&acc)[NT][4], const T* A, int ld
                                          int ldb, int lane) {
   const int g = lane >> 2;
   const int t = lane & 3;
-  if constexpr (Traits<T>::kMma) {
-    static_assert(NT % 2 == 0, "n tiles come in pairs");
-    const T* a_row = A + (lane & 15) * lda + 8 * (lane >> 4);
-    const T* b_row = Bs + ((lane & 7) + 8 * (lane >> 4)) * ldb + 8 * ((lane >> 3) & 1);
-#pragma unroll
-    for (int kk = 0; kk < K; kk += 16) {
-      uint32_t a[4];
-      ldsm_x4(a, a_row + kk);
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t b[4];
-        ldsm_x4(b, b_row + j * 8 * ldb + kk);
-        mma16816<T>(acc[j], a, b[0], b[1]);
-        mma16816<T>(acc[j + 1], a, b[2], b[3]);
-      }
-    }
-  } else {
 #pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const float a0 = to_f(A[g * lda + k]);
-      const float a1 = to_f(A[(g + 8) * lda + k]);
+  for (int k = 0; k < K; ++k) {
+    const float a0 = to_f(A[g * lda + k]);
+    const float a1 = to_f(A[(g + 8) * lda + k]);
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const float b0 = to_f(Bs[(j * 8 + 2 * t) * ldb + k]);
-        const float b1 = to_f(Bs[(j * 8 + 2 * t + 1) * ldb + k]);
-        acc[j][0] = fmaf(a0, b0, acc[j][0]);
-        acc[j][1] = fmaf(a0, b1, acc[j][1]);
-        acc[j][2] = fmaf(a1, b0, acc[j][2]);
-        acc[j][3] = fmaf(a1, b1, acc[j][3]);
-      }
+    for (int j = 0; j < NT; ++j) {
+      const float b0 = to_f(Bs[(j * 8 + 2 * t) * ldb + k]);
+      const float b1 = to_f(Bs[(j * 8 + 2 * t + 1) * ldb + k]);
+      acc[j][0] = fmaf(a0, b0, acc[j][0]);
+      acc[j][1] = fmaf(a0, b1, acc[j][1]);
+      acc[j][2] = fmaf(a1, b0, acc[j][2]);
+      acc[j][3] = fmaf(a1, b1, acc[j][3]);
     }
   }
 }
@@ -161,37 +125,18 @@ __device__ __forceinline__ void gemm_ab2(float (&acc)[NT][4], const T* A, int ld
                                          int ldb, int lane) {
   const int g = lane >> 2;
   const int t = lane & 3;
-  if constexpr (Traits<T>::kMma) {
-    static_assert(NT % 2 == 0, "n tiles come in pairs");
-    const T* a_row = A + (lane & 15) * lda + 8 * (lane >> 4);
-#pragma unroll
-    for (int kk = 0; kk < K; kk += 16) {
-      uint32_t a[4];
-      ldsm_x4(a, a_row + kk);
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        // rows kk + (lane & 15) of Bs, columns of tiles j (lanes 0..15) and
-        // j + 1 (lanes 16..31), transposed into B fragments
-        uint32_t b[4];
-        ldsm_x4_trans(b, Bs + (kk + (lane & 15)) * ldb + (j + (lane >> 4)) * 8);
-        mma16816<T>(acc[j], a, b[0], b[1]);
-        mma16816<T>(acc[j + 1], a, b[2], b[3]);
-      }
-    }
-  } else {
 #pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const float a0 = to_f(A[g * lda + k]);
-      const float a1 = to_f(A[(g + 8) * lda + k]);
+  for (int k = 0; k < K; ++k) {
+    const float a0 = to_f(A[g * lda + k]);
+    const float a1 = to_f(A[(g + 8) * lda + k]);
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const float b0 = to_f(Bs[k * ldb + j * 8 + 2 * t]);
-        const float b1 = to_f(Bs[k * ldb + j * 8 + 2 * t + 1]);
-        acc[j][0] = fmaf(a0, b0, acc[j][0]);
-        acc[j][1] = fmaf(a0, b1, acc[j][1]);
-        acc[j][2] = fmaf(a1, b0, acc[j][2]);
-        acc[j][3] = fmaf(a1, b1, acc[j][3]);
-      }
+    for (int j = 0; j < NT; ++j) {
+      const float b0 = to_f(Bs[k * ldb + j * 8 + 2 * t]);
+      const float b1 = to_f(Bs[k * ldb + j * 8 + 2 * t + 1]);
+      acc[j][0] = fmaf(a0, b0, acc[j][0]);
+      acc[j][1] = fmaf(a0, b1, acc[j][1]);
+      acc[j][2] = fmaf(a1, b0, acc[j][2]);
+      acc[j][3] = fmaf(a1, b1, acc[j][3]);
     }
   }
 }
@@ -203,37 +148,18 @@ __device__ __forceinline__ void gemm_atb2(float (&acc)[NT][4], const T* As, int 
                                           int ldb, int lane) {
   const int g = lane >> 2;
   const int t = lane & 3;
-  if constexpr (Traits<T>::kMma) {
-    static_assert(NT % 2 == 0, "n tiles come in pairs");
-    // A fragments through .trans: matrix 0 = (k 0..7, m 0..7), 1 = (k 0..7,
-    // m 8..15), 2 = (k 8..15, m 0..7), 3 = (k 8..15, m 8..15)
-    const T* a_row = As + ((lane & 7) + 8 * (lane >> 4)) * lda + 8 * ((lane >> 3) & 1);
-#pragma unroll
-    for (int kk = 0; kk < K; kk += 16) {
-      uint32_t a[4];
-      ldsm_x4_trans(a, a_row + kk * lda);
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, Bs + (kk + (lane & 15)) * ldb + (j + (lane >> 4)) * 8);
-        mma16816<T>(acc[j], a, b[0], b[1]);
-        mma16816<T>(acc[j + 1], a, b[2], b[3]);
-      }
-    }
-  } else {
 #pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const float a0 = to_f(As[k * lda + g]);
-      const float a1 = to_f(As[k * lda + g + 8]);
+  for (int k = 0; k < K; ++k) {
+    const float a0 = to_f(As[k * lda + g]);
+    const float a1 = to_f(As[k * lda + g + 8]);
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const float b0 = to_f(Bs[k * ldb + j * 8 + 2 * t]);
-        const float b1 = to_f(Bs[k * ldb + j * 8 + 2 * t + 1]);
-        acc[j][0] = fmaf(a0, b0, acc[j][0]);
-        acc[j][1] = fmaf(a0, b1, acc[j][1]);
-        acc[j][2] = fmaf(a1, b0, acc[j][2]);
-        acc[j][3] = fmaf(a1, b1, acc[j][3]);
-      }
+    for (int j = 0; j < NT; ++j) {
+      const float b0 = to_f(Bs[k * ldb + j * 8 + 2 * t]);
+      const float b1 = to_f(Bs[k * ldb + j * 8 + 2 * t + 1]);
+      acc[j][0] = fmaf(a0, b0, acc[j][0]);
+      acc[j][1] = fmaf(a0, b1, acc[j][1]);
+      acc[j][2] = fmaf(a1, b0, acc[j][2]);
+      acc[j][3] = fmaf(a1, b1, acc[j][3]);
     }
   }
 }
@@ -247,56 +173,38 @@ __device__ __forceinline__ void gemm_wb2(float (&acc)[NT][4], const float (&w)[K
                                          const T* Bs, int ldb, float* scratch, int lane) {
   const int g = lane >> 2;
   const int t = lane & 3;
-  if constexpr (Traits<T>::kMma) {
+  constexpr int kLds = K + 4;
 #pragma unroll
-    for (int kk = 0; kk < K / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack2<T>(w[2 * kk][0], w[2 * kk][1]);
-      a[1] = pack2<T>(w[2 * kk][2], w[2 * kk][3]);
-      a[2] = pack2<T>(w[2 * kk + 1][0], w[2 * kk + 1][1]);
-      a[3] = pack2<T>(w[2 * kk + 1][2], w[2 * kk + 1][3]);
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, Bs + (kk * 16 + (lane & 15)) * ldb + (j + (lane >> 4)) * 8);
-        mma16816<T>(acc[j], a, b[0], b[1]);
-        mma16816<T>(acc[j + 1], a, b[2], b[3]);
-      }
-    }
-  } else {
-    constexpr int kLds = K + 4;
-#pragma unroll
-    for (int j = 0; j < K / 8; ++j) {
-      scratch[g * kLds + j * 8 + 2 * t] = w[j][0];
-      scratch[g * kLds + j * 8 + 2 * t + 1] = w[j][1];
-      scratch[(g + 8) * kLds + j * 8 + 2 * t] = w[j][2];
-      scratch[(g + 8) * kLds + j * 8 + 2 * t + 1] = w[j][3];
-    }
-    __syncwarp();
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const float a0 = scratch[g * kLds + k];
-      const float a1 = scratch[(g + 8) * kLds + k];
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const float b0 = to_f(Bs[k * ldb + j * 8 + 2 * t]);
-        const float b1 = to_f(Bs[k * ldb + j * 8 + 2 * t + 1]);
-        acc[j][0] = fmaf(a0, b0, acc[j][0]);
-        acc[j][1] = fmaf(a0, b1, acc[j][1]);
-        acc[j][2] = fmaf(a1, b0, acc[j][2]);
-        acc[j][3] = fmaf(a1, b1, acc[j][3]);
-      }
-    }
-    __syncwarp();  // the scratch is rewritten by the next call
+  for (int j = 0; j < K / 8; ++j) {
+    scratch[g * kLds + j * 8 + 2 * t] = w[j][0];
+    scratch[g * kLds + j * 8 + 2 * t + 1] = w[j][1];
+    scratch[(g + 8) * kLds + j * 8 + 2 * t] = w[j][2];
+    scratch[(g + 8) * kLds + j * 8 + 2 * t + 1] = w[j][3];
   }
+  __syncwarp();
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    const float a0 = scratch[g * kLds + k];
+    const float a1 = scratch[(g + 8) * kLds + k];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float b0 = to_f(Bs[k * ldb + j * 8 + 2 * t]);
+      const float b1 = to_f(Bs[k * ldb + j * 8 + 2 * t + 1]);
+      acc[j][0] = fmaf(a0, b0, acc[j][0]);
+      acc[j][1] = fmaf(a0, b1, acc[j][1]);
+      acc[j][2] = fmaf(a1, b0, acc[j][2]);
+      acc[j][3] = fmaf(a1, b1, acc[j][3]);
+    }
+  }
+  __syncwarp();  // the scratch is rewritten by the next call
 }
 
 template <typename T>
 constexpr int smem_bytes() {
-  constexpr int kLdN = kN + Traits<T>::kPad;
-  constexpr int kLdP = kP + Traits<T>::kPad;
+  constexpr int kLdN = kN + kPad;
+  constexpr int kLdP = kP + kPad;
   constexpr int tiles = (2 * kT * kLdN + kT * kLdP + kN * kLdP) * static_cast<int>(sizeof(T));
-  constexpr int scratch = Traits<T>::kMma ? 0 : 4 * 16 * (kT + 4) * 4;
+  constexpr int scratch = 4 * 16 * (kT + 4) * 4;
   return tiles + kN * kLdS * 4 + 3 * kMaxL * 4 + scratch;
 }
 
@@ -306,8 +214,8 @@ __global__ void __launch_bounds__(kThreads) ssd_fused_kernel(
     const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ a,
     const T* __restrict__ Bm, const T* __restrict__ Cm, float* __restrict__ y, int S, int H, int G,
     int L, int64_t x_bs, int64_t x_rs, int64_t b_bs, int64_t b_rs, int64_t c_bs, int64_t c_rs) {
-  constexpr int kLdN = kN + Traits<T>::kPad;
-  constexpr int kLdP = kP + Traits<T>::kPad;
+  constexpr int kLdN = kN + kPad;
+  constexpr int kLdP = kP + kPad;
   extern __shared__ __align__(16) unsigned char smem[];
   T* c_s = reinterpret_cast<T*>(smem);   // C rows of the row tile
   T* b_s = c_s + kT * kLdN;              // B rows of the column tile
@@ -317,7 +225,7 @@ __global__ void __launch_bounds__(kThreads) ssd_fused_kernel(
   float* cum_s = state + kN * kLdS;      // chunk-local cumsum of a
   float* dt_s = cum_s + kMaxL;
   float* rd_s = dt_s + kMaxL;            // round_T(exp(total - cum) * dt)
-  float* scratch = rd_s + kMaxL;         // fp32 inputs only
+  float* scratch = rd_s + kMaxL;         // the warps' weight tiles
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -512,18 +420,7 @@ extern "C" int ssd_fused(const void* x, const void* dt, const void* a, const voi
       seq % chunk != 0 || batch > 65535) {
     return cudaErrorInvalidValue;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32:
-      return launch<float>(x, dt, a, Bm, Cm, y, batch, seq, heads, groups, chunk, x_bs, x_rs,
-                           b_bs, b_rs, c_bs, c_rs, s);
-    case kBF16:
-      return launch<__nv_bfloat16>(x, dt, a, Bm, Cm, y, batch, seq, heads, groups, chunk, x_bs,
-                                   x_rs, b_bs, b_rs, c_bs, c_rs, s);
-    case kF16:
-      return launch<__half>(x, dt, a, Bm, Cm, y, batch, seq, heads, groups, chunk, x_bs, x_rs,
-                            b_bs, b_rs, c_bs, c_rs, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (dtype != kF32) return cudaErrorInvalidValue;
+  return launch<float>(x, dt, a, Bm, Cm, y, batch, seq, heads, groups, chunk, x_bs, x_rs, b_bs,
+                       b_rs, c_bs, c_rs, static_cast<cudaStream_t>(stream));
 }

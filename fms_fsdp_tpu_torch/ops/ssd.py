@@ -22,12 +22,12 @@ package so that one command line drives both:
   recomputes each chunk body, as JAX's checkpointed scan does, so that it
   holds one chunk's (L, L)-per-head intermediates at a time;
 - ``"pallas"``: the fused whole-sequence kernel. For CUDA tensors that is
-  the hand-written CUDA kernel of ``csrc/ssd.cu`` (:func:`ssd_fused`),
-  which replaces the Pallas kernel ``fms_fsdp_tpu/ops/ssd.py:51``; for CPU
-  tensors its plain version :func:`ssd_core_plain`. Like the Pallas
-  kernel it has no backward kernel: the backward differentiates the
-  chunked einsums on the saved inputs, as JAX's ``custom_vjp`` does
-  (``ssd.py:224``);
+  a hand-written CUDA kernel (:func:`ssd_fused`): ``csrc/ssd_sm90.cu`` for
+  bf16 and fp16, ``csrc/ssd.cu`` for fp32. It replaces the Pallas kernel
+  ``fms_fsdp_tpu/ops/ssd.py:51``; for CPU tensors its plain version
+  :func:`ssd_core_plain`. Like the Pallas kernel it has no backward
+  kernel: the backward differentiates the chunked einsums on the saved
+  inputs, as JAX's ``custom_vjp`` does (``ssd.py:224``);
 - ``"auto"``: as ``"pallas"``. JAX's "auto" is the einsums; here a CUDA
   tensor launches the kernel or raises, and there is no fallback.
 
@@ -49,9 +49,15 @@ KERNELS = ("auto", "reference", "xla", "pallas")
 # launches of the CUDA kernel; counted where it launches and nowhere else
 LAUNCHES = {"fused": 0}
 
-# dtype codes of csrc/ssd.cu
+# dtype codes of csrc/ssd.cu and csrc/ssd_sm90.cu
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# what the kernel takes (kP, kN, kT, kMaxL in csrc/ssd.cu)
+# (source, C entry point) of the kernel for each input dtype
+_SOURCES = {
+    torch.float32: ("ssd", "ssd_fused"),
+    torch.bfloat16: ("ssd_sm90", "ssd_fused_sm90"),
+    torch.float16: ("ssd_sm90", "ssd_fused_sm90"),
+}
+# what the kernels take (kP, kN, kT, kMaxL in both sources)
 _HEADDIM = 64
 _DSTATE = 128
 _TILE = 64
@@ -64,6 +70,14 @@ _MAX_CHUNK = 256
 # then) and that of a control, the plain version with dt rounded to bf16
 # before the weights (2.8e-3 to 2.9e-3), which must fail.
 BF16_REL_TOL = 5e-4
+# bf16 and fp16: bound on the relative error of each (batch, chunk, head)
+# of y against the plain version on the same inputs (chunk_rel_err). A
+# whole-tensor error over thousands of chunks cannot see one tile dropped
+# from one chunk; this bound can: the control (ssd_drop_tile_plain, one
+# 64-token tile left out of the state one chunk hands on) must exceed it
+# on every chunk it changes. Set between the kernel's largest reading and
+# the control's smallest in chip_smoke.py's ssd phase on an H100.
+BF16_CHUNK_REL_TOL = 2e-3
 
 
 def reset_launches() -> None:
@@ -214,6 +228,65 @@ def _ssd_core_xla_backward(inputs, L, cot, needs):
     return grads
 
 
+def chunk_rel_err(out, ref, L):
+    """||out - ref|| / ||ref|| per (batch, chunk, head) of y (B, S, H, P),
+    in fp32: (B, S / L, H)."""
+    Bsz, S, H, P = ref.shape
+    r = ref.float().reshape(Bsz, S // L, L, H, P)
+    d = out.float().reshape(r.shape) - r
+    return d.norm(dim=(2, 4)) / r.norm(dim=(2, 4)).clamp_min(1e-30)
+
+
+def ssd_drop_tile_plain(x, dtf, a, Bm, Cm, L, batch, head, chunk, tile):
+    """:func:`ssd_core_plain` with the 64 tokens of tile ``tile`` of chunk
+    ``chunk`` left out of the state that chunk hands on, for one (batch,
+    head): a fault of the kind the per-chunk check must see. It changes y
+    of that head in the chunks after ``chunk`` and nowhere else."""
+    Bsz, S, H, P = x.shape
+    G = Bm.shape[2]
+    grp = head // (H // G)
+    s = torch.zeros((Bsz, H, P, Bm.shape[3]), dtype=torch.float32, device=x.device)
+    ys = []
+    for idx, c0 in enumerate(range(0, S, L)):
+        sl = slice(c0, c0 + L)
+        y_c, s = _ssd_chunk(s, x[:, sl], dtf[:, sl], a[:, sl], Bm[:, sl], Cm[:, sl], G)
+        ys.append(y_c)
+        if idx == chunk:
+            cum = torch.cumsum(a[batch, sl, head], dim=0)
+            r = torch.exp(cum[-1] - cum) * dtf[batch, sl, head]  # (L,)
+            tok = slice(tile * _TILE, (tile + 1) * _TILE)
+            xs = r[tok, None].to(x.dtype) * x[batch, c0:c0 + L, head][tok]
+            s[batch, head] -= torch.einsum(
+                "ln,lp->pn", Bm[batch, c0:c0 + L, grp][tok].float(), xs.float())
+    return torch.cat(ys, dim=1)
+
+
+def chunk_check(got, ref, x, dtf, a, Bm, Cm, L, batch=0, head=0):
+    """The per-chunk check of a kernel's y ``got`` against the plain
+    version's ``ref`` on the same inputs: every (batch, chunk, head) within
+    ``BF16_CHUNK_REL_TOL``, and the control (:func:`ssd_drop_tile_plain`,
+    the last tile of the next-to-last chunk left out for ``batch``,
+    ``head``) above it on every chunk it changes, which must be the last
+    chunk of that head alone. With one chunk there is no carried state to
+    fault and no control (``control_min`` None)."""
+    rel = chunk_rel_err(got, ref, L)
+    out = {"kernel_max": rel.max().item(), "chunks": rel.numel(),
+           "tol": BF16_CHUNK_REL_TOL, "control_min": None, "control_chunks": 0}
+    ok = out["kernel_max"] <= BF16_CHUNK_REL_TOL
+    n_chunks = ref.shape[1] // L
+    if n_chunks > 1:
+        control = ssd_drop_tile_plain(x, dtf, a, Bm, Cm, L, batch, head,
+                                      chunk=n_chunks - 2, tile=L // _TILE - 1)
+        ctl = chunk_rel_err(control, ref, L)
+        changed = ctl > 0
+        out["control_chunks"] = int(changed.sum())
+        out["control_min"] = ctl[changed].min().item() if changed.any() else None
+        ok = (ok and out["control_chunks"] == 1 and bool(changed[batch, -1, head])
+              and out["control_min"] > BF16_CHUNK_REL_TOL)
+    out["ok"] = ok
+    return out
+
+
 def ssd_core_plain(x, dtf, a, Bm, Cm, L):
     """The plain version of the fused kernel: same signature as
     :func:`ssd_fused`, same rounding points (they are those of the chunked
@@ -227,7 +300,7 @@ def ssd_core_plain(x, dtf, a, Bm, Cm, L):
 
 
 def supports(x_shape, b_shape, L: int) -> bool:
-    """Whether ``csrc/ssd.cu`` takes these shapes: head dim 64, state dim
+    """Whether the kernels take these shapes: head dim 64, state dim
     128, a chunk that is a multiple of 64 up to 256 and divides S, H a
     multiple of G. The Pallas kernel's own limits (whole or (8, 128)
     divisible trailing dims) are the TPU's and do not carry over."""
@@ -244,17 +317,26 @@ def supports(x_shape, b_shape, L: int) -> bool:
     )
 
 
-def _library():
+def kernel_source(dtype: torch.dtype):
+    """(source under ``csrc/``, C entry point) that :func:`ssd_fused`
+    launches for inputs of ``dtype``; loads nothing."""
+    if dtype not in _SOURCES:
+        raise ValueError(f"the SSD kernels take bf16, fp16 or fp32; got {dtype}")
+    return _SOURCES[dtype]
+
+
+def _entry(dtype: torch.dtype):
     from fms_fsdp_tpu_torch.ops import cuda_build
 
-    lib = cuda_build.load("ssd").lib
-    if lib.ssd_fused.argtypes is None:
+    source, name = kernel_source(dtype)
+    fn = getattr(cuda_build.load(source).lib, name)
+    if fn.argtypes is None:
         # pointers and the stream as c_void_p: a default int would cut
         # them to 32 bits
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.ssd_fused.argtypes = [p] * 6 + [i] * 8 + [ll] * 6 + [p]
-        lib.ssd_fused.restype = ctypes.c_int
-    return lib
+        fn.argtypes = [p] * 6 + [i] * 8 + [ll] * 6 + [p]
+        fn.restype = ctypes.c_int
+    return fn, name
 
 
 def _strided(t, inner: int):
@@ -277,8 +359,8 @@ def ssd_fused(x, dtf, a, Bm, Cm, L: int):
     """The fused whole-sequence SSD forward: x (B, S, H, P) input dtype,
     dtf and a = dt * A (B, S, H) fp32, Bm/Cm (B, S, G, N) input dtype,
     chunk length L -> y (B, S, H, P) fp32, no D term. CPU tensors run
-    :func:`ssd_core_plain`; CUDA tensors launch ``ssd_fused`` of
-    ``csrc/ssd.cu`` or raise."""
+    :func:`ssd_core_plain`; CUDA tensors launch the kernel that
+    :func:`kernel_source` names for their dtype or raise."""
     if x.device.type == "cpu":
         return ssd_core_plain(x, dtf, a, Bm, Cm, L)
     if x.device.type != "cuda":
@@ -317,14 +399,15 @@ def ssd_fused(x, dtf, a, Bm, Cm, L: int):
     dtf, a = dtf.contiguous(), a.contiguous()
     y = torch.empty((Bsz, S, H, P), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _library().ssd_fused(
+    fn, name = _entry(x.dtype)
+    err = fn(
         x.data_ptr(), dtf.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
         y.data_ptr(), Bsz, S, H, G, P, N, L, _CODES[x.dtype],
         x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1),
         Cm.stride(0), Cm.stride(1), stream,
     )
     if err != 0:
-        raise RuntimeError(f"ssd_fused launch failed: cudaError_t {err}")
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
     LAUNCHES["fused"] += 1
     return y
 

@@ -5,8 +5,9 @@ Counterpart of the loop of ``fms_fsdp_tpu/utils/train_utils.py:307-600``
 until ``num_steps``, keeps each step's metrics as device tensors, and at
 every ``report_interval`` fetches the window, feeds the non-finite flags
 to the anomaly guard and prints the reference's report lines (step, loss,
-LR, tokens seen, gradient norm, memory, step time, tokens per card per
-second) plus MFU and HFU against the card's peak. It aborts after
+LR, tokens seen, gradient norm, memory, step times, current and overall
+tokens per chip per second, overall tokens per day, in its order and
+with its values) plus MFU and HFU against the card's peak. It aborts after
 ``anomaly_max_consecutive`` non-finite steps in a row. The obs sinks,
 watchdog, slice monitor, scrubber and divergence check wait for
 ROADMAP.md A.12, checkpoints for A.5.
@@ -69,12 +70,12 @@ def train(cfg, state, step_fn, rank, train_loader, start_step: int = 0,
     tokens_per_step = cfg.batch_size * cfg.seq_length
     window: List[Dict] = []
     reports: List[Dict] = []
-    train_loss = float("nan")
-    g_norm = float("nan")
+    train_loss = -1.0  # until a window has a clean step, as JAX prints it
+    g_norm = -1.0
     loop_start = start = time.time()
     step = start_step
 
-    def flush(step):
+    def flush(step, drain=False):
         nonlocal window, start, train_loss, g_norm
         if not window:
             return
@@ -89,16 +90,23 @@ def train(cfg, state, step_fn, rank, train_loader, start_step: int = 0,
             train_loss = sum(m["loss"] for m in good) / len(good)
             g_norm = sum(m["gnorm"] for m in good) / len(good)
         now = time.time()
+        elapsed = now - loop_start
+        new_tokens = (step - start_step) * tokens_per_step
+        # the record's rates use the window's true step count; the printed
+        # current step time keeps JAX's fixed divisor at a report boundary
         step_time = (now - start) / len(fetched)
-        overall_step_time = (now - loop_start) / max(1, step - start_step)
+        printed_step_time = (now - start) / (len(fetched) if drain else cfg.report_interval)
+        overall_step_time = elapsed / max(1, step - start_step)
         throughput = tokens_per_step / step_time
+        overall_throughput = tokens_per_step / overall_step_time
         reserved, allocated, peak_alloc = _memory_stats(device)
         record = {
             "step": step, "loss": train_loss, "lr": fetched[-1]["lr"],
-            "tokens_seen": tokens_seen + (step - start_step) * tokens_per_step,
+            "tokens_seen": tokens_seen + new_tokens,
             "gnorm": g_norm, "steps_in_window": len(fetched),
             "step_time_s": step_time, "overall_step_time_s": overall_step_time,
             "tokens_per_card_per_s": throughput,
+            "overall_tokens_per_card_per_s": overall_throughput,
             "mfu": flops * throughput / peak if flops else None,
             "hfu": hflops * throughput / peak if hflops else None,
             "memory_reserved_bytes": reserved,
@@ -109,6 +117,9 @@ def train(cfg, state, step_fn, rank, train_loader, start_step: int = 0,
         }
         reports.append(record)
         if rank == 0:
+            if not good:
+                print(f"report window poisoned: all {len(fetched)} step(s) "
+                      f"non-finite; carrying last clean loss")
             print("step:", step)
             print("loss:", train_loss)
             print("LR:", record["lr"])
@@ -116,9 +127,11 @@ def train(cfg, state, step_fn, rank, train_loader, start_step: int = 0,
             print("gradient norm:", g_norm)
             print("reserved memory:", reserved)
             print("allocated memory:", allocated)
-            print("current step time:", step_time)
+            print("current step time:", printed_step_time)
             print("overall step time:", overall_step_time)
-            print("current token per card per sec:", int(throughput))
+            print("current token per chip per sec:", int(tokens_per_step / printed_step_time))
+            print("overall token per chip per sec:", int(overall_throughput))
+            print("overall token per day:", int(new_tokens / elapsed * 86400))
             if flops:
                 print("MFU:", record["mfu"])
                 print("HFU:", record["hfu"])
@@ -138,6 +151,6 @@ def train(cfg, state, step_fn, rank, train_loader, start_step: int = 0,
                     f"anomaly guard: {guard.consecutive} consecutive non-finite "
                     f"steps (threshold {guard.max_consecutive}) at step {step}"
                 )
-    flush(step)
+    flush(step, drain=True)
     return {"final_loss": train_loss, "reports": reports,
             "skipped_batches": guard.skipped_batches, "steps": step - start_step}

@@ -498,7 +498,8 @@ def test_card_full_width_step_kernel_vs_einsum(cuda_device):
 
 
 # ---------------------------------------------------------------------------
-# the fused SSD scan kernel (csrc/ssd.cu)
+# the fused SSD scan kernels (csrc/ssd_sm90.cu for bf16/fp16, csrc/ssd.cu
+# for fp32)
 # ---------------------------------------------------------------------------
 
 
@@ -539,6 +540,41 @@ def test_card_ssd_kernel_matches_plain(cuda_device, kind, shape):
     assert torch.isfinite(y).all()
     tol = (1e-4 if kind == "fp32" else 1e-2) * max(1.0, ref.abs().max().item())
     assert (y - ref).abs().max().item() <= tol
+    per_chunk = t_ssd.chunk_check(y, ref, x, dt, a, Bm, Cm, L)
+    assert per_chunk["ok"], per_chunk
+
+
+# (B, S, H, G, chunk): chip_smoke.py's SSD_CASES (the Mamba training shape,
+# G=8, one chunk), H/G = 1 and 3 (one head a block), and every chunk length
+_SM90_CASES = [(2, 4096, 128, 1, 256), (2, 1024, 128, 8, 256), (2, 256, 128, 1, 256),
+               (1, 512, 8, 8, 128), (1, 1024, 6, 2, 256), (1, 512, 16, 1, 64),
+               (1, 512, 16, 2, 128), (1, 768, 16, 1, 192)]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("kind", ["bf16", "fp16"])
+@pytest.mark.parametrize("shape", _SM90_CASES)
+def test_card_ssd_sm90_matches_plain(cuda_device, kind, shape):
+    """csrc/ssd_sm90.cu against the plain version in its own dtype: within
+    1e-2 of the largest value and ``BF16_REL_TOL`` over the whole tensor,
+    and per (batch, chunk, head) within ``BF16_CHUNK_REL_TOL`` with the
+    drop-tile control above it."""
+    B, S, H, G, L = shape
+    dtype = torch.bfloat16 if kind == "bf16" else torch.float16
+    t_ssd, x, dt, a, Bm, Cm, _ = _ssd_inputs(cuda_device, dtype, B, S, H, G)
+    assert t_ssd.kernel_source(dtype) == ("ssd_sm90", "ssd_fused_sm90")
+    t_ssd.reset_launches()
+    y = t_ssd.ssd_fused(x, dt, a, Bm, Cm, L)
+    torch.cuda.synchronize()
+    assert t_ssd.LAUNCHES == {"fused": 1}
+    ref = t_ssd.ssd_core_plain(x, dt, a, Bm, Cm, L)
+    assert y.dtype == torch.float32 and y.shape == x.shape
+    assert torch.isfinite(y).all()
+    assert (y - ref).abs().max().item() <= 1e-2 * max(1.0, ref.abs().max().item())
+    rel = ((y - ref).norm() / ref.norm()).item()
+    assert rel <= t_ssd.BF16_REL_TOL, rel
+    per_chunk = t_ssd.chunk_check(y, ref, x, dt, a, Bm, Cm, L)
+    assert per_chunk["ok"], per_chunk
 
 
 @pytest.mark.card

@@ -311,7 +311,62 @@ def test_entry_trains_on_cpu(capsys):
     assert losses[-1] < losses[0]
     assert out["skipped_batches"] == 0
     printed = capsys.readouterr().out
-    assert "step: 4" in printed and "current token per card per sec:" in printed
+    assert "step: 4" in printed and "current token per chip per sec:" in printed
+
+
+# JAX's report lines, in its order (tests/test_obs.py:737-741)
+_JAX_REPORT_LABELS = [
+    "step:", "loss:", "LR:", "tokens seen:", "gradient norm:",
+    "reserved memory:", "allocated memory:", "current step time:",
+    "overall step time:", "current token per chip per sec:",
+    "overall token per chip per sec:", "overall token per day:",
+]
+
+
+def _report_labels(printed):
+    return [lbl for ln in printed.splitlines() for lbl in _JAX_REPORT_LABELS
+            if ln.startswith(lbl)]
+
+
+def test_entry_report_lines_match_jax(capsys):
+    """Three steps at report interval 2: a boundary window and the drain of
+    the last step, each printing JAX's labels in JAX's order."""
+    out = main(device="cpu", model_variant="llama3_194m_4k", use_dummy_dataset=True,
+               num_steps=3, report_interval=2, batch_size=1, seq_length=SEQ,
+               vocab_size=512, **_ENTRY_OVERRIDES)
+    printed = capsys.readouterr().out
+    assert len(out["reports"]) == 2
+    assert _report_labels(printed) == 2 * _JAX_REPORT_LABELS, printed
+    assert "report window poisoned" not in printed
+    rates = [int(ln.split(":")[1]) for ln in printed.splitlines()
+             if ln.startswith(("overall token per chip per sec:", "overall token per day:"))]
+    assert len(rates) == 4 and all(r > 0 for r in rates)
+
+
+def test_poisoned_first_window_prints_minus_one(capsys):
+    """A first window whose every step is non-finite has no clean loss to
+    carry: JAX prints -1.0 for loss and gradient norm, and the poisoned
+    line before the step."""
+    cfg = TrainConfig(num_steps=4, report_interval=2)
+
+    def step_fn(state, batch):
+        bad = torch.tensor(float(batch))
+        return {"loss": torch.tensor(2.5) if not batch else bad * float("nan"),
+                "gnorm": torch.tensor(1.5), "lr": torch.tensor(1e-3), "nonfinite": bad}
+
+    state = {"params": {"embedding": torch.zeros(1)}, "step": 0}
+    out = train(cfg, state, step_fn, 0, iter([1, 1, 0, 0]))
+    printed = capsys.readouterr().out.splitlines()
+    first = printed.index("step: 2")
+    assert printed[first - 1] == ("report window poisoned: all 2 step(s) non-finite; "
+                                  "carrying last clean loss")
+    assert printed[first + 1] == "loss: -1.0"
+    assert "gradient norm: -1.0" in printed
+    assert out["reports"][0]["loss"] == -1.0
+    assert out["reports"][1]["loss"] == 2.5 and out["final_loss"] == 2.5
+    assert printed.count("report window poisoned: all 2 step(s) non-finite; "
+                         "carrying last clean loss") == 1
+    assert _report_labels("\n".join(printed)) == 2 * _JAX_REPORT_LABELS
 
 
 def test_entry_needs_a_card_unless_cpu():
