@@ -57,12 +57,31 @@ Phases, one JSON line each; any failure exits non-zero:
    data, 12 steps: finite and decreasing loss, no skipped batch, launches
    == steps x (layers + rematerialised layers) forward and steps x layers
    dq and dk/dv; tokens per card per second, MFU/HFU, peak memory and a
-   profile of one step.
-8. train-kvgrid — the same trainer for one step with
+   profile of one step. Every trainer phase writes its final save (the
+   one at ``num_steps``) to a fresh checkpoint root in memory (see
+   ``_ckpt_dir``) and prints its blocking snapshot (ms), its background
+   commit, payload write and manifest hashing (s), its bytes and GB/s,
+   then deletes the root.
+8. resume — checkpoint and resume through the Llama entry point at
+   llama3_8b_4k width, 2 layers, seq 4096, batch 2, AC 1/2, bfSixteen:
+   a first run of 6 steps saves on the local tier (the checkout's disk)
+   at 2 and the durable tier (memory) at 4 and 6 (retention 1 each); a
+   second run of 8 steps resumes at
+   6 with the loaded state's per-key digests (float64 sum and int64 sum
+   of the bits) equal to step 6's, tokens_seen 6 x 2 x 4096, its first LR
+   that of step 7 of a straight run, finite losses and the flash launches
+   of 2 steps; ``ServingEngine.from_checkpoint`` on the durable root
+   serves 8 requests through the paged-decode kernel, its params' digests
+   equal to the live ones and its first decode step's logits equal to an
+   engine's on the live params; then a truncated payload file in the
+   newest checkpoint makes the next load fall back to local step 2 with
+   the integrity warning. Prints save, load and serving times, GB/s and
+   the phase's peak disk use.
+9. train-kvgrid — the same trainer for one step with
    ``flash_kernel_variant="kvgrid"``, so the launches of the kv-streamed
    contracts are counted on the main path too.
 
-9. ssd     — the fused SSD scan kernels (``ssd_sm90.cu`` for bf16,
+10. ssd    — the fused SSD scan kernels (``ssd_sm90.cu`` for bf16,
    ``ssd.cu`` for fp32) against their plain version at the
    Mamba training shape (B=2, S=4096, H=128, P=64, G=1, N=128, L=256), at
    G=8 and at S=L (one chunk), bf16 and fp32, dt and A in the ranges of
@@ -78,7 +97,7 @@ Phases, one JSON line each; any failure exits non-zero:
    whole ``ssd_scan`` through the kernel and through the chunked einsums,
    the bound, and the other pieces of a Mamba layer at that shape (the
    scan's einsum backward, the conv forward and backward).
-10. train-mamba — ``fms_fsdp_tpu_torch.main_training_mamba.main`` at
+11. train-mamba — ``fms_fsdp_tpu_torch.main_training_mamba.main`` at
    mamba_9.8b width, 6 layers with attention at layer 3, seq 4096, batch
    2, selective AC 1/2, 16 steps (over the first 8 the loss of this
    model only wobbles, through the kernel and through the einsums alike):
@@ -86,7 +105,7 @@ Phases, one JSON line each; any failure exits non-zero:
    SSD launches == steps x (Mamba layers + rematerialised Mamba layers),
    flash launches == the one attention layer's; tokens per card per
    second, MFU/HFU, peak memory and a profile of one step.
-11. serve-mamba — ``ServingEngine`` on mamba_9.8b at full width and depth
+12. serve-mamba — ``ServingEngine`` on mamba_9.8b at full width and depth
    (32 layers, 3 of them attention; random bf16 weights), 8 requests of
    16-128 prompt tokens and 32 new tokens each: all complete, finite
    logits, a constant ``state_bytes_per_stream``, slab slices zero after
@@ -94,23 +113,30 @@ Phases, one JSON line each; any failure exits non-zero:
    path launches no SSD kernel (the prefill is the per-token recurrence),
    and the phase checks that.
 
-Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+Then a ``total`` line (seconds since ``main`` began), a ``{"kernels": [...]}``
+line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
 
 import argparse
+import contextlib
 import gc
+import io
 import json
 import math
 import os
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "serve", "serve-int8", "flash", "train",
-          "train-kvgrid", "ssd", "train-mamba", "serve-mamba")
+          "resume", "train-kvgrid", "ssd", "train-mamba", "serve-mamba")
 
 # llama3_8b decode shapes of the kernel phase
 B, NQ, NKV, H, PAGE, MAXP = 8, 32, 8, 128, 64, 32
@@ -121,6 +147,9 @@ L2_SPAN = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}  # dense bf16 tensor / fp32 SIMT
 TOL = {"bf16": 2e-2, "fp32": 1e-5, "int8": 2e-2, "e4m3": 2e-2}
+# the directories this run made for checkpoints ("memory", "disk"), each
+# by mkdtemp; main deletes them when the run ends
+CKPT_ROOTS = {}
 # Pallas kernels the port's kernels replace, by the contract a launch
 # fulfils
 REPLACES = {
@@ -1072,7 +1101,9 @@ def _train(state, phase, overrides, expect, main=None, base=None, profile=False)
     if main is None:
         from fms_fsdp_tpu_torch.main_training_llama import main
 
-    kw = dict(TRAIN_KW if base is None else base, **overrides)
+    ckpt_dir = _ckpt_dir(phase)
+    kw = dict(TRAIN_KW if base is None else base, **overrides,
+              ckpt_save_path=ckpt_dir, ckpt_load_path=ckpt_dir)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1081,6 +1112,7 @@ def _train(state, phase, overrides, expect, main=None, base=None, profile=False)
     t0 = time.perf_counter()
     res = main(**kw)
     wall = time.perf_counter() - t0
+    saves = res["checkpointer"].save_log
     launches = dict(fa.LAUNCHES, ssd_fused=ssd.LAUNCHES["fused"])
     peak = torch.cuda.max_memory_allocated()
     reports = res["reports"]
@@ -1097,9 +1129,12 @@ def _train(state, phase, overrides, expect, main=None, base=None, profile=False)
         mfu=last["mfu"], hfu=last["hfu"], peak_flops=989e12,
         skipped_batches=res["skipped_batches"], launches=launches,
         expected_launches=want, max_memory_allocated=peak,
-        nvidia_smi=state["smi"],
+        final_save=_save_rows(saves), nvidia_smi=state["smi"],
     )
     problems = []
+    if [(r["step"], r["reason"], r["tier"]) for r in saves] != [
+            (res["steps"], "final", "durable")]:
+        problems.append(f"saves {_save_rows(saves)}: one final save at num_steps expected")
     if not all(math.isfinite(x) for x in losses):
         problems.append(f"non-finite loss {losses}")
     if profile and not losses[-1] < losses[0]:
@@ -1113,10 +1148,68 @@ def _train(state, phase, overrides, expect, main=None, base=None, profile=False)
     emit(phase, **result)
     state[phase] = result
     del res
+    shutil.rmtree(ckpt_dir)
     gc.collect()
     torch.cuda.empty_cache()
     if problems:
         raise AssertionError(f"{phase}: " + "; ".join(problems))
+
+
+def _memory_fs(path) -> bool:
+    """Whether ``path`` lies on a file system held in memory (tmpfs or
+    ramfs): the type of the longest mount point above it in
+    ``/proc/mounts``."""
+    path = os.path.realpath(path)
+    best, kind = "", ""
+    try:
+        with open("/proc/mounts") as f:
+            for line in f:
+                _, mnt, fs = line.split()[:3]
+                mnt = mnt.replace("\\040", " ")
+                inside = path == mnt or path.startswith(mnt.rstrip("/") + "/")
+                if inside and len(mnt) >= len(best):
+                    best, kind = mnt, fs
+    except OSError:
+        return False
+    return kind in ("tmpfs", "ramfs")
+
+
+def _ckpt_dir(phase, memory=True) -> str:
+    """A new checkpoint root for a phase, inside a directory that this run
+    made with ``mkdtemp``; the phase deletes its root when it is done and
+    ``main`` deletes the run's directories when the run ends, however it
+    ends short of SIGKILL. The phases write about 170 GB of full-width
+    checkpoints, more than a disk that meters its writes may take (the
+    H100 machines this script was run on take 45 GiB a run), so the
+    roots are in memory: in ``TMPDIR`` when that is a memory file system,
+    else in ``/dev/shm``. With ``memory=False`` the root is on the
+    checkout's disk (``build/``, not committed), for the one tier whose
+    saves and load are measured against a disk."""
+    key = "memory" if memory else "disk"
+    if key not in CKPT_ROOTS:
+        if memory:
+            base = tempfile.gettempdir()
+            if not _memory_fs(base) and _memory_fs("/dev/shm"):
+                base = "/dev/shm"
+        else:
+            base = os.path.join(REPO, "build")
+            os.makedirs(base, exist_ok=True)
+        CKPT_ROOTS[key] = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=base)
+    path = os.path.join(CKPT_ROOTS[key], phase)
+    os.makedirs(path)
+    return path
+
+
+def _save_rows(saves):
+    """The checkpoint manager's records, as printed: the blocking
+    snapshot in ms, the background commit and within it the payload
+    write and the manifest hashing in s, the bytes, and the write's
+    GB/s."""
+    return [{"step": r["step"], "reason": r["reason"], "tier": r["tier"],
+             "snapshot_ms": r["snapshot_s"] * 1e3, "background_s": r["bg_s"],
+             "payload_write_s": r["write_s"], "manifest_s": r["manifest_s"],
+             "bytes": r["bytes"], "write_gb_per_s": r["bytes"] / r["bg_s"] / 1e9}
+            for r in saves]
 
 
 def _n_remat(model_cfg, cfg):
@@ -1151,10 +1244,267 @@ def phase_train_kvgrid(state):
 
     # one step: the kernels are those of the train phase, and the flash
     # phase holds them against their plain versions at S=16384; this run
-    # only counts the kv-streamed contracts' launches on the main path
+    # counts the kv-streamed contracts' launches on the main path
     _train(state, "train-kvgrid",
            {"flash_kernel_variant": "kvgrid", "num_steps": 1, "report_interval": 1},
            expect)
+
+# llama3_8b_4k at full width, 2 layers: the resume phase's trainer
+RESUME_KW = dict(TRAIN_KW, **{"LlamaConfig.nlayers": 2, "report_interval": 1,
+                              "checkpoint_interval": 4, "ckpt_local_interval": 2,
+                              "ckpt_keep": 1, "ckpt_local_keep": 1})
+
+
+def _digests(flat):
+    """Per key of a checkpoint dict: the float64 sum and the sum of the
+    bit pattern as int64, on the tensors' own device."""
+    import torch
+
+    out = {}
+    for key, t in flat.items():
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()]
+        out[key] = (float(t.double().sum()),
+                    int(t.view(bits).to(torch.int64).sum()) if t.dim() else int(t.view(bits)))
+    return out
+
+
+def _resume_serve(model_cfg, root, live_params, live_digests):
+    """Serve 8 requests from the checkpoint root through the paged-decode
+    kernel, and hold the first decode step against an engine on the live
+    params."""
+    import numpy as np
+    import torch
+
+    from fms_fsdp_tpu_torch.ckpt.state import flatten
+    from fms_fsdp_tpu_torch.ops import paged_attention as pa
+    from fms_fsdp_tpu_torch.serve import ServeConfig, ServingEngine
+    from fms_fsdp_tpu_torch.utils.checkpointing import load_params_only
+
+    t0 = time.perf_counter()
+    params, nbytes = load_params_only(root, with_bytes=True)
+    params_s = time.perf_counter() - t0
+    on_card = {k: t.cuda() for k, t in flatten("params", params, {}).items()}
+    digests_ok = _digests(on_card) == live_digests
+    del on_card
+    del params
+    scfg = ServeConfig(max_batch=8, max_seq_len=1024)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, model_cfg.src_vocab_size, size=int(n)).tolist()
+               for n in rng.randint(64, 513, size=8)]
+
+    def first_step(eng):
+        reqs = [eng.submit(p, 16) for p in prompts]
+        first = None
+        while eng.has_work():
+            eng.step()
+            if eng.last_logits is not None and first is None:
+                first = eng.last_logits.clone()
+        return reqs, first
+
+    t0 = time.perf_counter()
+    eng = ServingEngine.from_checkpoint(root, model_cfg, scfg, seed=0)
+    build_s = time.perf_counter() - t0
+    pa.reset_launches()
+    reqs, logits = first_step(eng)
+    torch.cuda.synchronize()
+    launches, steps = pa.LAUNCHES["v1"], eng.decode_steps
+    tokens = [list(r.generated) for r in reqs]
+    del eng
+    live = ServingEngine(live_params, model_cfg, scfg, seed=0)
+    live_reqs, live_logits = first_step(live)
+    del live
+    return dict(
+        params_only_load_s=params_s, params_only_bytes=nbytes, engine_build_s=build_s,
+        params_digests_equal=digests_ok, finished=sum(r.state == "finished" for r in reqs),
+        all_lengths_ok=all(len(r.generated) == 16 for r in reqs),
+        decode_steps=steps, paged_launches=launches,
+        first_step_logits_equal=bool(torch.equal(logits, live_logits)),
+        first_step_max_abs_diff=float((logits.float() - live_logits.float()).abs().max()),
+        logits_finite=bool(torch.isfinite(logits).all()),
+        tokens_equal=tokens == [list(r.generated) for r in live_reqs],
+    )
+
+
+def phase_resume(state):
+    """Checkpoint and resume through the Llama entry point (see the module
+    docstring), then serve from the checkpoint root."""
+    import torch
+
+    import fms_fsdp_tpu_torch.main_training_llama as entry
+    from fms_fsdp_tpu_torch.ckpt import build_checkpoint_manager
+    from fms_fsdp_tpu_torch.ckpt.state import checkpoint_state, flatten
+    from fms_fsdp_tpu_torch.config import TrainConfig
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+    from fms_fsdp_tpu_torch.ops import paged_attention as pa
+    from fms_fsdp_tpu_torch.train.step import get_lr_schedule, init_train_state
+    from fms_fsdp_tpu_torch.utils.config_utils import get_model_config, update_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the durable tier in memory, the local tier on the checkout's disk:
+    # one save (step 2) and the fallback load are a disk's
+    root, local = _ckpt_dir("resume"), _ckpt_dir("resume-local", memory=False)
+    durable = os.path.join(root, "durable")
+    kw = dict(RESUME_KW, ckpt_save_path=durable, ckpt_load_path=durable,
+              ckpt_local_dir=local)
+    problems = []
+    result = {"config": {k: kw[k] for k in sorted(kw)}}
+
+    def listing(path):
+        return sorted(os.listdir(os.path.join(path, "checkpoints")))
+
+    def disk_bytes():
+        total = 0
+        for top in (root, local):
+            for d, _, fs in os.walk(top):
+                for f in fs:
+                    with contextlib.suppress(OSError):  # pruned under the walk
+                        total += os.path.getsize(os.path.join(d, f))
+        return total
+
+    # the phase's peak disk use, sampled while the writers run
+    peak = {"bytes": 0}
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(0.5):
+            peak["bytes"] = max(peak["bytes"], disk_bytes())
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+
+    # 1. the first run: saves at 2 (local), 4 (durable) and 6 (final)
+    t0 = time.perf_counter()
+    res = entry.main(**dict(kw, num_steps=6))
+    result["first_run_s"] = time.perf_counter() - t0
+    saved = _digests(checkpoint_state(res["state"]))
+    model_cfg = res["model_cfg"]
+    result["first_run_saves"] = _save_rows(res["checkpointer"].save_log)
+    result["listing_after_first"] = {"local": listing(local), "durable": listing(durable)}
+    if [(r["step"], r["tier"]) for r in res["checkpointer"].save_log] != [
+            (2, "local"), (4, "durable"), (6, "durable")]:
+        problems.append(f"first run saves {result['first_run_saves']}")
+    if result["listing_after_first"] != {"local": ["step_2_ckp"], "durable": ["step_6_ckp"]}:
+        problems.append(f"retention: {result['listing_after_first']}")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. the second run resumes at 6; the loaded state is read as the
+    # loop receives it
+    seen = {}
+    real_train = entry.train
+
+    def train_probe(cfg, st, step_fn, rank, loader, checkpointer, start_step,
+                    tokens_seen, **more):
+        seen.update(start_step=start_step, tokens_seen=tokens_seen,
+                    digests=_digests(checkpoint_state(st)))
+        return real_train(cfg, st, step_fn, rank, loader, checkpointer, start_step,
+                          tokens_seen, **more)
+
+    fa.reset_launches()
+    entry.train = train_probe
+    try:
+        t0 = time.perf_counter()
+        res = entry.main(**dict(kw, num_steps=8))
+        result["second_run_s"] = time.perf_counter() - t0
+    finally:
+        entry.train = real_train
+    launches = dict(fa.LAUNCHES)
+    n, remat = model_cfg.nlayers, _n_remat(model_cfg, res["cfg"])
+    want = {"fwd": 2 * (n + remat), "fwd_kvgrid": 0, "dq": 2 * n, "dq_kvgrid": 0,
+            "dkv": 2 * n}
+    straight_lr = get_lr_schedule(res["cfg"])(6)  # step 7 of a straight 8-step run
+    reports = res["reports"]
+    result.update(
+        resumed_at=res["start_step"], steps=res["steps"],
+        tokens_seen_loaded=seen.get("tokens_seen"),
+        loaded_digests_equal=seen.get("digests") == saved,
+        differing_keys=sorted(k for k in saved if seen.get("digests", {}).get(k) != saved[k]),
+        first_lr=reports[0]["lr"], straight_lr_step7=straight_lr,
+        losses=[r["loss"] for r in reports], flash_launches=launches,
+        expected_flash_launches=want,
+        second_run_saves=_save_rows(res["checkpointer"].save_log),
+        listing_after_second={"local": listing(local), "durable": listing(durable)},
+    )
+    if res["start_step"] != 6 or res["steps"] != 2:
+        problems.append(f"resumed at {res['start_step']} for {res['steps']} steps")
+    if not result["loaded_digests_equal"]:
+        problems.append(f"loaded state differs from step 6's: {result['differing_keys'][:8]}")
+    if seen.get("tokens_seen") != 6 * 2 * 4096:
+        problems.append(f"tokens_seen {seen.get('tokens_seen')} != {6 * 2 * 4096}")
+    if reports[0]["lr"] != straight_lr:
+        problems.append(f"first lr {reports[0]['lr']} != straight run's {straight_lr}")
+    if not all(math.isfinite(x) for x in result["losses"]):
+        problems.append(f"non-finite losses {result['losses']}")
+    if launches != want:
+        problems.append(f"flash launches {launches} != {want}")
+
+    # 3. serve from the durable root (step 8) through the paged kernel
+    live = flatten("params", res["state"]["params"], {})
+    result["serve"] = _resume_serve(model_cfg, os.path.join(durable, "checkpoints"),
+                                    res["state"]["params"], _digests(live))
+    srv = result["serve"]
+    if srv["finished"] != 8 or not srv["all_lengths_ok"] or not srv["logits_finite"]:
+        problems.append(f"serving: {srv}")
+    if not srv["params_digests_equal"] or not srv["first_step_logits_equal"]:
+        problems.append("serving from the checkpoint differs from the live params")
+    if srv["paged_launches"] != srv["decode_steps"] * n:
+        problems.append(f"paged launches {srv['paged_launches']} != "
+                        f"{srv['decode_steps']} x {n}")
+    cfg = res["cfg"]
+    del res, live
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. damage: truncate a payload file of the newest checkpoint; the
+    # next load falls back to the previous committed one (local step 2)
+    newest = os.path.join(durable, "checkpoints", "step_8_ckp", "state")
+    victim = max((os.path.join(newest, f) for f in os.listdir(newest)), key=os.path.getsize)
+    size = os.path.getsize(victim)
+    with open(victim, "rb+") as f:
+        f.truncate(size // 2)
+    fresh_cfg = TrainConfig()
+    update_config(fresh_cfg, **dict(kw, num_steps=8))
+    fresh = init_train_state(torch.Generator(device="cuda").manual_seed(1), model_cfg,
+                             fresh_cfg)
+    mgr = build_checkpoint_manager(fresh_cfg, 0)
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        _, _, step, ntok, resuming = mgr.load(fresh, None, path=durable, strict=False)
+    torch.cuda.synchronize()
+    result["fallback"] = dict(
+        truncated=os.path.relpath(victim, root), size=size, loaded_step=step,
+        tokens_seen=ntok, resuming=resuming, full_load_s=time.perf_counter() - t0,
+        warning=[ln for ln in text.getvalue().splitlines() if "WARNING" in ln])
+    print(text.getvalue(), end="")
+    if (step, ntok, resuming) != (2, 2 * 2 * 4096, True) or not any(
+            "failed integrity verification" in ln and "falling back" in ln
+            for ln in result["fallback"]["warning"]):
+        problems.append(f"fallback: {result['fallback']}")
+    del fresh, mgr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rows = result["first_run_saves"] + result["second_run_saves"]
+    result["save_summary"] = {
+        tier: {"snapshot_ms": [r["snapshot_ms"] for r in rows if r["tier"] == tier],
+               "background_s": [r["background_s"] for r in rows if r["tier"] == tier],
+               "write_gb_per_s": [r["write_gb_per_s"] for r in rows if r["tier"] == tier]}
+        for tier in ("local", "durable")}
+    done.set()
+    sampler.join()
+    result["peak_disk_bytes"] = peak["bytes"]
+    result["nvidia_smi"] = state["smi"]
+    result["roots"] = {"durable": durable, "local": local}
+    emit("resume", **result)
+    state["resume"] = result
+    shutil.rmtree(root)
+    shutil.rmtree(local)
+    if problems:
+        raise AssertionError("resume: " + "; ".join(problems))
+
 
 # ---------------------------------------------------------------------------
 # the Mamba2 hybrid: the SSD scan kernel, the trainer, the server
@@ -1568,6 +1918,7 @@ def kernels_line(state):
 
 
 def main(argv=None) -> int:
+    t0 = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma list of {PHASES}")
@@ -1593,15 +1944,28 @@ def main(argv=None) -> int:
         "device": phase_device, "build": phase_build,
         "kernels": phase_kernels, "serve": phase_serve,
         "serve-int8": phase_serve_int8, "flash": phase_flash,
-        "train": phase_train, "train-kvgrid": phase_train_kvgrid,
+        "train": phase_train, "resume": phase_resume,
+        "train-kvgrid": phase_train_kvgrid,
         "ssd": phase_ssd, "train-mamba": phase_train_mamba,
         "serve-mamba": phase_serve_mamba,
     }
     if "device" not in phases:
         phases.insert(0, "device")
-    for p in PHASES:
-        if p in phases:
-            run[p](state)
+
+    def on_term(signum, frame):
+        raise SystemExit(128 + signum)
+
+    # a run ended by SIGTERM still deletes its checkpoints (below)
+    signal.signal(signal.SIGTERM, on_term)
+    try:
+        for p in PHASES:
+            if p in phases:
+                run[p](state)
+    finally:
+        # a failed phase leaves its checkpoints behind: none outlives the run
+        for root in CKPT_ROOTS.values():
+            shutil.rmtree(root, ignore_errors=True)
+    emit("total", phases=phases, seconds=time.perf_counter() - t0)
     if all(p in phases for p in PHASES):
         print(json.dumps(kernels_line(state)), flush=True)
     print(state["smi"], flush=True)

@@ -7,9 +7,15 @@ w1/w3 (d, h), w2 (h, d), lm_head (d, V); Mamba's ``layers`` a list of
 per-layer dicts — so the bridge copies leaves and transposes nothing. A
 JAX tree becomes numpy with ``jax.tree.map(np.asarray, params)`` on the
 caller's side; this module never imports JAX.
+
+A whole train state crosses the same way, keyed by JAX's tree paths:
+``train_state_from_numpy`` takes JAX's ``{"params", "opt_state",
+"step"}`` made numpy and gives a port train state that continues it
+(params, Adam's moments and count, and the step);
+``train_state_to_numpy`` is the inverse.
 """
 
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -42,3 +48,40 @@ def params_to_numpy(params: Any) -> Any:
         return t.numpy()
 
     return tree_map(leaf, params)
+
+
+
+def train_state_to_numpy(state: Dict) -> Dict[str, np.ndarray]:
+    """A port train state -> JAX's train state as numpy arrays keyed by
+    their dotted tree paths (the checkpoint's keys, ``ckpt/state.py``):
+    params, Adam's count, hyperparams and moments, and the step. bf16
+    widens to fp32 as in :func:`params_to_numpy`."""
+    from fms_fsdp_tpu_torch.ckpt.state import checkpoint_state
+
+    return params_to_numpy(checkpoint_state(state))
+
+
+def train_state_from_numpy(flat: Dict[str, Any], cfg, device="cpu") -> Dict:
+    """JAX's train state as numpy arrays keyed by their dotted tree paths
+    (``{jax.tree_util.keystr(path, simple=True, separator="."):
+    np.asarray(leaf)}`` over ``tree_flatten_with_path(state)``) -> a port
+    train state on ``device`` that continues it: the params and Adam's
+    moments copied in the params' dtype, Adam's count, the hyperparams
+    and the step restored. Raises when the keys are not the port's."""
+    from fms_fsdp_tpu_torch.ckpt.state import (
+        apply_scalars,
+        checkpoint_state,
+        unflatten,
+    )
+    from fms_fsdp_tpu_torch.train.step import state_from_params
+
+    state = state_from_params(params_from_numpy(unflatten(flat, "params"), device), cfg)
+    target = checkpoint_state(state)
+    differ = set(target) ^ set(flat)
+    if differ:
+        raise KeyError(f"train state keys differ: {sorted(differ)}")
+    with torch.no_grad():
+        for key, t in target.items():
+            t.copy_(torch.from_numpy(np.array(flat[key], copy=True)))
+    apply_scalars(state, target)
+    return state

@@ -1,8 +1,9 @@
 """The dummy token stream.
 
 Counterpart of ``fms_fsdp_tpu/data/loader.py:811-841``: ``SteadyCounter``
-and ``get_dummy_loader``. The rescalable streaming loader of the JAX
-package is not ported yet (ROADMAP.md A.15).
+and ``get_dummy_loader``, plus ``parse_data_args``, which the checkpoint
+topology fingerprint reads (``ckpt/elastic.py``). The rescalable
+streaming loader of the JAX package is not ported yet (ROADMAP.md A.15).
 """
 
 import numpy as np
@@ -44,3 +45,21 @@ class _SimpleLoader:
 
 def get_dummy_loader(cfg, rank, world_size):
     return _SimpleLoader(SteadyCounter(cfg.seq_length, cfg.vocab_size), cfg.batch_size)
+
+
+def parse_data_args(datas, weights):
+    """csv strings -> lists (ref:dataloader_utils.py:149-163)."""
+
+    def splitstrip(x):
+        if isinstance(x, str):
+            return [item.strip() for item in x.split(",")]
+        elif isinstance(x, (list, tuple)):
+            return list(x)
+        elif isinstance(x, (int, float, complex)):
+            return [x]
+        else:
+            raise ValueError(f"arg input {x} cannot be parsed.")
+
+    datas = splitstrip(datas)
+    weights = [float(x) for x in splitstrip(weights)]
+    return datas, weights

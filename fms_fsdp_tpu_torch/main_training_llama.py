@@ -1,9 +1,13 @@
 """Llama pretraining entry point of the port.
 
 Counterpart of ``main_training_llama.py`` at the repo root, in the same
-order — config -> seed -> model -> dataloader -> train state -> LR
-schedule -> train — on one card, without the mesh, elastic resume or a
-checkpoint load (ROADMAP.md A.5, A.6). The same command line runs both:
+order — config -> model -> checkpoint manager -> dataloader -> train
+state -> checkpoint load -> LR schedule -> train — on one card, without
+the mesh or the elastic batch policy (ROADMAP.md A.6). A run that finds a
+committed checkpoint under ``ckpt_save_path`` (or a local tier's
+``ckpt_local_dir``) resumes from it; else ``ckpt_load_path`` (a run root
+or a params pickle) is loaded as continued pretraining, from step 0. The
+same command line runs both:
 
     python -m fms_fsdp_tpu_torch.main_training_llama \\
         --model_variant=llama3_8b_4k --LlamaConfig.nlayers=8 \\
@@ -16,10 +20,13 @@ and raises without a card. Options not ported yet raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
+import os
 import sys
 
 import torch
 
+from fms_fsdp_tpu_torch.ckpt import build_checkpoint_manager
+from fms_fsdp_tpu_torch.ckpt.elastic import current_fingerprint
 from fms_fsdp_tpu_torch.config import TrainConfig
 from fms_fsdp_tpu_torch.data.device_feed import DeviceFeed
 from fms_fsdp_tpu_torch.data.loader import get_dummy_loader
@@ -37,7 +44,9 @@ from fms_fsdp_tpu_torch.utils.train_utils import train
 def main(device=None, **kwargs):
     """Train per ``TrainConfig`` overrides in ``kwargs``. Returns the
     loop's summary (``utils/train_utils.py::train``) with the final train
-    state and the resolved configs under "state", "cfg" and "model_cfg"."""
+    state, the resolved configs, the step the run started from and the
+    checkpoint manager under "state", "cfg", "model_cfg", "start_step"
+    and "checkpointer"."""
     cfg = TrainConfig()
     update_config(cfg, **kwargs)
     device = resolve_device(device)
@@ -49,18 +58,44 @@ def main(device=None, **kwargs):
     update_config(model_cfg, **kwargs)
     print(f"\n--> model has {model_cfg.n_params() / 1e6} Million params\n")
 
+    # checkpoint manager BEFORE the dataloader, as in the JAX entry: the
+    # fingerprint every save stamps and every load checks
+    checkpointer = build_checkpoint_manager(cfg, 0)
+    checkpointer.set_fingerprint(
+        current_fingerprint(cfg),
+        allow_batch_change=cfg.allow_batch_change,
+        allow_corpus_change=cfg.allow_corpus_change,
+    )
+
     print("Constructing datasets...")
     loader = get_dummy_loader(cfg, 0, 1)
+    ckpt_loader = None  # dummy stream is stateless
     print("Datasets constructed!")
 
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     state = init_train_state(generator, model_cfg, cfg)
+
+    # a run-root load path points at its checkpoints/ subdir; a file path
+    # loads directly (ref:main_training_llama.py:124-127)
+    state, _, start_step, tokens_seen, is_resuming = checkpointer.load(
+        state,
+        ckpt_loader,
+        path=os.path.join(cfg.ckpt_load_path, "checkpoints/")
+        if not os.path.isfile(cfg.ckpt_load_path)
+        else cfg.ckpt_load_path,
+        strict=False,
+    )
+    if not is_resuming:
+        start_step = 0
+    # the schedule runs from the state's own restored step, as JAX's does
     step_fn = make_train_step(model_cfg, cfg)
 
     print(f"Training for {cfg.num_steps} steps")
     summary = train(cfg, state, step_fn, 0, iter(DeviceFeed(loader, device)),
-                    model_cfg=model_cfg, device=device)
-    return dict(summary, state=state, cfg=cfg, model_cfg=model_cfg)
+                    checkpointer, start_step, tokens_seen,
+                    dataloader=ckpt_loader, model_cfg=model_cfg, device=device)
+    return dict(summary, state=state, cfg=cfg, model_cfg=model_cfg,
+                start_step=start_step, checkpointer=checkpointer)
 
 
 if __name__ == "__main__":

@@ -2,8 +2,9 @@
 
 Counterpart of ``fms_fsdp_tpu/serve/engine.py`` for the unified role:
 
-- params from the caller, or from a params pickle of numpy leaves
-  (``from_checkpoint``), cast to the compute dtype and moved to the
+- params from the caller, or from a training checkpoint
+  (``from_checkpoint``: a params pickle, a ``step_N_ckp`` dir or a
+  ``checkpoints/`` root), cast to the compute dtype and moved to the
   device ONCE, at build;
 - a :class:`~fms_fsdp_tpu_torch.serve.kv_cache.PagedKVCache` pool whose
   page size resolves statically (``tune/lookup.py``);
@@ -22,8 +23,6 @@ Chunked prefill, speculative serving, disaggregation roles and serving
 layouts are refused at build, each naming its ROADMAP.md item.
 """
 
-import os
-import pickle
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence
@@ -53,7 +52,6 @@ _DTYPES = {
 
 _EXTENSIONS = "ROADMAP.md A.10 (serving extensions)"
 _SPECULATOR = "ROADMAP.md A.9 (speculator and speculative serving)"
-_CHECKPOINTS = "ROADMAP.md A.5 (checkpoint and resume)"
 
 
 @dataclass(frozen=True)
@@ -172,21 +170,16 @@ class ServingEngine:
         cls, path: str, model_cfg, serve_cfg: Optional[ServeConfig] = None,
         **kw,
     ) -> "ServingEngine":
-        """Build the engine from a params pickle whose leaves are numpy
-        arrays (the nested dict ``bridge.params_to_numpy`` writes).
-        Checkpoint directories (Orbax step_N_ckp, checkpoints/ roots)
-        raise: their reader comes with ROADMAP.md A.5."""
-        from fms_fsdp_tpu_torch.bridge import params_from_numpy
+        """Restore params from a training checkpoint and build the engine
+        around them: a params pickle (numpy leaves, as
+        ``bridge.params_to_numpy`` and the JAX package write them), a
+        ``step_N_ckp`` dir, or a ``checkpoints/`` root, whose newest
+        committed step dir is read (torn and loader-only dirs skipped).
+        Only the params are read (``utils/checkpointing.py::
+        load_params_only``)."""
+        from fms_fsdp_tpu_torch.utils.checkpointing import load_params_only
 
-        if os.path.isdir(path):
-            raise NotImplementedError(
-                f"{path} is a checkpoint directory; reading Orbax "
-                f"checkpoints is not ported yet ({_CHECKPOINTS}) — pass a "
-                f"params pickle of numpy arrays"
-            )
-        with open(path, "rb") as f:
-            tree = pickle.load(f)
-        return cls(params_from_numpy(tree), model_cfg, serve_cfg, **kw)
+        return cls(load_params_only(path), model_cfg, serve_cfg, **kw)
 
     # -- request side ------------------------------------------------------
 

@@ -38,6 +38,7 @@ from fms_fsdp_tpu_torch.ops.fused_ce import (
 )
 from fms_fsdp_tpu_torch.parallel.ac import selective_ac_mask
 from fms_fsdp_tpu_torch.parallel.mixed_precision import get_dtype_policy
+from fms_fsdp_tpu_torch.utils.tree import tree_map
 
 # (TrainConfig field, is it set to something this port does not run yet,
 # the ROADMAP.md item that brings it): options of the step, then of the run
@@ -51,8 +52,7 @@ _UNPORTED_STEP = (
 )
 _UNPORTED_RUN = (
     ("use_dummy_dataset", lambda v: not v, "A.15 (the streaming loader)"),
-    ("resuming_dataset", bool, "A.5 (checkpoint and resume)"),
-    ("ckpt_local_interval", lambda v: v > 0, "A.5 (checkpoint and resume)"),
+    ("resuming_dataset", bool, "A.15 (the streaming loader)"),
     ("use_profiler", bool, "A.12 (device-touching obs)"),
     ("tracker", lambda v: v is not None, "A.12 (device-touching obs)"),
     ("obs_dir", bool, "A.12 (device-touching obs)"),
@@ -84,19 +84,9 @@ def check_step_options(cfg) -> None:
 
 
 def check_supported(cfg) -> None:
-    """Every option of a training run (the entry point's check). A run
-    whose checkpoint interval falls inside it would save (ROADMAP.md
-    A.5); the final save the JAX trainer writes at ``num_steps`` is not
-    made."""
+    """Every option of a training run (the entry point's check)."""
     check_step_options(cfg)
     _refuse(cfg, _UNPORTED_RUN)
-    if cfg.checkpoint_interval <= cfg.num_steps:
-        raise NotImplementedError(
-            f"checkpoint_interval={cfg.checkpoint_interval} <= num_steps="
-            f"{cfg.num_steps} would save a checkpoint, which is not ported "
-            "yet: ROADMAP.md A.5 (checkpoint and resume); set it above "
-            "num_steps"
-        )
 
 
 def get_lr_schedule(cfg, start_step: int = 0):
@@ -160,22 +150,33 @@ def _per_layer(params: Dict, fn):
     return {**top, "layers": per_layer}, leaves
 
 
-def make_optimizer(params: Dict, cfg) -> torch.optim.AdamW:
+def make_optimizer(params: Dict, cfg):
     """AdamW(0.9, 0.95, eps 1e-8, wd 0.1) over every leaf, each Llama
     layer's weights as views of the stacked tensors, so an update writes
     the JAX-layout params in place; the lr is set each step by the train
-    step."""
+    step. Returns (optimizer, moments): Adam's moments are made here,
+    zero, in the params' layout (JAX's ``mu`` and ``nu``), and each
+    leaf's ``exp_avg`` / ``exp_avg_sq`` is a view of them, so a
+    checkpoint saves and loads them whole and in place
+    (``ckpt/state.py``). AdamW starts from them as from the zeros it
+    would make at its first update."""
     _, leaves = _per_layer(params, lambda w: w)
-    return torch.optim.AdamW(
+    opt = torch.optim.AdamW(
         leaves, lr=cfg.learning_rate,
         betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1, foreach=False,
     )
+    moments = {name: tree_map(torch.zeros_like, params) for name in ("mu", "nu")}
+    _, mu = _per_layer(moments["mu"], lambda w: w)
+    _, nu = _per_layer(moments["nu"], lambda w: w)
+    for p, m, v in zip(leaves, mu, nu):
+        opt.state[p] = {"step": torch.tensor(0.0, dtype=torch.float32),
+                        "exp_avg": m, "exp_avg_sq": v}
+    return opt, moments
 
 
 def init_train_state(generator: torch.Generator, model_cfg, cfg) -> Dict:
-    """{params, optimizer, step}: params made on the generator's device
-    in the policy's param dtype, Adam moments zero (created lazily by the
-    first update), step 0."""
+    """{params, optimizer, moments, step}: params made on the generator's
+    device in the policy's param dtype, Adam moments zero, step 0."""
     policy = get_dtype_policy(cfg)
     init_params, _, _ = get_model_api(model_cfg)
     params = init_params(generator, model_cfg, dtype=policy.param_dtype)
@@ -184,7 +185,8 @@ def init_train_state(generator: torch.Generator, model_cfg, cfg) -> Dict:
 
 def state_from_params(params: Dict, cfg) -> Dict:
     """A train state over existing params (the tests start from JAX's)."""
-    return {"params": params, "optimizer": make_optimizer(params, cfg), "step": 0}
+    opt, moments = make_optimizer(params, cfg)
+    return {"params": params, "optimizer": opt, "moments": moments, "step": 0}
 
 
 def _compute_copy(params: Dict, dtype):

@@ -1,16 +1,17 @@
 """The training hot loop.
 
-Counterpart of the loop of ``fms_fsdp_tpu/utils/train_utils.py:307-600``
-(``train`` / ``_train_loop``) on one card, without a checkpointer: steps
-until ``num_steps``, keeps each step's metrics as device tensors, and at
-every ``report_interval`` fetches the window, feeds the non-finite flags
-to the anomaly guard and prints the reference's report lines (step, loss,
-LR, tokens seen, gradient norm, memory, step times, current and overall
+Counterpart of the loop of ``fms_fsdp_tpu/utils/train_utils.py:307-840``
+(``train`` / ``_train_loop``) on one card: steps until ``num_steps``,
+keeps each step's metrics as device tensors, and at every
+``report_interval`` fetches the window, feeds the non-finite flags to the
+anomaly guard and prints the reference's report lines (step, loss, LR,
+tokens seen, gradient norm, memory, step times, current and overall
 tokens per chip per second, overall tokens per day, in its order and
-with its values) plus MFU and HFU against the card's peak. It aborts after
-``anomaly_max_consecutive`` non-finite steps in a row. The obs sinks,
-watchdog, slice monitor, scrubber and divergence check wait for
-ROADMAP.md A.12, checkpoints for A.5.
+with its values) plus MFU and HFU against the card's peak. It saves
+through the checkpointer at its cadence and at ``num_steps``, and after
+``anomaly_max_consecutive`` non-finite steps in a row it saves and
+aborts. The obs sinks, watchdog, preemption guard, slice monitor,
+scrubber and divergence check wait for ROADMAP.md A.12.
 """
 
 import time
@@ -43,10 +44,20 @@ def state_device(state) -> torch.device:
     return tree.device
 
 
-def train(cfg, state, step_fn, rank, train_loader, start_step: int = 0,
-          tokens_seen: int = 0, model_cfg=None, device=None) -> Dict:
+def train(cfg, state, step_fn, rank, train_loader, checkpointer=None,
+          start_step: int = 0, tokens_seen: int = 0, dataloader=None,
+          model_cfg=None, device=None) -> Dict:
     """Run the hot loop to ``cfg.num_steps``. Returns {"final_loss",
     "reports": one dict per report window, "skipped_batches", "steps"}.
+
+    ``checkpointer`` (a ``Checkpointer`` or the tiered
+    ``AsyncCheckpointManager``; None saves nothing) saves when a tier is
+    due (``save_due``, or every ``checkpoint_interval`` steps for a plain
+    ``Checkpointer``) and at ``num_steps``, and on an anomaly abort, with
+    ``tokens_seen`` and ``skipped_steps`` in the metadata; a save that
+    ends the loop drains the pending report window first.
+    ``finalize()`` runs on every exit. ``dataloader`` is the stateful
+    loader whose state rides the checkpoint (the dummy stream has none).
 
     ``device`` defaults to the state's (:func:`state_device`): a window's
     clock is read after the card has finished its steps. MFU counts the
@@ -139,18 +150,49 @@ def train(cfg, state, step_fn, rank, train_loader, start_step: int = 0,
                 print("skipped batches:", guard.skipped_batches)
         start = time.time()
 
-    for step, batch in enumerate(train_loader, start=start_step + 1):
-        if step > cfg.num_steps:
-            step -= 1  # this batch was never trained on
-            break
-        window.append(step_fn(state, batch))
-        if step % cfg.report_interval == 0:
-            flush(step)
-            if guard.should_abort():
-                raise AnomalyAbort(
-                    f"anomaly guard: {guard.consecutive} consecutive non-finite "
-                    f"steps (threshold {guard.max_consecutive}) at step {step}"
-                )
-    flush(step, drain=True)
+    def global_tokens(step):
+        return tokens_seen + (step - start_step) * tokens_per_step
+
+    def save(step, reason):
+        checkpointer.save(step, state, dataloader, reason=reason,
+                          tokens_seen=global_tokens(step),
+                          skipped_steps=guard.skipped_batches)
+
+    try:
+        for step, batch in enumerate(train_loader, start=start_step + 1):
+            if step > cfg.num_steps:
+                step -= 1  # this batch was never trained on
+                break
+            window.append(step_fn(state, batch))
+            if step % cfg.report_interval == 0:
+                flush(step)
+                if guard.should_abort():
+                    # params are the last good ones (flagged updates never
+                    # landed): save them, then abort loudly
+                    if checkpointer is not None:
+                        save(step, "abort")
+                    raise AnomalyAbort(
+                        f"anomaly guard: {guard.consecutive} consecutive non-finite "
+                        f"steps (threshold {guard.max_consecutive}) at step {step}"
+                    )
+            if checkpointer is None:
+                continue
+            interval_due = (
+                checkpointer.save_due(step)
+                if hasattr(checkpointer, "save_due")
+                else step % cfg.checkpoint_interval == 0
+            )
+            if interval_due or step == cfg.num_steps:
+                reason = "final" if step == cfg.num_steps else "interval"
+                if reason != "interval":
+                    # the loop is about to exit: the guard's totals stamped
+                    # into the metadata must cover the tail steps
+                    flush(step, drain=True)
+                save(step, reason)
+        flush(step, drain=True)
+    finally:
+        if checkpointer is not None:
+            # joins the in-flight writer and surfaces its error
+            checkpointer.finalize()
     return {"final_loss": train_loss, "reports": reports,
             "skipped_batches": guard.skipped_batches, "steps": step - start_step}

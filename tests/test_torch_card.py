@@ -620,3 +620,121 @@ def test_card_ssd_scan_auto_launches_or_raises(cuda_device):
                        kernel="auto")
     with pytest.raises(NotImplementedError, match="chunk"):
         t_ssd.ssd_scan(x, dt, A, Bm, Cm, chunk_size=32, kernel="pallas")
+
+
+# ---------------------------------------------------------------------------
+# checkpoints of a train state on the card
+# ---------------------------------------------------------------------------
+
+_CKPT_MODEL = dict(src_vocab_size=512, emb_dim=256, nheads=2, kvheads=1, nlayers=2,
+                   max_expected_seq_len=256)
+
+
+def _card_state(device, seed=0):
+    from fms_fsdp_tpu_torch.config import TrainConfig
+    from fms_fsdp_tpu_torch.train.step import make_train_step, state_from_params
+
+    model = LlamaConfig(**_CKPT_MODEL)
+    cfg = TrainConfig(seq_length=256, batch_size=2, vocab_size=512, attention_kernel="xla",
+                      mixed_precision=False, learning_rate=1e-2, sharding_strategy="fsdp")
+    params = init_llama_params(torch.Generator(device=device).manual_seed(seed), model)
+    state = state_from_params(params, cfg)
+    step = make_train_step(model, cfg)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(0, 512, size=(2, 257)))
+    batch = (toks[:, :-1].to(device), toks[:, 1:].to(device))
+    step(state, batch)
+    return state, step, batch, cfg
+
+
+def _card_bits(t):
+    return t.view(torch.int32) if t.is_floating_point() else t
+
+
+def _slow_writer(monkeypatch, delay=0.5):
+    """The manager's payload write, delayed, recording what it was handed
+    and on which thread."""
+    from fms_fsdp_tpu_torch.ckpt import manager
+    from fms_fsdp_tpu_torch.utils import checkpointing
+
+    seen = []
+
+    def write(path, flat):
+        import threading
+        import time
+
+        seen.append((threading.current_thread().name,
+                     {t.device.type for t in flat.values()},
+                     all(t.is_pinned() for t in flat.values() if t.dim())))
+        time.sleep(delay)
+        checkpointing.write_state(path, flat)
+
+    monkeypatch.setattr(manager, "write_state", write)
+    return seen
+
+
+@pytest.mark.card
+def test_card_checkpoint_snapshot_isolated_from_next_step(cuda_device, tmp_path, monkeypatch):
+    from fms_fsdp_tpu_torch.ckpt import build_checkpoint_manager
+    from fms_fsdp_tpu_torch.ckpt.state import checkpoint_state
+    from fms_fsdp_tpu_torch.config import TrainConfig
+
+    _slow_writer(monkeypatch)
+    state, step, batch, _ = _card_state(cuda_device)
+    before = {k: v.clone() for k, v in checkpoint_state(state).items()}
+    mgr = build_checkpoint_manager(TrainConfig(ckpt_save_path=str(tmp_path),
+                                               sharding_strategy="fsdp"))
+    mgr.save(1, state, None)
+    step(state, batch)  # the next AdamW step writes in place during the write
+    torch.cuda.synchronize()
+    assert not torch.equal(before["params.layers.wq"], state["params"]["layers"]["wq"])
+    mgr.finalize()
+    fresh, _, _, _ = _card_state(cuda_device, seed=1)
+    mgr.load(fresh, None)
+    for key, t in checkpoint_state(fresh).items():
+        assert torch.equal(_card_bits(t), _card_bits(before[key])), key
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("route", ["checkpointer", "manager"])
+def test_card_checkpoint_round_trip_onto_cuda_is_bitwise(cuda_device, tmp_path, route):
+    from fms_fsdp_tpu_torch.ckpt import build_checkpoint_manager
+    from fms_fsdp_tpu_torch.ckpt.state import checkpoint_state
+    from fms_fsdp_tpu_torch.config import TrainConfig
+    from fms_fsdp_tpu_torch.utils.checkpointing import Checkpointer
+
+    state, step, batch, _ = _card_state(cuda_device)
+    saved = {k: v.clone() for k, v in checkpoint_state(state).items()}
+    ck = (Checkpointer(str(tmp_path), 2, "fsdp") if route == "checkpointer" else
+          build_checkpoint_manager(TrainConfig(ckpt_save_path=str(tmp_path),
+                                               sharding_strategy="fsdp")))
+    ck.save(1, state, None, tokens_seen=512)
+    ck.finalize()
+    fresh, _, _, _ = _card_state(cuda_device, seed=1)
+    _, _, at, ntok, resuming = ck.load(fresh, None)
+    assert (at, ntok, resuming) == (1, 512, True)
+    loaded = checkpoint_state(fresh)
+    for key, t in saved.items():
+        assert loaded[key].device == t.device and t.dtype == loaded[key].dtype, key
+        assert torch.equal(_card_bits(t), _card_bits(loaded[key])), key
+    # the two states take the same next step, bitwise
+    step(state, batch)
+    step(fresh, batch)
+    for key, t in checkpoint_state(state).items():
+        assert torch.equal(_card_bits(t), _card_bits(checkpoint_state(fresh)[key])), key
+
+
+@pytest.mark.card
+def test_card_checkpoint_writer_touches_no_cuda_tensor(cuda_device, tmp_path, monkeypatch):
+    from fms_fsdp_tpu_torch.ckpt import build_checkpoint_manager
+    from fms_fsdp_tpu_torch.config import TrainConfig
+
+    seen = _slow_writer(monkeypatch, delay=0.0)
+    state, _, _, _ = _card_state(cuda_device)
+    mgr = build_checkpoint_manager(TrainConfig(ckpt_save_path=str(tmp_path),
+                                               checkpoint_interval=1,
+                                               sharding_strategy="fsdp"))
+    for step in (1, 2):
+        mgr.save(step, state, None)
+    mgr.finalize()
+    assert seen == [("ckpt-writer", {"cpu"}, True)] * 2
+    assert [r["step"] for r in mgr.save_log] == [1, 2]

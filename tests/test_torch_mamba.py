@@ -427,8 +427,9 @@ _ENTRY_OVERRIDES = {
 }
 
 
-def test_mamba_entry_trains_on_cpu(capsys):
+def test_mamba_entry_trains_on_cpu(capsys, tmp_path):
     out = main(device="cpu", use_dummy_dataset=True, num_steps=4, report_interval=2,
+               ckpt_save_path=str(tmp_path), ckpt_load_path=str(tmp_path),
                batch_size=2, seq_length=SEQ, vocab_size=256, learning_rate=1e-3,
                attention_kernel="xla", fsdp_activation_checkpointing=True,
                selective_checkpointing=0.5, **_ENTRY_OVERRIDES)

@@ -301,8 +301,9 @@ def test_train_takes_the_device_from_the_state():
 # ---------------------------------------------------------------------------
 
 
-def test_entry_trains_on_cpu(capsys):
+def test_entry_trains_on_cpu(capsys, tmp_path):
     out = main(device="cpu", model_variant="llama3_194m_4k", use_dummy_dataset=True,
+               ckpt_save_path=str(tmp_path), ckpt_load_path=str(tmp_path),
                num_steps=4, report_interval=2, batch_size=2, seq_length=SEQ,
                vocab_size=512, learning_rate=1e-3, fsdp_activation_checkpointing=True,
                selective_checkpointing=0.5, **_ENTRY_OVERRIDES)
@@ -328,10 +329,11 @@ def _report_labels(printed):
             if ln.startswith(lbl)]
 
 
-def test_entry_report_lines_match_jax(capsys):
+def test_entry_report_lines_match_jax(capsys, tmp_path):
     """Three steps at report interval 2: a boundary window and the drain of
     the last step, each printing JAX's labels in JAX's order."""
     out = main(device="cpu", model_variant="llama3_194m_4k", use_dummy_dataset=True,
+               ckpt_save_path=str(tmp_path), ckpt_load_path=str(tmp_path),
                num_steps=3, report_interval=2, batch_size=1, seq_length=SEQ,
                vocab_size=512, **_ENTRY_OVERRIDES)
     printed = capsys.readouterr().out
@@ -383,8 +385,8 @@ def test_entry_needs_a_card_unless_cpu():
     ({"context_parallel_size": 2}, "A.8"),
     ({"expert_parallel_size": 2}, "A.4"),
     ({"use_dummy_dataset": False}, "A.15"),
-    ({"checkpoint_interval": 2}, "A.5"),
-    ({"resuming_dataset": True}, "A.5"),
+    ({"obs_dir": "obs"}, "A.12"),
+    ({"resuming_dataset": True}, "A.15"),
     ({"model_variant": "mamba_9.8b", "quantized_matmuls": "int8"}, "A.7"),
     ({"model_variant": "mixtral_8x7b"}, "A.4"),
 ])
