@@ -62,26 +62,51 @@ Phases, one JSON line each; any failure exits non-zero:
    ``_ckpt_dir``) and prints its blocking snapshot (ms), its background
    commit, payload write and manifest hashing (s), its bytes and GB/s,
    then deletes the root.
-8. resume — checkpoint and resume through the Llama entry point at
-   llama3_8b_4k width, 2 layers, seq 4096, batch 2, AC 1/2, bfSixteen:
-   a first run of 6 steps saves on the local tier (the checkout's disk)
-   at 2 and the durable tier (memory) at 4 and 6 (retention 1 each); a
-   second run of 8 steps resumes at
-   6 with the loaded state's per-key digests (float64 sum and int64 sum
-   of the bits) equal to step 6's, tokens_seen 6 x 2 x 4096, its first LR
+8. loader — the streaming loader alone, host plus the copy to the card
+   (no model): a corpus of two 8-shard corpora (about 100M llama3 token
+   ids, document lengths log-uniform over 64-16,384) written into the
+   run's in-memory directory with ``meta/combined_counts.csv``;
+   ``get_data_loader`` at seq 4096, batch 2, 1024 logical shards, weights
+   3:1 and the default shuffle window. Setup seconds, first batch and
+   tokens/s of the pipeline alone with 1 and 2 thread workers and with 2
+   forked process workers (after ``torch.cuda.init()``, with a tensor
+   live on the card; their first batches must equal the thread workers'
+   and shutdown must reap them); the reservoir filled to 10,000 rows (or
+   the largest window the measured rate fills in 30 s, flagged
+   ``reduced``), the mix's corpus_a share within 0.02 of 0.75, then the
+   loader state's bytes and the ms of ``save_to_path`` and of
+   ``load_from_path`` on a fresh loader, whose continuation must equal
+   the saved loader's; ms per batch through ``DeviceFeed`` to the card
+   (its batches equal to the host's), the consumer's wait and the
+   staging alone.
+9. resume — checkpoint and resume through the Llama entry point at
+   llama3_8b_4k width, 2 layers, seq 4096, batch 2, AC 1/2, bfSixteen,
+   streaming the loader phase's corpus (one loader worker, the feed two
+   batches ahead): a first run of 6 steps saves on the local tier (the
+   checkout's disk) at 2 and the durable tier (memory) at 4 and 6
+   (retention 1 each), each save with the loader's state; its batches
+   are the first six of a host-only straight walk of the same loader
+   config, and the states saved at 2 and 6 put the stream within the
+   feed's depth past their step. A second run of 8 steps resumes at 6
+   with the loaded state's per-key digests (float64 sum and int64 sum of
+   the bits) equal to step 6's, tokens_seen 6 x 2 x 4096, its first LR
    that of step 7 of a straight run, finite losses and the flash launches
-   of 2 steps; ``ServingEngine.from_checkpoint`` on the durable root
-   serves 8 requests through the paged-decode kernel, its params' digests
-   equal to the live ones and its first decode step's logits equal to an
+   of 2 steps; its batches are the walk's from where step 6's loader
+   state puts it, and no row of steps 1-6 comes again.
+   ``ServingEngine.from_checkpoint`` on the durable root serves 8
+   requests through the paged-decode kernel, its params' digests equal
+   to the live ones and its first decode step's logits equal to an
    engine's on the live params; then a truncated payload file in the
    newest checkpoint makes the next load fall back to local step 2 with
-   the integrity warning. Prints save, load and serving times, GB/s and
-   the phase's peak disk use.
-9. train-kvgrid — the same trainer for one step with
+   the integrity warning, and the loader restores step 2's state from
+   step 2's dir. Prints save, load and serving times, the ms the loader
+   state adds to each blocking snapshot, the feed's wait per step, GB/s
+   and the phase's peak disk use.
+10. train-kvgrid — the same trainer for one step with
    ``flash_kernel_variant="kvgrid"``, so the launches of the kv-streamed
    contracts are counted on the main path too.
 
-10. ssd    — the fused SSD scan kernels (``ssd_sm90.cu`` for bf16,
+11. ssd    — the fused SSD scan kernels (``ssd_sm90.cu`` for bf16,
    ``ssd.cu`` for fp32) against their plain version at the
    Mamba training shape (B=2, S=4096, H=128, P=64, G=1, N=128, L=256), at
    G=8 and at S=L (one chunk), bf16 and fp32, dt and A in the ranges of
@@ -97,7 +122,7 @@ Phases, one JSON line each; any failure exits non-zero:
    whole ``ssd_scan`` through the kernel and through the chunked einsums,
    the bound, and the other pieces of a Mamba layer at that shape (the
    scan's einsum backward, the conv forward and backward).
-11. train-mamba — ``fms_fsdp_tpu_torch.main_training_mamba.main`` at
+12. train-mamba — ``fms_fsdp_tpu_torch.main_training_mamba.main`` at
    mamba_9.8b width, 6 layers with attention at layer 3, seq 4096, batch
    2, selective AC 1/2, 16 steps (over the first 8 the loss of this
    model only wobbles, through the kernel and through the einsums alike):
@@ -105,7 +130,7 @@ Phases, one JSON line each; any failure exits non-zero:
    SSD launches == steps x (Mamba layers + rematerialised Mamba layers),
    flash launches == the one attention layer's; tokens per card per
    second, MFU/HFU, peak memory and a profile of one step.
-12. serve-mamba — ``ServingEngine`` on mamba_9.8b at full width and depth
+13. serve-mamba — ``ServingEngine`` on mamba_9.8b at full width and depth
    (32 layers, 3 of them attention; random bf16 weights), 8 requests of
    16-128 prompt tokens and 32 new tokens each: all complete, finite
    logits, a constant ``state_bytes_per_stream``, slab slices zero after
@@ -136,7 +161,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "serve", "serve-int8", "flash", "train",
-          "resume", "train-kvgrid", "ssd", "train-mamba", "serve-mamba")
+          "loader", "resume", "train-kvgrid", "ssd", "train-mamba", "serve-mamba")
 
 # llama3_8b decode shapes of the kernel phase
 B, NQ, NKV, H, PAGE, MAXP = 8, 32, 8, 128, 64, 32
@@ -1202,11 +1227,12 @@ def _ckpt_dir(phase, memory=True) -> str:
 
 def _save_rows(saves):
     """The checkpoint manager's records, as printed: the blocking
-    snapshot in ms, the background commit and within it the payload
+    snapshot in ms and within it the loader state's, the background commit and within it the payload
     write and the manifest hashing in s, the bytes, and the write's
     GB/s."""
     return [{"step": r["step"], "reason": r["reason"], "tier": r["tier"],
-             "snapshot_ms": r["snapshot_s"] * 1e3, "background_s": r["bg_s"],
+             "snapshot_ms": r["snapshot_s"] * 1e3, "loader_ms": r["loader_s"] * 1e3,
+             "background_s": r["bg_s"],
              "payload_write_s": r["write_s"], "manifest_s": r["manifest_s"],
              "bytes": r["bytes"], "write_gb_per_s": r["bytes"] / r["bg_s"] / 1e9}
             for r in saves]
@@ -1249,10 +1275,224 @@ def phase_train_kvgrid(state):
            {"flash_kernel_variant": "kvgrid", "num_steps": 1, "report_interval": 1},
            expect)
 
-# llama3_8b_4k at full width, 2 layers: the resume phase's trainer
-RESUME_KW = dict(TRAIN_KW, **{"LlamaConfig.nlayers": 2, "report_interval": 1,
-                              "checkpoint_interval": 4, "ckpt_local_interval": 2,
-                              "ckpt_keep": 1, "ckpt_local_keep": 1})
+# ---------------------------------------------------------------------------
+# the streaming loader: arrow shards -> the seven layers -> the card
+# ---------------------------------------------------------------------------
+
+# two corpora of 8 shards each, mixed 3:1; document lengths log-uniform
+# over 64-16,384 tokens (a mean near 2,950), so 2,100 documents a shard
+# make about 100M tokens: one epoch covers filling a 10,000-row reservoir
+# at seq 4096 (about 82M tokens packed while it fills)
+CORPUS = {"corpus_a": 8, "corpus_b": 8}
+CORPUS_DOCS_PER_SHARD = 2100
+LOADER_KW = dict(use_dummy_dataset=False, datasets="corpus_a,corpus_b", weights="3,1",
+                 seq_length=4096, batch_size=2, vocab_size=128256, logical_shards=1024,
+                 checkpoint_interval=1000)
+LOADER_RATE_S = 4.0  # each worker mode's timed window
+LOADER_FILL_S = 30.0  # the reservoir is filled to the largest window this allows
+
+
+def _corpus(state):
+    """The run's corpus (llama3 token ids, uint32 in [1, 128256)), written
+    once into the in-memory checkpoint directory."""
+    from fms_fsdp_tpu_torch.data.synth import build_mixed_corpus
+
+    if "corpus" not in state:
+        t0 = time.perf_counter()
+        path, tokens = build_mixed_corpus(_ckpt_dir("corpus"), CORPUS,
+                                          docs_per_shard=CORPUS_DOCS_PER_SHARD, seed=0)
+        state["corpus"] = dict(path=path, tokens=tokens,
+                               documents=sum(CORPUS.values()) * CORPUS_DOCS_PER_SHARD,
+                               write_s=time.perf_counter() - t0)
+    return state["corpus"]
+
+
+def _loader(corpus, ckpt, **over):
+    from fms_fsdp_tpu_torch.config import TrainConfig
+    from fms_fsdp_tpu_torch.data.loader import get_data_loader
+
+    cfg = TrainConfig(**dict(LOADER_KW, data_path=corpus, ckpt_save_path=ckpt,
+                             ckpt_load_path=ckpt, **over))
+    return get_data_loader(cfg, 0, 1)
+
+
+def _reservoir(loader):
+    from fms_fsdp_tpu_torch.data.buffering import PreloadBufferDataset
+    from fms_fsdp_tpu_torch.data.loader import _find_layer
+
+    return _find_layer(loader.pipelines[0], PreloadBufferDataset)
+
+
+def _pull_for(it, seconds):
+    """Batches from ``it`` for ``seconds``: (the first four, the count,
+    the seconds taken)."""
+    first, n, t0 = [], 0, time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        batch = next(it)
+        if len(first) < 4:
+            first.append(batch)
+        n += 1
+    return first, n, time.perf_counter() - t0
+
+
+def _same_batches(a, b) -> bool:
+    import numpy as np
+
+    return len(a) == len(b) and all(
+        all(np.array_equal(np.asarray(x), np.asarray(y)) for x, y in zip(p, q))
+        for p, q in zip(a, b))
+
+
+def phase_loader(state):
+    """The streaming loader alone, host plus the copy to the card (see the
+    module docstring)."""
+    import numpy as np
+    import torch
+
+    from fms_fsdp_tpu_torch.data.device_feed import DeviceFeed
+    from fms_fsdp_tpu_torch.data.loader import loader_mix_stats
+
+    corpus = _corpus(state)
+    root = _ckpt_dir("loader")
+    torch.cuda.init()
+    live = torch.ones(1 << 20, device="cuda")  # the parent holds CUDA when workers fork
+    tokens_per_batch = LOADER_KW["batch_size"] * LOADER_KW["seq_length"]
+    problems = []
+    result = {"corpus": dict(corpus), "config": dict(LOADER_KW), "modes": {}}
+
+    # 1. setup and tokens/s of the pipeline alone, per worker mode
+    firsts = {}
+    keep = None
+    for workers, mode in ((1, "thread"), (2, "thread"), (2, "process")):
+        name = f"{workers}_{mode}"
+        t0 = time.perf_counter()
+        loader = _loader(corpus["path"], os.path.join(root, name), num_workers=workers,
+                         worker_mode=mode)
+        if mode == "thread":
+            for p in loader.pipelines:
+                p.setup()  # process workers set up in the forked child
+        setup_s = time.perf_counter() - t0
+        it = iter(loader)
+        t0 = time.perf_counter()
+        first = next(it)
+        first_s = time.perf_counter() - t0
+        head, n, secs = _pull_for(it, LOADER_RATE_S)
+        firsts[name] = [first] + head[:3]
+        result["modes"][name] = dict(
+            setup_s=setup_s if mode == "thread" else None, first_batch_s=first_s, batches=n, seconds=secs,
+            tokens_per_s=n * tokens_per_batch / secs,
+            reservoir_rows=_reservoir(loader).buffer_size if mode == "thread" else None)
+        if name == "1_thread":
+            keep, keep_it = loader, it
+        else:
+            loader.shutdown()
+    import multiprocessing
+
+    result["children_after_shutdown"] = len(multiprocessing.active_children())
+    if result["children_after_shutdown"]:
+        problems.append(f"{result['children_after_shutdown']} loader workers not reaped")
+    if not _same_batches(firsts["2_thread"], firsts["2_process"]):
+        problems.append("process workers' first batches differ from thread workers'")
+    x, y = firsts["1_thread"][0]
+    result["first_batch"] = dict(shape=list(x.shape), dtype=str(x.dtype),
+                                 min=int(x.min()), max=int(x.max()),
+                                 masked_labels=int((y == -100).sum()))
+    # causal_lm: labels are the inputs shifted by one, the first masked
+    if (x.shape != (2, 4096) or x.dtype != np.int32 or x.min() < 0 or x.max() >= 128256
+            or not np.array_equal(x[:, 2:], y[:, 1:-1]) or not (y[:, 0] == -100).all()):
+        problems.append(f"first batch {result['first_batch']}")
+
+    # 2. fill the reservoir (the 1-worker loader, still live)
+    res_layer = _reservoir(keep)
+    rows_per_s = result["modes"]["1_thread"]["tokens_per_s"] / LOADER_KW["seq_length"]
+    window = 10000
+    if (window - res_layer.buffer_size) / rows_per_s > LOADER_FILL_S:
+        window = int(rows_per_s * LOADER_FILL_S) // 100 * 100
+        keep.shutdown()
+        keep = _loader(corpus["path"], os.path.join(root, "fill"), num_workers=1,
+                       loader_shuffle_window=window)
+        keep_it = iter(keep)
+        res_layer = _reservoir(keep)
+    t0 = time.perf_counter()
+    while res_layer.buffer_size < window:
+        next(keep_it)
+    fill_s = time.perf_counter() - t0
+    _, n, secs = _pull_for(keep_it, LOADER_RATE_S / 2)
+    mix = loader_mix_stats(keep)
+    share = mix["tokens"]["corpus_a"] / sum(mix["tokens"].values())
+    result["reservoir"] = dict(
+        window=window, reduced=window < 10000, fill_s=fill_s,
+        tokens_per_s_full=n * tokens_per_batch / secs, mix_tokens=mix["tokens"],
+        corpus_a_share=share)
+    if abs(share - 0.75) > 0.02:
+        problems.append(f"corpus_a share {share}, weights 3:1")
+
+    # 3. the loader state with the reservoir full: bytes, save and load
+    # (a trainer-resolved step dir of the loader's own root)
+    step_dir = os.path.join(root, "1_thread" if window == 10000 else "fill",
+                            "checkpoints", "step_1_ckp")
+    t0 = time.perf_counter()
+    keep.save_to_path(step_dir)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    state_bytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+    after = [next(keep_it) for _ in range(3)]
+    fresh = _loader(corpus["path"], os.path.dirname(os.path.dirname(step_dir)),
+                    num_workers=1, loader_shuffle_window=window)
+    t0 = time.perf_counter()
+    fresh.load_from_path(step_dir)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    fresh_it = iter(fresh)
+    resumed = [next(fresh_it) for _ in range(3)]
+    # load_ms includes the fresh loader's setup (setup_s of 1_thread)
+    result["state"] = dict(bytes=state_bytes, save_ms=save_ms, load_ms=load_ms,
+                           continuation_equal=_same_batches(after, resumed))
+    if not result["state"]["continuation_equal"]:
+        problems.append("the loaded loader does not continue the saved one")
+
+    # 4. through DeviceFeed to the card: the fresh loader's batches equal
+    # the saved one's on the host; then ms per batch with the feed's
+    # thread pulling and staging ahead, and the staging alone
+    want = [next(keep_it) for _ in range(3)]
+    feed = DeviceFeed(fresh, "cuda", prefetch=2)
+    feed_it = iter(feed)
+    got = [tuple(t.cpu().numpy() for t in next(feed_it)) for _ in range(3)]
+    if not _same_batches(want, got):
+        problems.append("feed batches on the card differ from the host batches")
+    n_feed = 40
+    torch.cuda.synchronize()
+    wait0, t0 = feed.wait_s, time.perf_counter()
+    for _ in range(n_feed):
+        x, y = next(feed_it)
+    torch.cuda.synchronize()
+    feed_ms = (time.perf_counter() - t0) * 1e3 / n_feed
+    feed_wait_ms = (feed.wait_s - wait0) * 1e3 / n_feed
+    feed_it.close()
+    fresh.shutdown()
+    host = [tuple(np.ascontiguousarray(a) for a in b) for b in want] * 10
+    t0 = time.perf_counter()
+    for x, y in DeviceFeed(host, "cuda", prefetch=0):
+        pass
+    torch.cuda.synchronize()
+    stage_ms = (time.perf_counter() - t0) * 1e3 / len(host)
+    result["feed"] = dict(ms_per_batch=feed_ms, consumer_wait_ms_per_batch=feed_wait_ms,
+                          stage_only_ms_per_batch=stage_ms, batches=n_feed)
+    del live
+    result["nvidia_smi"] = state["smi"]
+    emit("loader", **result)
+    state["loader"] = result
+    shutil.rmtree(root)
+    if problems:
+        raise AssertionError("loader: " + "; ".join(problems))
+
+
+# llama3_8b_4k at full width, 2 layers, on the loader phase's corpus: one
+# loader worker, so the stream is one walk, and the feed two batches ahead
+RESUME_KW = {**TRAIN_KW, **LOADER_KW, "num_workers": 1, "feed_prefetch": 2,
+             "LlamaConfig.nlayers": 2, "report_interval": 1, "checkpoint_interval": 4,
+             "ckpt_local_interval": 2, "ckpt_keep": 1, "ckpt_local_keep": 1}
+# batches a saved loader state may run ahead of the trainer: the feed's
+# queue and the batch its thread holds
+RESUME_SKEW = RESUME_KW["feed_prefetch"] + 1
 
 
 def _digests(flat):
@@ -1325,15 +1565,25 @@ def _resume_serve(model_cfg, root, live_params, live_digests):
     )
 
 
+def _train_cfg(kw):
+    """A TrainConfig with the entry's overrides (dotted model keys
+    skipped)."""
+    from fms_fsdp_tpu_torch.config import TrainConfig
+
+    return TrainConfig(**{k: v for k, v in kw.items() if "." not in k})
+
+
 def phase_resume(state):
     """Checkpoint and resume through the Llama entry point (see the module
     docstring), then serve from the checkpoint root."""
+    import numpy as np
     import torch
 
     import fms_fsdp_tpu_torch.main_training_llama as entry
     from fms_fsdp_tpu_torch.ckpt import build_checkpoint_manager
     from fms_fsdp_tpu_torch.ckpt.state import checkpoint_state, flatten
     from fms_fsdp_tpu_torch.config import TrainConfig
+    from fms_fsdp_tpu_torch.data.loader import get_data_loader
     from fms_fsdp_tpu_torch.ops import flash_attention as fa
     from fms_fsdp_tpu_torch.ops import paged_attention as pa
     from fms_fsdp_tpu_torch.train.step import get_lr_schedule, init_train_state
@@ -1341,17 +1591,53 @@ def phase_resume(state):
 
     gc.collect()
     torch.cuda.empty_cache()
+    corpus = _corpus(state)["path"]
     # the durable tier in memory, the local tier on the checkout's disk:
     # one save (step 2) and the fallback load are a disk's
     root, local = _ckpt_dir("resume"), _ckpt_dir("resume-local", memory=False)
     durable = os.path.join(root, "durable")
-    kw = dict(RESUME_KW, ckpt_save_path=durable, ckpt_load_path=durable,
+    kw = dict(RESUME_KW, data_path=corpus, ckpt_save_path=durable, ckpt_load_path=durable,
               ckpt_local_dir=local)
     problems = []
     result = {"config": {k: kw[k] for k in sorted(kw)}}
 
     def listing(path):
-        return sorted(os.listdir(os.path.join(path, "checkpoints")))
+        """The committed step dirs (a loader auto-save dir holds no
+        metadata.json), each with the loader state files it holds."""
+        top = os.path.join(path, "checkpoints")
+        return {d: sorted(f for f in os.listdir(os.path.join(top, d))
+                          if f.startswith("loader_state"))
+                for d in sorted(os.listdir(top))
+                if os.path.exists(os.path.join(top, d, "metadata.json"))}
+
+    # the reference: a host-only straight walk of the same loader config
+    walker = get_data_loader(_train_cfg(dict(kw, ckpt_save_path=os.path.join(root, "walk"),
+                                             ckpt_load_path=os.path.join(root, "walk"))), 0, 1)
+    walk_it = iter(walker)
+    walk = [next(walk_it)[0] for _ in range(6 + 2 * RESUME_SKEW + 2)]
+    walker.shutdown()
+
+    def walk_index(rows):
+        """k where ``rows`` are walk[k], walk[k+1], ...; else None."""
+        for k in range(len(walk) - len(rows) + 1):
+            if all(np.array_equal(r, walk[k + i]) for i, r in enumerate(rows)):
+                return k
+        return None
+
+    class RecordingFeed(entry.DeviceFeed):
+        """The feed, keeping each batch's input rows as it stages them
+        (in the order it serves them)."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.rows = []
+
+        def _stage(self, batch):
+            self.rows.append(np.array(batch[0]))
+            return super()._stage(batch)
+
+    real_feed = entry.DeviceFeed
+    entry.DeviceFeed = RecordingFeed
 
     def disk_bytes():
         total = 0
@@ -1373,19 +1659,47 @@ def phase_resume(state):
     sampler = threading.Thread(target=sample, daemon=True)
     sampler.start()
 
-    # 1. the first run: saves at 2 (local), 4 (durable) and 6 (final)
-    t0 = time.perf_counter()
-    res = entry.main(**dict(kw, num_steps=6))
-    result["first_run_s"] = time.perf_counter() - t0
+    # 1. the first run: saves at 2 (local), 4 (durable) and 6 (final),
+    # each with the loader's state; the trainer consumes walk[0:6]
+    try:
+        t0 = time.perf_counter()
+        res = entry.main(**dict(kw, num_steps=6))
+        result["first_run_s"] = time.perf_counter() - t0
+    except BaseException:
+        entry.DeviceFeed = real_feed
+        raise
     saved = _digests(checkpoint_state(res["state"]))
     model_cfg = res["model_cfg"]
+    first_rows = res["feed"].rows[:6]
     result["first_run_saves"] = _save_rows(res["checkpointer"].save_log)
+    result["first_run_feed_wait_ms_per_step"] = res["feed"].wait_s * 1e3 / res["feed"].served
+    result["first_run_walk_index"] = walk_index(first_rows)
     result["listing_after_first"] = {"local": listing(local), "durable": listing(durable)}
     if [(r["step"], r["tier"]) for r in res["checkpointer"].save_log] != [
             (2, "local"), (4, "durable"), (6, "durable")]:
         problems.append(f"first run saves {result['first_run_saves']}")
-    if result["listing_after_first"] != {"local": ["step_2_ckp"], "durable": ["step_6_ckp"]}:
-        problems.append(f"retention: {result['listing_after_first']}")
+    if result["listing_after_first"] != {"local": {"step_2_ckp": ["loader_state_0.pkl"]},
+                                         "durable": {"step_6_ckp": ["loader_state_0.pkl"]}}:
+        problems.append(f"retention / loader state: {result['listing_after_first']}")
+    if result["first_run_walk_index"] != 0:
+        problems.append("the first run's batches are not the straight walk's first six")
+    # where the saved states put the stream: load each into a host loader
+    saved_at = {}
+    for step, top in ((6, durable), (2, local)):
+        probe_root = os.path.join(root, f"probe_{step}")
+        step_dir = os.path.join(probe_root, "checkpoints", f"step_{step}_ckp")
+        shutil.copytree(os.path.join(top, "checkpoints", f"step_{step}_ckp"), step_dir,
+                        ignore=shutil.ignore_patterns("state"))
+        probe = get_data_loader(_train_cfg(dict(kw, ckpt_save_path=probe_root,
+                                                ckpt_load_path=probe_root)), 0, 1)
+        probe.load_from_path(step_dir)
+        saved_at[step] = walk_index([next(iter(probe))[0]])
+        probe.shutdown()
+    result["saved_state_walk_index"] = saved_at
+    for step in (6, 2):
+        if saved_at[step] is None or not step <= saved_at[step] <= step + RESUME_SKEW:
+            problems.append(f"step {step}'s loader state puts the stream at walk "
+                            f"{saved_at[step]}, not in [{step}, {step + RESUME_SKEW}]")
     del res
     gc.collect()
     torch.cuda.empty_cache()
@@ -1406,11 +1720,30 @@ def phase_resume(state):
     entry.train = train_probe
     try:
         t0 = time.perf_counter()
-        res = entry.main(**dict(kw, num_steps=8))
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            res = entry.main(**dict(kw, num_steps=8, resuming_dataset=True))
         result["second_run_s"] = time.perf_counter() - t0
     finally:
         entry.train = real_train
+        entry.DeviceFeed = real_feed
+    print(text.getvalue(), end="")
     launches = dict(fa.LAUNCHES)
+    resumed_rows = res["feed"].rows[:2]
+    k = walk_index(resumed_rows)
+    seen_rows = {r.tobytes() for b in first_rows for r in b}
+    repeated = sum(r.tobytes() in seen_rows for b in resumed_rows for r in b)
+    result.update(
+        resumed_walk_index=k, repeated_rows_of_steps_1_6=repeated,
+        second_run_feed_wait_ms_per_step=res["feed"].wait_s * 1e3 / res["feed"].served,
+        dataset_loaded=[ln for ln in text.getvalue().splitlines()
+                        if "Dataset checkpoint loaded" in ln])
+    if k is None or k != saved_at[6]:
+        problems.append(f"resumed batches at walk {k}, the saved state's at {saved_at[6]}")
+    if repeated:
+        problems.append(f"{repeated} rows of steps 1-6 came again after the resume")
+    if not any("step_6_ckp" in ln for ln in result["dataset_loaded"]):
+        problems.append(f"no loader load from step_6_ckp: {result['dataset_loaded']}")
     n, remat = model_cfg.nlayers, _n_remat(model_cfg, res["cfg"])
     want = {"fwd": 2 * (n + remat), "fwd_kvgrid": 0, "dq": 2 * n, "dq_kvgrid": 0,
             "dkv": 2 * n}
@@ -1469,20 +1802,32 @@ def phase_resume(state):
     fresh = init_train_state(torch.Generator(device="cuda").manual_seed(1), model_cfg,
                              fresh_cfg)
     mgr = build_checkpoint_manager(fresh_cfg, 0)
+    loader = get_data_loader(fresh_cfg, 0, 1)
     text = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(text):
-        _, _, step, ntok, resuming = mgr.load(fresh, None, path=durable, strict=False)
+        _, _, step, ntok, resuming = mgr.load(fresh, loader, path=durable, strict=False)
     torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    loader_it = iter(loader)
+    k2 = walk_index([next(loader_it)[0] for _ in range(2)])
+    loader.shutdown()
+    lines = text.getvalue().splitlines()
     result["fallback"] = dict(
         truncated=os.path.relpath(victim, root), size=size, loaded_step=step,
-        tokens_seen=ntok, resuming=resuming, full_load_s=time.perf_counter() - t0,
-        warning=[ln for ln in text.getvalue().splitlines() if "WARNING" in ln])
+        tokens_seen=ntok, resuming=resuming, full_load_s=load_s,
+        warning=[ln for ln in lines if "WARNING" in ln],
+        dataset_loaded=[ln for ln in lines if "Dataset checkpoint loaded" in ln],
+        loader_walk_index=k2)
     print(text.getvalue(), end="")
     if (step, ntok, resuming) != (2, 2 * 2 * 4096, True) or not any(
             "failed integrity verification" in ln and "falling back" in ln
             for ln in result["fallback"]["warning"]):
         problems.append(f"fallback: {result['fallback']}")
+    if not any("step_2_ckp" in ln for ln in result["fallback"]["dataset_loaded"]) or \
+            k2 != saved_at[2]:
+        problems.append(f"fallback loader: {result['fallback']['dataset_loaded']}, walk "
+                        f"{k2}, step 2's state at {saved_at[2]}")
     del fresh, mgr
     gc.collect()
     torch.cuda.empty_cache()
@@ -1490,6 +1835,7 @@ def phase_resume(state):
     rows = result["first_run_saves"] + result["second_run_saves"]
     result["save_summary"] = {
         tier: {"snapshot_ms": [r["snapshot_ms"] for r in rows if r["tier"] == tier],
+               "loader_state_ms": [r["loader_ms"] for r in rows if r["tier"] == tier],
                "background_s": [r["background_s"] for r in rows if r["tier"] == tier],
                "write_gb_per_s": [r["write_gb_per_s"] for r in rows if r["tier"] == tier]}
         for tier in ("local", "durable")}
@@ -1944,7 +2290,7 @@ def main(argv=None) -> int:
         "device": phase_device, "build": phase_build,
         "kernels": phase_kernels, "serve": phase_serve,
         "serve-int8": phase_serve_int8, "flash": phase_flash,
-        "train": phase_train, "resume": phase_resume,
+        "train": phase_train, "loader": phase_loader, "resume": phase_resume,
         "train-kvgrid": phase_train_kvgrid,
         "ssd": phase_ssd, "train-mamba": phase_train_mamba,
         "serve-mamba": phase_serve_mamba,

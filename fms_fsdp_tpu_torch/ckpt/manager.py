@@ -87,8 +87,9 @@ class AsyncCheckpointManager:
     (same return tuple), ``save_due`` (tier cadence) and the mandatory
     ``finalize()``. ``save_log`` holds one record per committed tier
     save: its step, tier, reason, bytes, the blocking snapshot's and the
-    background commit's seconds, and within the commit the payload
-    write's and the manifest's."""
+    background commit's seconds, within the snapshot the loader state's
+    (``loader_s``), and within the commit the payload write's and the
+    manifest's."""
 
     def __init__(
         self,
@@ -180,13 +181,16 @@ class AsyncCheckpointManager:
         snap_start = time.time()
         host = snapshot(checkpoint_state(state), self._host)
         jobs = []
+        loader_s = 0.0
         for tier in due:
             save_name = os.path.join(tier.ckp.ckp_path, f"step_{step}_ckp")
             os.makedirs(save_name, exist_ok=True)
             if dataloader is not None:
                 # loader state is captured at the step boundary so it
                 # matches the model snapshot exactly
+                t0 = time.time()
                 dataloader.save_to_path(save_name)
+                loader_s += time.time() - t0
             jobs.append((tier, save_name))
         snapshot_s = time.time() - snap_start
 
@@ -195,7 +199,8 @@ class AsyncCheckpointManager:
         # stamped on the main thread (the writer must not guess whether a
         # dataloader rode along)
         stamp_topology(meta, self.fingerprint, dataloader)
-        info = {"step": step, "reason": reason, "snapshot_s": snapshot_s}
+        info = {"step": step, "reason": reason, "snapshot_s": snapshot_s,
+                "loader_s": loader_s}
         if self.async_save:
             self._writer = threading.Thread(
                 target=self._commit_job,

@@ -15,6 +15,18 @@ same command line runs both:
         --vocab_size=128256 --fsdp_activation_checkpointing=True \\
         --selective_checkpointing=0.5 --num_steps=12 --report_interval=4
 
+With ``--use_dummy_dataset=False`` it streams the pre-tokenised arrow
+shards under ``--data_path`` through ``data/loader.py::get_data_loader``
+(corpora and weights from ``--datasets``/``--weights``), and the loader's
+state rides every checkpoint, so a resume continues the stream:
+
+    python -m fms_fsdp_tpu_torch.main_training_llama \
+        --model_variant=llama3_8b_4k --LlamaConfig.nlayers=8 \
+        --use_dummy_dataset=False --data_path=/data/corpus \
+        --datasets=dataset_1,dataset_2 --weights=3,1 --num_workers=2 \
+        --batch_size=2 --seq_length=4096 --vocab_size=128256 \
+        --ckpt_save_path=/ckpt/run1 --num_steps=12
+
 It runs on ``cuda`` unless ``device="cpu"`` is passed to :func:`main`,
 and raises without a card. Options not ported yet raise
 ``NotImplementedError`` naming their ROADMAP.md item.
@@ -29,7 +41,7 @@ from fms_fsdp_tpu_torch.ckpt import build_checkpoint_manager
 from fms_fsdp_tpu_torch.ckpt.elastic import current_fingerprint
 from fms_fsdp_tpu_torch.config import TrainConfig
 from fms_fsdp_tpu_torch.data.device_feed import DeviceFeed
-from fms_fsdp_tpu_torch.data.loader import get_dummy_loader
+from fms_fsdp_tpu_torch.data.loader import get_data_loader, get_dummy_loader
 from fms_fsdp_tpu_torch.train.step import (
     check_supported,
     init_train_state,
@@ -44,9 +56,10 @@ from fms_fsdp_tpu_torch.utils.train_utils import train
 def main(device=None, **kwargs):
     """Train per ``TrainConfig`` overrides in ``kwargs``. Returns the
     loop's summary (``utils/train_utils.py::train``) with the final train
-    state, the resolved configs, the step the run started from and the
-    checkpoint manager under "state", "cfg", "model_cfg", "start_step"
-    and "checkpointer"."""
+    state, the resolved configs, the step the run started from, the
+    checkpoint manager, the device feed (its ``wait_s``) and the stateful
+    loader (None on dummy data, shut down) under "state", "cfg",
+    "model_cfg", "start_step", "checkpointer", "feed" and "loader"."""
     cfg = TrainConfig()
     update_config(cfg, **kwargs)
     device = resolve_device(device)
@@ -68,8 +81,14 @@ def main(device=None, **kwargs):
     )
 
     print("Constructing datasets...")
-    loader = get_dummy_loader(cfg, 0, 1)
-    ckpt_loader = None  # dummy stream is stateless
+    if not cfg.use_dummy_dataset:
+        loader = get_data_loader(cfg, 0, 1)
+        # interval/final/abort checkpoints persist this live loader's
+        # state next to the model (train(dataloader=))
+        ckpt_loader = loader
+    else:
+        loader = get_dummy_loader(cfg, 0, 1)
+        ckpt_loader = None  # dummy stream is stateless
     print("Datasets constructed!")
 
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
@@ -90,12 +109,22 @@ def main(device=None, **kwargs):
     # the schedule runs from the state's own restored step, as JAX's does
     step_fn = make_train_step(model_cfg, cfg)
 
+    feed = DeviceFeed(loader, device, prefetch=max(0, int(cfg.feed_prefetch)))
     print(f"Training for {cfg.num_steps} steps")
-    summary = train(cfg, state, step_fn, 0, iter(DeviceFeed(loader, device)),
-                    checkpointer, start_step, tokens_seen,
-                    dataloader=ckpt_loader, model_cfg=model_cfg, device=device)
+    batches = iter(feed)
+    try:
+        summary = train(cfg, state, step_fn, 0, batches, checkpointer,
+                        start_step, tokens_seen, dataloader=ckpt_loader,
+                        model_cfg=model_cfg, device=device)
+    finally:
+        # stop the feed's thread, then the loader's workers (joined,
+        # processes reaped)
+        batches.close()
+        if ckpt_loader is not None:
+            ckpt_loader.shutdown()
     return dict(summary, state=state, cfg=cfg, model_cfg=model_cfg,
-                start_step=start_step, checkpointer=checkpointer)
+                start_step=start_step, checkpointer=checkpointer, feed=feed,
+                loader=ckpt_loader)
 
 
 if __name__ == "__main__":

@@ -1,15 +1,21 @@
-"""Bounded retry with exponential backoff.
+"""Bounded retry with exponential backoff, and the retrying shard-file
+handler that applies it to every storage touch the streaming pipeline
+makes.
 
-Counterpart of ``fms_fsdp_tpu/resilience/retry.py::backoff_delay`` and
-``retry_call``: the checkpoint manager's commit path
-(``ckpt/manager.py``) retries its manifest and ``metadata.json`` writes
-with them. The retrying shard-file handler of the streaming loader waits
-for ROADMAP.md A.15.
+Counterpart of ``fms_fsdp_tpu/resilience/retry.py``: the checkpoint
+manager's commit path (``ckpt/manager.py``) retries its manifest and
+``metadata.json`` writes with ``retry_call``, and ``get_data_loader``
+wraps its shard handler in ``RetryingShardHandler``. Exhaustion surfaces
+the final error to the caller — ``StreamingDocDataset`` then quarantines
+the shard instead of killing the run. The handler's ``shard_read`` fault
+site comes with ``resilience/faults.py`` (ROADMAP.md A.12).
 """
 
 import logging
 import time
-from typing import Callable
+from typing import Callable, Set
+
+from fms_fsdp_tpu_torch.data.handlers import ShardFileHandler
 
 logger = logging.getLogger(__name__)
 
@@ -56,3 +62,59 @@ def retry_call(
                 e,
             )
             time.sleep(delay)
+
+
+class RetryingShardHandler(ShardFileHandler):
+    """Wrap a ShardFileHandler so every open/length/get/slice retries
+    transient errors with bounded exponential backoff.
+
+    ``get``/``slice`` receive no path, so the wrapper remembers the last
+    opened one for error context (per-clone state: pipeline deepcopies
+    clone the wrapper along with its reader).
+    """
+
+    def __init__(
+        self,
+        inner: ShardFileHandler,
+        retries: int = 3,
+        backoff_s: float = 0.5,
+        max_backoff_s: float = 30.0,
+    ):
+        self.inner = inner
+        self.retries = retries
+        self.backoff_s = backoff_s
+        self.max_backoff_s = max_backoff_s
+        self._last_path = ""
+
+    def _retry(self, op: str, path: str, fn: Callable):
+        return retry_call(
+            fn,
+            retries=self.retries,
+            backoff_s=self.backoff_s,
+            max_backoff_s=self.max_backoff_s,
+            describe=f"shard {op} [{path}]",
+        )
+
+    def is_legal(self, filepath: str) -> bool:
+        return self.inner.is_legal(filepath)
+
+    def open(self, path: str):
+        self._last_path = path
+        return self._retry("open", path, lambda: self.inner.open(path))
+
+    def length(self, path: str) -> int:
+        return self._retry("length", path, lambda: self.inner.length(path))
+
+    def get(self, reader, index: int, drop_tokens: Set):
+        return self._retry(
+            "get",
+            self._last_path,
+            lambda: self.inner.get(reader, index, drop_tokens),
+        )
+
+    def slice(self, doc, index: int, n_pull: int):
+        return self._retry(
+            "slice",
+            self._last_path,
+            lambda: self.inner.slice(doc, index, n_pull),
+        )

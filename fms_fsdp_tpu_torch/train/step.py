@@ -51,8 +51,6 @@ _UNPORTED_STEP = (
     ("num_slices", lambda v: v > 1, "A.6 (multi-GPU sharding)"),
 )
 _UNPORTED_RUN = (
-    ("use_dummy_dataset", lambda v: not v, "A.15 (the streaming loader)"),
-    ("resuming_dataset", bool, "A.15 (the streaming loader)"),
     ("use_profiler", bool, "A.12 (device-touching obs)"),
     ("tracker", lambda v: v is not None, "A.12 (device-touching obs)"),
     ("obs_dir", bool, "A.12 (device-touching obs)"),

@@ -574,6 +574,7 @@ class Checkpointer:
             self.report(
                 f"No valid checkpoint detected at {path}, starting from scratch."
             )
+            _fresh_start(dataloader)
             return state, dataloader, 0, 0, False
 
         last_err = None
@@ -608,6 +609,7 @@ class Checkpointer:
                     "from scratch.",
                     model_load_time=time.time() - t0,
                 )
+                _fresh_start(dataloader)
                 return state, dataloader, 0, 0, is_resuming
 
             if verify:
@@ -705,6 +707,18 @@ class Checkpointer:
             f"all {len(candidates)} checkpoint(s) under {path} failed to "
             f"load; refusing to silently restart from scratch"
         ) from last_err
+
+
+def _fresh_start(dataloader) -> None:
+    """Tell a stateful loader that the trainer resolved a from-scratch
+    start (the empty-path marker of ``data/buffering.py::
+    CheckpointDataset.load_from_path``), so its own auto-load cannot
+    resume the walk from a stale loader auto-save that this scan just
+    rejected (model@0 + loader@N). Gated on the advertised contract: a
+    loader without ``supports_fresh_start`` treats ``""`` as a real path
+    and is left untouched."""
+    if dataloader is not None and getattr(dataloader, "supports_fresh_start", False):
+        dataloader.load_from_path("")
 
 
 def commit_metadata(save_name: str, metadata: Dict) -> None:

@@ -738,3 +738,96 @@ def test_card_checkpoint_writer_touches_no_cuda_tensor(cuda_device, tmp_path, mo
     mgr.finalize()
     assert seen == [("ckpt-writer", {"cpu"}, True)] * 2
     assert [r["step"] for r in mgr.save_log] == [1, 2]
+
+
+# ---------------------------------------------------------------------------
+# the streaming loader's feed onto the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("prefetch", [0, 2])
+def test_card_feed_batches_equal_host_batches(cuda_device, prefetch):
+    """The feed's thread copies each pinned batch with non_blocking=True;
+    a kernel the consumer launches at once sees the whole batch."""
+    from fms_fsdp_tpu_torch.data.device_feed import DeviceFeed
+
+    rng = np.random.default_rng(5)
+    host = [tuple(rng.integers(0, 128256, (2, 4097)).astype(np.int32) for _ in range(2))
+            for _ in range(24)]
+    got = 0
+    for (x, y), (a, b) in zip(DeviceFeed(host, cuda_device, prefetch=prefetch), host):
+        assert x.device.type == "cuda" and x.dtype == torch.int64
+        # launched on the default stream right after the batch arrives
+        sums = torch.stack([x.sum(), y.sum()]).cpu()
+        assert sums.tolist() == [int(a.astype(np.int64).sum()), int(b.astype(np.int64).sum())]
+        assert np.array_equal(x.cpu().numpy(), a) and np.array_equal(y.cpu().numpy(), b)
+        got += 1
+    assert got == len(host)
+
+
+@pytest.mark.card
+def test_card_feed_from_process_workers(cuda_device, tmp_path):
+    """Forked loader workers (the parent holds a CUDA context and a live
+    tensor) feed the card; the batches equal a thread-mode host walk of
+    the same config, and shutdown reaps the workers."""
+    import multiprocessing
+
+    from fms_fsdp_tpu_torch.config import TrainConfig
+    from fms_fsdp_tpu_torch.data.device_feed import DeviceFeed
+    from fms_fsdp_tpu_torch.data.loader import get_data_loader
+    from fms_fsdp_tpu_torch.data.synth import build_arrow_corpus
+
+    live = torch.ones(1 << 20, device=cuda_device)
+    data = build_arrow_corpus(tmp_path / "data")
+
+    def loader(mode, ck):
+        return get_data_loader(TrainConfig(
+            use_dummy_dataset=False, data_path=data, datasets="dataset_1", weights="1",
+            seq_length=64, batch_size=2, num_workers=2, worker_mode=mode, logical_shards=8,
+            loader_shuffle_window=16, ckpt_save_path=str(tmp_path / ck),
+            ckpt_load_path=str(tmp_path / ck)), 0, 1)
+
+    ref = loader("thread", "t")
+    want = [next(it) for it in [iter(ref)] for _ in range(10)]
+    ref.shutdown()
+    procs = loader("process", "p")
+    feed = iter(DeviceFeed(procs, cuda_device, prefetch=2))
+    for (x, y), (a, b) in zip(feed, want):
+        assert np.array_equal(x.cpu().numpy(), a) and np.array_equal(y.cpu().numpy(), b)
+    feed.close()
+    procs.shutdown()
+    assert multiprocessing.active_children() == [] and float(live.sum()) == 1 << 20
+
+
+@pytest.mark.card
+def test_card_trainer_with_process_workers_saves_and_resumes(cuda_device, tmp_path, capsys):
+    """The Llama entry on the card with 2 forked loader workers behind a
+    prefetching feed: the workers fork from the feed's thread while the
+    card is up, the async checkpoint writer commits their state (read
+    through the command channel) at every save, a resume restores it, and
+    every worker is reaped when main returns."""
+    import multiprocessing
+
+    from fms_fsdp_tpu_torch.data.synth import build_arrow_corpus
+    from fms_fsdp_tpu_torch.main_training_llama import main
+
+    ck = str(tmp_path / "ck")
+    kw = dict(model_variant="llama2_7b", use_dummy_dataset=False,
+              data_path=build_arrow_corpus(tmp_path / "data"), datasets="dataset_1",
+              weights="1", seq_length=64, vocab_size=256, batch_size=2, num_workers=2,
+              worker_mode="process", feed_prefetch=2, logical_shards=8,
+              loader_shuffle_window=16, report_interval=2, checkpoint_interval=2,
+              attention_kernel="xla", ckpt_save_path=ck, ckpt_load_path=ck,
+              **{"LlamaConfig.nlayers": 2, "LlamaConfig.emb_dim": 64,
+                 "LlamaConfig.nheads": 4, "LlamaConfig.kvheads": 2,
+                 "LlamaConfig.src_vocab_size": 256, "LlamaConfig.multiple_of": 16})
+    first = main(device=cuda_device, num_steps=6, **kw)
+    assert [r["step"] for r in first["checkpointer"].save_log] == [2, 4, 6]
+    assert multiprocessing.active_children() == []
+    capsys.readouterr()
+    second = main(device=cuda_device, num_steps=8, resuming_dataset=True, **kw)
+    out = capsys.readouterr().out
+    assert second["start_step"] == 6 and "Dataset checkpoint loaded" in out
+    assert all(np.isfinite(r["loss"]) for r in second["reports"])
+    assert multiprocessing.active_children() == []
