@@ -102,11 +102,29 @@ Phases, one JSON line each; any failure exits non-zero:
    step 2's dir. Prints save, load and serving times, the ms the loader
    state adds to each blocking snapshot, the feed's wait per step, GB/s
    and the phase's peak disk use.
-10. train-kvgrid — the same trainer for one step with
+10. supervise — ``python -m fms_fsdp_tpu_torch.resilience.supervisor``
+   over ``python -m fms_fsdp_tpu_torch.main_training_llama`` on the card
+   (``SUPERVISE_KW``: llama3_8b_4k width, 2 layers, seq 4096, batch 2, AC
+   1/2, bfSixteen, dummy data, 10 steps, reports every 2, saves every 4,
+   metrics.jsonl/csv and the heartbeat, the profiler, the watchdog, the
+   scrubber every 4 steps), with ``FMS_FAULTS`` poisoning steps 7-8 and
+   flipping 4 bytes of the step-4 save. Checks, one line each: the ledger
+   (one or more ``anomaly_abort`` restarts, then completed, exit 0); the
+   relaunch resumed from the newest committed, unquarantined step; every
+   record valid under the strict schema, ``skipped_steps`` at the abort
+   equal to the poisoned steps, each record's MFU the printed one against
+   the card's peak, ``restarts`` and ``restart_downtime_s`` in the last
+   record, the heartbeat's final step and run id; the scrubber's
+   verified count and the step-4 quarantine sidecar; the first
+   incarnation's trace naming ``flash_fwd_kernel_sm90``,
+   ``flash_dq_kernel_sm90``, ``flash_dkv_kernel_sm90`` and the
+   ``fwd_bwd`` scope; then each incarnation's wall, steps, tokens per
+   card per second, the observer's ms per report and the downtime.
+11. train-kvgrid — the same trainer for one step with
    ``flash_kernel_variant="kvgrid"``, so the launches of the kv-streamed
    contracts are counted on the main path too.
 
-11. ssd    — the fused SSD scan kernels (``ssd_sm90.cu`` for bf16,
+12. ssd    — the fused SSD scan kernels (``ssd_sm90.cu`` for bf16,
    ``ssd.cu`` for fp32) against their plain version at the
    Mamba training shape (B=2, S=4096, H=128, P=64, G=1, N=128, L=256), at
    G=8 and at S=L (one chunk), bf16 and fp32, dt and A in the ranges of
@@ -122,7 +140,7 @@ Phases, one JSON line each; any failure exits non-zero:
    whole ``ssd_scan`` through the kernel and through the chunked einsums,
    the bound, and the other pieces of a Mamba layer at that shape (the
    scan's einsum backward, the conv forward and backward).
-12. train-mamba — ``fms_fsdp_tpu_torch.main_training_mamba.main`` at
+13. train-mamba — ``fms_fsdp_tpu_torch.main_training_mamba.main`` at
    mamba_9.8b width, 6 layers with attention at layer 3, seq 4096, batch
    2, selective AC 1/2, 16 steps (over the first 8 the loss of this
    model only wobbles, through the kernel and through the einsums alike):
@@ -130,7 +148,7 @@ Phases, one JSON line each; any failure exits non-zero:
    SSD launches == steps x (Mamba layers + rematerialised Mamba layers),
    flash launches == the one attention layer's; tokens per card per
    second, MFU/HFU, peak memory and a profile of one step.
-13. serve-mamba — ``ServingEngine`` on mamba_9.8b at full width and depth
+14. serve-mamba — ``ServingEngine`` on mamba_9.8b at full width and depth
    (32 layers, 3 of them attention; random bf16 weights), 8 requests of
    16-128 prompt tokens and 32 new tokens each: all complete, finite
    logits, a constant ``state_bytes_per_stream``, slab slices zero after
@@ -161,7 +179,8 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "serve", "serve-int8", "flash", "train",
-          "loader", "resume", "train-kvgrid", "ssd", "train-mamba", "serve-mamba")
+          "loader", "resume", "supervise", "train-kvgrid", "ssd", "train-mamba",
+          "serve-mamba")
 
 # llama3_8b decode shapes of the kernel phase
 B, NQ, NKV, H, PAGE, MAXP = 8, 32, 8, 128, 64, 32
@@ -1853,6 +1872,225 @@ def phase_resume(state):
 
 
 # ---------------------------------------------------------------------------
+# the supervised trainer: observability and resilience end to end
+# ---------------------------------------------------------------------------
+
+# llama3_8b_4k at full width and the resume phase's 2 layers (17.8 GB a
+# checkpoint), run as `python -m` children of the supervisor. Steps 7 and
+# 8 are poisoned (state steps 6-7), so the first incarnation aborts at its
+# step-8 report after its abort save and the second, resumed at 8, outlives
+# the window; the interval save at 4 gets 4 bytes flipped, and the second
+# incarnation's scrubber quarantines it. Three checkpoints stay (4, 8, 10).
+SUPERVISE_KW = {
+    "model_variant": "llama3_8b_4k", "LlamaConfig.nlayers": 2, "seq_length": 4096,
+    "batch_size": 2, "vocab_size": 128256, "fsdp_activation_checkpointing": True,
+    "selective_checkpointing": 0.5, "use_dummy_dataset": True, "num_steps": 10,
+    "report_interval": 2, "checkpoint_interval": 4, "ckpt_keep": 3,
+    "anomaly_max_consecutive": 2, "obs_sinks": "jsonl,csv", "obs_strict_schema": True,
+    "use_profiler": True, "scrub_interval_steps": 4,
+    # a healthy step is ~0.2 s and the report fetch one step; saves run with
+    # the watchdog paused; the profiler's trace export (seconds) lands
+    # between two beats: 120 s trips only on a wedged step
+    "step_timeout_s": 120.0,
+}
+SUPERVISE_FAULTS = "nan_loss:step=6:count=2;ckpt_shard_corrupt:step=4"
+SUPERVISE_POISONED = (7, 8)  # the loop steps the spec poisons
+SUPERVISE_TIMEOUT_S = 420
+FLASH_SYMBOLS = ("flash_fwd_kernel_sm90", "flash_dq_kernel_sm90", "flash_dkv_kernel_sm90")
+
+
+def _run_group(argv, timeout, **kw):
+    """Run ``argv`` in a session of its own; on timeout kill the whole
+    group (the supervisor and its trainer child) and raise."""
+    proc = subprocess.Popen(argv, start_new_session=True, **kw)
+    try:
+        return proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        raise
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+def _trace_names(path):
+    """(device kernel names, user annotation names) of a torch.profiler
+    chrome trace."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    scopes = {e.get("name", "") for e in events if e.get("cat") == "user_annotation"}
+    return kernels, scopes
+
+
+def phase_supervise(state):
+    """The supervisor CLI over the Llama entry on the card (see
+    ``SUPERVISE_KW``): classified anomaly-abort restart, resume from the
+    newest unquarantined checkpoint, schema-valid records with the card's
+    MFU, the scrubber's quarantine, the profiler trace of the kernels."""
+    from fms_fsdp_tpu_torch.obs.schema import validate_record
+    from fms_fsdp_tpu_torch.resilience.scrub import QUARANTINE_NAME, is_quarantined
+    from fms_fsdp_tpu_torch.utils.config_utils import get_model_config, update_config
+    from fms_fsdp_tpu_torch.utils.flops import peak_flops_per_card, train_flops_per_token
+
+    import torch
+
+    # this process's pinned host buffers (the earlier phases' snapshots)
+    # stay cached by torch's host allocator: hand them back before the
+    # children pin their own and three checkpoints fill /dev/shm
+    gc.collect()
+    torch._C._host_emptyCache()
+    root = _ckpt_dir("supervise")
+    ckpt, obs, logs = (os.path.join(root, d) for d in ("ckpt", "obs", "logs"))
+    ledger_path = os.path.join(root, "ledger.json")
+    kw = dict(SUPERVISE_KW, obs_dir=obs, ckpt_save_path=ckpt, ckpt_load_path=ckpt)
+    child = [sys.executable, "-u", "-m", "fms_fsdp_tpu_torch.main_training_llama",
+             *(f"--{k}={v}" for k, v in kw.items())]
+    argv = [sys.executable, "-u", "-m", "fms_fsdp_tpu_torch.resilience.supervisor",
+            "--ledger", ledger_path, "--heartbeat", os.path.join(obs, "heartbeat.json"),
+            "--target-step", str(kw["num_steps"]), "--max-restarts", "3",
+            "--restart-backoff-s", "0.5", "--anomaly-cooldown-s", "1",
+            "--log-dir", logs, "--", *child]
+    # the children load the kernels the build phase made (build/ of this
+    # checkout), so no step carries nvcc under the watchdog
+    env = dict(os.environ, PYTHONPATH=REPO, FMS_FAULTS=SUPERVISE_FAULTS)
+    t0 = time.perf_counter()
+    rc = _run_group(argv, SUPERVISE_TIMEOUT_S, cwd=root, env=env)
+    wall = time.perf_counter() - t0
+    with open(ledger_path) as f:
+        ledger = json.load(f)
+    entries = ledger["entries"]
+    child_logs = []
+    for e in entries:
+        with open(os.path.join(logs, f"attempt{e['attempt']}_child0.log")) as f:
+            child_logs.append(f.read())
+    with open(os.path.join(obs, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    with open(os.path.join(obs, "heartbeat.json")) as f:
+        heartbeat = json.load(f)
+    steps_dir = os.path.join(ckpt, "checkpoints")
+    dirs = {int(d.split("_")[1]): os.path.join(steps_dir, d) for d in os.listdir(steps_dir)
+            if os.path.exists(os.path.join(steps_dir, d, "metadata.json"))}
+    problems = []
+
+    # 1. the ledger: anomaly_abort restart(s), then completed, exit 0
+    classes = [e["classification"] for e in entries]
+    result = {"supervisor_rc": rc, "wall_s": wall, "classifications": classes,
+              "exit_codes": [e["exit_codes"] for e in entries],
+              "restarts": ledger["restarts"],
+              "restart_downtime_s": ledger["restart_downtime_s"]}
+    emit("supervise", check="ledger", **result)
+    if rc != 0 or len(classes) < 2 or classes[-1] != "ok" or any(
+            c != "anomaly_abort" for c in classes[:-1]):
+        problems.append(f"ledger: rc {rc}, classes {classes}")
+
+    # 2. the relaunch resumed from the newest committed, unquarantined step
+    # below its own saves (the abort save of the first incarnation)
+    abort_step = entries[0]["step_at_exit"]
+    usable = [s for s, d in dirs.items() if s <= abort_step and not is_quarantined(d)]
+    resumed = [ln for ln in child_logs[-1].splitlines() if ln.startswith("Prior checkpoint")]
+    check = {"abort_step": abort_step, "committed_steps": sorted(dirs),
+             "newest_unquarantined_at_relaunch": max(usable) if usable else None,
+             "relaunch_log": resumed}
+    emit("supervise", check="resume", **check)
+    if not usable or resumed != [
+            f"Prior checkpoint {os.path.join(steps_dir, f'step_{max(usable)}_ckp')} detected."]:
+        problems.append(f"resume: {check}")
+
+    # 3. the records: strict schema, skipped steps, the card's MFU,
+    # restart accounting, the heartbeat
+    model_cfg = get_model_config(kw["model_variant"])
+    update_config(model_cfg, **kw)
+    flops = train_flops_per_token(model_cfg, kw["seq_length"])
+    peak = peak_flops_per_card(state["kind"])
+    printed = [float(ln.split(":", 1)[1]) for log in child_logs for ln in log.splitlines()
+               if ln.startswith("MFU:")]
+    invalid = {r["step"]: validate_record(r) for r in records if validate_record(r)}
+    first_last = [r for r in records if r["step"] == abort_step][0]
+    mfu_rel = [abs(r["mfu"] * peak / (r["tokens_per_sec_per_chip"] * flops) - 1)
+               for r in records if r["mfu"] is not None]
+    check = {"records": len(records), "invalid": invalid,
+             "skipped_steps_at_abort": first_last["skipped_steps"],
+             "poisoned_steps": list(SUPERVISE_POISONED),
+             "mfu_records": [r["mfu"] for r in records], "mfu_printed": printed,
+             "mfu_vs_card_peak_max_rel": max(mfu_rel) if mfu_rel else None,
+             "last_restarts": records[-1]["restarts"],
+             "last_restart_downtime_s": records[-1]["restart_downtime_s"],
+             "heartbeat": heartbeat, "last_run_id": entries[-1]["run_id"]}
+    emit("supervise", check="records", **check)
+    if invalid:
+        problems.append(f"records violate the schema: {invalid}")
+    if first_last["skipped_steps"] != len(SUPERVISE_POISONED):
+        problems.append(f"skipped_steps {first_last['skipped_steps']} at the abort")
+    if [r["mfu"] for r in records] != printed or len(mfu_rel) != len(records) or \
+            max(mfu_rel) > 1e-9:
+        problems.append("records' MFU is not the printed one against the card's peak")
+    if records[-1]["restarts"] < 1 or not records[-1]["restart_downtime_s"] > 0:
+        problems.append("the last record carries no restart accounting")
+    if heartbeat.get("step") != kw["num_steps"] or \
+            heartbeat.get("run_id") != entries[-1]["run_id"]:
+        problems.append(f"heartbeat {heartbeat}")
+
+    # 4. the scrubber: verified checkpoints, the corrupted one quarantined
+    victim = dirs.get(4)
+    sidecar = None
+    if victim and is_quarantined(victim):
+        with open(os.path.join(victim, QUARANTINE_NAME)) as f:
+            sidecar = json.load(f)
+    check = {"scrub_verified": records[-1]["scrub_verified"],
+             "quarantined": sorted(s for s, d in dirs.items() if is_quarantined(d)),
+             "sidecar_problems": (sidecar or {}).get("problems"),
+             "integrity_verify_s": [r["integrity_verify_s"] for r in records],
+             "quarantine_lines": [ln for log in child_logs for ln in log.splitlines()
+                                  if ln.startswith("INTEGRITY:")]}
+    emit("supervise", check="scrubber", **check)
+    if records[-1]["scrub_verified"] < 1 or sidecar is None:
+        problems.append(f"scrubber: {check}")
+
+    # 5. the first incarnation's profiler trace names the kernels
+    traces = sorted((os.path.join(root, "profile_traces", f)
+                     for f in os.listdir(os.path.join(root, "profile_traces"))),
+                    key=os.path.getmtime) if os.path.isdir(
+                        os.path.join(root, "profile_traces")) else []
+    found = {}
+    if traces:
+        kernels, scopes = _trace_names(traces[0])
+        found = {sym: sum(sym in k for k in kernels) > 0 for sym in FLASH_SYMBOLS}
+        found["fwd_bwd_scope"] = "fwd_bwd" in scopes
+    check = {"traces": [os.path.basename(t) for t in traces],
+             "trace_bytes": [os.path.getsize(t) for t in traces], "names": found}
+    emit("supervise", check="profiler", **check)
+    if not found or not all(found.values()):
+        problems.append(f"profiler trace: {check}")
+
+    # 6. timings per incarnation, from the ledger and the records
+    incarnations = []
+    prev = 0
+    for e, log in zip(entries, child_logs):
+        recs = [r for r in records if prev < r["step"] <= e["step_at_exit"]]
+        prev = e["step_at_exit"]
+        incarnations.append({
+            "run_id": e["run_id"], "wall_s": e["ended_unix"] - e["started_unix"],
+            "steps": e["step_at_exit"] - max(0, e["resumed_step"]),
+            "tokens_per_card_per_s": [r["tokens_per_sec_per_chip"] for r in recs],
+            "mfu": [r["mfu"] for r in recs],
+            "obs_report_ms": [1e3 * r["extra"]["obs.report_s"] for r in recs
+                              if "obs.report_s" in r["extra"]],
+            "checkpoint_s": [r["checkpoint_s"] for r in recs],
+            "checkpoint_bg_s": [r["checkpoint_bg_s"] for r in recs],
+            "downtime_after_s": e["downtime_s"]})
+    emit("supervise", check="timings", incarnations=incarnations,
+         nvidia_smi=state["smi"])
+    result.update(incarnations=incarnations, checks_ok=not problems)
+    state["supervise"] = result
+    shutil.rmtree(root)
+    if problems:
+        raise AssertionError("supervise: " + "; ".join(problems))
+
+
+# ---------------------------------------------------------------------------
 # the Mamba2 hybrid: the SSD scan kernel, the trainer, the server
 # ---------------------------------------------------------------------------
 
@@ -2291,6 +2529,7 @@ def main(argv=None) -> int:
         "kernels": phase_kernels, "serve": phase_serve,
         "serve-int8": phase_serve_int8, "flash": phase_flash,
         "train": phase_train, "loader": phase_loader, "resume": phase_resume,
+        "supervise": phase_supervise,
         "train-kvgrid": phase_train_kvgrid,
         "ssd": phase_ssd, "train-mamba": phase_train_mamba,
         "serve-mamba": phase_serve_mamba,

@@ -27,13 +27,26 @@ Tiers (``CheckpointTier``): a *fast local* tier saved often with tight
 retention and a *durable* tier saved sparsely, each backed by its own
 ``Checkpointer``. Resume merges every tier's committed checkpoints,
 newest step first, and walks the manifest-verified fallback chain across
-them. The fault-injection sites of the JAX manager wait for ROADMAP.md
-A.12.
+them.
+
+Fault sites (resilience/faults.py), at the JAX manager's points of the
+save: ``ckpt_writer_crash`` raises in the writer after the payload write
+(the error surfaces in the next ``save``/``finalize``);
+``ckpt_durable_write`` raises OSError in a tier's commit IO before the
+manifest (the bounded retry and the degrade path absorb it);
+``ckpt_precommit_kill`` hard-exits between the manifest and the commit
+marker (resume must skip the torn dir); ``ckpt_corrupt`` and
+``ckpt_shard_corrupt`` corrupt the committed dir after its marker.
+
+The train loop attaches its Observer (``observer``): a save's blocking
+part lands in the ``checkpoint`` phase, and ``obs_stats`` drains the
+writer's seconds and committed saves into each record.
 """
 
 import os
 import threading
 import time
+from contextlib import nullcontext
 from typing import Dict, List, Optional
 
 from fms_fsdp_tpu_torch.ckpt.elastic import stamp_topology
@@ -122,6 +135,14 @@ class AsyncCheckpointManager:
         self._host: Dict = {}
         self.save_log: List[Dict] = []
         self.fingerprint: dict = None
+        # observer accounting, drained by obs_stats() at report cadence:
+        # writer seconds, committed saves (tier, bytes, seconds) and
+        # degraded durable commits since the last report
+        self._observer = None
+        self._bg_seconds = 0.0
+        self._pending_saves: List = []
+        self._pending_degraded = 0
+        self._in_flight = 0
 
     def set_fingerprint(
         self,
@@ -146,6 +167,41 @@ class AsyncCheckpointManager:
         candidates.sort(key=step_number, reverse=True)
         return candidates
 
+    # -- observability -----------------------------------------------------
+
+    @property
+    def observer(self):
+        return self._observer
+
+    @observer.setter
+    def observer(self, obs):
+        self._observer = obs
+        if obs is not None:
+            obs.attach_checkpoint_stats(self.obs_stats)
+
+    def obs_stats(self) -> dict:
+        """Drain the background-write window: the writer's seconds since
+        the last report and whether a save is in flight now. Called by
+        ``Observer.report`` on the main thread, so the committed saves'
+        counters reach the registry without the writer touching it."""
+        with self._lock:
+            bg_s, self._bg_seconds = self._bg_seconds, 0.0
+            done, self._pending_saves = self._pending_saves, []
+            in_flight = self._in_flight
+            degraded, self._pending_degraded = self._pending_degraded, 0
+        obs = self._observer
+        if obs is not None:
+            if degraded:
+                obs.registry.counter("checkpoint.durable_degraded").add(degraded)
+            for tier_name, nbytes, save_bg_s in done:
+                obs.registry.counter("checkpoint.saves").add()
+                obs.registry.counter(f"checkpoint.saves.{tier_name}").add()
+                if nbytes:
+                    obs.registry.counter("checkpoint.bytes").add(nbytes)
+                if save_bg_s is not None:
+                    obs.registry.hist("checkpoint.bg_write_s").record(save_bg_s)
+        return {"bg_s": bg_s, "in_flight": in_flight}
+
     # -- save --------------------------------------------------------------
 
     def save_due(self, step: int) -> bool:
@@ -160,9 +216,15 @@ class AsyncCheckpointManager:
         Raises any error recorded by the *previous* save's writer thread
         (the failed save's step dir stays uncommitted and invisible to
         every scanner)."""
-        self._join_writer()  # at most one save in flight
-        self._raise_pending()
+        obs = self._observer
+        with obs.phase("checkpoint") if obs is not None else nullcontext():
+            # the join is inside the phase: a storage tier slower than the
+            # save cadence blocks the loop here, and that is checkpoint time
+            self._join_writer()  # at most one save in flight
+            self._raise_pending()
+            self._snapshot_and_commit(step, state, dataloader, reason, metadata)
 
+    def _snapshot_and_commit(self, step, state, dataloader, reason, metadata):
         due = [t for t in self.tiers if t.due(step)]
         if reason != "interval" and self.durable not in due:
             due.append(self.durable)
@@ -193,6 +255,8 @@ class AsyncCheckpointManager:
                 loader_s += time.time() - t0
             jobs.append((tier, save_name))
         snapshot_s = time.time() - snap_start
+        if self._observer is not None:
+            self._observer.registry.hist("checkpoint.snapshot_s").record(snapshot_s)
 
         meta = dict(metadata)
         meta["step"] = step
@@ -201,6 +265,8 @@ class AsyncCheckpointManager:
         stamp_topology(meta, self.fingerprint, dataloader)
         info = {"step": step, "reason": reason, "snapshot_s": snapshot_s,
                 "loader_s": loader_s}
+        with self._lock:
+            self._in_flight = 1
         if self.async_save:
             self._writer = threading.Thread(
                 target=self._commit_job,
@@ -210,29 +276,53 @@ class AsyncCheckpointManager:
             )
             self._writer.start()
         else:
-            self._commit_job(jobs, host, meta, info)
+            # synchronous: the commit is the critical path, inside the
+            # checkpoint phase, and adds nothing to the background seconds
+            self._commit_job(jobs, host, meta, info, background=False)
             self._raise_pending()
 
     def _commit_tier_io(self, tier, save_name, meta, timing):
         """One tier's commit IO (manifest -> metadata marker), idempotent
-        so the transient-FS retry may re-run it."""
+        so the transient-FS retry may re-run it. Hosts the
+        ``ckpt_durable_write`` site (an injected ENOSPC/EIO before the
+        manifest) and the ``ckpt_precommit_kill`` window (after the
+        manifest, before the marker)."""
+        from fms_fsdp_tpu_torch.resilience.exits import EXIT_CODES
+        from fms_fsdp_tpu_torch.resilience.faults import fire_fault, maybe_raise_fault
+
         if self.rank != 0:
             return
-        timing["manifest_s"] = tier.ckp.commit(save_name, meta)
+        step = meta["step"]
+        maybe_raise_fault("ckpt_durable_write", exc_cls=OSError, step=step,
+                          tier=tier.name)
 
-    def _commit_job(self, jobs, host, meta, info):
+        def precommit_kill():
+            params = fire_fault("ckpt_precommit_kill", step=step, tier=tier.name)
+            if params is not None:
+                os._exit(int(params.get("code", EXIT_CODES["injected_kill"])))
+
+        timing["manifest_s"] = tier.ckp.commit(
+            save_name, meta, step, before_marker=precommit_kill, tier=tier.name)
+
+    def _commit_job(self, jobs, host, meta, info, background=True):
         """Writer body: the payload, then the commit (manifest ->
         metadata marker) with bounded retry on transient FS errors, then
         the tier's GC. A durable tier whose retry budget is exhausted
         degrades to the fast-local tier (the save dir stays uncommitted
         and the torn-dir GC reclaims it) instead of killing the writer."""
+        from fms_fsdp_tpu_torch.resilience.faults import maybe_raise_fault
         from fms_fsdp_tpu_torch.resilience.retry import retry_call
 
+        job_start = time.time()
         try:
             for tier, save_name in jobs:
                 bg_start = time.time()
                 write_state(os.path.join(save_name, STATE_DIR), host)
                 timing = {"write_s": time.time() - bg_start}
+                # writer crash site: the error must surface in the NEXT
+                # save()/finalize(), never vanish
+                maybe_raise_fault("ckpt_writer_crash", exc_cls=RuntimeError,
+                                  step=meta["step"], tier=tier.name)
                 try:
                     retry_call(
                         lambda t=tier, s=save_name: self._commit_tier_io(
@@ -246,6 +336,7 @@ class AsyncCheckpointManager:
                     if tier is self.durable and len(self.tiers) > 1:
                         with self._lock:
                             self._durable_degraded = True
+                            self._pending_degraded += 1
                         tier.ckp.report(
                             f"WARNING: durable checkpoint commit for step "
                             f"{meta['step']} failed after "
@@ -269,6 +360,12 @@ class AsyncCheckpointManager:
                               bg_s=time.time() - bg_start, **timing)
                 with self._lock:
                     self.save_log.append(record)
+                    if self._observer is not None:
+                        # flushed into the registry by obs_stats(); a
+                        # synchronous commit's time is checkpoint phase
+                        self._pending_saves.append(
+                            (tier.name, record["bytes"],
+                             record["bg_s"] if background else None))
                 tier.ckp.report(
                     f"Checkpoint saved in {save_name}",
                     model_save_time=record["bg_s"],
@@ -279,6 +376,11 @@ class AsyncCheckpointManager:
             # dropped would let the run believe it is checkpointed
             with self._lock:
                 self._writer_err = e
+        finally:
+            with self._lock:
+                if background:
+                    self._bg_seconds += time.time() - job_start
+                self._in_flight = 0
 
     def _join_writer(self):
         w = self._writer

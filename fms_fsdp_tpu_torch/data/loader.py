@@ -1,8 +1,8 @@
 """Pipeline assembly + batching loader
 (ref:fms_fsdp/utils/dataloader_utils.py:17-163).
 
-A copy of ``fms_fsdp_tpu/data/loader.py``, without the ``loader_worker``
-fault site (ROADMAP.md A.12) and ``elastic_batch_size`` (A.6).
+A copy of ``fms_fsdp_tpu/data/loader.py``, with its ``loader_worker``
+fault site, without ``elastic_batch_size`` (ROADMAP.md A.6).
 
 ``StatefulDataLoader`` replaces torch's DataLoader: it stacks pipeline
 outputs into numpy batches and realizes ``num_workers`` as logical
@@ -129,7 +129,27 @@ class LoaderWorkerError(RuntimeError):
     path differently from an anomaly abort or a lost slice."""
 
 
-def _process_worker_loop(pipeline, out_q, cmd, batch_size, produced):
+def _worker_fault(widx: int, produced_count: int):
+    """``loader_worker`` fault site, shared by every loader path: fired
+    after each produced batch (filters: worker=, batch=). ``action=exit``
+    hard-kills the process (the OOM or preemption case); the default
+    raises, exercising the forwarded-exception path."""
+    from fms_fsdp_tpu_torch.resilience.faults import fire_fault
+
+    params = fire_fault("loader_worker", worker=widx, batch=produced_count)
+    if params is None:
+        return
+    if params.get("action") == "exit":
+        from fms_fsdp_tpu_torch.resilience.exits import EXIT_CODES
+
+        os._exit(int(params.get("code", EXIT_CODES["loader_death"])))
+    raise RuntimeError(
+        f"injected loader worker crash (worker {widx}, "
+        f"batch {produced_count})"
+    )
+
+
+def _process_worker_loop(pipeline, out_q, cmd, batch_size, produced, widx=0):
     """One worker pipeline in a forked process: produce stacked batches
     into ``out_q``, service state commands from the parent at batch
     boundaries (the process-mode analog of thread mode's per-worker
@@ -156,6 +176,7 @@ def _process_worker_loop(pipeline, out_q, cmd, batch_size, produced):
             batch = _stack(items)
             with produced.get_lock():
                 produced.value += 1
+            _worker_fault(widx, produced.value)
             while True:
                 if _service_commands(pipeline, cmd):
                     out_q.cancel_join_thread()
@@ -262,7 +283,7 @@ class StatefulDataLoader:
         return self.pipelines[0]
 
     @staticmethod
-    def _worker_loop(pipeline, out_q, lock, stop, batch_size, produced):
+    def _worker_loop(pipeline, out_q, lock, stop, batch_size, produced, widx=0):
         """Produce stacked batches from one worker pipeline into its queue.
         Exceptions are forwarded so the consumer re-raises them. The lock
         is held only while advancing the pipeline (never across the
@@ -278,6 +299,7 @@ class StatefulDataLoader:
                 with lock:
                     items = [next(it) for _ in range(batch_size)]
                     produced[0] += 1
+                _worker_fault(widx, produced[0])
                 batch = _stack(items)
                 while not stop.is_set():
                     try:
@@ -403,6 +425,10 @@ class StatefulDataLoader:
                 batch = _stack(items)
                 self._produced[0][0] += 1
                 self._consumed[0] += 1
+                # the workers' fault site: in workerless mode the trainer
+                # is the worker, so action=exit ends this process with
+                # the classified loader_death code
+                _worker_fault(0, self._produced[0][0])
                 yield batch
 
         self.shutdown()
@@ -419,11 +445,11 @@ class StatefulDataLoader:
         self._threads = [
             threading.Thread(
                 target=self._worker_loop,
-                args=(p, q, lk, self._stop, self.batch_size, prod),
+                args=(p, q, lk, self._stop, self.batch_size, prod, i),
                 daemon=True,
             )
-            for p, q, lk, prod in zip(
-                self.pipelines, queues, self._locks, self._produced
+            for i, (p, q, lk, prod) in enumerate(
+                zip(self.pipelines, queues, self._locks, self._produced)
             )
         ]
         for t in self._threads:
@@ -463,6 +489,7 @@ class StatefulDataLoader:
                             stop,
                             self.batch_size,
                             self._produced[w],
+                            w,
                         ),
                         daemon=True,
                     )
@@ -641,7 +668,7 @@ class StatefulDataLoader:
     def _spawn_proc_worker(self, w, ctx, queues):
         """(Re)fork worker ``w``: fresh pipe, fresh process over the
         parent's pipeline clone, shared produced counter (so save-skew
-        accounting survives restarts)."""
+        accounting and batch-numbered fault filters survive restarts)."""
         old = self._cmds[w]
         if old is not None:
             try:
@@ -657,6 +684,7 @@ class StatefulDataLoader:
                 child_conn,
                 self.batch_size,
                 self._produced[w],
+                w,
             ),
             daemon=True,
         )

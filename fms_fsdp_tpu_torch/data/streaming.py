@@ -17,9 +17,9 @@ Three layers (ref:fms_fsdp/utils/dataset_utils.py:797-1417):
   always draws from the most under-target subdataset, holding it to a
   document boundary.
 
-A copy of ``fms_fsdp_tpu/data/streaming.py`` without its ``corpus_kill``
-fault site, which comes with ``resilience/faults.py`` (ROADMAP.md A.12);
-so does the classified exit that ``CorpusLossError`` is typed for.
+A copy of ``fms_fsdp_tpu/data/streaming.py``, with its ``corpus_kill``
+fault site; ``CorpusLossError`` exits classified ``corpus_loss``
+(resilience/exits.py).
 """
 
 import csv
@@ -849,6 +849,14 @@ class SamplingDataset(WrapperDataset):
             renorm,
         )
 
+    def _injected_kill(self, i: int) -> bool:
+        """``corpus_kill`` fault site (resilience/faults.py): every owned
+        shard of one corpus dies at once. Filter: ``corpus=`` (a
+        substring). Consulted at document boundaries and re-probes."""
+        from fms_fsdp_tpu_torch.resilience.faults import fire_fault
+
+        return fire_fault("corpus_kill", corpus=self.datasets[i]) is not None
+
     def _maybe_rearm(self, data) -> None:
         """Re-probe quarantined corpora whose snapshot the survivor
         epoch clock has passed (at most one re-arm per document
@@ -863,6 +871,9 @@ class SamplingDataset(WrapperDataset):
             if snap is not None and clock <= snap:
                 continue
             i = self.datasets.index(name)
+            if self._injected_kill(i):
+                self._rearm_snapshot[name] = clock
+                continue
             it = iter(self.data[i])
             try:
                 out = next(it)
@@ -885,13 +896,23 @@ class SamplingDataset(WrapperDataset):
     def _select_corpus(self) -> int:
         """Most-undertarget LIVE subdataset next (ties -> higher index),
         with weights renormalized over the live set."""
-        live = self._live_indices()
-        total = sum(self.tokens_seen[j] for j in live) + 1e-9
-        wsum = sum(self.weights[j] for j in live)
-        return max(
-            (self.weights[j] / wsum - self.tokens_seen[j] / total, j)
-            for j in live
-        )[1]
+        while True:
+            live = self._live_indices()
+            total = sum(self.tokens_seen[j] for j in live) + 1e-9
+            wsum = sum(self.weights[j] for j in live)
+            choice = max(
+                (self.weights[j] / wsum - self.tokens_seen[j] / total, j)
+                for j in live
+            )[1]
+            if self._injected_kill(choice):
+                self._quarantine_corpus(
+                    choice,
+                    CorpusUnreadableError(
+                        f"injected corpus_kill: {self.datasets[choice]}"
+                    ),
+                )
+                continue
+            return choice
 
     def __iter__(self):
         self.setup()

@@ -27,9 +27,18 @@ state rides every checkpoint, so a resume continues the stream:
         --batch_size=2 --seq_length=4096 --vocab_size=128256 \
         --ckpt_save_path=/ckpt/run1 --num_steps=12
 
-It runs on ``cuda`` unless ``device="cpu"`` is passed to :func:`main`,
-and raises without a card. Options not ported yet raise
-``NotImplementedError`` naming their ROADMAP.md item.
+The observability and resilience options run as in JAX: ``--obs_dir``
+(``metrics.jsonl``, ``metrics.csv`` with ``--obs_sinks=jsonl,csv``, and
+``heartbeat.json``), ``--use_profiler`` (a ``torch.profiler`` trace in
+``profile_traces/`` under the working directory), ``--step_timeout_s``,
+``--scrub_interval_steps`` and ``--faults`` (or ``FMS_FAULTS``). Run as a
+script, ``main`` runs inside ``classified_exit()``, so an anomaly abort,
+a dead loader or a lost corpus exits with its registry code for the
+supervisor (``python -m fms_fsdp_tpu_torch.resilience.supervisor``).
+
+It runs on ``cuda`` unless ``device="cpu"`` is passed to :func:`main`
+(``--device=cpu``), and raises without a card. Options not ported yet
+raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 import os
@@ -42,6 +51,9 @@ from fms_fsdp_tpu_torch.ckpt.elastic import current_fingerprint
 from fms_fsdp_tpu_torch.config import TrainConfig
 from fms_fsdp_tpu_torch.data.device_feed import DeviceFeed
 from fms_fsdp_tpu_torch.data.loader import get_data_loader, get_dummy_loader
+from fms_fsdp_tpu_torch.obs import build_observer
+from fms_fsdp_tpu_torch.resilience.exits import classified_exit
+from fms_fsdp_tpu_torch.resilience.faults import configure_faults
 from fms_fsdp_tpu_torch.train.step import (
     check_supported,
     init_train_state,
@@ -50,7 +62,7 @@ from fms_fsdp_tpu_torch.train.step import (
 from fms_fsdp_tpu_torch.utils.cli import parse_cli_args
 from fms_fsdp_tpu_torch.utils.config_utils import get_model_config, update_config
 from fms_fsdp_tpu_torch.utils.device import resolve_device
-from fms_fsdp_tpu_torch.utils.train_utils import train
+from fms_fsdp_tpu_torch.utils.train_utils import get_profiler, train
 
 
 def main(device=None, **kwargs):
@@ -64,6 +76,9 @@ def main(device=None, **kwargs):
     update_config(cfg, **kwargs)
     device = resolve_device(device)
     check_supported(cfg)
+    if cfg.faults:
+        # the spec from the config; FMS_FAULTS is read lazily when empty
+        configure_faults(cfg.faults)
     print(f"--> running with these configs {cfg}")
 
     # model config; dotted CLI overrides (LlamaConfig.param=value) apply here
@@ -108,6 +123,9 @@ def main(device=None, **kwargs):
         start_step = 0
     # the schedule runs from the state's own restored step, as JAX's does
     step_fn = make_train_step(model_cfg, cfg)
+    profiler = get_profiler(cfg, 0, device=device)
+    # metrics registry, phase timing, sinks and heartbeat
+    observer = build_observer(cfg, 0, model_cfg=model_cfg, device=device)
 
     feed = DeviceFeed(loader, device, prefetch=max(0, int(cfg.feed_prefetch)))
     print(f"Training for {cfg.num_steps} steps")
@@ -115,7 +133,8 @@ def main(device=None, **kwargs):
     try:
         summary = train(cfg, state, step_fn, 0, batches, checkpointer,
                         start_step, tokens_seen, dataloader=ckpt_loader,
-                        model_cfg=model_cfg, device=device)
+                        model_cfg=model_cfg, device=device, profiler=profiler,
+                        observer=observer)
     finally:
         # stop the feed's thread, then the loader's workers (joined,
         # processes reaped)
@@ -124,8 +143,11 @@ def main(device=None, **kwargs):
             ckpt_loader.shutdown()
     return dict(summary, state=state, cfg=cfg, model_cfg=model_cfg,
                 start_step=start_step, checkpointer=checkpointer, feed=feed,
-                loader=ckpt_loader)
+                loader=ckpt_loader, observer=observer)
 
 
 if __name__ == "__main__":
-    main(**parse_cli_args(sys.argv[1:]))
+    # classified failures exit with their registry code (resilience/exits.py)
+    # so the supervisor maps the exit to a restart policy
+    with classified_exit():
+        main(**parse_cli_args(sys.argv[1:]))

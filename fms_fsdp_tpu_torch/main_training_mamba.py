@@ -13,13 +13,15 @@ command line runs both packages:
         --fsdp_activation_checkpointing=True --selective_checkpointing=0.5 \\
         --num_steps=16 --report_interval=4
 
-It runs on ``cuda`` unless ``device="cpu"`` is passed to :func:`main`,
-and raises without a card.
+It runs on ``cuda`` unless ``device="cpu"`` is passed to :func:`main`
+(``--device=cpu``), and raises without a card. The observability and
+resilience options are the Llama entry's.
 """
 
 import sys
 
 from fms_fsdp_tpu_torch.main_training_llama import main as _shared_main
+from fms_fsdp_tpu_torch.resilience.exits import classified_exit
 from fms_fsdp_tpu_torch.utils.cli import parse_cli_args
 
 
@@ -30,4 +32,6 @@ def main(device=None, **kwargs):
 
 
 if __name__ == "__main__":
-    main(**parse_cli_args(sys.argv[1:]))
+    # classified-exit mapping for the supervisor, as in the Llama entry
+    with classified_exit():
+        main(**parse_cli_args(sys.argv[1:]))

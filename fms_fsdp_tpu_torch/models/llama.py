@@ -24,9 +24,11 @@ from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from fms_fsdp_tpu_torch.models.configs import LlamaConfig
+from fms_fsdp_tpu_torch.obs.scopes import scoped
 from fms_fsdp_tpu_torch.ops.attention import attention
 from fms_fsdp_tpu_torch.ops.norms import rms_norm
 from fms_fsdp_tpu_torch.ops.rope import apply_rotary, rope_table
@@ -98,6 +100,7 @@ def _linear(x, w, quant):
     return x @ w
 
 
+@scoped("attn")
 def attention_block(x, layer: Dict, cfg, cos, sin, *, attn_impl: str,
                     quant: str = "none"):
     """x + Attn(RMS(x)), the attention half of a Llama block. ``layer``
@@ -119,10 +122,11 @@ def _llama_block(x, layer: Dict, cfg: LlamaConfig, cos, sin, *, attn_impl: str,
                  quant: str = "none"):
     """One decoder block: x + Attn(RMS(x)); then x + SwiGLU(RMS(x))."""
     x = attention_block(x, layer, cfg, cos, sin, attn_impl=attn_impl, quant=quant)
-    h = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
-    gate = F.silu(_linear(h, layer["w1"], quant))
-    up = _linear(h, layer["w3"], quant)
-    return x + _linear(gate * up, layer["w2"], quant)
+    with record_function("ffn"):
+        h = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
+        gate = F.silu(_linear(h, layer["w1"], quant))
+        up = _linear(h, layer["w3"], quant)
+        return x + _linear(gate * up, layer["w2"], quant)
 
 
 def layer_params(layers, i: int) -> Dict:
@@ -167,7 +171,8 @@ def llama_forward(
     del scan_layers
     nlayers = n_layers_of(params)
     params = tree_map(lambda w: w.to(compute_dtype), params)
-    x = F.embedding(tokens, params["embedding"])
+    with record_function("embed"):
+        x = F.embedding(tokens, params["embedding"])
     seq_len = tokens.shape[1]
     cos, sin = rope_table(seq_len, cfg.head_dim, cfg.rope_theta, device=tokens.device)
     ac_mask = ac_mask if ac_mask is not None else [False] * nlayers
@@ -185,7 +190,8 @@ def llama_forward(
     x = rms_norm(x, params["norm"], cfg.norm_eps)
     if return_hidden:
         return x
-    logits = x @ params["lm_head"]
+    with record_function("lm_head"):
+        logits = x @ params["lm_head"]
     if return_embeds:
         return logits, x
     return logits

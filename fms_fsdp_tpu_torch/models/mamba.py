@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from fms_fsdp_tpu_torch.models.configs import MambaConfig
+from fms_fsdp_tpu_torch.obs.scopes import scoped
 from fms_fsdp_tpu_torch.ops.attention import attention
 from fms_fsdp_tpu_torch.ops.norms import rms_norm
 from fms_fsdp_tpu_torch.ops.paged_attention import gather_pages, gqa_attend
@@ -141,6 +142,7 @@ def init_mamba_params(generator: torch.Generator, cfg: MambaConfig,
 # ---------------------------------------------------------------------------
 
 
+@scoped("mamba_mixer")
 def _mamba_mixer(x, p: Params, cfg: MambaConfig, kernel="auto"):
     """x (B, S, D) compute dtype -> (B, S, D)."""
     B, S, _ = x.shape
@@ -180,6 +182,7 @@ def _partial_rotary(q, k, a, cos, sin, positions=None):
     return q, k
 
 
+@scoped("attn_mixer")
 def _attn_mixer(x, p: Params, cfg: MambaConfig, cos, sin, attn_impl):
     B, S, _ = x.shape
     a = cfg.attn_cfg
@@ -192,6 +195,7 @@ def _attn_mixer(x, p: Params, cfg: MambaConfig, cos, sin, attn_impl):
     return o.reshape(B, S, a.num_heads * hd) @ p["wo"]
 
 
+@scoped("mlp")
 def _mlp(x, p: Params):
     return (F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
 

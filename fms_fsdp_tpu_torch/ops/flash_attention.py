@@ -37,6 +37,9 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.profiler import record_function
+
+from fms_fsdp_tpu_torch.obs.scopes import scoped
 
 LOG2E = 1.4426950408889634  # log2(e)
 LN2 = 0.6931471805599453
@@ -488,20 +491,22 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout, dlse):
-        q, k, v, o, lse = ctx.saved_tensors
-        if dout is None:
-            dout = torch.zeros_like(o)
-        dout = dout.contiguous()
-        # delta = sum(o * do) over the head dim, fp32, (B, Nq, Sq)
-        delta = torch.einsum("bsnh,bsnh->bns", o.float(), dout.float()).contiguous()
-        if dlse is not None:
-            delta = delta - dlse.float()
-        kw = dict(causal=ctx.causal, scale=ctx.scale)
-        dq = flash_dq(q, k, v, dout, lse, delta, **kw)
-        dk, dv = flash_dkv(q, k, v, dout, lse, delta, **kw)
-        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None
+        with record_function("flash_attention_bwd"):
+            q, k, v, o, lse = ctx.saved_tensors
+            if dout is None:
+                dout = torch.zeros_like(o)
+            dout = dout.contiguous()
+            # delta = sum(o * do) over the head dim, fp32, (B, Nq, Sq)
+            delta = torch.einsum("bsnh,bsnh->bns", o.float(), dout.float()).contiguous()
+            if dlse is not None:
+                delta = delta - dlse.float()
+            kw = dict(causal=ctx.causal, scale=ctx.scale)
+            dq = flash_dq(q, k, v, dout, lse, delta, **kw)
+            dk, dv = flash_dkv(q, k, v, dout, lse, delta, **kw)
+            return dq, dk.to(k.dtype), dv.to(v.dtype), None, None
 
 
+@scoped("flash_attention_fwd")
 def flash_attention(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
                     return_lse: bool = False):
     """q (B, Sq, Nq, H); k/v (B, Sk, Nkv, H) -> o (B, Sq, Nq, H).

@@ -44,6 +44,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from fms_fsdp_tpu_torch.obs.scopes import scoped
+
 KERNELS = ("auto", "reference", "xla", "pallas")
 
 # launches of the CUDA kernel; counted where it launches and nowhere else
@@ -435,6 +437,7 @@ class _SSDCore(torch.autograd.Function):
         return (*grads, None, None)
 
 
+@scoped("ssd_scan")
 def ssd_scan(x, dt, A, Bm, Cm, D=None, chunk_size: int = 256, kernel: str = "auto"):
     """Chunked selective scan. Returns y with x's shape, computed in fp32,
     cast back to x.dtype. The chunk length is ``min(chunk_size, S)`` and
@@ -493,6 +496,7 @@ def ssd_scan_reference(x, dt, A, Bm, Cm, D=None):
     return y.to(x.dtype)
 
 
+@scoped("causal_conv1d")
 def causal_conv1d(x, weight, bias=None, activation: str = "silu"):
     """Depthwise causal conv over (B, S, C) with kernel (C, W), the
     mamba_ssm causal_conv1d equivalent, as W shifted fp32 multiply-adds in

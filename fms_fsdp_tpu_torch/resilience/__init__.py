@@ -1,1 +1,7 @@
-"""Host-side anomaly policy over the train step's non-finite flags."""
+"""Resilience of the trainer: fault injection (``faults``), the exit-code
+registry and the classified-exit wrapper (``exits``), the anomaly guard
+and the step watchdog (``guards``), the run supervisor (``supervisor``),
+retrying shard IO (``retry``), checkpoint manifests (``integrity``) and
+the checkpoint scrubber with its verdict cache (``scrub``). Counterpart
+of ``fms_fsdp_tpu/resilience/``; the slice monitor and the cross-replica
+divergence compare wait for ROADMAP.md A.6."""

@@ -7,8 +7,8 @@ manager's commit path (``ckpt/manager.py``) retries its manifest and
 ``metadata.json`` writes with ``retry_call``, and ``get_data_loader``
 wraps its shard handler in ``RetryingShardHandler``. Exhaustion surfaces
 the final error to the caller — ``StreamingDocDataset`` then quarantines
-the shard instead of killing the run. The handler's ``shard_read`` fault
-site comes with ``resilience/faults.py`` (ROADMAP.md A.12).
+the shard instead of killing the run. The handler hosts the ``shard_read``
+fault site (resilience/faults.py).
 """
 
 import logging
@@ -16,6 +16,7 @@ import time
 from typing import Callable, Set
 
 from fms_fsdp_tpu_torch.data.handlers import ShardFileHandler
+from fms_fsdp_tpu_torch.resilience.faults import maybe_raise_fault
 
 logger = logging.getLogger(__name__)
 
@@ -87,8 +88,15 @@ class RetryingShardHandler(ShardFileHandler):
         self._last_path = ""
 
     def _retry(self, op: str, path: str, fn: Callable):
+        # the shard_read fault site runs inside each retried attempt: a
+        # times=K fault is absorbed by the retry, a permanent one
+        # exhausts it
+        def attempt():
+            maybe_raise_fault("shard_read", path=path, op=op)
+            return fn()
+
         return retry_call(
-            fn,
+            attempt,
             retries=self.retries,
             backoff_s=self.backoff_s,
             max_backoff_s=self.max_backoff_s,

@@ -1,18 +1,24 @@
-"""The checkpoint verdict cache and the verified-resume policy.
+"""Checkpoint scrubber: background re-verification of committed
+checkpoints, quarantine of corrupt ones, and a verdict cache keyed by
+manifest digest.
 
-The part of ``fms_fsdp_tpu/resilience/scrub.py`` that ``Checkpointer.load``
-and the save paths call: :func:`cached_verify` (``verify_manifest``
-behind a verdict cache keyed by the manifest's digest, with the
-``integrity_scrub.json`` verdict and ``integrity_quarantine.json``
-quarantine sidecars), :func:`clear_integrity_sidecars` (both save paths,
-before the manifest is written) and :func:`verified_resume_active` (the
-``FMS_VERIFIED_RESUME`` policy). The background scrubber thread and the
-fleet CLI wait for ROADMAP.md A.12.
+Counterpart of ``fms_fsdp_tpu/resilience/scrub.py``:
 
-Verdicts are cached so that a restore walk which verifies the same dirs
-twice in one process never re-hashes them; a dir that fails
-verification on a walk that writes sidecars is quarantined, and
-``Checkpointer._candidate_ckp_paths`` skips quarantined dirs.
+- :class:`CheckpointScrubber` re-verifies every committed checkpoint of
+  every tier at a step cadence (``scrub_interval_steps``) on a daemon
+  thread, one sweep in flight; the loop pays a comparison;
+- a checkpoint that fails verification is quarantined: an
+  ``integrity_quarantine.json`` sidecar and one line naming the bad
+  shard. ``Checkpointer._candidate_ckp_paths`` skips quarantined dirs,
+  so a resume routes around the poison before a crash needs it;
+- verdicts are cached by manifest digest (the ``integrity_scrub.json``
+  sidecar and an in-process memo), so a restore walk that verifies the
+  dirs a sweep already verified never re-hashes them;
+- :func:`verified_resume_active` reads the ``FMS_VERIFIED_RESUME``
+  policy the supervisor exports after a ``state_divergence`` exit.
+
+The manifest itself is ``resilience/integrity.py``'s. The fleet CLI
+(``scripts/scrub_checkpoints.py`` in the JAX package) is not ported.
 """
 
 import hashlib
@@ -48,6 +54,37 @@ VERDICT_TTL_S = 7 * 24 * 3600.0
 # re-verifies; positive entries expire with the verdict TTL.
 _MEMO_LOCK = threading.Lock()
 _MEMO: Dict[str, Tuple[Optional[str], bool, List[str], float]] = {}
+# checkpoints confirmed content-verified by this process (a sweep or a
+# restore walk). _VERIFIED_TOTAL is the record's ``scrub_verified`` and
+# is monotone: a re-committed dir leaves the set (its new bytes are
+# unverified) but the confirmations already made stay counted.
+_VERIFIED_DIRS: set = set()
+_VERIFIED_TOTAL = 0
+
+
+def _mark_verified(ckpt_dir: str) -> None:
+    """Caller holds _MEMO_LOCK."""
+    global _VERIFIED_TOTAL
+    if ckpt_dir not in _VERIFIED_DIRS:
+        _VERIFIED_DIRS.add(ckpt_dir)
+        _VERIFIED_TOTAL += 1
+
+
+def total_verified() -> int:
+    with _MEMO_LOCK:
+        return _VERIFIED_TOTAL
+
+
+def reset_cache() -> None:
+    """Drop the in-process memo and verified set (sidecar files on disk
+    are untouched)."""
+    global _VERIFIED_TOTAL
+    with _MEMO_LOCK:
+        _MEMO.clear()
+        _VERIFIED_DIRS.clear()
+        _VERIFIED_TOTAL = 0
+
+
 def verified_resume_active() -> bool:
     """True when the supervisor demanded a verified resume (the
     ``state_divergence`` relaunch policy). Parsed as a boolean flag:
@@ -137,11 +174,34 @@ def clear_integrity_sidecars(ckpt_dir: str) -> None:
     written."""
     with _MEMO_LOCK:
         _MEMO.pop(ckpt_dir, None)
+        _VERIFIED_DIRS.discard(ckpt_dir)
     for name in (VERDICT_NAME, QUARANTINE_NAME):
         try:
             os.remove(os.path.join(ckpt_dir, name))
         except OSError:
             pass
+
+
+def release_quarantine(ckpt_dir: str) -> bool:
+    """Remove a quarantine marker (after an operator repaired the dir or
+    accepts it). Both sidecars and the memo entry go, so the next walk
+    re-verifies from scratch. False when there was no marker or its
+    removal failed (then nothing was touched)."""
+    path = os.path.join(ckpt_dir, QUARANTINE_NAME)
+    if not os.path.isfile(path):
+        return False
+    try:
+        os.remove(path)
+    except OSError:
+        return False
+    with _MEMO_LOCK:
+        _MEMO.pop(ckpt_dir, None)
+        _VERIFIED_DIRS.discard(ckpt_dir)
+    try:
+        os.remove(os.path.join(ckpt_dir, VERDICT_NAME))
+    except OSError:
+        pass
+    return True
 
 
 def _read_verdict(ckpt_dir: str) -> Optional[dict]:
@@ -253,9 +313,10 @@ def cached_verify(
         verify_s = time.monotonic() - t0
     # "verified" means CONTENT-verified: a pass that carries coverage
     # notes (v1 manifest / ckpt_full_checksums=False — large files
-    # checked by size only) is accepted for loading but must not persist
-    # a verified verdict sidecar, or the verified-resume policy would
-    # silently degrade to exactly the trust-on-size restore it rules out.
+    # checked by size only) is accepted for loading but must not count
+    # toward scrub_verified nor persist a verified verdict sidecar, or the
+    # verified-resume policy would silently degrade to exactly the
+    # trust-on-size restore it rules out.
     content_verified = ok and digest is not None and not problems
     # persistence runs for FRESH results and for memo hits alike: an
     # earlier walk without sidecars must not leave a corrupt checkpoint
@@ -263,6 +324,8 @@ def cached_verify(
     # verdict sidecar. Only a verdict-sidecar hit skips the rewrite.
     with _MEMO_LOCK:
         _MEMO[ckpt_dir] = (digest, ok, list(problems), verified_at)
+        if content_verified:
+            _mark_verified(ckpt_dir)
     if write_sidecars:
         if content_verified and not have_sidecar:
             _write_verdict(ckpt_dir, digest, verify_s, verified_at)
@@ -287,3 +350,114 @@ def cached_verify(
                     _MEMO.pop(ckpt_dir, None)
     return ok, problems
 
+
+def scrub_checkpoint(ckpt_dir: str, report=print) -> Tuple[str, List[str]]:
+    """One committed checkpoint: (status, problems) with status
+    ``"verified"`` (content confirmed, freshly or from a matching cached
+    verdict), ``"quarantined"`` (newly failed or already marked) or
+    ``"legacy"`` (content not fully confirmable: no manifest, or large
+    files recorded by size only)."""
+    if is_quarantined(ckpt_dir):
+        info = quarantine_info(ckpt_dir) or {}
+        return "quarantined", list(info.get("problems") or [])
+    if manifest_digest(ckpt_dir) is None:
+        return "legacy", [f"no manifest in {ckpt_dir}"]
+    ok, problems = cached_verify(ckpt_dir, write_sidecars=True, report=report)
+    if not ok:
+        return "quarantined", problems
+    return ("verified" if not problems else "legacy"), problems
+
+
+def committed_step_dirs(root: str) -> List[str]:
+    """Committed step checkpoints under a ``checkpoints/`` root, newest
+    first: the scrub population (torn dirs without a commit marker are
+    the retention GC's, not the scrubber's)."""
+    from fms_fsdp_tpu_torch.utils.ckpt_paths import (
+        is_step_ckp,
+        safe_listdir,
+        step_number,
+    )
+
+    if not root or not os.path.isdir(root):
+        return []
+    out = [
+        os.path.join(root, x)
+        for x in safe_listdir(root)
+        if is_step_ckp(os.path.join(root, x))
+        and os.path.isdir(os.path.join(root, x))
+        and "metadata.json" in safe_listdir(os.path.join(root, x))
+    ]
+    out.sort(key=step_number, reverse=True)
+    return out
+
+
+def scrub_roots(checkpointer) -> List[str]:
+    """The checkpoint roots a live run scrubs: every tier of an
+    ``AsyncCheckpointManager``, or a bare ``Checkpointer``'s own dir."""
+    tiers = getattr(checkpointer, "tiers", None)
+    if tiers:
+        return [t.ckp.ckp_path for t in tiers]
+    path = getattr(checkpointer, "ckp_path", None)
+    return [path] if path else []
+
+
+def scrub_pass(roots: List[str], report=print) -> Dict[str, int]:
+    """One sweep over every committed checkpoint in ``roots``: counts per
+    status. Cached verdicts make repeat sweeps near-free: only new
+    commits hash bytes."""
+    counts = {"verified": 0, "quarantined": 0, "legacy": 0}
+    for root in roots:
+        for ckpt_dir in committed_step_dirs(root):
+            status, _ = scrub_checkpoint(ckpt_dir, report=report)
+            counts[status] = counts.get(status, 0) + 1
+    return counts
+
+
+class CheckpointScrubber:
+    """Step-cadence background scrubber the train loop drives.
+
+    ``maybe_scrub(step)`` costs a comparison; when ``interval_steps``
+    have passed since the last sweep it starts one on a daemon thread, at
+    most one in flight (a slow sweep throttles itself to its own
+    duration). Rank 0 only: the sidecars must have a single writer."""
+
+    def __init__(self, roots: List[str], interval_steps: int, report=print):
+        self.roots = [r for r in roots if r]
+        self.interval_steps = max(0, int(interval_steps))
+        self.report = report
+        self.last_counts: Dict[str, int] = {}
+        self._last_step: Optional[int] = None
+        self._thread: Optional[threading.Thread] = None
+
+    @property
+    def enabled(self) -> bool:
+        return self.interval_steps > 0 and bool(self.roots)
+
+    def maybe_scrub(self, step: int) -> bool:
+        if not self.enabled:
+            return False
+        if self._last_step is not None and (
+            step - self._last_step < self.interval_steps
+        ):
+            return False
+        if self._thread is not None and self._thread.is_alive():
+            return False  # the previous sweep is still running
+        self._last_step = step
+        self._thread = threading.Thread(
+            target=self._sweep, name="ckpt-scrubber", daemon=True
+        )
+        self._thread.start()
+        return True
+
+    def _sweep(self) -> None:
+        try:
+            self.last_counts = scrub_pass(self.roots, report=self.report)
+        except Exception as e:  # noqa: BLE001 — the scrubber must never
+            # kill training; a failed sweep reports and retries at the
+            # next cadence
+            self.report(f"WARNING: checkpoint scrub sweep failed: {e!r}")
+
+    def stop(self, timeout_s: float = 5.0) -> None:
+        t = self._thread
+        if t is not None and t.is_alive():
+            t.join(timeout_s)

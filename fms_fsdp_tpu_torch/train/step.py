@@ -19,18 +19,23 @@ step (ref:fms_fsdp/utils/train_utils.py:87-98) — on one card, eager.
   moments stay bit-identical and Adam's count does not advance — while the
   trainer's step still does. Deciding that takes one host sync per step
   (JAX selects on device inside its jitted step).
+- The ``nan_loss`` fault site (resilience/faults.py), read when the step
+  is built: the loss and the gradients of steps [``step``,
+  ``step + count``) of the state's step counter are multiplied by NaN,
+  so one spec poisons the same loop steps as in JAX.
 
-The DCN overlap, the quantized reduce and the fault-injection site belong
-to ROADMAP.md A.6, A.7 and A.12.
+The DCN overlap and the quantized reduce belong to ROADMAP.md A.6 and A.7.
 """
 
 import math
 from typing import Dict
 
 import torch
+from torch.profiler import record_function
 
 from fms_fsdp_tpu_torch.models import get_model_api
 from fms_fsdp_tpu_torch.models.configs import MambaConfig
+from fms_fsdp_tpu_torch.obs.scopes import scoped
 from fms_fsdp_tpu_torch.ops.flash_attention import VARIANTS, set_kernel_variant
 from fms_fsdp_tpu_torch.ops.fused_ce import (
     cross_entropy_loss,
@@ -38,10 +43,11 @@ from fms_fsdp_tpu_torch.ops.fused_ce import (
 )
 from fms_fsdp_tpu_torch.parallel.ac import selective_ac_mask
 from fms_fsdp_tpu_torch.parallel.mixed_precision import get_dtype_policy
+from fms_fsdp_tpu_torch.resilience.faults import check_spec, fault_params
 from fms_fsdp_tpu_torch.utils.tree import tree_map
 
 # (TrainConfig field, is it set to something this port does not run yet,
-# the ROADMAP.md item that brings it): options of the step, then of the run
+# the ROADMAP.md item that brings it)
 _UNPORTED_STEP = (
     ("quantized_matmuls", lambda v: v != "none", "A.7 (quantized training)"),
     ("quantized_reduce", lambda v: v != "none", "A.7 (quantized training)"),
@@ -50,30 +56,17 @@ _UNPORTED_STEP = (
     ("expert_parallel_size", lambda v: v > 1, "A.4/A.6 (MoE, sharding)"),
     ("num_slices", lambda v: v > 1, "A.6 (multi-GPU sharding)"),
 )
-_UNPORTED_RUN = (
-    ("use_profiler", bool, "A.12 (device-touching obs)"),
-    ("tracker", lambda v: v is not None, "A.12 (device-touching obs)"),
-    ("obs_dir", bool, "A.12 (device-touching obs)"),
-    ("step_timeout_s", lambda v: v > 0, "A.12 (resilience)"),
-    ("scrub_interval_steps", lambda v: v > 0, "A.12 (resilience)"),
-    ("divergence_check_interval", lambda v: v > 0, "A.12 (resilience)"),
-    ("faults", bool, "A.12 (resilience)"),
-)
-
-
-def _refuse(cfg, table) -> None:
-    for field, unported, item in table:
-        value = getattr(cfg, field)
-        if unported(value):
-            raise NotImplementedError(
-                f"{field}={value!r} is not ported yet: ROADMAP.md {item}"
-            )
 
 
 def check_step_options(cfg) -> None:
     """The step's options: ``NotImplementedError`` naming the ROADMAP.md
     item for each one this port does not run yet, rather than ignore it."""
-    _refuse(cfg, _UNPORTED_STEP)
+    for field, unported, item in _UNPORTED_STEP:
+        value = getattr(cfg, field)
+        if unported(value):
+            raise NotImplementedError(
+                f"{field}={value!r} is not ported yet: ROADMAP.md {item}"
+            )
     if cfg.flash_kernel_variant not in VARIANTS:
         raise ValueError(
             f"flash_kernel_variant={cfg.flash_kernel_variant!r}: expected one "
@@ -82,9 +75,12 @@ def check_step_options(cfg) -> None:
 
 
 def check_supported(cfg) -> None:
-    """Every option of a training run (the entry point's check)."""
+    """Every option of a training run (the entry point's check): the
+    step's, and a ``faults`` spec naming a site the port has no call site
+    for yet. ``divergence_check_interval`` is accepted and inert on one
+    process, as in JAX."""
     check_step_options(cfg)
-    _refuse(cfg, _UNPORTED_RUN)
+    check_spec(cfg.faults)
 
 
 def get_lr_schedule(cfg, start_step: int = 0):
@@ -195,6 +191,18 @@ def _compute_copy(params: Dict, dtype):
     return _per_layer(params, lambda w: w.detach().to(dtype).requires_grad_(True))
 
 
+def wrap_step_fn(step_fn, timer):
+    """Attribute the step's host wall time to the ``compute`` phase
+    (obs/timing.py). The eager step ends in its one host sync, so the
+    phase holds the step's device time too."""
+
+    def stepped(state, batch):
+        with timer.phase("compute"):
+            return step_fn(state, batch)
+
+    return stepped
+
+
 def make_train_step(model_cfg, cfg, start_step: int = 0):
     """Build the step: (state, (inputs, labels)) -> metrics.
 
@@ -213,6 +221,11 @@ def make_train_step(model_cfg, cfg, start_step: int = 0):
     schedule = get_lr_schedule(cfg, start_step)
     fused = cfg.fused_loss
     guard_updates = bool(cfg.anomaly_skip_updates)
+    nan_fault = fault_params("nan_loss")
+    nan_window = None
+    if nan_fault is not None:
+        at = int(nan_fault.get("step", 0))
+        nan_window = (at, at + int(nan_fault.get("count", 1)))
     extra_kwargs = {}
     if isinstance(model_cfg, MambaConfig):
         extra_kwargs = {"mamba_kernel": cfg.mamba_kernel}
@@ -229,12 +242,22 @@ def make_train_step(model_cfg, cfg, start_step: int = 0):
             )
         return cross_entropy_loss(out, labels)
 
-    def train_step(state, batch):
-        inputs, labels = batch
+    @scoped("fwd_bwd")
+    def fwd_bwd(state, inputs, labels):
         params_c, leaves = _compute_copy(state["params"], policy.compute_dtype)
         loss = loss_fn(params_c, inputs, labels)
         grads = torch.autograd.grad(loss, leaves)
-        del params_c, leaves
+        if nan_window is not None and (
+            nan_window[0] <= state["step"] + start_step < nan_window[1]
+        ):
+            # injected non-finite batch: the guard below must absorb it
+            loss = loss * float("nan")
+            grads = tuple(g * float("nan") for g in grads)
+        return loss, grads
+
+    def train_step(state, batch):
+        inputs, labels = batch
+        loss, grads = fwd_bwd(state, inputs, labels)
         gnorm = torch.linalg.vector_norm(torch.stack([
             torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads
         ]))
@@ -242,16 +265,17 @@ def make_train_step(model_cfg, cfg, start_step: int = 0):
         nonfinite = not bool(torch.isfinite(loss) & torch.isfinite(gnorm))
         lr = schedule(state["step"])
         if not (nonfinite and guard_updates):
-            clip = torch.clamp(cfg.grad_clip_thresh / (gnorm + 1e-6), max=1.0)
-            opt = state["optimizer"]
-            params = opt.param_groups[0]["params"]
-            for p, g in zip(params, grads):
-                p.grad = (g * clip.to(g.dtype)).to(p.dtype)
-            del grads
-            for group in opt.param_groups:
-                group["lr"] = lr
-            opt.step()
-            opt.zero_grad(set_to_none=True)
+            with record_function("optimizer"):
+                clip = torch.clamp(cfg.grad_clip_thresh / (gnorm + 1e-6), max=1.0)
+                opt = state["optimizer"]
+                params = opt.param_groups[0]["params"]
+                for p, g in zip(params, grads):
+                    p.grad = (g * clip.to(g.dtype)).to(p.dtype)
+                del grads
+                for group in opt.param_groups:
+                    group["lr"] = lr
+                opt.step()
+                opt.zero_grad(set_to_none=True)
         state["step"] += 1
         return {
             "loss": loss.detach(),

@@ -17,7 +17,10 @@ contract:
 - single-file checkpoints (a pickle of params) load params only;
 - rolling retention of the newest ``n_to_save`` step checkpoints (ordered
   by the step number in the name), and a quiesce-gated GC of torn and
-  loader-only step dirs.
+  loader-only step dirs;
+- the ``ckpt_corrupt`` and ``ckpt_shard_corrupt`` fault sites
+  (resilience/faults.py) after every commit marker, of this class's save
+  and of the async manager's writer alike.
 
 The payload is ``torch.distributed.checkpoint`` (DCP) with
 ``FileSystemWriter`` / ``FileSystemReader``, used from one process
@@ -186,6 +189,10 @@ class Checkpointer:
     # minimum local seconds a stale loader auto-save dir must hold an
     # unchanged mtime across cleanup passes before it is pruned
     PRUNE_QUIESCE_S = 60.0
+
+    # the train loop attaches its Observer here: save() wall time lands in
+    # the "checkpoint" phase and the save counters in its registry
+    observer = None
 
     def __init__(
         self,
@@ -475,28 +482,37 @@ class Checkpointer:
         metadata.json (the commit marker, atomic rename). A save torn
         before the marker leaves an uncommitted dir every scanner skips;
         a committed checkpoint always has a verifiable manifest."""
+        from contextlib import nullcontext
+
         from fms_fsdp_tpu_torch.ckpt.elastic import stamp_topology
 
+        obs = self.observer
         save_time = time.time()
-        save_name = os.path.join(self.ckp_path, f"step_{step}_ckp")
-        os.makedirs(save_name, exist_ok=True)
-        write_state(os.path.join(save_name, STATE_DIR), checkpoint_state(state))
-        if dataloader is not None:
-            dataloader.save_to_path(save_name)
-        if self.rank == 0:
-            metadata["step"] = step
-            stamp_topology(metadata, self.fingerprint, dataloader)
-            self.commit(save_name, metadata)
+        with obs.phase("checkpoint") if obs is not None else nullcontext():
+            save_name = os.path.join(self.ckp_path, f"step_{step}_ckp")
+            os.makedirs(save_name, exist_ok=True)
+            write_state(os.path.join(save_name, STATE_DIR), checkpoint_state(state))
+            if dataloader is not None:
+                dataloader.save_to_path(save_name)
+            if self.rank == 0:
+                metadata["step"] = step
+                stamp_topology(metadata, self.fingerprint, dataloader)
+                self.commit(save_name, metadata, step)
+        if obs is not None:
+            obs.registry.counter("checkpoint.saves").add()
+            obs.registry.hist("checkpoint.save_s").record(time.time() - save_time)
         self.report(
             f"Checkpoint saved in {save_name}",
             model_save_time=time.time() - save_time,
         )
         return self._cleanup()
 
-    def commit(self, save_name, metadata):
+    def commit(self, save_name, metadata, step, before_marker=None, **fault_ctx):
         """Commit a step dir whose payload is written: the manifest, then
-        the metadata.json marker. The one copy of the commit order, for
-        this class's save and the async manager's writer. Returns the
+        the metadata.json marker, then the corruption fault sites. The
+        one copy of the commit order, for this class's save and the async
+        manager's writer, which passes its ``ckpt_precommit_kill`` site as
+        ``before_marker`` and its tier in ``fault_ctx``. Returns the
         seconds the manifest took."""
         from fms_fsdp_tpu_torch.resilience.integrity import write_manifest
         from fms_fsdp_tpu_torch.resilience.scrub import clear_integrity_sidecars
@@ -507,9 +523,89 @@ class Checkpointer:
         t0 = time.time()
         write_manifest(save_name, full_checksums=self.full_checksums)
         manifest_s = time.time() - t0
+        if before_marker is not None:
+            before_marker()
         commit_metadata(save_name, metadata)
+        # again after the marker: on a re-commit a sweep racing the
+        # manifest hash saw the old marker with the new payload and may
+        # have quarantined the fresh dir
         clear_integrity_sidecars(save_name)
+        self._maybe_corrupt(save_name, step, **fault_ctx)
+        self._maybe_flip(save_name, step, **fault_ctx)
         return manifest_s
+
+    @staticmethod
+    def _maybe_corrupt(save_name, step, **ctx):
+        """``ckpt_corrupt`` fault site: truncate one file inside the
+        just-committed checkpoint (``file=<substring>`` selects it), the
+        torn-storage failure the load-time verification and fallback
+        chain must absorb."""
+        from fms_fsdp_tpu_torch.resilience.faults import fire_fault
+
+        params = fire_fault("ckpt_corrupt", step=step, **ctx)
+        if params is None:
+            return
+        want = str(params.get("file", ""))
+        victims = []
+        for root, _, files in os.walk(save_name):
+            for name in files:
+                full = os.path.join(root, name)
+                if want in full and os.path.getsize(full) > 0:
+                    victims.append(full)
+        victims.sort()
+        if not victims:
+            raise RuntimeError(f"ckpt_corrupt: no file matching {want!r} in {save_name}")
+        victim = victims[0]
+        size = os.path.getsize(victim)
+        with open(victim, "rb+") as f:
+            f.truncate(size // 2)
+        print(f"ckpt_corrupt fault: truncated {victim} ({size} -> {size // 2})")
+
+    @staticmethod
+    def _maybe_flip(save_name, step, **ctx):
+        """``ckpt_shard_corrupt`` fault site: flip ``bytes=N`` (default 4)
+        at the midpoint of the largest manifest-recorded file matching
+        ``file=`` of the just-committed checkpoint, its size unchanged:
+        the silent bit-rot only content checksums or the scrubber see."""
+        from fms_fsdp_tpu_torch.resilience.faults import fire_fault
+        from fms_fsdp_tpu_torch.resilience.integrity import MANIFEST_NAME
+        from fms_fsdp_tpu_torch.resilience.scrub import clear_integrity_sidecars
+
+        params = fire_fault("ckpt_shard_corrupt", step=step, **ctx)
+        if params is None:
+            return
+        want = str(params.get("file", ""))
+        try:
+            with open(os.path.join(save_name, MANIFEST_NAME)) as f:
+                recorded = json.load(f).get("files", {})
+        except (OSError, ValueError):
+            recorded = {}
+        victims = sorted(
+            ((int(size), rel) for rel, size in recorded.items()
+             if want in rel and int(size) > 0),
+            key=lambda t: (-t[0], t[1]),
+        )
+        if not victims:
+            raise RuntimeError(
+                f"ckpt_shard_corrupt: no recorded file matching {want!r} in {save_name}"
+            )
+        size, rel = victims[0]
+        victim = os.path.join(save_name, rel)
+        n = max(1, int(params.get("bytes", 4)))
+        off = size // 2
+        with open(victim, "rb+") as f:
+            f.seek(off)
+            data = f.read(min(n, size - off))
+            f.seek(off)
+            f.write(bytes(b ^ 0xFF for b in data))
+        # a sweep racing the commit may have stamped a verdict in the
+        # instant before the flip: the injected corruption must be
+        # deterministic, so this dir's verdict goes with it
+        clear_integrity_sidecars(save_name)
+        print(
+            f"ckpt_shard_corrupt fault: flipped {len(data)} byte(s) at "
+            f"offset {off} of {victim} (size {size} unchanged)"
+        )
 
     def finalize(self):
         """No-op: the synchronous save has nothing in flight when it

@@ -1,32 +1,197 @@
-"""The training hot loop.
+"""The training hot loop, its profiler, tracker and preemption guard.
 
-Counterpart of the loop of ``fms_fsdp_tpu/utils/train_utils.py:307-840``
-(``train`` / ``_train_loop``) on one card: steps until ``num_steps``,
-keeps each step's metrics as device tensors, and at every
-``report_interval`` fetches the window, feeds the non-finite flags to the
-anomaly guard and prints the reference's report lines (step, loss, LR,
-tokens seen, gradient norm, memory, step times, current and overall
-tokens per chip per second, overall tokens per day, in its order and
-with its values) plus MFU and HFU against the card's peak. It saves
-through the checkpointer at its cadence and at ``num_steps``, and after
-``anomaly_max_consecutive`` non-finite steps in a row it saves and
-aborts. The obs sinks, watchdog, preemption guard, slice monitor,
-scrubber and divergence check wait for ROADMAP.md A.12.
+Counterpart of ``fms_fsdp_tpu/utils/train_utils.py:124-824`` on one card:
+steps until ``num_steps``, keeps each step's metrics as device tensors,
+and at every ``report_interval`` fetches the window, feeds the non-finite
+flags to the anomaly guard and prints the reference's report lines
+(step, loss, LR, tokens seen, gradient norm, memory, step times, current
+and overall tokens per chip per second, overall tokens per day, in its
+order and with its values) plus MFU and HFU against the card's peak.
+
+The observability and resilience layer runs in JAX's order: the step
+watchdog, the ``slice_kill`` / ``dcn_reduce_stall`` fault sites at each
+step boundary, the observer (``data_wait`` around the batch iterator,
+``compute`` around the step and the report fetch, ``checkpoint`` inside
+saves, one schema-versioned record per report with the loader's
+``data_mix``, and the heartbeat), the checkpoint scrubber, the anomaly
+abort (save, then raise ``AnomalyAbort``: exit ``anomaly_abort`` under
+``classified_exit``), the preemption save on SIGTERM (then a clean exit)
+and the windowed ``torch.profiler`` trace. The slice health monitor and
+the cross-replica divergence compare wait for ROADMAP.md A.6: on one
+process there is nothing to compare, as in JAX.
 """
 
+import os
+import signal
 import time
+from contextlib import nullcontext
+from dataclasses import asdict
 from typing import Dict, List
 
 import torch
 
-from fms_fsdp_tpu_torch.parallel.ac import selective_ac_mask
-from fms_fsdp_tpu_torch.resilience.guards import AnomalyGuard
-from fms_fsdp_tpu_torch.models import get_model_api
-from fms_fsdp_tpu_torch.utils.flops import peak_flops_per_card, train_flops_per_token
+from fms_fsdp_tpu_torch.obs import build_observer
+from fms_fsdp_tpu_torch.obs.sinks import TrackerSink
+from fms_fsdp_tpu_torch.resilience import scrub as _scrub
+from fms_fsdp_tpu_torch.resilience.exits import EXIT_CODES
+from fms_fsdp_tpu_torch.resilience.faults import fire_fault
+from fms_fsdp_tpu_torch.resilience.guards import AnomalyGuard, StepWatchdog
+from fms_fsdp_tpu_torch.resilience.integrity import drain_integrity_events
 
 
 class AnomalyAbort(RuntimeError):
-    """The guard saw ``anomaly_max_consecutive`` non-finite steps in a row."""
+    """The guard saw ``anomaly_max_consecutive`` non-finite steps in a row
+    and the loop saved and aborted on purpose (JAX's ``DeliberateAbort``):
+    classified ``anomaly_abort`` by the entry wrapper."""
+
+
+def get_tracker(cfg, rank: int):
+    """Optional wandb/aim tracker (ref:train_utils.py:34-73). Returns a
+    log_fn(dict, step) or None."""
+    if not cfg.tracker:
+        return None
+    if cfg.tracker not in ["wandb", "aim"]:
+        raise ValueError(f"tracker {cfg.tracker} not supported.")
+    if rank != 0:
+        return None
+    if cfg.tracker == "wandb":
+        try:
+            import wandb
+        except ImportError:
+            raise ImportError("tracker is set to wandb but wandb is not installed.")
+        print("--> wandb is enabled!")
+        wandb.init(
+            project=cfg.tracker_project_name,
+            dir=cfg.tracker_dir,
+            resume="allow",
+            id=cfg.tracker_run_id,
+        )
+        wandb.config = asdict(cfg)
+        return wandb.log
+    try:
+        from aim import Run
+    except ImportError:
+        raise ImportError("tracker is set to aim but aim is not installed.")
+    print("--> aim is enabled!")
+    run = Run(
+        experiment=cfg.tracker_project_name,
+        repo=cfg.tracker_dir,
+        run_hash=cfg.tracker_run_id,
+    )
+    run["hparams"] = asdict(cfg)
+    return run.track
+
+
+class WindowedProfiler:
+    """``torch.profiler`` trace with the reference's window: skip ``wait``
+    steps, ``warmup`` more, record ``active`` steps, once
+    (ref:train_utils.py:256-271: wait=1, warmup=2, active=3, repeat=1),
+    host and card activity, written as a TensorBoard trace
+    (``*.pt.trace.json``) to ``logdir``. ``close()`` writes the trace of a
+    window an early exit left open."""
+
+    def __init__(self, logdir="profile_traces", wait=1, warmup=2, active=3,
+                 device=None):
+        from torch.profiler import (
+            ProfilerActivity,
+            profile,
+            schedule,
+            tensorboard_trace_handler,
+        )
+
+        activities = [ProfilerActivity.CPU]
+        if device is not None and torch.device(device).type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self._prof = profile(
+            activities=activities,
+            schedule=schedule(wait=wait, warmup=warmup, active=active, repeat=1),
+            on_trace_ready=tensorboard_trace_handler(logdir),
+        )
+        self._prof.start()
+        self._running = True
+
+    def step(self):
+        if self._running:
+            self._prof.step()
+
+    def close(self):
+        if self._running:
+            self._running = False
+            self._prof.stop()
+
+
+def get_profiler(cfg, rank: int, device=None):
+    if not cfg.use_profiler:
+        return None
+    if cfg.profiler_rank0_only and rank != 0:
+        return None
+    return WindowedProfiler(device=device)
+
+
+class PreemptionGuard:
+    """SIGTERM -> checkpoint at the next step boundary, then exit clean.
+
+    Preemptible capacity sends SIGTERM with a grace window before
+    teardown; the guard turns that window into an up-to-date checkpoint
+    instead of a resume from the last interval save. One process: the
+    flag is read at the boundary it arrived (JAX's cross-process
+    agreement waits for ROADMAP.md A.6)."""
+
+    def __init__(self):
+        self.triggered = False
+        self._prev = None
+
+    def install(self):
+        def handler(signum, frame):
+            self.triggered = True
+            if self._prev not in (None, signal.SIG_DFL, signal.SIG_IGN):
+                self._prev(signum, frame)
+
+        try:
+            self._prev = signal.signal(signal.SIGTERM, handler)
+        except ValueError:
+            pass  # not the main thread (tests, embedded use): no-op
+        return self
+
+    def uninstall(self):
+        """Put back the handler ``install`` replaced."""
+        if self._prev is not None:
+            try:
+                signal.signal(signal.SIGTERM, self._prev)
+            except ValueError:
+                pass
+            self._prev = None
+
+    def poll(self) -> bool:
+        return self.triggered
+
+
+def _mix_record(observer, dataloader):
+    """Per-corpus data-mix accounting for the report record (schema
+    ``data_mix``): drains the SamplingDataset's lifecycle events into the
+    registry (data.corpus_quarantined / corpus_rearmed) and reads
+    realized-vs-target token shares from the live loader. None when the
+    run has no mixing layer (dummy data, process workers)."""
+    from fms_fsdp_tpu_torch.data.loader import loader_mix_stats
+    from fms_fsdp_tpu_torch.data.streaming import drain_mix_events
+
+    for name, n in drain_mix_events().items():
+        if n:
+            observer.registry.counter(f"data.{name}").add(n)
+    mix = loader_mix_stats(dataloader) if dataloader is not None else None
+    if mix is None:
+        return None
+    total = sum(mix["tokens"].values())
+    record = {}
+    for corpus, tokens in mix["tokens"].items():
+        observer.registry.gauge(f"data.mix.{corpus}.tokens_seen").set(tokens)
+        record[f"{corpus}.tokens_seen"] = tokens
+        record[f"{corpus}.target_share"] = round(mix["weights"].get(corpus, 0.0), 6)
+        record[f"{corpus}.realized_share"] = (
+            round(tokens / total, 6) if total else 0.0
+        )
+        record[f"{corpus}.quarantined"] = 1 if corpus in mix["quarantined"] else 0
+    return record
 
 
 def _memory_stats(device):
@@ -46,38 +211,92 @@ def state_device(state) -> torch.device:
 
 def train(cfg, state, step_fn, rank, train_loader, checkpointer=None,
           start_step: int = 0, tokens_seen: int = 0, dataloader=None,
-          model_cfg=None, device=None) -> Dict:
+          model_cfg=None, device=None, profiler=None, observer=None) -> Dict:
     """Run the hot loop to ``cfg.num_steps``. Returns {"final_loss",
     "reports": one dict per report window, "skipped_batches", "steps"}.
 
     ``checkpointer`` (a ``Checkpointer`` or the tiered
     ``AsyncCheckpointManager``; None saves nothing) saves when a tier is
     due (``save_due``, or every ``checkpoint_interval`` steps for a plain
-    ``Checkpointer``) and at ``num_steps``, and on an anomaly abort, with
-    ``tokens_seen`` and ``skipped_steps`` in the metadata; a save that
-    ends the loop drains the pending report window first.
-    ``finalize()`` runs on every exit. ``dataloader`` is the stateful
-    loader whose state rides the checkpoint (the dummy stream has none).
+    ``Checkpointer``), at ``num_steps``, on a preemption and on an
+    anomaly abort, with ``tokens_seen`` and ``skipped_steps`` in the
+    metadata; a save that ends the loop drains the pending report window
+    first. ``finalize()`` runs on every exit. ``dataloader`` is the
+    stateful loader whose state rides the checkpoint (the dummy stream
+    has none).
 
     ``device`` defaults to the state's (:func:`state_device`): a window's
-    clock is read after the card has finished its steps. MFU counts the
-    model FLOPs of a step (PaLM appendix B, no remat); HFU adds the
-    recomputed forward of the layers ``selective_checkpointing``
-    rematerialises. Both are against the card's dense bf16 peak, and only
-    where the run is on a card; on the CPU they are None.
+    clock is read after the card has finished its steps. ``observer``
+    (obs/) carries the registry, phase timing, sinks and heartbeat; built
+    here from ``cfg`` when the entry passed none, and the wandb/aim
+    tracker attaches to it as a sink. MFU counts the model FLOPs of a
+    step (PaLM appendix B, no remat); HFU adds the recomputed forward of
+    the layers ``selective_checkpointing`` rematerialises. Both are
+    against the card's dense bf16 peak, and only on a card; on the CPU
+    they are None. ``profiler`` (``get_profiler``) steps after each step
+    and is closed on every exit.
     """
     device = torch.device(device) if device is not None else state_device(state)
+    tracker_fn = get_tracker(cfg, rank)
+    if observer is None:
+        observer = build_observer(cfg, rank, model_cfg=model_cfg,
+                                  tracker_fn=tracker_fn, device=device)
+    elif tracker_fn is not None:
+        observer.sinks.append(TrackerSink(tracker_fn))
+    try:
+        return _train_loop(cfg, state, step_fn, rank, train_loader, checkpointer,
+                           start_step, tokens_seen, dataloader, device, profiler,
+                           observer)
+    finally:
+        if profiler:
+            profiler.close()
+        try:
+            if checkpointer is not None:
+                # joins the in-flight writer and surfaces its error
+                checkpointer.finalize()
+        finally:
+            observer.close()
+
+
+def _train_loop(cfg, state, step_fn, rank, train_loader, checkpointer, start_step,
+                tokens_seen, dataloader, device, profiler, observer) -> Dict:
+    from fms_fsdp_tpu_torch.train.step import wrap_step_fn
+
     guard = AnomalyGuard(max_consecutive=max(1, cfg.anomaly_max_consecutive))
-    flops = hflops = peak = None
-    if model_cfg is not None and device.type == "cuda":
-        ac = 0.0
-        if cfg.fsdp_activation_checkpointing:
-            n_layers = get_model_api(model_cfg)[2]
-            mask = selective_ac_mask(n_layers, cfg.selective_checkpointing)
-            ac = sum(mask) / len(mask)
-        flops = train_flops_per_token(model_cfg, cfg.seq_length)
-        hflops = train_flops_per_token(model_cfg, cfg.seq_length, ac)
-        peak = peak_flops_per_card(torch.cuda.get_device_name(device))
+    preemption = PreemptionGuard().install()
+    watchdog = None
+    if cfg.step_timeout_s > 0:
+        hb = observer.heartbeat.path if observer.heartbeat else None
+        # rank is passed in: the watchdog's thread asks no library for it
+        watchdog = StepWatchdog(cfg.step_timeout_s, heartbeat_path=hb,
+                                process_index=rank).start()
+
+    train_loader = observer.wrap_data_iter(train_loader)
+    step_fn = wrap_step_fn(step_fn, observer.timer)
+    if checkpointer is not None:
+        checkpointer.observer = observer
+
+    # the background scrubber re-verifies every tier's committed
+    # checkpoints at its cadence, on rank 0 (the sidecars' one writer)
+    scrubber = None
+    if cfg.scrub_interval_steps > 0 and rank == 0 and checkpointer is not None:
+        roots = _scrub.scrub_roots(checkpointer)
+        if roots:
+            scrubber = _scrub.CheckpointScrubber(roots, cfg.scrub_interval_steps)
+
+    def _integrity_stats():
+        # drained on the main thread at report cadence; detections become
+        # registry counters so they land in this record's extras
+        ev = drain_integrity_events()
+        if ev.get("shard_corrupt_detected"):
+            observer.registry.counter("integrity.shard_corrupt_detected").add(
+                int(ev["shard_corrupt_detected"]))
+        # one process: no cross-replica compare (divergence_checks 0)
+        return {"verify_s": float(ev.get("verify_s", 0.0)),
+                "scrub_verified": _scrub.total_verified(), "divergence_checks": 0}
+
+    observer.attach_integrity_stats(_integrity_stats)
+
     tokens_per_step = cfg.batch_size * cfg.seq_length
     window: List[Dict] = []
     reports: List[Dict] = []
@@ -90,14 +309,20 @@ def train(cfg, state, step_fn, rank, train_loader, checkpointer=None,
         nonlocal window, start, train_loss, g_norm
         if not window:
             return
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        fetched = [{k: float(v) for k, v in m.items()} for m in window]
+        # the report's one host sync: where a wedged card shows, so the
+        # watchdog's timeout must cover a whole report window of steps
+        with observer.phase("compute"):
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            fetched = [{k: float(v) for k, v in m.items()} for m in window]
+        if watchdog:
+            watchdog.beat()
         window = []
         flags = [m["nonfinite"] for m in fetched]
         window_skips = guard.observe(flags)
         good = [m for m, f in zip(fetched, flags) if not f]
-        if good:
+        poisoned = not good
+        if not poisoned:
             train_loss = sum(m["loss"] for m in good) / len(good)
             g_norm = sum(m["gnorm"] for m in good) / len(good)
         now = time.time()
@@ -105,12 +330,33 @@ def train(cfg, state, step_fn, rank, train_loader, checkpointer=None,
         new_tokens = (step - start_step) * tokens_per_step
         # the record's rates use the window's true step count; the printed
         # current step time keeps JAX's fixed divisor at a report boundary
-        step_time = (now - start) / len(fetched)
+        step_time = max(1e-9, now - start) / len(fetched)
         printed_step_time = (now - start) / (len(fetched) if drain else cfg.report_interval)
         overall_step_time = elapsed / max(1, step - start_step)
         throughput = tokens_per_step / step_time
         overall_throughput = tokens_per_step / overall_step_time
         reserved, allocated, peak_alloc = _memory_stats(device)
+        extra = {"window_poisoned": 1} if poisoned else {}
+        report_start = time.perf_counter()
+        obs_record = observer.report(
+            step, len(fetched),
+            loss=float("nan") if poisoned else train_loss,
+            grad_norm=float("nan") if poisoned else g_norm,
+            learning_rate=fetched[-1]["lr"],
+            tokens_seen=tokens_seen + new_tokens,
+            tokens_per_sec_per_chip=throughput,
+            tokens_per_sec_per_chip_overall=int(overall_throughput),
+            step_time_s=step_time,
+            skipped_steps_total=guard.skipped_batches,
+            skipped_steps_window=window_skips,
+            memory_reserved_bytes=reserved,
+            memory_allocated_bytes=allocated,
+            data_mix=_mix_record(observer, dataloader),
+            extra=extra,
+        )
+        # the observer's own host time (record, sinks, heartbeat): in the
+        # next record's extras, the layer's cost
+        observer.registry.gauge("obs.report_s").set(time.perf_counter() - report_start)
         record = {
             "step": step, "loss": train_loss, "lr": fetched[-1]["lr"],
             "tokens_seen": tokens_seen + new_tokens,
@@ -118,8 +364,7 @@ def train(cfg, state, step_fn, rank, train_loader, checkpointer=None,
             "step_time_s": step_time, "overall_step_time_s": overall_step_time,
             "tokens_per_card_per_s": throughput,
             "overall_tokens_per_card_per_s": overall_throughput,
-            "mfu": flops * throughput / peak if flops else None,
-            "hfu": hflops * throughput / peak if hflops else None,
+            "mfu": obs_record["mfu"], "hfu": obs_record["hfu"],
             "memory_reserved_bytes": reserved,
             "memory_allocated_bytes": allocated,
             "max_memory_allocated_bytes": peak_alloc,
@@ -128,7 +373,7 @@ def train(cfg, state, step_fn, rank, train_loader, checkpointer=None,
         }
         reports.append(record)
         if rank == 0:
-            if not good:
+            if poisoned:
                 print(f"report window poisoned: all {len(fetched)} step(s) "
                       f"non-finite; carrying last clean loss")
             print("step:", step)
@@ -143,29 +388,43 @@ def train(cfg, state, step_fn, rank, train_loader, checkpointer=None,
             print("current token per chip per sec:", int(tokens_per_step / printed_step_time))
             print("overall token per chip per sec:", int(overall_throughput))
             print("overall token per day:", int(new_tokens / elapsed * 86400))
-            if flops:
+            if record["mfu"] is not None:
                 print("MFU:", record["mfu"])
                 print("HFU:", record["hfu"])
             if guard.skipped_batches:
                 print("skipped batches:", guard.skipped_batches)
         start = time.time()
 
-    def global_tokens(step):
-        return tokens_seen + (step - start_step) * tokens_per_step
-
     def save(step, reason):
-        checkpointer.save(step, state, dataloader, reason=reason,
-                          tokens_seen=global_tokens(step),
-                          skipped_steps=guard.skipped_batches)
+        # a healthy save must not be judged by a timeout sized for steps
+        with watchdog.paused() if watchdog else nullcontext():
+            checkpointer.save(step, state, dataloader, reason=reason,
+                              tokens_seen=tokens_seen + (step - start_step) * tokens_per_step,
+                              skipped_steps=guard.skipped_batches)
 
     try:
         for step, batch in enumerate(train_loader, start=start_step + 1):
             if step > cfg.num_steps:
                 step -= 1  # this batch was never trained on
                 break
+            if watchdog:
+                watchdog.beat()
+            # step-boundary fault sites: on one process a slice kill ends
+            # this process, a wedged reduce parks it for the watchdog
+            kill = fire_fault("slice_kill", step=step, slice=0)
+            if kill is not None:
+                os._exit(int(kill.get("code", EXIT_CODES["injected_kill"])))
+            stall = fire_fault("dcn_reduce_stall", step=step, slice=0)
+            if stall is not None:
+                time.sleep(float(stall.get("seconds", 3600)))
             window.append(step_fn(state, batch))
+            if profiler:
+                profiler.step()
             if step % cfg.report_interval == 0:
                 flush(step)
+                if scrubber is not None:
+                    # a cadence check; the sweep runs on its own thread
+                    scrubber.maybe_scrub(step)
                 if guard.should_abort():
                     # params are the last good ones (flagged updates never
                     # landed): save them, then abort loudly
@@ -173,26 +432,35 @@ def train(cfg, state, step_fn, rank, train_loader, checkpointer=None,
                         save(step, "abort")
                     raise AnomalyAbort(
                         f"anomaly guard: {guard.consecutive} consecutive non-finite "
-                        f"steps (threshold {guard.max_consecutive}) at step {step}"
+                        f"steps (threshold {guard.max_consecutive}); checkpoint "
+                        f"saved at step {step}, aborting"
                     )
-            if checkpointer is None:
-                continue
-            interval_due = (
-                checkpointer.save_due(step)
-                if hasattr(checkpointer, "save_due")
-                else step % cfg.checkpoint_interval == 0
-            )
-            if interval_due or step == cfg.num_steps:
-                reason = "final" if step == cfg.num_steps else "interval"
-                if reason != "interval":
-                    # the loop is about to exit: the guard's totals stamped
-                    # into the metadata must cover the tail steps
-                    flush(step, drain=True)
-                save(step, reason)
+            preempt_now = preemption.poll()
+            if checkpointer is not None:
+                interval_due = (
+                    checkpointer.save_due(step)
+                    if hasattr(checkpointer, "save_due")
+                    else step % cfg.checkpoint_interval == 0
+                )
+                if interval_due or step == cfg.num_steps or preempt_now:
+                    reason = ("preempt" if preempt_now else
+                              "final" if step == cfg.num_steps else "interval")
+                    if reason != "interval":
+                        # the loop is about to exit: the guard's totals
+                        # stamped into the metadata must cover the tail
+                        flush(step, drain=True)
+                    save(step, reason)
+            if preempt_now:
+                if rank == 0:
+                    print(f"preemption signal received: checkpoint saved at "
+                          f"step {step}, exiting clean")
+                break
         flush(step, drain=True)
     finally:
-        if checkpointer is not None:
-            # joins the in-flight writer and surfaces its error
-            checkpointer.finalize()
+        preemption.uninstall()
+        if watchdog:
+            watchdog.stop()
+        if scrubber is not None:
+            scrubber.stop()
     return {"final_loss": train_loss, "reports": reports,
             "skipped_batches": guard.skipped_batches, "steps": step - start_step}

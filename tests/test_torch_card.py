@@ -831,3 +831,101 @@ def test_card_trainer_with_process_workers_saves_and_resumes(cuda_device, tmp_pa
     assert second["start_step"] == 6 and "Dataset checkpoint loaded" in out
     assert all(np.isfinite(r["loss"]) for r in second["reports"])
     assert multiprocessing.active_children() == []
+
+
+# ---------------------------------------------------------------------------
+# the trainer's observability and resilience layer on the card
+# ---------------------------------------------------------------------------
+
+# a tiny Llama whose heads (128 wide) the flash kernels take
+_CARD_TINY = {"model_variant": "llama2_7b", "LlamaConfig.nlayers": 2,
+              "LlamaConfig.emb_dim": 256, "LlamaConfig.nheads": 2,
+              "LlamaConfig.kvheads": 1, "LlamaConfig.src_vocab_size": 256,
+              "vocab_size": 256, "seq_length": 128, "batch_size": 2,
+              "use_dummy_dataset": True}
+
+
+@pytest.mark.card
+def test_card_profiler_trace_names_the_flash_kernels(cuda_device, tmp_path, monkeypatch):
+    """use_profiler on the card: the windowed torch.profiler trace (steps
+    4-6) lands in profile_traces/ and names the three flash kernels as
+    CUPTI records them from the ctypes launches, and the train step's
+    fwd_bwd scope."""
+    import json
+    import os
+
+    from fms_fsdp_tpu_torch.main_training_llama import main
+
+    monkeypatch.chdir(tmp_path)
+    ck = str(tmp_path / "ck")
+    main(device=cuda_device, num_steps=7, report_interval=7, use_profiler=True,
+         ckpt_save_path=ck, ckpt_load_path=ck, **_CARD_TINY)
+    traces = os.listdir(tmp_path / "profile_traces")
+    assert len(traces) == 1 and traces[0].endswith(".pt.trace.json")
+    with open(tmp_path / "profile_traces" / traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    for sym in ("flash_fwd_kernel_sm90", "flash_dq_kernel_sm90", "flash_dkv_kernel_sm90"):
+        assert any(sym in k for k in kernels), sym
+    assert "fwd_bwd" in {e["name"] for e in events if e.get("cat") == "user_annotation"}
+
+
+@pytest.mark.card
+def test_card_watchdog_fires_on_a_parked_step_without_touching_cuda(cuda_device, tmp_path):
+    """The Llama entry on the card with a dcn_reduce_stall parking step 3:
+    the watchdog exits 2 with its stall report quoting the heartbeat, and
+    no frame of torch.cuda ever runs on its thread (a trace function on
+    every thread started after the entry's import says so)."""
+    import os
+    import subprocess
+    import sys
+
+    from fms_fsdp_tpu_torch.ops import cuda_build
+
+    # built here, so no step of the child carries nvcc under the watchdog
+    for name in ("flash_fwd_sm90", "flash_bwd_sm90"):
+        cuda_build.compile_source(name)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    obs = str(tmp_path / "obs")
+    code = (
+        "import sys, threading\n"
+        "from fms_fsdp_tpu_torch.main_training_llama import main\n"
+        "def tracer(frame, event, arg):\n"
+        "    if (threading.current_thread().name == 'step-watchdog'\n"
+        "            and 'torch' in frame.f_code.co_filename\n"
+        "            and 'cuda' in frame.f_code.co_filename):\n"
+        "        sys.stderr.write('WATCHDOG THREAD RAN ' + frame.f_code.co_filename + '\\n')\n"
+        "threading.settrace(tracer)\n"
+        f"main(num_steps=6, report_interval=1, step_timeout_s=10.0, obs_dir={obs!r},\n"
+        "     faults='dcn_reduce_stall:step=3:seconds=120',\n"
+        f"     ckpt_save_path={str(tmp_path / 'ck')!r}, ckpt_load_path={str(tmp_path / 'ck')!r},\n"
+        f"     **{_CARD_TINY!r})\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True,
+                          text=True, timeout=240,
+                          env=dict(os.environ, PYTHONPATH=repo))
+    assert proc.returncode == 2, proc.stdout[-2000:] + proc.stderr[-4000:]
+    assert "step watchdog [proc 0]: no training progress" in proc.stderr
+    assert "'step': 2" in proc.stderr  # the heartbeat it quotes: step 2's report
+    assert "WATCHDOG THREAD RAN" not in proc.stderr
+
+
+@pytest.mark.card
+def test_card_observer_mfu_uses_the_cards_peak(cuda_device):
+    from fms_fsdp_tpu_torch.config import TrainConfig
+    from fms_fsdp_tpu_torch.obs import build_observer
+    from fms_fsdp_tpu_torch.utils.config_utils import get_model_config, update_config
+    from fms_fsdp_tpu_torch.utils.flops import peak_flops_per_card, train_flops_per_token
+
+    cfg = TrainConfig(seq_length=4096, fsdp_activation_checkpointing=True,
+                      selective_checkpointing=0.5)
+    model_cfg = get_model_config("llama3_8b_4k")
+    update_config(model_cfg, **{"LlamaConfig.nlayers": 8})
+    obs = build_observer(cfg, 0, model_cfg=model_cfg, device=cuda_device)
+    peak = peak_flops_per_card(torch.cuda.get_device_name(cuda_device))
+    assert obs.peak_flops == peak
+    rec = obs.report(4, 4, loss=1.0, tokens_per_sec_per_chip=20000.0)
+    flops = train_flops_per_token(model_cfg, 4096)
+    assert rec["mfu"] == pytest.approx(20000.0 * flops / peak, rel=1e-12)
+    assert rec["hfu"] == pytest.approx(20000.0 * train_flops_per_token(model_cfg, 4096, 0.5)
+                                       / peak, rel=1e-12)

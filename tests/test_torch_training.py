@@ -384,9 +384,9 @@ def test_entry_needs_a_card_unless_cpu():
     ({"tensor_parallel_size": 2}, "A.6"),
     ({"context_parallel_size": 2}, "A.8"),
     ({"expert_parallel_size": 2}, "A.4"),
-    ({"step_timeout_s": 30.0}, "A.12"),
-    ({"obs_dir": "obs"}, "A.12"),
-    ({"faults": "shard_read"}, "A.12"),
+    ({"faults": "sdc_grad_flip:step=2"}, "A.6"),
+    ({"faults": "replica_kill"}, "A.10"),
+    ({"num_slices": 2}, "A.6"),
     ({"model_variant": "mamba_9.8b", "quantized_matmuls": "int8"}, "A.7"),
     ({"model_variant": "mixtral_8x7b"}, "A.4"),
 ])
