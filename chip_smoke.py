@@ -58,10 +58,13 @@ Phases, one JSON line each; any failure exits non-zero:
    == steps x (layers + rematerialised layers) forward and steps x layers
    dq and dk/dv; tokens per card per second, MFU/HFU, peak memory and a
    profile of one step. Every trainer phase writes its final save (the
-   one at ``num_steps``) to a fresh checkpoint root in memory (see
+   one at ``num_steps``; its manifest records sizes, the phase deletes it
+   unread) to a fresh checkpoint root in memory (see
    ``_ckpt_dir``) and prints its blocking snapshot (ms), its background
    commit, payload write and manifest hashing (s), its bytes and GB/s,
-   then deletes the root.
+   then deletes the root. Every trainer phase runs through the mesh
+   (``parallel/mesh.py``) and an NCCL process group of one, with no
+   sharded state (checked and printed as ``process_group``).
 8. loader — the streaming loader alone, host plus the copy to the card
    (no model): a corpus of two 8-shard corpora (about 100M llama3 token
    ids, document lengths log-uniform over 64-16,384) written into the
@@ -105,7 +108,7 @@ Phases, one JSON line each; any failure exits non-zero:
 10. supervise — ``python -m fms_fsdp_tpu_torch.resilience.supervisor``
    over ``python -m fms_fsdp_tpu_torch.main_training_llama`` on the card
    (``SUPERVISE_KW``: llama3_8b_4k width, 2 layers, seq 4096, batch 2, AC
-   1/2, bfSixteen, dummy data, 10 steps, reports every 2, saves every 4,
+   1/2, bf16 params and moments, dummy data, 10 steps, reports every 2, saves every 4,
    metrics.jsonl/csv and the heartbeat, the profiler, the watchdog, the
    scrubber every 4 steps), with ``FMS_FAULTS`` poisoning steps 7-8 and
    flipping 4 bytes of the step-4 save. Checks, one line each: the ledger
@@ -120,11 +123,24 @@ Phases, one JSON line each; any failure exits non-zero:
    ``flash_dq_kernel_sm90``, ``flash_dkv_kernel_sm90`` and the
    ``fwd_bwd`` scope; then each incarnation's wall, steps, tokens per
    card per second, the observer's ms per report and the downtime.
-11. train-kvgrid — the same trainer for one step with
+11. shard — the data-parallel entry on one card (``SHARD_KW``:
+   llama3_8b_4k at full width, 2 layers, bf16 params and moments, 3
+   steps): ``python -m fms_fsdp_tpu_torch.main_training_llama
+   --sharding_strategy=hsdp`` as a child under torchrun's environment
+   (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT: so
+   ``cuda:LOCAL_RANK`` and an NCCL group from ``env://``; the mesh all
+   ones), then ``main`` in this process under ddp and under fsdp: the
+   three losses within ``SHARD_REL_TOL`` of each other; the hsdp run's
+   DCP checkpoint committed (metadata, ``.metadata``, a world of one in
+   its topology); this process resumes it to step 9 with the profiler
+   on (steps 7-9 recorded): its steps continue at 4 and its trace holds
+   no NCCL kernel (a world of one runs no collective on the step), with
+   the kernels' and the NCCL kernels' ms per step.
+12. train-kvgrid — the same trainer at 2 layers for one step with
    ``flash_kernel_variant="kvgrid"``, so the launches of the kv-streamed
    contracts are counted on the main path too.
 
-12. ssd    — the fused SSD scan kernels (``ssd_sm90.cu`` for bf16,
+13. ssd    — the fused SSD scan kernels (``ssd_sm90.cu`` for bf16,
    ``ssd.cu`` for fp32) against their plain version at the
    Mamba training shape (B=2, S=4096, H=128, P=64, G=1, N=128, L=256), at
    G=8 and at S=L (one chunk), bf16 and fp32, dt and A in the ranges of
@@ -140,7 +156,7 @@ Phases, one JSON line each; any failure exits non-zero:
    whole ``ssd_scan`` through the kernel and through the chunked einsums,
    the bound, and the other pieces of a Mamba layer at that shape (the
    scan's einsum backward, the conv forward and backward).
-13. train-mamba — ``fms_fsdp_tpu_torch.main_training_mamba.main`` at
+14. train-mamba — ``fms_fsdp_tpu_torch.main_training_mamba.main`` at
    mamba_9.8b width, 6 layers with attention at layer 3, seq 4096, batch
    2, selective AC 1/2, 16 steps (over the first 8 the loss of this
    model only wobbles, through the kernel and through the einsums alike):
@@ -148,7 +164,7 @@ Phases, one JSON line each; any failure exits non-zero:
    SSD launches == steps x (Mamba layers + rematerialised Mamba layers),
    flash launches == the one attention layer's; tokens per card per
    second, MFU/HFU, peak memory and a profile of one step.
-14. serve-mamba — ``ServingEngine`` on mamba_9.8b at full width and depth
+15. serve-mamba — ``ServingEngine`` on mamba_9.8b at full width and depth
    (32 layers, 3 of them attention; random bf16 weights), 8 requests of
    16-128 prompt tokens and 32 new tokens each: all complete, finite
    logits, a constant ``state_bytes_per_stream``, slab slices zero after
@@ -179,7 +195,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "serve", "serve-int8", "flash", "train",
-          "loader", "resume", "supervise", "train-kvgrid", "ssd", "train-mamba",
+          "loader", "resume", "supervise", "shard", "train-kvgrid", "ssd", "train-mamba",
           "serve-mamba")
 
 # llama3_8b decode shapes of the kernel phase
@@ -1141,13 +1157,17 @@ def _train(state, phase, overrides, expect, main=None, base=None, profile=False)
 
     from fms_fsdp_tpu_torch.ops import flash_attention as fa
     from fms_fsdp_tpu_torch.ops import ssd
+    from fms_fsdp_tpu_torch.parallel.mesh import axis_sizes
 
     if main is None:
         from fms_fsdp_tpu_torch.main_training_llama import main
 
     ckpt_dir = _ckpt_dir(phase)
+    # the final save is deleted unread: its manifest records sizes, not
+    # content hashes (the resume and supervise phases verify content)
     kw = dict(TRAIN_KW if base is None else base, **overrides,
-              ckpt_save_path=ckpt_dir, ckpt_load_path=ckpt_dir)
+              ckpt_save_path=ckpt_dir, ckpt_load_path=ckpt_dir,
+              ckpt_full_checksums=False)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1160,6 +1180,9 @@ def _train(state, phase, overrides, expect, main=None, base=None, profile=False)
     launches = dict(fa.LAUNCHES, ssd_fused=ssd.LAUNCHES["fused"])
     peak = torch.cuda.max_memory_allocated()
     reports = res["reports"]
+    group = {"backend": torch.distributed.get_backend(),
+             "world": torch.distributed.get_world_size(),
+             "mesh": axis_sizes(res["mesh"]), "sharded": res["state"]["dp"] is not None}
     want = {"ssd_fused": 0, **expect(res["model_cfg"], res["cfg"], res["steps"])}
     losses = [r["loss"] for r in reports]
     last = reports[-1]
@@ -1173,9 +1196,11 @@ def _train(state, phase, overrides, expect, main=None, base=None, profile=False)
         mfu=last["mfu"], hfu=last["hfu"], peak_flops=989e12,
         skipped_batches=res["skipped_batches"], launches=launches,
         expected_launches=want, max_memory_allocated=peak,
-        final_save=_save_rows(saves), nvidia_smi=state["smi"],
+        final_save=_save_rows(saves), process_group=group, nvidia_smi=state["smi"],
     )
     problems = []
+    if group["backend"] != "nccl" or group["world"] != 1 or group["sharded"]:
+        problems.append(f"process group {group}: an NCCL world of one, no sharded state")
     if [(r["step"], r["reason"], r["tier"]) for r in saves] != [
             (res["steps"], "final", "durable")]:
         problems.append(f"saves {_save_rows(saves)}: one final save at num_steps expected")
@@ -1287,11 +1312,12 @@ def phase_train_kvgrid(state):
         return {"fwd": 0, "fwd_kvgrid": steps * (n + _n_remat(m, cfg)),
                 "dq": 0, "dq_kvgrid": steps * n, "dkv": steps * n}
 
-    # one step: the kernels are those of the train phase, and the flash
-    # phase holds them against their plain versions at S=16384; this run
-    # counts the kv-streamed contracts' launches on the main path
+    # one step at 2 layers: the kernels are those of the train phase, and
+    # the flash phase holds them against their plain versions at S=16384;
+    # this run counts the kv-streamed contracts' launches on the main path
     _train(state, "train-kvgrid",
-           {"flash_kernel_variant": "kvgrid", "num_steps": 1, "report_interval": 1},
+           {"flash_kernel_variant": "kvgrid", "num_steps": 1, "report_interval": 1,
+            "LlamaConfig.nlayers": 2},
            expect)
 
 # ---------------------------------------------------------------------------
@@ -1875,8 +1901,12 @@ def phase_resume(state):
 # the supervised trainer: observability and resilience end to end
 # ---------------------------------------------------------------------------
 
-# llama3_8b_4k at full width and the resume phase's 2 layers (17.8 GB a
-# checkpoint), run as `python -m` children of the supervisor. Steps 7 and
+# llama3_8b_4k at full width and the resume phase's 2 layers, bf16 params
+# and moments (``pure_bf16``: 8.9 GB a checkpoint, half of bfSixteen's, so
+# the three saves and the load of the relaunch cost half the time; what
+# the phase measures, the restart's classes, downtime and the observer's
+# cost, does not depend on the bytes), run as `python -m` children of the
+# supervisor. Steps 7 and
 # 8 are poisoned (state steps 6-7), so the first incarnation aborts at its
 # step-8 report after its abort save and the second, resumed at 8, outlives
 # the window; the interval save at 4 gets 4 bytes flipped, and the second
@@ -1887,7 +1917,7 @@ SUPERVISE_KW = {
     "selective_checkpointing": 0.5, "use_dummy_dataset": True, "num_steps": 10,
     "report_interval": 2, "checkpoint_interval": 4, "ckpt_keep": 3,
     "anomaly_max_consecutive": 2, "obs_sinks": "jsonl,csv", "obs_strict_schema": True,
-    "use_profiler": True, "scrub_interval_steps": 4,
+    "use_profiler": True, "scrub_interval_steps": 4, "pure_bf16": True,
     # a healthy step is ~0.2 s and the report fetch one step; saves run with
     # the watchdog paused; the profiler's trace export (seconds) lands
     # between two beats: 120 s trips only on a wedged step
@@ -2088,6 +2118,146 @@ def phase_supervise(state):
     shutil.rmtree(root)
     if problems:
         raise AssertionError("supervise: " + "; ".join(problems))
+
+
+# ---------------------------------------------------------------------------
+# the data-parallel entry: ddp, fsdp and hsdp through the mesh on one card
+# ---------------------------------------------------------------------------
+
+# llama3_8b_4k at full width, 2 layers, bf16 params and moments
+# (``pure_bf16``: 8.9 GB a checkpoint), 3 steps a strategy; the two
+# in-process runs skip the manifest's content hashes (their roots are
+# deleted unread), so the phase's four saves cost about 40 s
+SHARD_KW = {
+    "model_variant": "llama3_8b_4k", "LlamaConfig.nlayers": 2, "seq_length": 4096,
+    "batch_size": 2, "vocab_size": 128256, "fsdp_activation_checkpointing": True,
+    "selective_checkpointing": 0.5, "use_dummy_dataset": True, "num_steps": 3,
+    "report_interval": 1, "checkpoint_interval": 1000, "pure_bf16": True,
+}
+# the resume trains steps 4-9; the profiler's window (wait 1, warmup 2,
+# active 3) records steps 7-9
+SHARD_RESUME_STEPS = 9
+SHARD_REL_TOL = 1e-2  # bf16: the strategies' losses, relative
+SHARD_TIMEOUT_S = 300
+
+
+def _report_values(out, label):
+    return [float(ln.split(":", 1)[1]) for ln in out.splitlines() if ln.startswith(label)]
+
+
+def _torchrun_env():
+    """torchrun's environment for rank 0 of a world of one on this host."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    return dict(os.environ, PYTHONPATH=REPO, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+
+
+def phase_shard(state):
+    """``python -m fms_fsdp_tpu_torch.main_training_llama
+    --sharding_strategy=hsdp`` as a child under torchrun's environment
+    (``cuda:LOCAL_RANK``, an NCCL group from ``env://``), the same run in
+    this process under ddp and fsdp, the three losses held together;
+    then this process resumes the hsdp run's DCP checkpoint, profiled:
+    its NCCL kernels per step."""
+    import torch
+
+    from fms_fsdp_tpu_torch.main_training_llama import main
+
+    gc.collect()
+    torch._C._host_emptyCache()
+    result, problems = {"config": SHARD_KW, "nvidia_smi": state["smi"]}, []
+    root = _ckpt_dir("shard")
+    ckpt = os.path.join(root, "hsdp")
+    kw = dict(SHARD_KW, sharding_strategy="hsdp", ckpt_save_path=ckpt, ckpt_load_path=ckpt)
+    argv = [sys.executable, "-u", "-m", "fms_fsdp_tpu_torch.main_training_llama",
+            *(f"--{k}={v}" for k, v in kw.items())]
+    log = os.path.join(root, "child.log")
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        rc = _run_group(argv, SHARD_TIMEOUT_S, cwd=root, stdout=f, stderr=subprocess.STDOUT,
+                        env=_torchrun_env())
+    with open(log) as f:
+        out = f.read()
+    losses = {"hsdp": _report_values(out, "loss:")}
+    mesh_line = next((ln for ln in out.splitlines() if ln.startswith("Sharding strategy")), "")
+    result["hsdp"] = {"exit": rc, "wall_s": time.perf_counter() - t0, "mesh": mesh_line,
+                      "tokens_per_card_per_s": _report_values(out, "current token per chip per sec:")}
+    if rc != 0 or len(losses["hsdp"]) != SHARD_KW["num_steps"]:
+        raise AssertionError(f"shard: the hsdp child exited {rc}:\n{out[-3000:]}")
+    if "'replica': 1, 'fsdp': 1" not in mesh_line:
+        problems.append(f"hsdp mesh on one card: {mesh_line}")
+    for strategy in ("ddp", "fsdp"):
+        d = _ckpt_dir(f"shard-{strategy}")
+        t0 = time.perf_counter()
+        res = main(**dict(SHARD_KW, sharding_strategy=strategy, ckpt_save_path=d,
+                          ckpt_load_path=d, ckpt_full_checksums=False))
+        losses[strategy] = [r["loss"] for r in res["reports"]]
+        result[strategy] = {"wall_s": time.perf_counter() - t0,
+                            "backend": torch.distributed.get_backend(),
+                            "final_save": _save_rows(res["checkpointer"].save_log)}
+        del res
+        shutil.rmtree(d)
+        gc.collect()
+        torch._C._host_emptyCache()
+    ref = losses["hsdp"]
+    spread = max(abs(a - b) / abs(b) for name in ("ddp", "fsdp")
+                 for a, b in zip(losses[name], ref))
+    result.update(losses=losses, max_rel_spread=spread)
+    if not all(math.isfinite(x) for v in losses.values() for x in v) or spread > SHARD_REL_TOL:
+        problems.append(f"losses across strategies {losses} (spread {spread})")
+
+    step_dir = os.path.join(ckpt, "checkpoints", f"step_{SHARD_KW['num_steps']}_ckp")
+    with open(os.path.join(step_dir, "metadata.json")) as f:
+        meta = json.load(f)
+    payload = sorted(os.listdir(os.path.join(step_dir, "state")))
+    result["checkpoint"] = {"step": meta["step"], "topology": meta["topology"],
+                            "payload_files": payload}
+    if meta["topology"]["process_count"] != 1 or ".metadata" not in payload:
+        problems.append(f"the hsdp checkpoint: {result['checkpoint']}")
+
+    # the resume, in this process; the profiler writes profile_traces/
+    # under the working directory
+    t0 = time.perf_counter()
+    here = os.getcwd()
+    os.chdir(root)
+    try:
+        res = main(**dict(kw, num_steps=SHARD_RESUME_STEPS, use_profiler=True))
+    finally:
+        os.chdir(here)
+    steps = [r["step"] for r in res["reports"]]
+    result["resume"] = {"wall_s": time.perf_counter() - t0, "start_step": res["start_step"],
+                        "steps": steps, "losses": [r["loss"] for r in res["reports"]],
+                        "final_save": _save_rows(res["checkpointer"].save_log)}
+    del res
+    if steps != list(range(SHARD_KW["num_steps"] + 1, SHARD_RESUME_STEPS + 1)):
+        problems.append(f"the resume's steps {steps}")
+    traces = sorted(os.path.join(root, "profile_traces", f)
+                    for f in os.listdir(os.path.join(root, "profile_traces")))
+    with open(traces[0]) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    nccl = [e for e in kernels if "nccl" in e.get("name", "").lower()]
+    active = 3
+    result["resume"].update(
+        kernels_per_step=len(kernels) / active,
+        device_ms_per_step=sum(e.get("dur", 0) for e in kernels) / 1e3 / active,
+        nccl_kernels_per_step=len(nccl) / active,
+        nccl_ms_per_step=sum(e.get("dur", 0) for e in nccl) / 1e3 / active)
+    if nccl:
+        problems.append(f"{len(nccl)} NCCL kernels on a world of one's step")
+    if not kernels:
+        problems.append("the resume's trace holds no device kernel")
+    emit("shard", **result)
+    state["shard"] = result
+    shutil.rmtree(root)
+    gc.collect()
+    torch._C._host_emptyCache()
+    if problems:
+        raise AssertionError("shard: " + "; ".join(problems))
 
 
 # ---------------------------------------------------------------------------
@@ -2529,7 +2699,7 @@ def main(argv=None) -> int:
         "kernels": phase_kernels, "serve": phase_serve,
         "serve-int8": phase_serve_int8, "flash": phase_flash,
         "train": phase_train, "loader": phase_loader, "resume": phase_resume,
-        "supervise": phase_supervise,
+        "supervise": phase_supervise, "shard": phase_shard,
         "train-kvgrid": phase_train_kvgrid,
         "ssd": phase_ssd, "train-mamba": phase_train_mamba,
         "serve-mamba": phase_serve_mamba,

@@ -19,8 +19,8 @@ code): changing it without bumping ``TOPOLOGY_VERSION`` changes
 
 Policy: the *global* batch is preserved across a rescale; a rescale that
 cannot preserve it, or an explicit batch/seq change, is a hard error
-unless ``--allow_batch_change=True``. Until ROADMAP.md A.6 the port's
-world is one process on one device and one slice.
+unless ``--allow_batch_change=True``. The port's world is one device
+per process and one slice (multi-slice is ROADMAP.md A.6b).
 """
 
 import hashlib
@@ -133,14 +133,15 @@ def current_fingerprint(
     cfg, process_count: Optional[int] = None, device_count: Optional[int] = None
 ) -> Dict[str, int]:
     """The live world's topology fingerprint, from TrainConfig and the
-    world the run trains on. Until ROADMAP.md A.6 that is one process
-    driving one device, as ``torch.cuda.device_count()`` reads on one
-    card, and one slice. ``loader_files`` is the EXPECTED per-rank loader
-    state count (process_count x num_workers; 0 when the run has no
-    stateful loader): the save path substitutes 0 when no dataloader
-    actually rides along."""
-    pc = 1 if process_count is None else int(process_count)
-    dc = 1 if device_count is None else int(device_count)
+    world the run trains on: the process group's size (1 without one),
+    one device per process, one slice. ``loader_files`` is the EXPECTED
+    per-rank loader state count (process_count x num_workers; 0 when the
+    run has no stateful loader): the save path substitutes 0 when no
+    dataloader actually rides along."""
+    from fms_fsdp_tpu_torch.utils.dist import world_size
+
+    pc = world_size() if process_count is None else int(process_count)
+    dc = pc if device_count is None else int(device_count)
     data_extent = data_parallel_rows_extent(cfg, dc)
     stateful_loader = not bool(getattr(cfg, "use_dummy_dataset", False))
     workers = max(1, int(getattr(cfg, "num_workers", 1) or 1))

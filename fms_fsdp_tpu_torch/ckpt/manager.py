@@ -29,6 +29,13 @@ retention and a *durable* tier saved sparsely, each backed by its own
 newest step first, and walks the manifest-verified fallback chain across
 them.
 
+Across processes every rank snapshots and writes its own parts (DCP over
+the writer's gloo group, ``utils/dist.py::aux_group("writer")``, from each
+rank's writer thread), the writers meet at a barrier on that group, and rank 0 alone
+writes the manifest and the commit marker and collects old saves; rank
+0's merged candidate list is broadcast before a load or a resume-topology
+scan, so every rank walks the same chain.
+
 Fault sites (resilience/faults.py), at the JAX manager's points of the
 save: ``ckpt_writer_crash`` raises in the writer after the payload write
 (the error surfaces in the next ``save``/``finalize``);
@@ -54,9 +61,11 @@ from fms_fsdp_tpu_torch.ckpt.state import checkpoint_state, snapshot
 from fms_fsdp_tpu_torch.utils.checkpointing import (
     STATE_DIR,
     Checkpointer,
+    dcp_payload,
     write_state,
 )
 from fms_fsdp_tpu_torch.utils.ckpt_paths import step_number
+from fms_fsdp_tpu_torch.utils.dist import barrier, world_size
 
 
 class CheckpointTier:
@@ -167,6 +176,13 @@ class AsyncCheckpointManager:
         candidates.sort(key=step_number, reverse=True)
         return candidates
 
+    def resume_topology(self):
+        """The topology fingerprint of the newest committed checkpoint a
+        resume would restore, merged across tiers, or None; rank 0's scan
+        is broadcast, so every rank resolves the same elastic batch
+        policy before building its loader."""
+        return self.durable.ckp.resume_topology(self._merged_candidates())
+
     # -- observability -----------------------------------------------------
 
     @property
@@ -231,7 +247,9 @@ class AsyncCheckpointManager:
         if not due:
             due = [self.durable]
         if self.durable in due:
-            if self._durable_degraded and len(self.tiers) > 1:
+            # rank 0 alone sees the degraded flag, so only a world of one
+            # may route on it: ranks must write the same tiers
+            if self._durable_degraded and len(self.tiers) > 1 and world_size() == 1:
                 # durable commits are failing: keep a fast-local copy of
                 # this step too, so SOME tier holds a committed checkpoint
                 due = [t for t in self.tiers if t is not self.durable] + [self.durable]
@@ -242,6 +260,7 @@ class AsyncCheckpointManager:
 
         snap_start = time.time()
         host = snapshot(checkpoint_state(state), self._host)
+        dp = state.get("dp")
         jobs = []
         loader_s = 0.0
         for tier in due:
@@ -270,7 +289,7 @@ class AsyncCheckpointManager:
         if self.async_save:
             self._writer = threading.Thread(
                 target=self._commit_job,
-                args=(jobs, host, meta, info),
+                args=(jobs, host, meta, info, dp),
                 name="ckpt-writer",
                 daemon=True,
             )
@@ -278,7 +297,7 @@ class AsyncCheckpointManager:
         else:
             # synchronous: the commit is the critical path, inside the
             # checkpoint phase, and adds nothing to the background seconds
-            self._commit_job(jobs, host, meta, info, background=False)
+            self._commit_job(jobs, host, meta, info, dp, background=False)
             self._raise_pending()
 
     def _commit_tier_io(self, tier, save_name, meta, timing):
@@ -304,7 +323,7 @@ class AsyncCheckpointManager:
         timing["manifest_s"] = tier.ckp.commit(
             save_name, meta, step, before_marker=precommit_kill, tier=tier.name)
 
-    def _commit_job(self, jobs, host, meta, info, background=True):
+    def _commit_job(self, jobs, host, meta, info, dp=None, background=True):
         """Writer body: the payload, then the commit (manifest ->
         metadata marker) with bounded retry on transient FS errors, then
         the tier's GC. A durable tier whose retry budget is exhausted
@@ -317,7 +336,10 @@ class AsyncCheckpointManager:
         try:
             for tier, save_name in jobs:
                 bg_start = time.time()
-                write_state(os.path.join(save_name, STATE_DIR), host)
+                write_state(os.path.join(save_name, STATE_DIR), dcp_payload(host, dp))
+                # every rank's parts and loader state are on disk before
+                # rank 0 hashes the dir and writes the commit marker
+                barrier("writer")
                 timing = {"write_s": time.time() - bg_start}
                 # writer crash site: the error must surface in the NEXT
                 # save()/finalize(), never vanish
@@ -416,7 +438,9 @@ class AsyncCheckpointManager:
         fallback down the chain); if no tier holds one, fall through to
         ``path`` (continued pretraining) via the durable tier."""
         lead = self.durable.ckp
-        candidates = self._merged_candidates()
+        # one authoritative scan (rank 0's) across tiers: every rank must
+        # walk the same merged list in the same order
+        candidates = [str(c) for c in lead._broadcast_obj(self._merged_candidates())]
         if not candidates:
             return lead.load(
                 state,

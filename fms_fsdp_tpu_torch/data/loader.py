@@ -2,7 +2,7 @@
 (ref:fms_fsdp/utils/dataloader_utils.py:17-163).
 
 A copy of ``fms_fsdp_tpu/data/loader.py``, with its ``loader_worker``
-fault site, without ``elastic_batch_size`` (ROADMAP.md A.6).
+fault site and ``elastic_batch_size``.
 
 ``StatefulDataLoader`` replaces torch's DataLoader: it stacks pipeline
 outputs into numpy batches and realizes ``num_workers`` as logical
@@ -841,6 +841,75 @@ class _SimpleLoader:
 
 def get_dummy_loader(cfg, rank, world_size):
     return _SimpleLoader(SteadyCounter(cfg.seq_length, cfg.vocab_size), cfg.batch_size)
+
+
+def elastic_batch_size(cfg, resume_topology, data_extent, rank=0) -> int:
+    """Per-rank rows for an elastic resume: preserve the checkpoint's
+    *global* batch across a topology change (docs/checkpointing.md
+    "Elastic resume").
+
+    ``resume_topology`` is the fingerprint stamped into the checkpoint a
+    restart will restore (``checkpointer.resume_topology()``); the
+    global row count it records divided by the new data-parallel extent
+    gives the per-rank batch size that keeps tokens-per-step — and with
+    it tokens_seen, the LR schedule, and the loss trajectory —
+    meaningful across the rescale. Recomputation only ever covers the
+    launch-script case (same per-rank ``--batch_size``, different
+    world): when the data-parallel extent is UNCHANGED, a differing
+    global batch can only be a deliberate ``--batch_size`` edit, and
+    that — like a global batch the new extent cannot divide — is a hard
+    error; ``--allow_batch_change=True`` is the escape hatch (the
+    configured batch_size is then used as-is, with a loud notice).
+    Returns ``cfg.batch_size`` unchanged on a fresh start or a
+    same-batch resume."""
+    if not resume_topology:
+        return cfg.batch_size
+    old_rows = int(resume_topology.get("global_batch_rows") or 0)
+    if old_rows <= 0:
+        return cfg.batch_size
+    if cfg.batch_size * data_extent == old_rows:
+        return cfg.batch_size
+    old_dc = int(resume_topology.get("device_count") or 0)
+    old_extent = old_dc // max(
+        1, int(resume_topology.get("tensor_parallel_size") or 1)
+    ) // max(1, int(resume_topology.get("context_parallel_size") or 1))
+    deliberate = old_dc > 0 and old_extent == data_extent
+    if deliberate and not getattr(cfg, "allow_batch_change", False):
+        raise ValueError(
+            f"elastic resume: batch_size was changed on an unchanged "
+            f"data-parallel extent ({data_extent}), moving the global "
+            f"batch {old_rows} -> {cfg.batch_size * data_extent} rows "
+            f"(tokens_seen and the LR schedule shift). Restore "
+            f"--batch_size={old_rows // data_extent}, or pass "
+            f"--allow_batch_change=True to accept the change."
+        )
+    if getattr(cfg, "allow_batch_change", False):
+        if rank == 0:
+            print(
+                f"WARNING: elastic resume changes the global batch "
+                f"({old_rows} -> {cfg.batch_size * data_extent} rows; "
+                f"allow_batch_change=True): tokens-per-step, the LR "
+                f"schedule, and the loss trajectory shift from here."
+            )
+        return cfg.batch_size
+    if old_rows % data_extent != 0:
+        raise ValueError(
+            f"elastic resume: the checkpoint's global batch is "
+            f"{old_rows} rows but the new data-parallel extent "
+            f"{data_extent} does not divide it, so the global batch "
+            f"cannot be preserved. Restart on a chip count whose "
+            f"data-parallel extent divides {old_rows}, or pass "
+            f"--allow_batch_change=True to accept a changed global "
+            f"batch (tokens_seen / LR schedule shift)."
+        )
+    resolved = old_rows // data_extent
+    if rank == 0:
+        print(
+            f"elastic resume: preserving the global batch of {old_rows} "
+            f"rows across the rescale — per-rank batch_size "
+            f"{cfg.batch_size} -> {resolved}"
+        )
+    return resolved
 
 
 def get_data_loader(cfg, rank, world_size, postprocess=None, batch_multiplier=1):

@@ -15,7 +15,8 @@ command line runs both packages:
 
 It runs on ``cuda`` unless ``device="cpu"`` is passed to :func:`main`
 (``--device=cpu``), and raises without a card. The observability and
-resilience options are the Llama entry's.
+resilience options, and the data-parallel ones under ``torchrun``
+(``--sharding_strategy``), are the Llama entry's.
 """
 
 import sys

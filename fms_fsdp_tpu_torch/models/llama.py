@@ -14,9 +14,13 @@ so ``bridge.py`` moves JAX weights in and out without a transpose.
 ``fms_fsdp_tpu/models/llama.py:178``: RMSNorm, rotary, GQA attention
 through ``ops/attention.py::attention`` (the flash kernels on the card),
 SwiGLU, untied lm_head, with selective activation checkpointing by
-``torch.utils.checkpoint``. ``params["layers"]`` may also be a list of
+``torch.utils.checkpoint``. ``params["layers"]`` may also be a sequence of
 per-layer dicts (the train step differentiates such per-layer leaves, so
-no gradient is scattered into a stacked tensor).
+no gradient is scattered into a stacked tensor); a data-parallel step
+passes one that gathers a layer's weights when it is indexed
+(``parallel/sharding.py::GatheredLayers``), and a checkpointed layer
+indexes it inside its checkpoint, so its recomputed forward gathers
+again instead of keeping the weights.
 """
 
 import functools
@@ -129,18 +133,22 @@ def _llama_block(x, layer: Dict, cfg: LlamaConfig, cos, sin, *, attn_impl: str,
         return x + _linear(gate * up, layer["w2"], quant)
 
 
+def _indexed_block(x, *, layers, i: int, **kwargs):
+    return _llama_block(x, layer_params(layers, i), **kwargs)
+
+
 def layer_params(layers, i: int) -> Dict:
-    """Layer ``i`` of stacked (L, ...) params, or of a per-layer list."""
-    if isinstance(layers, (list, tuple)):
-        return layers[i]
-    return {name: w[i] for name, w in layers.items()}
+    """Layer ``i`` of stacked (L, ...) params, or of a per-layer sequence."""
+    if isinstance(layers, dict):
+        return {name: w[i] for name, w in layers.items()}
+    return layers[i]
 
 
 def n_layers_of(params) -> int:
     layers = params["layers"]
-    if isinstance(layers, (list, tuple)):
-        return len(layers)
-    return layers["wq"].shape[0]
+    if isinstance(layers, dict):
+        return layers["wq"].shape[0]
+    return len(layers)
 
 
 def llama_forward(
@@ -180,7 +188,7 @@ def llama_forward(
         raise ValueError(f"ac_mask has {len(ac_mask)} entries for {nlayers} layers")
     for i in range(nlayers):
         block = functools.partial(
-            _llama_block, layer=layer_params(params["layers"], i), cfg=cfg,
+            _indexed_block, layers=params["layers"], i=i, cfg=cfg,
             cos=cos, sin=sin, attn_impl=attn_impl, quant=quant,
         )
         if ac_mask[i]:

@@ -214,6 +214,10 @@ def _block(residual, layer, *, cfg, is_attn, cos, sin, attn_impl, mamba_kernel,
     return residual
 
 
+def _indexed_block(residual, *, layers, i: int, **kwargs):
+    return _block(residual, layers[i], **kwargs)
+
+
 def mamba_forward(
     params: Params,
     tokens: torch.Tensor,
@@ -251,15 +255,19 @@ def mamba_forward(
     cos, sin = rope_table(tokens.shape[1], a.rotary_emb_dim or a.head_dim, 10000.0,
                           device=tokens.device)
 
-    for i, layer in enumerate(params["layers"]):
+    layers = params["layers"]
+    for i in range(n_layer):
+        # the layer is fetched inside a checkpoint: under a data-parallel
+        # step (parallel/sharding.py::GatheredLayers) fetching gathers it
         fn = functools.partial(
-            _block, cfg=cfg, is_attn=i in cfg.attn_layer_idx, cos=cos, sin=sin,
+            _indexed_block, layers=layers, i=i, cfg=cfg,
+            is_attn=i in cfg.attn_layer_idx, cos=cos, sin=sin,
             attn_impl=attn_impl, mamba_kernel=mamba_kernel, compute_dtype=compute_dtype,
         )
         if ac_mask[i]:
-            residual = checkpoint(fn, residual, layer, use_reentrant=False)
+            residual = checkpoint(fn, residual, use_reentrant=False)
         else:
-            residual = fn(residual, layer)
+            residual = fn(residual)
 
     x = rms_norm(residual.to(compute_dtype), params["norm_f"], cfg.norm_eps)
     if return_hidden:

@@ -5,7 +5,7 @@ the heartbeat, and the ``Observer`` the train loop drives.
 Counterpart of ``fms_fsdp_tpu/obs/``, host code only: its inputs are host
 timestamps and the metric scalars the loop fetches once per report
 interval. The collective probe of multi-slice runs waits for ROADMAP.md
-A.6.
+A.6b.
 """
 
 from fms_fsdp_tpu_torch.obs.observer import Observer, build_observer

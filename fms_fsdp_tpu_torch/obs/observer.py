@@ -14,8 +14,10 @@ touches it in three ways:
 Ranks other than 0 get the same timer and registry but no sinks. MFU and
 HFU are against the card's peak (``utils/flops.py::peak_flops_per_card``)
 and only on a card. The multi-slice collective split and the DCN overlap
-estimate stay 0.0: one card has neither (the probe waits for ROADMAP.md
-A.6).
+estimate (``ici_collective_s``, ``dcn_collective_s``, ``dcn_overlap_frac``)
+stay 0.0: the port has no slices and no collective probe yet (ROADMAP.md
+A.6b). The trainer's records carry the world's ``process_count`` in
+``extra``.
 """
 
 import logging

@@ -407,13 +407,15 @@ def flash_fwd(q, k, v, *, causal=True, scale=None):
     scale = float(scale if scale is not None else h**-0.5)
     o = torch.empty_like(q)
     lse = torch.empty((b, nq, sq), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     fn, name = _entry("fwd", q.dtype)
-    err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, sq, sk, nq, nkv, h, int(causal), _CODES[q.dtype],
-        q_scale_for(scale, q.dtype), stream,
-    )
+    # the runtime launches on the thread's current device: make it q's
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            b, sq, sk, nq, nkv, h, int(causal), _CODES[q.dtype],
+            q_scale_for(scale, q.dtype), stream,
+        )
     _raise_on(err, name)
     LAUNCHES["fwd_kvgrid" if _use_kvgrid(sk) else "fwd"] += 1
     return o, lse
@@ -431,14 +433,15 @@ def flash_dq(q, k, v, dout, lse, delta, *, causal=True, scale=None):
     sk, nkv = k.shape[1], k.shape[2]
     scale = float(scale if scale is not None else h**-0.5)
     dq = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     fn, name = _entry("dq", q.dtype)
-    err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        b, sq, sk, nq, nkv, h, int(causal), _CODES[q.dtype],
-        q_scale_for(scale, q.dtype), scale, stream,
-    )
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            b, sq, sk, nq, nkv, h, int(causal), _CODES[q.dtype],
+            q_scale_for(scale, q.dtype), scale, stream,
+        )
     _raise_on(err, name)
     LAUNCHES["dq_kvgrid" if _use_kvgrid(sk) else "dq"] += 1
     return dq
@@ -459,13 +462,14 @@ def flash_dkv(q, k, v, dout, lse, delta, *, causal=True, scale=None):
     # q scaled once here (every k tile of a head reads each q tile), with
     # the kernels' rounding: the fp32 product rounded to q's dtype
     q2 = (q * q_scale_for(scale, q.dtype)).to(q.dtype)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     fn, name = _entry("dkv", q.dtype)
-    err = fn(
-        q.data_ptr(), q2.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, sq, sk, nq, nkv, h, int(causal), _CODES[q.dtype], scale, stream,
-    )
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            q.data_ptr(), q2.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, sq, sk, nq, nkv, h, int(causal), _CODES[q.dtype], scale, stream,
+        )
     _raise_on(err, name)
     LAUNCHES["dkv"] += 1
     return dk, dv

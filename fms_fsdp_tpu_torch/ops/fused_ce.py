@@ -16,6 +16,11 @@ computes them outside any Pallas kernel.
   operands widened, as ``preferred_element_type=float32`` asks of XLA),
   its logsumexp and gold score; the backward recomputes each tile and
   returns dx in x's dtype and dW summed in fp32.
+
+Both take an optional ``n``: the count the summed token loss is divided
+by. A data-parallel step passes the count of labels != -100 over the
+GLOBAL batch (``parallel/sharding.py::DataParallel.global_count``), so the
+ranks' losses sum to the mean over the global batch.
 """
 
 import torch
@@ -32,13 +37,14 @@ def _row_chunks(n, rows):
 
 class _CrossEntropy(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, logits, labels):
+    def forward(ctx, logits, labels, n):
         v = logits.shape[-1]
         flat = logits.reshape(-1, v)
         lab = labels.reshape(-1).long()
         mask = lab != IGNORE_INDEX
         safe = torch.where(mask, lab, torch.zeros_like(lab))
-        n = mask.sum().clamp(min=1)
+        if n is None:
+            n = mask.sum().clamp(min=1)
         m = torch.empty(flat.shape[0], dtype=logits.dtype, device=logits.device)
         lse = torch.empty(flat.shape[0], dtype=torch.float32, device=logits.device)
         total = torch.zeros((), dtype=torch.float32, device=logits.device)
@@ -65,18 +71,19 @@ class _CrossEntropy(torch.autograd.Function):
             p = torch.exp(shifted - lse[i0:i1, None]) * scale[i0:i1, None]
             p.scatter_add_(-1, safe[i0:i1, None], -scale[i0:i1, None])
             grad[i0:i1] = p.to(logits.dtype)
-        return grad.reshape(logits.shape), None
+        return grad.reshape(logits.shape), None, None
 
 
-def cross_entropy_loss(logits, labels):
+def cross_entropy_loss(logits, labels, n=None):
     """Token-mean CE over labels != -100, matching
-    ``CrossEntropyLoss()(output.view(-1, V), label.view(-1))``; fp32."""
-    return _CrossEntropy.apply(logits, labels)
+    ``CrossEntropyLoss()(output.view(-1, V), label.view(-1))``; fp32.
+    ``n`` replaces the local count of labels != -100 as the divisor."""
+    return _CrossEntropy.apply(logits, labels, n)
 
 
 class _FusedLinearCE(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, labels, chunk):
+    def forward(ctx, x, w, labels, chunk, n):
         b, s, d = x.shape
         xf = x.reshape(b * s, d)
         lab = labels.reshape(-1).long()
@@ -89,7 +96,8 @@ class _FusedLinearCE(torch.autograd.Function):
             lse = torch.logsumexp(logits, dim=-1)
             gold = logits.gather(-1, safe[i0:i1, None])[:, 0]
             total = total + ((lse - gold) * mask[i0:i1]).sum()
-        n = mask.sum().clamp(min=1)
+        if n is None:
+            n = mask.sum().clamp(min=1)
         ctx.save_for_backward(x, w, safe, mask, n)
         ctx.chunk = chunk
         return total / n
@@ -110,12 +118,13 @@ class _FusedLinearCE(torch.autograd.Function):
             d_logits = p.to(x.dtype)
             dx[i0:i1] = d_logits @ w.t()
             dw += x_c.float().t() @ d_logits.float()
-        return dx.reshape(x.shape), dw.to(w.dtype), None, None
+        return dx.reshape(x.shape), dw.to(w.dtype), None, None, None
 
 
-def fused_linear_cross_entropy(x, w, labels, chunk: int = 4096):
+def fused_linear_cross_entropy(x, w, labels, chunk: int = 4096, n=None):
     """x (B, S, D) in the compute dtype, w (D, V), labels (B, S) int with
-    -100 ignored -> scalar mean CE over valid tokens (fp32)."""
+    -100 ignored -> scalar mean CE over valid tokens (fp32); ``n``
+    replaces the local count of valid tokens as the divisor."""
     if chunk <= 0:
         raise ValueError(f"loss_chunk_size must be positive, got {chunk}")
-    return _FusedLinearCE.apply(x, w, labels, int(chunk))
+    return _FusedLinearCE.apply(x, w, labels, int(chunk), n)

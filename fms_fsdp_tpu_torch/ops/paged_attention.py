@@ -266,16 +266,18 @@ def _launch(q, k_pages, v_pages, page_table, seq_lens, k_scales, v_scales):
     # dtype, as JAX rounds a weakly typed python scalar
     q_scale = torch.tensor(hd**-0.5 * LOG2E, dtype=q.dtype).item()
     fn = _library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        k_scales.data_ptr() if k_scales is not None else None,
-        v_scales.data_ptr() if v_scales is not None else None,
-        page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        part_o.data_ptr(), part_ml.data_ptr(),
-        b, nq, nkv, hd, ps, maxp, split_keys, n_splits,
-        _CODES[q.dtype], _CODES[k_pages.dtype], q_scale, stream,
-    )
+    # the runtime launches on the thread's current device: make it q's
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scales.data_ptr() if k_scales is not None else None,
+            v_scales.data_ptr() if v_scales is not None else None,
+            page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+            part_o.data_ptr(), part_ml.data_ptr(),
+            b, nq, nkv, hd, ps, maxp, split_keys, n_splits,
+            _CODES[q.dtype], _CODES[k_pages.dtype], q_scale, stream,
+        )
     if err != 0:
         raise RuntimeError(f"paged_decode launch failed: cudaError_t {err}")
     return out

@@ -400,14 +400,16 @@ def ssd_fused(x, dtf, a, Bm, Cm, L: int):
     x, Bm, Cm = _strided(x, P), _strided(Bm, N), _strided(Cm, N)
     dtf, a = dtf.contiguous(), a.contiguous()
     y = torch.empty((Bsz, S, H, P), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     fn, name = _entry(x.dtype)
-    err = fn(
-        x.data_ptr(), dtf.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-        y.data_ptr(), Bsz, S, H, G, P, N, L, _CODES[x.dtype],
-        x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1),
-        Cm.stride(0), Cm.stride(1), stream,
-    )
+    # the runtime launches on the thread's current device: make it x's
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(
+            x.data_ptr(), dtf.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            y.data_ptr(), Bsz, S, H, G, P, N, L, _CODES[x.dtype],
+            x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1),
+            Cm.stride(0), Cm.stride(1), stream,
+        )
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
     LAUNCHES["fused"] += 1

@@ -14,7 +14,7 @@ error               1     any unclassified exception (the interpreter's
                           default; never exited explicitly)
 watchdog_stall      2     ``StepWatchdog`` (resilience/guards.py): no
                           progress inside ``step_timeout_s``
-slice_loss          3     the multi-slice monitor (ROADMAP.md A.6)
+slice_loss          3     the multi-slice monitor (ROADMAP.md A.6b)
 anomaly_abort       4     ``AnomalyAbort`` through the entry wrapper: K
                           non-finite steps in a row, checkpoint saved,
                           aborting on purpose
@@ -28,7 +28,7 @@ injected_kill       7     fault-injection hard kills (``slice_kill``,
                           ``ckpt_precommit_kill``) without ``code=``
 corpus_loss         8     ``CorpusLossError`` through the entry wrapper:
                           fewer than ``min_live_corpora`` corpora live
-state_divergence    9     the cross-replica compare (ROADMAP.md A.6)
+state_divergence    9     ``StateDivergenceError``: the cross-replica compare
 replica_loss        10    a serving replica died (ROADMAP.md A.10)
 ==================  ====  ===================================================
 
@@ -132,12 +132,14 @@ def classify_exception(e: BaseException) -> Optional[str]:
     thread."""
     from fms_fsdp_tpu_torch.data.loader import LoaderWorkerError
     from fms_fsdp_tpu_torch.data.streaming import CorpusLossError
+    from fms_fsdp_tpu_torch.resilience.divergence import StateDivergenceError
     from fms_fsdp_tpu_torch.utils.train_utils import AnomalyAbort
 
     for typ, name in (
         (AnomalyAbort, "anomaly_abort"),
         (LoaderWorkerError, "loader_death"),
         (CorpusLossError, "corpus_loss"),
+        (StateDivergenceError, "state_divergence"),
     ):
         if isinstance(e, typ):
             return name

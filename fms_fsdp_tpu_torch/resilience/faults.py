@@ -81,7 +81,6 @@ _FILTER_KEYS = (
 # sites of the JAX package whose call site the port does not have yet,
 # and the ROADMAP.md item that brings it
 UNPORTED_SITES = {
-    "sdc_grad_flip": "A.6 (multi-GPU sharding: the cross-replica compare)",
     "replica_kill": "A.10 (serving extensions: the fleet)",
     "replica_stall": "A.10 (serving extensions: the fleet)",
     "handoff_chunk_corrupt": "A.10 (serving extensions: the page handoff)",

@@ -2,7 +2,8 @@
 
 Counterpart of ``fms_fsdp_tpu/train/step.py``: the reference's hot loop —
 forward / CE loss / backward / clip_grad_norm / AdamW step / scheduler
-step (ref:fms_fsdp/utils/train_utils.py:87-98) — on one card, eager.
+step (ref:fms_fsdp/utils/train_utils.py:87-98) — eager, one card per
+process.
 
 - The forward and backward run on a compute-dtype copy of the params
   (``step.py:374`` in JAX), so under bfSixteen the gradients come out
@@ -24,10 +25,24 @@ step (ref:fms_fsdp/utils/train_utils.py:87-98) — on one card, eager.
   ``step + count``) of the state's step counter are multiplied by NaN,
   so one spec poisons the same loop steps as in JAX.
 
-The DCN overlap and the quantized reduce belong to ROADMAP.md A.6 and A.7.
+Across processes (``state["dp"]``, a ``parallel/sharding.py::
+DataParallel``; None on a world of one, where the step is exactly the
+one-card step with no collective): the params and Adam's moments are
+each rank's local parts of JAX's layout; under fsdp/hsdp the forward
+gathers each layer when it reaches it and again in the backward, the
+gradients are reduce-scattered to the parts (and all-reduced over the
+replicas), and a replicated leaf's are all-reduced over the world. The
+loss is each rank's token-loss sum over the GLOBAL count of labels !=
+-100, summed over the world: the mean over the global batch, as JAX's
+step computes it on the whole batch, whatever the ranks' shares of
+ignored labels. The gradient norm is global (the parts' squares summed
+over fsdp). So the non-finite decision is the same on every rank.
+
+The DCN overlap and the quantized reduce belong to ROADMAP.md A.6b and A.7.
 """
 
 import math
+from contextlib import nullcontext
 from typing import Dict
 
 import torch
@@ -43,6 +58,7 @@ from fms_fsdp_tpu_torch.ops.fused_ce import (
 )
 from fms_fsdp_tpu_torch.parallel.ac import selective_ac_mask
 from fms_fsdp_tpu_torch.parallel.mixed_precision import get_dtype_policy
+from fms_fsdp_tpu_torch.parallel.sharding import DataParallel, GatheredLayers
 from fms_fsdp_tpu_torch.resilience.faults import check_spec, fault_params
 from fms_fsdp_tpu_torch.utils.tree import tree_map
 
@@ -51,10 +67,11 @@ from fms_fsdp_tpu_torch.utils.tree import tree_map
 _UNPORTED_STEP = (
     ("quantized_matmuls", lambda v: v != "none", "A.7 (quantized training)"),
     ("quantized_reduce", lambda v: v != "none", "A.7 (quantized training)"),
-    ("tensor_parallel_size", lambda v: v > 1, "A.6 (multi-GPU sharding)"),
+    ("tensor_parallel_size", lambda v: v > 1, "A.6b (tensor parallelism)"),
     ("context_parallel_size", lambda v: v > 1, "A.8 (long context)"),
-    ("expert_parallel_size", lambda v: v > 1, "A.4/A.6 (MoE, sharding)"),
-    ("num_slices", lambda v: v > 1, "A.6 (multi-GPU sharding)"),
+    ("expert_parallel_size", lambda v: v > 1, "A.4 (MoE expert parallelism)"),
+    ("num_slices", lambda v: v > 1, "A.6b (multi-slice)"),
+    ("sharding_strategy", lambda v: v == "tp", "A.6b (tensor parallelism)"),
 )
 
 
@@ -77,8 +94,8 @@ def check_step_options(cfg) -> None:
 def check_supported(cfg) -> None:
     """Every option of a training run (the entry point's check): the
     step's, and a ``faults`` spec naming a site the port has no call site
-    for yet. ``divergence_check_interval`` is accepted and inert on one
-    process, as in JAX."""
+    for yet. ``divergence_check_interval`` compares the replicas across
+    processes; on one process it is inert, as in JAX."""
     check_step_options(cfg)
     check_spec(cfg.faults)
 
@@ -116,31 +133,35 @@ _TOP_LEAVES = ("embedding", "norm", "norm_f", "lm_head")
 
 
 def _per_layer(params: Dict, fn):
-    """The forward's param dict with ``fn`` applied to each leaf, layer by
-    layer, and the leaves in one fixed order: the top-level leaves
-    (embedding, the final norm, lm_head), then layer by layer. Llama's
-    stacked (L, ...) tensors are taken apart into per-layer dicts; a list
-    of per-layer dicts (Mamba's unlike layers) is walked as it is nested.
-    The optimizer and the differentiated copy share that order."""
+    """The forward's param dict with ``fn(leaf, key, stacked)`` applied to
+    each leaf, layer by layer, and the leaves in one fixed order: the
+    top-level leaves (embedding, the final norm, lm_head), then layer by
+    layer. ``key`` is the leaf's checkpoint key (``params.layers.wq``,
+    ``params.layers.3.mixer.D``) and ``stacked`` says the leaf is layer
+    ``i`` of a stacked (L, ...) tensor: Llama's stacked tensors are taken
+    apart into per-layer dicts; a list of per-layer dicts (Mamba's unlike
+    layers) is walked as it is nested. The optimizer and the
+    differentiated copy share that order."""
     leaves = []
 
-    def take(w):
-        leaves.append(fn(w))
+    def take(w, key, stacked=False):
+        leaves.append(fn(w, key, stacked))
         return leaves[-1]
 
-    def walk(tree):
+    def walk(tree, key):
         if isinstance(tree, dict):
-            return {name: walk(sub) for name, sub in tree.items()}
-        return take(tree)
+            return {name: walk(sub, f"{key}.{name}") for name, sub in tree.items()}
+        return take(tree, key)
 
-    top = {k: take(params[k]) for k in _TOP_LEAVES if k in params}
+    top = {k: take(params[k], f"params.{k}") for k in _TOP_LEAVES if k in params}
     layers = params["layers"]
     if isinstance(layers, dict):
         n_layers = next(iter(layers.values())).shape[0]
-        per_layer = [{name: take(w[i]) for name, w in layers.items()}
+        per_layer = [{name: take(w[i], f"params.layers.{name}", True)
+                      for name, w in layers.items()}
                      for i in range(n_layers)]
     else:
-        per_layer = [walk(layer) for layer in layers]
+        per_layer = [walk(layer, f"params.layers.{i}") for i, layer in enumerate(layers)]
     return {**top, "layers": per_layer}, leaves
 
 
@@ -154,41 +175,70 @@ def make_optimizer(params: Dict, cfg):
     checkpoint saves and loads them whole and in place
     (``ckpt/state.py``). AdamW starts from them as from the zeros it
     would make at its first update."""
-    _, leaves = _per_layer(params, lambda w: w)
+    _, leaves = _per_layer(params, lambda w, *_: w)
     opt = torch.optim.AdamW(
         leaves, lr=cfg.learning_rate,
         betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1, foreach=False,
     )
     moments = {name: tree_map(torch.zeros_like, params) for name in ("mu", "nu")}
-    _, mu = _per_layer(moments["mu"], lambda w: w)
-    _, nu = _per_layer(moments["nu"], lambda w: w)
+    _, mu = _per_layer(moments["mu"], lambda w, *_: w)
+    _, nu = _per_layer(moments["nu"], lambda w, *_: w)
     for p, m, v in zip(leaves, mu, nu):
         opt.state[p] = {"step": torch.tensor(0.0, dtype=torch.float32),
                         "exp_avg": m, "exp_avg_sq": v}
     return opt, moments
 
 
-def init_train_state(generator: torch.Generator, model_cfg, cfg) -> Dict:
-    """{params, optimizer, moments, step}: params made on the generator's
-    device in the policy's param dtype, Adam moments zero, step 0."""
+def init_train_state(generator: torch.Generator, model_cfg, cfg, mesh=None) -> Dict:
+    """{params, optimizer, moments, step, dp}: params made on the
+    generator's device in the policy's param dtype (the same draws on
+    every rank: one seed) and placed on ``mesh`` (:func:`state_from_params`);
+    Adam moments zero, step 0."""
     policy = get_dtype_policy(cfg)
     init_params, _, _ = get_model_api(model_cfg)
     params = init_params(generator, model_cfg, dtype=policy.param_dtype)
-    return state_from_params(params, cfg)
+    return state_from_params(params, cfg, mesh, model_cfg)
 
 
-def state_from_params(params: Dict, cfg) -> Dict:
-    """A train state over existing params (the tests start from JAX's)."""
+def state_from_params(params: Dict, cfg, mesh=None, model_cfg=None) -> Dict:
+    """A train state over existing whole params (the tests start from
+    JAX's). On a ``mesh`` of more than one process ``state["dp"]`` holds
+    the run's ``DataParallel`` layout and the state keeps this rank's
+    parts of the leaves split over fsdp; else ``state["dp"]`` is None."""
+    dp = None
+    if mesh is not None and mesh.size() > 1:
+        from fms_fsdp_tpu_torch.ckpt.state import flatten, unflatten
+
+        dp = DataParallel.for_params(mesh, params, model_cfg)
+        params = unflatten(dp.shard(flatten("params", params, {})), "params")
     opt, moments = make_optimizer(params, cfg)
-    return {"params": params, "optimizer": opt, "moments": moments, "step": 0}
+    return {"params": params, "optimizer": opt, "moments": moments, "step": 0,
+            "dp": dp}
 
 
-def _compute_copy(params: Dict, dtype):
-    """Per-layer compute-dtype leaves that require grad, and the forward's
-    param dict over them. Under the fp32 policy a leaf is a detached
-    alias of the param, which the update writes only after the backward
-    has released the graph."""
-    return _per_layer(params, lambda w: w.detach().to(dtype).requires_grad_(True))
+def _compute_copy(params: Dict, dtype, dp=None):
+    """Per-layer compute-dtype leaves that require grad, the forward's
+    param dict over them, and per leaf whether it is split over fsdp.
+    Under the fp32 policy a leaf is a detached alias of the param, which
+    the update writes only after the backward has released the graph.
+    Under a sharded ``dp`` the leaves are the local parts: the top-level
+    ones are gathered now, each layer when the forward reaches it
+    (``parallel/sharding.py::GatheredLayers``)."""
+    tree, leaves = _per_layer(
+        params, lambda w, *_: w.detach().to(dtype).requires_grad_(True))
+    if dp is None or not dp.sharded:
+        return tree, leaves, [False] * len(leaves)
+
+    def local_dim(w, key, stacked):
+        d = dp.dim_of(key)
+        return None if d is None else d - int(stacked)
+
+    dims, split = _per_layer(params, local_dim)
+    top = {k: v for k, v in tree.items() if k != "layers"}
+    top_dims = {k: v for k, v in dims.items() if k != "layers"}
+    tree = dict(dp.gather_tree(top, top_dims, "top"),
+                layers=GatheredLayers(dp, tree["layers"], dims["layers"]))
+    return tree, leaves, [d is not None for d in split]
 
 
 def wrap_step_fn(step_fn, timer):
@@ -230,7 +280,7 @@ def make_train_step(model_cfg, cfg, start_step: int = 0):
     if isinstance(model_cfg, MambaConfig):
         extra_kwargs = {"mamba_kernel": cfg.mamba_kernel}
 
-    def loss_fn(params_c, inputs, labels):
+    def loss_fn(params_c, inputs, labels, n=None):
         out = forward_fn(
             params_c, inputs, model_cfg, compute_dtype=policy.compute_dtype,
             attn_impl=cfg.attention_kernel, ac_mask=ac_mask,
@@ -238,29 +288,43 @@ def make_train_step(model_cfg, cfg, start_step: int = 0):
         )
         if fused:
             return fused_linear_cross_entropy(
-                out, params_c["lm_head"], labels, cfg.loss_chunk_size
+                out, params_c["lm_head"], labels, cfg.loss_chunk_size, n=n
             )
-        return cross_entropy_loss(out, labels)
+        return cross_entropy_loss(out, labels, n=n)
 
     @scoped("fwd_bwd")
     def fwd_bwd(state, inputs, labels):
-        params_c, leaves = _compute_copy(state["params"], policy.compute_dtype)
-        loss = loss_fn(params_c, inputs, labels)
+        dp = state.get("dp")
+        params_c, leaves, split = _compute_copy(state["params"], policy.compute_dtype, dp)
+        if dp is None:
+            loss = loss_fn(params_c, inputs, labels)
+        else:
+            n = dp.global_count(labels)
+            with dp.release_saved() if dp.sharded else nullcontext():
+                loss = loss_fn(params_c, inputs, labels, n)
+        del params_c
         grads = torch.autograd.grad(loss, leaves)
+        if dp is not None:
+            dp.reduce_grads(grads, split)
+            loss = dp.sum_over_world(loss)
         if nan_window is not None and (
             nan_window[0] <= state["step"] + start_step < nan_window[1]
         ):
             # injected non-finite batch: the guard below must absorb it
             loss = loss * float("nan")
             grads = tuple(g * float("nan") for g in grads)
-        return loss, grads
+        return loss, grads, split
 
     def train_step(state, batch):
         inputs, labels = batch
-        loss, grads = fwd_bwd(state, inputs, labels)
-        gnorm = torch.linalg.vector_norm(torch.stack([
-            torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads
-        ]))
+        loss, grads, split = fwd_bwd(state, inputs, labels)
+        dp = state.get("dp")
+        if dp is not None and dp.sharded:
+            gnorm = dp.grad_norm(grads, split)
+        else:
+            gnorm = torch.linalg.vector_norm(torch.stack([
+                torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads
+            ]))
         # the one host sync of the step: whether to apply the update
         nonfinite = not bool(torch.isfinite(loss) & torch.isfinite(gnorm))
         lr = schedule(state["step"])

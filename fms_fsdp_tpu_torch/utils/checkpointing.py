@@ -23,14 +23,19 @@ contract:
   and of the async manager's writer alike.
 
 The payload is ``torch.distributed.checkpoint`` (DCP) with
-``FileSystemWriter`` / ``FileSystemReader``, used from one process
-without a process group: ``state/.metadata`` and ``state/__0_<i>.distcp``,
-keys as in ``ckpt/state.py`` (the JAX train state's tree paths). DCP
-reshards on load, as Orbax does for JAX, which the sharded state of
-ROADMAP.md A.6 will need. Until then the world is one process, so the
-multi-host agreement of the JAX package (``_all_agree``) is the
-identity, and nothing is broadcast. Orbax payloads of the JAX package are
-not read here; a JAX state reaches the port through ``bridge.py``.
+``FileSystemWriter`` / ``FileSystemReader``, keys as in ``ckpt/state.py``
+(the JAX train state's tree paths). With a process group up, DCP runs
+over the gloo groups of ``utils/dist.py::aux_group``: every rank writes its own
+parts (``state/__<rank>_<i>.distcp``), each leaf split over fsdp as a
+``DTensor`` (``parallel/sharding.py::DataParallel.dcp_view``), a
+replicated leaf once; rank 0 writes ``state/.metadata``, and after a
+barrier the manifest and the commit marker. DCP reshards on load, as
+Orbax does for JAX, so a checkpoint of one world loads into another.
+The multi-process agreement of the JAX package runs here too: rank 0's
+directory scan is broadcast (``_broadcast_obj``) and every fallback
+verdict is a collective AND (``_all_agree``). Orbax payloads of the JAX
+package are not read here; a JAX state reaches the port through
+``bridge.py``.
 """
 
 import json
@@ -45,7 +50,12 @@ from typing import Dict
 import numpy as np
 import torch
 
-from fms_fsdp_tpu_torch.ckpt.state import apply_scalars, checkpoint_state, unflatten
+from fms_fsdp_tpu_torch.ckpt.state import (
+    apply_scalars,
+    checkpoint_state,
+    flatten,
+    unflatten,
+)
 from fms_fsdp_tpu_torch.utils.ckpt_paths import (
     get_latest,
     get_oldest,
@@ -53,6 +63,7 @@ from fms_fsdp_tpu_torch.utils.ckpt_paths import (
     safe_listdir,
     step_number,
 )
+from fms_fsdp_tpu_torch.utils.dist import world_size
 from fms_fsdp_tpu_torch.utils.tree import tree_map
 
 STATE_DIR = "state"
@@ -66,28 +77,53 @@ def _dcp():
     return dcp
 
 
-def write_state(path: str, flat: Dict[str, torch.Tensor]) -> None:
-    """The DCP payload of ``flat`` (host or card tensors) into ``path``,
-    from this one process: ``WRITE_THREADS`` files written at once, each
-    synced. No copy-ahead: DCP's overlapping loader would synchronize the
-    card's stream from the calling thread, and the async manager's writer
-    hands it host tensors only."""
+def _dist_kwargs(use: str) -> Dict:
+    """DCP's process arguments: the gloo group ``use`` beside the step's
+    (``utils/dist.py::aux_group``) when a process group is up, else one
+    process without one."""
+    from fms_fsdp_tpu_torch.utils.dist import aux_group
+
+    group = aux_group(use)
+    return {"no_dist": True} if group is None else {"process_group": group}
+
+
+def dcp_payload(flat: Dict[str, torch.Tensor], dp=None) -> Dict:
+    """``flat`` as DCP takes it: under a sharded ``dp`` each split leaf's
+    local part wrapped as a ``DTensor`` (no copy), else ``flat``."""
+    if dp is not None and dp.sharded:
+        return dp.dcp_view(flat)
+    return flat
+
+
+def write_state(path: str, flat: Dict) -> None:
+    """The DCP payload of ``flat`` (host or card tensors, or
+    :func:`dcp_payload`'s DTensors) into ``path``: ``WRITE_THREADS``
+    files written at once by each rank, each synced. A collective when a
+    process group is up. No copy-ahead: DCP's overlapping loader would
+    synchronize the card's stream from the calling thread, and the async
+    manager's writer hands it host tensors only."""
     dcp = _dcp()
     writer = dcp.FileSystemWriter(path, thread_count=WRITE_THREADS,
                                   per_thread_copy_ahead=0)
     with warnings.catch_warnings():
         # DCP says it assumes a single process when no group is up: it is
         warnings.filterwarnings("ignore", message=".*single process.*")
-        dcp.save(flat, storage_writer=writer, no_dist=True)
+        dcp.save(flat, storage_writer=writer, **_dist_kwargs("writer"))
 
 
-def read_state(path: str, flat: Dict[str, torch.Tensor]) -> None:
+def read_state(path: str, flat: Dict[str, torch.Tensor], dp=None,
+               local: bool = False) -> None:
     """Load the keys of ``flat`` from the DCP payload at ``path`` into
-    ``flat``'s tensors, in place. Raises when a key is missing."""
+    ``flat``'s tensors, in place (this rank's parts under a sharded
+    ``dp``, whatever world wrote the payload); a collective unless
+    ``local`` (one process reading whole tensors). Raises when a key is
+    missing."""
     dcp = _dcp()
+    flat = dcp_payload(flat, dp)
+    kwargs = {"no_dist": True} if local else _dist_kwargs("host")
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message=".*single process.*")
-        dcp.load(flat, storage_reader=dcp.FileSystemReader(path), no_dist=True)
+        dcp.load(flat, storage_reader=dcp.FileSystemReader(path), **kwargs)
 
 
 def _payload_tensors(path: str, prefix: str):
@@ -153,9 +189,34 @@ def load_params_only(load_path: str, with_bytes: bool = False):
         state_dir = os.path.join(_newest_committed(load_path), STATE_DIR)
     shapes, nbytes = _payload_tensors(state_dir, "params")
     flat = {key: torch.empty(shape, dtype=dtype) for key, (shape, dtype) in shapes.items()}
-    read_state(state_dir, flat)
+    read_state(state_dir, flat, local=True)
     params = unflatten(flat, "params")
     return (params, nbytes) if with_bytes else params
+
+
+def scan_topology(candidates, verify=True):
+    """The topology fingerprint stamped into the newest loadable
+    checkpoint of ``candidates`` (a newest-first ``_candidate_ckp_paths``
+    list), or None. Single-file checkpoints carry no metadata; a torn
+    ``metadata.json`` or (with ``verify``) a failed manifest check falls
+    through to the next candidate, the chain ``load`` walks, so the batch
+    policy decided from this scan matches the checkpoint a restore reads."""
+    from fms_fsdp_tpu_torch.resilience.scrub import (
+        cached_verify,
+        verified_resume_active,
+    )
+
+    for cand in candidates:
+        if os.path.isfile(cand):
+            break  # single-file checkpoints carry no metadata
+        if (verify or verified_resume_active()) and not cached_verify(cand)[0]:
+            continue  # load() will reject it and fall back too
+        try:
+            with open(os.path.join(cand, "metadata.json")) as f:
+                return json.load(f).get("topology")
+        except (OSError, ValueError):
+            continue  # torn metadata: the next candidate may do
+    return None
 
 
 def _merge_into(target, loaded, strict: bool):
@@ -248,6 +309,22 @@ class Checkpointer:
         self.allow_batch_change = bool(allow_batch_change)
         self.allow_corpus_change = bool(allow_corpus_change)
 
+    def resume_topology(self, candidates=None):
+        """The topology fingerprint stamped into the checkpoint a resume
+        from the save dir would restore, or None (fresh start, legacy or
+        single-file checkpoint). Rank 0's read is broadcast, so every
+        process resolves the same elastic batch policy before building its
+        loader. ``candidates`` lets the tiered manager pass its merged
+        newest-first list."""
+        from fms_fsdp_tpu_torch.utils.dist import world_size
+
+        if candidates is None:
+            candidates = self._candidate_ckp_paths(self.ckp_path)
+        topo = scan_topology(candidates, verify=self.verify)
+        if world_size() > 1:
+            topo = self._broadcast_obj({"topo": topo})["topo"]
+        return topo
+
     def _elastic_gate(self, load_path, meta):
         """Validate the checkpoint's topology stamp against the live
         fingerprint BEFORE the restore: an illegal rescale fails fast
@@ -336,10 +413,21 @@ class Checkpointer:
             )
         ]
 
+    def _broadcast_obj(self, obj):
+        """Process 0's small picklable ``obj`` on every process."""
+        from fms_fsdp_tpu_torch.utils.dist import broadcast_obj
+
+        return broadcast_obj(obj)
+
     def _all_agree(self, ok: bool) -> bool:
-        """Collective AND of a per-process verdict: one process until
-        ROADMAP.md A.6, so the local verdict."""
-        return ok
+        """Collective AND of a per-process verdict (on the gloo group
+        beside the step's). Fallback decisions must be identical on every
+        process: the DCP restore is collective, so two processes restoring
+        different candidates would hang the world (or assemble a
+        mixed-step state). A world of one returns the local verdict."""
+        from fms_fsdp_tpu_torch.utils.dist import all_agree
+
+        return all_agree(ok)
 
     # -- cleanup ------------------------------------------------------------
 
@@ -485,15 +573,20 @@ class Checkpointer:
         from contextlib import nullcontext
 
         from fms_fsdp_tpu_torch.ckpt.elastic import stamp_topology
+        from fms_fsdp_tpu_torch.utils.dist import barrier
 
         obs = self.observer
         save_time = time.time()
         with obs.phase("checkpoint") if obs is not None else nullcontext():
             save_name = os.path.join(self.ckp_path, f"step_{step}_ckp")
             os.makedirs(save_name, exist_ok=True)
-            write_state(os.path.join(save_name, STATE_DIR), checkpoint_state(state))
+            write_state(os.path.join(save_name, STATE_DIR),
+                        dcp_payload(checkpoint_state(state), state.get("dp")))
             if dataloader is not None:
                 dataloader.save_to_path(save_name)
+            # every rank's parts and loader state are on disk before rank 0
+            # hashes the dir and writes the commit marker
+            barrier("writer")
             if self.rank == 0:
                 metadata["step"] = step
                 stamp_topology(metadata, self.fingerprint, dataloader)
@@ -664,6 +757,14 @@ class Checkpointer:
                 is_resuming = True
             else:
                 candidates = self._candidate_ckp_paths(path)
+            # rank 0's scan is authoritative: every process must walk the
+            # same candidates in the same order, the votes and collective
+            # restores below are counted in lockstep
+            decision = self._broadcast_obj({"resume": is_resuming, "cands": candidates,
+                                            "path": path})
+            is_resuming = bool(decision["resume"])
+            candidates = [str(c) for c in decision["cands"]]
+            path = decision["path"]
         else:
             is_resuming = bool(is_resuming)
         if not candidates:
@@ -698,6 +799,11 @@ class Checkpointer:
                     )
                     continue
                 params = payload.get("model_state", payload)
+                dp = state.get("dp")
+                if dp is not None and dp.sharded:
+                    # whole params in the pickle: this rank takes its parts
+                    params = unflatten(dp.shard(flatten("params", _to_tensors(params), {})),
+                                       "params")
                 _merge_into(state["params"], params, strict)
                 self.report(
                     f"Checkpoint {load_path} is a single-file checkpoint "
@@ -765,7 +871,7 @@ class Checkpointer:
             # place into its tensors; the scalars apply only on success
             try:
                 flat = checkpoint_state(state)
-                read_state(os.path.join(load_path, STATE_DIR), flat)
+                read_state(os.path.join(load_path, STATE_DIR), flat, state.get("dp"))
                 if dataloader is not None:
                     t1 = time.time()
                     dataloader.load_from_path(load_path)
@@ -774,6 +880,17 @@ class Checkpointer:
                     self.report("Skipping dataset load, no dataloader provided.")
             except Exception as e:  # noqa: BLE001 — any restore failure
                 # falls back to the next-newest committed checkpoint
+                if world_size() > 1:
+                    # a failure on THIS process inside the collective
+                    # restore cannot be recovered alone: peers may be
+                    # parked in it, and moving to an older candidate would
+                    # hang the world or mix steps. Fail loudly; the
+                    # supervisor restarts the whole job.
+                    raise RuntimeError(
+                        f"restore from {load_path} failed on process "
+                        f"{self.rank}; multi-process fallback cannot proceed "
+                        f"safely from inside a failed collective restore"
+                    ) from e
                 self.report(
                     f"WARNING: restore from {load_path} failed ({e!r}); "
                     f"falling back to the next-newest committed checkpoint."

@@ -1,12 +1,15 @@
 """The training hot loop, its profiler, tracker and preemption guard.
 
-Counterpart of ``fms_fsdp_tpu/utils/train_utils.py:124-824`` on one card:
-steps until ``num_steps``, keeps each step's metrics as device tensors,
-and at every ``report_interval`` fetches the window, feeds the non-finite
-flags to the anomaly guard and prints the reference's report lines
-(step, loss, LR, tokens seen, gradient norm, memory, step times, current
-and overall tokens per chip per second, overall tokens per day, in its
-order and with its values) plus MFU and HFU against the card's peak.
+Counterpart of ``fms_fsdp_tpu/utils/train_utils.py:124-824``, one card
+per process: steps until ``num_steps``, keeps each step's metrics as
+device tensors, and at every ``report_interval`` fetches the window,
+feeds the non-finite flags to the anomaly guard and prints (rank 0) the
+reference's report lines (step, loss, LR, tokens seen, gradient norm,
+memory, step times, current and overall tokens per chip per second,
+overall tokens per day, in its order and with its values) plus MFU and
+HFU against the card's peak. Tokens seen count the whole world (JAX's
+``world_size`` factor: every data-parallel rank trains ``batch_size``
+rows a step); the rates are per card.
 
 The observability and resilience layer runs in JAX's order: the step
 watchdog, the ``slice_kill`` / ``dcn_reduce_stall`` fault sites at each
@@ -15,10 +18,13 @@ step boundary, the observer (``data_wait`` around the batch iterator,
 saves, one schema-versioned record per report with the loader's
 ``data_mix``, and the heartbeat), the checkpoint scrubber, the anomaly
 abort (save, then raise ``AnomalyAbort``: exit ``anomaly_abort`` under
-``classified_exit``), the preemption save on SIGTERM (then a clean exit)
-and the windowed ``torch.profiler`` trace. The slice health monitor and
-the cross-replica divergence compare wait for ROADMAP.md A.6: on one
-process there is nothing to compare, as in JAX.
+``classified_exit``), the preemption save on SIGTERM, agreed across the
+processes so every rank saves at the same step (then a clean exit), the
+``sdc_grad_flip`` site at the step boundary and the cross-replica
+divergence compare at report cadence (``resilience/divergence.py``; a
+world of one has nothing to compare, as in JAX), and the windowed
+``torch.profiler`` trace. The slice health monitor waits for ROADMAP.md
+A.6b.
 """
 
 import os
@@ -32,11 +38,13 @@ import torch
 
 from fms_fsdp_tpu_torch.obs import build_observer
 from fms_fsdp_tpu_torch.obs.sinks import TrackerSink
+from fms_fsdp_tpu_torch.resilience import divergence as _divergence
 from fms_fsdp_tpu_torch.resilience import scrub as _scrub
 from fms_fsdp_tpu_torch.resilience.exits import EXIT_CODES
 from fms_fsdp_tpu_torch.resilience.faults import fire_fault
 from fms_fsdp_tpu_torch.resilience.guards import AnomalyGuard, StepWatchdog
 from fms_fsdp_tpu_torch.resilience.integrity import drain_integrity_events
+from fms_fsdp_tpu_torch.utils.dist import any_flag, world_size
 
 
 class AnomalyAbort(RuntimeError):
@@ -133,9 +141,11 @@ class PreemptionGuard:
 
     Preemptible capacity sends SIGTERM with a grace window before
     teardown; the guard turns that window into an up-to-date checkpoint
-    instead of a resume from the last interval save. One process: the
-    flag is read at the boundary it arrived (JAX's cross-process
-    agreement waits for ROADMAP.md A.6)."""
+    instead of a resume from the last interval save. Across processes
+    ``poll`` is a collective OR (a small all-reduce on the gloo group
+    beside the step's, every rank at every step boundary), so a signal to
+    any one rank saves every rank at the same step; a world of one reads
+    its own flag."""
 
     def __init__(self):
         self.triggered = False
@@ -163,7 +173,9 @@ class PreemptionGuard:
             self._prev = None
 
     def poll(self) -> bool:
-        return self.triggered
+        """Call exactly once per step boundary on every rank: the
+        world-agreed flag."""
+        return any_flag(self.triggered)
 
 
 def _mix_record(observer, dataloader):
@@ -291,13 +303,21 @@ def _train_loop(cfg, state, step_fn, rank, train_loader, checkpointer, start_ste
         if ev.get("shard_corrupt_detected"):
             observer.registry.counter("integrity.shard_corrupt_detected").add(
                 int(ev["shard_corrupt_detected"]))
-        # one process: no cross-replica compare (divergence_checks 0)
         return {"verify_s": float(ev.get("verify_s", 0.0)),
-                "scrub_verified": _scrub.total_verified(), "divergence_checks": 0}
+                "scrub_verified": _scrub.total_verified(),
+                "divergence_checks": _divergence.total_checks()}
 
     observer.attach_integrity_stats(_integrity_stats)
 
+    # the divergence compare at report boundaries, every
+    # divergence_check_interval steps, across processes only
+    world = world_size()
+    divergence_interval = int(cfg.divergence_check_interval or 0) if world > 1 else 0
+    last_divergence_check = start_step
+
+    # rows a card trains a step, and tokens the whole world trains
     tokens_per_step = cfg.batch_size * cfg.seq_length
+    global_tokens_per_step = world * tokens_per_step
     window: List[Dict] = []
     reports: List[Dict] = []
     train_loss = -1.0  # until a window has a clean step, as JAX prints it
@@ -327,7 +347,7 @@ def _train_loop(cfg, state, step_fn, rank, train_loader, checkpointer, start_ste
             g_norm = sum(m["gnorm"] for m in good) / len(good)
         now = time.time()
         elapsed = now - loop_start
-        new_tokens = (step - start_step) * tokens_per_step
+        new_tokens = (step - start_step) * global_tokens_per_step
         # the record's rates use the window's true step count; the printed
         # current step time keeps JAX's fixed divisor at a report boundary
         step_time = max(1e-9, now - start) / len(fetched)
@@ -336,7 +356,9 @@ def _train_loop(cfg, state, step_fn, rank, train_loader, checkpointer, start_ste
         throughput = tokens_per_step / step_time
         overall_throughput = tokens_per_step / overall_step_time
         reserved, allocated, peak_alloc = _memory_stats(device)
-        extra = {"window_poisoned": 1} if poisoned else {}
+        extra = {"process_count": world}
+        if poisoned:
+            extra["window_poisoned"] = 1
         report_start = time.perf_counter()
         obs_record = observer.report(
             step, len(fetched),
@@ -399,7 +421,7 @@ def _train_loop(cfg, state, step_fn, rank, train_loader, checkpointer, start_ste
         # a healthy save must not be judged by a timeout sized for steps
         with watchdog.paused() if watchdog else nullcontext():
             checkpointer.save(step, state, dataloader, reason=reason,
-                              tokens_seen=tokens_seen + (step - start_step) * tokens_per_step,
+                              tokens_seen=tokens_seen + (step - start_step) * global_tokens_per_step,
                               skipped_steps=guard.skipped_batches)
 
     try:
@@ -409,18 +431,41 @@ def _train_loop(cfg, state, step_fn, rank, train_loader, checkpointer, start_ste
                 break
             if watchdog:
                 watchdog.beat()
-            # step-boundary fault sites: on one process a slice kill ends
-            # this process, a wedged reduce parks it for the watchdog
+            # step-boundary fault sites: a slice kill ends this process, a
+            # wedged reduce parks it for the watchdog (one slice: slice 0)
             kill = fire_fault("slice_kill", step=step, slice=0)
             if kill is not None:
                 os._exit(int(kill.get("code", EXIT_CODES["injected_kill"])))
             stall = fire_fault("dcn_reduce_stall", step=step, slice=0)
             if stall is not None:
                 time.sleep(float(stall.get("seconds", 3600)))
+            sdc = fire_fault("sdc_grad_flip", step=step, proc=rank)
+            if sdc is not None:
+                # injected silent corruption of THIS rank's replica; nothing
+                # reports it: the next compare must discover it
+                scale = float(sdc.get("scale", 1.5))
+                leaf_key = _divergence.inject_sdc(state, scale)
+                print(f"sdc_grad_flip fault: scaled local shards of {leaf_key} "
+                      f"by {scale} on proc {rank} at step {step}")
             window.append(step_fn(state, batch))
             if profiler:
                 profiler.step()
             if step % cfg.report_interval == 0:
+                if _divergence.divergence_due(step, last_divergence_check,
+                                              divergence_interval):
+                    # before the flush: loss/gnorm are the LAST flushed
+                    # window's post-reduce scalars, equal on every rank;
+                    # no checkpoint is saved on this path (the live state
+                    # is suspect)
+                    last_divergence_check = step
+                    try:
+                        _divergence.check_divergence(state, train_loss, g_norm, step,
+                                                     observer.registry)
+                    except _divergence.StateDivergenceError:
+                        # the window (and the detection counter) reaches
+                        # one final record before the classified exit
+                        flush(step, drain=True)
+                        raise
                 flush(step)
                 if scrubber is not None:
                     # a cadence check; the sweep runs on its own thread

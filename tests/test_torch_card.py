@@ -929,3 +929,66 @@ def test_card_observer_mfu_uses_the_cards_peak(cuda_device):
     assert rec["mfu"] == pytest.approx(20000.0 * flops / peak, rel=1e-12)
     assert rec["hfu"] == pytest.approx(20000.0 * train_flops_per_token(model_cfg, 4096, 0.5)
                                        / peak, rel=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# every launch on its tensor's device (the ctypes entry points launch on
+# the calling thread's current device)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.card
+def test_card_every_wrapper_launches_on_its_tensors_device(cuda_device, monkeypatch):
+    """Each kernel wrapper enters ``torch.cuda.device`` of its tensors for
+    its launch, with the thread's current device set elsewhere when the
+    machine has a second card (else left at the default): the results
+    still equal the plain versions, on the tensors' card."""
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+    from fms_fsdp_tpu_torch.ops import ssd as t_ssd
+
+    entered = []
+    real = torch.cuda.device
+
+    class Recorder(real):
+        def __init__(self, device):
+            entered.append(device)
+            super().__init__(device)
+
+    dev = torch.device("cuda", 0)
+    q, k, v, do = _flash_case(dev, torch.bfloat16, 1, 256, 256, 4, 1)
+    _, x, dt, a, Bm, Cm, _ = _ssd_inputs(dev, torch.bfloat16, 1, 512, 8, 1)
+    pq, pk, pv, table, lens, _, _ = _case(dev, "bf16")
+    o, lse = fa.flash_fwd(q, k, v)  # builds and loads the libraries
+    delta = torch.einsum("bsnh,bsnh->bns", o.float(), do.float()).contiguous()
+    t_ssd.ssd_fused(x, dt, a, Bm, Cm, 256)
+    t_paged.paged_attention_kernel(pq, pk, pv, table, lens)
+    torch.cuda.synchronize(dev)
+    calls = {
+        "flash_fwd": lambda: fa.flash_fwd(q, k, v),
+        "flash_dq": lambda: fa.flash_dq(q, k, v, do, lse, delta),
+        "flash_dkv": lambda: fa.flash_dkv(q, k, v, do, lse, delta),
+        "ssd_fused": lambda: t_ssd.ssd_fused(x, dt, a, Bm, Cm, 256),
+        "paged_decode": lambda: t_paged.paged_attention_kernel(pq, pk, pv, table, lens),
+    }
+    outs = {}
+    if torch.cuda.device_count() > 1:
+        torch.cuda.set_device(1)
+    try:
+        for name, call in calls.items():
+            entered.clear()
+            monkeypatch.setattr(torch.cuda, "device", Recorder)
+            outs[name] = call()
+            monkeypatch.setattr(torch.cuda, "device", real)
+            assert [torch.device(d) for d in entered] == [dev], (name, entered)
+    finally:
+        monkeypatch.setattr(torch.cuda, "device", real)
+        torch.cuda.set_device(0)
+    torch.cuda.synchronize(dev)
+    got = [*outs["flash_fwd"], outs["flash_dq"], *outs["flash_dkv"]]
+    assert all(t.device == dev for t in (*got, outs["ssd_fused"], outs["paged_decode"]))
+    _check_flash(fa, q, k, v, do, got, causal=True)
+    ref = t_ssd.ssd_core_plain(x, dt, a, Bm, Cm, 256)
+    y = outs["ssd_fused"]
+    assert (y - ref).abs().max().item() <= 1e-2 * max(1.0, ref.abs().max().item())
+    ref = t_paged.paged_attention_plain(pq, pk, pv, table, lens)
+    assert (outs["paged_decode"].float() - ref.float()).abs().max().item() <= 2e-2

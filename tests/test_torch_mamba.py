@@ -51,6 +51,16 @@ TINY = MambaConfig(attn_cfg=MambaAttnConfig(**_ATTN_KW), **_TINY_KW)
 SEQ = 32
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _clear_jax_caches():
+    """Drop this module's JAX traces when it ends: a later module in the
+    same process that traces the same step on an equal mesh would
+    otherwise reuse them, and a compiled program's metadata names the
+    stack that traced it."""
+    yield
+    jax.clear_caches()
+
+
 def _err(port, ref):
     port = port.detach().float().numpy()
     ref = np.asarray(ref, np.float32)

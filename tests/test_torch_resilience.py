@@ -171,7 +171,7 @@ def test_env_spec_read_lazily(monkeypatch):
 
 
 @pytest.mark.parametrize("spec,item", [
-    ("sdc_grad_flip:step=2", "A.6"),
+    ("handoff_chunk_corrupt:every=3", "A.10"),
     ("replica_kill", "A.10"),
     ("replica_stall:seconds=3", "A.10"),
     ("nan_loss:step=1;handoff_chunk_drop:every=5", "A.10"),

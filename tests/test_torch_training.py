@@ -54,6 +54,16 @@ _ENTRY_OVERRIDES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _clear_jax_caches():
+    """Drop this module's JAX traces when it ends: a later module in the
+    same process that traces the same step on an equal mesh would
+    otherwise reuse them, and a compiled program's metadata names the
+    stack that traced it."""
+    yield
+    jax.clear_caches()
+
+
 def _err(port, ref):
     port = port.detach().float().numpy()
     ref = np.asarray(ref, np.float32)
@@ -381,12 +391,12 @@ def test_entry_needs_a_card_unless_cpu():
 @pytest.mark.parametrize("overrides,item", [
     ({"quantized_matmuls": "int8"}, "A.7"),
     ({"quantized_reduce": "fp8"}, "A.7"),
-    ({"tensor_parallel_size": 2}, "A.6"),
+    ({"tensor_parallel_size": 2}, "A.6b"),
     ({"context_parallel_size": 2}, "A.8"),
     ({"expert_parallel_size": 2}, "A.4"),
-    ({"faults": "sdc_grad_flip:step=2"}, "A.6"),
+    ({"sharding_strategy": "tp"}, "A.6b"),
     ({"faults": "replica_kill"}, "A.10"),
-    ({"num_slices": 2}, "A.6"),
+    ({"num_slices": 2}, "A.6b"),
     ({"model_variant": "mamba_9.8b", "quantized_matmuls": "int8"}, "A.7"),
     ({"model_variant": "mixtral_8x7b"}, "A.4"),
 ])
