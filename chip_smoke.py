@@ -57,7 +57,9 @@ Phases, one JSON line each; any failure exits non-zero:
    data, 12 steps: finite and decreasing loss, no skipped batch, launches
    == steps x (layers + rematerialised layers) forward and steps x layers
    dq and dk/dv; tokens per card per second, MFU/HFU, peak memory and a
-   profile of one step. Every trainer phase writes its final save (the
+   profile of one step. It saves nothing (its 33.5 GB final save was
+   cut for the Mixtral phases' time). Every other trainer phase but
+   train-mixtral writes its final save (the
    one at ``num_steps``; its manifest records sizes, the phase deletes it
    unread) to a fresh checkpoint root in memory (see
    ``_ckpt_dir``) and prints its blocking snapshot (ms), its background
@@ -171,9 +173,32 @@ Phases, one JSON line each; any failure exits non-zero:
    completion, one decode step held against the same step in fp32. This
    path launches no SSD kernel (the prefill is the per-token recurrence),
    and the phase checks that.
+16. train-mixtral — ``fms_fsdp_tpu_torch.main_training_mixtral.main`` at
+   mixtral_8x7b width (4096 wide, 32/8 heads of 128, 8 experts of hidden
+   14336, top-2, vocab 32000) and 2 of 32 layers (3.16B parameters),
+   bfSixteen, seq 4096, batch 1, selective AC 1/2, dummy data, 6 steps,
+   reports every step, no save (the 51 GB state's save and its pinned
+   snapshot would pass the host's 101 GB): finite loss every step and
+   lower at the end than at step 1, no skipped batch, flash launches ==
+   steps x (layers + rematerialised layers) forward and steps x layers dq
+   and dk/dv; ``moe_drop_frac`` per step, tokens per card per second, MFU
+   over the active experts, peak memory and a profile of one step that
+   sets the expert GEMMs (``aten::bmm``) and the dispatch kernels apart;
+   then the first step again from the same weights and batch through the
+   plain attention, its loss within ``TOL["bf16"]`` (relative) of the
+   kernels'.
+17. serve-mixtral — ``ServingEngine`` on mixtral_8x7b at full width, 8 of
+   32 layers, random bf16 weights (23.7 GB), ``max_batch=8``, page 64, 8
+   requests of 64-512 prompt tokens and 32 new tokens, routed top-2
+   experts: all complete, no attention kernel launched (the reference
+   attention, as JAX's Mixtral serving), decode tokens/s, one full-batch
+   step routed against dense (printed) and each profiled (host wall
+   against device ms); then the same requests routed and dense on fp32
+   weights: equal greedy tokens and every decode step's logits within
+   ``MIXTRAL_FP32_REL_TOL`` of the largest.
 
-Then a ``total`` line (seconds since ``main`` began), a ``{"kernels": [...]}``
-line, the ``nvidia-smi`` line, and last
+Then a ``total`` line (seconds since ``main`` began, and each phase's),
+a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -196,7 +221,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "serve", "serve-int8", "flash", "train",
           "loader", "resume", "supervise", "shard", "train-kvgrid", "ssd", "train-mamba",
-          "serve-mamba")
+          "serve-mamba", "train-mixtral", "serve-mixtral")
 
 # llama3_8b decode shapes of the kernel phase
 B, NQ, NKV, H, PAGE, MAXP = 8, 32, 8, 128, 64, 32
@@ -1083,9 +1108,14 @@ def phase_flash(state):
         raise AssertionError(f"flash kernels disagree with their plain versions: {bad}")
 
 
-def _train_step_profile(res, steps=2):
+def _train_step_profile(res, steps=2, moe=False):
     """Host wall per step (no profiler) and device time per step by
-    kernel (torch.profiler) of the trained state's next steps."""
+    kernel (torch.profiler) of the trained state's next steps. With
+    ``moe`` the 16-bit GEMMs split into the expert GEMMs (the device time
+    of ``aten::bmm``, forward and backward: the port runs no other batched
+    product on a Mixtral step) and the rest, and the dispatch kernels
+    (index_add, index_select, cumsum, sort, gather, scatter) leave
+    "other"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1113,7 +1143,13 @@ def _train_step_profile(res, steps=2):
     by_kind = {}
     for ms, name, _ in rows:
         kind = _kernel_kind(name)
+        if moe and kind == "other" and _is_dispatch(name):
+            kind = "moe_dispatch"
         by_kind[kind] = by_kind.get(kind, 0.0) + ms
+    if moe and rows:
+        expert = _op_device_ms(prof, "aten::bmm") / steps
+        by_kind["gemm_16bit_expert"] = expert
+        by_kind["gemm_16bit"] = by_kind.get("gemm_16bit", 0.0) - expert
     return {
         "device_ms_per_step_by_kind": by_kind if rows else None,
         "wall_ms_per_step": wall_ms,
@@ -1134,6 +1170,28 @@ def _flash_ms(rows):
             for key in ("fwd", "dq", "dkv")}
 
 
+def _is_dispatch(name: str) -> bool:
+    """A MoE dispatch kernel by its name: PyTorch's index_add / index_select
+    (``indexFunc*``, ``indexSelect*``), scans (cumsum), sorts (top-k) and
+    gather / scatter (take_along_dim, one_hot)."""
+    low = name.lower()
+    return any(k in low for k in ("index", "scan", "sort", "gather", "scatter"))
+
+
+def _op_device_ms(prof, op: str) -> float:
+    """Device ms of the kernels the host op ``op`` launched (its CPU
+    events' device time), over a whole profile."""
+    total = 0.0
+    for e in prof.events():
+        if e.name != op or str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        total += us / 1e3
+    return total
+
+
 def _kernel_kind(name: str) -> str:
     """A device kernel's family by its name: the repo's own kernels, the
     library's matrix products by element type, and the rest."""
@@ -1148,19 +1206,25 @@ def _kernel_kind(name: str) -> str:
     return "other"
 
 
-def _train(state, phase, overrides, expect, main=None, base=None, profile=False):
+def _train(state, phase, overrides, expect, main=None, base=None, profile=False,
+           save=True, moe=False, after=None):
     """Run a trainer through its entry point (the Llama one unless
     ``main`` is given) and check its launches: ``expect(model_cfg, cfg,
     steps)`` gives the expected counts of the flash contracts; the SSD
-    kernel's count is expected 0 unless it names ``ssd_fused``."""
+    kernel's count is expected 0 unless it names ``ssd_fused``. With
+    ``save=False`` the entry's checkpoint manager saves nothing (its load
+    still runs), for a state whose save the host could not hold.
+    ``after(model_cfg, cfg, result)`` runs once the run's state is freed
+    and returns more fields for the phase's line and a list of problems."""
     import torch
 
+    from fms_fsdp_tpu_torch import main_training_llama as entry
     from fms_fsdp_tpu_torch.ops import flash_attention as fa
     from fms_fsdp_tpu_torch.ops import ssd
     from fms_fsdp_tpu_torch.parallel.mesh import axis_sizes
 
     if main is None:
-        from fms_fsdp_tpu_torch.main_training_llama import main
+        main = entry.main
 
     ckpt_dir = _ckpt_dir(phase)
     # the final save is deleted unread: its manifest records sizes, not
@@ -1171,10 +1235,21 @@ def _train(state, phase, overrides, expect, main=None, base=None, profile=False)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    build_manager = entry.build_checkpoint_manager
+    if not save:
+        def build_no_save(*a, **k):
+            manager = build_manager(*a, **k)
+            manager.save = lambda *sa, **sk: None
+            return manager
+
+        entry.build_checkpoint_manager = build_no_save
     fa.reset_launches()
     ssd.reset_launches()
     t0 = time.perf_counter()
-    res = main(**kw)
+    try:
+        res = main(**kw)
+    finally:
+        entry.build_checkpoint_manager = build_manager
     wall = time.perf_counter() - t0
     saves = res["checkpointer"].save_log
     launches = dict(fa.LAUNCHES, ssd_fused=ssd.LAUNCHES["fused"])
@@ -1198,12 +1273,14 @@ def _train(state, phase, overrides, expect, main=None, base=None, profile=False)
         expected_launches=want, max_memory_allocated=peak,
         final_save=_save_rows(saves), process_group=group, nvidia_smi=state["smi"],
     )
+    if moe:
+        result["moe_drop_frac"] = [r["moe_drop_frac"] for r in reports]
     problems = []
     if group["backend"] != "nccl" or group["world"] != 1 or group["sharded"]:
         problems.append(f"process group {group}: an NCCL world of one, no sharded state")
-    if [(r["step"], r["reason"], r["tier"]) for r in saves] != [
-            (res["steps"], "final", "durable")]:
-        problems.append(f"saves {_save_rows(saves)}: one final save at num_steps expected")
+    want_saves = [(res["steps"], "final", "durable")] if save else []
+    if [(r["step"], r["reason"], r["tier"]) for r in saves] != want_saves:
+        problems.append(f"saves {_save_rows(saves)}: expected {want_saves}")
     if not all(math.isfinite(x) for x in losses):
         problems.append(f"non-finite loss {losses}")
     if profile and not losses[-1] < losses[0]:
@@ -1213,7 +1290,16 @@ def _train(state, phase, overrides, expect, main=None, base=None, profile=False)
     if launches != want:
         problems.append(f"launches {launches} != expected {want}")
     if profile:
-        result["step_profile"] = _train_step_profile(res)
+        result["step_profile"] = _train_step_profile(res, moe=moe)
+    if after is not None:
+        cfg_model, cfg_train = res["model_cfg"], res["cfg"]
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        more, more_problems = after(cfg_model, cfg_train, result)
+        result.update(more)
+        problems += more_problems
+        res = None
     emit(phase, **result)
     state[phase] = result
     del res
@@ -1303,7 +1389,9 @@ def phase_train(state):
         return {"fwd": steps * (n + _n_remat(m, cfg)), "fwd_kvgrid": 0,
                 "dq": steps * n, "dq_kvgrid": 0, "dkv": steps * n}
 
-    _train(state, "train", {}, expect, profile=True)
+    # no final save (33.5 GB, ~28 s, cut for the Mixtral phases): the
+    # trainer phases at 2 layers, resume, supervise and shard save and load
+    _train(state, "train", {}, expect, profile=True, save=False)
 
 
 def phase_train_kvgrid(state):
@@ -2615,6 +2703,290 @@ def _compare_mamba_step(eng, mamba_decode_step, tree_map):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Mixtral: capacity-routed training through the flash kernels, routed
+# paged serving
+# ---------------------------------------------------------------------------
+
+MIXTRAL_TRAIN_KW = {
+    "MixtralConfig.nlayers": 2, "seq_length": 4096, "batch_size": 1,
+    "fsdp_activation_checkpointing": True, "selective_checkpointing": 0.5,
+    "use_dummy_dataset": True, "num_steps": 6, "report_interval": 1,
+    "checkpoint_interval": 1000,
+}
+
+
+def _mixtral_plain_first_step(model_cfg, cfg, result):
+    """The first step of the trainer's run again, from the same seeded
+    weights and the same first dummy batch, through the plain attention
+    (``attention_kernel="xla"``): its loss within bf16's ``TOL`` (relative)
+    of the step through the kernels, and no flash launch."""
+    import dataclasses
+
+    import torch
+
+    from fms_fsdp_tpu_torch.data.device_feed import DeviceFeed
+    from fms_fsdp_tpu_torch.data.loader import get_dummy_loader
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+    from fms_fsdp_tpu_torch.train.step import init_train_state, make_train_step
+
+    plain_cfg = dataclasses.replace(cfg, attention_kernel="xla")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train_state = init_train_state(
+        torch.Generator(device="cuda").manual_seed(plain_cfg.seed), model_cfg, plain_cfg)
+    batch = next(iter(DeviceFeed(get_dummy_loader(plain_cfg, 0, 1), "cuda")))
+    fa.reset_launches()
+    m = make_train_step(model_cfg, plain_cfg)(train_state, batch)
+    plain = float(m["loss"])
+    kernel = result["losses"][0]
+    out = {"first_step_loss_kernels": kernel, "first_step_loss_plain": plain,
+           "first_step_rel_diff": abs(kernel - plain) / abs(plain),
+           "first_step_rel_tol": TOL["bf16"],
+           "plain_step_flash_launches": sum(fa.LAUNCHES.values()),
+           "plain_step_s": time.perf_counter() - t0,
+           "plain_step_max_memory_allocated": torch.cuda.max_memory_allocated()}
+    del train_state, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    problems = []
+    if not out["first_step_rel_diff"] <= TOL["bf16"]:
+        problems.append(f"first step through the kernels {kernel} vs plain {plain}")
+    if out["plain_step_flash_launches"]:
+        problems.append("the plain attention step launched a flash kernel")
+    return out, problems
+
+
+def phase_train_mixtral(state):
+    """``main_training_mixtral.main`` at mixtral_8x7b width, 2 of 32
+    layers, bfSixteen, seq 4096, batch 1, AC 1/2, dummy data, 6 steps,
+    without a save: the 51 GB state's save would need as much pinned host
+    memory again as the page cache of the memory file system it lands in,
+    more than the card machine's host holds."""
+    from fms_fsdp_tpu_torch.main_training_mixtral import main
+
+    def expect(m, cfg, steps):
+        n = m.nlayers
+        return {"fwd": steps * (n + _n_remat(m, cfg)), "fwd_kvgrid": 0,
+                "dq": steps * n, "dq_kvgrid": 0, "dkv": steps * n}
+
+    _train(state, "train-mixtral", {}, expect, main=main, base=MIXTRAL_TRAIN_KW,
+           profile=True, save=False, moe=True, after=_mixtral_plain_first_step)
+
+
+def _mixtral_step_fn(eng, moe_impl):
+    """One decode step of the engine's current batch on copies of its
+    pools, through ``mixtral_paged_decode_step``."""
+    from fms_fsdp_tpu_torch.models.mixtral import mixtral_paged_decode_step
+
+    ad = eng.adapter
+    table, lens, toks = _step_inputs(eng)
+    pools = {n: p.clone() for n, p in ad.cache.pools.items()}
+
+    def one():
+        return mixtral_paged_decode_step(
+            eng.params, pools, table, lens, toks, eng.model_cfg,
+            page_size=ad.page_size, compute_dtype=eng.compute_dtype,
+            moe_impl=moe_impl, rope=ad.rope)[0]
+
+    return one
+
+
+def _profile_mixtral_step(eng, moe_impl, steps=3):
+    """Host wall per decode step (no profiler) against its device time
+    (torch.profiler), with the expert GEMMs' share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    one = _mixtral_step_fn(eng, moe_impl)
+    one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        one()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            one()
+        torch.cuda.synchronize()
+    rows = _kernel_rows(prof, steps)
+    device_ms = sum(r[0] for r in rows)
+    gemm_ms = sum(r[0] for r in rows if _kernel_kind(r[1]).startswith("gemm"))
+    return {
+        "moe_impl": moe_impl,
+        "active_rows": int(sum(r is not None for r in eng._slots)),
+        "wall_ms_per_step": wall_ms,
+        "device_ms_per_step": device_ms if rows else None,
+        "device_busy_share": device_ms / wall_ms if rows else None,
+        "gemm_ms_per_step": gemm_ms if rows else None,
+        "top_device_ms_per_step": [
+            {"name": name[:80], "ms": ms, "calls": calls} for ms, name, calls in rows[:8]
+        ],
+    }
+
+
+# routed against dense in fp32, per logit: within this times the largest
+# logit (the flash phase's fp32 rule; the two sum their experts' products
+# in other orders)
+MIXTRAL_FP32_REL_TOL = 1e-4
+
+
+def _mixtral_wave(params, cfg, moe_impl, prompts, max_new, dtype="bfloat16",
+                  keep_rows=False, probe=False):
+    """Serve ``prompts`` on an engine with ``moe_impl`` in ``dtype``. With
+    ``keep_rows`` each decode step's logits row is kept per request, by
+    the index of the token it chose; with ``probe`` one full-batch step
+    is compared routed against dense and both are profiled."""
+    import torch
+
+    from fms_fsdp_tpu_torch.serve import ServeConfig, ServingEngine
+
+    eng = ServingEngine(params, cfg, ServeConfig(max_batch=8, max_seq_len=1024, page_size=64,
+                                                 moe_impl=moe_impl, compute_dtype=dtype),
+                        seed=0)
+    reqs = [eng.submit(p, max_new) for p in prompts]
+    by_rid = {r.rid: r for r in reqs}
+    rows = {}
+    if keep_rows:
+        decode = eng.adapter.decode
+
+        def kept(slot_rids, lens, tokens, generator):
+            toks, logits = decode(slot_rids, lens, tokens, generator)
+            host = logits.float().cpu()
+            for slot, rid in enumerate(slot_rids):
+                if rid is not None:
+                    rows[(rid, len(by_rid[rid].generated))] = host[slot]
+            return toks, logits
+
+        eng.adapter.decode = kept
+    compare = profiles = None
+    t0 = time.perf_counter()
+    while eng.has_work():
+        eng.step()
+        if eng.last_logits is not None and not torch.isfinite(eng.last_logits).all():
+            raise AssertionError(f"serve-mixtral ({moe_impl}): non-finite decode logits")
+        active = sum(r is not None for r in eng._slots)
+        if probe and compare is None and active == 8 and eng.decode_steps >= 4:
+            routed = _mixtral_step_fn(eng, "routed")().float()
+            dense = _mixtral_step_fn(eng, "dense")().float()
+            compare = {"routed_vs_dense_max_abs": (routed - dense).abs().max().item(),
+                       "logit_absmax": dense.abs().max().item(),
+                       "argmax_agree": (routed.argmax(-1) == dense.argmax(-1))
+                       .float().mean().item()}
+            profiles = [_profile_mixtral_step(eng, "routed"),
+                        _profile_mixtral_step(eng, "dense")]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return eng, reqs, rows, wall, compare, profiles
+
+
+def phase_serve_mixtral(state):
+    """``ServingEngine`` on mixtral_8x7b at full width, 8 of 32 layers,
+    random bf16 weights, 8 requests of 64-512 prompt tokens and 32 new
+    tokens, routed top-2 experts: completions, no attention kernel, the
+    decode rate, one full-batch step routed against dense and each
+    profiled. Then the same requests routed and dense on the same weights
+    in fp32: equal greedy tokens and every decode step's logits within
+    ``MIXTRAL_FP32_REL_TOL``. In bf16 the two round apart, and at a
+    router's near-tie one rounding moves a row to another expert: the bf16
+    step's comparison is printed, not held to a bound."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from fms_fsdp_tpu_torch.models.mixtral import init_mixtral_params
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+    from fms_fsdp_tpu_torch.ops import paged_attention as pa
+    from fms_fsdp_tpu_torch.utils.config_utils import get_model_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_model_config("mixtral_8x7b"), nlayers=8)
+    t0 = time.perf_counter()
+    params = init_mixtral_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                                 dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_requests, max_new = 8, 32
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, cfg.src_vocab_size, size=int(n)).tolist()
+               for n in rng.randint(64, 513, size=n_requests)]
+    pa.reset_launches()
+    fa.reset_launches()
+    eng, reqs, _, wall, compare, profiles = _mixtral_wave(params, cfg, "routed", prompts,
+                                                         max_new, probe=True)
+    stats = eng.serving_stats()
+    ttft = sorted(eng.registry.hist("serve.ttft_s").samples)
+    result = dict(
+        requests=n_requests, max_new_tokens=max_new, layers=cfg.nlayers,
+        prompt_tokens=sum(len(p) for p in prompts),
+        finished=sum(r.state == "finished" for r in reqs),
+        all_lengths_ok=all(len(r.generated) == max_new for r in reqs),
+        decode_steps=eng.decode_steps, page_size=eng.page_size,
+        attn_impl=eng.attn_impl, moe_impl=eng.adapter.moe_impl,
+        # Mixtral serving runs the reference attention (as JAX's does)
+        paged_launches=sum(pa.LAUNCHES.values()), flash_launches=sum(fa.LAUNCHES.values()),
+        decode_tokens_per_s=stats["tokens_per_s"],
+        ttft_mean_s=float(np.mean(ttft)) if ttft else None, wall_s=wall,
+        param_init_s=init_s, weight_bytes=_nbytes(params),
+        pool_bytes=_nbytes(eng.cache.pools), bf16_step_compare=compare,
+        step_profile=profiles, max_memory_allocated=torch.cuda.max_memory_allocated(),
+    )
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # routed against dense in fp32 on the same weights (47.5 GB)
+    t0 = time.perf_counter()
+    params = init_mixtral_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                                 dtype=torch.float32)
+    waves = {}
+    for impl in ("routed", "dense"):
+        eng, wreqs, rows, wwall, _, _ = _mixtral_wave(params, cfg, impl, prompts, max_new,
+                                                      dtype="float32", keep_rows=True)
+        waves[impl] = ([list(r.generated) for r in wreqs],
+                       {(i, n): rows[(r.rid, n)] for i, r in enumerate(wreqs)
+                        for n in range(1, max_new)},
+                       sum(r.state == "finished" for r in wreqs), wwall)
+        del eng, rows
+    (rt, rrows, rfin, rwall), (dt, drows, dfin, dwall) = waves["routed"], waves["dense"]
+    diff = max(float((rrows[k] - drows[k]).abs().max()) for k in rrows)
+    absmax = max(float(drows[k].abs().max()) for k in drows)
+    result["fp32_routed_vs_dense"] = {
+        "tokens_equal": rt == dt, "finished": [rfin, dfin],
+        "same_prefix": [next((k for k, (a, b) in enumerate(zip(x, y)) if a != b), len(x))
+                        for x, y in zip(rt, dt)],
+        "logits_max_abs_diff": diff, "logit_absmax": absmax,
+        "tolerance": MIXTRAL_FP32_REL_TOL * max(1.0, absmax),
+        "wall_s": [rwall, dwall], "seconds": time.perf_counter() - t0,
+    }
+    result["nvidia_smi"] = state["smi"]
+    emit("serve-mixtral", **result)
+    state["serve-mixtral"] = result
+    fp32 = result["fp32_routed_vs_dense"]
+    problems = []
+    if (result["finished"] != n_requests or not result["all_lengths_ok"]
+            or fp32["finished"] != [n_requests, n_requests]):
+        problems.append("not every request finished with max_new_tokens")
+    if result["paged_launches"] or result["flash_launches"]:
+        problems.append("the Mixtral serving path launched an attention kernel")
+    if compare is None:
+        problems.append("no full-batch decode step to compare and profile")
+    if not fp32["tokens_equal"]:
+        problems.append(f"fp32 routed and dense greedy tokens differ: {fp32['same_prefix']}")
+    if not fp32["logits_max_abs_diff"] <= fp32["tolerance"]:
+        problems.append(f"fp32 routed vs dense logits {fp32['logits_max_abs_diff']} > "
+                        f"{fp32['tolerance']}")
+    del params, waves, rrows, drows
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("serve-mixtral: " + "; ".join(problems))
+
+
 def kernels_line(state):
     k, s, s8 = state["kernels"], state["serve"], state["serve-int8"]
     entries = []
@@ -2651,6 +3023,10 @@ def kernels_line(state):
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         }
+        if contract in ("fwd", "dq", "dkv"):
+            # the same contracts on the Mixtral training path, counted on
+            # its own run
+            entry["launches_train_mixtral"] = state["train-mixtral"]["launches"][contract]
         if kernel != "fwd":
             # SDPA's one backward call computes dq, dk and dv together: set
             # it against the pair
@@ -2703,6 +3079,7 @@ def main(argv=None) -> int:
         "train-kvgrid": phase_train_kvgrid,
         "ssd": phase_ssd, "train-mamba": phase_train_mamba,
         "serve-mamba": phase_serve_mamba,
+        "train-mixtral": phase_train_mixtral, "serve-mixtral": phase_serve_mixtral,
     }
     if "device" not in phases:
         phases.insert(0, "device")
@@ -2712,15 +3089,19 @@ def main(argv=None) -> int:
 
     # a run ended by SIGTERM still deletes its checkpoints (below)
     signal.signal(signal.SIGTERM, on_term)
+    phase_seconds = {}
     try:
         for p in PHASES:
             if p in phases:
+                t_phase = time.perf_counter()
                 run[p](state)
+                phase_seconds[p] = time.perf_counter() - t_phase
     finally:
         # a failed phase leaves its checkpoints behind: none outlives the run
         for root in CKPT_ROOTS.values():
             shutil.rmtree(root, ignore_errors=True)
-    emit("total", phases=phases, seconds=time.perf_counter() - t0)
+    emit("total", phases=phases, seconds=time.perf_counter() - t0,
+         phase_seconds=phase_seconds)
     if all(p in phases for p in PHASES):
         print(json.dumps(kernels_line(state)), flush=True)
     print(state["smi"], flush=True)

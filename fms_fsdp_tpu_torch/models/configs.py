@@ -1,12 +1,13 @@
-"""Model architecture configs (Llama and the Mamba2 hybrid; Mixtral comes
-with its slice).
+"""Model architecture configs: Llama, the Mamba2 hybrid and Mixtral.
 
 Copies of ``fms_fsdp_tpu/models/configs.py``. ``LlamaConfig``: the same
 architectural degrees of freedom the reference variant table exercises
 (emb_dim, nheads, kvheads for GQA, nlayers, hidden_grow_factor +
 multiple_of SwiGLU rounding, max_expected_seq_len, rope_theta, vocab).
 ``MambaAttnConfig`` / ``MambaConfig``: the hybrid Mamba2 stack of
-``models/mamba.py`` with the mamba_ssm layer defaults.
+``models/mamba.py`` with the mamba_ssm layer defaults. ``MixtralConfig``:
+the sparse-MoE Llama family of ``models/mixtral.py`` (top-k of E SwiGLU
+experts, capacity-routed in training).
 """
 
 from dataclasses import dataclass, field
@@ -135,4 +136,50 @@ class MambaConfig:
             + d  # final norm
             + 2 * self.padded_vocab_size * d
         )
+        return int(total)
+
+
+@dataclass(frozen=True)
+class MixtralConfig:
+    """Sparse-MoE Llama family (Mixtral)."""
+
+    src_vocab_size: int = 32000
+    emb_dim: int = 4096
+    nheads: int = 32
+    kvheads: int = 8
+    nlayers: int = 32
+    hidden_dim: int = 14336
+    num_experts: int = 8
+    top_k: int = 2
+    max_expected_seq_len: int = 4096
+    rope_theta: float = 1e6
+    norm_eps: float = 1e-5
+    # training-only knobs (the dense path ignores them):
+    # per-expert buffer size = capacity_factor * top_k * S / num_experts
+    capacity_factor: float = 2.0
+    # load-balancing auxiliary loss coefficient (HF router_aux_loss_coef)
+    aux_loss_weight: float = 0.02
+
+    @property
+    def head_dim(self) -> int:
+        return self.emb_dim // self.nheads
+
+    @property
+    def n_kv_heads(self) -> int:
+        return self.kvheads if self.kvheads else self.nheads
+
+    def n_params(self, include_embeddings: bool = True) -> int:
+        d, h, E = self.emb_dim, self.hidden_dim, self.num_experts
+        kv_dim = self.n_kv_heads * self.head_dim
+        per_layer = (
+            d * d  # wq
+            + 2 * d * kv_dim  # wk, wv
+            + d * d  # wo
+            + d * E  # router gate
+            + 3 * E * d * h  # per-expert w1, w3, w2
+            + 2 * d  # norms
+        )
+        total = self.nlayers * per_layer + d
+        if include_embeddings:
+            total += 2 * self.src_vocab_size * d
         return int(total)

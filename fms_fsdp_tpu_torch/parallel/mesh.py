@@ -46,7 +46,7 @@ SIM_SLICES_ENV = "FMS_SIM_SLICES"
 # axis -> the ROADMAP.md item that brings it above size 1
 _UNPORTED_AXES = {
     AXIS_DCN: "A.6b (multi-slice)",
-    AXIS_EXPERT: "A.4 (MoE expert parallelism)",
+    AXIS_EXPERT: "A.4b (MoE expert parallelism)",
     AXIS_CONTEXT: "A.8 (long context)",
     AXIS_TENSOR: "A.6b (tensor parallelism)",
 }

@@ -1,8 +1,9 @@
 """Where each leaf of the train state lives on the mesh, and the
 collectives of the data-parallel step.
 
-Counterpart of ``fms_fsdp_tpu/parallel/sharding.py:35-215`` and
-``fms_fsdp_tpu/models/mamba.py:610``. JAX declares a ``PartitionSpec`` per
+Counterpart of ``fms_fsdp_tpu/parallel/sharding.py:35-215``,
+``fms_fsdp_tpu/models/mamba.py:610`` and
+``fms_fsdp_tpu/models/mixtral.py:103``. JAX declares a ``PartitionSpec`` per
 param and lets GSPMD insert the collectives; here the same spec trees
 decide each leaf's placement and :class:`DataParallel` runs the
 collectives by hand:
@@ -46,6 +47,7 @@ import torch.distributed as dist
 
 from fms_fsdp_tpu_torch.parallel.mesh import (
     AXIS_CONTEXT,
+    AXIS_EXPERT,
     AXIS_FSDP,
     AXIS_REPLICA,
     AXIS_TENSOR,
@@ -152,9 +154,27 @@ def mamba_param_specs(cfg) -> Dict[str, Any]:
     }
 
 
-def param_specs(model_cfg) -> Dict[str, Any]:
-    from fms_fsdp_tpu_torch.models.configs import LlamaConfig, MambaConfig
+def mixtral_param_specs(scan: bool = True) -> Dict[str, Any]:
+    """The spec tree of the Mixtral params: attention as Llama's; the
+    router ``gate`` replicated; each expert's matrices split as Llama's
+    FFN, with E over ``expert`` (size 1 here, so E is never split:
+    expert parallelism is ROADMAP.md A.4b)."""
+    lead = (None,) if scan else ()
+    specs = llama_param_specs(scan)
+    specs["layers"].update({
+        "gate": P(*lead, None, None),
+        "w1": P(*lead, AXIS_EXPERT, AXIS_FSDP, AXIS_TENSOR),
+        "w3": P(*lead, AXIS_EXPERT, AXIS_FSDP, AXIS_TENSOR),
+        "w2": P(*lead, AXIS_EXPERT, AXIS_TENSOR, AXIS_FSDP),
+    })
+    return specs
 
+
+def param_specs(model_cfg) -> Dict[str, Any]:
+    from fms_fsdp_tpu_torch.models.configs import LlamaConfig, MambaConfig, MixtralConfig
+
+    if isinstance(model_cfg, MixtralConfig):
+        return mixtral_param_specs(scan=True)
     if isinstance(model_cfg, LlamaConfig):
         return llama_param_specs(scan=True)
     if isinstance(model_cfg, MambaConfig):
@@ -291,6 +311,20 @@ class _Gather(torch.autograd.Function):
                  if g is None else g
                  for g, t, d in zip(grads, unit.locals, unit.dims)]
         return (None, *unit.dp.reduce_scatter(grads, unit.dims))
+
+
+class _SumOverWorld(torch.autograd.Function):
+    """All-reduce (sum) whose backward is the identity on each rank."""
+
+    @staticmethod
+    def forward(ctx, t):
+        out = t.detach().clone()
+        dist.all_reduce(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad
 
 
 _HANDLE = object()
@@ -530,6 +564,24 @@ class DataParallel:
         n = (labels != ignore_index).sum().to(torch.float32).reshape(1)
         dist.all_reduce(n)
         return n.clamp(min=1)[0]
+
+    def sum_route(self, route: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A MoE forward's routing sums (``models/mixtral.py``) summed over
+        the world: the counts in one all-reduce without gradient, the
+        router probabilities' sums through :class:`_SumOverWorld`, whose
+        backward hands each rank the gradient of the global sum as its
+        own share's (every rank forms the same global loss term, and the
+        ranks' gradients are summed)."""
+        names = ("counts", "kept", "tokens")
+        flat = torch.cat([route[k].detach().reshape(-1).float() for k in names])
+        dist.all_reduce(flat)
+        out, off = {}, 0
+        for k in names:
+            n = route[k].numel()
+            out[k] = flat[off:off + n].view(route[k].shape)
+            off += n
+        out["probs"] = _SumOverWorld.apply(route["probs"])
+        return out
 
     def sum_over_world(self, value: torch.Tensor) -> torch.Tensor:
         out = value.detach().clone().reshape(1)

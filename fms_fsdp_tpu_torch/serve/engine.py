@@ -81,6 +81,9 @@ class ServeConfig:
     do_sample: bool = False
     temperature: float = 1.0
     top_k: int = 10
+    # Mixtral decode's MoE: "routed" (each chosen expert over its rows)
+    # or "dense" (every expert, the parity mode)
+    moe_impl: str = "routed"
     speculator_path: str = ""  # not served yet (ROADMAP.md A.9)
     serve_layout: str = ""  # not served yet (ROADMAP.md A.10)
     role: str = "unified"  # only "unified" is served (ROADMAP.md A.10)

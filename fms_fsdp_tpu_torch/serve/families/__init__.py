@@ -1,16 +1,15 @@
 """Family adapters: one serving engine, per-family device work.
 
-Counterpart of ``fms_fsdp_tpu/serve/families/__init__.py``, Llama and
-Mamba part.
+Counterpart of ``fms_fsdp_tpu/serve/families/__init__.py``.
 The engine owns admission, continuous batching, eviction, sampling and
 metrics; a :class:`FamilyAdapter` owns what differs per model family:
 the decode state a stream holds, how a prompt prefills into it, what one
 ragged batched decode step computes, and how params resolve to a family.
 
-``llama`` (paged KV, ragged paged-decode kernel) and ``mamba`` (a
-constant recurrent slab, plus paged KV for the hybrid attention layers)
-are ported. The Mixtral family raises, naming the ROADMAP.md item that
-brings it.
+``llama`` (paged KV, ragged paged-decode kernel), ``mamba`` (a constant
+recurrent slab, plus paged KV for the hybrid attention layers) and
+``mixtral`` (paged KV through the reference attention, routed top-k
+experts).
 """
 
 from typing import Optional
@@ -19,34 +18,28 @@ from fms_fsdp_tpu_torch.models.configs import (
     LlamaConfig,
     MambaAttnConfig,
     MambaConfig,
+    MixtralConfig,
 )
 
 # the wire encoding of a family in numeric-only maps (serving_stats)
 FAMILY_CODES = {"llama": 0, "mamba": 1, "mixtral": 2}
 
-_NOT_PORTED = {
-    "mixtral": "ROADMAP.md A.4 (Mixtral MoE, with its serving family)",
-}
-
-
-def _not_ported(family: str):
-    return NotImplementedError(
-        f"the {family} serving family is not ported yet: {_NOT_PORTED[family]}"
-    )
+_CONFIG_FAMILIES = (
+    (MambaConfig, "mamba"),
+    (MixtralConfig, "mixtral"),
+    (LlamaConfig, "llama"),
+)
 
 
 def family_of(model_cfg) -> str:
     """Model config dataclass -> family name."""
-    if isinstance(model_cfg, LlamaConfig):
-        return "llama"
-    if isinstance(model_cfg, MambaConfig):
-        return "mamba"
-    name = type(model_cfg).__name__
-    if name == "MixtralConfig":
-        raise _not_ported("mixtral")
+    for cls, name in _CONFIG_FAMILIES:
+        if isinstance(model_cfg, cls):
+            return name
     raise ValueError(
-        f"unknown model config type {name}: expected LlamaConfig or "
-        f"MambaConfig (fms_fsdp_tpu_torch/models/configs.py)"
+        f"unknown model config type {type(model_cfg).__name__}: expected "
+        f"LlamaConfig, MambaConfig or MixtralConfig "
+        f"(fms_fsdp_tpu_torch/models/configs.py)"
     )
 
 
@@ -71,8 +64,6 @@ def load_model_config(d: dict):
             f"one of {sorted(FAMILY_CODES)} — set \"family\" explicitly "
             f"or drop it to infer from the config keys"
         )
-    if family in _NOT_PORTED:
-        raise _not_ported(family)
     try:
         if family == "mamba":
             # JSON round-trips tuples as lists and the nested attn
@@ -82,6 +73,8 @@ def load_model_config(d: dict):
             if d.get("attn_layer_idx") is not None:
                 d["attn_layer_idx"] = tuple(d["attn_layer_idx"])
             return MambaConfig(**d)
+        if family == "mixtral":
+            return MixtralConfig(**d)
         return LlamaConfig(**d)
     except TypeError as e:
         raise ValueError(
@@ -106,7 +99,8 @@ def check_params_family(params, family: str) -> None:
         raise ValueError(
             "params do not look like any serveable family (no "
             "recognizable 'layers' structure): expected init_llama_params"
-            " / init_mamba_params output or a checkpoint thereof"
+            " / init_mamba_params / init_mixtral_params output or a "
+            "checkpoint thereof"
         )
     if actual != family:
         raise ValueError(
@@ -119,10 +113,15 @@ def check_params_family(params, family: str) -> None:
 
 def init_params_for(model_cfg):
     """Family -> its params initializer, ``fn(generator) -> params``."""
-    if family_of(model_cfg) == "mamba":
+    family = family_of(model_cfg)
+    if family == "mamba":
         from fms_fsdp_tpu_torch.models.mamba import init_mamba_params
 
         return lambda generator: init_mamba_params(generator, model_cfg)
+    if family == "mixtral":
+        from fms_fsdp_tpu_torch.models.mixtral import init_mixtral_params
+
+        return lambda generator: init_mixtral_params(generator, model_cfg)
     from fms_fsdp_tpu_torch.models.llama import init_llama_params
 
     return lambda generator: init_llama_params(generator, model_cfg)
@@ -136,6 +135,10 @@ def resolve_adapter(params, model_cfg, serve_cfg, compute_dtype, device):
         from fms_fsdp_tpu_torch.serve.families.mamba import MambaAdapter
 
         return MambaAdapter(params, model_cfg, serve_cfg, compute_dtype, device)
+    if family == "mixtral":
+        from fms_fsdp_tpu_torch.serve.families.mixtral import MixtralAdapter
+
+        return MixtralAdapter(params, model_cfg, serve_cfg, compute_dtype, device)
     from fms_fsdp_tpu_torch.serve.families.llama import LlamaAdapter
 
     return LlamaAdapter(params, model_cfg, serve_cfg, compute_dtype, device)

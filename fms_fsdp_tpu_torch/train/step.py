@@ -38,6 +38,13 @@ step computes it on the whole batch, whatever the ranks' shares of
 ignored labels. The gradient norm is global (the parts' squares summed
 over fsdp). So the non-finite decision is the same on every rank.
 
+Mixtral (``step.py:281-293,347-358`` in JAX) trains through the capacity
+dispatch and adds the load-balancing term (already weighted) to the
+objective; ``moe_drop_frac`` joins the metrics. Across processes the
+term is formed once from the routing sums of the global batch
+(``DataParallel.sum_route``), as JAX forms it over the whole batch, and
+the loss counts it once.
+
 The DCN overlap and the quantized reduce belong to ROADMAP.md A.6b and A.7.
 """
 
@@ -49,7 +56,8 @@ import torch
 from torch.profiler import record_function
 
 from fms_fsdp_tpu_torch.models import get_model_api
-from fms_fsdp_tpu_torch.models.configs import MambaConfig
+from fms_fsdp_tpu_torch.models.configs import MambaConfig, MixtralConfig
+from fms_fsdp_tpu_torch.models.mixtral import moe_stats
 from fms_fsdp_tpu_torch.obs.scopes import scoped
 from fms_fsdp_tpu_torch.ops.flash_attention import VARIANTS, set_kernel_variant
 from fms_fsdp_tpu_torch.ops.fused_ce import (
@@ -69,7 +77,7 @@ _UNPORTED_STEP = (
     ("quantized_reduce", lambda v: v != "none", "A.7 (quantized training)"),
     ("tensor_parallel_size", lambda v: v > 1, "A.6b (tensor parallelism)"),
     ("context_parallel_size", lambda v: v > 1, "A.8 (long context)"),
-    ("expert_parallel_size", lambda v: v > 1, "A.4 (MoE expert parallelism)"),
+    ("expert_parallel_size", lambda v: v > 1, "A.4b (MoE expert parallelism)"),
     ("num_slices", lambda v: v > 1, "A.6b (multi-slice)"),
     ("sharding_strategy", lambda v: v == "tp", "A.6b (tensor parallelism)"),
 )
@@ -148,11 +156,6 @@ def _per_layer(params: Dict, fn):
         leaves.append(fn(w, key, stacked))
         return leaves[-1]
 
-    def walk(tree, key):
-        if isinstance(tree, dict):
-            return {name: walk(sub, f"{key}.{name}") for name, sub in tree.items()}
-        return take(tree, key)
-
     top = {k: take(params[k], f"params.{k}") for k in _TOP_LEAVES if k in params}
     layers = params["layers"]
     if isinstance(layers, dict):
@@ -161,8 +164,19 @@ def _per_layer(params: Dict, fn):
                       for name, w in layers.items()}
                      for i in range(n_layers)]
     else:
-        per_layer = [walk(layer, f"params.layers.{i}") for i, layer in enumerate(layers)]
+        per_layer = [_walk(layer, f"params.layers.{i}", take)
+                     for i, layer in enumerate(layers)]
     return {**top, "layers": per_layer}, leaves
+
+
+def _walk(tree, key, take):
+    """``take`` over the leaves of nested dicts, keyed by their paths. A
+    module-level function: a recursive closure is a reference cycle, which
+    would keep the step's compute-dtype copy alive until the next garbage
+    collection."""
+    if isinstance(tree, dict):
+        return {name: _walk(sub, f"{key}.{name}", take) for name, sub in tree.items()}
+    return take(tree, key)
 
 
 def make_optimizer(params: Dict, cfg):
@@ -258,8 +272,9 @@ def make_train_step(model_cfg, cfg, start_step: int = 0):
 
     metrics = {loss, gnorm (the pre-clip global gradient norm, fp32), lr,
     nonfinite (1.0 when the batch's loss or gradient norm was not finite;
-    its update was skipped when ``anomaly_skip_updates``)}; loss and gnorm
-    stay tensors on the device until the loop fetches a report window.
+    its update was skipped when ``anomaly_skip_updates``)}, and for
+    Mixtral moe_drop_frac; loss, gnorm and moe_drop_frac stay tensors on
+    the device until the loop fetches a report window.
     """
     check_step_options(cfg)
     set_kernel_variant(cfg.flash_kernel_variant)
@@ -277,47 +292,63 @@ def make_train_step(model_cfg, cfg, start_step: int = 0):
         at = int(nan_fault.get("step", 0))
         nan_window = (at, at + int(nan_fault.get("count", 1)))
     extra_kwargs = {}
+    moe = isinstance(model_cfg, MixtralConfig)
     if isinstance(model_cfg, MambaConfig):
         extra_kwargs = {"mamba_kernel": cfg.mamba_kernel}
+    elif moe:
+        extra_kwargs = {"moe_impl": "dispatch", "return_aux": True}
 
-    def loss_fn(params_c, inputs, labels, n=None):
+    def loss_fn(params_c, inputs, labels, n=None, dp=None):
+        """(the token loss, the MoE balance term or None, extra metrics)"""
         out = forward_fn(
             params_c, inputs, model_cfg, compute_dtype=policy.compute_dtype,
             attn_impl=cfg.attention_kernel, ac_mask=ac_mask,
             return_hidden=fused, quant=cfg.quantized_matmuls, **extra_kwargs,
         )
+        aux, stats = None, {}
+        if moe:
+            out, aux_stats = out
+            if dp is not None:
+                aux_stats = moe_stats(dp.sum_route(aux_stats["route"]), model_cfg)
+            aux = aux_stats["balance"]
+            stats["moe_drop_frac"] = aux_stats["drop_frac"].detach()
         if fused:
-            return fused_linear_cross_entropy(
+            ce = fused_linear_cross_entropy(
                 out, params_c["lm_head"], labels, cfg.loss_chunk_size, n=n
             )
-        return cross_entropy_loss(out, labels, n=n)
+        else:
+            ce = cross_entropy_loss(out, labels, n=n)
+        return ce, aux, stats
 
     @scoped("fwd_bwd")
     def fwd_bwd(state, inputs, labels):
         dp = state.get("dp")
         params_c, leaves, split = _compute_copy(state["params"], policy.compute_dtype, dp)
         if dp is None:
-            loss = loss_fn(params_c, inputs, labels)
+            loss, aux, stats = loss_fn(params_c, inputs, labels)
         else:
             n = dp.global_count(labels)
             with dp.release_saved() if dp.sharded else nullcontext():
-                loss = loss_fn(params_c, inputs, labels, n)
+                loss, aux, stats = loss_fn(params_c, inputs, labels, n, dp)
         del params_c
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss if aux is None else loss + aux, leaves)
         if dp is not None:
             dp.reduce_grads(grads, split)
             loss = dp.sum_over_world(loss)
+        if aux is not None:
+            # the global term, once, beside the ranks' summed token loss
+            loss = loss.detach() + aux.detach()
         if nan_window is not None and (
             nan_window[0] <= state["step"] + start_step < nan_window[1]
         ):
             # injected non-finite batch: the guard below must absorb it
             loss = loss * float("nan")
             grads = tuple(g * float("nan") for g in grads)
-        return loss, grads, split
+        return loss, grads, split, stats
 
     def train_step(state, batch):
         inputs, labels = batch
-        loss, grads, split = fwd_bwd(state, inputs, labels)
+        loss, grads, split, stats = fwd_bwd(state, inputs, labels)
         dp = state.get("dp")
         if dp is not None and dp.sharded:
             gnorm = dp.grad_norm(grads, split)
@@ -346,6 +377,7 @@ def make_train_step(model_cfg, cfg, start_step: int = 0):
             "gnorm": gnorm,
             "lr": lr,
             "nonfinite": float(nonfinite),
+            **stats,
         }
 
     return train_step

@@ -1,4 +1,4 @@
-"""Config overrides and the model-variant table, Llama and Mamba part.
+"""Config overrides and the model-variant table.
 
 ``update_config`` is a copy of ``fms_fsdp_tpu/utils/config_utils.py:33``
 (ref:fms_fsdp/utils/config_utils.py:6-22): set matching attributes,
@@ -7,8 +7,8 @@ support dotted ``ClassName.param`` addressing, warn on unknown keys.
 A copy of the Llama rows of ``fms_fsdp_tpu/utils/config_utils.py``
 (reference: fms_fsdp/utils/config_utils.py:25-161): llama2 {1.4b, 7b,
 13b, 34b, 70b} and llama3 {194m_4k, 1.8b, 3.2b, 8b, 70b} with their
-``_4k`` context variants, and ``mamba_9.8b`` (``:148-172``).
-``mixtral_8x7b`` arrives with the Mixtral slice (ROADMAP.md A.4).
+``_4k`` context variants, ``mamba_9.8b`` (``:148-172``) and
+``mixtral_8x7b`` (``:173-189``).
 """
 
 import dataclasses
@@ -18,6 +18,7 @@ from fms_fsdp_tpu_torch.models.configs import (
     LlamaConfig,
     MambaAttnConfig,
     MambaConfig,
+    MixtralConfig,
 )
 
 
@@ -140,11 +141,6 @@ for _name in ["llama3_8b", "llama3_1.8b", "llama3_3.2b", "llama3_70b"]:
         _LLAMA_VARIANTS[_name], max_expected_seq_len=4096
     )
 
-_LATER = {
-    "mixtral_8x7b": "ROADMAP.md A.4 (Mixtral MoE)",
-}
-
-
 def get_model_config(model_variant):
     if model_variant in _LLAMA_VARIANTS:
         return LlamaConfig(**_LLAMA_VARIANTS[model_variant])
@@ -173,9 +169,18 @@ def get_model_config(model_variant):
             pad_vocab_size_multiple=16,
             tie_embeddings=False,
         )
-    if model_variant in _LATER:
-        raise NotImplementedError(
-            f"model variant {model_variant} is not ported yet: "
-            f"{_LATER[model_variant]}"
+    if model_variant == "mixtral_8x7b":
+        # Mixtral-8x7B (46.7B total / 12.9B active params)
+        return MixtralConfig(
+            src_vocab_size=32000,
+            emb_dim=4096,
+            nheads=32,
+            kvheads=8,
+            nlayers=32,
+            hidden_dim=14336,
+            num_experts=8,
+            top_k=2,
+            max_expected_seq_len=4096,
+            rope_theta=1e6,
         )
     raise ValueError(f"model variant {model_variant} not supported.")

@@ -1,18 +1,20 @@
 """Model FLOPs accounting for MFU/HFU reporting.
 
-Counterpart of the Llama and Mamba parts of ``fms_fsdp_tpu/utils/flops.py``,
+Counterpart of ``fms_fsdp_tpu/utils/flops.py``,
 the PaLM appendix-B convention the reference publishes (ref:README.md:22-30):
 
 - matmul params contribute 2 FLOPs/param/token forward (the embedding
   gather none; the lm_head matmul counts);
 - causal attention contributes 2 * S * d_attn FLOPs/token/layer forward;
 - backward = 2x forward; train = 3x forward;
-- HFU additionally counts the recomputed forward of remat'ed blocks.
+- HFU additionally counts the recomputed forward of remat'ed blocks;
+- a MoE layer counts its router and its ``top_k`` activated experts only
+  (capacity slack and dispatch movement are work that does not count).
 
 The peak is the card's dense bf16 tensor rate from NVIDIA's data sheet.
 """
 
-from fms_fsdp_tpu_torch.models.configs import LlamaConfig, MambaConfig
+from fms_fsdp_tpu_torch.models.configs import LlamaConfig, MambaConfig, MixtralConfig
 
 # Peak dense bf16 FLOP/s per card (H100 SXM data sheet, at 700 W).
 GPU_PEAK_FLOPS = {"h100": 989e12}
@@ -86,8 +88,37 @@ def mamba_train_flops_per_token(cfg: MambaConfig, seq_len: int,
     return mamba_fwd_flops_per_token(cfg, seq_len) * (3 + ac_fraction)
 
 
+def mixtral_matmul_params_active(cfg: MixtralConfig) -> int:
+    """Matmul params a token touches: attention, the router, the
+    ``top_k`` activated expert SwiGLUs and lm_head."""
+    d, h = cfg.emb_dim, cfg.hidden_dim
+    attn_dim = cfg.nheads * cfg.head_dim
+    kv_dim = cfg.n_kv_heads * cfg.head_dim
+    per_layer = (
+        d * attn_dim  # wq
+        + 2 * d * kv_dim  # wk, wv
+        + attn_dim * d  # wo
+        + d * cfg.num_experts  # router gate
+        + cfg.top_k * 3 * d * h  # activated expert SwiGLU
+    )
+    return cfg.nlayers * per_layer + cfg.src_vocab_size * d  # + lm_head
+
+
+def mixtral_fwd_flops_per_token(cfg: MixtralConfig, seq_len: int) -> float:
+    mm = 2 * mixtral_matmul_params_active(cfg)
+    attn = cfg.nlayers * 2 * seq_len * cfg.nheads * cfg.head_dim
+    return mm + attn
+
+
+def mixtral_train_flops_per_token(cfg: MixtralConfig, seq_len: int,
+                                  ac_fraction: float = 0.0) -> float:
+    return mixtral_fwd_flops_per_token(cfg, seq_len) * (3 + ac_fraction)
+
+
 def train_flops_per_token(model_cfg, seq_len: int, ac_fraction: float = 0.0) -> float:
     """Family dispatch for MFU/HFU accounting."""
+    if isinstance(model_cfg, MixtralConfig):
+        return mixtral_train_flops_per_token(model_cfg, seq_len, ac_fraction)
     if isinstance(model_cfg, LlamaConfig):
         return llama_train_flops_per_token(model_cfg, seq_len, ac_fraction)
     if isinstance(model_cfg, MambaConfig):

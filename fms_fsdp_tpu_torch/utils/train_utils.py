@@ -7,9 +7,11 @@ feeds the non-finite flags to the anomaly guard and prints (rank 0) the
 reference's report lines (step, loss, LR, tokens seen, gradient norm,
 memory, step times, current and overall tokens per chip per second,
 overall tokens per day, in its order and with its values) plus MFU and
-HFU against the card's peak. Tokens seen count the whole world (JAX's
-``world_size`` factor: every data-parallel rank trains ``batch_size``
-rows a step); the rates are per card.
+HFU against the card's peak, then the model family's metrics (Mixtral's
+``moe_drop_frac``), which also go to the record's ``extra`` map. Tokens
+seen count the whole world (JAX's ``world_size`` factor: every
+data-parallel rank trains ``batch_size`` rows a step); the rates are per
+card.
 
 The observability and resilience layer runs in JAX's order: the step
 watchdog, the ``slice_kill`` / ``dcn_reduce_stall`` fault sites at each
@@ -356,7 +358,14 @@ def _train_loop(cfg, state, step_fn, rank, train_loader, checkpointer, start_ste
         throughput = tokens_per_step / step_time
         overall_throughput = tokens_per_step / overall_step_time
         reserved, allocated, peak_alloc = _memory_stats(device)
-        extra = {"process_count": world}
+        # the model family's own metrics (Mixtral's moe_drop_frac): the
+        # mean over the window's clean steps, printed and in the record's
+        # extras, as JAX reports them
+        family_metrics = {} if poisoned else {
+            k: sum(m[k] for m in good) / len(good)
+            for k in good[-1] if k not in ("loss", "gnorm", "lr", "nonfinite")
+        }
+        extra = {"process_count": world, **family_metrics}
         if poisoned:
             extra["window_poisoned"] = 1
         report_start = time.perf_counter()
@@ -392,6 +401,7 @@ def _train_loop(cfg, state, step_fn, rank, train_loader, checkpointer, start_ste
             "max_memory_allocated_bytes": peak_alloc,
             "skipped_batches": guard.skipped_batches,
             "skipped_window": window_skips,
+            **family_metrics,
         }
         reports.append(record)
         if rank == 0:
@@ -415,6 +425,8 @@ def _train_loop(cfg, state, step_fn, rank, train_loader, checkpointer, start_ste
                 print("HFU:", record["hfu"])
             if guard.skipped_batches:
                 print("skipped batches:", guard.skipped_batches)
+            for k, v in family_metrics.items():
+                print(f"{k}:", v)
         start = time.time()
 
     def save(step, reason):

@@ -497,6 +497,45 @@ def test_card_full_width_step_kernel_vs_einsum(cuda_device):
         assert abs(kernel[i] - einsum[i]) <= tol, (i, kernel, einsum, fp32)
 
 
+@pytest.mark.card
+def test_card_mixtral_step_kernel_vs_plain_attention(cuda_device):
+    """One bfSixteen Mixtral train step at a narrow width (512 wide, 4/2
+    heads of 128, 4 experts of hidden 1024, top-2, 2 layers, seq 1024,
+    batch 2) through the flash kernels and through the plain attention,
+    on the same weights and batch: the losses within bf16's 2e-2
+    relative, the gradient norms finite, and the kernel step launching
+    the forward, dq and dk/dv once a layer (no AC), the plain one none."""
+    from fms_fsdp_tpu_torch.config import TrainConfig
+    from fms_fsdp_tpu_torch.data.device_feed import DeviceFeed
+    from fms_fsdp_tpu_torch.data.loader import get_dummy_loader
+    from fms_fsdp_tpu_torch.models.configs import MixtralConfig
+    from fms_fsdp_tpu_torch.models.mixtral import init_mixtral_params
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+    from fms_fsdp_tpu_torch.train.step import make_train_step, state_from_params
+
+    model = MixtralConfig(src_vocab_size=32000, emb_dim=512, nheads=4, kvheads=2,
+                          nlayers=2, hidden_dim=1024, num_experts=4, top_k=2)
+    params0 = init_mixtral_params(torch.Generator(device=cuda_device).manual_seed(0), model)
+
+    def step(attn):
+        cfg = TrainConfig(seq_length=1024, batch_size=2, vocab_size=32000,
+                          attention_kernel=attn, mixed_precision=True,
+                          use_dummy_dataset=True, num_steps=12)
+        state = state_from_params(_params_clone(params0), cfg)
+        batch = next(iter(DeviceFeed(get_dummy_loader(cfg, 0, 1), cuda_device)))
+        fa.reset_launches()
+        m = make_train_step(model, cfg)(state, batch)
+        return (float(m["loss"]), float(m["gnorm"]), float(m["moe_drop_frac"]),
+                dict(fa.LAUNCHES))
+
+    kernel, plain = step("pallas"), step("xla")
+    assert (kernel[3]["fwd"], kernel[3]["dq"], kernel[3]["dkv"]) == (2, 2, 2)
+    assert sum(plain[3].values()) == 0
+    assert all(np.isfinite(x) for x in kernel[:3] + plain[:3])
+    assert abs(kernel[0] - plain[0]) <= 2e-2 * abs(plain[0]), (kernel, plain)
+    assert 0.0 <= kernel[2] < 1.0
+
+
 # ---------------------------------------------------------------------------
 # the fused SSD scan kernels (csrc/ssd_sm90.cu for bf16/fp16, csrc/ssd.cu
 # for fp32)

@@ -23,7 +23,7 @@ from fms_fsdp_tpu.serve import ServeConfig as JServeConfig
 from fms_fsdp_tpu.serve import ServingEngine as JServingEngine
 from fms_fsdp_tpu_torch.bridge import params_from_numpy
 from fms_fsdp_tpu_torch.models import mamba as t_mamba
-from fms_fsdp_tpu_torch.models.configs import MambaAttnConfig, MambaConfig
+from fms_fsdp_tpu_torch.models.configs import MambaAttnConfig, MambaConfig, MixtralConfig
 from fms_fsdp_tpu_torch.ops import ssd as t_ssd
 from fms_fsdp_tpu_torch.serve import ServeConfig, ServingEngine
 from fms_fsdp_tpu_torch.serve.families import (
@@ -301,8 +301,8 @@ def test_mamba_family_resolution(np_params):
     d["attn_layer_idx"] = list(d["attn_layer_idx"])  # as JSON returns it
     assert load_model_config(d) == CFG["hybrid"]
     assert load_model_config(dict(d, family="mamba")) == CFG["hybrid"]
-    with pytest.raises(NotImplementedError, match="A.4"):
-        load_model_config({"family": "mixtral"})
+    mixtral = load_model_config({"family": "mixtral"})
+    assert isinstance(mixtral, MixtralConfig) and family_of(mixtral) == "mixtral"
     params = init_params_for(CFG["pure"])(torch.Generator().manual_seed(0))
     check_params_family(params, "mamba")
     with pytest.raises(ValueError, match="family mismatch"):

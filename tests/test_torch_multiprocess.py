@@ -47,6 +47,16 @@ _MAMBA = {"model_variant": "mamba_9.8b", "MambaConfig.d_model": 64,
           "MambaConfig.vocab_size": 128, "MambaConfig.attn_layer_idx": [1],
           "MambaConfig.d_state": 16, "MambaConfig.headdim": 16,
           "MambaConfig.chunk_size": 16}
+# tests/test_torch_mixtral.py's TINY; the balance term weighted 0.5 (JAX's
+# default 0.02) so that a rank-local load-balancing loss, which differs
+# from the global batch's by the covariance of the ranks' routing, moves
+# the loss and the gradient norm far past 1e-5
+_MIXTRAL = {"model_variant": "mixtral_8x7b", "MixtralConfig.nlayers": 2,
+            "MixtralConfig.emb_dim": 64, "MixtralConfig.nheads": 4,
+            "MixtralConfig.kvheads": 2, "MixtralConfig.hidden_dim": 96,
+            "MixtralConfig.num_experts": 4, "MixtralConfig.src_vocab_size": 128,
+            "MixtralConfig.max_expected_seq_len": 64,
+            "MixtralConfig.aux_loss_weight": 0.5}
 N_LAYERS = 2
 SEQ, ROWS, STEPS = 32, 8, 3
 _RUN = dict(seq_length=SEQ, vocab_size=128, num_steps=STEPS, report_interval=1,
@@ -271,6 +281,22 @@ def test_two_ranks_mamba_fsdp_match_jax(tmp_path_factory, tmp_path):
     _assert_matches_jax(res, ref)
     assert [g["layer"] for g in res[0]["gathers"]] == [2 * 3] * STEPS
     assert all(r["sharded"] for r in res)
+
+
+def test_two_ranks_mixtral_fsdp_match_jax(tmp_path_factory, tmp_path):
+    """Mixtral under fsdp on two ranks whose rows route unlike: the
+    load-balancing term is JAX's over the global batch (the routing sums
+    all-reduced before the product, the term counted once), so the losses
+    and gradient norms equal JAX's one-process step; the expert weights
+    split on their d dim, the router replicated, each layer gathered
+    twice a step."""
+    ref = _reference(tmp_path_factory.mktemp("mixtral_ref"), _MIXTRAL)
+    jax.clear_caches()
+    res, outs = _parity_run(ref, tmp_path, "fsdp")
+    _assert_matches_jax(res, ref)
+    assert [g["layer"] for g in res[0]["gathers"]] == [2 * N_LAYERS] * STEPS
+    assert all(r["sharded"] for r in res)
+    assert "moe_drop_frac:" in outs[0]
 
 
 # ---------------------------------------------------------------------------

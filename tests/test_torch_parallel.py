@@ -21,12 +21,20 @@ from fms_fsdp_tpu.models.configs import MambaConfig as JMambaConfig
 from fms_fsdp_tpu.models.llama import init_llama_params as j_init_llama
 from fms_fsdp_tpu.models.mamba import init_mamba_params as j_init_mamba
 from fms_fsdp_tpu.models.mamba import mamba_param_specs as j_mamba_specs
+from fms_fsdp_tpu.models.configs import MixtralConfig as JMixtralConfig
+from fms_fsdp_tpu.models.mixtral import init_mixtral_params as j_init_mixtral
+from fms_fsdp_tpu.models.mixtral import mixtral_param_specs as j_mixtral_specs
 from fms_fsdp_tpu.parallel import mesh as j_mesh
 from fms_fsdp_tpu.parallel import sharding as j_sharding
 from fms_fsdp_tpu.resilience import divergence as j_div
 from fms_fsdp_tpu_torch.config import TrainConfig
 from fms_fsdp_tpu_torch.data.loader import elastic_batch_size
-from fms_fsdp_tpu_torch.models.configs import LlamaConfig, MambaAttnConfig, MambaConfig
+from fms_fsdp_tpu_torch.models.configs import (
+    LlamaConfig,
+    MambaAttnConfig,
+    MambaConfig,
+    MixtralConfig,
+)
 from fms_fsdp_tpu_torch.parallel import mesh, sharding
 from fms_fsdp_tpu_torch.resilience import divergence
 
@@ -36,6 +44,8 @@ _ATTN_KW = dict(head_dim=16, num_heads=4, num_heads_kv=2, rotary_emb_dim=8)
 _MAMBA_KW = dict(d_model=64, d_intermediate=128, n_layer=3, vocab_size=256,
                  attn_layer_idx=(1,), d_state=16, d_conv=4, expand=2, headdim=16,
                  chunk_size=16, pad_vocab_size_multiple=16)
+_MIXTRAL_KW = dict(src_vocab_size=128, emb_dim=64, nheads=4, kvheads=2, nlayers=2,
+                   hidden_dim=96, num_experts=4, top_k=2, max_expected_seq_len=64)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -88,7 +98,7 @@ def test_mesh_refusals_and_errors_match_jax():
     (dict(sharding_strategy="fsdp", tensor_parallel_size=2), "A.6b"),
     (dict(sharding_strategy="fsdp", num_slices=2), "A.6b"),
     (dict(sharding_strategy="fsdp", context_parallel_size=2), "A.8"),
-    (dict(sharding_strategy="fsdp", expert_parallel_size=2), "A.4"),
+    (dict(sharding_strategy="fsdp", expert_parallel_size=2), "A.4b"),
 ])
 def test_build_mesh_refuses_unported_axes(kw, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -130,7 +140,7 @@ def _spec_at(specs, path):
     return specs
 
 
-@pytest.mark.parametrize("family", ["llama", "mamba"])
+@pytest.mark.parametrize("family", ["llama", "mamba", "mixtral"])
 @pytest.mark.parametrize("strategy,n,group", [("fsdp", 2, None), ("fsdp", 4, None),
                                               ("fsdp", 8, None), ("hsdp", 8, 2),
                                               ("ddp", 4, None)])
@@ -142,6 +152,10 @@ def test_placement_plan_matches_jax_resolved_specs(family, strategy, n, group):
         params = j_init_llama(jax.random.PRNGKey(0), JLlamaConfig(**TINY_KW))
         j_specs, t_specs = (j_sharding.llama_param_specs(scan=True),
                             sharding.param_specs(LlamaConfig(**TINY_KW)))
+    elif family == "mixtral":
+        params = j_init_mixtral(jax.random.PRNGKey(0), JMixtralConfig(**_MIXTRAL_KW))
+        j_specs = j_mixtral_specs(scan=True)
+        t_specs = sharding.param_specs(MixtralConfig(**_MIXTRAL_KW))
     else:
         jcfg = JMambaConfig(attn_cfg=JMambaAttnConfig(**_ATTN_KW), **_MAMBA_KW)
         params = j_init_mamba(jax.random.PRNGKey(0), jcfg)
@@ -166,6 +180,10 @@ def test_placement_plan_matches_jax_resolved_specs(family, strategy, n, group):
     if family == "llama" and shape["fsdp"] > 1:
         # the stacked L axis is never split
         assert dims["params.layers.wq"] == 1 and dims["params.layers.wo"] == 2
+    if family == "mixtral" and shape["fsdp"] > 1:
+        # the expert dim is never split (A.4b); the router is replicated
+        assert dims["params.layers.w1"] == 2 and dims["params.layers.w2"] == 3
+        assert dims["params.layers.gate"] is None
 
 
 def test_moments_placed_as_their_params():

@@ -18,6 +18,7 @@ import torch
 
 from fms_fsdp_tpu.config import TrainConfig as JTrainConfig
 from fms_fsdp_tpu.models.configs import LlamaConfig as JLlamaConfig
+from fms_fsdp_tpu.models.configs import MixtralConfig as JMixtralConfig
 from fms_fsdp_tpu.parallel.mesh import MeshConfig, build_mesh
 from fms_fsdp_tpu.train import step as j_step
 from fms_fsdp_tpu.utils.checkpointing import Checkpointer as JCheckpointer
@@ -26,7 +27,8 @@ from fms_fsdp_tpu_torch.ckpt.state import checkpoint_state
 from fms_fsdp_tpu_torch.config import TrainConfig
 from fms_fsdp_tpu_torch.main_training_llama import main
 from fms_fsdp_tpu_torch.main_training_mamba import main as mamba_main
-from fms_fsdp_tpu_torch.models.configs import LlamaConfig, MambaAttnConfig
+from fms_fsdp_tpu_torch.main_training_mixtral import main as mixtral_main
+from fms_fsdp_tpu_torch.models.configs import LlamaConfig, MambaAttnConfig, MixtralConfig
 from fms_fsdp_tpu_torch.train.step import get_lr_schedule, make_train_step, state_from_params
 from fms_fsdp_tpu_torch.utils.checkpointing import Checkpointer
 from fms_fsdp_tpu_torch.utils.train_utils import train
@@ -161,11 +163,59 @@ def test_resume_matches_jax(j_setup, tmp_path):
                   - np.asarray(jfresh["params"]["embedding"])).max() <= 2e-5
 
 
+_MIXTRAL_KW = dict(src_vocab_size=128, emb_dim=64, nheads=4, kvheads=2, nlayers=2,
+                   hidden_dim=96, num_experts=4, top_k=2, max_expected_seq_len=64,
+                   capacity_factor=1.0)
+
+
+def test_mixtral_state_resumes_bitwise_in_jax_layout(tmp_path):
+    """A TINY Mixtral train state (capacity factor 1, so choices drop):
+    its checkpoint keys are JAX's train-state tree paths (the router and
+    the (L, E, d, h) experts among them); 4 steps straight against 2 +
+    a DCP save + a load into a fresh state + 2, bitwise, the drop
+    fractions equal."""
+    jcfg_model, cfg_model = JMixtralConfig(**_MIXTRAL_KW), MixtralConfig(**_MIXTRAL_KW)
+    jcfg = JTrainConfig(**_KW)
+    mesh = build_mesh(MeshConfig.from_train_config(jcfg))
+    opt = j_step.make_optimizer(jcfg)
+    jstate = j_step.init_train_state(jax.random.PRNGKey(0), jcfg_model, jcfg, mesh, opt)[0]
+    j_keys = {jax.tree_util.keystr(path, simple=True, separator=".")
+              for path, _ in jax.tree_util.tree_flatten_with_path(jstate)[0]}
+    np_params = jax.tree.map(np.asarray, jstate["params"])
+    cfg = TrainConfig(**dict(_KW, num_steps=4))
+    batches = [_t(b) for b in _batches(4)]
+
+    straight = state_from_params(params_from_numpy(np_params), cfg)
+    assert set(checkpoint_state(straight)) == j_keys
+    assert "params.layers.gate" in j_keys and "opt_state.inner_state.0.mu.layers.w2" in j_keys
+    ref = train(cfg, straight, make_train_step(cfg_model, cfg), 0, iter(batches))
+
+    first = state_from_params(params_from_numpy(np_params), cfg)
+    cfg2 = TrainConfig(**dict(_KW, num_steps=4, checkpoint_interval=2))
+    head = train(cfg2, first, make_train_step(cfg_model, cfg2), 0, iter(batches[:2]),
+                 Checkpointer(str(tmp_path), 2, "fsdp"))
+    fresh = state_from_params(params_from_numpy(jax.tree.map(np.zeros_like, np_params)),
+                              cfg)
+    _, _, start, ntok, resuming = Checkpointer(str(tmp_path), 2, "fsdp").load(fresh, None)
+    assert (start, ntok, resuming) == (2, 2 * ROWS * SEQ, True)
+    tail = train(cfg, fresh, make_train_step(cfg_model, cfg), 0, iter(batches[2:]),
+                 start_step=start, tokens_seen=ntok)
+    reports = head["reports"] + tail["reports"]
+    for key in ("loss", "gnorm", "lr", "moe_drop_frac"):
+        assert [r[key] for r in reports] == [r[key] for r in ref["reports"]], key
+    assert any(r["moe_drop_frac"] > 0 for r in reports)
+    want, got = checkpoint_state(straight), checkpoint_state(fresh)
+    for key in want:
+        assert torch.equal(_bits(want[key]), _bits(got[key])), key
+
+
 _LLAMA_ENTRY = {
     "model_variant": "llama3_194m_4k", "LlamaConfig.nlayers": 2, "LlamaConfig.emb_dim": 64,
     "LlamaConfig.nheads": 4, "LlamaConfig.kvheads": 2, "LlamaConfig.src_vocab_size": 128,
     "vocab_size": 128,
 }
+_MIXTRAL_ENTRY = dict({f"MixtralConfig.{k}": v for k, v in _MIXTRAL_KW.items()},
+                      vocab_size=128)
 _MAMBA_ENTRY = {
     "MambaConfig.d_model": 64, "MambaConfig.d_intermediate": 128, "MambaConfig.n_layer": 3,
     "MambaConfig.vocab_size": 256, "MambaConfig.attn_layer_idx": (1,),
@@ -176,9 +226,10 @@ _MAMBA_ENTRY = {
 }
 
 
-@pytest.mark.parametrize("family", ["llama", "mamba"])
+@pytest.mark.parametrize("family", ["llama", "mamba", "mixtral"])
 def test_entry_saves_and_resumes(family, tmp_path, capsys):
-    entry, over = (main, _LLAMA_ENTRY) if family == "llama" else (mamba_main, _MAMBA_ENTRY)
+    entry, over = {"llama": (main, _LLAMA_ENTRY), "mamba": (mamba_main, _MAMBA_ENTRY),
+                   "mixtral": (mixtral_main, _MIXTRAL_ENTRY)}[family]
     run = str(tmp_path / "run")
     kw = dict(device="cpu", use_dummy_dataset=True, batch_size=2, seq_length=32,
               attention_kernel="xla", report_interval=2, checkpoint_interval=2,

@@ -30,7 +30,7 @@ from fms_fsdp_tpu.serve import ServingEngine as JServingEngine
 from fms_fsdp_tpu.serve.decode import paged_decode_step as j_paged_decode_step
 from fms_fsdp_tpu.utils import config_utils as j_config_utils
 from fms_fsdp_tpu_torch.bridge import params_from_numpy, params_to_numpy
-from fms_fsdp_tpu_torch.models.configs import LlamaConfig
+from fms_fsdp_tpu_torch.models.configs import LlamaConfig, MixtralConfig
 from fms_fsdp_tpu_torch.models.generation import (
     decode_chunk,
     decode_step,
@@ -91,8 +91,11 @@ def test_llama_variant_table_matches_jax():
         assert dataclasses.asdict(port) == dataclasses.asdict(ref), name
         assert port.hidden_dim == ref.hidden_dim and port.head_dim == ref.head_dim
         assert port.n_params() == ref.n_params()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.4"):
-        config_utils.get_model_config("mixtral_8x7b")
+    port = config_utils.get_model_config("mixtral_8x7b")
+    ref = j_config_utils.get_model_config("mixtral_8x7b")
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert port.head_dim == ref.head_dim and port.n_kv_heads == ref.n_kv_heads
+    assert port.n_params() == ref.n_params()
     port = config_utils.get_model_config("mamba_9.8b")
     ref = j_config_utils.get_model_config("mamba_9.8b")
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
@@ -424,11 +427,11 @@ def test_engine_refuses_unported_options(params, field, value):
 def test_families_llama_only():
     assert family_of(TINY) == "llama"
     assert load_model_config(dict(_TINY_KW)) == TINY
-    # the Mamba family resolves now; Mixtral still names its item
+    # the Mamba and Mixtral families resolve too
     mamba = load_model_config({"d_model": 64, "attn_layer_idx": [1]})
     assert family_of(mamba) == "mamba" and mamba.attn_layer_idx == (1,)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.4"):
-        load_model_config({"num_experts": 8})
+    mixtral = load_model_config({"num_experts": 8})
+    assert isinstance(mixtral, MixtralConfig) and family_of(mixtral) == "mixtral"
 
 
 # ---------------------------------------------------------------------------
@@ -450,6 +453,7 @@ def test_port_imports_no_jax_and_no_jax_package():
         "       ('jax', 'jaxlib', 'fms_fsdp_tpu')]\n"
         "need = {'fms_fsdp_tpu_torch.' + m for m in (\n"
         "    'ops.ssd', 'models.mamba', 'serve.families.mamba',\n"
+        "    'models.mixtral', 'serve.families.mixtral', 'main_training_mixtral',\n"
         "    'main_training_mamba', 'ckpt', 'ckpt.elastic', 'ckpt.manager',\n"
         "    'ckpt.state', 'utils.checkpointing', 'utils.ckpt_paths',\n"
         "    'resilience.integrity', 'resilience.scrub', 'resilience.retry',\n"
@@ -459,7 +463,7 @@ def test_port_imports_no_jax_and_no_jax_package():
         "    'resilience.faults', 'resilience.exits', 'resilience.guards',\n"
         "    'resilience.supervisor', 'utils.train_utils')}\n"
         "print(len(mods), bad, need - set(mods))\n"
-        "sys.exit(1 if bad or len(mods) < 71 or need - set(mods) else 0)\n"
+        "sys.exit(1 if bad or len(mods) < 74 or need - set(mods) else 0)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
