@@ -32,7 +32,41 @@ Phases, one JSON line each; any failure exits non-zero:
    the reference attention and an fp32 step, and profiles one step.
 5. serve-int8 — the same engine with int8 pools on a shorter wave, so
    the quantized (v2) contract runs end to end.
-6. flash   — the flash-attention kernels (wgmma + TMA for bf16: forward,
+6. train-speculator — ``speculator.train_speculator.main`` (the port's
+   entry) on the serve phases' random bf16 llama3_8b as the frozen base,
+   at full width and depth (8.03B parameters), with JAX's default
+   speculator (3 heads, width 4096, tied, scale_input: 1.084B
+   parameters, fp32 with AdamW): seq 4096 (+4), batch 2, dummy data
+   (``SteadyCounter`` modulo 4096: each token the previous plus one, the
+   same 4096 transitions every batch), 6 stage-1 steps
+   through the flash forward, then 2 stage-2 steps (``stage2_batch_size``
+   32 and ``stage2_seq_length`` 64, cut from JAX's 96 and 256; prompts of
+   64), reports every step, no save of the train state (its 13 GB is cut
+   for time; the CPU tests save and resume it). Checks: flash forward
+   launches == stage-1 steps x layers and no dq, dk/dv or paged-decode
+   launch; every loss and gradient norm finite; head 1's loss at the
+   last stage-1 step below its first; the first stage-1 step's per-head
+   losses through the kernel and through the plain attention within
+   ``TOL["bf16"]`` (relative). Prints tokens/s per stage, the peak
+   bytes, each step's per-head losses, gradient norm and LR, and a
+   device profile of a stage-1 step (flash, the base's 16-bit GEMMs, the
+   speculator's GEMMs, CE, optimizer, other). ``save_speculator`` writes
+   the trained speculator (4.3 GB) into the run's in-memory directory.
+7. serve-spec — ``ServingEngine`` on the same llama3_8b (bf16,
+   ``max_batch=8``, page 64) with ``speculator_path`` set to that file
+   and ``spec_draft_tokens=3``: 8 requests of 64-512 prompt tokens and 64
+   new tokens, then the same requests on a plain engine. Checks: every
+   request finishes; the verify steps launch no attention kernel (they
+   gather, as JAX's) and the plain decode launches the paged kernel.
+   Prints decode tokens/s, tokens committed per verify step, the accept
+   rate, host wall against device ms per step of both engines, and how
+   many requests' bf16 tokens agree (not asserted: the gather path and
+   the kernel may split near-ties apart). Then fp32 at 8 of 32 layers
+   with the reference attention: the speculative tokens equal plain
+   greedy for every request, and an oracle drafter (the plain stream's
+   own continuation) commits every draft (accept rate 1.0) with the same
+   tokens. Needs the train-speculator phase.
+8. flash   — the flash-attention kernels (wgmma + TMA for bf16: forward,
    dq, dk/dv; scalar for fp32) against their plain versions for bf16 and
    fp32: the training shape
    (B=2, Nq=32, Nkv=8, S=4096, H=128, causal, group 4), the kvgrid
@@ -51,23 +85,25 @@ Phases, one JSON line each; any failure exits non-zero:
    backend) forward and backward; achieved TF/s and share of the bound of
    each kernel, the pair dq + dk/dv and the whole autograd backward
    beside SDPA's backward.
-7. train   — ``fms_fsdp_tpu_torch.main_training_llama.main`` at
+9. train   — ``fms_fsdp_tpu_torch.main_training_llama.main`` at
    llama3_8b_4k width (4096 wide, 32/8 heads, hidden 14336, vocab
    128256) and 8 layers, seq 4096, batch 2, selective AC 1/2, dummy
    data, 12 steps: finite and decreasing loss, no skipped batch, launches
    == steps x (layers + rematerialised layers) forward and steps x layers
    dq and dk/dv; tokens per card per second, MFU/HFU, peak memory and a
    profile of one step. It saves nothing (its 33.5 GB final save was
-   cut for the Mixtral phases' time). Every other trainer phase but
-   train-mixtral writes its final save (the
-   one at ``num_steps``; its manifest records sizes, the phase deletes it
-   unread) to a fresh checkpoint root in memory (see
-   ``_ckpt_dir``) and prints its blocking snapshot (ms), its background
-   commit, payload write and manifest hashing (s), its bytes and GB/s,
-   then deletes the root. Every trainer phase runs through the mesh
+   cut for the Mixtral phases' time), and neither do train-kvgrid (its
+   17.8 GB, ~21 s, cut for the speculator phases: the resume phase checks
+   the final save of the same 2-layer model through the same entry) and
+   train-mixtral. train-mamba writes its final save (the one at
+   ``num_steps``; its manifest records sizes, the phase deletes it
+   unread) to a fresh checkpoint root in memory (see ``_ckpt_dir``) and
+   prints its blocking snapshot (ms), its background commit, payload
+   write and manifest hashing (s), its bytes and GB/s, then deletes the
+   root. Every trainer phase runs through the mesh
    (``parallel/mesh.py``) and an NCCL process group of one, with no
    sharded state (checked and printed as ``process_group``).
-8. loader — the streaming loader alone, host plus the copy to the card
+10. loader — the streaming loader alone, host plus the copy to the card
    (no model): a corpus of two 8-shard corpora (about 100M llama3 token
    ids, document lengths log-uniform over 64-16,384) written into the
    run's in-memory directory with ``meta/combined_counts.csv``;
@@ -84,9 +120,9 @@ Phases, one JSON line each; any failure exits non-zero:
    the saved loader's; ms per batch through ``DeviceFeed`` to the card
    (its batches equal to the host's), the consumer's wait and the
    staging alone.
-9. resume — checkpoint and resume through the Llama entry point at
-   llama3_8b_4k width, 2 layers, seq 4096, batch 2, AC 1/2, bfSixteen,
-   streaming the loader phase's corpus (one loader worker, the feed two
+11. resume — checkpoint and resume through the Llama entry point at
+   llama3_8b_4k width, 2 layers, seq 4096, batch 2, AC 1/2, bf16 params
+   and moments, streaming the loader phase's corpus (one loader worker, the feed two
    batches ahead): a first run of 6 steps saves on the local tier (the
    checkout's disk) at 2 and the durable tier (memory) at 4 and 6
    (retention 1 each), each save with the loader's state; its batches
@@ -107,7 +143,7 @@ Phases, one JSON line each; any failure exits non-zero:
    step 2's dir. Prints save, load and serving times, the ms the loader
    state adds to each blocking snapshot, the feed's wait per step, GB/s
    and the phase's peak disk use.
-10. supervise — ``python -m fms_fsdp_tpu_torch.resilience.supervisor``
+12. supervise — ``python -m fms_fsdp_tpu_torch.resilience.supervisor``
    over ``python -m fms_fsdp_tpu_torch.main_training_llama`` on the card
    (``SUPERVISE_KW``: llama3_8b_4k width, 2 layers, seq 4096, batch 2, AC
    1/2, bf16 params and moments, dummy data, 10 steps, reports every 2, saves every 4,
@@ -125,24 +161,26 @@ Phases, one JSON line each; any failure exits non-zero:
    ``flash_dq_kernel_sm90``, ``flash_dkv_kernel_sm90`` and the
    ``fwd_bwd`` scope; then each incarnation's wall, steps, tokens per
    card per second, the observer's ms per report and the downtime.
-11. shard — the data-parallel entry on one card (``SHARD_KW``:
+13. shard — the data-parallel entry on one card (``SHARD_KW``:
    llama3_8b_4k at full width, 2 layers, bf16 params and moments, 3
    steps): ``python -m fms_fsdp_tpu_torch.main_training_llama
    --sharding_strategy=hsdp`` as a child under torchrun's environment
    (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT: so
    ``cuda:LOCAL_RANK`` and an NCCL group from ``env://``; the mesh all
-   ones), then ``main`` in this process under ddp and under fsdp: the
-   three losses within ``SHARD_REL_TOL`` of each other; the hsdp run's
-   DCP checkpoint committed (metadata, ``.metadata``, a world of one in
-   its topology); this process resumes it to step 9 with the profiler
+   ones), then ``main`` in this process under ddp and under fsdp (these
+   two save nothing: on a world of one the three hold the same unsharded
+   state, and the hsdp save is the one resumed): the three losses within
+   ``SHARD_REL_TOL`` of each other; the hsdp run's DCP checkpoint
+   committed (metadata, ``.metadata``, a world of one in its topology);
+   this process resumes it to step 9 with the profiler
    on (steps 7-9 recorded): its steps continue at 4 and its trace holds
    no NCCL kernel (a world of one runs no collective on the step), with
    the kernels' and the NCCL kernels' ms per step.
-12. train-kvgrid — the same trainer at 2 layers for one step with
+14. train-kvgrid — the same trainer at 2 layers for one step with
    ``flash_kernel_variant="kvgrid"``, so the launches of the kv-streamed
    contracts are counted on the main path too.
 
-13. ssd    — the fused SSD scan kernels (``ssd_sm90.cu`` for bf16,
+15. ssd    — the fused SSD scan kernels (``ssd_sm90.cu`` for bf16,
    ``ssd.cu`` for fp32) against their plain version at the
    Mamba training shape (B=2, S=4096, H=128, P=64, G=1, N=128, L=256), at
    G=8 and at S=L (one chunk), bf16 and fp32, dt and A in the ranges of
@@ -158,7 +196,7 @@ Phases, one JSON line each; any failure exits non-zero:
    whole ``ssd_scan`` through the kernel and through the chunked einsums,
    the bound, and the other pieces of a Mamba layer at that shape (the
    scan's einsum backward, the conv forward and backward).
-14. train-mamba — ``fms_fsdp_tpu_torch.main_training_mamba.main`` at
+16. train-mamba — ``fms_fsdp_tpu_torch.main_training_mamba.main`` at
    mamba_9.8b width, 6 layers with attention at layer 3, seq 4096, batch
    2, selective AC 1/2, 16 steps (over the first 8 the loss of this
    model only wobbles, through the kernel and through the einsums alike):
@@ -166,14 +204,14 @@ Phases, one JSON line each; any failure exits non-zero:
    SSD launches == steps x (Mamba layers + rematerialised Mamba layers),
    flash launches == the one attention layer's; tokens per card per
    second, MFU/HFU, peak memory and a profile of one step.
-15. serve-mamba — ``ServingEngine`` on mamba_9.8b at full width and depth
+17. serve-mamba — ``ServingEngine`` on mamba_9.8b at full width and depth
    (32 layers, 3 of them attention; random bf16 weights), 8 requests of
    16-128 prompt tokens and 32 new tokens each: all complete, finite
    logits, a constant ``state_bytes_per_stream``, slab slices zero after
    completion, one decode step held against the same step in fp32. This
    path launches no SSD kernel (the prefill is the per-token recurrence),
    and the phase checks that.
-16. train-mixtral — ``fms_fsdp_tpu_torch.main_training_mixtral.main`` at
+18. train-mixtral — ``fms_fsdp_tpu_torch.main_training_mixtral.main`` at
    mixtral_8x7b width (4096 wide, 32/8 heads of 128, 8 experts of hidden
    14336, top-2, vocab 32000) and 2 of 32 layers (3.16B parameters),
    bfSixteen, seq 4096, batch 1, selective AC 1/2, dummy data, 6 steps,
@@ -187,7 +225,7 @@ Phases, one JSON line each; any failure exits non-zero:
    then the first step again from the same weights and batch through the
    plain attention, its loss within ``TOL["bf16"]`` (relative) of the
    kernels'.
-17. serve-mixtral — ``ServingEngine`` on mixtral_8x7b at full width, 8 of
+19. serve-mixtral — ``ServingEngine`` on mixtral_8x7b at full width, 8 of
    32 layers, random bf16 weights (23.7 GB), ``max_batch=8``, page 64, 8
    requests of 64-512 prompt tokens and 32 new tokens, routed top-2
    experts: all complete, no attention kernel launched (the reference
@@ -205,6 +243,7 @@ package beside it, the script exits non-zero and prints no result.
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import io
 import json
@@ -219,7 +258,8 @@ import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "serve", "serve-int8", "flash", "train",
+PHASES = ("device", "build", "kernels", "serve", "serve-int8", "train-speculator",
+          "serve-spec", "flash", "train",
           "loader", "resume", "supervise", "shard", "train-kvgrid", "ssd", "train-mamba",
           "serve-mamba", "train-mixtral", "serve-mixtral")
 
@@ -584,23 +624,35 @@ def _nbytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
+def _llama3_8b_params(state):
+    """The serving and speculator phases' random bf16 llama3_8b weights
+    (seed 0), made by the first phase that needs them."""
+    import torch
+
+    from fms_fsdp_tpu_torch.models.llama import init_llama_params
+    from fms_fsdp_tpu_torch.utils.config_utils import get_model_config
+
+    if "params" not in state:
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        state["params"] = init_llama_params(gen, get_model_config("llama3_8b"),
+                                            dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        state["init_s"] = time.perf_counter() - t0
+    return state["params"]
+
+
 def _serve(state, phase, kv_quant, n_requests, max_prompt, max_new, seed):
     import numpy as np
     import torch
 
-    from fms_fsdp_tpu_torch.models.llama import init_llama_params
     from fms_fsdp_tpu_torch.ops import paged_attention as pa
     from fms_fsdp_tpu_torch.serve import ServeConfig, ServingEngine
     from fms_fsdp_tpu_torch.serve.decode import paged_decode_step
     from fms_fsdp_tpu_torch.utils.config_utils import get_model_config
 
     cfg = get_model_config("llama3_8b")
-    if "params" not in state:
-        t0 = time.perf_counter()
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        state["params"] = init_llama_params(gen, cfg, dtype=torch.bfloat16)
-        torch.cuda.synchronize()
-        state["init_s"] = time.perf_counter() - t0
+    _llama3_8b_params(state)
     torch.cuda.reset_peak_memory_stats()
     eng = ServingEngine(
         state["params"], cfg,
@@ -812,6 +864,493 @@ def phase_serve(state):
 def phase_serve_int8(state):
     _serve(state, "serve-int8", "int8", n_requests=8, max_prompt=512,
            max_new=32, seed=1)
+
+
+# ---------------------------------------------------------------------------
+# the speculator pipeline: train on the frozen llama3_8b, serve with it
+# ---------------------------------------------------------------------------
+
+# llama3_8b at full width and depth (the serve phase's weights); the
+# speculator at JAX's defaults (3 heads, width 4096, tied, scale_input);
+# stage 2 cut for time from 96 rows x 256 tokens to 32 x 64. The dummy
+# counter runs modulo 4096 (``vocab_size`` is only its modulus here; the
+# model's vocabulary stays 128256): every batch holds the same 4096
+# transitions, which 6 steps can learn. Modulo 128256 each step brings
+# tokens no step has seen, and the loss rises.
+SPEC_KW = {
+    "model_variant": "llama3_8b", "vocab_size": 4096, "use_dummy_dataset": True,
+    "batch_size": 2, "seq_length": 4096, "num_steps": 8, "stage2_start_step": 6,
+    "stage2_batch_size": 32, "stage2_prompt_length": 64, "stage2_seq_length": 64,
+    "report_interval": 1, "learning_rate": 1e-3, "checkpoint_interval": 1000,
+}
+
+
+def _spec_step_profile(model_cfg, cfg, scfg, base, state, batch, steps=2):
+    """Device ms of one stage-1 step by part (torch.profiler): the flash
+    forward, the frozen base's 16-bit GEMMs (from a profile of the base
+    forward alone on the same batch), the speculator's GEMMs (the step's
+    other matrix products), its CE (forward scope and backward node), the
+    optimizer (its scope) and the rest; host wall per step beside it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fms_fsdp_tpu_torch.models import get_base_api
+    from fms_fsdp_tpu_torch.train.speculator import make_stage1_step
+
+    step = make_stage1_step(base, model_cfg, scfg, cfg)
+    hidden = get_base_api("embedllama").forward_hidden
+    inputs = batch[:, :-scfg.n_predict - 1]
+    step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step(state, batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+
+    def kinds(rows):
+        out = {}
+        for ms, name, _ in rows:
+            k = _kernel_kind(name)
+            out[k] = out.get(k, 0.0) + ms
+        return out
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_base:
+        with torch.no_grad():
+            for _ in range(steps):
+                hidden(base, inputs, model_cfg, attn_impl="auto")
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(state, batch)
+        torch.cuda.synchronize()
+    rows = _kernel_rows(prof, steps)
+    if not rows:
+        return {"wall_ms_per_step": wall_ms, "device_ms_per_step": None}
+    device_ms = sum(r[0] for r in rows)
+    step_kinds, base_kinds = kinds(rows), kinds(_kernel_rows(prof_base, steps))
+    gemm = step_kinds.get("gemm_16bit", 0.0) + step_kinds.get("gemm_fp32", 0.0)
+    ce = (_op_device_ms(prof, "speculator_ce")
+          + sum(_op_device_ms(prof, n) for n in {e.name for e in prof.events()}
+                if "CrossEntropyBackward" in n and not n.startswith("autograd::"))) / steps
+    opt = _op_device_ms(prof, "optimizer") / steps
+    parts = {
+        "flash": step_kinds.get("flash", 0.0),
+        "base_gemm_16bit": base_kinds.get("gemm_16bit", 0.0),
+        "speculator_gemm": gemm - base_kinds.get("gemm_16bit", 0.0),
+        "ce": ce, "optimizer": opt,
+    }
+    parts["other"] = device_ms - sum(parts.values())
+    return {
+        "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
+        "device_busy_share": device_ms / wall_ms,
+        "base_forward_device_ms": sum(r[0] for r in _kernel_rows(prof_base, steps)),
+        "device_ms_per_step_by_part": parts,
+        "top_device_ms_per_step": [
+            {"name": name[:80], "ms": ms, "calls": calls} for ms, name, calls in rows[:12]],
+    }
+
+
+
+
+def phase_train_speculator(state):
+    """``speculator.train_speculator.main`` on the serve phase's frozen
+    llama3_8b (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from fms_fsdp_tpu_torch.data.device_feed import DeviceFeed
+    from fms_fsdp_tpu_torch.data.loader import get_dummy_loader
+    from fms_fsdp_tpu_torch.models import get_base_api
+    from fms_fsdp_tpu_torch.models.speculator import init_speculator_params, save_speculator
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+    from fms_fsdp_tpu_torch.ops import paged_attention as pa
+    from fms_fsdp_tpu_torch.speculator import train_speculator as entry
+    from fms_fsdp_tpu_torch.train.speculator import stage1_loss
+
+    base = _llama3_8b_params(state)
+    ckpt_dir = _ckpt_dir("train-speculator")
+    kw = dict(SPEC_KW, ckpt_save_path=ckpt_dir, ckpt_load_path=ckpt_dir)
+    load_base = entry.load_base
+    entry.load_base = lambda *a, **k: base
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    pa.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        # the 13 GB final save of params and moments is cut for time; the
+        # CPU tests save and resume the speculator state
+        with _saves_nothing(entry):
+            res = entry.main(**kw)
+    finally:
+        entry.load_base = load_base
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES, **{f"paged_{k}": v for k, v in pa.LAUNCHES.items()})
+    peak = torch.cuda.max_memory_allocated()
+    model_cfg, cfg, scfg = res["model_cfg"], res["cfg"], res["scfg"]
+    reports = res["reports"]
+    s1 = [r for r in reports if r["step"] <= cfg.stage2_start_step]
+    s2 = [r for r in reports if r["step"] > cfg.stage2_start_step]
+    want = {"fwd": len(s1) * model_cfg.nlayers, "fwd_kvgrid": 0, "dq": 0, "dq_kvgrid": 0,
+            "dkv": 0, "paged_v1": 0, "paged_v2": 0}
+    batch = next(iter(DeviceFeed(get_dummy_loader(cfg, 0, 1), "cuda")))[0]
+    result = dict(
+        config=dict(kw, seq_length_with_targets=cfg.seq_length),
+        base_params=model_cfg.n_params(), speculator_params=scfg.n_params(),
+        speculator=dict(n_predict=scfg.n_predict, inner_dim=scfg.inner_dim,
+                        tie_weights=scfg.tie_weights, scale_input=scfg.scale_input),
+        wall_s=wall, steps=res["steps"],
+        per_step=[{"step": r["step"], "stage": 1 if r["step"] <= cfg.stage2_start_step else 2,
+                   "loss_per_head": r["per_head"], "gnorm": r["gnorm"], "lr": r["lr"],
+                   "step_time_s": r["step_time_s"], "tokens_per_s": r["tokens_per_s"]}
+                  for r in reports],
+        # the first step of each stage compiles nothing but warms the
+        # allocator: the rate is over the later ones
+        stage1_tokens_per_s=float(np.mean([r["tokens_per_s"] for r in s1[1:]])),
+        stage2_tokens_per_s=float(np.mean([r["tokens_per_s"] for r in s2[1:] or s2])),
+        max_memory_allocated=peak, launches=launches, expected_launches=want,
+        flash_fwd_per_stage1_step=launches["fwd"] / max(1, len(s1)),
+    )
+    # the file the serve-spec phase serves: the speculator as the entry
+    # left it, written before the profile's steps move the state on
+    t0 = time.perf_counter()
+    path = os.path.join(ckpt_dir, "speculator.pkl")
+    save_speculator(path, res["state"]["params"], scfg)
+    result["save_speculator"] = {"path": path, "bytes": os.path.getsize(path),
+                                 "seconds": time.perf_counter() - t0}
+    result["step_profile"] = _spec_step_profile(model_cfg, cfg, scfg, base, res["state"], batch)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the first stage-1 step's frozen forward again: the base's hidden
+    # states through the kernel, through the plain attention, and in fp32
+    # (plain attention). As in _compare_step, the bf16 tolerance is the
+    # plain bf16 forward's own distance from fp32, doubled: the kernel's
+    # hidden states lie within it of both. Beside that, the per-head
+    # losses of the entry's initial speculator on the kernel's and on the
+    # plain hidden states agree within TOL["bf16"] relative
+    hidden = get_base_api("embedllama").forward_hidden
+    inputs = batch[:, :-scfg.n_predict - 1]
+    with torch.no_grad():
+        h = {impl: hidden(base, inputs, model_cfg, attn_impl=impl) for impl in ("pallas", "xla")}
+        h32 = hidden(base, inputs, model_cfg, attn_impl="xla", compute_dtype=torch.float32)
+        dist = {"kernel_vs_plain": (h["pallas"].float() - h["xla"].float()).abs().max().item(),
+                "plain_vs_fp32": (h["xla"].float() - h32).abs().max().item(),
+                "kernel_vs_fp32": (h["pallas"].float() - h32).abs().max().item(),
+                "fp32_absmax": h32.abs().max().item()}
+        del h32
+        torch.cuda.empty_cache()
+        spec0 = init_speculator_params(
+            torch.Generator(device="cuda").manual_seed(cfg.seed + 1), scfg)
+        first = {impl: stage1_loss(spec0, e, batch, scfg)[1].float().cpu().numpy()
+                 for impl, e in h.items()}
+    del spec0, h
+    gc.collect()
+    torch.cuda.empty_cache()
+    tol = 2 * dist["plain_vs_fp32"]
+    rel = float(np.abs(first["pallas"] - first["xla"]).max() / np.abs(first["xla"]).max())
+    result["first_step_kernel_vs_plain"] = {
+        "hidden": dict(dist, tolerance=tol,
+                       ok=dist["kernel_vs_plain"] <= tol and dist["kernel_vs_fp32"] <= tol),
+        "loss_kernel": first["pallas"].tolist(), "loss_plain": first["xla"].tolist(),
+        "main_step_1": reports[0]["per_head"], "loss_rel_diff": rel,
+        "loss_tolerance": TOL["bf16"]}
+    state["spec_file"] = path
+    result["nvidia_smi"] = state["smi"]
+    emit("train-speculator", **result)
+    state["train-speculator"] = result
+
+    problems = []
+    if launches != want:
+        problems.append(f"launches {launches} != expected {want}")
+    losses = [x for r in reports for x in r["per_head"]] + [r["gnorm"] for r in reports]
+    if not all(math.isfinite(x) for x in losses):
+        problems.append("a non-finite loss or gradient norm")
+    if not s1[-1]["per_head"][0] < s1[0]["per_head"][0]:
+        problems.append(f"head 1's stage-1 loss did not fall: {[r['per_head'][0] for r in s1]}")
+    if not s2:
+        problems.append("no stage-2 step ran")
+    if not result["first_step_kernel_vs_plain"]["hidden"]["ok"]:
+        problems.append(f"first step's base hidden states, kernel vs plain and fp32: "
+                        f"{result['first_step_kernel_vs_plain']['hidden']}")
+    if not rel <= TOL["bf16"]:
+        problems.append(f"first step's losses, kernel vs plain attention {rel} > {TOL['bf16']}")
+    if problems:
+        raise AssertionError("train-speculator: " + "; ".join(problems))
+
+
+def _spec_wave(params, cfg, prompts, max_new, propose=None, **serve_kw):
+    """One engine over ``prompts``: (engine, requests, wall s, paged-decode
+    launches, flash launches)."""
+    import torch
+
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+    from fms_fsdp_tpu_torch.ops import paged_attention as pa
+    from fms_fsdp_tpu_torch.serve import ServeConfig, ServingEngine
+
+    eng = ServingEngine(params, cfg, ServeConfig(max_batch=8, max_seq_len=2048, **serve_kw))
+    if propose is not None:
+        eng.adapter.propose = propose(eng)
+    reqs = [eng.submit(p, max_new) for p in prompts]
+    pa.reset_launches()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    while eng.has_work():
+        eng.step()
+        if eng.last_logits is not None and not torch.isfinite(eng.last_logits).all():
+            raise AssertionError("serve-spec: non-finite logits")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return eng, reqs, wall, dict(pa.LAUNCHES), dict(fa.LAUNCHES)
+
+
+def _profile_engine_steps(eng, prompts, max_new, steps=3):
+    """Host wall against device ms per engine step with all 8 slots
+    decoding (verify steps on a speculative engine): the same requests
+    again, stepped until every slot decodes, then ``steps`` steps timed
+    and ``steps`` profiled; the engine is left mid-wave."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for p in prompts:
+        eng.submit(p, max_new)
+    while eng.has_work() and (sum(r is not None for r in eng._slots) < 8
+                              or eng.scheduler.queue):
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    rows = _kernel_rows(prof, steps)
+    device_ms = sum(r[0] for r in rows) if rows else None
+    return {"wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
+            "device_busy_share": device_ms / wall_ms if rows else None,
+            "top_device_ms_per_step": [{"name": n[:80], "ms": ms, "calls": c}
+                                       for ms, n, c in rows[:6]]}
+
+
+def _compare_verify(eng):
+    """The verify step on a speculative engine's current pool state,
+    held against decode steps on the same state: its position-0 logits
+    against ``paged_decode_step`` through the reference attention (the
+    gather path, one query a row) in the engine's dtype and against an
+    fp32 decode step (the weights widened); its logits at every position
+    against an fp32 verify step. The candidates are the slots' pending
+    tokens and the speculator's drafts. The tolerance is _compare_step's:
+    twice the reference decode step's own distance from the fp32 one."""
+    import torch
+
+    from fms_fsdp_tpu_torch.serve.decode import paged_decode_step, paged_verify_step
+
+    ad = eng.adapter
+    table, lens, toks = _step_inputs(eng)
+    params32 = {
+        n: ({k: w.float() for k, w in v.items()} if isinstance(v, dict) else v.float())
+        for n, v in eng.params.items()
+    }
+
+    def run(fn, params, dtype, tokens, **kw):
+        pools = {n: p.to(dtype, copy=True) for n, p in ad.cache.pools.items()}
+        out = fn(params, pools, table, lens, tokens, eng.model_cfg, page_size=ad.page_size,
+                 compute_dtype=dtype, rope=ad.rope, **kw)[0]
+        return out.float()
+
+    with torch.no_grad():
+        cand = torch.cat([toks.long()[:, None], ad.propose(ad._spec_embed, toks.long())], 1)
+        verify = run(paged_verify_step, eng.params, eng.compute_dtype, cand)
+        decode = run(paged_decode_step, eng.params, eng.compute_dtype, toks,
+                     attn_impl="reference", block_kv=ad.block_kv)
+        verify32 = run(paged_verify_step, params32, torch.float32, cand)
+        decode32 = run(paged_decode_step, params32, torch.float32, toks,
+                       attn_impl="reference", block_kv=ad.block_kv)
+    del params32
+    torch.cuda.empty_cache()
+
+    def dmax(a, b):
+        return (a - b).abs().max().item()
+
+    tol = 2 * dmax(decode, decode32)
+    out = {
+        "rows": int(cand.shape[0]), "positions": int(cand.shape[1]),
+        "verify0_vs_decode": dmax(verify[:, 0], decode),
+        "verify0_vs_decode_fp32": dmax(verify[:, 0], decode32),
+        "verify_vs_verify_fp32": [dmax(verify[:, j], verify32[:, j])
+                                  for j in range(cand.shape[1])],
+        "decode_vs_decode_fp32": dmax(decode, decode32),
+        "verify32_0_vs_decode_fp32": dmax(verify32[:, 0], decode32),
+        "tolerance": tol,
+        "argmax_verify0_vs_decode": (verify[:, 0].argmax(-1) == decode.argmax(-1))
+        .float().mean().item(),
+        "argmax_verify_vs_verify_fp32": (verify.argmax(-1) == verify32.argmax(-1))
+        .float().mean().item(),
+        "logit_absmax": decode32.abs().max().item(),
+    }
+    out["ok"] = (out["verify0_vs_decode"] <= tol and out["verify0_vs_decode_fp32"] <= tol
+                 and max(out["verify_vs_verify_fp32"]) <= tol)
+    return out
+
+
+def _oracle(longer, n):
+    """A drafter that proposes each stream's plain greedy continuation
+    (``longer``: prompt -> tokens), by slot."""
+    import torch
+
+    def make(eng):
+        def propose(embed, tokens):
+            out = torch.zeros((len(eng._slots), n), dtype=torch.long, device=embed.device)
+            for slot, req in enumerate(eng._slots):
+                if req is not None:
+                    done = len(req.generated)
+                    out[slot] = torch.tensor(longer[tuple(req.prompt)][done:done + n])
+            return out
+
+        return propose
+
+    return make
+
+
+def phase_serve_spec(state):
+    """``ServingEngine`` with ``speculator_path`` set to the trained file
+    of the train-speculator phase (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from fms_fsdp_tpu_torch.models import speculator as spec_mod
+    from fms_fsdp_tpu_torch.utils.config_utils import get_model_config
+
+    cfg = get_model_config("llama3_8b")
+    path, n, max_new = state["spec_file"], 3, 64
+    # the file is read once (4.3 GB): the later engines take the same
+    # tensors
+    load, loaded = spec_mod.load_speculator, {}
+
+    def load_once(p, device="cpu"):
+        if (p, str(device)) not in loaded:
+            t0 = time.perf_counter()
+            loaded[(p, str(device))] = load(p, device)
+            loaded["seconds"] = time.perf_counter() - t0
+        return loaded[(p, str(device))]
+
+    spec_mod.load_speculator = load_once
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, cfg.src_vocab_size, size=int(k)).tolist()
+               for k in rng.randint(64, 513, size=8)]
+    spec_kw = dict(speculator_path=path, spec_draft_tokens=n)
+    result = {"requests": len(prompts), "max_new_tokens": max_new,
+              "prompt_tokens": sum(len(p) for p in prompts)}
+
+    waves = {}
+    for name, kw in (("speculative", spec_kw), ("plain", {})):
+        eng, reqs, wall, paged, flash = _spec_wave(state["params"], cfg, prompts, max_new, **kw)
+        stats = eng.serving_stats()
+        steps = eng.decode_steps
+        waves[name] = [list(r.generated) for r in reqs]
+        result[name] = {
+            "finished": sum(r.state == "finished" for r in reqs),
+            "all_lengths_ok": all(len(r.generated) == max_new for r in reqs),
+            "wall_s": wall, "decode_steps": steps,
+            "decode_tokens_per_s": stats["tokens_per_s"],
+            "spec_accept_rate": stats["spec_accept_rate"],
+            "paged_decode_launches": paged, "flash_launches": flash,
+            "step_profile": _profile_engine_steps(eng, prompts, max_new),
+        }
+        if name == "speculative":
+            # on the state the profile left: every slot decoding
+            result[name]["verify_compare"] = _compare_verify(eng)
+            # tokens each row commits per verify step: the prefill gives
+            # each request its first token
+            result[name]["tokens_per_verify_step_per_row"] = (
+                eng._decode_tokens / max(1, eng._spec_draft_total // n))
+        del eng, reqs
+        gc.collect()
+        torch.cuda.empty_cache()
+    result["bf16_requests_equal"] = sum(a == b for a, b in zip(waves["speculative"],
+                                                               waves["plain"]))
+    result["bf16_same_prefix"] = [
+        next((k for k, (a, b) in enumerate(zip(x, y)) if a != b), len(x))
+        for x, y in zip(waves["speculative"], waves["plain"])]
+    # the witness for those near-ties: a plain bf16 engine through the
+    # reference attention, the verify step's own gather path
+    eng, ref_reqs, _, _, _ = _spec_wave(state["params"], cfg, prompts, max_new,
+                                        attn_impl="reference")
+    ref_tokens = [list(r.generated) for r in ref_reqs]
+    del eng, ref_reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["bf16_requests_equal_plain_reference"] = sum(
+        a == b for a, b in zip(waves["speculative"], ref_tokens))
+    result["bf16_same_prefix_plain_reference"] = [
+        next((k for k, (a, b) in enumerate(zip(x, y)) if a != b), len(x))
+        for x, y in zip(waves["speculative"], ref_tokens)]
+    result["load_speculator_s"] = loaded["seconds"]
+
+    # fp32 at 8 of 32 layers, the reference attention in every run:
+    # speculative and oracle tokens equal plain greedy
+    t0 = time.perf_counter()
+    p32 = {k: (v.float() if torch.is_tensor(v) else {m: w[:8].float() for m, w in v.items()})
+           for k, v in state["params"].items()}
+    cfg8 = dataclasses.replace(cfg, nlayers=8)
+    kw32 = dict(compute_dtype="float32", attn_impl="reference")
+    _, longer, _, _, _ = _spec_wave(p32, cfg8, prompts, max_new + n, **kw32)
+    longer = {tuple(p): list(r.generated) for p, r in zip(prompts, longer)}
+    plain32 = [longer[tuple(p)][:max_new] for p in prompts]
+    eng, sreqs, _, _, _ = _spec_wave(p32, cfg8, prompts, max_new, **kw32, **spec_kw)
+    spec32, rate32 = [list(r.generated) for r in sreqs], eng.serving_stats()["spec_accept_rate"]
+    del eng
+    eng, oreqs, _, _, _ = _spec_wave(p32, cfg8, prompts, max_new, propose=_oracle(longer, n),
+                                     **kw32, **spec_kw)
+    oracle32 = [list(r.generated) for r in oreqs]
+    ostats = eng.serving_stats()
+    result["fp32_8_layers"] = {
+        "speculative_equal": spec32 == plain32,
+        "speculative_same_prefix": [next((k for k, (a, b) in enumerate(zip(x, y)) if a != b),
+                                         len(x)) for x, y in zip(spec32, plain32)],
+        "speculative_accept_rate": rate32,
+        "oracle_equal": oracle32 == plain32, "oracle_accept_rate": ostats["spec_accept_rate"],
+        "oracle_decode_steps": eng.decode_steps,
+        "finished": [len(plain32), sum(r.state == "finished" for r in sreqs),
+                     sum(r.state == "finished" for r in oreqs)],
+        "seconds": time.perf_counter() - t0,
+    }
+    del eng, p32, loaded
+    spec_mod.load_speculator = load
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.remove(path)
+    result["nvidia_smi"] = state["smi"]
+    emit("serve-spec", **result)
+    state["serve-spec"] = result
+
+    problems = []
+    for name in ("speculative", "plain"):
+        w = result[name]
+        if w["finished"] != len(prompts) or not w["all_lengths_ok"]:
+            problems.append(f"{name}: not every request finished with max_new_tokens")
+    sw = result["speculative"]
+    if sw["paged_decode_launches"] != {"v1": 0, "v2": 0} or any(sw["flash_launches"].values()):
+        problems.append("the verify step launched an attention kernel (it gathers)")
+    if result["plain"]["paged_decode_launches"]["v1"] == 0:
+        problems.append("the plain decode launched no paged-decode kernel")
+    if not sw["verify_compare"]["ok"]:
+        problems.append(f"verify step vs decode steps: {sw['verify_compare']}")
+    f = result["fp32_8_layers"]
+    if not f["speculative_equal"]:
+        problems.append(
+            f"fp32 speculative tokens differ from plain: {f['speculative_same_prefix']}")
+    if not f["oracle_equal"] or f["oracle_accept_rate"] != 1.0:
+        problems.append(f"oracle drafter: equal {f['oracle_equal']}, "
+                        f"accept rate {f['oracle_accept_rate']}")
+    if problems:
+        raise AssertionError("serve-spec: " + "; ".join(problems))
 
 
 # ---------------------------------------------------------------------------
@@ -1206,6 +1745,24 @@ def _kernel_kind(name: str) -> str:
     return "other"
 
 
+@contextlib.contextmanager
+def _saves_nothing(entry):
+    """Within the block the checkpoint managers that ``entry`` builds
+    save nothing (their load still runs)."""
+    build = entry.build_checkpoint_manager
+
+    def build_no_save(*a, **k):
+        manager = build(*a, **k)
+        manager.save = lambda *sa, **sk: None
+        return manager
+
+    entry.build_checkpoint_manager = build_no_save
+    try:
+        yield
+    finally:
+        entry.build_checkpoint_manager = build
+
+
 def _train(state, phase, overrides, expect, main=None, base=None, profile=False,
            save=True, moe=False, after=None):
     """Run a trainer through its entry point (the Llama one unless
@@ -1235,21 +1792,11 @@ def _train(state, phase, overrides, expect, main=None, base=None, profile=False,
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    build_manager = entry.build_checkpoint_manager
-    if not save:
-        def build_no_save(*a, **k):
-            manager = build_manager(*a, **k)
-            manager.save = lambda *sa, **sk: None
-            return manager
-
-        entry.build_checkpoint_manager = build_no_save
     fa.reset_launches()
     ssd.reset_launches()
     t0 = time.perf_counter()
-    try:
+    with _saves_nothing(entry) if not save else contextlib.nullcontext():
         res = main(**kw)
-    finally:
-        entry.build_checkpoint_manager = build_manager
     wall = time.perf_counter() - t0
     saves = res["checkpointer"].save_log
     launches = dict(fa.LAUNCHES, ssd_fused=ssd.LAUNCHES["fused"])
@@ -1402,11 +1949,14 @@ def phase_train_kvgrid(state):
 
     # one step at 2 layers: the kernels are those of the train phase, and
     # the flash phase holds them against their plain versions at S=16384;
-    # this run counts the kv-streamed contracts' launches on the main path
+    # this run counts the kv-streamed contracts' launches on the main path.
+    # No final save (17.8 GB, ~21 s, cut for the speculator phases): the
+    # resume phase checks the final save of the same 2-layer model through
+    # the same entry
     _train(state, "train-kvgrid",
            {"flash_kernel_variant": "kvgrid", "num_steps": 1, "report_interval": 1,
             "LlamaConfig.nlayers": 2},
-           expect)
+           expect, save=False)
 
 # ---------------------------------------------------------------------------
 # the streaming loader: arrow shards -> the seven layers -> the card
@@ -1619,10 +2169,16 @@ def phase_loader(state):
 
 
 # llama3_8b_4k at full width, 2 layers, on the loader phase's corpus: one
-# loader worker, so the stream is one walk, and the feed two batches ahead
+# loader worker, so the stream is one walk, and the feed two batches ahead.
+# bf16 params and moments (``pure_bf16``: 8.9 GB a checkpoint, half of
+# bfSixteen's, so the four saves and the two full loads, one of them from
+# disk, cost half the time; the checks are bitwise digests, loader
+# positions and fallbacks, which do not depend on the bytes). The
+# train-kvgrid and train-mamba phases save bfSixteen states on the card
 RESUME_KW = {**TRAIN_KW, **LOADER_KW, "num_workers": 1, "feed_prefetch": 2,
              "LlamaConfig.nlayers": 2, "report_interval": 1, "checkpoint_interval": 4,
-             "ckpt_local_interval": 2, "ckpt_keep": 1, "ckpt_local_keep": 1}
+             "ckpt_local_interval": 2, "ckpt_keep": 1, "ckpt_local_keep": 1,
+             "pure_bf16": True}
 # batches a saved loader state may run ahead of the trainer: the feed's
 # queue and the batch its thread holds
 RESUME_SKEW = RESUME_KW["feed_prefetch"] + 1
@@ -2253,6 +2809,7 @@ def phase_shard(state):
     its NCCL kernels per step."""
     import torch
 
+    from fms_fsdp_tpu_torch import main_training_llama as entry
     from fms_fsdp_tpu_torch.main_training_llama import main
 
     gc.collect()
@@ -2278,15 +2835,18 @@ def phase_shard(state):
         raise AssertionError(f"shard: the hsdp child exited {rc}:\n{out[-3000:]}")
     if "'replica': 1, 'fsdp': 1" not in mesh_line:
         problems.append(f"hsdp mesh on one card: {mesh_line}")
+    # ddp and fsdp save nothing (8.9 GB and ~8 s each, cut for the
+    # speculator phases): on a world of one all three hold the same
+    # unsharded state, and the hsdp child's save is the one resumed below
     for strategy in ("ddp", "fsdp"):
         d = _ckpt_dir(f"shard-{strategy}")
         t0 = time.perf_counter()
-        res = main(**dict(SHARD_KW, sharding_strategy=strategy, ckpt_save_path=d,
-                          ckpt_load_path=d, ckpt_full_checksums=False))
+        with _saves_nothing(entry):
+            res = main(**dict(SHARD_KW, sharding_strategy=strategy, ckpt_save_path=d,
+                              ckpt_load_path=d))
         losses[strategy] = [r["loss"] for r in res["reports"]]
         result[strategy] = {"wall_s": time.perf_counter() - t0,
-                            "backend": torch.distributed.get_backend(),
-                            "final_save": _save_rows(res["checkpointer"].save_log)}
+                            "backend": torch.distributed.get_backend()}
         del res
         shutil.rmtree(d)
         gc.collect()
@@ -3027,6 +3587,9 @@ def kernels_line(state):
             # the same contracts on the Mixtral training path, counted on
             # its own run
             entry["launches_train_mixtral"] = state["train-mixtral"]["launches"][contract]
+        if contract == "fwd":
+            # the frozen base forward of the speculator's stage 1
+            entry["launches_train_speculator"] = state["train-speculator"]["launches"]["fwd"]
         if kernel != "fwd":
             # SDPA's one backward call computes dq, dk and dv together: set
             # it against the pair
@@ -3073,7 +3636,8 @@ def main(argv=None) -> int:
     run = {
         "device": phase_device, "build": phase_build,
         "kernels": phase_kernels, "serve": phase_serve,
-        "serve-int8": phase_serve_int8, "flash": phase_flash,
+        "serve-int8": phase_serve_int8, "train-speculator": phase_train_speculator,
+        "serve-spec": phase_serve_spec, "flash": phase_flash,
         "train": phase_train, "loader": phase_loader, "resume": phase_resume,
         "supervise": phase_supervise, "shard": phase_shard,
         "train-kvgrid": phase_train_kvgrid,

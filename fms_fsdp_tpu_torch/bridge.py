@@ -12,7 +12,10 @@ A whole train state crosses the same way, keyed by JAX's tree paths:
 ``train_state_from_numpy`` takes JAX's ``{"params", "opt_state",
 "step"}`` made numpy and gives a port train state that continues it
 (params, Adam's moments and count, and the step);
-``train_state_to_numpy`` is the inverse.
+``train_state_to_numpy`` is the inverse. A speculator's state
+(``train/speculator.py``: its params are lists under ``emb``, ``proj``,
+``ln_w``, ``ln_b`` and ``head``) crosses the same way, with
+``state_fn=speculator_state``.
 """
 
 from typing import Any, Dict, Optional
@@ -61,21 +64,27 @@ def train_state_to_numpy(state: Dict) -> Dict[str, np.ndarray]:
     return params_to_numpy(checkpoint_state(state))
 
 
-def train_state_from_numpy(flat: Dict[str, Any], cfg, device="cpu") -> Dict:
+def train_state_from_numpy(flat: Dict[str, Any], cfg, device="cpu",
+                           state_fn=None) -> Dict:
     """JAX's train state as numpy arrays keyed by their dotted tree paths
     (``{jax.tree_util.keystr(path, simple=True, separator="."):
     np.asarray(leaf)}`` over ``tree_flatten_with_path(state)``) -> a port
     train state on ``device`` that continues it: the params and Adam's
     moments copied in the params' dtype, Adam's count, the hyperparams
-    and the step restored. Raises when the keys are not the port's."""
+    and the step restored. ``state_fn(params, cfg)`` makes the fresh
+    state (default ``train/step.py::state_from_params``; a speculator's:
+    ``train/speculator.py::speculator_state``). Raises when the keys are
+    not the port's."""
     from fms_fsdp_tpu_torch.ckpt.state import (
         apply_scalars,
         checkpoint_state,
         unflatten,
     )
-    from fms_fsdp_tpu_torch.train.step import state_from_params
 
-    state = state_from_params(params_from_numpy(unflatten(flat, "params"), device), cfg)
+    if state_fn is None:
+        from fms_fsdp_tpu_torch.train.step import state_from_params as state_fn
+
+    state = state_fn(params_from_numpy(unflatten(flat, "params"), device), cfg)
     target = checkpoint_state(state)
     differ = set(target) ^ set(flat)
     if differ:

@@ -250,6 +250,16 @@ def check_rescale(
     responsible for making the verdict collective (``_all_agree``) —
     the on-disk loader-file count below is a local observation that
     eventually-consistent shared storage could briefly split."""
+    # what the state trains: a speculator entry stamps "speculator:<base
+    # arch>" (speculator/train_speculator.py); a pretraining fingerprint
+    # carries no "model" key. One never resumes as the other.
+    old_model, new_model = old.get("model", "pretrain"), new.get("model", "pretrain")
+    if old_model != new_model:
+        return [
+            f"the checkpoint holds a {old_model!r} train state and this run "
+            f"trains {new_model!r}: point ckpt_save_path / ckpt_load_path "
+            f"at a checkpoint of this kind of run"
+        ], True
     changed = any(old.get(k) != new.get(k) for k in TOPOLOGY_FIELDS)
     if not changed:
         return [], False

@@ -10,7 +10,9 @@ JAX train state ``{"params", "opt_state", "step"}`` with optax's
 - ``opt_state.count`` and ``opt_state.inner_state.0.count``: Adam's
   count (int32 scalars, equal: both advance only with an applied update);
 - ``opt_state.hyperparams.{b1,b2,learning_rate,weight_decay}``: fp32
-  scalars, the last learning rate the step set;
+  scalars, the last learning rate the step set (a state's
+  ``"hyperparams"`` names another set: the speculator's optax ``adamw``
+  also injects ``eps`` and ``eps_root``);
 - ``opt_state.inner_state.0.{mu,nu}.<path>``: Adam's moments in the
   params' layout;
 - ``step``: the trainer's step (int32 scalar).
@@ -83,9 +85,11 @@ def checkpoint_state(state: Dict) -> Dict[str, torch.Tensor]:
     count = _adam_count(opt)
     for key in COUNT_KEYS:
         flat[key] = torch.tensor(count, dtype=torch.int32)
-    hyper = (group["betas"][0], group["betas"][1], group["lr"], group["weight_decay"])
-    for name, value in zip(_HYPER, hyper):
-        flat[f"opt_state.hyperparams.{name}"] = torch.tensor(value, dtype=torch.float32)
+    hyper = {"b1": group["betas"][0], "b2": group["betas"][1], "eps": group["eps"],
+             "eps_root": 0.0, "learning_rate": group["lr"],
+             "weight_decay": group["weight_decay"]}
+    for name in state.get("hyperparams", _HYPER):
+        flat[f"opt_state.hyperparams.{name}"] = torch.tensor(hyper[name], dtype=torch.float32)
     for name in ("mu", "nu"):
         flatten(f"opt_state.inner_state.0.{name}", state["moments"][name], flat)
     flat["step"] = torch.tensor(int(state["step"]), dtype=torch.int32)

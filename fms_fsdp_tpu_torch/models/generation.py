@@ -3,8 +3,9 @@
 Counterpart of ``fms_fsdp_tpu/models/generation.py``: ``prefill``,
 ``decode_layer_qkv`` / ``decode_layer_out`` (shared with the paged decode
 step in ``serve/decode.py``, so both run the same ops), ``decode_chunk``,
-``decode_step`` and ``sample_token``. ``generate`` comes with the
-speculator slice (ROADMAP.md A.9).
+``decode_step``, ``sample_token`` and ``generate``, the kv-cached
+generation that feeds the speculator's second training stage. JAX's
+``lax.scan`` over the generated tokens is a Python loop here.
 
 The JAX functions cast the params to the compute dtype on every call,
 which costs nothing under ``jit``. Eagerly, at 8B, it would be 16 GB of
@@ -164,3 +165,57 @@ def sample_token(logits, generator: Optional[torch.Generator], temperature,
         logits = logits.masked_fill(logits < kth, float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[..., 0]
+
+
+def generate(
+    params,
+    input_ids,
+    cfg: LlamaConfig,
+    *,
+    generator: Optional[torch.Generator] = None,
+    max_seq_len: int = 2048,
+    max_new_tokens: int = 256,
+    temperature: float = 1.0,
+    top_k: int = 10,
+    do_sample: bool = True,
+    include_embeds: bool = True,
+    compute_dtype=None,
+):
+    """Autoregressive generation (``generation.py:172`` in JAX).
+
+    input_ids (B, P) -> result (B, P + max_new_tokens); with
+    ``include_embeds`` also embeds (B, max_new_tokens, D): the final
+    hidden state that predicted each generated token. It prefills, then
+    samples and runs ``decode_step`` one token at a time. Sampling draws
+    from ``generator``. ``compute_dtype`` defaults to the params' own
+    dtype (JAX casts them to bf16 on every call; here the caller casts
+    once).
+    """
+    b, prompt_len = input_ids.shape
+    assert prompt_len + max_new_tokens <= max_seq_len, (
+        f"prompt ({prompt_len}) + max_new_tokens ({max_new_tokens}) exceeds "
+        f"max_seq_len ({max_seq_len}): the kv cache would overflow"
+    )
+    if compute_dtype is None:
+        compute_dtype = params["embedding"].dtype
+    rope = rope_table(max_seq_len, cfg.head_dim, cfg.rope_theta, device=input_ids.device)
+    logits, prefill_embeds, cache = prefill(
+        params, input_ids, cfg, max_seq_len, compute_dtype, rope=rope
+    )
+    last_logits = logits[:, -1]
+    last_embed = prefill_embeds[:, -1]
+    tokens, embeds = [], []
+    for t in range(max_new_tokens):
+        tok = sample_token(last_logits, generator, temperature, top_k, do_sample)
+        tokens.append(tok)
+        embeds.append(last_embed)
+        if t + 1 < max_new_tokens:
+            # the last step's logits are never sampled: JAX's scan computes
+            # them and drops them
+            last_logits, last_embed, cache = decode_step(
+                params, cache, tok[:, None], prompt_len + t, cfg, compute_dtype, rope
+            )
+    result = torch.cat([input_ids, torch.stack(tokens, dim=1).to(input_ids.dtype)], dim=1)
+    if include_embeds:
+        return result, torch.stack(embeds, dim=1)
+    return result

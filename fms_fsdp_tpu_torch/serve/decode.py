@@ -4,8 +4,9 @@ Counterpart of ``fms_fsdp_tpu/serve/decode.py::paged_decode_step``. It
 runs the same ``decode_layer_qkv`` / attend / ``decode_layer_out`` ops
 as the dense decode path, with two differences: k/v land in the paged
 pool at each row's (page, slot) write target, and each batch row carries
-its own position (``seq_lens``). ``paged_verify_step`` comes with
-speculative serving (ROADMAP.md A.9).
+its own position (``seq_lens``). ``paged_verify_step`` scores m
+candidate tokens per row in one forward, the verify step of speculative
+serving.
 
 The pools are written in place with ``index_put_`` (JAX scatters into
 donated buffers, which XLA also updates in place).
@@ -112,3 +113,76 @@ def paged_decode_step(
     embeds = rms_norm(x, params["norm"], cfg.norm_eps)
     logits = embeds @ params["lm_head"]
     return logits[:, 0], embeds[:, 0], pools
+
+
+def paged_verify_step(
+    params,
+    pools,
+    page_table: torch.Tensor,
+    seq_lens: torch.Tensor,
+    tokens: torch.Tensor,
+    cfg: LlamaConfig,
+    *,
+    page_size: int,
+    compute_dtype=torch.bfloat16,
+    quant: str = "none",
+    rope: Optional[Tuple] = None,
+):
+    """Score m candidate tokens per row in one ragged forward: the
+    speculative verify step (``serve/decode.py:133`` in JAX).
+
+    tokens (B, m): token j of row b is written at cache position
+    ``seq_lens[b] + j`` and attends to positions <= its own, the
+    ``decode_chunk`` rule, so under the gather path the per-position
+    logits equal feeding the same tokens one at a time through
+    ``paged_decode_step``'s reference branch. Attention goes through the
+    gather path under every impl, as in JAX: the decode kernel takes one
+    query a row. Quantized pools take the same quantize / dequantize
+    round trip as that branch. Returns (logits (B, m, V), embeds (B, m,
+    D), pools), the pools written in place. Positions past a row's
+    accepted prefix keep stale k/v, which the <= position mask hides
+    until a later write replaces them.
+    """
+    check_params_dtype(params, compute_dtype)
+    b, m = tokens.shape
+    max_seq = page_table.shape[1] * page_size
+    if rope is None:
+        rope = rope_table(max_seq, cfg.head_dim, cfg.rope_theta, device=tokens.device)
+    cos, sin = rope
+    positions = (seq_lens[:, None].long()
+                 + torch.arange(m, device=tokens.device)[None, :])  # (B, m)
+    x = params["embedding"][tokens.long()]  # (B, m, D)
+    rows = torch.arange(b, device=tokens.device)[:, None]
+    page_ids = page_table[rows, positions // page_size].long()  # (B, m)
+    slots = positions % page_size
+    quantized = quant != "none"
+
+    def attend(q, lp):
+        if quantized:
+            k = kv_dequantize(gather_pages(lp["k"], page_table),
+                              gather_pages(lp["k_scale"], page_table), compute_dtype)
+            v = kv_dequantize(gather_pages(lp["v"], page_table),
+                              gather_pages(lp["v_scale"], page_table), compute_dtype)
+        else:
+            k = gather_pages(lp["k"], page_table)
+            v = gather_pages(lp["v"], page_table)
+        return gqa_attend(q, k, v, positions)
+
+    for i in range(params["layers"]["wq"].shape[0]):
+        layer = layer_params(params, i)
+        lp = {name: pool[i] for name, pool in pools.items()}
+        q, k, v = decode_layer_qkv(x, layer, cfg, cos, sin, positions)
+        if quantized:
+            qk, sk = kv_quantize(k, quant)
+            qv, sv = kv_quantize(v, quant)
+            lp["k"].index_put_((page_ids, slots), qk)
+            lp["v"].index_put_((page_ids, slots), qv)
+            lp["k_scale"].index_put_((page_ids, slots), sk)
+            lp["v_scale"].index_put_((page_ids, slots), sv)
+        else:
+            lp["k"].index_put_((page_ids, slots), k)
+            lp["v"].index_put_((page_ids, slots), v)
+        x = decode_layer_out(x, layer, cfg, attend(q, lp))
+    embeds = rms_norm(x, params["norm"], cfg.norm_eps)
+    logits = embeds @ params["lm_head"]
+    return logits, embeds, pools

@@ -12,15 +12,19 @@ Counterpart of ``fms_fsdp_tpu/serve/engine.py`` for the unified role:
   deciding admission / expiry / eviction each iteration;
 - one ragged decode step over the ``max_batch`` slots per iteration,
   which runs the CUDA paged-decode kernel on the card; prefills run
-  interleaved (at most ``max_prefill_per_step`` per iteration).
+  interleaved (at most ``max_prefill_per_step`` per iteration);
+- with ``speculator_path`` (a ``save_speculator`` file), a Llama engine
+  drafts ``spec_draft_tokens`` tokens a slot with the speculator, verifies
+  them in one paged forward over n+1 positions and commits the accepted
+  prefix token by token, so greedy output equals plain greedy decode.
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without that request it raises. Greedy decode (the
 default) needs no randomness; sampling draws from the engine's own
 ``torch.Generator``, seeded from ``seed``.
 
-Chunked prefill, speculative serving, disaggregation roles and serving
-layouts are refused at build, each naming its ROADMAP.md item.
+Chunked prefill, disaggregation roles and serving layouts are refused
+at build, each naming its ROADMAP.md item.
 """
 
 import time
@@ -51,12 +55,11 @@ _DTYPES = {
 }
 
 _EXTENSIONS = "ROADMAP.md A.10 (serving extensions)"
-_SPECULATOR = "ROADMAP.md A.9 (speculator and speculative serving)"
 
 
 @dataclass(frozen=True)
 class ServeConfig:
-    """Engine knobs, named as in the JAX ``ServeConfig``. The four whose
+    """Engine knobs, named as in the JAX ``ServeConfig``. The three whose
     paths are not ported yet are refused by :class:`ServingEngine` at
     build unless left at their defaults."""
 
@@ -84,7 +87,11 @@ class ServeConfig:
     # Mixtral decode's MoE: "routed" (each chosen expert over its rows)
     # or "dense" (every expert, the parity mode)
     moe_impl: str = "routed"
-    speculator_path: str = ""  # not served yet (ROADMAP.md A.9)
+    # speculative serving: a save_speculator checkpoint (models/
+    # speculator.py); "" off. Greedy Llama engines only.
+    speculator_path: str = ""
+    # draft tokens per verify step (the checkpoint's n_predict when 0)
+    spec_draft_tokens: int = 0
     serve_layout: str = ""  # not served yet (ROADMAP.md A.10)
     role: str = "unified"  # only "unified" is served (ROADMAP.md A.10)
 
@@ -94,11 +101,6 @@ def _check_supported(scfg: ServeConfig) -> None:
         raise NotImplementedError(
             f"role={scfg.role!r}: disaggregated serving is not ported yet "
             f"({_EXTENSIONS}); run role='unified'"
-        )
-    if scfg.speculator_path:
-        raise NotImplementedError(
-            f"speculator_path: speculative serving is not ported yet "
-            f"({_SPECULATOR})"
         )
     if scfg.prefill_chunk_tokens:
         raise NotImplementedError(
@@ -162,6 +164,8 @@ class ServingEngine:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._decode_tokens = 0
         self._decode_wall = 0.0
+        self._spec_draft_total = 0  # draft tokens offered to verify
+        self._spec_accept_total = 0  # draft tokens accepted
         self._finished_buf: List[Request] = []
         self.last_logits = None  # (B, V) of the last decode step
         self.decode_steps = 0  # ragged decode steps run
@@ -200,11 +204,16 @@ class ServingEngine:
         ``deadline_unmeetable`` — and bumps the per-reason
         ``serve.requests_rejected.<reason>`` counter."""
         deadline = None if deadline_s is None else self.clock() + deadline_s
-        if len(prompt) + max_new_tokens > self.serve_cfg.max_seq_len:
+        # a verify step writes up to spec_draft_tokens positions past the
+        # committed length before the accept rule rolls back: those
+        # positions must exist, so the budget tightens by draft - 1
+        slack = max(0, self.adapter.spec_draft_tokens - 1)
+        if len(prompt) + max_new_tokens + slack > self.serve_cfg.max_seq_len:
+            extra = f" + {slack} draft headroom" if slack else ""
             self._reject(
                 REJECT_TOO_LARGE,
                 f"prompt ({len(prompt)}) + max_new_tokens "
-                f"({max_new_tokens}) exceeds max_seq_len "
+                f"({max_new_tokens}){extra} exceeds max_seq_len "
                 f"({self.serve_cfg.max_seq_len})",
             )
         err = self.adapter.admission_error(len(prompt), max_new_tokens)
@@ -327,11 +336,14 @@ class ServingEngine:
                 break
             self._prefill_request(got[0], self._slots.index(None))
 
-        # token-granular growth; evict (LIFO) when the pool is dry
+        # token-granular growth; evict (LIFO) when the pool is dry. A
+        # speculative stream reserves the positions its drafts are written
+        # at before the accept rule rolls back.
+        draft = self.adapter.spec_draft_tokens
         for slot, req in enumerate(self._slots):
             if req is None:
                 continue
-            while not self.adapter.grow(req.rid, int(self._lens[slot]) + 1):
+            while not self.adapter.grow(req.rid, int(self._lens[slot]) + 1 + draft):
                 victim = self.scheduler.evict_victim(self._admit_order)
                 if victim is None:
                     raise RuntimeError("no victim but pool exhausted")
@@ -340,7 +352,31 @@ class ServingEngine:
                     break
 
         active = [(slot, r) for slot, r in enumerate(self._slots) if r is not None]
-        if active:
+        if active and self.adapter.speculative:
+            t0 = self.clock()
+            emit, counts, logits = self.adapter.decode_spec(
+                [r.rid if r is not None else None for r in self._slots],
+                self._lens,
+                self._tokens,
+            )
+            self.last_logits = logits
+            self.decode_steps += 1
+            self._decode_wall += self.clock() - t0
+            for slot, req in active:
+                self._spec_draft_total += draft
+                self._spec_accept_total += int(counts[slot]) - 1
+                # commit the accepted prefix token by token: eos and
+                # max_new_tokens cut exactly where plain decode stops
+                for j in range(int(counts[slot])):
+                    self._lens[slot] += 1
+                    tok = int(emit[slot, j])
+                    req.generated.append(tok)
+                    self._tokens[slot] = tok
+                    self._decode_tokens += 1
+                    self.registry.counter("serve.decode_tokens").add()
+                    if self._finish_if_done(req, slot):
+                        break
+        elif active:
             t0 = self.clock()
             toks, logits = self.adapter.decode(
                 [r.rid if r is not None else None for r in self._slots],
@@ -391,7 +427,7 @@ class ServingEngine:
         """The flat str->number ``serving`` map of the JAX engine, with
         the fields of paths this port does not serve yet at their idle
         values (role unified = 0, single-card layout = 0, no handoff, no
-        speculation, no chunks, never drained)."""
+        chunks, never drained)."""
         ttft = self.registry.hist("serve.ttft_s").reduce(clear=False)
         lat = sorted(self.registry.hist("serve.request_latency_s").samples)
         p99 = lat[min(len(lat) - 1, int(0.99 * len(lat)))] if lat else 0.0
@@ -419,8 +455,12 @@ class ServingEngine:
             "serve_layout": 0.0,
             "handoff_bytes": 0.0,
             "handoff_s": 0.0,
-            "spec_accept_rate": 0.0,
-            "spec_draft_tokens": 0.0,
+            "spec_accept_rate": (
+                self._spec_accept_total / self._spec_draft_total
+                if self._spec_draft_total
+                else 0.0
+            ),
+            "spec_draft_tokens": float(self.adapter.spec_draft_tokens),
             "prefill_chunks": 0.0,
             "paged_kernel_impl": float(self._paged_kernel_impl()),
             "drained": 0.0,

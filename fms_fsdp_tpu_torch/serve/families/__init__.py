@@ -160,10 +160,14 @@ class FamilyAdapter:
     - ``decode(slot_rids, lens, tokens, generator)`` — one ragged decode
       step over all max_batch slots; returns (sampled tokens (B,)
       np.int32, logits (B, V)).
+    - ``decode_spec(slot_rids, lens, tokens)`` — speculative adapters
+      only: draft ``spec_draft_tokens`` tokens a row, verify them in one
+      forward; returns (tokens to commit (B, n+1), how many of them (B,),
+      the logits row of the last committed position (B, V)).
     - ``pages_in_use`` / ``state_bytes_per_stream`` — obs.
 
-    Handoff, speculative decode, chunked prefill and serving layouts
-    come with the serving extensions (ROADMAP.md A.9, A.10).
+    Handoff, chunked prefill and serving layouts come with the serving
+    extensions (ROADMAP.md A.10).
     """
 
     family: str = "?"
@@ -173,6 +177,11 @@ class FamilyAdapter:
     max_pages: int = 0
     attn_impl: str = "none"
     block_kv: int = 0
+    # speculative serving (ServeConfig.speculator_path): an adapter that
+    # loaded a speculator sets ``speculative``; the engine then steps
+    # through ``decode_spec`` and budgets ``spec_draft_tokens`` positions
+    speculative: bool = False
+    spec_draft_tokens: int = 0
 
     def admission_error(self, prompt_len: int, max_new: int) -> Optional[str]:
         raise NotImplementedError
@@ -190,6 +199,9 @@ class FamilyAdapter:
         raise NotImplementedError
 
     def decode(self, slot_rids, lens, tokens, generator):
+        raise NotImplementedError
+
+    def decode_spec(self, slot_rids, lens, tokens):
         raise NotImplementedError
 
     @property

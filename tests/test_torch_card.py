@@ -536,6 +536,54 @@ def test_card_mixtral_step_kernel_vs_plain_attention(cuda_device):
     assert 0.0 <= kernel[2] < 1.0
 
 
+@pytest.mark.card
+def test_card_speculator_stage1_kernel_vs_plain_attention(cuda_device):
+    """The frozen base forward of a stage-1 speculator step on a bf16
+    Llama base at a narrow width (512 wide, 4/2 heads of 128, 2 layers,
+    vocab 32000, seq 1024, batch 2; speculator width 512, 3 heads): its
+    hidden states through the flash forward lie within twice the plain
+    bf16 forward's distance from the fp32 forward, of both. Then one
+    stage-1 step each way from the same speculator and batch: the per-head
+    losses within bf16's 2e-2 relative, and the kernel step launching the
+    forward once a layer and no backward (the base is frozen), the plain
+    one nothing."""
+    from fms_fsdp_tpu_torch.config import TrainConfig
+    from fms_fsdp_tpu_torch.models import get_base_api
+    from fms_fsdp_tpu_torch.models.speculator import SpeculatorConfig, init_speculator_params
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+    from fms_fsdp_tpu_torch.train.speculator import make_stage1_step, speculator_state
+
+    model = LlamaConfig(src_vocab_size=32000, emb_dim=512, nheads=4, kvheads=2, nlayers=2)
+    base = init_llama_params(torch.Generator(device=cuda_device).manual_seed(0), model,
+                             dtype=torch.bfloat16)
+    scfg = SpeculatorConfig(emb_dim=512, inner_dim=512, vocab_size=32000, n_predict=3)
+    inputs = torch.randint(0, 32000, (2, 1024 + 4), device=cuda_device,
+                           generator=torch.Generator(device=cuda_device).manual_seed(1))
+
+    hidden = get_base_api("embedllama").forward_hidden
+    with torch.no_grad():
+        h = {impl: hidden(base, inputs[:, :-4], model, attn_impl=impl).float()
+             for impl in ("pallas", "xla")}
+        h32 = hidden(base, inputs[:, :-4], model, attn_impl="xla",
+                     compute_dtype=torch.float32)
+    tol = 2 * (h["xla"] - h32).abs().max().item()
+    assert (h["pallas"] - h["xla"]).abs().max().item() <= tol
+    assert (h["pallas"] - h32).abs().max().item() <= tol
+
+    def step(attn):
+        cfg = TrainConfig(seq_length=1028, batch_size=2, attention_kernel=attn,
+                          speculator_width=512, num_steps=10, stage2_start_step=5)
+        spec = init_speculator_params(torch.Generator(device=cuda_device).manual_seed(2), scfg)
+        fa.reset_launches()
+        _, m = make_stage1_step(base, model, scfg, cfg)(speculator_state(spec, cfg), inputs)
+        return m["per_head"].float().cpu().numpy(), float(m["gnorm"]), dict(fa.LAUNCHES)
+
+    kernel, plain = step("pallas"), step("xla")
+    assert (kernel[2]["fwd"], kernel[2]["dq"], kernel[2]["dkv"]) == (2, 0, 0), kernel[2]
+    assert sum(plain[2].values()) == 0
+    assert np.isfinite(kernel[0]).all() and np.isfinite(kernel[1])
+    np.testing.assert_allclose(kernel[0], plain[0], rtol=2e-2)
+
 # ---------------------------------------------------------------------------
 # the fused SSD scan kernels (csrc/ssd_sm90.cu for bf16/fp16, csrc/ssd.cu
 # for fp32)

@@ -247,7 +247,7 @@ def test_family_resolution(np_params):
     (dict(attn_impl="kernel"), ValueError, "reference"),
     (dict(kv_quant="int8"), ValueError, "kv_quant"),
     (dict(moe_impl="sparse"), ValueError, "moe_impl"),
-    (dict(speculator_path="spec.pkl"), NotImplementedError, "A.9"),
+    (dict(speculator_path="spec.pkl"), ValueError, "speculator_path"),
 ])
 def test_engine_refuses_unserved_knobs(np_params, kw, exc, match):
     scfg = ServeConfig(max_batch=2, max_seq_len=64, compute_dtype="float32", **kw)
@@ -256,8 +256,8 @@ def test_engine_refuses_unserved_knobs(np_params, kw, exc, match):
 
 
 def test_adapter_refuses_a_speculator(np_params):
-    """Built directly (the engine refuses first), the adapter refuses a
-    speculator as JAX's does."""
+    """Built directly, the adapter refuses a speculator as JAX's does
+    (the engine reaches the same refusal through it)."""
     scfg = ServeConfig(max_batch=2, max_seq_len=64, compute_dtype="float32",
                        speculator_path="spec.pkl")
     with pytest.raises(ValueError, match="speculator_path"):

@@ -407,3 +407,38 @@ def test_sigterm_to_one_rank_saves_every_rank_at_one_step(tmp_path):
     with open(tmp_path / "ck" / "checkpoints" / ckpts[0] / "metadata.json") as f:
         meta = json.load(f)
     assert meta["step"] == last and meta["topology"]["process_count"] == 2
+
+
+def test_speculator_two_ranks_match_one_process(tmp_path):
+    """2-rank gloo stage-1 speculator steps (2 of 4 rows a rank) against
+    the port's one-process steps on the same global batches: the per-head
+    losses, the gradient norm and the params after 3 steps within 1e-6.
+    A rank-local gradient (no all-reduce) moves the norm far past it.
+    The frozen base runs in fp32 here (bf16 in the entry), and with it
+    the speculator: in bf16 the ranks' 2-row sums round apart from the
+    4-row sums by ~1e-5 of the norm."""
+    seq, steps = 32, 3
+    rng = np.random.default_rng(11)
+    toks = rng.integers(0, 128, size=(steps, 4, seq + 4)).astype(np.int64)
+    np.savez(tmp_path / "spec_batches.npz", inputs=toks, labels=toks)
+    main = dict(_MODEL, vocab_size=128, speculator_width=32, use_dummy_dataset=True,
+                seq_length=seq, num_steps=steps, stage2_start_step=100, report_interval=1,
+                attention_kernel="xla", learning_rate=1e-3, checkpoint_interval=1000,
+                feed_prefetch=0)
+    results = {}
+    for world in (1, 2):
+        spec = {"out": str(tmp_path / f"out{world}"), "speculator": True, "fp32_base": True,
+                "batches": str(tmp_path / "spec_batches.npz"),
+                "main": dict(main, batch_size=4 // world,
+                             ckpt_save_path=str(tmp_path / f"ck{world}"),
+                             ckpt_load_path=str(tmp_path / f"ck{world}"))}
+        results[world], _ = _run(world, spec, tmp_path)
+    one = results[1][0]
+    assert one["steps"] == [1, 2, 3]
+    for r in results[2]:
+        assert r["steps"] == one["steps"] and r["tokens_seen"] == one["tokens_seen"]
+        np.testing.assert_allclose(r["per_head"], one["per_head"], rtol=1e-6)
+        np.testing.assert_allclose(r["gnorms"], one["gnorms"], rtol=1e-6)
+        assert sorted(r["param_sums"]) == sorted(one["param_sums"])
+        for key, want in one["param_sums"].items():
+            assert r["param_sums"][key] == pytest.approx(want, rel=1e-6, abs=1e-6), key

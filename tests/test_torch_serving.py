@@ -415,7 +415,7 @@ def test_engine_without_cuda_raises_unless_cpu_asked(params, monkeypatch):
         ServingEngine(params, TINY, ServeConfig(compute_dtype="float32"), device="cuda")
 
 
-@pytest.mark.parametrize("field,value", [("role", "prefill"), ("speculator_path", "x"),
+@pytest.mark.parametrize("field,value", [("role", "prefill"),
                                          ("prefill_chunk_tokens", 16),
                                          ("serve_layout", "tp=2")])
 def test_engine_refuses_unported_options(params, field, value):
@@ -461,7 +461,9 @@ def test_port_imports_no_jax_and_no_jax_package():
         "    'data.synth', 'data.loader', 'data.device_feed', 'obs', 'obs.registry',\n"
         "    'obs.schema', 'obs.timing', 'obs.sinks', 'obs.scopes', 'obs.observer',\n"
         "    'resilience.faults', 'resilience.exits', 'resilience.guards',\n"
-        "    'resilience.supervisor', 'utils.train_utils')}\n"
+        "    'resilience.supervisor', 'utils.train_utils', 'models.speculator',\n"
+        "    'models.speculative', 'models.gpt_bigcode', 'train.speculator',\n"
+        "    'speculator', 'speculator.train_speculator')}\n"
         "print(len(mods), bad, need - set(mods))\n"
         "sys.exit(1 if bad or len(mods) < 74 or need - set(mods) else 0)\n"
     )

@@ -12,8 +12,10 @@ interpreter). Usage:
 SPEC_JSON holds ``out`` (this rank writes ``<out>/rank<R>.json``), the
 ``main`` keyword arguments, and optionally ``batches`` (a .npz of global
 ``inputs``/``labels`` batches that replace the dummy stream: each rank
-takes its contiguous rows of each) and ``record_rows`` (keep every row the
-feed served and hash the train state at the first step).
+takes its contiguous rows of each), ``record_rows`` (keep every row the
+feed served and hash the train state at the first step) and
+``speculator`` (run the speculator entry instead of the Llama trainer,
+with ``fp32_base`` its frozen base in fp32).
 """
 
 import hashlib
@@ -31,6 +33,7 @@ from fms_fsdp_tpu_torch.ckpt.state import checkpoint_state  # noqa: E402
 from fms_fsdp_tpu_torch.data.device_feed import DeviceFeed  # noqa: E402
 from fms_fsdp_tpu_torch.parallel import sharding  # noqa: E402
 from fms_fsdp_tpu_torch.resilience.exits import classified_exit  # noqa: E402
+from fms_fsdp_tpu_torch.speculator import train_speculator as spec_entry  # noqa: E402
 
 
 def state_hash(state) -> str:
@@ -72,6 +75,39 @@ def main():
                     yield (x[rank * per:(rank + 1) * per], y[rank * per:(rank + 1) * per])
 
         entry.get_dummy_loader = lambda cfg, r, w: RankRows()
+        spec_entry.get_dummy_loader = entry.get_dummy_loader
+
+    if spec.get("speculator"):
+        if spec.get("fp32_base"):
+            # the frozen base (bf16 in the entry) in fp32, so the speculator
+            # runs in fp32 too
+            load = spec_entry.load_base
+            spec_entry.load_base = lambda *a, **k: {
+                n: (w.float() if torch.is_tensor(w) else {m: t.float() for m, t in w.items()})
+                for n, w in load(*a, **k).items()}
+            base_api = spec_entry.get_base_api
+
+            def fp32_api(arch):
+                api = base_api(arch)
+                hidden = api.forward_hidden
+                api.forward_hidden = lambda *a, **k: hidden(*a, compute_dtype=torch.float32,
+                                                            **k)
+                return api
+
+            spec_entry.get_base_api = fp32_api
+        with classified_exit():
+            res = spec_entry.main(device="cpu", **spec["main"])
+        reports = res["reports"]
+        flat = checkpoint_state(res["state"])
+        out.update(
+            per_head=[r["per_head"] for r in reports], gnorms=[r["gnorm"] for r in reports],
+            steps=[r["step"] for r in reports], tokens_seen=[r["tokens_seen"] for r in reports],
+            param_sums={k: float(t.double().sum()) for k, t in flat.items()
+                        if k.startswith("params.")},
+        )
+        with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        return
 
     rows = []
     hashes = []
