@@ -94,13 +94,14 @@ Phases, one JSON line each; any failure exits non-zero:
    profile of one step. It saves nothing (its 33.5 GB final save was
    cut for the Mixtral phases' time), and neither do train-kvgrid (its
    17.8 GB, ~21 s, cut for the speculator phases: the resume phase checks
-   the final save of the same 2-layer model through the same entry) and
-   train-mixtral. train-mamba writes its final save (the one at
-   ``num_steps``; its manifest records sizes, the phase deletes it
-   unread) to a fresh checkpoint root in memory (see ``_ckpt_dir``) and
-   prints its blocking snapshot (ms), its background commit, payload
-   write and manifest hashing (s), its bytes and GB/s, then deletes the
-   root. Every trainer phase runs through the mesh
+   the final save of the same 2-layer model through the same entry),
+   train-mamba (its 31.9 GB, ~32 s, cut for hf-eval: hf-eval's Mamba run
+   writes the final save of the same entry at 3 layers, reads it back
+   through ``eval_ppl`` and exports it) and train-mixtral. A phase that
+   saves (hf-eval's Mamba run) prints its blocking snapshot (ms), its
+   background commit, payload write and manifest hashing (s), its bytes
+   and GB/s; every root is in memory (see ``_ckpt_dir``) and deleted
+   when the phase is done. Every trainer phase runs through the mesh
    (``parallel/mesh.py``) and an NCCL process group of one, with no
    sharded state (checked and printed as ``process_group``).
 10. loader — the streaming loader alone, host plus the copy to the card
@@ -175,12 +176,47 @@ Phases, one JSON line each; any failure exits non-zero:
    this process resumes it to step 9 with the profiler
    on (steps 7-9 recorded): its steps continue at 4 and its trace holds
    no NCCL kernel (a world of one runs no collective on the step), with
-   the kernels' and the NCCL kernels' ms per step.
-14. train-kvgrid — the same trainer at 2 layers for one step with
+   the kernels' and the NCCL kernels' ms per step; the resume saves
+   nothing. The hsdp child's checkpoint (step 3) is left for hf-eval,
+   which deletes it.
+14. hf-eval — HF interop and native eval. (a) ``python -m
+   fms_fsdp_tpu_torch.fms_to_hf_llama`` (a child process, beside the
+   card work of (b)-(e)) on the shard phase's hsdp checkpoint (llama3_8b_4k, 2 layers,
+   bf16; one step of the same config when shard did not run) writes an
+   HF directory (fp32 safetensors); ``load_hf_base`` reads it back, equal
+   to the saved params bitwise; on one batch of S=4096 the port's forward
+   through the flash kernel lies within twice the plain bf16 forward's
+   distance from the fp32 forward (of both), transformers'
+   ``LlamaForCausalLM`` loaded from the directory in bf16 on the card
+   within twice that of the kernel's logits; top-1 agreement printed.
+   (b) ``eval_ppl.main`` on that checkpoint over the loader phase's
+   corpus (``HF_EVAL_BATCHES`` batches of 2 x 4096): flash forward
+   launches == layers x batches, the nll within ``HF_NLL_REL_TOL`` of the
+   same entry through the einsum attention; eval tokens/s of the steps.
+   (c) ``main_training_mamba.main`` at mamba_9.8b width, 3 layers with
+   attention at 1, one step, writes its final save; ``eval_ppl.main`` on
+   it: SSD launches == Mamba layers x batches, flash == 1 x batches;
+   ``python -m fms_fsdp_tpu_torch.fms_to_hf_mamba`` on it (a child
+   process, beside (a), (b), (d) and (e)): mamba_ssm's files, its config, the
+   conv, fused attention in_proj and [up; gate] fc1 shapes, and the
+   parameter count equal to the checkpoint's. (d) ``fms_to_hf_mixtral``
+   at mixtral_8x7b width, 1 layer: transformers' ``MixtralForCausalLM``
+   on the card against the port's dense mix through the kernels, in fp32
+   within ``HF_FP32_REL_TOL`` (the port's bf16 against its fp32 printed:
+   a router near-tie moves a token to another expert there). (e) an HF
+   GPTBigCode directory (random weights at ``GPTBigCodeConfig()`` width,
+   2 of 24 layers) as ``speculator.train_speculator.main``'s ``model_path``
+   (``model_arch=embedllama``, overridden by the directory's arch): 3
+   stage-1 steps of JAX's default speculator, no save; the first step's
+   base hidden states within four times the bf16-vs-fp32 distance of
+   transformers' ``GPTBigCodeModel`` in bf16, and in fp32 within
+   ``HF_FP32_REL_TOL``. Prints export and import seconds, the
+   directories' bytes and the peak memory.
+15. train-kvgrid — the same trainer at 2 layers for one step with
    ``flash_kernel_variant="kvgrid"``, so the launches of the kv-streamed
    contracts are counted on the main path too.
 
-15. ssd    — the fused SSD scan kernels (``ssd_sm90.cu`` for bf16,
+16. ssd    — the fused SSD scan kernels (``ssd_sm90.cu`` for bf16,
    ``ssd.cu`` for fp32) against their plain version at the
    Mamba training shape (B=2, S=4096, H=128, P=64, G=1, N=128, L=256), at
    G=8 and at S=L (one chunk), bf16 and fp32, dt and A in the ranges of
@@ -196,22 +232,23 @@ Phases, one JSON line each; any failure exits non-zero:
    whole ``ssd_scan`` through the kernel and through the chunked einsums,
    the bound, and the other pieces of a Mamba layer at that shape (the
    scan's einsum backward, the conv forward and backward).
-16. train-mamba — ``fms_fsdp_tpu_torch.main_training_mamba.main`` at
+17. train-mamba — ``fms_fsdp_tpu_torch.main_training_mamba.main`` at
    mamba_9.8b width, 6 layers with attention at layer 3, seq 4096, batch
    2, selective AC 1/2, 16 steps (over the first 8 the loss of this
    model only wobbles, through the kernel and through the einsums alike):
    finite falling loss, no skipped batch,
    SSD launches == steps x (Mamba layers + rematerialised Mamba layers),
    flash launches == the one attention layer's; tokens per card per
-   second, MFU/HFU, peak memory and a profile of one step.
-17. serve-mamba — ``ServingEngine`` on mamba_9.8b at full width and depth
+   second, MFU/HFU, peak memory and a profile of one step. No save
+   (hf-eval checks the entry's final save).
+18. serve-mamba — ``ServingEngine`` on mamba_9.8b at full width and depth
    (32 layers, 3 of them attention; random bf16 weights), 8 requests of
    16-128 prompt tokens and 32 new tokens each: all complete, finite
    logits, a constant ``state_bytes_per_stream``, slab slices zero after
    completion, one decode step held against the same step in fp32. This
    path launches no SSD kernel (the prefill is the per-token recurrence),
    and the phase checks that.
-18. train-mixtral — ``fms_fsdp_tpu_torch.main_training_mixtral.main`` at
+19. train-mixtral — ``fms_fsdp_tpu_torch.main_training_mixtral.main`` at
    mixtral_8x7b width (4096 wide, 32/8 heads of 128, 8 experts of hidden
    14336, top-2, vocab 32000) and 2 of 32 layers (3.16B parameters),
    bfSixteen, seq 4096, batch 1, selective AC 1/2, dummy data, 6 steps,
@@ -225,7 +262,7 @@ Phases, one JSON line each; any failure exits non-zero:
    then the first step again from the same weights and batch through the
    plain attention, its loss within ``TOL["bf16"]`` (relative) of the
    kernels'.
-19. serve-mixtral — ``ServingEngine`` on mixtral_8x7b at full width, 8 of
+20. serve-mixtral — ``ServingEngine`` on mixtral_8x7b at full width, 8 of
    32 layers, random bf16 weights (23.7 GB), ``max_batch=8``, page 64, 8
    requests of 64-512 prompt tokens and 32 new tokens, routed top-2
    experts: all complete, no attention kernel launched (the reference
@@ -260,7 +297,8 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "serve", "serve-int8", "train-speculator",
           "serve-spec", "flash", "train",
-          "loader", "resume", "supervise", "shard", "train-kvgrid", "ssd", "train-mamba",
+          "loader", "resume", "supervise", "shard", "hf-eval", "train-kvgrid", "ssd",
+          "train-mamba",
           "serve-mamba", "train-mixtral", "serve-mixtral")
 
 # llama3_8b decode shapes of the kernel phase
@@ -1971,7 +2009,7 @@ CORPUS_DOCS_PER_SHARD = 2100
 LOADER_KW = dict(use_dummy_dataset=False, datasets="corpus_a,corpus_b", weights="3,1",
                  seq_length=4096, batch_size=2, vocab_size=128256, logical_shards=1024,
                  checkpoint_interval=1000)
-LOADER_RATE_S = 4.0  # each worker mode's timed window
+LOADER_RATE_S = 2.0  # each worker mode's timed window
 LOADER_FILL_S = 30.0  # the reservoir is filled to the largest window this allows
 
 
@@ -2868,12 +2906,15 @@ def phase_shard(state):
         problems.append(f"the hsdp checkpoint: {result['checkpoint']}")
 
     # the resume, in this process; the profiler writes profile_traces/
-    # under the working directory
+    # under the working directory. It saves nothing (its 8.9 GB final save
+    # cut for hf-eval's time; no check read it): hf-eval reads the hsdp
+    # child's save
     t0 = time.perf_counter()
     here = os.getcwd()
     os.chdir(root)
     try:
-        res = main(**dict(kw, num_steps=SHARD_RESUME_STEPS, use_profiler=True))
+        with _saves_nothing(entry):
+            res = main(**dict(kw, num_steps=SHARD_RESUME_STEPS, use_profiler=True))
     finally:
         os.chdir(here)
     steps = [r["step"] for r in res["reports"]]
@@ -2901,11 +2942,517 @@ def phase_shard(state):
         problems.append("the resume's trace holds no device kernel")
     emit("shard", **result)
     state["shard"] = result
-    shutil.rmtree(root)
+    if "hf-eval" in state["phases"]:
+        state["shard-root"] = root  # hf-eval reads the hsdp run's checkpoint, then deletes it
+    else:
+        shutil.rmtree(root)
     gc.collect()
     torch._C._host_emptyCache()
     if problems:
         raise AssertionError("shard: " + "; ".join(problems))
+
+
+# ---------------------------------------------------------------------------
+# HF interop and native eval: the exporters, the HF base import, eval_ppl
+# ---------------------------------------------------------------------------
+
+HF_LLAMA = {"model_variant": "llama3_8b_4k", "LlamaConfig.nlayers": SHARD_KW["LlamaConfig.nlayers"]}
+# the Mamba hybrid at full width, 3 of 32 layers, attention at layer 1
+HF_MAMBA = {"model_variant": "mamba_9.8b", "MambaConfig.n_layer": 3,
+            "MambaConfig.attn_layer_idx": (1,)}
+HF_MAMBA_TRAIN_KW = {**HF_MAMBA, "seq_length": 4096, "batch_size": 2, "vocab_size": 128256,
+                     "use_dummy_dataset": True, "num_steps": 1, "report_interval": 1,
+                     "checkpoint_interval": 1000, "pure_bf16": True,
+                     "ckpt_full_checksums": False}
+HF_EVAL_BATCHES = 4
+HF_MIXTRAL_LAYERS = 1
+HF_BIGCODE_LAYERS = 2
+HF_SEQ = 4096
+# the eval's mean NLL through the kernels against the plain attention,
+# relative: a mean over 32,768 tokens of bf16 logits
+HF_NLL_REL_TOL = 1e-3
+# an fp32 forward of the port against transformers' fp32 forward, of the
+# largest logit (or hidden value): summation order only
+HF_FP32_REL_TOL = 1e-4
+HF_CHILD_TIMEOUT_S = 240
+
+
+@contextlib.contextmanager
+def _timed_eval_steps(eval_ppl, times):
+    """Within the block ``eval_ppl.make_eval_step``'s steps record their
+    seconds (synchronized) in ``times``."""
+    import torch
+
+    make = eval_ppl.make_eval_step
+
+    def timed_make(*a, **k):
+        step = make(*a, **k)
+
+        def timed(params, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(params, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return out
+
+        return timed
+
+    eval_ppl.make_eval_step = timed_make
+    try:
+        yield
+    finally:
+        eval_ppl.make_eval_step = make
+
+
+def _eval(eval_ppl, kw):
+    """``eval_ppl.main(**kw)`` with its launches counted from zero and its
+    steps timed: (result, launches, tokens per second of the steps)."""
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+    from fms_fsdp_tpu_torch.ops import ssd
+
+    times = []
+    fa.reset_launches()
+    ssd.reset_launches()
+    with _timed_eval_steps(eval_ppl, times):
+        res = eval_ppl.main(**kw)
+    launches = dict(fa.LAUNCHES, ssd_fused=ssd.LAUNCHES["fused"])
+    return res, launches, res["tokens"] / sum(times)
+
+
+def _logit_dist(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def _top1(a, b) -> float:
+    return (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+
+
+def _bf16_rule(kernel, plain, fp32, theirs):
+    """The rule of ``_compare_step`` with transformers beside: the kernel
+    within twice the plain bf16 forward's distance from fp32 of both;
+    transformers' bf16 output, rounded its own way, within twice that of
+    the kernel's (each of two bf16 forwards within it of fp32)."""
+    d = {"kernel_vs_plain": _logit_dist(kernel, plain), "plain_vs_fp32": _logit_dist(plain, fp32),
+         "kernel_vs_fp32": _logit_dist(kernel, fp32), "hf_vs_fp32": _logit_dist(theirs, fp32),
+         "kernel_vs_hf": _logit_dist(kernel, theirs), "fp32_absmax": fp32.abs().max().item()}
+    tol = 2 * d["plain_vs_fp32"]
+    d.update(tolerance=tol, hf_tolerance=2 * tol,
+             ok=d["kernel_vs_plain"] <= tol and d["kernel_vs_fp32"] <= tol
+             and d["kernel_vs_hf"] <= 2 * tol)
+    return d
+
+
+def _cli(kw):
+    return [f"--{k}={v}" for k, v in kw.items()]
+
+
+class _Child:
+    """An entry point's CLI (``python -m module args``) run as a child
+    process beside this one's work, its output in ``log``; ``join`` waits
+    for it (at most ``timeout`` s) and returns its exit code and wall
+    seconds. The child runs in a session of its own, and ``kill`` ends
+    the whole group."""
+
+    def __init__(self, module, args, log, timeout):
+        self.log, self.timeout = log, timeout
+        self._out = open(log, "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-u", "-m", module, *args], cwd=REPO, stdout=self._out,
+            stderr=subprocess.STDOUT, start_new_session=True,
+            env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="4"))
+
+    def join(self):
+        try:
+            rc = self.proc.wait(timeout=self.timeout)
+        finally:
+            self.kill()
+        with open(self.log) as f:
+            tail = f.read()[-3000:]
+        return rc, time.perf_counter() - self.t0, tail
+
+    def kill(self):
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+        self._out.close()
+
+
+def _hf_llama(state, ckpt, root, export):
+    """(a): the exporter's child (``fms_to_hf_llama``'s CLI on the
+    trainer's checkpoint) joined; load_hf_base reads its directory back
+    (bitwise); transformers' model from the directory on the card against
+    the port's forward."""
+    import torch
+    from transformers import LlamaForCausalLM
+
+    from fms_fsdp_tpu_torch.ckpt.manager import _dir_bytes
+    from fms_fsdp_tpu_torch.ckpt.state import flatten
+    from fms_fsdp_tpu_torch.models.hf_import import load_hf_base
+    from fms_fsdp_tpu_torch.models.llama import llama_forward
+    from fms_fsdp_tpu_torch.utils.checkpointing import load_params_only
+    from fms_fsdp_tpu_torch.utils.tree import tree_map
+
+    out, problems = {}, []
+    hf_dir = os.path.join(root, "hf_llama")
+    rc, out["export_child_s"], tail = export.join()
+    if rc != 0:
+        raise AssertionError(f"hf-eval: fms_to_hf_llama exited {rc}:\n{tail}")
+    out["hf_dir_bytes"] = _dir_bytes(hf_dir)
+    out["hf_files"] = sorted(os.listdir(hf_dir))
+    t0 = time.perf_counter()
+    arch, cfg, params = load_hf_base(hf_dir)
+    out["import_s"] = time.perf_counter() - t0
+    saved = flatten("p", load_params_only(os.path.join(ckpt, "checkpoints")), {})
+    back = flatten("p", params, {})
+    out["round_trip_bitwise"] = (arch == "llama" and sorted(saved) == sorted(back) and all(
+        back[k].dtype == saved[k].dtype and torch.equal(back[k], saved[k]) for k in saved))
+    if not out["round_trip_bitwise"]:
+        problems.append("the HF round trip is not bitwise")
+    del saved, back
+
+    params = tree_map(lambda w: w.to("cuda"), params)
+    tokens = torch.randint(0, cfg.src_vocab_size, (1, HF_SEQ), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(7))
+    with torch.no_grad():
+        kernel = llama_forward(params, tokens, cfg, attn_impl="pallas")
+        plain = llama_forward(params, tokens, cfg, attn_impl="xla")
+        fp32 = llama_forward(params, tokens, cfg, attn_impl="xla", compute_dtype=torch.float32)
+        del params
+        torch.cuda.empty_cache()
+        # transformers' model loaded from the directory in bf16 (a cast of
+        # a loaded model would round its fp32 rotary buffers too)
+        t0 = time.perf_counter()
+        hf = LlamaForCausalLM.from_pretrained(hf_dir, torch_dtype=torch.bfloat16).to("cuda")
+        out["hf_load_s"] = time.perf_counter() - t0
+        theirs = hf(tokens).logits
+        del hf
+        torch.cuda.empty_cache()
+        out["logits"] = _bf16_rule(kernel, plain, fp32, theirs)
+        out["logits"].update(top1_kernel_vs_hf=_top1(kernel, theirs),
+                             top1_kernel_vs_fp32=_top1(kernel, fp32),
+                             top1_hf_vs_fp32=_top1(theirs, fp32))
+    del kernel, plain, theirs, fp32
+    torch.cuda.empty_cache()
+    if not out["logits"]["ok"]:
+        problems.append(f"logits kernel / plain / fp32 / transformers: {out['logits']}")
+    shutil.rmtree(hf_dir)
+    return out, problems
+
+
+def _hf_eval_llama(state, ckpt):
+    """(b): eval_ppl.main on the trainer's checkpoint over the loader
+    phase's corpus, through the kernels and through the plain attention."""
+    from fms_fsdp_tpu_torch import eval_ppl
+
+    corpus = _corpus(state)
+    kw = dict(LOADER_KW, **HF_LLAMA, data_path=corpus["path"], ckpt_load_path=ckpt,
+              pure_bf16=True, eval_batches=HF_EVAL_BATCHES)
+    out, problems = {}, []
+    for impl in ("auto", "xla"):
+        t0 = time.perf_counter()
+        res, launches, rate = _eval(eval_ppl, dict(kw, attention_kernel=impl))
+        out[impl] = dict(res, launches=launches, tokens_per_s=rate,
+                         wall_s=time.perf_counter() - t0)
+    layers = SHARD_KW["LlamaConfig.nlayers"]
+    want = {"fwd": layers * HF_EVAL_BATCHES, "fwd_kvgrid": 0, "dq": 0, "dq_kvgrid": 0,
+            "dkv": 0, "ssd_fused": 0}
+    if out["auto"]["launches"] != want:
+        problems.append(f"eval launches {out['auto']['launches']} != {want}")
+    if any(out["xla"]["launches"].values()):
+        problems.append(f"the plain eval launched {out['xla']['launches']}")
+    rel = abs(out["auto"]["nll"] - out["xla"]["nll"]) / abs(out["xla"]["nll"])
+    out.update(expected_launches=want, nll_rel_diff=rel, nll_tolerance=HF_NLL_REL_TOL)
+    if not (rel <= HF_NLL_REL_TOL and 0 < out["auto"]["tokens"] == out["xla"]["tokens"]
+            <= HF_EVAL_BATCHES * LOADER_KW["batch_size"] * LOADER_KW["seq_length"]):
+        problems.append(f"eval kernel vs plain: {out}")
+    return out, problems
+
+
+def _hf_mamba(state, root):
+    """(c), first half: the Mamba entry writes a checkpoint; eval_ppl.main
+    on it through the SSD and flash kernels. Returns the exporter's child
+    (``fms_to_hf_mamba``'s CLI on that checkpoint), started last."""
+    import torch
+
+    from fms_fsdp_tpu_torch import eval_ppl
+    from fms_fsdp_tpu_torch.main_training_mamba import main
+
+    out, problems = {}, []
+    ckpt = os.path.join(root, "mamba")
+    t0 = time.perf_counter()
+    res = main(**HF_MAMBA_TRAIN_KW, ckpt_save_path=ckpt, ckpt_load_path=ckpt)
+    model_cfg = res["model_cfg"]
+    saves = [(r["step"], r["reason"], r["tier"]) for r in res["checkpointer"].save_log]
+    out["train"] = {"wall_s": time.perf_counter() - t0, "loss": res["reports"][-1]["loss"],
+                    "params": model_cfg.n_params(),
+                    "final_save": _save_rows(res["checkpointer"].save_log)}
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    if saves != [(1, "final", "durable")]:
+        problems.append(f"the Mamba entry's saves {saves}")
+
+    kw = dict(HF_MAMBA_TRAIN_KW, ckpt_load_path=ckpt, eval_batches=HF_EVAL_BATCHES)
+    t0 = time.perf_counter()
+    res, launches, rate = _eval(eval_ppl, kw)
+    mamba = [i for i in range(model_cfg.n_layer) if i not in model_cfg.attn_layer_idx]
+    want = {"fwd": len(model_cfg.attn_layer_idx) * HF_EVAL_BATCHES, "fwd_kvgrid": 0, "dq": 0,
+            "dq_kvgrid": 0, "dkv": 0, "ssd_fused": len(mamba) * HF_EVAL_BATCHES}
+    out["eval"] = dict(res, launches=launches, expected_launches=want, tokens_per_s=rate,
+                       wall_s=time.perf_counter() - t0)
+    if launches != want or not math.isfinite(res["nll"]):
+        problems.append(f"Mamba eval {out['eval']}")
+    export = _Child("fms_fsdp_tpu_torch.fms_to_hf_mamba",
+                    _cli(HF_MAMBA) + [f"--load_path={ckpt}/checkpoints",
+                                      f"--save_path={root}/mamba_ssm"],
+                    os.path.join(root, "fms_to_hf_mamba.log"), HF_CHILD_TIMEOUT_S)
+    return out, problems, (model_cfg, ckpt, export)
+
+
+def _hf_mamba_export(root, model_cfg, ckpt, export):
+    """(c), second half: the exporter's child joined; the mamba_ssm
+    directory's files, config, shapes and parameter count."""
+    import torch
+
+    from fms_fsdp_tpu_torch import fms_to_hf_mamba
+    from fms_fsdp_tpu_torch.ckpt.manager import _dir_bytes
+    from fms_fsdp_tpu_torch.utils.checkpointing import _payload_tensors
+
+    out, problems = {}, []
+    rc, out["export_child_s"], tail = export.join()
+    if rc != 0:
+        raise AssertionError(f"hf-eval: fms_to_hf_mamba exited {rc}:\n{tail}")
+    export_dir = os.path.join(root, "mamba_ssm")
+    sd = torch.load(os.path.join(export_dir, "pytorch_model.bin"), mmap=True)
+    with open(os.path.join(export_dir, "config.json")) as f:
+        config = json.load(f)
+    # the checkpoint's params, counted from its metadata
+    shapes, _ = _payload_tensors(os.path.join(ckpt, "checkpoints", "step_1_ckp", "state"),
+                                 "params")
+    n_params = sum(math.prod(shape) for shape, _ in shapes.values())
+    n_sd = sum(t.numel() for t in sd.values())
+    a = model_cfg.attn_cfg
+    structure = {
+        "files": sorted(os.listdir(export_dir)), "bytes": _dir_bytes(export_dir),
+        "keys": len(sd), "params": n_params, "state_dict_params": n_sd,
+        "config_ok": config == fms_to_hf_mamba.mamba_ssm_config_dict(model_cfg),
+        "conv1d": list(sd["backbone.layers.0.mixer.conv1d.weight"].shape),
+        "attn_in_proj": list(sd["backbone.layers.1.mixer.in_proj.weight"].shape),
+        "fc1": list(sd["backbone.layers.0.mlp.fc1.weight"].shape),
+    }
+    out["mamba_ssm"] = structure
+    d = model_cfg.d_model
+    if not (n_sd == n_params and structure["config_ok"]
+            and structure["conv1d"][1:] == [1, model_cfg.d_conv]
+            and structure["attn_in_proj"] == [(a.num_heads + 2 * a.num_heads_kv) * a.head_dim, d]
+            and structure["fc1"] == [2 * model_cfg.d_intermediate, d]):
+        problems.append(f"the mamba_ssm export {structure}")
+    del sd
+    shutil.rmtree(export_dir)
+    shutil.rmtree(ckpt)
+    return out, problems
+
+
+def _hf_mixtral(state):
+    """(d): fms_to_hf_mixtral at mixtral_8x7b width, transformers' model on
+    the card against the port's dense mix, in fp32 (the router's choices
+    fixed) within HF_FP32_REL_TOL; the port's bf16 forward against its
+    fp32 one printed (a router near-tie moves a token to another expert
+    in bf16)."""
+    import torch
+
+    from fms_fsdp_tpu_torch import fms_to_hf_mixtral
+    from fms_fsdp_tpu_torch.models.mixtral import init_mixtral_params, mixtral_forward
+    from fms_fsdp_tpu_torch.utils.config_utils import get_model_config, update_config
+
+    cfg = get_model_config("mixtral_8x7b")
+    update_config(cfg, nlayers=HF_MIXTRAL_LAYERS)
+    params = init_mixtral_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                                 dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    hf = fms_to_hf_mixtral.convert_to_hf(params, cfg)
+    out = {"layers": cfg.nlayers, "params": cfg.n_params(), "convert_s": time.perf_counter() - t0}
+    hf = hf.to("cuda").eval()
+    tokens = torch.randint(0, cfg.src_vocab_size, (1, HF_SEQ), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(8))
+    with torch.no_grad():
+        theirs32 = hf(tokens).logits
+        del hf
+        ours32 = mixtral_forward(params, tokens, cfg, compute_dtype=torch.float32,
+                                 attn_impl="pallas", moe_impl="dense")
+        fp32 = {"kernel_vs_hf": _logit_dist(ours32, theirs32),
+                "absmax": theirs32.abs().max().item(), "top1": _top1(ours32, theirs32)}
+        fp32["tolerance"] = HF_FP32_REL_TOL * max(1.0, fp32["absmax"])
+        del theirs32
+        ours = mixtral_forward(params, tokens, cfg, attn_impl="pallas", moe_impl="dense")
+        out["bf16"] = {"kernel_vs_fp32": _logit_dist(ours, ours32),
+                       "top1_kernel_vs_fp32": _top1(ours, ours32)}
+    out["fp32"] = fp32
+    del params, ours32, ours
+    gc.collect()
+    torch.cuda.empty_cache()
+    problems = [] if fp32["kernel_vs_hf"] <= fp32["tolerance"] else [f"Mixtral fp32 {fp32}"]
+    return out, problems
+
+
+def _hf_bigcode(state, root):
+    """(e): an HF GPTBigCode directory (random weights, GPTBigCodeConfig()
+    width) as the speculator entry's base; its first step's base hidden
+    states against transformers' GPTBigCodeModel on the card."""
+    import torch
+    from transformers import GPTBigCodeConfig as HFConfig
+    from transformers import GPTBigCodeForCausalLM, GPTBigCodeModel
+
+    from fms_fsdp_tpu_torch.models.gpt_bigcode import GPTBigCodeConfig
+    from fms_fsdp_tpu_torch.models.hf_import import load_hf_base
+    from fms_fsdp_tpu_torch.speculator import train_speculator as entry
+    from fms_fsdp_tpu_torch.utils.tree import tree_map
+
+    width = GPTBigCodeConfig()
+    hf_cfg = HFConfig(vocab_size=width.src_vocab_size, n_positions=width.max_expected_seq_len,
+                      n_embd=width.emb_dim, n_layer=HF_BIGCODE_LAYERS, n_head=width.nheads,
+                      n_inner=width.hidden_dim, multi_query=True, attn_pdrop=0.0,
+                      resid_pdrop=0.0, embd_pdrop=0.0, layer_norm_epsilon=width.ln_eps)
+    hf_dir = os.path.join(root, "hf_bigcode")
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        GPTBigCodeForCausalLM(hf_cfg).save_pretrained(hf_dir, safe_serialization=True)
+    first = []
+    get_api = entry.get_base_api
+
+    def recording_api(arch):
+        api = get_api(arch)
+        hidden = api.forward_hidden
+
+        def forward_hidden(params, tokens, cfg, **kw):
+            h = hidden(params, tokens, cfg, **kw)
+            if not first:
+                first.append((params, tokens, cfg, h))
+            return h
+
+        api.forward_hidden = forward_hidden
+        return api
+
+    ckpt = os.path.join(root, "spec_bigcode")
+    kw = dict(model_arch="embedllama", model_path=hf_dir, use_dummy_dataset=True,
+              vocab_size=4096, batch_size=2, seq_length=width.max_expected_seq_len - 4,
+              num_steps=3, stage2_start_step=3, report_interval=1, checkpoint_interval=1000,
+              ckpt_save_path=ckpt, ckpt_load_path=ckpt)
+    entry.get_base_api = recording_api
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with _saves_nothing(entry), contextlib.redirect_stdout(buf):
+            res = entry.main(**kw)
+    finally:
+        entry.get_base_api = get_api
+    printed = buf.getvalue()
+    out = {"layers": HF_BIGCODE_LAYERS, "wall_s": time.perf_counter() - t0,
+           "arch": res["checkpointer"].fingerprint["model"],
+           "override_printed": "overridden by HF checkpoint arch gpt_bigcode" in printed,
+           "losses": [r["per_head"] for r in res["reports"]], "steps": res["steps"]}
+    del res
+    _, tokens, cfg, h = first[0]
+    # fp32 weights for the fp32 forwards (the entry's base is bf16)
+    params = tree_map(lambda w: w.to("cuda"), load_hf_base(hf_dir, dtype=torch.float32)[2])
+    with torch.no_grad():
+        h32 = entry.get_base_api("gpt_bigcode").forward_hidden(
+            params, tokens, cfg, compute_dtype=torch.float32)
+        hf = GPTBigCodeModel.from_pretrained(hf_dir, torch_dtype=torch.float32).to("cuda")
+        theirs32 = hf(tokens).last_hidden_state
+        hf = hf.to(torch.bfloat16)
+        theirs = hf(tokens).last_hidden_state
+    dist = {"bf16_vs_hf": _logit_dist(h, theirs), "bf16_vs_fp32": _logit_dist(h, h32),
+            "hf_vs_fp32": _logit_dist(theirs, h32), "fp32_vs_hf_fp32": _logit_dist(h32, theirs32),
+            "fp32_absmax": h32.abs().max().item()}
+    dist.update(tolerance=4 * dist["bf16_vs_fp32"],
+                fp32_tolerance=HF_FP32_REL_TOL * max(1.0, dist["fp32_absmax"]))
+    out["hidden"] = dist
+    del first, params, h, h32, hf, theirs, theirs32
+    gc.collect()
+    torch.cuda.empty_cache()
+    problems = []
+    if not (out["arch"] == "speculator:gpt_bigcode" and out["override_printed"]
+            and out["steps"] == 3
+            and all(math.isfinite(x) for r in out["losses"] for x in r)):
+        problems.append(f"the speculator on the GPTBigCode base: {out}")
+    if not (dist["bf16_vs_hf"] <= dist["tolerance"]
+            and dist["fp32_vs_hf_fp32"] <= dist["fp32_tolerance"]):
+        problems.append(f"GPTBigCode hidden states against transformers: {dist}")
+    shutil.rmtree(hf_dir)
+    return out, problems
+
+
+def phase_hf_eval(state):
+    """HF interop and native eval (see the module docstring): (a) the
+    Llama exporter and importer, (b) eval_ppl through the flash forward,
+    (c) the Mamba eval through the SSD kernel and its export, (d) the
+    Mixtral exporter, (e) the GPTBigCode base from an HF directory. The
+    two file exporters run as child processes of their CLIs beside this
+    process's card work (host work: no card is touched there)."""
+    import torch
+
+    from fms_fsdp_tpu_torch.main_training_llama import main
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    result, problems = {"nvidia_smi": state["smi"]}, []
+    root = _ckpt_dir("hf-eval")
+    # the Llama checkpoint: the shard phase's hsdp run (left for this
+    # phase), else one step of the same config
+    shard_root = state.pop("shard-root", None)
+    if shard_root is not None:
+        ckpt = os.path.join(shard_root, "hsdp")
+    else:
+        ckpt = os.path.join(root, "llama")
+        main(**dict(SHARD_KW, num_steps=1, ckpt_save_path=ckpt, ckpt_load_path=ckpt))
+    result["llama_checkpoint"] = sorted(os.listdir(os.path.join(ckpt, "checkpoints")))
+    children, timings = [], {}
+    try:
+        children.append(_Child("fms_fsdp_tpu_torch.fms_to_hf_llama",
+                               _cli(HF_LLAMA) + [f"--load_path={ckpt}/checkpoints",
+                                                 f"--save_path={root}/hf_llama"],
+                               os.path.join(root, "fms_to_hf_llama.log"), HF_CHILD_TIMEOUT_S))
+
+        def part(name, fn):
+            t0 = time.perf_counter()
+            out, more, *rest = fn()
+            timings[name] = time.perf_counter() - t0
+            result[name] = out
+            problems.extend(more)
+            gc.collect()
+            torch.cuda.empty_cache()
+            return rest
+
+        # the Mamba checkpoint first, so its exporter's child starts early
+        (mamba_export,) = part("mamba", lambda: _hf_mamba(state, root))
+        children.append(mamba_export[2])
+        part("llama_eval", lambda: _hf_eval_llama(state, ckpt))
+        t0 = time.perf_counter()
+        import transformers  # noqa: F401  (its import, timed apart)
+
+        timings["import_transformers"] = time.perf_counter() - t0
+        part("mixtral", lambda: _hf_mixtral(state))
+        part("gpt_bigcode", lambda: _hf_bigcode(state, root))
+        part("llama_hf", lambda: _hf_llama(state, ckpt, root, children[0]))
+        part("mamba_ssm", lambda: _hf_mamba_export(root, *mamba_export))
+    finally:
+        for child in children:
+            child.kill()
+    if shard_root is not None:
+        shutil.rmtree(shard_root)
+    result.update(part_seconds=timings, max_memory_allocated=torch.cuda.max_memory_allocated(),
+                  launches={"fwd": result["llama_eval"]["auto"]["launches"]["fwd"]
+                            + result["mamba"]["eval"]["launches"]["fwd"],
+                            "ssd_fused": result["mamba"]["eval"]["launches"]["ssd_fused"]})
+    emit("hf-eval", **result)
+    state["hf-eval"] = result
+    shutil.rmtree(root)
+    if problems:
+        raise AssertionError("hf-eval: " + "; ".join(problems))
 
 
 # ---------------------------------------------------------------------------
@@ -3084,8 +3631,10 @@ def phase_train_mamba(state):
                 # the scan's own backward launches no kernel
                 "ssd_fused": steps * sum(runs[i] for i in mamba)}
 
+    # no save: hf-eval checks the final save of the same entry (at 3
+    # layers), reading it back through eval_ppl and fms_to_hf_mamba
     _train(state, "train-mamba", {}, expect, main=main, base=MAMBA_TRAIN_KW,
-           profile=True)
+           profile=True, save=False)
 
 
 def _slab_all_zero(adapter) -> bool:
@@ -3588,8 +4137,10 @@ def kernels_line(state):
             # its own run
             entry["launches_train_mixtral"] = state["train-mixtral"]["launches"][contract]
         if contract == "fwd":
-            # the frozen base forward of the speculator's stage 1
+            # the frozen base forward of the speculator's stage 1, and
+            # eval_ppl's forwards (Llama and the Mamba hybrid's attention)
             entry["launches_train_speculator"] = state["train-speculator"]["launches"]["fwd"]
+            entry["launches_hf_eval"] = state["hf-eval"]["launches"]["fwd"]
         if kernel != "fwd":
             # SDPA's one backward call computes dq, dk and dv together: set
             # it against the pair
@@ -3602,6 +4153,8 @@ def kernels_line(state):
         "source": r["source"],
         "replaces": REPLACES["ssd_fused"],
         "launches": state["train-mamba"]["launches"]["ssd_fused"],
+        # eval_ppl on the Mamba hybrid
+        "launches_hf_eval": state["hf-eval"]["launches"]["ssd_fused"],
         "max_abs_err": r["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         # no single PyTorch call computes the chunked scan
@@ -3632,14 +4185,14 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    state = {}
+    state = {"phases": phases}
     run = {
         "device": phase_device, "build": phase_build,
         "kernels": phase_kernels, "serve": phase_serve,
         "serve-int8": phase_serve_int8, "train-speculator": phase_train_speculator,
         "serve-spec": phase_serve_spec, "flash": phase_flash,
         "train": phase_train, "loader": phase_loader, "resume": phase_resume,
-        "supervise": phase_supervise, "shard": phase_shard,
+        "supervise": phase_supervise, "shard": phase_shard, "hf-eval": phase_hf_eval,
         "train-kvgrid": phase_train_kvgrid,
         "ssd": phase_ssd, "train-mamba": phase_train_mamba,
         "serve-mamba": phase_serve_mamba,

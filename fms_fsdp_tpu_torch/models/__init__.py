@@ -1,4 +1,5 @@
-"""Model families of the port: Llama, the Mamba2 hybrid and Mixtral."""
+"""Model families of the port: Llama, the Mamba2 hybrid and Mixtral, and
+the GPTBigCode speculator base."""
 
 from fms_fsdp_tpu_torch.models.configs import LlamaConfig, MambaConfig, MixtralConfig
 
@@ -57,10 +58,26 @@ def get_base_api(arch: str) -> BaseModelAPI:
 
         return BaseModelAPI("llama", init_llama_params, hidden, generate)
     if key in ("gptbigcode", "gpt_bigcode"):
-        raise NotImplementedError(
-            f"model_arch={arch!r}: the GPTBigCode base is not ported yet "
-            f"(ROADMAP.md A.11)"
+        from fms_fsdp_tpu_torch.models.gpt_bigcode import (
+            generate_simple,
+            gpt_bigcode_forward,
+            init_gpt_bigcode_params,
         )
+
+        def hidden(params, tokens, cfg, **kw):
+            return gpt_bigcode_forward(params, tokens, cfg, return_hidden=True, **kw)
+
+        def gen(params, prompts, cfg, **kw):
+            # JAX's generate_simple runs gpt_bigcode_forward at its
+            # defaults (the einsum attention); the dtype is the params'
+            dtype = params["wte"].dtype
+
+            def forward(p, toks, c, **fkw):
+                return gpt_bigcode_forward(p, toks, c, compute_dtype=dtype, **fkw)
+
+            return generate_simple(params, prompts, cfg, forward, **kw)
+
+        return BaseModelAPI("gpt_bigcode", init_gpt_bigcode_params, hidden, gen)
     if key == "mixtral":
         from fms_fsdp_tpu_torch.models.gpt_bigcode import generate_simple
         from fms_fsdp_tpu_torch.models.mixtral import init_mixtral_params, mixtral_forward

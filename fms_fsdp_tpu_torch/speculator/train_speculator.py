@@ -8,12 +8,19 @@ shift) -> checkpoint manager and load -> two-stage training loop.
 
 The frozen base comes from one of three sources:
 
-- an HF checkpoint directory at ``model_path``: not ported yet
-  (ROADMAP.md A.11), refused;
+- an HF checkpoint directory at ``model_path`` (Llama, GPTBigCode or
+  Mixtral: ``models/hf_import.py::load_hf_base``), whose architecture
+  overrides ``model_arch`` and whose config is the base's;
 - a checkpoint the port's trainers wrote at ``model_path`` (a params
   pickle, a ``step_N_ckp`` dir or a ``checkpoints/`` root): its params,
   read as ``ServingEngine.from_checkpoint`` reads them;
-- else a random bf16 init from ``seed`` (smoke-test mode).
+- else a random bf16 init from ``seed`` (smoke-test mode), with
+  ``GPTBigCodeConfig()`` / ``MixtralConfig()`` defaults for the
+  non-Llama architectures.
+
+In the last two the model config comes from ``model_variant`` (Llama) or
+those defaults, with the dotted overrides (``--GPTBigCodeConfig.nlayers``)
+applied. The base's params are bf16 on the device in every case.
 
 On a card, at llama3_8b width and depth:
 
@@ -56,10 +63,13 @@ from fms_fsdp_tpu_torch.data.device_feed import DeviceFeed
 from fms_fsdp_tpu_torch.data.loader import get_data_loader, get_dummy_loader, rebatch
 from fms_fsdp_tpu_torch.models import get_base_api
 from fms_fsdp_tpu_torch.models.configs import MixtralConfig
+from fms_fsdp_tpu_torch.models.gpt_bigcode import GPTBigCodeConfig
+from fms_fsdp_tpu_torch.models.hf_import import is_hf_checkpoint, load_hf_base
 from fms_fsdp_tpu_torch.models.speculator import SpeculatorConfig, init_speculator_params
 from fms_fsdp_tpu_torch.obs import build_observer
 from fms_fsdp_tpu_torch.resilience.exits import classified_exit
 from fms_fsdp_tpu_torch.train.speculator import (
+    base_device,
     check_speculator_options,
     speculator_state,
     train_speculator,
@@ -72,15 +82,10 @@ from fms_fsdp_tpu_torch.utils.train_utils import get_profiler
 from fms_fsdp_tpu_torch.utils.tree import tree_map
 
 
-def is_hf_checkpoint(path: str) -> bool:
-    """A HuggingFace model directory (``models/hf_import.py`` in JAX)."""
-    return os.path.isdir(path) and os.path.exists(os.path.join(path, "config.json"))
-
-
 def test_model(rank, base_params, model_cfg, base_api):
     """Sanity generation on the loaded base
     (ref:speculator/train_speculator.py:34-60 analog)."""
-    device = base_params["embedding"].device
+    device = base_device(base_params)
     prompt = (torch.arange(16, device=device) % model_cfg.src_vocab_size)[None, :]
     out = base_api.generate(
         base_params, prompt, model_cfg, generator=None, max_seq_len=64,
@@ -96,13 +101,20 @@ def _as_batches(loader):
         yield batch if isinstance(batch, tuple) else (batch,)
 
 
+def load_hf(cfg, base_api, device, rank):
+    """The HF base at ``model_path``: (base_api, model_cfg, params in bf16
+    on ``device``). Its architecture overrides ``model_arch``."""
+    arch, model_cfg, params = load_hf_base(cfg.model_path)
+    if arch != base_api.arch:
+        if rank == 0:
+            print(f"model_arch={cfg.model_arch} overridden by HF checkpoint arch {arch}")
+        base_api = get_base_api(arch)
+    return base_api, model_cfg, tree_map(lambda w: w.to(device), params)
+
+
 def load_base(cfg, base_api, model_cfg, device, rank):
-    """The frozen base params in bf16 on ``device`` (module docstring)."""
-    if cfg.model_path and is_hf_checkpoint(cfg.model_path):
-        raise NotImplementedError(
-            f"model_path={cfg.model_path!r} is an HF checkpoint directory: "
-            f"the HF base import is not ported yet (ROADMAP.md A.11)"
-        )
+    """The frozen base params in bf16 on ``device`` from a native
+    checkpoint at ``model_path``, else a random init (module docstring)."""
     if cfg.model_path and os.path.exists(cfg.model_path):
         from fms_fsdp_tpu_torch.utils.checkpointing import load_params_only
 
@@ -137,11 +149,16 @@ def main(device=None, **kwargs):
     if rank == 0:
         print(f"{time.time()} running with these configs {cfg}")
 
+    # the frozen base, from one of three sources (module docstring)
     base_api = get_base_api(cfg.model_arch)
-    model_cfg = (get_model_config(cfg.model_variant) if base_api.arch == "llama"
-                 else MixtralConfig())
-    update_config(model_cfg, **kwargs)
-    base_params = load_base(cfg, base_api, model_cfg, device, rank)
+    if cfg.model_path and is_hf_checkpoint(cfg.model_path):
+        base_api, model_cfg, base_params = load_hf(cfg, base_api, device, rank)
+    else:
+        model_cfg = {"llama": lambda: get_model_config(cfg.model_variant),
+                     "gpt_bigcode": GPTBigCodeConfig,
+                     "mixtral": MixtralConfig}[base_api.arch]()
+        update_config(model_cfg, **kwargs)
+        base_params = load_base(cfg, base_api, model_cfg, device, rank)
     with torch.no_grad():
         test_model(rank, base_params, model_cfg, base_api)
 

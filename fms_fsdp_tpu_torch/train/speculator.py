@@ -100,6 +100,12 @@ def _frozen_quant(cfg, arch: str) -> str:
     return "none"
 
 
+def base_device(base_params) -> torch.device:
+    """The device of a base's params (any family's tree)."""
+    leaves = list(flatten("params", base_params, {}).values())
+    return leaves[0].device
+
+
 def check_speculator_options(cfg) -> None:
     """Tensor parallelism of the frozen base is ROADMAP.md A.6b. JAX reads
     ``tp_size`` only under ``sharding_strategy="tp"``, and so does this."""
@@ -344,8 +350,7 @@ def train_speculator(
     from fms_fsdp_tpu_torch.utils.train_utils import PreemptionGuard
 
     base_api = base_api or get_base_api("embedllama")
-    device = torch.device(device) if device is not None else (
-        base_params["embedding"].device)
+    device = torch.device(device) if device is not None else base_device(base_params)
     stage1 = make_stage1_step(base_params, model_cfg, scfg, cfg, base_api)
     stage2 = None  # built when stage 2 starts: its batch constraints apply then
     generator = torch.Generator(device=device).manual_seed(cfg.seed + 17)

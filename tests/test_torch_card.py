@@ -1079,3 +1079,103 @@ def test_card_every_wrapper_launches_on_its_tensors_device(cuda_device, monkeypa
     assert (y - ref).abs().max().item() <= 1e-2 * max(1.0, ref.abs().max().item())
     ref = t_paged.paged_attention_plain(pq, pk, pv, table, lens)
     assert (outs["paged_decode"].float() - ref.float()).abs().max().item() <= 2e-2
+
+
+# ---------------------------------------------------------------------------
+# HF interop and native eval (eval_ppl.py, fms_to_hf_*.py, models/hf_import.py)
+# ---------------------------------------------------------------------------
+
+# a narrow Llama the flash kernels take: head_dim 128, 2/1 heads
+_EVAL_MODEL = {"LlamaConfig.src_vocab_size": 4096, "LlamaConfig.emb_dim": 256,
+               "LlamaConfig.nheads": 2, "LlamaConfig.kvheads": 1, "LlamaConfig.nlayers": 2,
+               "LlamaConfig.max_expected_seq_len": 512}
+
+
+@pytest.mark.card
+def test_card_eval_kernel_vs_plain_attention(cuda_device, capsys):
+    """``eval_ppl.main`` on the card through the flash forward (one launch
+    a layer a batch, no backward) and through the einsum attention
+    (none): token counts equal, nll within bf16's 2e-2 relative."""
+    from fms_fsdp_tpu_torch import eval_ppl
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+
+    run = dict(model_variant="llama2_7b", use_dummy_dataset=True, vocab_size=4096,
+               seq_length=512, batch_size=2, ckpt_load_path="", eval_batches=3, **_EVAL_MODEL)
+    out = {}
+    for impl in ("pallas", "xla"):
+        fa.reset_launches()
+        out[impl] = (eval_ppl.main(attention_kernel=impl, **run), dict(fa.LAUNCHES))
+    kernel, plain = out["pallas"], out["xla"]
+    assert (kernel[1]["fwd"], kernel[1]["dq"], kernel[1]["dkv"]) == (2 * 3, 0, 0), kernel[1]
+    assert sum(plain[1].values()) == 0
+    assert kernel[0]["tokens"] == plain[0]["tokens"] == 3 * 2 * 512
+    assert kernel[0]["nll"] == pytest.approx(plain[0]["nll"], rel=2e-2)
+    assert "nll" in capsys.readouterr().out
+
+
+@pytest.mark.card
+def test_card_hf_round_trip(cuda_device, tmp_path):
+    """The port's bf16 Llama on the card -> fms_to_hf_llama's HF
+    directory -> load_hf_base -> the card: the params bitwise; the logits
+    of transformers' model (bf16, on the card) and of the port's forward
+    through the kernel each within twice the plain bf16 forward's
+    distance from the fp32 forward, of that fp32 forward."""
+    from transformers import LlamaForCausalLM
+
+    from fms_fsdp_tpu_torch.fms_to_hf_llama import convert_to_hf
+    from fms_fsdp_tpu_torch.models.hf_import import load_hf_base
+    from fms_fsdp_tpu_torch.models.llama import llama_forward
+    from fms_fsdp_tpu_torch.utils.tree import tree_map
+
+    cfg = LlamaConfig(**{k.split(".")[1]: v for k, v in _EVAL_MODEL.items()})
+    params = init_llama_params(torch.Generator(device=cuda_device).manual_seed(0), cfg,
+                               dtype=torch.bfloat16)
+    path = str(tmp_path / "hf")
+    convert_to_hf(params, cfg).save_pretrained(path, safe_serialization=True)
+    arch, cfg2, back = load_hf_base(path)
+    back = tree_map(lambda w: w.to(cuda_device), back)
+    assert arch == "llama" and cfg2.hidden_dim == cfg.hidden_dim
+    for name, w in params["layers"].items():
+        assert torch.equal(back["layers"][name], w), name
+    for key in ("embedding", "norm", "lm_head"):
+        assert torch.equal(back[key], params[key])
+    tokens = torch.randint(0, 4096, (2, 512), device=cuda_device,
+                           generator=torch.Generator(device=cuda_device).manual_seed(1))
+    with torch.no_grad():
+        kernel = llama_forward(back, tokens, cfg2, attn_impl="pallas").float()
+        plain = llama_forward(back, tokens, cfg2, attn_impl="xla").float()
+        fp32 = llama_forward(back, tokens, cfg2, attn_impl="xla", compute_dtype=torch.float32)
+        hf = LlamaForCausalLM.from_pretrained(path, torch_dtype=torch.bfloat16).to(cuda_device)
+        theirs = hf(tokens).logits.float()
+    tol = 2 * (plain - fp32).abs().max().item()
+    assert (kernel - fp32).abs().max().item() <= tol
+    assert (theirs - fp32).abs().max().item() <= tol
+    assert (kernel.argmax(-1) == theirs.argmax(-1)).float().mean().item() > 0.9
+
+
+@pytest.mark.card
+def test_card_gpt_bigcode_bf16_vs_fp32(cuda_device):
+    """``gpt_bigcode_forward`` on the card in bf16 against fp32 (the
+    einsum attention, no kernel): the logits within 2e-2 of the largest,
+    and the hidden states of ``return_hidden`` those of ``return_embeds``."""
+    from fms_fsdp_tpu_torch.models.gpt_bigcode import (
+        GPTBigCodeConfig,
+        gpt_bigcode_forward,
+        init_gpt_bigcode_params,
+    )
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+
+    cfg = GPTBigCodeConfig(src_vocab_size=4096, emb_dim=512, nheads=4, nlayers=2,
+                           max_expected_seq_len=512)
+    params = init_gpt_bigcode_params(torch.Generator(device=cuda_device).manual_seed(0), cfg)
+    tokens = torch.randint(0, 4096, (2, 512), device=cuda_device,
+                           generator=torch.Generator(device=cuda_device).manual_seed(1))
+    fa.reset_launches()
+    with torch.no_grad():
+        logits, embeds = gpt_bigcode_forward(params, tokens, cfg, return_embeds=True)
+        hidden = gpt_bigcode_forward(params, tokens, cfg, return_hidden=True)
+        ref = gpt_bigcode_forward(params, tokens, cfg, compute_dtype=torch.float32)
+    assert logits.dtype == torch.bfloat16 and torch.equal(hidden, embeds)
+    assert sum(fa.LAUNCHES.values()) == 0
+    err = (logits.float() - ref).abs().max().item()
+    assert err <= 2e-2 * ref.abs().max().item(), err

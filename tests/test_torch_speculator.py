@@ -517,12 +517,30 @@ def test_mixtral_base_stage1_matches_jax():
 
 
 def test_base_registry_refusals():
-    with pytest.raises(NotImplementedError, match="A.11"):
-        get_base_api("embedgptbigcode")
     with pytest.raises(ValueError, match="unknown speculator base arch"):
         get_base_api("embedfalcon")
     assert get_base_api("llama").arch == "llama"
     assert get_base_api("EmbedMixtral").arch == "mixtral"
+    assert get_base_api("embedgptbigcode").arch == get_base_api("gpt_bigcode").arch == "gpt_bigcode"
+
+
+_BIGCODE_KW = dict(src_vocab_size=128, emb_dim=64, nheads=4, nlayers=2, max_expected_seq_len=64)
+
+
+def test_gpt_bigcode_base_stage1_matches_jax():
+    """Stage-1 steps through the frozen GPTBigCode base (bf16 in both
+    packages): per-head losses and the gradient norm within 2e-2."""
+    from fms_fsdp_tpu.models import gpt_bigcode as jgb
+    from fms_fsdp_tpu_torch.models import gpt_bigcode as tgb
+
+    jcfg, cfg = jgb.GPTBigCodeConfig(**_BIGCODE_KW), tgb.GPTBigCodeConfig(**_BIGCODE_KW)
+    np_base = jax.tree.map(np.asarray, jgb.init_gpt_bigcode_params(jax.random.PRNGKey(0), jcfg))
+    rows = _stage1_both(j_get_base_api("embedgptbigcode"), get_base_api("embedgptbigcode"),
+                        jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), np_base),
+                        params_from_numpy(np_base, dtype=torch.bfloat16), jcfg, cfg, steps=2)
+    for want, got, jg, tg in rows:
+        np.testing.assert_allclose(got, want, rtol=2e-2)
+        assert tg == pytest.approx(jg, rel=2e-2)
 
 
 def test_quantized_base_warns_counts_or_refuses(np_base, caplog):
@@ -665,11 +683,12 @@ def test_do_ckpt_flag(tmp_path):
 def test_entry_refusals(tmp_path, monkeypatch):
     kw = dict(**ENTRY_MODEL, **ENTRY_RUN, ckpt_save_path=str(tmp_path / "ck"),
               ckpt_load_path=str(tmp_path / "ck"))
-    hf = tmp_path / "hf"
-    hf.mkdir()
-    (hf / "config.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        entry.main(device="cpu", **dict(kw, model_path=str(hf)))
+    import transformers
+
+    hf = str(tmp_path / "hf")
+    transformers.GPT2Config(n_embd=32, n_layer=1, n_head=2).save_pretrained(hf)
+    with pytest.raises(ValueError, match="unsupported HF base architecture 'gpt2'"):
+        entry.main(device="cpu", **dict(kw, model_path=hf))
     with pytest.raises(NotImplementedError, match="A.6b"):
         entry.main(device="cpu", **dict(kw, sharding_strategy="tp"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -701,3 +720,73 @@ def test_entry_base_from_port_checkpoint(tmp_path):
     with pytest.raises(RuntimeError, match="speculator:llama"):
         entry.main(device="cpu", **dict(ENTRY_MODEL, **ENTRY_RUN), ckpt_save_path=ck,
                    ckpt_load_path=ck)
+
+
+def test_speculator_gpt_bigcode_base_stage2(tmp_path, capsys):
+    """tests/test_hf_import.py's GPTBigCode run on the port's entry: a
+    random GPTBigCode base (smoke mode) from the bare overrides, stage 1
+    then stage 2 through generate_simple, finite losses."""
+    res = entry.main(
+        device="cpu", model_arch="embedgptbigcode", model_path="/nonexistent",
+        use_dummy_dataset=True, ckpt_save_path=str(tmp_path / "ckpt"),
+        ckpt_load_path=str(tmp_path / "ckpt"), batch_size=2, seq_length=32, vocab_size=64,
+        num_steps=3, report_interval=1, checkpoint_interval=10000, stage2_start_step=1,
+        stage2_batch_size=4, stage2_prompt_length=8, stage2_seq_length=16,
+        n_speculator_heads=2, speculator_width=32, attention_kernel="xla",
+        src_vocab_size=64, emb_dim=32, nheads=2, nlayers=2, max_expected_seq_len=64)
+    out = capsys.readouterr().out
+    assert "smoke-test mode" in out and "sanity generation:" in out
+    cfg = res["model_cfg"]
+    assert (type(cfg).__name__, cfg.src_vocab_size, cfg.emb_dim, cfg.nheads, cfg.nlayers) == (
+        "GPTBigCodeConfig", 64, 32, 2, 2)
+    assert res["base_params"]["wte"].dtype == torch.bfloat16
+    assert [r["step"] for r in res["reports"]] == [1, 2, 3]
+    # stage 2 prices a step at its generated tokens: 2 rows x 2 x 16
+    assert [r["tokens_seen"] for r in res["reports"]] == [70, 134, 198]
+    assert all(np.isfinite(r["per_head"]).all() for r in res["reports"])
+
+
+def test_speculator_trains_against_hf_llama(tmp_path, capsys):
+    """An HF Llama directory at model_path: its architecture overrides
+    model_arch (the message printed), its config and weights (bf16,
+    bitwise JAX's load_hf_base) are the base, the entry trains; and
+    stage-1 steps on that base match JAX's within 2e-2."""
+    from fms_fsdp_tpu.models.hf_import import load_hf_base as j_load_hf_base
+    from fms_fsdp_tpu_torch.fms_to_hf_llama import convert_to_hf
+    from fms_fsdp_tpu_torch.models.hf_import import load_hf_base
+
+    tiny = dict(_TINY_KW, max_expected_seq_len=64)
+    np_params = jax.tree.map(np.asarray, j_init_llama(jax.random.PRNGKey(0),
+                                                      JLlamaConfig(**tiny)))
+    path = str(tmp_path / "hf_llama")
+    convert_to_hf(params_from_numpy(np_params), LlamaConfig(**tiny)).save_pretrained(
+        path, safe_serialization=True)
+    res = entry.main(device="cpu", model_arch="embedgptbigcode", model_path=path,
+                     use_dummy_dataset=True, ckpt_save_path=str(tmp_path / "ckpt"),
+                     ckpt_load_path=str(tmp_path / "ckpt"), batch_size=2, seq_length=32,
+                     vocab_size=128, num_steps=3, report_interval=1,
+                     checkpoint_interval=10000, stage2_start_step=100,
+                     n_speculator_heads=2, speculator_width=64, attention_kernel="xla")
+    out = capsys.readouterr().out
+    assert "model_arch=embedgptbigcode overridden by HF checkpoint arch llama" in out
+    assert "smoke-test mode" not in out
+    cfg = res["model_cfg"]
+    assert (cfg.emb_dim, cfg.nheads, cfg.n_kv_heads, cfg.hidden_dim, cfg.nlayers) == (
+        64, 4, 2, LlamaConfig(**tiny).hidden_dim, 2)
+    assert res["checkpointer"].fingerprint["model"] == "speculator:llama"
+    _, jcfg, j_base = j_load_hf_base(path)
+    want = jax.tree.map(lambda a: np.asarray(a.astype(jnp.float32)), j_base)
+    got = params_to_numpy(res["base_params"])
+    assert res["base_params"]["embedding"].dtype == torch.bfloat16
+    for key in ("embedding", "norm", "lm_head"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    for key in want["layers"]:
+        np.testing.assert_array_equal(got["layers"][key], want["layers"][key], err_msg=key)
+    assert [r["step"] for r in res["reports"]] == [1, 2, 3]
+    assert all(np.isfinite(r["per_head"]).all() for r in res["reports"])
+
+    _, cfg_t, t_base = load_hf_base(path)
+    for want_ph, got_ph, jg, tg in _stage1_both(None, None, j_base, t_base, jcfg, cfg_t,
+                                                steps=2):
+        np.testing.assert_allclose(got_ph, want_ph, rtol=2e-2)
+        assert tg == pytest.approx(jg, rel=2e-2)

@@ -15,7 +15,8 @@ SPEC_JSON holds ``out`` (this rank writes ``<out>/rank<R>.json``), the
 takes its contiguous rows of each), ``record_rows`` (keep every row the
 feed served and hash the train state at the first step) and
 ``speculator`` (run the speculator entry instead of the Llama trainer,
-with ``fp32_base`` its frozen base in fp32).
+with ``fp32_base`` its frozen base in fp32) or ``eval`` (run
+``eval_ppl.main`` and write its result).
 """
 
 import hashlib
@@ -28,6 +29,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from fms_fsdp_tpu_torch import eval_ppl as eval_entry  # noqa: E402
 from fms_fsdp_tpu_torch import main_training_llama as entry  # noqa: E402
 from fms_fsdp_tpu_torch.ckpt.state import checkpoint_state  # noqa: E402
 from fms_fsdp_tpu_torch.data.device_feed import DeviceFeed  # noqa: E402
@@ -76,6 +78,13 @@ def main():
 
         entry.get_dummy_loader = lambda cfg, r, w: RankRows()
         spec_entry.get_dummy_loader = entry.get_dummy_loader
+        eval_entry.get_dummy_loader = entry.get_dummy_loader
+
+    if spec.get("eval"):
+        out["eval"] = eval_entry.main(device="cpu", **spec["main"])
+        with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        return
 
     if spec.get("speculator"):
         if spec.get("fp32_base"):
