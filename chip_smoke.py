@@ -30,8 +30,25 @@ Phases, one JSON line each; any failure exits non-zero:
    decode steps x 32 on that wave; then refills the 8 slots and holds
    one decode step through the kernel against the same step through
    the reference attention and an fp32 step, and profiles one step.
+   Chunked prefill: one 1024-token prompt's first-token logits through
+   256-token chunks against the whole-prompt path, within twice the
+   whole bf16 path's distance from an fp32 prefill; 2 such prompts
+   through an engine: 8 chunks, launches == decode steps x 32.
+   In-process disaggregation: a ``prefill``-role engine packs 8 requests
+   of 64-512 prompt tokens (``pack_handoff`` bytes), a ``decode``-role engine resumes them: the
+   prefill side launches nothing, the imported pages equal the shipped
+   ones bitwise, the first decode step within ``TOL["bf16"]`` of a
+   unified engine's, launches == decode steps x 32; bytes per request,
+   pack and scatter seconds. Defrag: with 3 requests finished,
+   ``defrag`` moves pages and the next kernel step's logits equal that
+   step's before it bitwise, while the same step read through the page
+   table cached before it (a missed version bump) on a copy of the moved
+   pools does not.
 5. serve-int8 — the same engine with int8 pools on a shorter wave, so
-   the quantized (v2) contract runs end to end.
+   the quantized (v2) contract runs end to end; then one int8 handoff of
+   4 requests: 1-byte pages with their fp32 scales, the decode side's v2
+   launches == decode steps x 32, its first step within ``TOL["int8"]``
+   of the unified int8 engine's.
 6. train-speculator — ``speculator.train_speculator.main`` (the port's
    entry) on the serve phases' random bf16 llama3_8b as the frozen base,
    at full width and depth (8.03B parameters), with JAX's default
@@ -66,7 +83,24 @@ Phases, one JSON line each; any failure exits non-zero:
    greedy for every request, and an oracle drafter (the plain stream's
    own continuation) commits every draft (accept rate 1.0) with the same
    tokens. Needs the train-speculator phase.
-8. flash   — the flash-attention kernels (wgmma + TMA for bf16: forward,
+8. fleet   — ``FleetRouter`` over three ``SubprocessReplica`` children on
+   the card (``python -m fms_fsdp_tpu_torch.serve.replica``): one prefill
+   and two decode replicas, llama3_8b at full width and 4 of 32 layers in
+   fp32 (7.7 GB a child), the chunked transport, 16 requests of 64-512
+   prompt and 32 new tokens. In one run: ``replica_kill`` on decode
+   replica 1 after it imported handoffs, ``handoff_chunk_corrupt`` on
+   one chunk the router sends, and once replica 1's relaunch is ready
+   (and the wave's second half is in) a ``preempt`` (SIGTERM,
+   drain-and-migrate) of decode replica 2 while it holds live streams.
+   Checks: every request completes once with the tokens of an in-process
+   unified engine on the same seed's weights; a ``replica_loss``
+   relaunch in the ledger, availability below 1, ``chunks_resent`` and
+   ``drain_migrations`` >= 1; from each child's stats file its
+   paged-decode launches == its decode steps x 4 (decode) or 0
+   (prefill); the stats map valid under the port's schema. Prints TTFT,
+   latency, handoff bytes, transfer seconds, restart downtime and each
+   child's start-up seconds. The serve phases' weights are freed first.
+9. flash   — the flash-attention kernels (wgmma + TMA for bf16: forward,
    dq, dk/dv; scalar for fp32) against their plain versions for bf16 and
    fp32: the training shape
    (B=2, Nq=32, Nkv=8, S=4096, H=128, causal, group 4), the kvgrid
@@ -85,7 +119,7 @@ Phases, one JSON line each; any failure exits non-zero:
    backend) forward and backward; achieved TF/s and share of the bound of
    each kernel, the pair dq + dk/dv and the whole autograd backward
    beside SDPA's backward.
-9. train   — ``fms_fsdp_tpu_torch.main_training_llama.main`` at
+10. train   — ``fms_fsdp_tpu_torch.main_training_llama.main`` at
    llama3_8b_4k width (4096 wide, 32/8 heads, hidden 14336, vocab
    128256) and 8 layers, seq 4096, batch 2, selective AC 1/2, dummy
    data, 12 steps: finite and decreasing loss, no skipped batch, launches
@@ -104,7 +138,7 @@ Phases, one JSON line each; any failure exits non-zero:
    when the phase is done. Every trainer phase runs through the mesh
    (``parallel/mesh.py``) and an NCCL process group of one, with no
    sharded state (checked and printed as ``process_group``).
-10. loader — the streaming loader alone, host plus the copy to the card
+11. loader — the streaming loader alone, host plus the copy to the card
    (no model): a corpus of two 8-shard corpora (about 100M llama3 token
    ids, document lengths log-uniform over 64-16,384) written into the
    run's in-memory directory with ``meta/combined_counts.csv``;
@@ -121,7 +155,7 @@ Phases, one JSON line each; any failure exits non-zero:
    the saved loader's; ms per batch through ``DeviceFeed`` to the card
    (its batches equal to the host's), the consumer's wait and the
    staging alone.
-11. resume — checkpoint and resume through the Llama entry point at
+12. resume — checkpoint and resume through the Llama entry point at
    llama3_8b_4k width, 2 layers, seq 4096, batch 2, AC 1/2, bf16 params
    and moments, streaming the loader phase's corpus (one loader worker, the feed two
    batches ahead): a first run of 6 steps saves on the local tier (the
@@ -144,7 +178,7 @@ Phases, one JSON line each; any failure exits non-zero:
    step 2's dir. Prints save, load and serving times, the ms the loader
    state adds to each blocking snapshot, the feed's wait per step, GB/s
    and the phase's peak disk use.
-12. supervise — ``python -m fms_fsdp_tpu_torch.resilience.supervisor``
+13. supervise — ``python -m fms_fsdp_tpu_torch.resilience.supervisor``
    over ``python -m fms_fsdp_tpu_torch.main_training_llama`` on the card
    (``SUPERVISE_KW``: llama3_8b_4k width, 2 layers, seq 4096, batch 2, AC
    1/2, bf16 params and moments, dummy data, 10 steps, reports every 2, saves every 4,
@@ -162,7 +196,7 @@ Phases, one JSON line each; any failure exits non-zero:
    ``flash_dq_kernel_sm90``, ``flash_dkv_kernel_sm90`` and the
    ``fwd_bwd`` scope; then each incarnation's wall, steps, tokens per
    card per second, the observer's ms per report and the downtime.
-13. shard — the data-parallel entry on one card (``SHARD_KW``:
+14. shard — the data-parallel entry on one card (``SHARD_KW``:
    llama3_8b_4k at full width, 2 layers, bf16 params and moments, 3
    steps): ``python -m fms_fsdp_tpu_torch.main_training_llama
    --sharding_strategy=hsdp`` as a child under torchrun's environment
@@ -179,7 +213,7 @@ Phases, one JSON line each; any failure exits non-zero:
    the kernels' and the NCCL kernels' ms per step; the resume saves
    nothing. The hsdp child's checkpoint (step 3) is left for hf-eval,
    which deletes it.
-14. hf-eval — HF interop and native eval. (a) ``python -m
+15. hf-eval — HF interop and native eval. (a) ``python -m
    fms_fsdp_tpu_torch.fms_to_hf_llama`` (a child process, beside the
    card work of (b)-(e)) on the shard phase's hsdp checkpoint (llama3_8b_4k, 2 layers,
    bf16; one step of the same config when shard did not run) writes an
@@ -212,11 +246,11 @@ Phases, one JSON line each; any failure exits non-zero:
    transformers' ``GPTBigCodeModel`` in bf16, and in fp32 within
    ``HF_FP32_REL_TOL``. Prints export and import seconds, the
    directories' bytes and the peak memory.
-15. train-kvgrid — the same trainer at 2 layers for one step with
+16. train-kvgrid — the same trainer at 2 layers for one step with
    ``flash_kernel_variant="kvgrid"``, so the launches of the kv-streamed
    contracts are counted on the main path too.
 
-16. ssd    — the fused SSD scan kernels (``ssd_sm90.cu`` for bf16,
+17. ssd    — the fused SSD scan kernels (``ssd_sm90.cu`` for bf16,
    ``ssd.cu`` for fp32) against their plain version at the
    Mamba training shape (B=2, S=4096, H=128, P=64, G=1, N=128, L=256), at
    G=8 and at S=L (one chunk), bf16 and fp32, dt and A in the ranges of
@@ -232,7 +266,7 @@ Phases, one JSON line each; any failure exits non-zero:
    whole ``ssd_scan`` through the kernel and through the chunked einsums,
    the bound, and the other pieces of a Mamba layer at that shape (the
    scan's einsum backward, the conv forward and backward).
-17. train-mamba — ``fms_fsdp_tpu_torch.main_training_mamba.main`` at
+18. train-mamba — ``fms_fsdp_tpu_torch.main_training_mamba.main`` at
    mamba_9.8b width, 6 layers with attention at layer 3, seq 4096, batch
    2, selective AC 1/2, 16 steps (over the first 8 the loss of this
    model only wobbles, through the kernel and through the einsums alike):
@@ -241,14 +275,20 @@ Phases, one JSON line each; any failure exits non-zero:
    flash launches == the one attention layer's; tokens per card per
    second, MFU/HFU, peak memory and a profile of one step. No save
    (hf-eval checks the entry's final save).
-18. serve-mamba — ``ServingEngine`` on mamba_9.8b at full width and depth
-   (32 layers, 3 of them attention; random bf16 weights), 8 requests of
-   16-128 prompt tokens and 32 new tokens each: all complete, finite
-   logits, a constant ``state_bytes_per_stream``, slab slices zero after
-   completion, one decode step held against the same step in fp32. This
-   path launches no SSD kernel (the prefill is the per-token recurrence),
-   and the phase checks that.
-19. train-mixtral — ``fms_fsdp_tpu_torch.main_training_mixtral.main`` at
+19. serve-mamba — ``ServingEngine`` on mamba_9.8b at full width,
+   ``SERVE_MAMBA_LAYERS`` (6) of 32 layers with the attention layer at 3
+   (cut from full depth for the fleet phase's time; random bf16 weights),
+   8 requests of 16-128 prompt tokens and 32 new tokens each: all
+   complete, finite logits, a constant ``state_bytes_per_stream``, slab
+   slices zero after completion, one decode step held against the same
+   step in fp32. This path launches no SSD kernel (the prefill is the
+   per-token recurrence), and the phase checks that. Then
+   drain-and-migrate through the slab codec: two live streams packed
+   (``pack_stream``) after 6 steps and resumed on a second engine
+   (``submit_handoff``) finish with an uninterrupted engine's tokens, a
+   difference accepted only at a near-tie (top-2 gap within
+   ``TOL["bf16"]`` of the top logit).
+20. train-mixtral — ``fms_fsdp_tpu_torch.main_training_mixtral.main`` at
    mixtral_8x7b width (4096 wide, 32/8 heads of 128, 8 experts of hidden
    14336, top-2, vocab 32000) and 2 of 32 layers (3.16B parameters),
    bfSixteen, seq 4096, batch 1, selective AC 1/2, dummy data, 6 steps,
@@ -262,7 +302,7 @@ Phases, one JSON line each; any failure exits non-zero:
    then the first step again from the same weights and batch through the
    plain attention, its loss within ``TOL["bf16"]`` (relative) of the
    kernels'.
-20. serve-mixtral — ``ServingEngine`` on mixtral_8x7b at full width, 8 of
+21. serve-mixtral — ``ServingEngine`` on mixtral_8x7b at full width, 8 of
    32 layers, random bf16 weights (23.7 GB), ``max_batch=8``, page 64, 8
    requests of 64-512 prompt tokens and 32 new tokens, routed top-2
    experts: all complete, no attention kernel launched (the reference
@@ -296,7 +336,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "serve", "serve-int8", "train-speculator",
-          "serve-spec", "flash", "train",
+          "serve-spec", "fleet", "flash", "train",
           "loader", "resume", "supervise", "shard", "hf-eval", "train-kvgrid", "ssd",
           "train-mamba",
           "serve-mamba", "train-mixtral", "serve-mixtral")
@@ -745,12 +785,19 @@ def _serve(state, phase, kv_quant, n_requests, max_prompt, max_new, seed):
     result["compare"] = _compare_step(eng, paged_decode_step)
     result["step_profile"] = _profile_step(eng, paged_decode_step)
     eng.run()
+    del eng
+    torch.cuda.empty_cache()
+    problems = []
+    if phase == "serve":
+        result["chunked"] = _serve_chunked(state, cfg, result["compare"]["tolerance"], problems)
+    result["disagg"] = _serve_disagg(state, cfg, kv_quant, problems,
+                                     n=8 if phase == "serve" else 4,
+                                     defrag=phase == "serve")
     result["nvidia_smi"] = state["smi"]
     if phase == "serve":
         result["param_init_s"] = state["init_s"]
     emit(phase, **result)
     state[phase] = result
-    problems = []
     if result["finished"] != n_requests or not result["all_lengths_ok"]:
         problems.append("not every request finished with max_new_tokens")
     if launches != steps * cfg.nlayers or other != 0:
@@ -762,8 +809,240 @@ def _serve(state, phase, kv_quant, n_requests, max_prompt, max_new, seed):
         problems.append(f"kernel step vs reference step: {result['compare']}")
     if problems:
         raise AssertionError(f"{phase}: " + "; ".join(problems))
+
+
+# chunked prefill of the serve phase: 1024-token prompts in 256-token chunks
+CHUNK_PROMPT, CHUNK_TOKENS = 1024, 256
+
+
+def _serve_chunked(state, cfg, tol_step, problems):
+    """Chunked prefill on the serve phase's llama3_8b: the first-token
+    logits of one 1024-token prompt through the 256-token chunks against
+    the whole-prompt path, both bf16, held to twice the whole bf16 path's
+    distance from an fp32 whole-prompt prefill (the phase's bf16
+    tolerance, measured here as ``_compare_step`` measures it for a decode
+    step); then 2 such prompts through an engine with 16 new tokens each:
+    8 chunks, and paged-decode launches == decode steps x 32."""
+    import numpy as np
+    import torch
+
+    from fms_fsdp_tpu_torch.models.generation import prefill
+    from fms_fsdp_tpu_torch.ops import paged_attention as pa
+    from fms_fsdp_tpu_torch.serve import ServeConfig, ServingEngine
+    from fms_fsdp_tpu_torch.utils.tree import tree_map
+
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, cfg.src_vocab_size, size=CHUNK_PROMPT).tolist()
+               for _ in range(2)]
+    eng = ServingEngine(state["params"], cfg, ServeConfig(
+        max_batch=8, max_seq_len=2048, prefill_chunk_tokens=CHUNK_TOKENS), seed=0)
+    ad = eng.adapter
+    t0 = time.perf_counter()
+    ad.prefill_start(-1, 0, prompts[0])
+    row, chunks = None, 0
+    while row is None:
+        row = ad.prefill_chunk(-1)
+        chunks += 1
+    torch.cuda.synchronize()
+    chunked_s = time.perf_counter() - t0
+    ad.release(-1, 0)
+    t0 = time.perf_counter()
+    whole = ad.prefill(-2, 0, prompts[0])
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    ad.release(-2, 0)
+    params32 = tree_map(lambda w: w.float(), eng.params)
+    logits32, _, _ = prefill(params32, torch.tensor([prompts[0]], device="cuda"), cfg,
+                             max_seq_len=CHUNK_PROMPT, compute_dtype=torch.float32)
+    del params32
+    torch.cuda.empty_cache()
+    row, whole, row32 = row.float(), whole.float(), logits32[0, 0].float()
+    tol = 2 * (whole - row32).abs().max().item()
+    out = {
+        "prompt_tokens": CHUNK_PROMPT, "chunk_tokens": CHUNK_TOKENS, "chunks": chunks,
+        "chunked_vs_whole": (row - whole).abs().max().item(),
+        "whole_vs_fp32": tol / 2, "chunked_vs_fp32": (row - row32).abs().max().item(),
+        "tolerance": tol, "decode_step_tolerance": tol_step,
+        "argmax_chunked_vs_whole": bool(row.argmax() == whole.argmax()),
+        "first_token_s": {"chunked": chunked_s, "whole": whole_s},
+    }
+    reqs = [eng.submit(p, 16) for p in prompts]
+    pa.reset_launches()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    out.update(
+        engine_wall_s=time.perf_counter() - t0, decode_steps=eng.decode_steps,
+        prefill_chunks=eng.serving_stats()["prefill_chunks"],
+        launches=dict(pa.LAUNCHES),
+        finished=sum(r.state == "finished" and len(r.generated) == 16 for r in reqs),
+    )
     del eng
     torch.cuda.empty_cache()
+    if out["chunked_vs_whole"] > tol or not math.isfinite(out["chunked_vs_whole"]):
+        problems.append(f"chunked first-token logits off by {out['chunked_vs_whole']} > {tol}")
+    if out["launches"]["v1"] != out["decode_steps"] * cfg.nlayers or out["launches"]["v2"]:
+        problems.append(f"chunked engine launches {out['launches']} != "
+                        f"{out['decode_steps']} steps x {cfg.nlayers}")
+    if out["finished"] != len(prompts) or out["prefill_chunks"] != len(prompts) * chunks:
+        problems.append(f"chunked engine: {out['finished']} finished, "
+                        f"{out['prefill_chunks']} chunks")
+    return out
+
+
+def _serve_disagg(state, cfg, kv_quant, problems, n, defrag):
+    """In-process disaggregation on the serve phase's weights: a
+    ``prefill``-role engine packs ``n`` requests (prompts of 64-512) after
+    their first token
+    (``pack_handoff`` bytes), a ``decode``-role engine resumes them
+    (``submit_handoff``). Checks: the prefill side launches no kernel; the
+    imported pages equal the shipped ones bitwise over each stream's
+    tokens; the decode engine's first step logits within ``TOL`` of a
+    unified engine's on the same requests; the decode side launches its
+    contract's kernel exactly decode steps x 32 times; quantized pools
+    ship their 1-byte values and fp32 scales. With ``defrag``, once the
+    three short requests have finished: ``defrag`` moves at least one
+    page, the next kernel step's logits equal that step's before the
+    defrag bitwise, and a copy of the moved pools read through the stale
+    page table (the version bump undone) must not."""
+    import numpy as np
+    import torch
+
+    from fms_fsdp_tpu_torch.ops import paged_attention as pa
+    from fms_fsdp_tpu_torch.serve import ServeConfig, ServingEngine
+    from fms_fsdp_tpu_torch.serve.decode import paged_decode_step
+    from fms_fsdp_tpu_torch.serve.disagg import unpack_handoff
+
+    key, tol = ("v2", TOL["int8"]) if kv_quant != "none" else ("v1", TOL["bf16"])
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(0, cfg.src_vocab_size, size=int(m)).tolist()
+               for m in rng.randint(64, 513, size=n)]
+    max_new = [4, 4, 4] + [24] * (n - 3)
+
+    def engine(**kw):
+        return ServingEngine(state["params"], cfg, ServeConfig(
+            max_batch=8, max_seq_len=2048, kv_quant=kv_quant, max_prefill_per_step=8, **kw),
+            seed=0)
+
+    # the unified engine's first step, the reference for the decode side's
+    ue = engine()
+    for p, m in zip(prompts, max_new):
+        ue.submit(p, m)
+    ue.step()
+    u_first = ue.last_logits.float()
+    del ue
+    torch.cuda.empty_cache()
+    pe = engine(role="prefill")
+    pa.reset_launches()
+    preqs = [pe.submit(p, m) for p, m in zip(prompts, max_new)]
+    pe.run()
+    torch.cuda.synchronize()
+    prefill_launches = dict(pa.LAUNCHES)
+    frames = [r.handoff_out for r in preqs]
+    pack_s = pe.serving_stats()["handoff_s"]
+    del pe
+    de = engine(role="decode")
+    pa.reset_launches()
+    dreqs = [de.submit_handoff(b) for b in frames]
+    # the first step imports all n and decodes them once
+    de.step()
+    d_first = de.last_logits.float().clone()
+    scatter_s = de.serving_stats()["handoff_s"]
+    pages_equal, scales_fp32 = True, True
+    for r, b in zip(dreqs, frames):
+        header, arrays = unpack_handoff(b)
+        got = de.cache.gather_pages(r.rid)
+        seq = int(header["seq_len"])
+        for name, ship in arrays.items():
+            a = got[name].flatten(1, 2)[:, :seq]
+            pages_equal &= torch.equal(a.view(torch.uint8), ship.flatten(1, 2)[:, :seq].view(torch.uint8))
+            if name.endswith("_scale"):
+                scales_fp32 &= ship.dtype == torch.float32
+        if kv_quant != "none":
+            scales_fp32 &= arrays["k"].dtype == torch.int8 and "k_scale" in arrays
+    out = {
+        "requests": n, "kv_quant": kv_quant, "contract": key,
+        "handoff_bytes": [len(b) for b in frames],
+        "handoff_bytes_per_request": sum(len(b) for b in frames) / n,
+        "pack_s_per_request": pack_s / n, "scatter_s_per_request": scatter_s / n,
+        "prefill_launches": prefill_launches, "pages_equal_shipped": bool(pages_equal),
+        "scales_fp32_values_1_byte": bool(scales_fp32) if kv_quant != "none" else None,
+        "first_step_vs_unified": (d_first[:n] - u_first[:n]).abs().max().item(),
+        "tolerance": tol,
+        "argmax_first_step_vs_unified":
+            (d_first[:n].argmax(-1) == u_first[:n].argmax(-1)).float().mean().item(),
+    }
+    if defrag:
+        while not all(r.state == "finished" for r in dreqs[:3]):
+            de.step()
+        out["defrag"] = _defrag_check(de, paged_decode_step, pa, problems)
+    de.run()
+    torch.cuda.synchronize()
+    out.update(decode_steps=de.decode_steps, launches=dict(pa.LAUNCHES),
+               finished=sum(r.state == "finished" and len(r.generated) == m
+                            for r, m in zip(dreqs, max_new)))
+    del de
+    torch.cuda.empty_cache()
+    other = "v1" if key == "v2" else "v2"
+    if any(prefill_launches.values()):
+        problems.append(f"the prefill-role engine launched {prefill_launches}")
+    if not pages_equal:
+        problems.append("imported pages differ from the shipped pages")
+    if kv_quant != "none" and not scales_fp32:
+        problems.append("quantized pages did not ship as 1-byte values with fp32 scales")
+    if not out["first_step_vs_unified"] <= tol:
+        problems.append(f"decode-role first step off the unified engine's by "
+                        f"{out['first_step_vs_unified']}")
+    if out["launches"][key] != out["decode_steps"] * cfg.nlayers or out["launches"][other]:
+        problems.append(f"decode-role launches {out['launches']} != "
+                        f"{out['decode_steps']} steps x {cfg.nlayers} of {key}")
+    if out["finished"] != n:
+        problems.append(f"decode-role engine finished {out['finished']} of {n}")
+    return out
+
+
+def _defrag_check(eng, paged_decode_step, pa, problems):
+    """``defrag`` under a live decode batch (see ``_serve_disagg``). The
+    launches of the comparison steps are taken back out of the counts."""
+    import torch
+
+    ad = eng.adapter
+    saved = dict(pa.LAUNCHES)
+    slot_rids = [r.rid if r is not None else None for r in eng._slots]
+    live = [s for s, r in enumerate(slot_rids) if r is not None]
+    lens, toks = eng._lens.copy(), eng._tokens.copy()
+    _, before = ad.decode(slot_rids, lens, toks, eng.generator)
+    before = before.float()
+    stale_table = ad._table_dev.clone()
+    version = eng.cache.table_version
+    t0 = time.perf_counter()
+    moves = eng.cache.defrag()
+    torch.cuda.synchronize()
+    defrag_s = time.perf_counter() - t0
+    _, after = ad.decode(slot_rids, lens, toks, eng.generator)
+    after = after.float()
+    # the control: a copy of the moved pools read through the page table
+    # cached before the defrag, as if the version had not been bumped
+    pools = {n: p.clone() for n, p in eng.cache.pools.items()}
+    stale, _, _ = paged_decode_step(
+        eng.params, pools, stale_table, torch.from_numpy(lens).cuda(),
+        torch.from_numpy(toks).cuda(), eng.model_cfg, page_size=ad.page_size,
+        compute_dtype=eng.compute_dtype, quant=eng.serve_cfg.kv_quant,
+        attn_impl=ad.attn_impl, block_kv=ad.block_kv, rope=ad.rope)
+    del pools
+    torch.cuda.empty_cache()
+    pa.LAUNCHES.update(saved)
+    out = {
+        "live_rows": len(live), "pages_moved": moves, "defrag_s": defrag_s,
+        "version_bumped": eng.cache.table_version == version + 1,
+        "bitwise_equal_after": bool(torch.equal(after[live], before[live])),
+        "stale_table_max_diff": (stale.float()[live] - before[live]).abs().max().item(),
+    }
+    if moves < 1 or not out["version_bumped"] or not out["bitwise_equal_after"]:
+        problems.append(f"defrag: {out}")
+    if not out["stale_table_max_diff"] > 0:
+        problems.append("defrag control: the stale page table read the right pages")
+    return out
 
 
 def _step_inputs(eng):
@@ -1612,6 +1891,261 @@ def _flash_times(fa, kind, dtype, shape, gen):
     out["sdpa"] = lib
     del sets
     return out
+
+
+# ---------------------------------------------------------------------------
+# the fleet: a router over replica children on the one card
+# ---------------------------------------------------------------------------
+
+# llama3_8b at full width, 4 of 32 layers, fp32 (7.7 GB of weights a child)
+FLEET_LAYERS, FLEET_SEED = 4, 21
+FLEET_REQUESTS, FLEET_PROMPT, FLEET_NEW = 16, (64, 512), 32
+# decode replica 1 dies at this engine iteration of its first incarnation
+# (its warmup is iteration 1: it has imported handoffs by then)
+FLEET_KILL_STEP = 5
+# 1 MiB chunks, 4 MiB unacknowledged at most: a chunk's retransmit timer
+# starts when it is queued, so the bytes queued ahead of it should drain
+# inside the first backoff (0.25 s)
+FLEET_CHUNK_BYTES, FLEET_INFLIGHT_BYTES = 1 << 20, 4 << 20
+# in both directions a chunk waits out ~6.75 s of a busy peer (a child
+# pumps its channel once an engine step, the router once a poll) before
+# its sender gives up; JAX's default window is ~1.5 s
+FLEET_RETRIES, FLEET_BACKOFF_S = 8, 0.25
+
+
+def _fleet_record(stats):
+    """A minimal metrics record around the fleet's stats map, for the
+    port's schema check."""
+    from fms_fsdp_tpu_torch.obs.schema import SCHEMA_FIELDS, SCHEMA_VERSION
+
+    rec = {name: (0 if tag == "int" else 0.0)
+           for name, (tag, required) in SCHEMA_FIELDS.items() if required}
+    rec.update(schema_version=SCHEMA_VERSION, serving_fleet=stats)
+    return rec
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else None
+
+
+def _fleet_dump(router, workdir, log):
+    """What a failed fleet phase leaves to read, on stderr: the router's
+    log, every in-flight record and transfer, each child's stderr tail."""
+    print("\n".join(log[-60:]), file=sys.stderr)
+    for rid, rec in router.journal.records.items():
+        if rec.state in ("queued", "assigned"):
+            print(f"rid {rid}: {rec.state} on {rec.run_id or '-'} handoff="
+                  f"{rec.handoff is not None} requeues={rec.requeues}", file=sys.stderr)
+    for tid, (idx, sender, rid) in router._tx.items():
+        print(f"tx {tid} -> replica {idx} rid {rid}: {len(sender.acked)}/{sender.total} "
+              f"acked, resent {sender.chunks_resent}", file=sys.stderr)
+    for (idx, tid), (receiver, meta) in router._rx.items():
+        print(f"rx {tid} <- replica {idx}: {len(receiver.chunks)}/{receiver.total}, "
+              f"control {meta is not None}", file=sys.stderr)
+    print(f"journal transfers: {router.journal.transfers}", file=sys.stderr)
+    print(f"slots: {[(s.index, s.state, s.run_id) for s in router.supervisor.slots]}",
+          file=sys.stderr)
+    for name in sorted(os.listdir(workdir)):
+        if name.endswith(".stderr"):
+            with open(os.path.join(workdir, name), errors="replace") as f:
+                print(f"--- {name} ---\n{f.read()[-3000:]}", file=sys.stderr)
+
+
+def phase_fleet(state):
+    """``FleetRouter`` over three ``SubprocessReplica`` children on the one
+    card (``python -m fms_fsdp_tpu_torch.serve.replica``): a prefill
+    replica and two decode replicas, llama3_8b at full width and
+    ``FLEET_LAYERS`` layers in fp32, the chunked transport (1 MiB chunks,
+    4 MiB in flight), a seeded wave of 16 requests (prompts of 64-512,
+    32 new tokens). Faults in one run: ``replica_kill`` on decode replica
+    1 at its iteration ``FLEET_KILL_STEP`` (after it has imported
+    handoffs); ``handoff_chunk_corrupt`` on one chunk the router sends;
+    once replica 1's relaunch is ready the second half of the wave goes in
+    and decode replica 2 is preempted (SIGTERM: drain-and-migrate) while
+    it holds live streams. Checks: every request completes once with the
+    tokens of an in-process unified engine on the same seed's weights (in
+    fp32 the tokens do not depend on the batch a row decodes in); the
+    ledger shows a ``replica_loss`` relaunch and availability below 1;
+    ``chunks_resent`` >= 1 and ``drain_migrations`` >= 1; from the
+    children's own stats files, each decode replica's paged-decode
+    launches == its decode steps x layers (v1, fp32 pools) and the prefill
+    replica's 0; the stats map valid under the port's schema."""
+    import numpy as np
+    import torch
+
+    from fms_fsdp_tpu_torch.models.llama import init_llama_params
+    from fms_fsdp_tpu_torch.obs.schema import validate_record
+    from fms_fsdp_tpu_torch.resilience.faults import configure_faults
+    from fms_fsdp_tpu_torch.serve import ServeConfig, ServingEngine
+    from fms_fsdp_tpu_torch.serve.fleet import FleetConfig, FleetRouter, make_subprocess_spawn
+    from fms_fsdp_tpu_torch.utils.config_utils import get_model_config
+
+    state.pop("params", None)  # the serve phases' 16 GB of bf16 weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_model_config("llama3_8b"), nlayers=FLEET_LAYERS)
+    scfg = {"max_batch": 8, "max_seq_len": 1024, "compute_dtype": "float32"}
+    rng = np.random.RandomState(FLEET_SEED)
+    prompts = [rng.randint(0, cfg.src_vocab_size, size=int(m)).tolist()
+               for m in rng.randint(FLEET_PROMPT[0], FLEET_PROMPT[1] + 1, size=FLEET_REQUESTS)]
+
+    # the reference: one unified engine in this process, the same weights
+    t0 = time.perf_counter()
+    params = init_llama_params(torch.Generator(device="cuda").manual_seed(FLEET_SEED), cfg)
+    ref = ServingEngine(params, cfg, ServeConfig(**scfg), seed=0)
+    rreqs = [ref.submit(p, FLEET_NEW) for p in prompts]
+    ref.run()
+    ref_tokens = [list(r.generated) for r in rreqs]
+    ref_s = time.perf_counter() - t0
+    del ref, params, rreqs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    log = []
+    spawn = make_subprocess_spawn(
+        workdir, dataclasses.asdict(cfg), scfg, init_seed=FLEET_SEED, prefill_replicas=1,
+        faults=f"replica_kill:replica=1:step={FLEET_KILL_STEP}",
+        chunk_bytes=FLEET_CHUNK_BYTES, inflight_bytes=FLEET_INFLIGHT_BYTES,
+        retries=FLEET_RETRIES, backoff_s=FLEET_BACKOFF_S,
+    )
+    router = FleetRouter(spawn, FleetConfig(
+        n_replicas=3, prefill_replicas=1, max_seq_len=scfg["max_seq_len"],
+        max_inflight_per_replica=8, startup_timeout_s=300.0, stall_timeout_s=60.0,
+        restart_backoff_s=0.1, journal_path=os.path.join(workdir, "journal.jsonl"),
+        ledger_path=os.path.join(workdir, "ledger.json"),
+        transport_chunk_bytes=FLEET_CHUNK_BYTES,
+        transport_inflight_bytes=FLEET_INFLIGHT_BYTES,
+        transport_retries=FLEET_RETRIES, transport_backoff_s=FLEET_BACKOFF_S,
+    ), log=log.append)
+    # the router's own sender corrupts one chunk on its way to a replica
+    configure_faults("handoff_chunk_corrupt:transport=rtr:times=1")
+    sup = router.supervisor
+    ready_at, events, rids = {}, {}, []
+    t_start = time.monotonic()
+
+    def tick():
+        router.poll()
+        now = time.monotonic()
+        for idx in sup.live_indices():
+            run_id = sup.run_id(idx)
+            if router._ready.get(idx) and run_id not in ready_at:
+                ready_at[run_id] = now - sup.slots[idx].started
+        if now - t_start > 420:
+            raise TimeoutError(f"fleet phase stuck: {router.journal.counts()} {events}")
+        time.sleep(0.001)
+
+    try:
+        router.start()
+        while len(ready_at) < 3:
+            tick()
+        events["all_ready_s"] = time.monotonic() - t_start
+        half = FLEET_REQUESTS // 2
+        rids += [router.submit(p, FLEET_NEW) for p in prompts[:half]]
+        # the kill, then its relaunch ready
+        while not (sup.slots[1].incarnation >= 1 and "replica1-i1" in ready_at):
+            tick()
+        events["replica1_relaunch_ready_s"] = time.monotonic() - t_start
+        rids += [router.submit(p, FLEET_NEW) for p in prompts[half:]]
+        # preempt decode replica 2 while it holds live streams
+        while True:
+            tick()
+            hb = router._hb_stats.get(2, {})
+            if router.journal.inflight(sup.run_id(2)) and hb.get("slots_busy", 0) > 0:
+                break
+            if router.journal.outstanding() == 0:
+                raise AssertionError("the wave finished before replica 2 held a stream")
+        events["preempt_s"] = time.monotonic() - t_start
+        router.preempt(2)
+        while router.journal.outstanding():
+            tick()
+        events["wave_done_s"] = time.monotonic() - t_start
+        stats = router.stats()
+        # replicas 0 and 1 drain and write their stats at once; replica 2's
+        # relaunch, still starting, is stopped by shutdown
+        router.drain(timeout_s=5.0)
+        events["drained_s"] = time.monotonic() - t_start
+    except BaseException:
+        _fleet_dump(router, workdir, log)
+        raise
+    finally:
+        configure_faults(None)
+        router.shutdown()
+    recs = router.journal.records
+    tokens = [recs[r].tokens for r in rids]
+    ledger = json.load(open(os.path.join(workdir, "ledger.json")))
+    reports = {}
+    for name in sorted(os.listdir(workdir)):
+        if name.endswith(".stats.json"):
+            reports[name[:-len(".stats.json")]] = json.load(open(os.path.join(workdir, name)))
+    journal = [json.loads(line) for line in open(os.path.join(workdir, "journal.jsonl"))]
+    begun = {e["transfer_id"]: e["t"] for e in journal if e["event"] == "transfer_begin"}
+    transfer_s = [e["t"] - begun[e["transfer_id"]] for e in journal
+                  if e["event"] == "transfer_complete" and e["transfer_id"] in begun]
+    ttft = [recs[r].engine_ttft for r in rids if recs[r].engine_ttft is not None]
+    latency = [recs[r].latency for r in rids]
+    same = [t == r for t, r in zip(tokens, ref_tokens)]
+    result = {
+        "model": "llama3_8b", "layers": FLEET_LAYERS, "dtype": "float32",
+        "replicas": {"prefill": 1, "decode": 2}, "transport": "chunked",
+        "requests": FLEET_REQUESTS, "max_new_tokens": FLEET_NEW,
+        "completed_once": sorted(r.rid for r in router.completed) == sorted(rids),
+        "tokens_equal_reference": sum(same),
+        "first_mismatch": next(({"request": i, "fleet": t, "reference": r}
+                                for i, (t, r) in enumerate(zip(tokens, ref_tokens)) if t != r),
+                               None),
+        "stats": stats, "schema_errors": validate_record(_fleet_record(stats)),
+        "restarts": [{k: e[k] for k in ("replica", "incarnation", "classification",
+                                        "exit_code", "downtime_s")}
+                     for e in ledger["entries"]],
+        "restart_downtime_s": ledger["replica_downtime_s"],
+        "ttft_s": {"p50": _pct(ttft, 0.5), "p99": _pct(ttft, 0.99)},
+        "latency_s": {"p50": _pct(latency, 0.5), "p99": _pct(latency, 0.99)},
+        "handoff_bytes": stats["handoff_bytes"],
+        "transfer_s": {"count": len(transfer_s), "p50": _pct(transfer_s, 0.5),
+                       "max": max(transfer_s) if transfer_s else None},
+        "startup_s": ready_at, "timeline_s": events, "reference_s": ref_s,
+        "children": {run: {k: rep[k] for k in ("role", "decode_steps", "launches",
+                                                "startup_s", "layers")}
+                     for run, rep in reports.items()},
+        "phase_s": time.perf_counter() - t_phase, "nvidia_smi": state["smi"],
+    }
+    emit("fleet", **result)
+    state["fleet"] = result
+    problems = []
+    if not result["completed_once"] or result["tokens_equal_reference"] != FLEET_REQUESTS:
+        problems.append("a request did not complete once with the reference tokens")
+    if not any(e["replica"] == 1 and e["classification"] == "replica_loss"
+               for e in ledger["entries"]):
+        problems.append("no replica_loss relaunch in the ledger")
+    if not stats["availability"] < 1.0:
+        problems.append(f"availability {stats['availability']}")
+    if stats["chunks_resent"] < 1 or stats["drain_migrations"] < 1:
+        problems.append(f"chunks_resent {stats['chunks_resent']}, "
+                        f"drain_migrations {stats['drain_migrations']}")
+    if result["schema_errors"]:
+        problems.append(f"fleet stats: {result['schema_errors']}")
+    decode_steps = 0
+    for run, rep in reports.items():
+        if rep["role"] == "prefill":
+            ok = rep["launches"] == {"v1": 0, "v2": 0} and rep["decode_steps"] == 0
+        else:
+            decode_steps += rep["decode_steps"]
+            ok = (rep["launches"]["v1"] == rep["decode_steps"] * FLEET_LAYERS
+                  and rep["launches"]["v2"] == 0)
+        if not ok:
+            problems.append(f"{run}: launches {rep['launches']} for "
+                            f"{rep['decode_steps']} decode steps ({rep['role']})")
+    if "replica0-i0" not in reports or "replica2-i0" not in reports or not decode_steps:
+        problems.append(f"missing child stats: {sorted(reports)}")
+    state["fleet_launches_v1"] = sum(r["launches"]["v1"] for r in reports.values())
+    if problems:
+        _fleet_dump(router, workdir, log)
+    shutil.rmtree(workdir, ignore_errors=True)
+    if problems:
+        raise AssertionError("fleet: " + "; ".join(problems))
 
 
 def phase_flash(state):
@@ -3643,6 +4177,9 @@ def _slab_all_zero(adapter) -> bool:
     )
 
 
+SERVE_MAMBA_LAYERS = 6
+
+
 def phase_serve_mamba(state):
     import numpy as np
     import torch
@@ -3658,7 +4195,10 @@ def phase_serve_mamba(state):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_model_config("mamba_9.8b")
+    # full width, SERVE_MAMBA_LAYERS of 32 layers with the attention layer
+    # at 3 (train-mamba's cut), for the fleet phase's time
+    cfg = dataclasses.replace(get_model_config("mamba_9.8b"), n_layer=SERVE_MAMBA_LAYERS,
+                              attn_layer_idx=(3,))
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_mamba_params(gen, cfg, dtype=torch.bfloat16)
@@ -3726,11 +4266,89 @@ def phase_serve_mamba(state):
         problems.append("the Mamba serving path launched a kernel")
     if compare is None or not compare["ok"]:
         problems.append(f"bf16 step vs fp32 step: {compare}")
-    del eng, params
+    del eng
+    result["migrate"] = _mamba_migrate(params, cfg, problems)
+    emit("serve-mamba-migrate", **result["migrate"])
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     if problems:
         raise AssertionError("serve-mamba: " + "; ".join(problems))
+
+
+def _mamba_migrate(params, cfg, problems, steps=6, max_new=24):
+    """Drain-and-migrate through the slab codec: two live streams packed
+    mid-decode (``pack_stream``: conv windows, fp32 SSD states, the
+    attention layer's pages) after ``steps`` steps and resumed on a second
+    engine (``submit_handoff``) finish with the tokens of the same two
+    requests on an uninterrupted engine. A difference is accepted only at
+    a near-tie of the uninterrupted engine's logits: a top-2 gap at the
+    first differing token within ``TOL["bf16"]`` of the top logit."""
+    import numpy as np
+    import torch
+
+    from fms_fsdp_tpu_torch.serve import ServeConfig, ServingEngine
+
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(0, cfg.vocab_size, size=m).tolist() for m in (40, 97)]
+
+    def engine():
+        return ServingEngine(params, cfg, ServeConfig(max_batch=8, max_seq_len=256,
+                                                      max_prefill_per_step=2), seed=0)
+
+    ref = engine()
+    rreqs = [ref.submit(p, max_new) for p in prompts]
+    gaps, slot_of = {}, {}
+    while ref.has_work():
+        n_before = [len(r.generated) for r in rreqs]
+        steps_before = ref.decode_steps
+        ref.step()
+        for slot, r in enumerate(ref._slots):
+            if r is not None:
+                slot_of[id(r)] = slot
+        if ref.decode_steps == steps_before:
+            continue
+        top2 = ref.last_logits.float().topk(2, dim=-1).values
+        for i, r in enumerate(rreqs):
+            if len(r.generated) > n_before[i]:
+                a, b = top2[slot_of[id(r)]].tolist()
+                gaps[(i, len(r.generated) - 1)] = (a - b, abs(a))
+    src = engine()
+    sreqs = [src.submit(p, max_new) for p in prompts]
+    for _ in range(steps):
+        src.step()
+    live = src.live_requests()
+    t0 = time.perf_counter()
+    frames = [src.pack_stream(r) for r in sreqs]
+    pack_s = time.perf_counter() - t0
+    mid = [len(r.generated) for r in sreqs]
+    dst = engine()
+    t0 = time.perf_counter()
+    dreqs = [dst.submit_handoff(f) for f in frames]
+    dst.run()
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    out = {"streams": len(prompts), "packed_at_tokens": mid,
+           "frame_bytes": [len(f) for f in frames], "pack_s": pack_s,
+           "resume_and_finish_s": resume_s, "same_tokens": [], "first_difference": []}
+    for i, (r, d) in enumerate(zip(rreqs, dreqs)):
+        same = r.generated == d.generated
+        out["same_tokens"].append(same)
+        if not same:
+            j = next(k for k, (a, b) in enumerate(zip(r.generated, d.generated)) if a != b)
+            gap, top = gaps.get((i, j), (None, None))
+            near = gap is not None and gap <= TOL["bf16"] * max(1.0, top)
+            out["first_difference"].append({"stream": i, "token": j, "top2_gap": gap,
+                                            "top_logit": top, "near_tie": near})
+            if not near:
+                problems.append(f"migrated mamba stream {i} differs at token {j} "
+                                f"(top-2 gap {gap}, not a near-tie)")
+    if len(live) != 2 or any(f is None for f in frames) or not all(0 < m < max_new for m in mid):
+        problems.append(f"migrate: {len(live)} live streams, packed at {mid}")
+    if not all(d.state == "finished" and len(d.generated) == max_new for d in dreqs):
+        problems.append("a migrated mamba stream did not finish")
+    del ref, src, dst
+    return out
 
 
 def _profile_mamba_step(eng, mamba_decode_step, tree_map, steps=3):
@@ -3779,7 +4397,7 @@ def _profile_mamba_step(eng, mamba_decode_step, tree_map, steps=3):
 def _compare_mamba_step(eng, mamba_decode_step, tree_map):
     """One decode step on the engine's current state two ways: in the
     engine's bf16, and in fp32 (the same weights, slab and pages widened).
-    The step is a chain of 32 layers without a kernel of the repo, so the
+    The step is a chain of layers without a kernel of the repo, so the
     check is that the bf16 logits stay within a tenth of the largest fp32
     logit of the fp32 step's and pick mostly the same tokens."""
     import torch
@@ -4104,14 +4722,22 @@ def kernels_line(state):
         ("paged_decode_v2", "v2", "int8", s8["kernel_launches"]),
     ):
         r = k[kind]
-        entries.append({
+        entry = {
             "name": name, "route": "cuda",
             "source": "fms_fsdp_tpu_torch/csrc/paged_decode.cu",
             "replaces": REPLACES[key], "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        })
+            # the decode-role engine on imported pages, counted on its run
+            "launches_disagg": (s if key == "v1" else s8)["disagg"]["launches"][key],
+        }
+        if key == "v1":
+            # after chunked prefill, and in the fleet's decode children
+            # (their own counts, from their stats files)
+            entry["launches_chunked"] = s["chunked"]["launches"]["v1"]
+            entry["launches_fleet"] = state["fleet_launches_v1"]
+        entries.append(entry)
     # bf16 readings: the training shape for the resident contracts, the
     # 16384-token shape for the kvgrid ones; launches from the trainer
     for contract, kernel, case, phase, outs in (
@@ -4190,7 +4816,7 @@ def main(argv=None) -> int:
         "device": phase_device, "build": phase_build,
         "kernels": phase_kernels, "serve": phase_serve,
         "serve-int8": phase_serve_int8, "train-speculator": phase_train_speculator,
-        "serve-spec": phase_serve_spec, "flash": phase_flash,
+        "serve-spec": phase_serve_spec, "fleet": phase_fleet, "flash": phase_flash,
         "train": phase_train, "loader": phase_loader, "resume": phase_resume,
         "supervise": phase_supervise, "shard": phase_shard, "hf-eval": phase_hf_eval,
         "train-kvgrid": phase_train_kvgrid,

@@ -20,8 +20,9 @@ anomaly_abort       4     ``AnomalyAbort`` through the entry wrapper: K
                           aborting on purpose
 loader_death        5     ``LoaderWorkerError`` through the entry wrapper,
                           and the ``loader_worker`` fault's ``action=exit``
-preempted           6     reserved for schedulers that need preemption
-                          nonzero; the loop exits 0 after its preemption
+preempted           6     a serving replica's drain-and-migrate exit
+                          (``serve/replica.py``, after SIGTERM); the
+                          training loop exits 0 after its preemption
                           save and the supervisor classifies it from the
                           heartbeat step
 injected_kill       7     fault-injection hard kills (``slice_kill``,
@@ -29,7 +30,8 @@ injected_kill       7     fault-injection hard kills (``slice_kill``,
 corpus_loss         8     ``CorpusLossError`` through the entry wrapper:
                           fewer than ``min_live_corpora`` corpora live
 state_divergence    9     ``StateDivergenceError``: the cross-replica compare
-replica_loss        10    a serving replica died (ROADMAP.md A.10)
+replica_loss        10    a serving replica died: ``ReplicaLostError`` (the
+                          replica child's engine failure, the fleet lost)
 ==================  ====  ===================================================
 
 ``classify_world`` merges one incarnation's per-process codes into the
@@ -133,6 +135,7 @@ def classify_exception(e: BaseException) -> Optional[str]:
     from fms_fsdp_tpu_torch.data.loader import LoaderWorkerError
     from fms_fsdp_tpu_torch.data.streaming import CorpusLossError
     from fms_fsdp_tpu_torch.resilience.divergence import StateDivergenceError
+    from fms_fsdp_tpu_torch.serve.fleet import ReplicaLostError
     from fms_fsdp_tpu_torch.utils.train_utils import AnomalyAbort
 
     for typ, name in (
@@ -140,6 +143,7 @@ def classify_exception(e: BaseException) -> Optional[str]:
         (LoaderWorkerError, "loader_death"),
         (CorpusLossError, "corpus_loss"),
         (StateDivergenceError, "state_divergence"),
+        (ReplicaLostError, "replica_loss"),
     ):
         if isinstance(e, typ):
             return name

@@ -46,11 +46,24 @@ dcn_reduce_stall    the same boundary: parks the process in a
 corpus_kill         ``SamplingDataset``'s document boundaries and
                     re-probes: every shard of the named corpus dies at
                     once (``corpus=``, a substring)
+replica_kill        a serving replica child's engine-iteration boundary
+                    (``serve/replica.py``): hard-exits with ``code``
+                    (default ``replica_loss``); filters ``replica``,
+                    ``step`` (the engine iteration)
+replica_stall       the same boundary: parks the child in a
+                    ``seconds``-long sleep (default 3600) without dying;
+                    the router's stall watchdog must kill it
+handoff_chunk_      ``ChunkSender.pump`` (``serve/disagg/transport.py``):
+corrupt             flips a payload byte after the CRC is computed
+                    (``every=N``: every Nth matched send)
+handoff_chunk_drop  the same sender: skips the send, the attempt is spent
+transport_stall     ``DataChannel``: parks the channel (no reads or
+                    writes) for ``seconds`` without blocking its caller
 ==================  ====================================================
 
-Sites of the JAX package that need a part the port has not yet are
-refused when a spec names them (:data:`UNPORTED_SITES`), never silently
-inert.
+Every site of the JAX package has its call site here:
+:data:`UNPORTED_SITES` is empty. A spec naming a site in it would be
+refused, never silently inert.
 
 Spec strings: ``site[:key=value]*`` joined by ``;``, from the
 ``FMS_FAULTS`` environment variable or ``TrainConfig.faults``. Filters
@@ -79,14 +92,8 @@ _FILTER_KEYS = (
 )
 
 # sites of the JAX package whose call site the port does not have yet,
-# and the ROADMAP.md item that brings it
-UNPORTED_SITES = {
-    "replica_kill": "A.10 (serving extensions: the fleet)",
-    "replica_stall": "A.10 (serving extensions: the fleet)",
-    "handoff_chunk_corrupt": "A.10 (serving extensions: the page handoff)",
-    "handoff_chunk_drop": "A.10 (serving extensions: the page handoff)",
-    "transport_stall": "A.10 (serving extensions: the page handoff)",
-}
+# and the ROADMAP.md item that brings it: none are left
+UNPORTED_SITES: Dict[str, str] = {}
 
 
 def _parse_value(v: str):

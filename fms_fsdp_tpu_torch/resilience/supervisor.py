@@ -47,8 +47,11 @@ CLI::
         python -m fms_fsdp_tpu_torch.main_training_llama --num_steps=50000 \\
             --obs_dir=/tmp/run/obs ...
 
-The keep-N replica supervisor of the serving fleet
-(``ReplicaSetSupervisor``) waits for ROADMAP.md A.10.
+``ReplicaSetSupervisor`` is the keep-N supervisor of the serving fleet
+(``serve/fleet.py``): N replica children, each on its own
+classify/backoff/crash-loop track, polled without blocking, with a restart
+ledger folded into an availability metric (counterpart of JAX's
+``resilience/supervisor.py:574-981``).
 """
 
 import json
@@ -545,6 +548,420 @@ class RunSupervisor:
             f"{sum(e.downtime_s for e in self.entries):.1f}s downtime"
         )
         return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# keep-N replica supervision (the serving-fleet generalization)
+# ---------------------------------------------------------------------------
+
+
+def default_replica_policies() -> Dict[str, RestartPolicy]:
+    """Per-exit-class relaunch policy for a serving replica set. Much
+    simpler than the training table: a replica is stateless capacity
+    (its KV cache is recomputable — the router's journal requeues its
+    in-flight requests), so almost every death class relaunches with
+    backoff. ``ok`` is the drain path: a replica that exited clean was
+    ASKED to stop and must not be resurrected."""
+    return {
+        "ok": RestartPolicy(restart=False),
+        # the dedicated replica death class (and the watchdog-killed
+        # stall the router classifies the same way): relaunch without
+        # backoff — lost capacity is paid for by every queued request,
+        # and the crash-loop guard still ends a replica that dies
+        # repeatedly without serving anything
+        "replica_loss": RestartPolicy(backoff=False),
+        # drain-and-migrate (serve/replica.py SIGTERM path): the replica
+        # packed its live streams, shipped them to siblings through the
+        # router, and exited clean with the ``preempted`` registry code.
+        # Planned eviction is not a crash — relaunch immediately, no
+        # backoff (the scheduler that preempted the host decides whether
+        # the relaunch actually lands)
+        "preempted": RestartPolicy(backoff=False),
+        "injected_kill": RestartPolicy(),
+        "watchdog_stall": RestartPolicy(),
+        "anomaly_abort": RestartPolicy(),
+        "error": RestartPolicy(),
+    }
+
+
+@dataclass
+class _ReplicaEntry:
+    """One replica incarnation's ledger row."""
+
+    replica: int
+    incarnation: int
+    run_id: str
+    started_unix: float = 0.0
+    ended_unix: float = 0.0
+    exit_code: Optional[int] = None
+    classification: str = ""
+    progress_at_exit: int = 0  # router-fed completions when it died
+    downtime_s: float = 0.0  # death -> its successor's launch
+    note: str = ""
+
+    def as_dict(self) -> dict:
+        return dict(self.__dict__)
+
+
+class _ReplicaSlot:
+    """Mutable per-replica-index state: the live handle plus the
+    relaunch bookkeeping (state machine live -> down -> live, or
+    -> failed when a rail fires)."""
+
+    def __init__(self, index: int):
+        self.index = index
+        self.state = "idle"  # idle | live | down | failed
+        self.handle = None
+        self.incarnation = -1
+        self.run_id = ""
+        self.started = 0.0
+        self.died_at = 0.0
+        self.relaunch_at = 0.0
+        self.backoff_exp = 0
+        self.no_progress = 0
+        self.progress = 0  # router-fed monotone completion count
+        self.progress_at_launch = 0
+        self.pending_class: Optional[str] = None
+        self.pending_note = ""
+        self.restarts = 0
+        self.fail_reason = ""
+
+
+class ReplicaSetSupervisor:
+    """Keep N serving replicas alive: the RunSupervisor loop generalized
+    from "relaunch the training world" (one blocking launch-classify-
+    relaunch cycle) to "N concurrent children, each on its own
+    classify/backoff/crash-loop track, polled without blocking" —
+    the fleet router drives ``poll()`` from its dispatch loop.
+
+    Shared with RunSupervisor: the exits-registry classification
+    (``classify_exit``), :class:`RestartPolicy` semantics (backoff
+    doubling on consecutive no-progress deaths, reset on progress),
+    per-incarnation run ids (``replica<K>-i<N>`` — heartbeats and
+    journal assignments are stamped with them so a dead incarnation's
+    records never pass for the live one's), the crash-loop guard
+    (``crash_loop_threshold`` consecutive deaths of one replica without
+    a served request end THAT replica with a post-mortem — the fleet
+    degrades to N-1 instead of burning the host on a relaunch loop),
+    and a restart ledger. New here: the ledger folds into an
+    **availability** metric — replica-seconds live over replica-seconds
+    owed since ``start()`` — the serving twin of the training ledger's
+    goodput charge (obs schema v11 ``serving_fleet`` map).
+
+    ``spawn(ctx)`` returns a replica handle exposing ``poll() ->
+    Optional[int]`` and ``kill()`` (the router's subprocess handles add
+    send/recv on top; the supervisor only manages lifecycle). ``ctx``
+    carries ``replica``, ``incarnation``, ``run_id``, ``restarts``.
+
+    The router reports progress via ``note_progress(idx, completed)``
+    (a monotone per-replica completion count from heartbeats) and asks
+    for watchdog kills via ``kill(idx, classify_as=..., note=...)`` —
+    a stalled replica's SIGKILL would otherwise classify as ``error``;
+    the router knows the cause (no heartbeat with work in flight) and
+    pins the classification before the exit code exists.
+    """
+
+    def __init__(
+        self,
+        spawn: Callable[[dict], object],
+        n_replicas: int,
+        *,
+        ledger_path: Optional[str] = None,
+        policies: Optional[Dict[str, RestartPolicy]] = None,
+        max_restarts_per_replica: int = 8,
+        restart_backoff_s: float = 1.0,
+        crash_loop_threshold: int = 3,
+        clock: Callable[[], float] = time.time,
+        log: Callable[[str], None] = None,
+    ):
+        assert n_replicas >= 1, n_replicas
+        self.spawn = spawn
+        self.n_replicas = int(n_replicas)
+        self.ledger_path = ledger_path
+        self.policies = policies or default_replica_policies()
+        self.max_restarts_per_replica = int(max_restarts_per_replica)
+        self.restart_backoff_s = float(restart_backoff_s)
+        self.crash_loop_threshold = max(1, int(crash_loop_threshold))
+        self._clock = clock
+        self._log = log or (
+            lambda msg: print(f"[replica-supervisor] {msg}", flush=True)
+        )
+        self.slots = [_ReplicaSlot(i) for i in range(self.n_replicas)]
+        self.entries: List[_ReplicaEntry] = []
+        self.started_at: Optional[float] = None
+        self.stalls_detected = 0
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def _launch(self, slot: _ReplicaSlot) -> dict:
+        slot.incarnation += 1
+        slot.run_id = f"replica{slot.index}-i{slot.incarnation}"
+        ctx = {
+            "replica": slot.index,
+            "incarnation": slot.incarnation,
+            "run_id": slot.run_id,
+            "restarts": slot.restarts,
+        }
+        slot.handle = self.spawn(ctx)
+        slot.started = self._clock()
+        slot.progress_at_launch = slot.progress
+        slot.pending_class = None
+        slot.pending_note = ""
+        if slot.incarnation > 0 and slot.died_at:
+            # close the downtime of the incarnation this launch replaces
+            for e in reversed(self.entries):
+                if e.replica == slot.index:
+                    e.downtime_s = max(0.0, slot.started - slot.died_at)
+                    break
+        slot.state = "live"
+        self._write_ledger()
+        return ctx
+
+    def start(self) -> None:
+        """Launch all N replicas (incarnation 0 each)."""
+        assert self.started_at is None, "start() is one-shot"
+        self.started_at = self._clock()
+        for slot in self.slots:
+            self._launch(slot)
+            self._log(
+                f"replica {slot.index} launched (run_id {slot.run_id})"
+            )
+
+    def handle(self, idx: int):
+        """The CURRENT incarnation's handle for replica ``idx`` (None
+        while it is down/failed)."""
+        slot = self.slots[idx]
+        return slot.handle if slot.state == "live" else None
+
+    def run_id(self, idx: int) -> str:
+        return self.slots[idx].run_id
+
+    def live_indices(self) -> List[int]:
+        return [s.index for s in self.slots if s.state == "live"]
+
+    def note_progress(self, idx: int, completed: int) -> None:
+        """Router-fed monotone completion count for replica ``idx`` —
+        the crash-loop guard's progress signal (a replica that keeps
+        dying without ever completing a request is looping)."""
+        self.slots[idx].progress = max(self.slots[idx].progress, completed)
+
+    def kill(
+        self, idx: int, classify_as: str = "replica_loss", note: str = ""
+    ) -> None:
+        """Router-initiated kill with a pinned classification: the
+        watchdog path for a stalled replica. The SIGKILL's raw exit
+        code (a signal death -> ``error``) must not pick the policy —
+        the router knows WHY it killed."""
+        slot = self.slots[idx]
+        if slot.state != "live" or slot.handle is None:
+            return
+        if slot.pending_class is not None:
+            return  # kill already in flight; don't double-count
+        slot.pending_class = classify_as
+        slot.pending_note = note
+        self.stalls_detected += 1
+        self._log(
+            f"replica {idx} (run_id {slot.run_id}) killed by router: "
+            f"{note or classify_as}"
+        )
+        slot.handle.kill()
+
+    def stop_all(self) -> None:
+        """Kill every live replica (fleet shutdown; no relaunch —
+        callers stop polling after this)."""
+        for slot in self.slots:
+            if slot.state == "live" and slot.handle is not None:
+                slot.pending_class = "ok"
+                slot.pending_note = "fleet shutdown"
+                slot.handle.kill()
+                slot.state = "idle"
+        self._write_ledger(final=True)
+
+    # -- the poll loop -----------------------------------------------------
+
+    def poll(self) -> List[dict]:
+        """One non-blocking sweep: reap deaths, classify, schedule and
+        perform due relaunches. Returns events the router acts on:
+        ``{"event": "died", "replica": i, "run_id": ...,
+        "classification": ...}`` (requeue that incarnation's in-flight
+        work), ``{"event": "relaunched", "replica": i, "run_id": ...}``
+        (a fresh handle is installed), and ``{"event": "gave_up",
+        "replica": i, "reason": ..., "post_mortem": ...}`` (the fleet
+        is permanently down a replica)."""
+        now = self._clock()
+        events: List[dict] = []
+        for slot in self.slots:
+            if slot.state == "live" and slot.handle is not None:
+                code = slot.handle.poll()
+                if code is None:
+                    continue
+                events.extend(self._reap(slot, code, now))
+            elif slot.state == "down" and now >= slot.relaunch_at:
+                ctx = self._launch(slot)
+                self._log(
+                    f"replica {slot.index} relaunched (run_id "
+                    f"{slot.run_id}, restart {slot.restarts})"
+                )
+                events.append(
+                    {
+                        "event": "relaunched",
+                        "replica": slot.index,
+                        "run_id": slot.run_id,
+                        "ctx": ctx,
+                    }
+                )
+        return events
+
+    def _reap(self, slot: _ReplicaSlot, code: int, now: float) -> List[dict]:
+        cls = slot.pending_class or classify_exit(code)
+        entry = _ReplicaEntry(
+            replica=slot.index,
+            incarnation=slot.incarnation,
+            run_id=slot.run_id,
+            started_unix=slot.started,
+            ended_unix=now,
+            exit_code=code,
+            classification=cls,
+            progress_at_exit=slot.progress,
+            note=slot.pending_note,
+        )
+        self.entries.append(entry)
+        slot.died_at = now
+        dead_run_id = slot.run_id
+        self._log(
+            f"replica {slot.index} (run_id {dead_run_id}) exited "
+            f"{code} -> classified {cls!r}"
+        )
+        events = [
+            {
+                "event": "died",
+                "replica": slot.index,
+                "run_id": dead_run_id,
+                "classification": cls,
+                # the dead incarnation's handle: the router drains its
+                # remaining output (exactly-once delivery) before the
+                # journal requeues its in-flight work
+                "handle": slot.handle,
+            }
+        ]
+        policy = self.policies.get(cls) or self.policies["error"]
+        if not policy.restart:
+            slot.state = "idle"
+            slot.handle = None
+            self._write_ledger()
+            return events
+
+        # crash-loop guard: progress (router-fed completions) must
+        # advance across THIS replica's consecutive incarnations
+        if slot.progress > slot.progress_at_launch:
+            slot.no_progress = 0
+            slot.backoff_exp = 0
+        else:
+            slot.no_progress += 1
+        slot.handle = None
+        if slot.no_progress >= self.crash_loop_threshold:
+            return events + [self._give_up(
+                slot,
+                f"no completed request across {slot.no_progress} "
+                f"consecutive incarnation(s)",
+            )]
+        if slot.restarts >= self.max_restarts_per_replica:
+            return events + [self._give_up(
+                slot,
+                f"max_restarts_per_replica="
+                f"{self.max_restarts_per_replica} exhausted",
+            )]
+        delay = policy.cooldown_s
+        if policy.backoff:
+            delay += self.restart_backoff_s * (2**slot.backoff_exp)
+            slot.backoff_exp += 1
+        slot.restarts += 1
+        slot.state = "down"
+        slot.relaunch_at = now + delay
+        self._write_ledger()
+        return events
+
+    def _give_up(self, slot: _ReplicaSlot, reason: str) -> dict:
+        slot.state = "failed"
+        slot.fail_reason = reason
+        pm_lines = [
+            f"replica {slot.index} given up: {reason}"
+            + (f" (ledger: {self.ledger_path})" if self.ledger_path else "")
+        ]
+        for e in self.entries:
+            if e.replica != slot.index:
+                continue
+            pm_lines.append(
+                f"  incarnation {e.incarnation}: exit {e.exit_code} -> "
+                f"{e.classification}, completions at exit "
+                f"{e.progress_at_exit}, restart downtime "
+                f"{e.downtime_s:.1f}s"
+                + (f" ({e.note})" if e.note else "")
+            )
+        pm = "\n".join(pm_lines)
+        self._log(pm)
+        self._write_ledger()
+        return {
+            "event": "gave_up",
+            "replica": slot.index,
+            "reason": reason,
+            "post_mortem": pm,
+        }
+
+    # -- ledger / availability ---------------------------------------------
+
+    def restarts(self) -> int:
+        return sum(s.restarts for s in self.slots)
+
+    def availability(self, now: Optional[float] = None) -> float:
+        """Replica-seconds live / replica-seconds owed since start():
+        the restart ledger folded into one number. 1.0 = no replica was
+        ever down; every death subtracts its death-to-relaunch gap
+        (open gaps of currently-down/failed replicas count up to
+        ``now``). The serving acceptance records this measured < 1.0
+        under churn (chip_smoke.py's fleet phase)."""
+        if self.started_at is None:
+            return 1.0
+        now = self._clock() if now is None else now
+        owed = (now - self.started_at) * self.n_replicas
+        if owed <= 0:
+            return 1.0
+        down = sum(e.downtime_s for e in self.entries)
+        for slot in self.slots:
+            if slot.state in ("down", "failed") and slot.died_at:
+                closed = any(
+                    e.replica == slot.index and e.downtime_s > 0
+                    for e in reversed(self.entries)
+                    if e.incarnation == slot.incarnation
+                )
+                if not closed:
+                    down += max(0.0, now - slot.died_at)
+        return max(0.0, min(1.0, 1.0 - down / owed))
+
+    def ledger(self, final: bool = False) -> dict:
+        return {
+            "version": LEDGER_VERSION,
+            "kind": "replica_set",
+            "n_replicas": self.n_replicas,
+            "restarts": self.restarts(),
+            "stalls_detected": self.stalls_detected,
+            "availability": round(self.availability(), 6),
+            "replica_downtime_s": round(
+                sum(e.downtime_s for e in self.entries), 6
+            ),
+            "entries": [e.as_dict() for e in self.entries],
+        }
+
+    def _write_ledger(self, final: bool = False) -> None:
+        if not self.ledger_path:
+            return
+        led = self.ledger(final=final)
+        d = os.path.dirname(os.path.abspath(self.ledger_path))
+        os.makedirs(d, exist_ok=True)
+        tmp = self.ledger_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(led, f, indent=1)
+        os.replace(tmp, self.ledger_path)
 
 
 def supervise_from_config(cfg, build_command, **kwargs) -> RunSupervisor:

@@ -1,6 +1,6 @@
 """The serving engine: params -> continuous-batching decode loop.
 
-Counterpart of ``fms_fsdp_tpu/serve/engine.py`` for the unified role:
+Counterpart of ``fms_fsdp_tpu/serve/engine.py``:
 
 - params from the caller, or from a training checkpoint
   (``from_checkpoint``: a params pickle, a ``step_N_ckp`` dir or a
@@ -23,8 +23,15 @@ without a card and without that request it raises. Greedy decode (the
 default) needs no randomness; sampling draws from the engine's own
 ``torch.Generator``, seeded from ``seed``.
 
-Chunked prefill, disaggregation roles and serving layouts are refused
-at build, each naming its ROADMAP.md item.
+Disaggregation (``role``): a ``prefill`` engine packs each stream's
+pages and sampling state into handoff wire bytes after its first token
+(``serve/disagg/handoff.py``) and retires it; a ``decode`` engine also
+admits those bytes (``submit_handoff``) and continues the stream with no
+prefill. ``pack_stream`` packs a live stream without retiring it (the
+drain-and-migrate read of ``serve/replica.py``). Chunked prefill
+(``prefill_chunk_tokens``) advances long prompts one chunk per step,
+interleaved with decode. Serving layouts (``serve_layout``) are refused
+at build, naming ROADMAP.md A.6b.
 """
 
 import time
@@ -54,14 +61,10 @@ _DTYPES = {
     "float16": torch.float16,
 }
 
-_EXTENSIONS = "ROADMAP.md A.10 (serving extensions)"
-
-
 @dataclass(frozen=True)
 class ServeConfig:
-    """Engine knobs, named as in the JAX ``ServeConfig``. The three whose
-    paths are not ported yet are refused by :class:`ServingEngine` at
-    build unless left at their defaults."""
+    """Engine knobs, named as in the JAX ``ServeConfig``. ``serve_layout``
+    is refused by :class:`ServingEngine` at build unless left empty."""
 
     max_batch: int = 8  # decode slots
     max_seq_len: int = 2048  # per-sequence cache capacity
@@ -73,7 +76,9 @@ class ServeConfig:
     # prompt lengths round up to a multiple of this before prefill
     prefill_bucket: int = 1
     max_prefill_per_step: int = 1  # prefill-decode interleave bound
-    prefill_chunk_tokens: int = 0  # not served yet (ROADMAP.md A.10)
+    # chunked prefill: prompts longer than this advance one chunk-sized
+    # slice per engine step, interleaved with decode; 0 = whole prompt
+    prefill_chunk_tokens: int = 0
     # queued requests beyond this are rejected typed ("overloaded");
     # 0 = unbounded
     max_queue: int = 0
@@ -92,25 +97,29 @@ class ServeConfig:
     speculator_path: str = ""
     # draft tokens per verify step (the checkpoint's n_predict when 0)
     spec_draft_tokens: int = 0
-    serve_layout: str = ""  # not served yet (ROADMAP.md A.10)
-    role: str = "unified"  # only "unified" is served (ROADMAP.md A.10)
+    serve_layout: str = ""  # not served yet (ROADMAP.md A.6b)
+    # disaggregation role: "unified" serves end to end; "prefill" packs a
+    # handoff after the first token instead of decoding; "decode" also
+    # admits submit_handoff() resumes (and can still prefill: eviction
+    # recompute needs that)
+    role: str = "unified"
+    # a prefill engine rejects (too_large) any request whose packed
+    # handoff could exceed this many bytes; 0 = unbounded
+    handoff_max_bytes: int = 0
 
 
 def _check_supported(scfg: ServeConfig) -> None:
-    if scfg.role != "unified":
-        raise NotImplementedError(
-            f"role={scfg.role!r}: disaggregated serving is not ported yet "
-            f"({_EXTENSIONS}); run role='unified'"
-        )
-    if scfg.prefill_chunk_tokens:
-        raise NotImplementedError(
-            f"prefill_chunk_tokens={scfg.prefill_chunk_tokens}: chunked "
-            f"prefill is not ported yet ({_EXTENSIONS}); leave it 0"
+    from fms_fsdp_tpu_torch.serve.disagg import ROLES
+
+    if scfg.role not in ROLES:
+        raise ValueError(
+            f"unknown serving role {scfg.role!r}: expected one of {ROLES}"
         )
     if scfg.serve_layout:
         raise NotImplementedError(
-            f"serve_layout={scfg.serve_layout!r}: sharded replicas are not "
-            f"ported yet ({_EXTENSIONS}); run single-card"
+            f"serve_layout={scfg.serve_layout!r}: sharded replicas need "
+            f"tensor parallelism, which is not ported yet (ROADMAP.md "
+            f"A.6b); run single-card"
         )
 
 
@@ -146,6 +155,17 @@ class ServingEngine:
             self.params, model_cfg, scfg, self.compute_dtype, self.device
         )
         self.family = self.adapter.family
+        if scfg.role != "unified" and not self.adapter.supports_handoff:
+            raise ValueError(
+                f"role={scfg.role!r} needs handoff, which the {self.family} "
+                f"family does not support — run {self.family} replicas unified"
+            )
+        if scfg.prefill_chunk_tokens and not self.adapter.supports_chunked_prefill:
+            raise ValueError(
+                f"prefill_chunk_tokens={scfg.prefill_chunk_tokens} is not "
+                f"supported for the {self.family} family yet — unset it "
+                f"(whole-prompt prefill)"
+            )
         self.cache = self.adapter.cache
         self.page_size = self.adapter.page_size
         self.max_pages = self.adapter.max_pages
@@ -167,8 +187,18 @@ class ServingEngine:
         self._spec_draft_total = 0  # draft tokens offered to verify
         self._spec_accept_total = 0  # draft tokens accepted
         self._finished_buf: List[Request] = []
+        # handoff imports that failed typed AFTER admission (the adapter
+        # freed its allocations): the replica loop drains these through
+        # take_failed() and rejects them back to the router
+        self._failed_buf: List[Request] = []
         self.last_logits = None  # (B, V) of the last decode step
         self.decode_steps = 0  # ragged decode steps run
+        self.iterations = 0  # step() count (health and fault context)
+        self._draining = False
+        self._handoff_bytes = 0  # wire bytes packed out + imported in
+        self._handoff_wall = 0.0  # seconds spent packing / scattering
+        self._chunking: Dict[int, tuple] = {}  # rid -> (req, slot)
+        self._prefill_chunks = 0
 
     # -- construction ------------------------------------------------------
 
@@ -184,6 +214,8 @@ class ServingEngine:
         committed step dir is read (torn and loader-only dirs skipped).
         Only the params are read (``utils/checkpointing.py::
         load_params_only``)."""
+        # ckpt before utils.checkpointing: the other order is a circular import
+        from fms_fsdp_tpu_torch import ckpt  # noqa: F401
         from fms_fsdp_tpu_torch.utils.checkpointing import load_params_only
 
         return cls(load_params_only(path), model_cfg, serve_cfg, **kw)
@@ -220,15 +252,26 @@ class ServingEngine:
         if err is not None:
             self._reject(REJECT_TOO_LARGE, err)
         if (
-            self.serve_cfg.max_queue
-            and self.scheduler.queue_depth() >= self.serve_cfg.max_queue
+            self.serve_cfg.role == "prefill"
+            and self.serve_cfg.handoff_max_bytes
+            and self.adapter.cache is not None
         ):
-            self._reject(
-                REJECT_OVERLOADED,
-                f"queue holds {self.scheduler.queue_depth()} requests "
-                f"(max_queue={self.serve_cfg.max_queue}): shedding at "
-                f"admission — back off and retry",
+            # a prefill engine's output is the packed page set: bound it
+            # at the door (pure page bytes; the header adds O(prompt))
+            cache = self.adapter.cache
+            need = cache.pages_needed(
+                self.adapter._padded_len(len(prompt), self.serve_cfg.prefill_bucket)
             )
+            est = need * cache.page_bytes()
+            if est > self.serve_cfg.handoff_max_bytes:
+                self._reject(
+                    REJECT_TOO_LARGE,
+                    f"packed handoff would carry ~{est} bytes of KV "
+                    f"pages ({need} pages), over handoff_max_bytes="
+                    f"{self.serve_cfg.handoff_max_bytes} — shrink the "
+                    f"prompt or raise the cap",
+                )
+        self._check_queue()
         rate = self.serve_cfg.min_decode_tokens_per_s
         if deadline_s is not None and rate > 0:
             floor_s = max_new_tokens / rate
@@ -240,6 +283,7 @@ class ServingEngine:
                     f"min_decode_tokens_per_s={rate:g}) — unmeetable "
                     f"even by an idle engine",
                 )
+        self._check_draining()
         req = self.scheduler.submit(
             Request(list(prompt), max_new_tokens, deadline)
         )
@@ -250,11 +294,107 @@ class ServingEngine:
         self.registry.counter(f"serve.requests_rejected.{reason}").add()
         raise RequestRejected(reason, msg)
 
+    def _check_queue(self) -> None:
+        if (
+            self.serve_cfg.max_queue
+            and self.scheduler.queue_depth() >= self.serve_cfg.max_queue
+        ):
+            self._reject(
+                REJECT_OVERLOADED,
+                f"queue holds {self.scheduler.queue_depth()} requests "
+                f"(max_queue={self.serve_cfg.max_queue}): shedding at "
+                f"admission — back off and retry",
+            )
+
+    def _check_draining(self) -> None:
+        if self._draining:
+            self._reject(
+                REJECT_OVERLOADED,
+                "engine is draining: not admitting new requests",
+            )
+
+    def submit_handoff(
+        self,
+        data: bytes,
+        max_new_tokens: Optional[int] = None,
+        deadline_s: Optional[float] = None,
+    ) -> Request:
+        """Admit a request by resuming packed handoff bytes (what a
+        prefill-role engine or ``pack_stream`` produced) instead of
+        prefilling: the header restores the stream's position (prompt,
+        generated, seq_len) and its pages (or slab) are written into this
+        engine at admission. ``max_new_tokens``/``deadline_s`` default to
+        the header's values.
+
+        Raises :class:`~fms_fsdp_tpu_torch.serve.disagg.HandoffError` (a
+        ValueError) on malformed or geometry-mismatched bytes and
+        :class:`RequestRejected` on admission failure."""
+        from fms_fsdp_tpu_torch.serve.disagg import unpack_handoff
+
+        if not self.adapter.supports_handoff:
+            raise ValueError(
+                f"the {self.family} family does not support handoff — "
+                f"route its requests to unified replicas"
+            )
+        if self.adapter.speculative:
+            raise ValueError(
+                "a speculative engine cannot resume handoffs: the draft "
+                "state (the last base hidden state) is not part of the "
+                "handoff — route resumes to non-speculative replicas"
+            )
+        header, arrays = unpack_handoff(data)
+        self.adapter.check_handoff_header(header)
+        prompt = [int(t) for t in header["prompt"]]
+        generated = [int(t) for t in header["generated"]]
+        mnt = int(header["max_new_tokens"] if max_new_tokens is None else max_new_tokens)
+        deadline = None if deadline_s is None else self.clock() + deadline_s
+        if len(prompt) + mnt > self.serve_cfg.max_seq_len:
+            self._reject(
+                REJECT_TOO_LARGE,
+                f"handoff prompt ({len(prompt)}) + max_new_tokens "
+                f"({mnt}) exceeds max_seq_len "
+                f"({self.serve_cfg.max_seq_len})",
+            )
+        err = self.adapter.admission_error(len(prompt), mnt)
+        if err is not None:
+            self._reject(REJECT_TOO_LARGE, err)
+        self._check_queue()
+        self._check_draining()
+        req = Request(prompt, mnt, deadline)
+        req.generated = generated
+        req.handoff_in = (header, arrays, len(data))
+        self.scheduler.submit(req)
+        # the first token was served where the prefill ran: this stream
+        # never expires as unserved queued work, and its TTFT was
+        # recorded there
+        req.first_token_time = req.submit_time
+        self.registry.counter("serve.requests_submitted").add()
+        self.registry.counter("serve.handoffs_accepted").add()
+        return req
+
     # -- prefill -----------------------------------------------------------
 
     def _prefill_request(self, req: Request, slot: int) -> None:
+        if req.handoff_in is not None:
+            self._import_handoff(req, slot)
+            return
         prompt = req.resume_prompt()
+        chunk = self.serve_cfg.prefill_chunk_tokens
+        if chunk and len(prompt) > chunk:
+            # chunked prefill: allocate and stage now, advance one chunk
+            # per step() interleaved with decode; the slot joins the
+            # decode batch once the whole prompt is in
+            self.adapter.prefill_start(req.rid, slot, prompt)
+            self._slots[slot] = req
+            self._chunking[req.rid] = (req, slot)
+            return
         row = self.adapter.prefill(req.rid, slot, prompt)
+        self._complete_prefill(req, slot, row, len(prompt))
+
+    def _complete_prefill(self, req: Request, slot: int, row, p: int) -> None:
+        """Shared tail of whole-prompt and chunked prefill: sample the
+        first token from the last real prompt position's logits row,
+        record TTFT, promote the stream into the decode batch."""
         tok = int(
             sample_token(
                 row[None],
@@ -268,14 +408,78 @@ class ServingEngine:
         if req.first_token_time is None:
             req.first_token_time = now
             self.registry.hist("serve.ttft_s").record(now - req.submit_time)
-        p = len(prompt)
         req.generated.append(tok)
         self.registry.counter("serve.prefill_tokens").add(p)
         self._slots[slot] = req
         self._admit_order.append(req)
         self._tokens[slot] = tok
         self._lens[slot] = p
-        self._finish_if_done(req, slot, now=now)
+        if self._finish_if_done(req, slot, now=now):
+            return
+        if self.serve_cfg.role == "prefill":
+            # a prefill engine's job ends at the first token: pack the
+            # stream and retire it; the replica loop ships the bytes
+            self._export_handoff(req, slot)
+
+    def _import_handoff(self, req: Request, slot: int) -> None:
+        """The decode half of a handoff admission: write the shipped
+        state into this engine and restore the stream's position — no
+        prefill compute at all."""
+        from fms_fsdp_tpu_torch.serve.disagg import HandoffError
+
+        header, arrays, nbytes = req.handoff_in
+        t0 = self.clock()
+        try:
+            ok = self.adapter.import_handoff(req.rid, slot, header, arrays)
+        except HandoffError as e:
+            # the frame passed the submit-time header check but failed
+            # mid-import; the adapter freed what it allocated, so the
+            # request fails typed and the router requeues it
+            req.handoff_in = None
+            req.state = "failed"
+            req.fail_reason = f"handoff_error: {e}"
+            self._failed_buf.append(req)
+            self.registry.counter("serve.handoffs_failed").add()
+            return
+        if not ok:
+            raise RuntimeError("admission checked capacity; the import cannot fail here")
+        self._handoff_wall += self.clock() - t0
+        self._handoff_bytes += nbytes
+        self.registry.counter("serve.handoffs_imported").add()
+        self.registry.counter("serve.handoff_bytes").add(nbytes)
+        req.handoff_in = None  # eviction after this point recomputes
+        self._slots[slot] = req
+        self._admit_order.append(req)
+        self._tokens[slot] = req.generated[-1]
+        self._lens[slot] = int(header["seq_len"])
+        self._finish_if_done(req, slot)
+
+    def _pack(self, req: Request, slot: int) -> bytes:
+        """The stream's decode state plus its sampling state, packed."""
+        from fms_fsdp_tpu_torch.serve.disagg import pack_handoff
+
+        header, arrays = self.adapter.export_handoff(req.rid, slot)
+        header.update(
+            prompt=[int(t) for t in req.prompt],
+            generated=[int(t) for t in req.generated],
+            seq_len=int(self._lens[slot]),
+            max_new_tokens=int(req.max_new_tokens),
+        )
+        data = pack_handoff(header, arrays)
+        self._handoff_bytes += len(data)
+        self.registry.counter("serve.handoffs_exported").add()
+        self.registry.counter("serve.handoff_bytes").add(len(data))
+        return data
+
+    def _export_handoff(self, req: Request, slot: int) -> None:
+        """The prefill half: pack the stream, then retire it — its pages
+        free only AFTER the gather read them."""
+        t0 = self.clock()
+        req.handoff_out = self._pack(req, slot)
+        self._handoff_wall += self.clock() - t0
+        self.scheduler.mark_finished(req)
+        self._release_slot(req, slot)
+        self._finished_buf.append(req)
 
     # -- lifecycle helpers -------------------------------------------------
 
@@ -295,6 +499,7 @@ class ServingEngine:
         return True
 
     def _release_slot(self, req: Request, slot: int) -> None:
+        self._chunking.pop(req.rid, None)
         self.adapter.release(req.rid, slot)
         self._slots[slot] = None
         if req in self._admit_order:
@@ -315,6 +520,7 @@ class ServingEngine:
         one ragged decode step, harvest finishes. Returns the requests
         that finished during this iteration."""
         now = self.clock()
+        self.iterations += 1
         for _ in self.scheduler.expire_queued(now):
             self.registry.counter("serve.requests_expired").add()
         running = [r for r in self._slots if r is not None]
@@ -323,12 +529,16 @@ class ServingEngine:
             self.registry.counter("serve.requests_expired_inflight").add()
 
         def can_fit(req: Request) -> bool:
+            if req.handoff_in is not None:
+                # a handoff allocates the shipped page set; seq_len is the
+                # position its pages cover
+                return self.adapter.can_admit(req.rid, int(req.handoff_in[0]["seq_len"]))
             return self.adapter.can_admit(req.rid, len(req.resume_prompt()))
 
         # admit ONE at a time, prefilling (and so allocating) before the
         # next can_fit check: a batched admit would check every candidate
         # against the pre-prefill pool and over-admit
-        for _ in range(self.serve_cfg.max_prefill_per_step):
+        for _ in range(0 if self._draining else self.serve_cfg.max_prefill_per_step):
             if self._slots.count(None) <= 0:
                 break
             got = self.scheduler.admit(1, can_fit)
@@ -336,12 +546,23 @@ class ServingEngine:
                 break
             self._prefill_request(got[0], self._slots.index(None))
 
+        # advance each staged chunked prefill by ONE chunk, interleaved
+        # with the decode below
+        for rid in list(self._chunking):
+            req, slot = self._chunking[rid]
+            row = self.adapter.prefill_chunk(rid)
+            self._prefill_chunks += 1
+            self.registry.counter("serve.prefill_chunks").add()
+            if row is not None:
+                del self._chunking[rid]
+                self._complete_prefill(req, slot, row, len(req.resume_prompt()))
+
         # token-granular growth; evict (LIFO) when the pool is dry. A
         # speculative stream reserves the positions its drafts are written
         # at before the accept rule rolls back.
         draft = self.adapter.spec_draft_tokens
         for slot, req in enumerate(self._slots):
-            if req is None:
+            if req is None or req.rid in self._chunking:
                 continue
             while not self.adapter.grow(req.rid, int(self._lens[slot]) + 1 + draft):
                 victim = self.scheduler.evict_victim(self._admit_order)
@@ -351,11 +572,16 @@ class ServingEngine:
                 if victim is req:
                     break
 
-        active = [(slot, r) for slot, r in enumerate(self._slots) if r is not None]
+        slot_rids = [
+            r.rid if r is not None and r.rid not in self._chunking else None
+            for r in self._slots
+        ]
+        active = [(slot, r) for slot, r in enumerate(self._slots)
+                  if r is not None and r.rid not in self._chunking]
         if active and self.adapter.speculative:
             t0 = self.clock()
             emit, counts, logits = self.adapter.decode_spec(
-                [r.rid if r is not None else None for r in self._slots],
+                slot_rids,
                 self._lens,
                 self._tokens,
             )
@@ -379,7 +605,7 @@ class ServingEngine:
         elif active:
             t0 = self.clock()
             toks, logits = self.adapter.decode(
-                [r.rid if r is not None else None for r in self._slots],
+                slot_rids,
                 self._lens,
                 self._tokens,
                 self.generator,
@@ -421,13 +647,62 @@ class ServingEngine:
             r is not None for r in self._slots
         )
 
+    # -- fleet hooks -------------------------------------------------------
+
+    def drain(self) -> None:
+        """Stop admitting: queued and new requests are refused, running
+        streams finish; ``drained`` flips once the slots empty."""
+        self._draining = True
+
+    def take_failed(self) -> List[Request]:
+        """Requests that failed typed after admission (a handoff import
+        rejected mid-apply): the replica loop rejects them back to the
+        router, which requeues them for re-prefill."""
+        out, self._failed_buf = self._failed_buf, []
+        return out
+
+    def live_requests(self) -> List[Request]:
+        """The running (slot-holding) streams, in admission order: what
+        drain-and-migrate packs before the process exits."""
+        return [r for r in self._admit_order if r in self._slots]
+
+    def pack_stream(self, req: Request) -> Optional[bytes]:
+        """Pack a LIVE decode stream into handoff wire bytes WITHOUT
+        retiring it (the drain-and-migrate read): the stream resumes
+        mid-decode elsewhere through ``submit_handoff``. None for streams
+        that cannot travel: mid-chunked-prefill, or a speculative engine's
+        (its draft state is not in the frame)."""
+        if not self.adapter.supports_handoff or self.adapter.speculative:
+            return None
+        if req.rid in self._chunking or req not in self._slots:
+            return None
+        return self._pack(req, self._slots.index(req))
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    @property
+    def drained(self) -> bool:
+        return self._draining and all(r is None for r in self._slots)
+
+    def health(self) -> Dict[str, float]:
+        """One flat liveness snapshot (the replica's heartbeat payload)."""
+        return {
+            "iterations": float(self.iterations),
+            "slots_busy": float(sum(r is not None for r in self._slots)),
+            "queue_depth": float(self.scheduler.queue_depth()),
+            "kv_pages_in_use": float(self.adapter.pages_in_use),
+            "draining": float(self._draining),
+        }
+
     # -- obs ---------------------------------------------------------------
 
     def serving_stats(self) -> Dict[str, float]:
-        """The flat str->number ``serving`` map of the JAX engine, with
-        the fields of paths this port does not serve yet at their idle
-        values (role unified = 0, single-card layout = 0, no handoff, no
-        chunks, never drained)."""
+        """The flat str->number ``serving`` map of the JAX engine (obs
+        schema v15); ``serve_layout`` is 0, the single-card layout."""
+        from fms_fsdp_tpu_torch.serve.disagg import ROLE_CODES
+
         ttft = self.registry.hist("serve.ttft_s").reduce(clear=False)
         lat = sorted(self.registry.hist("serve.request_latency_s").samples)
         p99 = lat[min(len(lat) - 1, int(0.99 * len(lat)))] if lat else 0.0
@@ -451,19 +726,19 @@ class ServingEngine:
             "state_bytes_per_stream": float(
                 self.adapter.state_bytes_per_stream
             ),
-            "role": 0.0,
+            "role": float(ROLE_CODES[self.serve_cfg.role]),
             "serve_layout": 0.0,
-            "handoff_bytes": 0.0,
-            "handoff_s": 0.0,
+            "handoff_bytes": float(self._handoff_bytes),
+            "handoff_s": float(self._handoff_wall),
             "spec_accept_rate": (
                 self._spec_accept_total / self._spec_draft_total
                 if self._spec_draft_total
                 else 0.0
             ),
             "spec_draft_tokens": float(self.adapter.spec_draft_tokens),
-            "prefill_chunks": 0.0,
+            "prefill_chunks": float(self._prefill_chunks),
             "paged_kernel_impl": float(self._paged_kernel_impl()),
-            "drained": 0.0,
+            "drained": float(self.drained),
         }
 
     def _paged_kernel_impl(self) -> int:

@@ -166,12 +166,18 @@ class FamilyAdapter:
       the logits row of the last committed position (B, V)).
     - ``pages_in_use`` / ``state_bytes_per_stream`` — obs.
 
-    Handoff, chunked prefill and serving layouts come with the serving
-    extensions (ROADMAP.md A.10).
+    Disaggregation: paged families set ``supports_handoff`` and inherit
+    the generic ``export_handoff`` / ``check_handoff_header`` /
+    ``import_handoff`` below (the transferable state IS the page set);
+    Mamba overrides all three with its slab codec. Chunked prefill:
+    families that can advance a prompt in slices set
+    ``supports_chunked_prefill`` and implement ``prefill_start`` /
+    ``prefill_chunk``.
     """
 
     family: str = "?"
     supports_handoff: bool = False
+    supports_chunked_prefill: bool = False
     cache = None  # PagedKVCache when the family uses pages, else None
     page_size: int = 0
     max_pages: int = 0
@@ -203,6 +209,85 @@ class FamilyAdapter:
 
     def decode_spec(self, slot_rids, lens, tokens):
         raise NotImplementedError
+
+    # -- chunked prefill (ServeConfig.prefill_chunk_tokens) ----------------
+
+    def prefill_start(self, rid: int, slot: int, prompt) -> None:
+        """Allocate the stream's state and stage ``prompt`` for
+        incremental prefill; no forward runs yet."""
+        raise NotImplementedError
+
+    def prefill_chunk(self, rid: int):
+        """Advance a staged prefill by one chunk. None while incomplete;
+        on the final chunk, commits the state and returns the (V,) logits
+        row of the last real prompt position."""
+        raise NotImplementedError
+
+    # -- disaggregation (the generic paged implementation) -----------------
+
+    def export_handoff(self, rid: int, slot: Optional[int] = None):
+        """rid's transferable decode state: (header fields, leaf tensors)
+        for ``serve/disagg/handoff.py::pack_handoff``. The pages ship in
+        their storage dtype; the engine adds the sampling fields. ``slot``
+        is unused here (the page set is keyed by rid) and read by families
+        with slot-indexed state (the Mamba slab)."""
+        from fms_fsdp_tpu_torch.serve.disagg.handoff import PAGE_CODEC_VERSION
+
+        self._require_pages()
+        cache = self.cache
+        return (
+            {
+                "family": self.family,
+                "codec": "pages",
+                "codec_version": PAGE_CODEC_VERSION,
+                "quant": cache.quant,
+                "page_size": cache.page_size,
+                "n_kv_heads": cache.n_kv_heads,
+                "head_dim": cache.head_dim,
+                "n_layers": cache.n_layers,
+                "alloc_tokens": cache.tokens_of(rid),
+            },
+            cache.gather_pages(rid),
+        )
+
+    def check_handoff_header(self, header) -> None:
+        """Raise HandoffError when a handoff's pool geometry does not
+        match this replica's: prefill and decode replicas that disagree on
+        the model config or the pool are misconfigured, a typed error."""
+        from fms_fsdp_tpu_torch.serve.disagg.handoff import (
+            PAGE_CODEC_VERSION,
+            HandoffError,
+            check_codec_version,
+        )
+
+        self._require_pages()
+        check_codec_version(header, "pages", PAGE_CODEC_VERSION)
+        cache = self.cache
+        for field, mine in (
+            ("family", self.family),
+            ("quant", cache.quant),
+            ("page_size", cache.page_size),
+            ("n_kv_heads", cache.n_kv_heads),
+            ("head_dim", cache.head_dim),
+            ("n_layers", cache.n_layers),
+        ):
+            if header.get(field) != mine:
+                raise HandoffError(
+                    f"handoff {field}={header.get(field)!r} does not "
+                    f"match this replica's {field}={mine!r}: prefill "
+                    f"and decode replicas must share one model config "
+                    f"and ServeConfig pool geometry"
+                )
+
+    def import_handoff(self, rid: int, slot: int, header, arrays) -> bool:
+        """Allocate rid's pages in this pool and write the shipped leaves
+        in, bit-exact. False when the pool cannot hold them right now."""
+        self.check_handoff_header(header)
+        return self.cache.scatter_pages(rid, arrays, int(header["alloc_tokens"]))
+
+    def _require_pages(self) -> None:
+        if not self.supports_handoff or self.cache is None:
+            raise ValueError(f"{self.family} does not support page handoff")
 
     @property
     def pages_in_use(self) -> int:

@@ -1,8 +1,9 @@
 """Llama family adapter: paged-KV serving over the ragged decode kernel.
 
 Counterpart of ``fms_fsdp_tpu/serve/families/llama.py`` (pool build,
-capacity, prefill, release, decode with the page-table upload cache, and
-speculative decode with ``ServeConfig.speculator_path``).
+capacity, prefill, chunked prefill, release, decode with the page-table
+upload cache, speculative decode with ``ServeConfig.speculator_path``,
+and the page handoff of the base class).
 The rotary table is built once per adapter on its device; the JAX path
 rebuilds it inside each jitted step, where XLA folds it to a constant.
 """
@@ -12,7 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from fms_fsdp_tpu_torch.models.generation import prefill, sample_token
+from fms_fsdp_tpu_torch.models.generation import decode_chunk, prefill, sample_token
 from fms_fsdp_tpu_torch.models.speculative import speculator_propose
 from fms_fsdp_tpu_torch.ops.rope import rope_table
 from fms_fsdp_tpu_torch.serve.decode import paged_decode_step, paged_verify_step
@@ -23,6 +24,8 @@ from fms_fsdp_tpu_torch.tune.lookup import resolve_paged_decode
 
 class LlamaAdapter(FamilyAdapter):
     family = "llama"
+    supports_handoff = True
+    supports_chunked_prefill = True
 
     def __init__(self, params, model_cfg, scfg, compute_dtype, device):
         self.params = params
@@ -62,6 +65,7 @@ class LlamaAdapter(FamilyAdapter):
         )
         self._table_key = None
         self._table_dev = None
+        self._chunk_state = {}  # rid -> staged chunked prefill
         if scfg.speculator_path:
             self._init_speculative(scfg, model_cfg)
 
@@ -184,6 +188,7 @@ class LlamaAdapter(FamilyAdapter):
         return self.cache.ensure(rid, n_tokens)
 
     def release(self, rid: int, slot: int) -> None:
+        self._chunk_state.pop(rid, None)
         self.cache.free(rid)
 
     # -- prefill -----------------------------------------------------------
@@ -213,6 +218,62 @@ class LlamaAdapter(FamilyAdapter):
             self._spec_embed[slot] = embeds[0, p - 1]
         # logits of the last REAL position predict the next token
         return logits[0, p - 1] if full_logits else logits[0, 0]
+
+    # -- chunked prefill (ServeConfig.prefill_chunk_tokens) ----------------
+
+    def prefill_start(self, rid: int, slot: int, prompt) -> None:
+        """Stage ``prompt`` for incremental prefill: allocate the whole
+        page budget now (so admission capacity stays honest), then advance
+        through a zeroed dense mini-cache one chunk per ``prefill_chunk``.
+        The mini-cache is ``p_pad`` long, not ``s_pad``: whole-prompt
+        prefill attends over exactly ``p_pad`` key positions, and matching
+        that length keeps the chunked logits equal to the whole path's; the
+        page-granular tail is zero-padded only at the final write."""
+        p = len(prompt)
+        p_pad = self._padded(p)
+        s_pad = self.cache.pages_needed(p_pad) * self.page_size
+        if not self.cache.ensure(rid, p_pad):
+            raise RuntimeError("admission checked capacity; ensure cannot fail here")
+        toks = torch.zeros((1, p_pad), dtype=torch.long)
+        toks[0, :p] = torch.as_tensor(prompt, dtype=torch.long)
+        nlayers = int(self.params["layers"]["wq"].shape[0])
+        shape = (nlayers, 1, p_pad, self.model_cfg.n_kv_heads, self.model_cfg.head_dim)
+        self._chunk_state[rid] = {
+            "slot": slot, "toks": toks.to(self.device), "p": p, "p_pad": p_pad,
+            "s_pad": s_pad, "pos": 0, "row": None, "embed": None,
+            "cache": {
+                "k": torch.zeros(shape, dtype=self.compute_dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=self.compute_dtype, device=self.device),
+            },
+        }
+
+    def prefill_chunk(self, rid: int):
+        st = self._chunk_state[rid]
+        pos = st["pos"]
+        m = min(self.scfg.prefill_chunk_tokens, st["p_pad"] - pos)
+        logits, embeds, _ = decode_chunk(
+            self.params, st["cache"], st["toks"][:, pos:pos + m], pos,
+            self.model_cfg, compute_dtype=self.compute_dtype, rope=self.rope,
+        )
+        last = st["p"] - 1
+        if pos <= last < pos + m:
+            # the chunk holding the last REAL prompt position carries the
+            # first token's logits
+            st["row"] = logits[0, last - pos]
+            st["embed"] = embeds[0, last - pos]
+        st["pos"] = pos + m
+        if st["pos"] < st["p_pad"]:
+            return None
+        tail = st["s_pad"] - st["p_pad"]
+        cache = {
+            n: torch.nn.functional.pad(a, (0, 0, 0, 0, 0, tail))
+            for n, a in st["cache"].items()
+        }
+        self.cache.write_prompt(rid, cache["k"][:, 0], cache["v"][:, 0])
+        if self.speculative:
+            self._spec_embed[st["slot"]] = st["embed"]
+        del self._chunk_state[rid]
+        return st["row"]
 
     # -- decode ------------------------------------------------------------
 

@@ -21,17 +21,22 @@ state writes to live rows, so an idle slot's slab stays exactly zero
 between streams. The slab is one set of tensors over ``max_batch``
 slots, written in place per slot (JAX donates it through its jit).
 
-The handoff methods (the slab codec of ``serve/disagg/slab.py``) come
-with ROADMAP.md A.10: ``supports_handoff`` is False.
+Handoff: a stream's slab slice travels through the slab codec
+(``serve/disagg/slab.py``): per mamba layer the conv window (compute
+dtype) and the fp32 SSD state, plus the hybrid attention layers' pages
+through the shared pool, in the same ``FMSH`` frame Llama and Mixtral use
+for pages. That serves disaggregated prefill/decode and drain-and-migrate
+(``ServingEngine.pack_stream``) for Mamba.
 """
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from fms_fsdp_tpu_torch.models.generation import sample_token
 from fms_fsdp_tpu_torch.models.mamba import (
+    _conv_dim,
     init_mamba_decode_state,
     mamba_decode_step,
     mamba_prefill,
@@ -39,6 +44,13 @@ from fms_fsdp_tpu_torch.models.mamba import (
     row_mask,
 )
 from fms_fsdp_tpu_torch.ops.rope import rope_table
+from fms_fsdp_tpu_torch.serve.disagg.handoff import HandoffError
+from fms_fsdp_tpu_torch.serve.disagg.slab import (
+    SLAB_CODEC_VERSION,
+    check_slab_header,
+    pack_slab_leaves,
+    split_slab_leaves,
+)
 from fms_fsdp_tpu_torch.serve.families import FamilyAdapter
 from fms_fsdp_tpu_torch.serve.kv_cache import RESERVED_PAGES, PagedKVCache
 from fms_fsdp_tpu_torch.utils.tree import tree_map
@@ -46,7 +58,7 @@ from fms_fsdp_tpu_torch.utils.tree import tree_map
 
 class MambaAdapter(FamilyAdapter):
     family = "mamba"
-    supports_handoff = False  # the slab codec: ROADMAP.md A.10
+    supports_handoff = True  # through the slab codec, not the page codec
 
     def __init__(self, params, model_cfg, scfg, compute_dtype, device):
         self.params = params
@@ -217,6 +229,100 @@ class MambaAdapter(FamilyAdapter):
             logits, generator, scfg.temperature, scfg.top_k, scfg.do_sample
         )
         return tok.to(torch.int32).cpu().numpy(), logits
+
+    # -- disaggregation: the slab codec (serve/disagg/slab.py) -------------
+
+    def _slab_geometry(self) -> Dict:
+        """The geometry fields the slab header carries and
+        ``check_handoff_header`` compares (JSON-native types only)."""
+        cfg = self.model_cfg
+        geo = {
+            "family": self.family,
+            "compute_dtype": str(self.compute_dtype).replace("torch.", ""),
+            "n_layer": int(cfg.n_layer),
+            "attn_layers": sorted(int(i) for i in cfg.attn_layer_idx),
+            "conv_shape": [int(cfg.d_conv - 1), int(_conv_dim(cfg))],
+            "ssd_shape": [int(cfg.nheads), int(cfg.headdim), int(cfg.d_state)],
+        }
+        if self._hybrid:
+            geo.update(
+                quant=self.cache.quant,
+                page_size=self.cache.page_size,
+                n_kv_heads=self.cache.n_kv_heads,
+                head_dim=self.cache.head_dim,
+                n_attn_layers=self.cache.n_layers,
+            )
+        return geo
+
+    def export_handoff(self, rid: int, slot: Optional[int] = None):
+        if slot is None:
+            raise ValueError("the mamba slab export needs the stream's slot")
+        layer_states = {
+            i: {"conv": layer["conv"][slot].cpu(), "ssd": layer["ssd"][slot].cpu()}
+            for i, layer in enumerate(self._state)
+            if layer
+        }
+        kv = self.cache.gather_pages(rid) if self._hybrid else None
+        header = dict(self._slab_geometry())
+        header.update(
+            codec="mamba_slab",
+            codec_version=SLAB_CODEC_VERSION,
+            alloc_tokens=self.cache.tokens_of(rid) if self._hybrid else 0,
+        )
+        return header, pack_slab_leaves(layer_states, kv)
+
+    def check_handoff_header(self, header) -> None:
+        check_slab_header(header, self._slab_geometry())
+
+    def import_handoff(self, rid: int, slot: int, header, arrays) -> bool:
+        self.check_handoff_header(header)
+        layer_states, kv = split_slab_leaves(arrays)
+        # everything checkable is checked BEFORE any allocation: a frame
+        # rejected after pages or slab were touched must not leak them
+        expected = {i for i, layer in enumerate(self._state) if layer}
+        if set(layer_states) != expected:
+            raise HandoffError(
+                f"slab frame covers layers {sorted(layer_states)}; this "
+                f"replica's mamba layers are {sorted(expected)}"
+            )
+        for i in expected:
+            for part in ("conv", "ssd"):
+                want = tuple(self._state[i][part].shape[1:])
+                got = tuple(layer_states[i][part].shape)
+                if got != want or layer_states[i][part].dtype != self._state[i][part].dtype:
+                    raise HandoffError(
+                        f"slab leaf layer {i} {part!r} is "
+                        f"{layer_states[i][part].dtype} of shape {got}, this "
+                        f"replica expects {self._state[i][part].dtype} of {want}"
+                    )
+        if self._hybrid:
+            if not kv:
+                raise HandoffError(
+                    "hybrid mamba handoff is missing its attention-layer "
+                    "'kv.*' page leaves"
+                )
+            if not self.cache.scatter_pages(rid, kv, int(header["alloc_tokens"])):
+                return False  # pool full right now: the engine defers
+        elif kv:
+            raise HandoffError(
+                "non-hybrid mamba handoff carries attention page leaves "
+                "this replica has no pool for"
+            )
+        try:
+            for i in expected:
+                for part in ("conv", "ssd"):
+                    self._state[i][part][slot].copy_(layer_states[i][part])
+        except Exception as e:
+            # free the pages and re-zero the slab slice this import
+            # touched: accounting returns to its pre-import value
+            if self._hybrid:
+                self.cache.free(rid)
+            tree_map(lambda t: t[slot].zero_(), self._state)
+            raise HandoffError(
+                f"slab import failed after allocation (pages freed, slab "
+                f"slice zeroed): {e}"
+            ) from e
+        return True
 
     # -- obs ---------------------------------------------------------------
 

@@ -9,7 +9,8 @@ The FFN half routes each decoded token through its top-k experts
 (``models/mixtral.py::_moe_token``): ``moe_impl="routed"`` (the default)
 runs each chosen expert once over the rows that chose it, ``"dense"``
 runs every expert and mixes (the parity mode). Both compute the same
-mixture; they differ by rounding only.
+mixture; they differ by rounding only. The page handoff is the base
+class's generic one (``supports_handoff``).
 """
 
 from typing import Optional
@@ -29,6 +30,7 @@ MOE_IMPLS = ("routed", "dense")
 
 class MixtralAdapter(FamilyAdapter):
     family = "mixtral"
+    supports_handoff = True  # the generic page codec
 
     def __init__(self, params, model_cfg, scfg, compute_dtype, device):
         moe_impl = getattr(scfg, "moe_impl", "routed")

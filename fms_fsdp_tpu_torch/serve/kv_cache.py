@@ -33,8 +33,14 @@ The pools live on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without that request the constructor raises, like
 every entry point of the port (``utils/device.py``).
 
-Page handoff (export/import) and defrag come with the serving extensions
-(ROADMAP.md A.10).
+Page handoff: ``gather_pages`` reads a sequence's pages out in their
+storage dtype (int8/fp8 values and their fp32 scales as stored, never
+widened) and ``scatter_pages`` writes a shipped page set into freshly
+allocated pages. ``defrag`` compacts allocated pages onto the lowest
+indices. Both change page tables, so both bump ``table_version``, the key
+of the adapters' cached device page table: a missed bump would leave the
+kernel reading the old pages. Reserved pages never move and are never
+written by either.
 """
 
 import heapq
@@ -101,8 +107,10 @@ class PagedKVCache:
         self.alloc_count = 0
         self.free_count = 0
         self.failed_allocs = 0
-        # bumped whenever any page table could have changed; the adapter
-        # keys its cached device page table on it
+        self.defrag_moves = 0
+        # bumped whenever any page table could have changed (alloc, free,
+        # scatter, defrag); the adapter keys its cached device page table
+        # on it
         self.table_version = 0
 
     # -- queries -----------------------------------------------------------
@@ -124,6 +132,15 @@ class PagedKVCache:
         slots = pages * self.page_size
         tokens = sum(self._seq_tokens.values())
         return (slots - tokens) / slots
+
+    def page_bytes(self) -> int:
+        """Bytes one page holds across all pool leaves (k, v, scales)."""
+        return sum(
+            p.numel() * p.element_size() for p in self.pools.values()
+        ) // self.num_pages
+
+    def tokens_of(self, seq_id: int) -> int:
+        return self._seq_tokens.get(seq_id, 0)
 
     def pages_needed(self, n_tokens: int) -> int:
         return -(-n_tokens // self.page_size)
@@ -222,3 +239,99 @@ class PagedKVCache:
             self.pools["v"].index_put_(index, qv)
             self.pools["k_scale"].index_put_(index, sk)
             self.pools["v_scale"].index_put_(index, sv)
+
+    # -- page export / import (serve/disagg/ handoff) ----------------------
+
+    def gather_pages(self, seq_id: int) -> Dict[str, torch.Tensor]:
+        """seq_id's pages as host tensors: leaf name -> (L, n_pages,
+        page_size, Nkv, H|1) in the pool's STORAGE dtype."""
+        pages = self._seq_pages.get(seq_id, [])
+        if not pages:
+            raise ValueError(f"sequence {seq_id} holds no pages to gather")
+        ids = torch.tensor(pages, device=self.device)
+        return {name: pool[:, ids].cpu() for name, pool in self.pools.items()}
+
+    def scatter_pages(self, seq_id: int, arrays: Dict, n_tokens: int) -> bool:
+        """The unpack half: allocate exactly the shipped page count for
+        ``seq_id`` (all-or-nothing, like ``ensure``; False when the pool
+        cannot hold it now) and write each leaf into the new page ids.
+        ``n_tokens`` is the source pool's token accounting (``tokens_of``).
+        Every structural mismatch is a typed HandoffError, checked before
+        anything is allocated."""
+        from fms_fsdp_tpu_torch.serve.disagg.handoff import HandoffError
+
+        if set(arrays) != set(self.pools):
+            raise HandoffError(
+                f"handoff leaves {sorted(arrays)} do not match this "
+                f"pool's {sorted(self.pools)} — kv_quant mismatch "
+                f"between replicas"
+            )
+        n = int(arrays["k"].shape[1])
+        for name, pool in self.pools.items():
+            want = (pool.shape[0], n) + tuple(pool.shape[2:])
+            got = tuple(arrays[name].shape)
+            if got != want or arrays[name].dtype != pool.dtype:
+                raise HandoffError(
+                    f"handoff leaf {name!r} is {arrays[name].dtype} of shape "
+                    f"{got}, this pool expects {pool.dtype} of {want} — page "
+                    f"geometry mismatch"
+                )
+        if not self.ensure(seq_id, n * self.page_size):
+            return False
+        self._seq_tokens[seq_id] = n_tokens
+        pages = self._seq_pages[seq_id]
+        ids = torch.tensor(pages, device=self.device)
+        try:
+            for name, pool in self.pools.items():
+                pool[:, ids] = arrays[name].to(self.device)
+        except Exception as e:
+            # free what this import allocated before surfacing: the pool
+            # must account as before the attempt
+            self.free(seq_id)
+            raise HandoffError(
+                f"handoff scatter failed after page allocation "
+                f"(pages freed): {e}"
+            ) from e
+        return True
+
+    # -- defrag ------------------------------------------------------------
+
+    def defrag(self) -> int:
+        """Compact allocated pages onto the lowest pool indices.
+
+        Builds JAX's old->new permutation (sequence admission order, page
+        order within each sequence, the free pages after them in index
+        order), applies it to the pools in place on the positions it
+        changes, rewrites the page lists, resets the free heap to the
+        tail and bumps ``table_version``. Returns the number of allocated
+        pages moved (also accumulated in ``defrag_moves``). Reserved pages
+        never move."""
+        perm = np.arange(self.num_pages)
+        next_id = RESERVED_PAGES
+        moves = 0
+        new_lists: Dict[int, List[int]] = {}
+        for seq_id in self._seq_pages:  # dict order = admission order
+            new_pages = []
+            for old in self._seq_pages[seq_id]:
+                if old != next_id:
+                    moves += 1
+                perm[next_id] = old
+                new_pages.append(next_id)
+                next_id += 1
+            new_lists[seq_id] = new_pages
+        if moves:
+            # free pages fill the tail; their content is junk by contract
+            used = set(perm[:next_id].tolist())
+            perm[next_id:] = [p for p in range(self.num_pages) if p not in used]
+            dst = np.nonzero(perm != np.arange(self.num_pages))[0]
+            dst_t = torch.from_numpy(dst).to(self.device)
+            src_t = torch.from_numpy(perm[dst]).to(self.device)
+            for pool in self.pools.values():
+                # the gather copies the moved pages out before any write
+                pool[:, dst_t] = pool[:, src_t]
+            self._seq_pages = new_lists
+            self.table_version += 1
+        self._free = list(range(next_id, self.num_pages))
+        heapq.heapify(self._free)
+        self.defrag_moves += moves
+        return moves

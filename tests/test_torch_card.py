@@ -1179,3 +1179,75 @@ def test_card_gpt_bigcode_bf16_vs_fp32(cuda_device):
     assert sum(fa.LAUNCHES.values()) == 0
     err = (logits.float() - ref).abs().max().item()
     assert err <= 2e-2 * ref.abs().max().item(), err
+
+
+# ---------------------------------------------------------------------------
+# disaggregated serving: the page handoff and defrag under the kernel
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_card_handoff_round_trip_and_defrag_bitwise(cuda_device, kv_quant):
+    """A prefill-role engine's handoff bytes resumed by a decode-role engine
+    on the card: the imported pages equal the shipped ones, the decode
+    engine's first kernel step equals a unified engine's bitwise, and it
+    launches the kernel once per layer per step. Then, with the short
+    requests finished, ``defrag`` moves pages and the next kernel step's
+    logits equal that step's before the defrag bitwise; the page table
+    cached before it (a missed version bump) reads wrong pages."""
+    from fms_fsdp_tpu_torch.serve.decode import paged_decode_step
+    from fms_fsdp_tpu_torch.serve.disagg import unpack_handoff
+
+    params = init_llama_params(torch.Generator(device=cuda_device).manual_seed(0), _SMALL)
+    plans = [([5, 9, 2, 7] * 3, 3), ([11, 3, 8, 1, 4, 4, 9], 12), ([7] * 20, 12), ([1, 2] * 9, 12)]
+    key = "v2" if kv_quant != "none" else "v1"
+
+    def engine(**kw):
+        return ServingEngine(params, _SMALL, ServeConfig(
+            max_batch=4, max_seq_len=64, page_size=16, compute_dtype="float32",
+            kv_quant=kv_quant, max_prefill_per_step=4, **kw))
+
+    pe = engine(role="prefill")
+    t_paged.reset_launches()
+    frames = [r for r in (pe.submit(p, n) for p, n in plans)]
+    pe.run()
+    assert not any(t_paged.LAUNCHES.values())
+    frames = [r.handoff_out for r in frames]
+    de, ue = engine(role="decode"), engine()
+    dreqs = [de.submit_handoff(f) for f in frames]
+    for p, n in plans:
+        ue.submit(p, n)
+    t_paged.reset_launches()
+    de.step()
+    ue.step()
+    assert torch.equal(de.last_logits, ue.last_logits)
+    for r, f in zip(dreqs, frames):
+        header, arrays = unpack_handoff(f)
+        seq = header["seq_len"]
+        got = de.cache.gather_pages(r.rid)
+        for name, ship in arrays.items():
+            assert torch.equal(got[name].flatten(1, 2)[:, :seq], ship.flatten(1, 2)[:, :seq])
+    while dreqs[0].state != "finished":
+        de.step()
+    ad = de.adapter
+    slot_rids = [r.rid if r is not None else None for r in de._slots]
+    live = [s for s, r in enumerate(slot_rids) if r is not None]
+    lens, toks = de._lens.copy(), de._tokens.copy()
+    _, before = ad.decode(slot_rids, lens, toks, de.generator)
+    stale_table = ad._table_dev.clone()
+    assert de.cache.defrag() >= 1
+    _, after = ad.decode(slot_rids, lens, toks, de.generator)
+    assert torch.equal(after[live], before[live])
+    pools = {n: p.clone() for n, p in de.cache.pools.items()}
+    stale, _, _ = paged_decode_step(
+        params, pools, stale_table, torch.from_numpy(lens).to(cuda_device),
+        torch.from_numpy(toks).to(cuda_device), _SMALL, page_size=16,
+        compute_dtype=torch.float32, quant=kv_quant, attn_impl="kernel",
+        block_kv=ad.block_kv, rope=ad.rope)
+    assert not torch.equal(stale[live], before[live])
+    t_paged.reset_launches()
+    steps = de.decode_steps
+    de.run()
+    assert t_paged.LAUNCHES[key] == (de.decode_steps - steps) * _SMALL.nlayers
+    assert all(r.state == "finished" for r in dreqs)

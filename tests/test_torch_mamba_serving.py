@@ -308,4 +308,5 @@ def test_mamba_family_resolution(np_params):
     check_params_family(params, "mamba")
     with pytest.raises(ValueError, match="family mismatch"):
         check_params_family(params, "llama")
-    assert not MambaAdapter.supports_handoff
+    # the slab codec carries Mamba's handoff (tests/test_torch_transport.py)
+    assert MambaAdapter.supports_handoff

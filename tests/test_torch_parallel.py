@@ -201,13 +201,14 @@ def test_moments_placed_as_their_params():
 
 def test_unported_reduce_and_layout_refused():
     """JAX's quantized reduce and serving layout stay refused where the
-    port reads them, naming their ROADMAP.md items."""
+    port reads them, naming their ROADMAP.md items (the layout needs the
+    tensor parallelism of A.6b)."""
     from fms_fsdp_tpu_torch.parallel.mixed_precision import get_dtype_policy
     from fms_fsdp_tpu_torch.serve import ServeConfig, ServingEngine
 
     with pytest.raises(NotImplementedError, match="A.7"):
         get_dtype_policy(TrainConfig(quantized_reduce="int8"))
-    with pytest.raises(NotImplementedError, match="A.10"):
+    with pytest.raises(NotImplementedError, match="A.6b"):
         ServingEngine({}, LlamaConfig(**TINY_KW), ServeConfig(serve_layout="tp"), device="cpu")
 
 

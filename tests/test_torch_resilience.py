@@ -178,12 +178,23 @@ def test_env_spec_read_lazily(monkeypatch):
     ("transport_stall", "A.10"),
 ])
 def test_unported_sites_refused(spec, item, monkeypatch):
-    with pytest.raises(NotImplementedError, match=item):
-        t_faults.configure_faults(spec)
+    """The serving sites (ROADMAP.md A.10) have their call sites now: each
+    spec configures, from the argument and from the environment, and reads
+    as JAX's does. The refusal stays for any site listed as unported."""
+    assert t_faults.UNPORTED_SITES == {}
+    t_faults.configure_faults(spec)
+    j_faults.configure_faults(spec)
+    for site in t_faults.parse_spec(spec):
+        assert t_faults.fault_params(site) == j_faults.fault_params(site)
+    j_faults.configure_faults("")
     monkeypatch.setenv("FMS_FAULTS", spec)
     t_faults._SPECS = None
+    t_faults.fire_fault("nan_loss", step=1)
+    assert set(t_faults._SPECS) == set(t_faults.parse_spec(spec))
+    site = next(iter(t_faults.parse_spec(spec)))
+    monkeypatch.setitem(t_faults.UNPORTED_SITES, site, item)
     with pytest.raises(NotImplementedError, match=item):
-        t_faults.fire_fault("nan_loss", step=1)
+        t_faults.configure_faults(spec)
 
 
 # ---------------------------------------------------------------------------

@@ -419,9 +419,26 @@ def test_engine_without_cuda_raises_unless_cpu_asked(params, monkeypatch):
                                          ("prefill_chunk_tokens", 16),
                                          ("serve_layout", "tp=2")])
 def test_engine_refuses_unported_options(params, field, value):
+    """Only the serving layout is still refused (it needs A.6b's tensor
+    parallelism); disaggregation roles and chunked prefill are served."""
     scfg = ServeConfig(compute_dtype="float32", **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(params, TINY, scfg, device="cpu")
+    if field == "serve_layout":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A.6b"):
+            ServingEngine(params, TINY, scfg, device="cpu")
+        return
+    eng = ServingEngine(params, TINY, scfg, device="cpu")
+    assert getattr(eng.serve_cfg, field) == value
+    req = eng.submit(list(range(1, 40)), 3)
+    eng.run()
+    assert req.state == "finished"
+    stats = eng.serving_stats()
+    if field == "role":
+        # a prefill engine retires each stream packed after its first token
+        assert stats["role"] == 1.0 and req.handoff_out is not None
+        assert len(req.generated) == 1
+    else:
+        assert len(req.generated) == 3
+        assert stats["prefill_chunks"] == 3.0
 
 
 def test_families_llama_only():

@@ -439,7 +439,7 @@ def test_entry_needs_a_card_unless_cpu():
     ({"context_parallel_size": 2}, "A.8"),
     ({"expert_parallel_size": 2}, "A.4b"),
     ({"sharding_strategy": "tp"}, "A.6b"),
-    ({"faults": "replica_kill"}, "A.10"),
+    ({"model_variant": "mamba_9.8b", "tensor_parallel_size": 2}, "A.6b"),
     ({"num_slices": 2}, "A.6b"),
     ({"model_variant": "mamba_9.8b", "quantized_matmuls": "int8"}, "A.7"),
 ])
