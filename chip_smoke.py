@@ -57,7 +57,7 @@ Phases, one JSON line each; any failure exits non-zero:
    (``SteadyCounter`` modulo 4096: each token the previous plus one, the
    same 4096 transitions every batch), 6 stage-1 steps
    through the flash forward, then 2 stage-2 steps (``stage2_batch_size``
-   32 and ``stage2_seq_length`` 64, cut from JAX's 96 and 256; prompts of
+   32 and ``stage2_seq_length`` 32, cut from JAX's 96 and 256; prompts of
    64), reports every step, no save of the train state (its 13 GB is cut
    for time; the CPU tests save and resume it). Checks: flash forward
    launches == stage-1 steps x layers and no dq, dk/dv or paged-decode
@@ -69,6 +69,9 @@ Phases, one JSON line each; any failure exits non-zero:
    device profile of a stage-1 step (flash, the base's 16-bit GEMMs, the
    speculator's GEMMs, CE, optimizer, other). ``save_speculator`` writes
    the trained speculator (4.3 GB) into the run's in-memory directory.
+   Then two more stage-1 steps with ``quantized_matmuls="int8"`` on the
+   same frozen base: 32 flash forward launches a step, 7 x 32 int8 GEMMs
+   a step (forward only), finite losses, tokens/s.
 7. serve-spec — ``ServingEngine`` on the same llama3_8b (bf16,
    ``max_batch=8``, page 64) with ``speculator_path`` set to that file
    and ``spec_draft_tokens=3``: 8 requests of 64-512 prompt tokens and 64
@@ -148,8 +151,8 @@ Phases, one JSON line each; any failure exits non-zero:
    forked process workers (after ``torch.cuda.init()``, with a tensor
    live on the card; their first batches must equal the thread workers'
    and shutdown must reap them); the reservoir filled to 10,000 rows (or
-   the largest window the measured rate fills in 30 s, flagged
-   ``reduced``), the mix's corpus_a share within 0.02 of 0.75, then the
+   the largest window the measured rate fills in ``LOADER_FILL_S``, 8 s
+   since the train-quant phase, flagged ``reduced``), the mix's corpus_a share within 0.02 of 0.75, then the
    loader state's bytes and the ms of ``save_to_path`` and of
    ``load_from_path`` on a fresh loader, whose continuation must equal
    the saved loader's; ms per batch through ``DeviceFeed`` to the card
@@ -311,6 +314,31 @@ Phases, one JSON line each; any failure exits non-zero:
    against device ms); then the same requests routed and dense on fp32
    weights: equal greedy tokens and every decode step's logits within
    ``MIXTRAL_FP32_REL_TOL`` of the largest.
+22. train-quant — quantized training (``ops/quant.py``: cuBLASLt
+   ``torch._int_mm`` / ``torch._scaled_mm``). A GEMM micro-table at
+   M = 8192 against llama3_8b's (K, N): bf16 ``torch.matmul``, the two
+   1-byte GEMMs, the whole quantized forward (its passes = whole - GEMM)
+   and their bounds, each GEMM against its plain version on the card (the
+   exact float64 product of the same 1-byte values: int8 bitwise, fp8
+   within ``FP8_GEMM_REL_TOL``), and the control: the plain version fed
+   one flipped quantized value fails that check. Then the Llama entry at
+   llama3_8b_4k width, 2 layers, seq 4096, batch 2, AC 1/2, bfSixteen, 4
+   steps from the same seeded init and batches in bf16 and each of int8,
+   int8_dgrad, fp8, fp8_dgrad: finite losses, the first within
+   ``QUANT_LOSS_REL_TOL`` of bf16's, the flash launches equal to bf16's,
+   1-byte GEMMs == 7 x (layers + rematerialised layers) x steps forward
+   plus 7 x layers x steps dgrad under the ``_dgrad`` modes (bf16: none);
+   tokens/s (median of steps 2-4), device ms a step by kind, peak memory.
+   The reduce wires int8, fp8 and fp8_delayed, 3 steps each (GEMMs
+   16-bit): under fp8_delayed each step's row 0 of every amax history
+   equals the leaf amax taken on the side from the raw gradients; an
+   injected non-finite step under the guard leaves every row as it was,
+   and the same step without the guard rolls them (NaN at the head).
+   mamba_9.8b at full width, 3 layers with attention at 1, bf16 then
+   fp8_dgrad, 3 steps: the same SSD and flash launches, the GEMM counts,
+   the first loss within the bound. mixtral_8x7b at full width, 1 layer,
+   bf16, fp8_dgrad and int8, 3 steps: one 2-D GEMM an expert (3 x 8 a
+   layer and pass, beside attention's 4), ``moe_drop_frac`` beside bf16's.
 
 Then a ``total`` line (seconds since ``main`` began, and each phase's),
 a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
@@ -339,7 +367,7 @@ PHASES = ("device", "build", "kernels", "serve", "serve-int8", "train-speculator
           "serve-spec", "fleet", "flash", "train",
           "loader", "resume", "supervise", "shard", "hf-eval", "train-kvgrid", "ssd",
           "train-mamba",
-          "serve-mamba", "train-mixtral", "serve-mixtral")
+          "serve-mamba", "train-mixtral", "serve-mixtral", "train-quant")
 
 # llama3_8b decode shapes of the kernel phase
 B, NQ, NKV, H, PAGE, MAXP = 8, 32, 8, 128, 64, 32
@@ -348,7 +376,8 @@ B, NQ, NKV, H, PAGE, MAXP = 8, 32, 8, 128, 64, 32
 # least this many times the card's L2: no call reads a warm L2
 L2_SPAN = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}  # dense bf16 tensor / fp32 SIMT
+# dense bf16 / int8 / fp8 tensor cores, fp32 SIMT
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp8": 1979e12, "fp32": 67e12}
 TOL = {"bf16": 2e-2, "fp32": 1e-5, "int8": 2e-2, "e4m3": 2e-2}
 # the directories this run made for checkpoints ("memory", "disk"), each
 # by mkdtemp; main deletes them when the run ends
@@ -1189,7 +1218,8 @@ def phase_serve_int8(state):
 
 # llama3_8b at full width and depth (the serve phase's weights); the
 # speculator at JAX's defaults (3 heads, width 4096, tied, scale_input);
-# stage 2 cut for time from 96 rows x 256 tokens to 32 x 64. The dummy
+# stage 2 cut for time from 96 rows x 256 tokens to 32 x 32 (32 x 64
+# before the train-quant phase's cuts). The dummy
 # counter runs modulo 4096 (``vocab_size`` is only its modulus here; the
 # model's vocabulary stays 128256): every batch holds the same 4096
 # transitions, which 6 steps can learn. Modulo 128256 each step brings
@@ -1197,7 +1227,7 @@ def phase_serve_int8(state):
 SPEC_KW = {
     "model_variant": "llama3_8b", "vocab_size": 4096, "use_dummy_dataset": True,
     "batch_size": 2, "seq_length": 4096, "num_steps": 8, "stage2_start_step": 6,
-    "stage2_batch_size": 32, "stage2_prompt_length": 64, "stage2_seq_length": 64,
+    "stage2_batch_size": 32, "stage2_prompt_length": 64, "stage2_seq_length": 32,
     "report_interval": 1, "learning_rate": 1e-3, "checkpoint_interval": 1000,
 }
 
@@ -1270,6 +1300,35 @@ def _spec_step_profile(model_cfg, cfg, scfg, base, state, batch, steps=2):
 
 
 
+def _spec_int8_steps(model_cfg, cfg, scfg, base, spec_state, batch, steps=2):
+    """Stage-1 steps with ``quantized_matmuls="int8"``: the frozen base's
+    seven projections a layer through ``torch._int_mm``, forward only;
+    tokens/s as the entry counts them (the batch's tokens)."""
+    import torch
+
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+    from fms_fsdp_tpu_torch.ops import quant
+    from fms_fsdp_tpu_torch.train.speculator import make_stage1_step
+
+    step = make_stage1_step(base, model_cfg, scfg,
+                            dataclasses.replace(cfg, quantized_matmuls="int8"))
+    fa.reset_launches()
+    quant.reset_gemms()
+    rows = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spec_state, m = step(spec_state, batch)
+        per_head = m["per_head"].float().cpu().tolist()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rows.append({"loss_per_head": per_head, "gnorm": float(m["gnorm"]), "step_s": dt,
+                     "tokens_per_s": batch.numel() / dt})
+    return {"per_step": rows, "tokens_per_s": rows[-1]["tokens_per_s"],
+            "flash_fwd_per_step": fa.LAUNCHES["fwd"] / steps, "gemms": dict(quant.GEMMS),
+            "expected_gemms": {"fwd": 7 * model_cfg.nlayers * steps, "dgrad": 0}}
+
+
 def phase_train_speculator(state):
     """``speculator.train_speculator.main`` on the serve phase's frozen
     llama3_8b (see the module docstring)."""
@@ -1338,6 +1397,7 @@ def phase_train_speculator(state):
     result["save_speculator"] = {"path": path, "bytes": os.path.getsize(path),
                                  "seconds": time.perf_counter() - t0}
     result["step_profile"] = _spec_step_profile(model_cfg, cfg, scfg, base, res["state"], batch)
+    result["int8_base"] = _spec_int8_steps(model_cfg, cfg, scfg, base, res["state"], batch)
     del res
     gc.collect()
     torch.cuda.empty_cache()
@@ -1383,7 +1443,11 @@ def phase_train_speculator(state):
     problems = []
     if launches != want:
         problems.append(f"launches {launches} != expected {want}")
+    q8 = result["int8_base"]
+    if q8["flash_fwd_per_step"] != model_cfg.nlayers or q8["gemms"] != q8["expected_gemms"]:
+        problems.append(f"the int8 base's steps: {q8}")
     losses = [x for r in reports for x in r["per_head"]] + [r["gnorm"] for r in reports]
+    losses += [x for r in q8["per_step"] for x in r["loss_per_head"]]
     if not all(math.isfinite(x) for x in losses):
         problems.append("a non-finite loss or gradient norm")
     if not s1[-1]["per_head"][0] < s1[0]["per_head"][0]:
@@ -2219,7 +2283,7 @@ def phase_flash(state):
         raise AssertionError(f"flash kernels disagree with their plain versions: {bad}")
 
 
-def _train_step_profile(res, steps=2, moe=False):
+def _train_step_profile(res, steps=1, moe=False):
     """Host wall per step (no profiler) and device time per step by
     kernel (torch.profiler) of the trained state's next steps. With
     ``moe`` the 16-bit GEMMs split into the expert GEMMs (the device time
@@ -2544,7 +2608,9 @@ LOADER_KW = dict(use_dummy_dataset=False, datasets="corpus_a,corpus_b", weights=
                  seq_length=4096, batch_size=2, vocab_size=128256, logical_shards=1024,
                  checkpoint_interval=1000)
 LOADER_RATE_S = 2.0  # each worker mode's timed window
-LOADER_FILL_S = 30.0  # the reservoir is filled to the largest window this allows
+# the reservoir is filled to the largest window this allows (30 s, a full
+# 10,000-row window, before the train-quant phase's cuts)
+LOADER_FILL_S = 8.0
 
 
 def _corpus(state):
@@ -3498,7 +3564,7 @@ HF_MAMBA_TRAIN_KW = {**HF_MAMBA, "seq_length": 4096, "batch_size": 2, "vocab_siz
                      "use_dummy_dataset": True, "num_steps": 1, "report_interval": 1,
                      "checkpoint_interval": 1000, "pure_bf16": True,
                      "ckpt_full_checksums": False}
-HF_EVAL_BATCHES = 4
+HF_EVAL_BATCHES = 2  # 4 before the train-quant phase's cuts
 HF_MIXTRAL_LAYERS = 1
 HF_BIGCODE_LAYERS = 2
 HF_SEQ = 4096
@@ -4714,6 +4780,419 @@ def phase_serve_mixtral(state):
         raise AssertionError("serve-mixtral: " + "; ".join(problems))
 
 
+# ---------------------------------------------------------------------------
+# quantized training
+# ---------------------------------------------------------------------------
+
+QUANT_MODES = ("int8", "int8_dgrad", "fp8", "fp8_dgrad")
+# llama3_8b_4k at full width, 2 of 32 layers, AC 1/2 as ``train``
+QUANT_LLAMA_KW = {**TRAIN_KW, "LlamaConfig.nlayers": 2, "num_steps": 4, "report_interval": 1}
+QUANT_MAMBA_KW = {**MAMBA_TRAIN_KW, "MambaConfig.n_layer": 3,
+                  "MambaConfig.attn_layer_idx": (1,), "num_steps": 3, "report_interval": 1}
+QUANT_MIXTRAL_KW = {**MIXTRAL_TRAIN_KW, "MixtralConfig.nlayers": 1, "num_steps": 3}
+# a quantized mode's first loss against the bf16 run's, relative: 25x the
+# largest gap between a mode's first loss and the unquantized one over the
+# CPU tests' twelve family x mode runs (4.1e-5, tests/test_torch_quant_training.py),
+# for the 16-bit baseline's own rounding at full width
+QUANT_LOSS_REL_TOL = 1e-3
+# the micro-table's GEMMs: M rows against (K, N), llama3_8b's widths
+QUANT_GEMM_M = 8192
+QUANT_GEMM_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
+# _scaled_mm (e4m3 x e4m3, fp32 out, use_fast_accum=False) against the
+# exact product of the same fp8 values, over the largest |product|: Hopper's
+# fp8 tensor cores do not accumulate in exact fp32
+FP8_GEMM_REL_TOL = 1e-3
+
+
+def _quant_profile(res):
+    """Device ms of one step by kind (torch.profiler, after a warm step):
+    the 1-byte GEMMs (``aten::_int_mm`` / ``aten::_scaled_mm``), the
+    quantize passes and dequant (the ``quant_matmul`` scope less its
+    GEMMs), the 16-bit GEMMs (``aten::mm``/``bmm``/``addmm``), the flash
+    kernels and the rest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fms_fsdp_tpu_torch.data.device_feed import DeviceFeed
+    from fms_fsdp_tpu_torch.data.loader import get_dummy_loader
+    from fms_fsdp_tpu_torch.train.step import make_train_step
+
+    cfg, st = res["cfg"], res["state"]
+    step_fn = make_train_step(res["model_cfg"], cfg)
+    batch = next(iter(DeviceFeed(get_dummy_loader(cfg, 0, 1), "cuda")))
+    step_fn(st, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step_fn(st, batch)
+        torch.cuda.synchronize()
+    rows = _kernel_rows(prof, 1)
+    if not rows:
+        return None
+    total = sum(r[0] for r in rows)
+    q_gemm = _op_device_ms(prof, "aten::_int_mm") + _op_device_ms(prof, "aten::_scaled_mm")
+    kinds = {
+        "quantized_gemm": q_gemm,
+        "quantize_passes": _op_device_ms(prof, "quant_matmul") - q_gemm,
+        "gemm_16bit": sum(_op_device_ms(prof, op) for op in ("aten::mm", "aten::bmm",
+                                                             "aten::addmm")),
+        "flash": sum(r[0] for r in rows if _kernel_kind(r[1]) == "flash"),
+    }
+    kinds["other"] = total - sum(kinds.values())
+    return {"device_ms_per_step": total, "device_ms_per_step_by_kind": kinds}
+
+
+def _quant_run(tag, main, kw, profile=False, watch=None):
+    """One trainer run through its entry, without a save: losses, tokens
+    per card per second (median of the steps after the first), the flash,
+    SSD and 1-byte GEMM counts of the run, peak memory, and with
+    ``profile`` one more step's device ms by kind. ``watch(state, m)``
+    sees every step. Returns (the fields, the entry's result)."""
+    import statistics
+
+    import torch
+
+    from fms_fsdp_tpu_torch import main_training_llama as entry
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+    from fms_fsdp_tpu_torch.ops import quant, ssd
+
+    ckpt = _ckpt_dir(f"train-quant-{tag}")
+    make = entry.make_train_step
+    if watch is not None:
+        def make_watched(*a, **k):
+            step = make(*a, **k)
+
+            def watched(st, batch):
+                m = step(st, batch)
+                watch(st, m)
+                return m
+
+            return watched
+
+        entry.make_train_step = make_watched
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    ssd.reset_launches()
+    quant.reset_gemms()
+    try:
+        with _saves_nothing(entry):
+            res = main(**kw, ckpt_save_path=ckpt, ckpt_load_path=ckpt,
+                       ckpt_full_checksums=False)
+    finally:
+        entry.make_train_step = make
+    reports = res["reports"]
+    out = {
+        "steps": res["steps"], "losses": [r["loss"] for r in reports],
+        "tokens_per_card_per_s": statistics.median(
+            r["tokens_per_card_per_s"] for r in reports[1:]),
+        "launches": dict(fa.LAUNCHES, ssd_fused=ssd.LAUNCHES["fused"]),
+        "gemms": dict(quant.GEMMS), "max_memory_allocated": torch.cuda.max_memory_allocated(),
+    }
+    if "moe_drop_frac" in reports[0]:
+        out["moe_drop_frac"] = [r["moe_drop_frac"] for r in reports]
+    if profile:
+        out["step_profile"] = _quant_profile(res)
+    shutil.rmtree(ckpt)
+    return out, res
+
+
+def _free():
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _quant_gemm_table(gen):
+    """The 1-byte GEMMs alone at M = 8192 against llama3_8b's (K, N): bf16
+    ``torch.matmul``, ``_int_mm`` and ``_scaled_mm`` on quantized operands,
+    the whole quantized forward (passes = whole - GEMM), and each GEMM
+    against its plain version on the card (the exact float64 product of
+    the same 1-byte values): int8 bitwise, fp8 within
+    ``FP8_GEMM_REL_TOL``; control: a plain version fed one flipped
+    quantized value fails the same check."""
+    import torch
+
+    from fms_fsdp_tpu_torch.ops import quant
+
+    one = torch.ones((), dtype=torch.float32, device="cuda")
+    rows, problems = [], []
+    m = QUANT_GEMM_M
+    for k, n in QUANT_GEMM_SHAPES:
+        x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+        w = (0.02 * torch.randn(k, n, generator=gen, device="cuda")).bfloat16()
+        qx, sx = quant._quant(x, torch.int8)
+        qwt = quant._quant(w.t(), torch.int8)[0].contiguous()
+        fx, _ = quant._quant(x, quant.FP8_E4M3)
+        fwt = quant._quant(w.t(), quant.FP8_E4M3)[0].contiguous()
+
+        def int_mm(a=qx):
+            return torch._int_mm(a, qwt.t())
+
+        def fp8_mm(a=fx):
+            return torch._scaled_mm(a, fwt.t(), scale_a=one, scale_b=one,
+                                    out_dtype=torch.float32, use_fast_accum=False)
+
+        row = {"m": m, "k": k, "n": n,
+               "bf16_ms": _timed_ms(lambda i: x @ w, budget_ms=100),
+               "int_mm_ms": _timed_ms(lambda i: int_mm(), budget_ms=100),
+               "scaled_mm_ms": _timed_ms(lambda i: fp8_mm(), budget_ms=100),
+               "int8_forward_ms": _timed_ms(lambda i: quant.int8_matmul_raw(x, w), budget_ms=100),
+               "fp8_forward_ms": _timed_ms(lambda i: quant.fp8_matmul_raw(x, w), budget_ms=100)}
+        row["int8_passes_ms"] = row["int8_forward_ms"] - row["int_mm_ms"]
+        row["fp8_passes_ms"] = row["fp8_forward_ms"] - row["scaled_mm_ms"]
+        row["bound_ms"] = {
+            "bf16": max(2 * m * k * n / PEAK_OPS["bf16"], (2 * (m * k + k * n + m * n)) / HBM_BYTES_PER_S) * 1e3,
+            "int8": max(2 * m * k * n / PEAK_OPS["int8"], (m * k + k * n + 4 * m * n) / HBM_BYTES_PER_S) * 1e3,
+            "fp8": max(2 * m * k * n / PEAK_OPS["fp8"], (m * k + k * n + 4 * m * n) / HBM_BYTES_PER_S) * 1e3}
+
+        def int_err(a):
+            plain = (a.double() @ qwt.double().t()).round().to(torch.int32)
+            return int((int_mm() - plain).abs().max())
+
+        def fp8_rel(a):
+            plain = a.double() @ fwt.double().t()
+            return float((fp8_mm().double() - plain).abs().max() / plain.abs().max())
+
+        row["int_mm_max_abs_err"] = int_err(qx)
+        row["scaled_mm_max_rel_err"] = fp8_rel(fx)
+        # the dequantized int8 output against the plain one, bitwise
+        plain_acc = (qx.double() @ qwt.double().t()).round().to(torch.int32)
+        sw = quant._quant(w.t(), torch.int8)[1].t()
+        row["int8_dequant_bitwise"] = bool(torch.equal(
+            (int_mm().float() * sx * sw).bfloat16(), (plain_acc.float() * sx * sw).bfloat16()))
+        # control: one quantized value flipped in the plain version's input
+        bad_q = qx.clone()
+        bad_q[0, int(qx[0].abs().argmax())] *= -1
+        bad_f = fx.clone()
+        bad_f.view(torch.uint8)[0, int(fx[0].float().abs().argmax())] ^= 0x80  # the sign bit
+        row["control_int_mm_max_abs_err"] = int_err(bad_q)
+        row["control_scaled_mm_max_rel_err"] = fp8_rel(bad_f)
+        rows.append(row)
+        if row["int_mm_max_abs_err"] or not row["int8_dequant_bitwise"]:
+            problems.append(f"_int_mm at {(m, k, n)} is not its plain version bitwise")
+        if not row["scaled_mm_max_rel_err"] <= FP8_GEMM_REL_TOL:
+            problems.append(f"_scaled_mm at {(m, k, n)}: {row['scaled_mm_max_rel_err']}")
+        if not row["control_int_mm_max_abs_err"] or not (
+                row["control_scaled_mm_max_rel_err"] > FP8_GEMM_REL_TOL):
+            problems.append(f"the flipped-value control passed at {(m, k, n)}")
+        del x, w, qx, qwt, fx, fwt, bad_q, bad_f
+        _free()
+    return rows, problems
+
+
+def _quant_llama(state, problems):
+    """bf16 and the four GEMM modes on the same seeded init and batches."""
+    from fms_fsdp_tpu_torch.main_training_llama import main
+
+    runs = {}
+    for mode in ("none",) + QUANT_MODES:
+        runs[mode], res = _quant_run(f"llama-{mode}", main,
+                                     dict(QUANT_LLAMA_KW, quantized_matmuls=mode), profile=True)
+        model_cfg, cfg = res["model_cfg"], res["cfg"]
+        del res
+        _free()
+    n, remat = model_cfg.nlayers, _n_remat(model_cfg, cfg)
+    base = runs["none"]
+    for mode, r in runs.items():
+        steps = r["steps"]
+        want = {"fwd": 7 * (n + remat) * steps if mode != "none" else 0,
+                "dgrad": 7 * n * steps if mode.endswith("_dgrad") else 0}
+        r["expected_gemms"] = want
+        r["first_loss_rel_to_bf16"] = abs(r["losses"][0] - base["losses"][0]) / abs(base["losses"][0])
+        r["tokens_per_s_vs_bf16"] = r["tokens_per_card_per_s"] / base["tokens_per_card_per_s"]
+        if not all(math.isfinite(x) for x in r["losses"]):
+            problems.append(f"llama {mode}: non-finite loss {r['losses']}")
+        if r["first_loss_rel_to_bf16"] > QUANT_LOSS_REL_TOL:
+            problems.append(f"llama {mode}: first loss {r['first_loss_rel_to_bf16']} from bf16's")
+        if r["gemms"] != want:
+            problems.append(f"llama {mode}: 1-byte GEMMs {r['gemms']} != {want}")
+        flash = {k: v for k, v in r["launches"].items() if k != "ssd_fused"}
+        if flash != {k: v for k, v in base["launches"].items() if k != "ssd_fused"}:
+            problems.append(f"llama {mode}: flash launches {flash} differ from bf16's")
+    return runs
+
+
+def _quant_reduce(state, problems):
+    """The three reduce wires at the Llama shape, GEMMs unquantized; under
+    fp8_delayed each step's row 0 against the leaf amax taken on the side
+    from the raw reduced gradients, then the injected non-finite step with
+    the guard (rows unchanged) and without it (rows rolled)."""
+    import torch
+
+    from fms_fsdp_tpu_torch.data.device_feed import DeviceFeed
+    from fms_fsdp_tpu_torch.data.loader import get_dummy_loader
+    from fms_fsdp_tpu_torch.main_training_llama import main
+    from fms_fsdp_tpu_torch.resilience.faults import configure_faults
+    from fms_fsdp_tpu_torch.train import step as step_mod
+
+    runs = {}
+    for mode in ("int8", "fp8", "fp8_delayed"):
+        side, heads = [], []
+        real = step_mod.quantized_grad_reduce
+
+        def spy(grads, wire, quant_state, leaves, dp=None):
+            amax = {}
+            for g, leaf in zip(grads, leaves):
+                a = g.detach().float().abs().max()
+                amax[leaf.key] = a if leaf.key not in amax else torch.maximum(amax[leaf.key], a)
+            side.append({k: float(v) for k, v in amax.items()})
+            return real(grads, wire, quant_state, leaves, dp)
+
+        def watch(st, m):
+            if "quant" in st:
+                heads.append({k: float(v[0]) for k, v in st["quant"]["amax_history"].items()})
+
+        step_mod.quantized_grad_reduce = spy
+        try:
+            runs[mode], res = _quant_run(f"reduce-{mode}", main,
+                                         dict(QUANT_LLAMA_KW, num_steps=3, quantized_reduce=mode),
+                                         watch=watch)
+        finally:
+            step_mod.quantized_grad_reduce = real
+        r = runs[mode]
+        if not all(math.isfinite(x) for x in r["losses"]):
+            problems.append(f"reduce {mode}: non-finite loss {r['losses']}")
+        if len(side) != r["steps"]:
+            problems.append(f"reduce {mode}: the wire ran {len(side)} times in {r['steps']} steps")
+        if mode == "fp8_delayed":
+            r["amax_rows"] = len(heads[0])
+            r["row0_equals_side_amax"] = heads == side
+            if heads != side:
+                problems.append("fp8_delayed: a history's row 0 is not that step's leaf amax")
+            st, cfg = res["state"], res["cfg"]
+            batch = next(iter(DeviceFeed(get_dummy_loader(cfg, 0, 1), "cuda")))
+            before = {k: v.clone() for k, v in st["quant"]["amax_history"].items()}
+            guard = {}
+            for name, c in (("guarded", cfg),
+                            ("unguarded", dataclasses.replace(cfg, anomaly_skip_updates=False))):
+                configure_faults(f"nan_loss:step={st['step']}:count=1")
+                try:
+                    m = step_mod.make_train_step(res["model_cfg"], c)(st, batch)
+                finally:
+                    configure_faults("")
+                rows_now = st["quant"]["amax_history"]
+                guard[name] = {
+                    "nonfinite": m["nonfinite"],
+                    "rows_unchanged": all(torch.equal(rows_now[k], v) for k, v in before.items()),
+                    "rows_rolled": all(bool(torch.isnan(rows_now[k][0]))
+                                       and torch.equal(rows_now[k][1:], v[:-1])
+                                       for k, v in before.items())}
+                if name == "guarded":
+                    before = {k: v.clone() for k, v in rows_now.items()}
+            r["poisoned_step"] = guard
+            if not (guard["guarded"]["nonfinite"] == 1.0 and guard["guarded"]["rows_unchanged"]):
+                problems.append(f"fp8_delayed: the guarded poisoned step moved the rows {guard}")
+            if not (guard["unguarded"]["nonfinite"] == 1.0 and guard["unguarded"]["rows_rolled"]):
+                problems.append(f"fp8_delayed control: the unguarded step did not roll {guard}")
+            del st, batch, before
+        del res
+        _free()
+    return runs
+
+
+def _quant_mamba(state, problems):
+    """mamba_9.8b at full width, 3 layers (attention at 1), bf16 then
+    fp8_dgrad: the same SSD and flash launches, the GEMMs of every
+    projection quantized."""
+    from fms_fsdp_tpu_torch.main_training_mamba import main
+
+    runs = {}
+    for mode in ("none", "fp8_dgrad"):
+        runs[mode], res = _quant_run(f"mamba-{mode}", main,
+                                     dict(QUANT_MAMBA_KW, quantized_matmuls=mode))
+        model_cfg, cfg = res["model_cfg"], res["cfg"]
+        del res
+        _free()
+    mask = _remat_mask(model_cfg, cfg)
+    attn = set(model_cfg.attn_layer_idx)
+    # in_proj and out_proj a Mamba layer, wq/wk/wv/wo an attention layer,
+    # w1/w3/w2 every layer's MLP
+    per_layer = [(4 if i in attn else 2) + 3 for i in range(model_cfg.n_layer)]
+    steps = runs["fp8_dgrad"]["steps"]
+    want = {"fwd": steps * sum(g * (1 + int(r)) for g, r in zip(per_layer, mask)),
+            "dgrad": steps * sum(per_layer)}
+    r = runs["fp8_dgrad"]
+    r["expected_gemms"] = want
+    r["first_loss_rel_to_bf16"] = abs(r["losses"][0] - runs["none"]["losses"][0]) / abs(
+        runs["none"]["losses"][0])
+    r["tokens_per_s_vs_bf16"] = r["tokens_per_card_per_s"] / runs["none"]["tokens_per_card_per_s"]
+    if r["launches"] != runs["none"]["launches"] or not r["launches"]["ssd_fused"]:
+        problems.append(f"mamba fp8_dgrad launches {r['launches']} != bf16's "
+                        f"{runs['none']['launches']}")
+    if r["gemms"] != want:
+        problems.append(f"mamba fp8_dgrad 1-byte GEMMs {r['gemms']} != {want}")
+    if not all(math.isfinite(x) for x in r["losses"]) or (
+            r["first_loss_rel_to_bf16"] > QUANT_LOSS_REL_TOL):
+        problems.append(f"mamba fp8_dgrad losses {r['losses']} vs bf16 {runs['none']['losses']}")
+    return runs
+
+
+def _quant_mixtral(state, problems):
+    """mixtral_8x7b at full width, 1 layer: bf16, fp8_dgrad and int8; the
+    expert GEMMs one 2-D call an expert."""
+    from fms_fsdp_tpu_torch.main_training_mixtral import main
+
+    runs = {}
+    for mode in ("none", "fp8_dgrad", "int8"):
+        runs[mode], res = _quant_run(f"mixtral-{mode}", main,
+                                     dict(QUANT_MIXTRAL_KW, quantized_matmuls=mode))
+        model_cfg, cfg = res["model_cfg"], res["cfg"]
+        del res
+        _free()
+    n, remat = model_cfg.nlayers, _n_remat(model_cfg, cfg)
+    experts = 3 * model_cfg.num_experts  # w1, w3, w2 per expert
+    for mode in ("fp8_dgrad", "int8"):
+        r = runs[mode]
+        steps = r["steps"]
+        want = {"fwd": steps * (4 + experts) * (n + remat),
+                "dgrad": steps * (4 + experts) * n if mode.endswith("_dgrad") else 0}
+        r["expected_gemms"] = want
+        r["expert_gemms_per_step_fwd"] = (r["gemms"]["fwd"] / steps / (n + remat)) - 4
+        r["first_loss_rel_to_bf16"] = abs(r["losses"][0] - runs["none"]["losses"][0]) / abs(
+            runs["none"]["losses"][0])
+        r["tokens_per_s_vs_bf16"] = (r["tokens_per_card_per_s"]
+                                     / runs["none"]["tokens_per_card_per_s"])
+        r["moe_drop_frac_bf16"] = runs["none"]["moe_drop_frac"]
+        if r["gemms"] != want:
+            problems.append(f"mixtral {mode}: 1-byte GEMMs {r['gemms']} != {want}")
+        if not all(math.isfinite(x) for x in r["losses"]) or (
+                r["first_loss_rel_to_bf16"] > QUANT_LOSS_REL_TOL):
+            problems.append(f"mixtral {mode} losses {r['losses']} vs bf16 "
+                            f"{runs['none']['losses']}")
+    return runs
+
+
+def phase_train_quant(state):
+    """Quantized training (see the module docstring)."""
+    import torch
+
+    problems = []
+    t0 = time.perf_counter()
+    result = {"nvidia_smi": state["smi"]}
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    result["gemm_table"], more = _quant_gemm_table(gen)
+    problems += more
+    result["llama"] = _quant_llama(state, problems)
+    result["reduce"] = _quant_reduce(state, problems)
+    result["mamba"] = _quant_mamba(state, problems)
+    result["mixtral"] = _quant_mixtral(state, problems)
+    # the repo's kernels under the quantized GEMMs: every quantized run's
+    # launches together (the bf16 and reduce-only runs left out)
+    result["launches"] = {}
+    for fam in ("llama", "mamba", "mixtral"):
+        for mode, r in result[fam].items():
+            if mode != "none":
+                for k, v in r["launches"].items():
+                    result["launches"][k] = result["launches"].get(k, 0) + v
+    result["seconds"] = time.perf_counter() - t0
+    emit("train-quant", **result)
+    state["train-quant"] = result
+    if problems:
+        raise AssertionError("train-quant: " + "; ".join(problems))
+
+
 def kernels_line(state):
     k, s, s8 = state["kernels"], state["serve"], state["serve-int8"]
     entries = []
@@ -4760,12 +5239,17 @@ def kernels_line(state):
         }
         if contract in ("fwd", "dq", "dkv"):
             # the same contracts on the Mixtral training path, counted on
-            # its own run
+            # its own run, and under the quantized GEMMs (train-quant's
+            # quantized runs of the three trainers together)
             entry["launches_train_mixtral"] = state["train-mixtral"]["launches"][contract]
+            entry["launches_train_quant"] = state["train-quant"]["launches"][contract]
         if contract == "fwd":
             # the frozen base forward of the speculator's stage 1, and
             # eval_ppl's forwards (Llama and the Mamba hybrid's attention)
             entry["launches_train_speculator"] = state["train-speculator"]["launches"]["fwd"]
+            entry["launches_train_speculator_int8"] = (
+                state["train-speculator"]["int8_base"]["flash_fwd_per_step"]
+                * len(state["train-speculator"]["int8_base"]["per_step"]))
             entry["launches_hf_eval"] = state["hf-eval"]["launches"]["fwd"]
         if kernel != "fwd":
             # SDPA's one backward call computes dq, dk and dv together: set
@@ -4779,8 +5263,9 @@ def kernels_line(state):
         "source": r["source"],
         "replaces": REPLACES["ssd_fused"],
         "launches": state["train-mamba"]["launches"]["ssd_fused"],
-        # eval_ppl on the Mamba hybrid
+        # eval_ppl on the Mamba hybrid; the fp8_dgrad Mamba trainer
         "launches_hf_eval": state["hf-eval"]["launches"]["ssd_fused"],
+        "launches_train_quant": state["train-quant"]["launches"]["ssd_fused"],
         "max_abs_err": r["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         # no single PyTorch call computes the chunked scan
@@ -4823,6 +5308,7 @@ def main(argv=None) -> int:
         "ssd": phase_ssd, "train-mamba": phase_train_mamba,
         "serve-mamba": phase_serve_mamba,
         "train-mixtral": phase_train_mixtral, "serve-mixtral": phase_serve_mixtral,
+        "train-quant": phase_train_quant,
     }
     if "device" not in phases:
         phases.insert(0, "device")

@@ -12,7 +12,10 @@ A whole train state crosses the same way, keyed by JAX's tree paths:
 ``train_state_from_numpy`` takes JAX's ``{"params", "opt_state",
 "step"}`` made numpy and gives a port train state that continues it
 (params, Adam's moments and count, and the step);
-``train_state_to_numpy`` is the inverse. A speculator's state
+``train_state_to_numpy`` is the inverse. JAX's ``state["quant"]`` (the
+fp8_delayed amax rows, ``quant.amax_history.g.layers.wq``) crosses both
+ways with it, into a state made for ``quantized_reduce="fp8_delayed"``.
+A speculator's state
 (``train/speculator.py``: its params are lists under ``emb``, ``proj``,
 ``ln_w``, ``ln_b`` and ``head``) crosses the same way, with
 ``state_fn=speculator_state``.

@@ -15,7 +15,12 @@ JAX train state ``{"params", "opt_state", "step"}`` with optax's
   also injects ``eps`` and ``eps_root``);
 - ``opt_state.inner_state.0.{mu,nu}.<path>``: Adam's moments in the
   params' layout;
-- ``step``: the trainer's step (int32 scalar).
+- ``step``: the trainer's step (int32 scalar);
+- ``quant.amax_history.<key>``: under ``quantized_reduce="fp8_delayed"``
+  the (H,) fp32 amax rows, keyed by JAX's flat leaf names
+  (``g.layers.wq``), which hold dots themselves, so :func:`unflatten`
+  cannot rebuild them: a load reads every key in place into the live
+  tensors of :func:`checkpoint_state`, the rows among them.
 
 The moments are the stacked tensors of ``state["moments"]``, whose
 per-layer views are the optimizer's ``exp_avg`` / ``exp_avg_sq``, so a
@@ -93,6 +98,8 @@ def checkpoint_state(state: Dict) -> Dict[str, torch.Tensor]:
     for name in ("mu", "nu"):
         flatten(f"opt_state.inner_state.0.{name}", state["moments"][name], flat)
     flat["step"] = torch.tensor(int(state["step"]), dtype=torch.int32)
+    if state.get("quant") is not None:
+        flatten("quant", state["quant"], flat)
     return flat
 
 

@@ -14,7 +14,9 @@ so ``bridge.py`` moves JAX weights in and out without a transpose.
 ``fms_fsdp_tpu/models/llama.py:178``: RMSNorm, rotary, GQA attention
 through ``ops/attention.py::attention`` (the flash kernels on the card),
 SwiGLU, untied lm_head, with selective activation checkpointing by
-``torch.utils.checkpoint``. ``params["layers"]`` may also be a sequence of
+``torch.utils.checkpoint``. ``quant`` routes wq, wk, wv, wo, w1, w3 and w2
+through ``ops/quant.py::matmul`` (int8 / fp8); the lm_head stays 16-bit,
+as in JAX. ``params["layers"]`` may also be a sequence of
 per-layer dicts (the train step differentiates such per-layer leaves, so
 no gradient is scattered into a stacked tensor); a data-parallel step
 passes one that gathers a layer's weights when it is indexed
@@ -35,6 +37,7 @@ from fms_fsdp_tpu_torch.models.configs import LlamaConfig
 from fms_fsdp_tpu_torch.obs.scopes import scoped
 from fms_fsdp_tpu_torch.ops.attention import attention
 from fms_fsdp_tpu_torch.ops.norms import rms_norm
+from fms_fsdp_tpu_torch.ops.quant import matmul as qmatmul
 from fms_fsdp_tpu_torch.ops.rope import apply_rotary, rope_table
 from fms_fsdp_tpu_torch.utils.tree import tree_map
 
@@ -97,11 +100,8 @@ def init_llama_params(
 
 
 def _linear(x, w, quant):
-    if quant != "none":
-        raise NotImplementedError(
-            f"quantized_matmuls={quant!r} is not ported yet: ROADMAP.md A.7"
-        )
-    return x @ w
+    """x @ w, or its int8 / fp8 form (``ops/quant.py::matmul``)."""
+    return qmatmul(x, w, quant=quant)
 
 
 @scoped("attn")

@@ -37,6 +37,8 @@ from fms_fsdp_tpu_torch.obs.scopes import scoped
 from fms_fsdp_tpu_torch.ops.attention import attention
 from fms_fsdp_tpu_torch.ops.norms import rms_norm
 from fms_fsdp_tpu_torch.ops.paged_attention import gather_pages, gqa_attend
+from fms_fsdp_tpu_torch.ops.quant import check_quant_mode
+from fms_fsdp_tpu_torch.ops.quant import matmul as qmatmul
 from fms_fsdp_tpu_torch.ops.rope import apply_rotary, rope_table
 from fms_fsdp_tpu_torch.ops.ssd import causal_conv1d, ssd_scan
 from fms_fsdp_tpu_torch.utils.tree import tree_map
@@ -143,13 +145,13 @@ def init_mamba_params(generator: torch.Generator, cfg: MambaConfig,
 
 
 @scoped("mamba_mixer")
-def _mamba_mixer(x, p: Params, cfg: MambaConfig, kernel="auto"):
+def _mamba_mixer(x, p: Params, cfg: MambaConfig, kernel="auto", quant="none"):
     """x (B, S, D) compute dtype -> (B, S, D)."""
     B, S, _ = x.shape
     H, Pd, G, N = cfg.nheads, cfg.headdim, cfg.ngroups, cfg.d_state
     d_inner = cfg.d_inner
 
-    zxbcdt = x @ p["in_proj"]
+    zxbcdt = qmatmul(x, p["in_proj"], quant=quant)
     z = zxbcdt[..., :d_inner]
     xBC = zxbcdt[..., d_inner : d_inner + _conv_dim(cfg)]
     dt_raw = zxbcdt[..., d_inner + _conv_dim(cfg) :]  # (B, S, H)
@@ -167,7 +169,7 @@ def _mamba_mixer(x, p: Params, cfg: MambaConfig, kernel="auto"):
 
     # gated RMSNorm: norm(y * silu(z)) (mamba2 norm_before_gate=False)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"]
+    return qmatmul(y, p["out_proj"], quant=quant)
 
 
 def _partial_rotary(q, k, a, cos, sin, positions=None):
@@ -183,34 +185,35 @@ def _partial_rotary(q, k, a, cos, sin, positions=None):
 
 
 @scoped("attn_mixer")
-def _attn_mixer(x, p: Params, cfg: MambaConfig, cos, sin, attn_impl):
+def _attn_mixer(x, p: Params, cfg: MambaConfig, cos, sin, attn_impl, quant="none"):
     B, S, _ = x.shape
     a = cfg.attn_cfg
     hd = a.head_dim
-    q = (x @ p["wq"]).reshape(B, S, a.num_heads, hd)
-    k = (x @ p["wk"]).reshape(B, S, a.num_heads_kv, hd)
-    v = (x @ p["wv"]).reshape(B, S, a.num_heads_kv, hd)
+    q = qmatmul(x, p["wq"], quant=quant).reshape(B, S, a.num_heads, hd)
+    k = qmatmul(x, p["wk"], quant=quant).reshape(B, S, a.num_heads_kv, hd)
+    v = qmatmul(x, p["wv"], quant=quant).reshape(B, S, a.num_heads_kv, hd)
     q, k = _partial_rotary(q, k, a, cos, sin)
     o = attention(q, k, v, causal=a.causal, impl=attn_impl)
-    return o.reshape(B, S, a.num_heads * hd) @ p["wo"]
+    return qmatmul(o.reshape(B, S, a.num_heads * hd), p["wo"], quant=quant)
 
 
 @scoped("mlp")
-def _mlp(x, p: Params):
-    return (F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
+def _mlp(x, p: Params, quant="none"):
+    gate = F.silu(qmatmul(x, p["w1"], quant=quant))
+    return qmatmul(gate * qmatmul(x, p["w3"], quant=quant), p["w2"], quant=quant)
 
 
 def _block(residual, layer, *, cfg, is_attn, cos, sin, attn_impl, mamba_kernel,
-           compute_dtype):
+           compute_dtype, quant="none"):
     h = rms_norm(residual.to(compute_dtype), layer["norm"], cfg.norm_eps)
     if is_attn:
-        out = _attn_mixer(h, layer["mixer"], cfg, cos, sin, attn_impl)
+        out = _attn_mixer(h, layer["mixer"], cfg, cos, sin, attn_impl, quant)
     else:
-        out = _mamba_mixer(h, layer["mixer"], cfg, kernel=mamba_kernel)
+        out = _mamba_mixer(h, layer["mixer"], cfg, kernel=mamba_kernel, quant=quant)
     residual = residual + out.float()
     if "mlp" in layer:
         h = rms_norm(residual.to(compute_dtype), layer["norm2"], cfg.norm_eps)
-        residual = residual + _mlp(h, layer["mlp"]).float()
+        residual = residual + _mlp(h, layer["mlp"], quant).float()
     return residual
 
 
@@ -239,10 +242,7 @@ def mamba_forward(
     (non-reentrant), so their forward, the SSD kernel included, runs a
     second time in the backward."""
     del scan_layers
-    if quant != "none":
-        raise NotImplementedError(
-            f"quantized_matmuls={quant!r} is not ported yet: ROADMAP.md A.7"
-        )
+    check_quant_mode(quant)
     params = tree_map(lambda w: w.to(compute_dtype), params)
     n_layer = len(params["layers"])
     ac_mask = ac_mask if ac_mask is not None else [False] * n_layer
@@ -263,6 +263,7 @@ def mamba_forward(
             _indexed_block, layers=layers, i=i, cfg=cfg,
             is_attn=i in cfg.attn_layer_idx, cos=cos, sin=sin,
             attn_impl=attn_impl, mamba_kernel=mamba_kernel, compute_dtype=compute_dtype,
+            quant=quant,
         )
         if ac_mask[i]:
             residual = checkpoint(fn, residual, use_reentrant=False)

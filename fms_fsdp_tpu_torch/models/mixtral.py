@@ -56,6 +56,7 @@ from fms_fsdp_tpu_torch.obs.scopes import scoped
 from fms_fsdp_tpu_torch.ops.attention import xla_attention
 from fms_fsdp_tpu_torch.ops.norms import rms_norm
 from fms_fsdp_tpu_torch.ops.paged_attention import gather_pages, gqa_attend
+from fms_fsdp_tpu_torch.ops.quant import check_quant_mode, expert_matmul
 from fms_fsdp_tpu_torch.ops.rope import apply_rotary, rope_table
 from fms_fsdp_tpu_torch.utils.tree import tree_map
 
@@ -198,13 +199,6 @@ def _priority_slots(top_idx, E: int, C: int):
 # ---------------------------------------------------------------------------
 
 
-def _check_quant(quant: str) -> None:
-    if quant != "none":
-        raise NotImplementedError(
-            f"quantized_matmuls={quant!r} is not ported yet: ROADMAP.md A.7"
-        )
-
-
 @scoped("moe_dense")
 def _moe_ffn_dense(h, lp, cfg: MixtralConfig):
     """Every expert computes every token. h (B, S, d)."""
@@ -219,13 +213,15 @@ def _moe_ffn_dense(h, lp, cfg: MixtralConfig):
 
 
 @scoped("expert_ffn")
-def _expert_ffn(xd, lp):
+def _expert_ffn(xd, lp, quant: str = "none"):
     """Each expert's SwiGLU over its E-major (E, B, C, d) buffer, as
-    batched GEMMs."""
+    batched GEMMs over (E, B*C, d), or their int8 / fp8 forms
+    (``ops/quant.py::expert_matmul``)."""
     E, B, C, D = xd.shape
     x = xd.reshape(E, B * C, D)
-    hidden = F.silu(torch.bmm(x, lp["w1"])) * torch.bmm(x, lp["w3"])
-    return torch.bmm(hidden, lp["w2"]).reshape(E, B, C, D)
+    hidden = (F.silu(expert_matmul(x, lp["w1"], quant=quant))
+              * expert_matmul(x, lp["w3"], quant=quant))
+    return expert_matmul(hidden, lp["w2"], quant=quant).reshape(E, B, C, D)
 
 
 def _fill_expert_buffer(h, top_idx, slot, keep, C: int, E: int):
@@ -256,7 +252,7 @@ def _combine_from_buffer(out_e, dest, top_w, S: int):
 
 
 @scoped("moe_dispatch")
-def _moe_ffn_dispatch(h, lp, cfg: MixtralConfig):
+def _moe_ffn_dispatch(h, lp, cfg: MixtralConfig, quant: str = "none"):
     """Capacity dispatch by scatter/gather (the training path)."""
     B, S, D = h.shape
     E = cfg.num_experts
@@ -264,12 +260,12 @@ def _moe_ffn_dispatch(h, lp, cfg: MixtralConfig):
     top_idx, top_w, probs = _router(h, lp["gate"], cfg)
     slot, keep = _priority_slots(top_idx, E, C)
     dest, xd = _fill_expert_buffer(h, top_idx, slot, keep, C, E)
-    out_e = _expert_ffn(xd, lp)
+    out_e = _expert_ffn(xd, lp, quant)
     y = _combine_from_buffer(out_e, dest, top_w, S)
     return y, _route(top_idx, probs, keep, E)
 
 
-def _moe_ffn_dispatch_einsum(h, lp, cfg: MixtralConfig):
+def _moe_ffn_dispatch_einsum(h, lp, cfg: MixtralConfig, quant: str = "none"):
     """The same routing as (B, S, E, C) one-hot einsums: the oracle of
     :func:`_moe_ffn_dispatch`."""
     B, S, D = h.shape
@@ -287,7 +283,7 @@ def _moe_ffn_dispatch_einsum(h, lp, cfg: MixtralConfig):
         dispatch = dispatch + d_k
         combine = combine + d_k * top_w[:, :, k, None, None].to(h.dtype)
     xd = torch.einsum("bsec,bsd->ebcd", dispatch, h)
-    out_e = _expert_ffn(xd, lp)
+    out_e = _expert_ffn(xd, lp, quant)
     y = torch.einsum("bsec,ebcd->bsd", combine, out_e)
     return y, _route(top_idx, probs, keep, E)
 
@@ -308,7 +304,10 @@ def _mixtral_block(x, layer: Dict, cfg: MixtralConfig, cos, sin, *, attn_impl: s
     x = attention_block(x, layer, cfg, cos, sin, attn_impl=attn_impl, quant=quant)
     with record_function("moe"):
         h = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
-        y, route = _MOE_FFN[moe_impl](h, layer, cfg)
+        if moe_impl == "dense":  # unquantized, as JAX's
+            y, route = _moe_ffn_dense(h, layer, cfg)
+        else:
+            y, route = _MOE_FFN[moe_impl](h, layer, cfg, quant)
     return x + y, route
 
 
@@ -346,7 +345,7 @@ def mixtral_forward(
     del scan_layers
     if moe_impl not in MOE_IMPLS:
         raise ValueError(f"unknown moe_impl {moe_impl!r}: expected one of {MOE_IMPLS}")
-    _check_quant(quant)
+    check_quant_mode(quant)
     nlayers = n_layers_of(params)
     params = tree_map(lambda w: w.to(compute_dtype), params)
     with record_function("embed"):

@@ -40,6 +40,7 @@ import torch
 from torch.profiler import record_function
 
 from fms_fsdp_tpu_torch.obs.scopes import scoped
+from fms_fsdp_tpu_torch.ops.quant import activation_roundtrip
 
 LOG2E = 1.4426950408889634  # log2(e)
 LN2 = 0.6931471805599453
@@ -510,16 +511,38 @@ class _FlashAttention(torch.autograd.Function):
             return dq, dk.to(k.dtype), dv.to(v.dtype), None, None
 
 
+class _WireSTE(torch.autograd.Function):
+    """One attention operand through the quantized family's wire
+    (``ops/quant.py::activation_roundtrip``) with a straight-through
+    gradient: the round trip is piecewise constant, so the identity
+    cotangent keeps the backward exactly the unquantized kernels'."""
+
+    @staticmethod
+    def forward(ctx, x, wire):
+        return activation_roundtrip(x, wire)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 @scoped("flash_attention_fwd")
 def flash_attention(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
-                    return_lse: bool = False):
+                    return_lse: bool = False, quant: Optional[str] = None):
     """q (B, Sq, Nq, H); k/v (B, Sk, Nkv, H) -> o (B, Sq, Nq, H).
 
     With ``return_lse`` also the per-query logsumexp (B, Sq, Nq, 1) fp32,
-    a differentiable output as in JAX.
+    a differentiable output as in JAX. ``quant`` ("int8" / "fp8") selects
+    the quantized family: q and k go through the operand wire (per-row
+    absmax over the head dim, straight-through gradients) before the
+    kernels, as JAX's simulated quantized kernels; None (or "none")
+    leaves every call as it was.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if quant not in (None, "none"):
+        q = _WireSTE.apply(q, quant)
+        k = _WireSTE.apply(k, quant)
     o, lse = _FlashAttention.apply(
         q.contiguous(), k.contiguous(), v.contiguous(), causal, float(scale),
     )

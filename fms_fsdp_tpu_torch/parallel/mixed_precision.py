@@ -12,11 +12,14 @@ dtypes. The presets of the reference's FSDP ``MixedPrecision``
 - ``fp32_policy``: everything fp32.
 
 ``reduce_dtype`` is recorded for parity; on one card there is no
-cross-device reduction. ``reduce_quant`` other than "none" is the
-quantized gradient reduce, not ported yet (ROADMAP.md A.7).
+cross-device reduction. ``reduce_quant`` rides on whichever preset is
+chosen: "none" (exact), "int8" / "fp8" (dynamic per-row scales) or
+"fp8_delayed" (a per-leaf scale from the amax history in
+``state["quant"]``): the gradient wire of
+``parallel/sharding.py::quantized_grad_reduce``.
 """
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
@@ -28,6 +31,7 @@ class DtypePolicy:
     param_dtype: torch.dtype = torch.float32  # storage (and optimizer) dtype
     compute_dtype: torch.dtype = torch.bfloat16  # matmul / activation dtype
     reduce_dtype: torch.dtype = torch.bfloat16  # gradient reduction dtype
+    # the gradient wire below reduce_dtype
     reduce_quant: str = "none"
 
 
@@ -39,16 +43,15 @@ fp32_policy = DtypePolicy(torch.float32, torch.float32, torch.float32)
 
 def get_dtype_policy(cfg) -> DtypePolicy:
     """train config -> policy, as JAX: fp32 without ``mixed_precision``,
-    bfSixteen_working with ``pure_bf16``, else bfSixteen."""
+    bfSixteen_working with ``pure_bf16``, else bfSixteen; with
+    ``quantized_reduce`` as its ``reduce_quant``."""
     rq = getattr(cfg, "quantized_reduce", "none") or "none"
     if rq not in REDUCE_QUANT_MODES:
         raise ValueError(f"quantized_reduce={rq!r}: expected one of {REDUCE_QUANT_MODES}")
-    if rq != "none":
-        raise NotImplementedError(
-            f"quantized_reduce={rq!r} is not ported yet: ROADMAP.md A.7"
-        )
     if not getattr(cfg, "mixed_precision", True):
-        return fp32_policy
-    if getattr(cfg, "pure_bf16", False):
-        return bfSixteen_working
-    return bfSixteen
+        policy = fp32_policy
+    elif getattr(cfg, "pure_bf16", False):
+        policy = bfSixteen_working
+    else:
+        policy = bfSixteen
+    return policy if rq == "none" else replace(policy, reduce_quant=rq)

@@ -32,15 +32,16 @@ collectives by hand:
   all-reduced over the world. Every reduce is a SUM: each rank's loss is
   its summed token loss over the GLOBAL count of labels != -100.
 
-The quantized gradient reduce (``:226-307``) and the serving layout
-(``:309-405``) are not ported: ``quantized_reduce`` and ``serve_layout``
-stay refused where they are read (``parallel/mixed_precision.py``,
-``serve/engine.py``), naming ROADMAP.md A.7 and A.10.
+The quantized gradient reduce (``:215-292``): :func:`quant_leaf_key`,
+:func:`init_amax_state` and :func:`quantized_grad_reduce`, on the
+reduced gradients of the step's per-layer leaves. The serving layout
+(``:309-405``) is not ported: ``serve_layout`` stays refused in
+``serve/engine.py``, naming ROADMAP.md A.10.
 """
 
 import math
 import warnings
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -223,7 +224,9 @@ def infer_state_specs(state_paths, specs, params_subtree: str = "params") -> Dic
     for key in state_paths:
         keys = tuple(key.split("."))
         spec = None
-        if keys and keys[0] == params_subtree and keys[1:] in flat:
+        if keys[0] == "quant":
+            pass  # amax rows (``g.layers.wq``): replicated, never a param's
+        elif keys and keys[0] == params_subtree and keys[1:] in flat:
             spec = flat[keys[1:]]
         else:
             for i in range(len(keys)):
@@ -258,6 +261,120 @@ def param_key(key: str) -> str:
         if key.startswith(prefix):
             return "params." + key[len(prefix):]
     return key
+
+
+# ---------------------------------------------------------------------------
+# the quantized gradient reduce
+# ---------------------------------------------------------------------------
+
+
+def quant_leaf_key(path: Sequence) -> str:
+    """The flat "g."-prefixed name of one JAX gradient leaf, from its
+    path: ``g.layers.wq`` for Llama's and Mixtral's stacked (L, ...)
+    leaves, ``g.layers.3.mixer.in_proj`` for Mamba's list. The name holds
+    dots: a checkpoint keeps it whole under ``quant.amax_history.``, and
+    the rows are replicated (:func:`infer_state_specs` matches them to no
+    param)."""
+    return "g." + ".".join(str(p) for p in path)
+
+
+def init_amax_state(params, history_len: int) -> Dict:
+    """Fresh delayed-scaling state: one (H,) fp32 amax row per JAX leaf of
+    ``params`` (whole or this rank's parts), on the leaf's device, zeros,
+    newest at index 0 (the first step bootstraps from its own amax:
+    ``ops/quant.py::delayed_scale``)."""
+    return {"amax_history": {
+        quant_leaf_key(path): torch.zeros((int(history_len),), dtype=torch.float32,
+                                          device=leaf.device)
+        for path, leaf in _paths(params)}}
+
+
+class QuantLeaf(NamedTuple):
+    """One differentiated leaf as the reduce wire sees it: its JAX key,
+    the JAX leaf's rank (a stacked leaf's is its own plus one), and the
+    dim of this leaf split over fsdp (None when whole here)."""
+
+    key: str
+    ndim: int
+    split: Optional[int]
+
+
+def _all_max(values: List[torch.Tensor], group) -> List[torch.Tensor]:
+    """Elementwise max of each tensor over ``group``, in one all-reduce
+    (through fp32, which holds every bf16 and fp32 value exactly)."""
+    flat = torch.cat([v.reshape(-1).float() for v in values])
+    dist.all_reduce(flat, op=dist.ReduceOp.MAX, group=group)
+    out, off = [], 0
+    for v in values:
+        out.append(flat[off:off + v.numel()].view(v.shape).to(v.dtype))
+        off += v.numel()
+    return out
+
+
+def quantized_grad_reduce(grads: Sequence[torch.Tensor], mode: str, quant_state=None,
+                          leaves: Sequence[QuantLeaf] = (), dp=None):
+    """Round-trip each reduced gradient through the reduce wire: "int8" /
+    "fp8" (e5m2) with per-row scales (per tensor for a JAX vector leaf),
+    or "fp8_delayed" with one scale per JAX leaf from its amax history.
+    Returns (the round-tripped grads, the new quant state: the rolled
+    history under fp8_delayed, else ``quant_state``).
+
+    JAX's contract is one draw on the globally reduced gradient. The
+    leaves here are per layer and, under fsdp, this rank's parts:
+
+    - a stacked JAX leaf (``g.layers.wq``) takes its amax over its L layer
+      grads, and its one history row serves all of them; per-row scales
+      do not see the stacking;
+    - a row split over fsdp (a leaf split on its last dim: wo, w2,
+      out_proj, the embedding; or a vector split at all) takes the whole
+      row's amax, all-reduced (MAX) over the fsdp group of ``dp``; under
+      fp8_delayed every split leaf's amax is. ``dp=None`` keeps each
+      amax local."""
+    from fms_fsdp_tpu_torch.ops.quant import (
+        absmax,
+        delayed_scale,
+        leaf_amax,
+        roll_amax_history,
+        wire_dims,
+        wire_roundtrip,
+    )
+
+    group = dp.fsdp_group if dp is not None and dp.sharded else None
+    if mode in ("int8", "fp8"):
+        amaxes, need = [], []
+        for i, (g, leaf) in enumerate(zip(grads, leaves)):
+            dims = wire_dims(g, leaf.ndim)
+            amaxes.append(absmax(g, dims))
+            # a scale over a dim split across the fsdp group: the whole one's
+            spanned = (g.dim() - 1,) if dims == -1 else dims
+            if group is not None and leaf.split in spanned:
+                need.append(i)
+        if need:
+            for i, a in zip(need, _all_max([amaxes[i] for i in need], group)):
+                amaxes[i] = a
+        return [wire_roundtrip(g, mode, amax=a, ndim=leaf.ndim)
+                for g, a, leaf in zip(grads, amaxes, leaves)], quant_state
+    if mode != "fp8_delayed":
+        raise ValueError(f"unknown quantized_reduce mode: {mode!r}")
+    history = quant_state["amax_history"]
+    current: Dict[str, torch.Tensor] = {}
+    split_keys = set()
+    for g, leaf in zip(grads, leaves):
+        amax = leaf_amax(g)
+        current[leaf.key] = amax if leaf.key not in current else torch.maximum(
+            current[leaf.key], amax)
+        if group is not None and leaf.split is not None:
+            split_keys.add(leaf.key)
+    if split_keys:
+        keys = sorted(split_keys)
+        for key, a in zip(keys, _all_max([current[k] for k in keys], group)):
+            current[key] = a
+    scales = {key: delayed_scale(history[key], amax) for key, amax in current.items()}
+    out = [wire_roundtrip(g, "fp8_delayed", scale=scales[leaf.key])
+           for g, leaf in zip(grads, leaves)]
+    new_history = {key: roll_amax_history(row, current[key]) if key in current else row
+                   for key, row in history.items()}
+    return out, {"amax_history": new_history}
 
 
 # ---------------------------------------------------------------------------

@@ -86,16 +86,12 @@ def _drain_quant_ignored(registry) -> None:
 
 def _frozen_quant(cfg, arch: str) -> str:
     """The quantization the frozen base forward runs with: a Llama base
-    refuses a quantized request (the port has no quantized matmuls yet);
-    another arch warns, counts and runs unquantized, as JAX's does."""
+    runs the int8 / fp8 forward of ``ops/quant.py::matmul`` (no backward:
+    the base is frozen); another arch warns, counts and runs unquantized,
+    as JAX's does."""
     quant = getattr(cfg, "quantized_matmuls", "none") or "none"
-    if quant == "none":
+    if quant == "none" or arch == "llama":
         return quant
-    if arch == "llama":
-        raise NotImplementedError(
-            f"quantized_matmuls={quant!r} is not ported yet: ROADMAP.md A.7 "
-            f"(quantized training)"
-        )
     _note_quant_ignored(quant, arch)
     return "none"
 

@@ -45,7 +45,16 @@ term is formed once from the routing sums of the global batch
 (``DataParallel.sum_route``), as JAX forms it over the whole batch, and
 the loss counts it once.
 
-The DCN overlap and the quantized reduce belong to ROADMAP.md A.6b and A.7.
+Quantized training (``TrainConfig.quantized_matmuls``, the forward's
+``quant``; ``quantized_reduce``, the policy's ``reduce_quant``): the
+gradient norm is taken on the raw reduced gradients, then they go
+through the reduce wire (``parallel/sharding.py::quantized_grad_reduce``),
+then the clip, as JAX orders its step (``step.py:395-470``). Under
+``fp8_delayed`` the amax rows ride in ``state["quant"]``, replicated on
+every rank; a non-finite batch skipped by the guard leaves them as they
+were, and without the guard they roll as JAX's do.
+
+The DCN overlap belongs to ROADMAP.md A.6b.
 """
 
 import math
@@ -64,17 +73,22 @@ from fms_fsdp_tpu_torch.ops.fused_ce import (
     cross_entropy_loss,
     fused_linear_cross_entropy,
 )
+from fms_fsdp_tpu_torch.ops.quant import check_quant_mode
 from fms_fsdp_tpu_torch.parallel.ac import selective_ac_mask
 from fms_fsdp_tpu_torch.parallel.mixed_precision import get_dtype_policy
-from fms_fsdp_tpu_torch.parallel.sharding import DataParallel, GatheredLayers
+from fms_fsdp_tpu_torch.parallel.sharding import (
+    DataParallel,
+    GatheredLayers,
+    QuantLeaf,
+    init_amax_state,
+    quantized_grad_reduce,
+)
 from fms_fsdp_tpu_torch.resilience.faults import check_spec, fault_params
 from fms_fsdp_tpu_torch.utils.tree import tree_map
 
 # (TrainConfig field, is it set to something this port does not run yet,
 # the ROADMAP.md item that brings it)
 _UNPORTED_STEP = (
-    ("quantized_matmuls", lambda v: v != "none", "A.7 (quantized training)"),
-    ("quantized_reduce", lambda v: v != "none", "A.7 (quantized training)"),
     ("tensor_parallel_size", lambda v: v > 1, "A.6b (tensor parallelism)"),
     ("context_parallel_size", lambda v: v > 1, "A.8 (long context)"),
     ("expert_parallel_size", lambda v: v > 1, "A.4b (MoE expert parallelism)"),
@@ -92,6 +106,7 @@ def check_step_options(cfg) -> None:
             raise NotImplementedError(
                 f"{field}={value!r} is not ported yet: ROADMAP.md {item}"
             )
+    check_quant_mode(cfg.quantized_matmuls)
     if cfg.flash_kernel_variant not in VARIANTS:
         raise ValueError(
             f"flash_kernel_variant={cfg.flash_kernel_variant!r}: expected one "
@@ -204,10 +219,10 @@ def make_optimizer(params: Dict, cfg):
 
 
 def init_train_state(generator: torch.Generator, model_cfg, cfg, mesh=None) -> Dict:
-    """{params, optimizer, moments, step, dp}: params made on the
-    generator's device in the policy's param dtype (the same draws on
-    every rank: one seed) and placed on ``mesh`` (:func:`state_from_params`);
-    Adam moments zero, step 0."""
+    """{params, optimizer, moments, step, dp} (and ``quant`` under
+    fp8_delayed): params made on the generator's device in the policy's
+    param dtype (the same draws on every rank: one seed) and placed on
+    ``mesh`` (:func:`state_from_params`); Adam moments zero, step 0."""
     policy = get_dtype_policy(cfg)
     init_params, _, _ = get_model_api(model_cfg)
     params = init_params(generator, model_cfg, dtype=policy.param_dtype)
@@ -218,7 +233,10 @@ def state_from_params(params: Dict, cfg, mesh=None, model_cfg=None) -> Dict:
     """A train state over existing whole params (the tests start from
     JAX's). On a ``mesh`` of more than one process ``state["dp"]`` holds
     the run's ``DataParallel`` layout and the state keeps this rank's
-    parts of the leaves split over fsdp; else ``state["dp"]`` is None."""
+    parts of the leaves split over fsdp; else ``state["dp"]`` is None.
+    Under ``quantized_reduce="fp8_delayed"`` ``state["quant"]`` holds the
+    zero amax rows (``fp8_amax_history_len`` deep), one per JAX leaf, on
+    every rank."""
     dp = None
     if mesh is not None and mesh.size() > 1:
         from fms_fsdp_tpu_torch.ckpt.state import flatten, unflatten
@@ -226,8 +244,24 @@ def state_from_params(params: Dict, cfg, mesh=None, model_cfg=None) -> Dict:
         dp = DataParallel.for_params(mesh, params, model_cfg)
         params = unflatten(dp.shard(flatten("params", params, {})), "params")
     opt, moments = make_optimizer(params, cfg)
-    return {"params": params, "optimizer": opt, "moments": moments, "step": 0,
-            "dp": dp}
+    state = {"params": params, "optimizer": opt, "moments": moments, "step": 0,
+             "dp": dp}
+    if get_dtype_policy(cfg).reduce_quant == "fp8_delayed":
+        state["quant"] = init_amax_state(params, cfg.fp8_amax_history_len)
+    return state
+
+
+def quant_leaves(params: Dict, dp=None):
+    """The reduce wire's view of the step's differentiated leaves, in
+    :func:`_per_layer`'s order: each leaf's JAX key (``g.layers.wq``), the
+    JAX leaf's rank, and its local fsdp split dim."""
+
+    def leaf(w, key, stacked):
+        d = dp.dim_of(key) if dp is not None else None
+        return QuantLeaf("g." + key[len("params."):], w.dim() + int(stacked),
+                         None if d is None else d - int(stacked))
+
+    return _per_layer(params, leaf)[1]
 
 
 def _compute_copy(params: Dict, dtype, dp=None):
@@ -346,6 +380,20 @@ def make_train_step(model_cfg, cfg, start_step: int = 0):
             grads = tuple(g * float("nan") for g in grads)
         return loss, grads, split, stats
 
+    reduce_quant = policy.reduce_quant
+
+    def wire(state, grads):
+        """The reduced gradients through the reduce wire; the new amax rows
+        into the state."""
+        dp = state.get("dp")
+        with record_function("quant_reduce"):
+            grads, new_quant = quantized_grad_reduce(
+                grads, reduce_quant, state.get("quant"),
+                quant_leaves(state["params"], dp), dp)
+        if new_quant is not None:
+            state["quant"] = new_quant
+        return grads
+
     def train_step(state, batch):
         inputs, labels = batch
         loss, grads, split, stats = fwd_bwd(state, inputs, labels)
@@ -360,6 +408,8 @@ def make_train_step(model_cfg, cfg, start_step: int = 0):
         nonfinite = not bool(torch.isfinite(loss) & torch.isfinite(gnorm))
         lr = schedule(state["step"])
         if not (nonfinite and guard_updates):
+            if reduce_quant != "none":
+                grads = wire(state, grads)
             with record_function("optimizer"):
                 clip = torch.clamp(cfg.grad_clip_thresh / (gnorm + 1e-6), max=1.0)
                 opt = state["optimizer"]

@@ -1251,3 +1251,113 @@ def test_card_handoff_round_trip_and_defrag_bitwise(cuda_device, kv_quant):
     de.run()
     assert t_paged.LAUNCHES[key] == (de.decode_steps - steps) * _SMALL.nlayers
     assert all(r.state == "finished" for r in dreqs)
+
+
+# ---------------------------------------------------------------------------
+# quantized matmuls: cuBLASLt int8 / fp8 against their plain versions
+# ---------------------------------------------------------------------------
+
+# llama3_8b's GEMM widths (K, N), as chip_smoke.py's micro-table
+_QUANT_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+# e4m3 / e5m2 products on Hopper's tensor cores against the exact sum,
+# over the largest |product| (chip_smoke.FP8_GEMM_REL_TOL)
+_FP8_REL = 1e-3
+
+
+def _plain_gemm(a, b_t, kind):
+    """The 1-byte GEMM as a float64 product on the card: exact for int8,
+    exact up to float64 rounding for fp8."""
+    out = a.double() @ b_t.double().t()
+    return out.round().to(torch.int32) if a.dtype == torch.int8 else out.float()
+
+
+def _capturing(gemm, into):
+    def run(a, b_t, kind):
+        out = gemm(a, b_t, kind)
+        into.append(out)
+        return out
+
+    return run
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("mode", ["int8", "fp8", "fp8_dgrad"])
+@pytest.mark.parametrize("k,n", _QUANT_SHAPES)
+def test_card_quant_matmul_matches_plain(cuda_device, monkeypatch, mode, k, n):
+    """The forward and backward of ``ops/quant.py::matmul`` at M = 8192
+    through ``torch._int_mm`` / ``torch._scaled_mm`` against the same
+    functions with the GEMM as an exact float64 product: the GEMMs' int32
+    / fp32 results int8 bitwise, fp8 within ``_FP8_REL``; the bf16
+    outputs int8 bitwise, fp8 within ``_FP8_REL`` plus a bf16 rounding
+    step (2^-8) of the largest; each real call counted in ``GEMMS``."""
+    gen = torch.Generator(device=cuda_device).manual_seed(k + n)
+    x = torch.randn(2, 4096, k, generator=gen, device=cuda_device).bfloat16()
+    w = (0.02 * torch.randn(k, n, generator=gen, device=cuda_device)).bfloat16()
+    g = torch.randn(2, 4096, n, generator=gen, device=cuda_device).bfloat16()
+
+    def run(gemm):
+        accs = []
+        monkeypatch.setattr(t_quant, "_gemm", _capturing(gemm, accs))
+        xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+        out = t_quant.matmul(xs, ws, quant=mode)
+        out.backward(g)
+        return (out.detach(), xs.grad, ws.grad), accs
+
+    t_quant.reset_gemms()
+    got, got_accs = run(t_quant._gemm)
+    assert t_quant.GEMMS == {"fwd": 1, "dgrad": int(mode.endswith("_dgrad"))}
+    want, want_accs = run(_plain_gemm)
+    assert len(got_accs) == len(want_accs) == 1 + int(mode.endswith("_dgrad"))
+    for a, b in zip(got_accs, want_accs):
+        if mode == "int8":
+            assert a.dtype == torch.int32 and torch.equal(a, b)
+        else:
+            assert float((a - b).abs().max() / b.abs().max()) <= _FP8_REL
+    for name, a, b in zip(("out", "dx", "dw"), got, want):
+        assert a.dtype == b.dtype == torch.bfloat16 and torch.isfinite(a).all(), name
+        if mode == "int8" or name == "dw" or (name == "dx" and mode == "fp8"):
+            assert torch.equal(a, b), name
+        else:
+            rel = float((a.float() - b.float()).abs().max() / b.float().abs().max())
+            assert rel <= _FP8_REL + 2 ** -8, (name, rel)
+
+
+@pytest.mark.card
+def test_card_quant_expert_matmul_matches_plain(cuda_device, monkeypatch):
+    """The expert form at mixtral_8x7b's widths (E = 8, 1280 capacity
+    rows, 4096 <-> 14336): one 2-D call an expert, int8_dgrad bitwise its
+    plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(8, 1280, 4096, generator=gen, device=cuda_device).bfloat16()
+    w = (0.02 * torch.randn(8, 4096, 14336, generator=gen, device=cuda_device)).bfloat16()
+    g = torch.randn(8, 1280, 14336, generator=gen, device=cuda_device).bfloat16()
+
+    def run():
+        xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+        out = t_quant.expert_matmul(xs, ws, quant="int8_dgrad")
+        out.backward(g)
+        return out.detach(), xs.grad, ws.grad
+
+    t_quant.reset_gemms()
+    got = run()
+    assert t_quant.GEMMS == {"fwd": 8, "dgrad": 8}
+    monkeypatch.setattr(t_quant, "_gemm", _plain_gemm)
+    for a, b in zip(got, run()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.card
+def test_card_quant_misaligned_shape_raises(cuda_device):
+    """A shape the library calls cannot take raises with the shape; no
+    16-bit or plain fallback runs for a card tensor."""
+    t_quant.reset_gemms()
+    x = torch.randn(64, 100, device=cuda_device).bfloat16()
+    with pytest.raises(ValueError, match=r"\(64, 100, 32\)"):
+        t_quant.matmul(x, torch.randn(100, 32, device=cuda_device).bfloat16(), quant="int8")
+    with pytest.raises(ValueError, match="_scaled_mm"):
+        t_quant.matmul(torch.randn(64, 128, device=cuda_device).bfloat16(),
+                       torch.randn(128, 40, device=cuda_device).bfloat16(), quant="fp8")
+    with pytest.raises(ValueError, match="M > 16"):
+        t_quant.matmul(torch.randn(16, 128, device=cuda_device).bfloat16(),
+                       torch.randn(128, 64, device=cuda_device).bfloat16(), quant="int8")
+    assert t_quant.GEMMS == {"fwd": 0, "dgrad": 0}

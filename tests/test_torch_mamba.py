@@ -317,8 +317,15 @@ def test_mamba_forward_hidden_and_bf16(np_params):
                         compute_dtype=torch.bfloat16, attn_impl="xla")
     assert out.dtype == torch.bfloat16
     assert _err(out, np.asarray(ref.astype(jnp.float32))) <= 2e-2
-    with pytest.raises(NotImplementedError, match="A.7"):
-        mamba_forward(params, torch.from_numpy(inputs).long(), TINY, quant="int8")
+    # int8 GEMMs (tests/test_torch_quant_training.py holds them against
+    # JAX's): logits near the exact ones; an unknown mode raises
+    q8 = mamba_forward(params, torch.from_numpy(inputs).long(), TINY, quant="int8",
+                       compute_dtype=torch.float32, attn_impl="xla")
+    exact = mamba_forward(params, torch.from_numpy(inputs).long(), TINY,
+                          compute_dtype=torch.float32, attn_impl="xla")
+    assert 0 < float((q8 - exact).abs().max()) <= 0.05 * float(exact.abs().max())
+    with pytest.raises(ValueError, match="quantized_matmuls"):
+        mamba_forward(params, torch.from_numpy(inputs).long(), TINY, quant="int4")
 
 
 def test_mamba_forward_is_causal(np_params):

@@ -361,7 +361,6 @@ def test_entry_needs_a_card_unless_cpu():
 
 @pytest.mark.parametrize("overrides,item", [
     ({"expert_parallel_size": 2}, "A.4b"),
-    ({"quantized_matmuls": "int8"}, "A.7"),
     ({"context_parallel_size": 2}, "A.8"),
 ])
 def test_unported_options_raise(overrides, item):

@@ -200,14 +200,19 @@ def test_moments_placed_as_their_params():
 
 
 def test_unported_reduce_and_layout_refused():
-    """JAX's quantized reduce and serving layout stay refused where the
-    port reads them, naming their ROADMAP.md items (the layout needs the
-    tensor parallelism of A.6b)."""
+    """JAX's quantized reduce is ported: the policy carries the mode as
+    JAX's does, and the amax rows are replicated (their flat keys match
+    no param's spec). The serving layout stays refused where the port
+    reads it, naming A.6b (it needs tensor parallelism)."""
+    from fms_fsdp_tpu.parallel.mixed_precision import get_dtype_policy as j_policy
     from fms_fsdp_tpu_torch.parallel.mixed_precision import get_dtype_policy
     from fms_fsdp_tpu_torch.serve import ServeConfig, ServingEngine
 
-    with pytest.raises(NotImplementedError, match="A.7"):
-        get_dtype_policy(TrainConfig(quantized_reduce="int8"))
+    assert get_dtype_policy(TrainConfig(quantized_reduce="int8")).reduce_quant == "int8"
+    assert j_policy(TrainConfig(quantized_reduce="int8")).reduce_quant == "int8"
+    specs = sharding.llama_param_specs(scan=True)
+    key = "quant.amax_history.g.layers.wq"
+    assert sharding.infer_state_specs([key], specs)[key] == sharding.P()
     with pytest.raises(NotImplementedError, match="A.6b"):
         ServingEngine({}, LlamaConfig(**TINY_KW), ServeConfig(serve_layout="tp"), device="cpu")
 

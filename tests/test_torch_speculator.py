@@ -545,7 +545,8 @@ def test_gpt_bigcode_base_stage1_matches_jax():
 
 def test_quantized_base_warns_counts_or_refuses(np_base, caplog):
     """quantized_matmuls on a Mixtral base: one warning, counted, the step
-    runs unquantized; on a Llama base: refused naming A.7."""
+    runs unquantized; on a Llama base the frozen forward runs int8, with
+    no warning and nothing counted."""
     _, cfg = _train_cfgs(quantized_matmuls="int8")
     _, scfg = _scfgs()
     mix_np = jax.tree.map(np.asarray, jm.init_mixtral_params(jax.random.PRNGKey(0),
@@ -568,8 +569,13 @@ def test_quantized_base_warns_counts_or_refuses(np_base, caplog):
         ts.init_speculator_params(torch.Generator().manual_seed(5), scfg), cfg)
     _, m = step(state, torch.randint(0, 128, (2, 32), generator=torch.Generator()))
     assert np.isfinite(float(m["loss"]))
-    with pytest.raises(NotImplementedError, match="A.7"):
-        tts.make_stage1_step(params_from_numpy(np_base), TINY, scfg, cfg)
+    assert tts._frozen_quant(cfg, "llama") == "int8"
+    caplog.clear()
+    with caplog.at_level(logging.WARNING, logger="fms_fsdp_tpu_torch.train.speculator"):
+        llama_step = tts.make_stage1_step(params_from_numpy(np_base), TINY, scfg, cfg)
+    assert not caplog.records and tts._QUANT_IGNORED_PENDING == 0
+    _, m = llama_step(state, torch.randint(0, 128, (2, 32), generator=torch.Generator()))
+    assert np.isfinite(float(m["loss"]))
 
 
 # ---------------------------------------------------------------------------

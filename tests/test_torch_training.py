@@ -24,7 +24,7 @@ from fms_fsdp_tpu.train import step as j_step
 from fms_fsdp_tpu_torch.bridge import params_from_numpy
 from fms_fsdp_tpu_torch.config import TrainConfig
 from fms_fsdp_tpu_torch.main_training_llama import main
-from fms_fsdp_tpu_torch.models.configs import LlamaConfig
+from fms_fsdp_tpu_torch.models.configs import LlamaConfig, MambaAttnConfig
 from fms_fsdp_tpu_torch.models.llama import llama_forward
 from fms_fsdp_tpu_torch.ops.fused_ce import (
     cross_entropy_loss,
@@ -433,21 +433,72 @@ def test_entry_needs_a_card_unless_cpu():
 
 
 @pytest.mark.parametrize("overrides,item", [
-    ({"quantized_matmuls": "int8"}, "A.7"),
-    ({"quantized_reduce": "fp8"}, "A.7"),
     ({"tensor_parallel_size": 2}, "A.6b"),
     ({"context_parallel_size": 2}, "A.8"),
     ({"expert_parallel_size": 2}, "A.4b"),
     ({"sharding_strategy": "tp"}, "A.6b"),
     ({"model_variant": "mamba_9.8b", "tensor_parallel_size": 2}, "A.6b"),
     ({"num_slices": 2}, "A.6b"),
-    ({"model_variant": "mamba_9.8b", "quantized_matmuls": "int8"}, "A.7"),
 ])
 def test_unported_options_raise(overrides, item):
     kw = dict(use_dummy_dataset=True, num_steps=4, **_ENTRY_OVERRIDES)
     kw.update(overrides)
     with pytest.raises(NotImplementedError, match=item):
         main(device="cpu", **kw)
+
+
+_MAMBA_ENTRY = {"MambaConfig.d_model": 64, "MambaConfig.d_intermediate": 128,
+                "MambaConfig.n_layer": 2, "MambaConfig.vocab_size": 128,
+                "MambaConfig.attn_layer_idx": (1,), "MambaConfig.d_state": 16,
+                "MambaConfig.headdim": 16, "MambaConfig.chunk_size": 8,
+                "MambaConfig.attn_cfg": MambaAttnConfig(head_dim=16, num_heads=4,
+                                                        num_heads_kv=2, rotary_emb_dim=8)}
+_MIXTRAL_ENTRY = {"MixtralConfig.nlayers": 2, "MixtralConfig.emb_dim": 64,
+                  "MixtralConfig.nheads": 4, "MixtralConfig.kvheads": 2,
+                  "MixtralConfig.hidden_dim": 96, "MixtralConfig.num_experts": 4,
+                  "MixtralConfig.src_vocab_size": 128}
+
+
+@pytest.mark.parametrize("family,overrides", [
+    ("llama", {"quantized_matmuls": "int8"}),
+    ("llama", {"quantized_matmuls": "fp8_dgrad"}),
+    ("llama", {"quantized_reduce": "fp8_delayed"}),
+    ("mamba", {"quantized_matmuls": "int8"}),
+    ("mixtral", {"quantized_matmuls": "fp8", "quantized_reduce": "int8"}),
+])
+def test_entry_trains_quantized(family, overrides, tmp_path):
+    """The quantized modes once refused here (ROADMAP.md A.7) train
+    through each family's entry on the CPU: two finite steps, and the
+    records name the modes that ran."""
+    import json
+
+    from fms_fsdp_tpu_torch import main_training_mamba, main_training_mixtral
+
+    entry, model = {
+        "llama": (main, dict(model_variant="llama3_194m_4k", vocab_size=512,
+                             seq_length=64, **_ENTRY_OVERRIDES)),
+        "mamba": (main_training_mamba.main, dict(model_variant="mamba_9.8b", vocab_size=128,
+                                                 seq_length=32, mamba_kernel="xla",
+                                                 **_MAMBA_ENTRY)),
+        "mixtral": (main_training_mixtral.main, dict(model_variant="mixtral_8x7b",
+                                                     vocab_size=128, seq_length=32,
+                                                     **_MIXTRAL_ENTRY)),
+    }[family]
+    out = entry(device="cpu", use_dummy_dataset=True, num_steps=2, report_interval=1,
+                batch_size=2, attention_kernel="xla", ckpt_save_path=str(tmp_path),
+                ckpt_load_path=str(tmp_path), obs_dir=str(tmp_path / "obs"),
+                **model, **overrides)
+    losses = [r["loss"] for r in out["reports"]]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    with open(tmp_path / "obs" / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    assert records and all(
+        r["quantized_matmuls"] == overrides.get("quantized_matmuls", "none")
+        and r["quantized_reduce"] == overrides.get("quantized_reduce", "none")
+        for r in records)
+    if overrides.get("quantized_reduce") == "fp8_delayed":
+        rows = out["state"]["quant"]["amax_history"]
+        assert "g.layers.wq" in rows and all(float(r[0]) > 0 for r in rows.values())
 
 
 def test_cli_and_overrides_match_jax():

@@ -16,7 +16,10 @@ takes its contiguous rows of each), ``record_rows`` (keep every row the
 feed served and hash the train state at the first step) and
 ``speculator`` (run the speculator entry instead of the Llama trainer,
 with ``fp32_base`` its frozen base in fp32) or ``eval`` (run
-``eval_ppl.main`` and write its result).
+``eval_ppl.main`` and write its result) or ``wire`` (the quantized
+reduce on seeded gradients of a TINY Llama split over fsdp: each mode's
+round trip, and the same with every row amax kept local, gathered whole
+into ``<out>/wire.npz`` by rank 0).
 """
 
 import hashlib
@@ -59,6 +62,56 @@ def local_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in flatten("p", tree, {}).values())
 
 
+def wire_inputs(model_cfg):
+    """Seeded whole params of ``model_cfg`` and seeded whole gradients
+    for them ({checkpoint key: tensor}), their rows of unlike scales, so
+    that half a row's absmax is often not the row's."""
+    from fms_fsdp_tpu_torch.ckpt.state import flatten
+    from fms_fsdp_tpu_torch.models.llama import init_llama_params
+
+    params = init_llama_params(torch.Generator().manual_seed(0), model_cfg)
+    gen = torch.Generator().manual_seed(1)
+    grads = {k: torch.randn(t.shape, generator=gen) * torch.rand(t.shape, generator=gen) ** 4
+             for k, t in flatten("params", params, {}).items()}
+    return params, grads
+
+
+def wire_check(spec, rank):
+    """The quantized reduce on this rank's parts of seeded whole
+    gradients (the same on every rank: one seed), each mode through the
+    fsdp group's amax and with local amaxes (``dp=None``), every result
+    gathered whole: ``<mode>.<i>`` and ``<mode>.local.<i>`` for the i-th
+    per-layer leaf of ``train/step.py::_per_layer``."""
+    from fms_fsdp_tpu_torch.ckpt.state import flatten, unflatten
+    from fms_fsdp_tpu_torch.config import TrainConfig
+    from fms_fsdp_tpu_torch.models.configs import LlamaConfig
+    from fms_fsdp_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from fms_fsdp_tpu_torch.parallel.sharding import DataParallel, init_amax_state
+    from fms_fsdp_tpu_torch.train.step import _per_layer, quant_leaves
+    from fms_fsdp_tpu_torch.utils.dist import init_distributed
+
+    world = init_distributed(torch.device("cpu"))
+    cfg = TrainConfig(sharding_strategy="fsdp")
+    mesh = build_mesh(MeshConfig.from_train_config(cfg), device_type="cpu",
+                      local_world=world.local_size)
+    model_cfg = LlamaConfig(**spec["model"])
+    params, grads = wire_inputs(model_cfg)
+    dp = DataParallel.for_params(mesh, params, model_cfg)
+    local = unflatten(dp.shard(flatten("params", params, {})), "params")
+    local_grads = _per_layer(unflatten(dp.shard(grads), "params"), lambda w, *_: w)[1]
+    leaves = quant_leaves(local, dp)
+    out = {}
+    for mode in spec["wire"]:
+        for tag, group in (("", dp), (".local", None)):
+            quant = init_amax_state(local, 4)
+            got, _ = sharding.quantized_grad_reduce(local_grads, mode, quant, leaves, group)
+            for i, (g, leaf) in enumerate(zip(got, leaves)):
+                whole = g if leaf.split is None else dp.all_gather([g], [leaf.split], None)[0]
+                out[f"{mode}{tag}.{i}"] = whole.numpy()
+    if rank == 0:
+        np.savez(os.path.join(spec["out"], "wire.npz"), **out)
+
+
 def main():
     spec = json.loads(sys.argv[1])
     torch.set_num_threads(1)
@@ -82,6 +135,12 @@ def main():
 
     if spec.get("eval"):
         out["eval"] = eval_entry.main(device="cpu", **spec["main"])
+        with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        return
+
+    if spec.get("wire"):
+        wire_check(spec, rank)
         with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
         return
@@ -176,6 +235,8 @@ def main():
         param_bytes=local_bytes(state["params"]),
         moment_bytes=local_bytes(state["moments"]),
         sharded=bool(state["dp"] is not None and state["dp"].sharded),
+        quant_rows={k: v.tolist() for k, v in
+                    (state.get("quant") or {}).get("amax_history", {}).items()},
     )
     with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
