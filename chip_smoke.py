@@ -10,8 +10,9 @@ Phases, one JSON line each; any failure exits non-zero:
 1. device  — card name and count, ``nvidia-smi`` name and power limit.
 2. build   — compiles ``fms_fsdp_tpu_torch/csrc/*.cu`` (one nvcc per
    source, all started together) and reports each kernel's registers,
-   shared memory and spills from ``-Xptxas -v``, and the compiler's
-   warnings; a wgmma kernel (``*_sm90.cu``) that spills fails the phase.
+   shared memory and spills from ``-Xptxas -v`` (the flash forward and dq
+   at both key tiles), and the compiler's warnings; a wgmma kernel
+   (``*_sm90.cu``) that spills fails the phase.
 3. kernels — the paged-decode kernel against its plain PyTorch version at
    llama3_8b decode shapes (B=8, Nq=32, Nkv=8, H=128, page 64, 32 pages
    per row, seeded ragged lengths with 0 and page-boundary values), for
@@ -22,12 +23,16 @@ Phases, one JSON line each; any failure exits non-zero:
    changes; device times (CUDA events around CUDA-graph replay over pool
    copies that span three times the L2; eager event times beside them)
    of the kernel and of SDPA, the planned splits and blocks, achieved
-   GB/s and the share of the bytes bound.
+   GB/s and the share of the bytes bound. The row of 16,383 keys runs
+   twice: at page 64 and the planner's split, and at the page and split
+   the tuning table holds for its signature.
 4. serve   — ``ServingEngine`` on llama3_8b at full width (32 layers,
    vocab 128256, random bf16 weights from a seeded generator), 16
    requests of 64-1024 prompt tokens and 64 new tokens each, through
-   the CUDA kernel. Checks completions, finite logits and launches ==
-   decode steps x 32 on that wave; then refills the 8 slots and holds
+   the CUDA kernel, page size and split from the tuning table. Checks
+   completions, finite logits and launches == decode steps x 32 on that
+   wave, under the contract the engine's pools and split name (v2 where
+   the table set a split); then refills the 8 slots and holds
    one decode step through the kernel against the same step through
    the reference attention and an fp32 step, and profiles one step.
    Chunked prefill: one 1024-token prompt's first-token logits through
@@ -117,8 +122,10 @@ Phases, one JSON line each; any failure exits non-zero:
    ``flash_attention.BF16_BLOCK_REL_TOL`` (relative error against the
    plain backward on the same lse and delta), which a control (that
    plain backward with one 64-row query tile left out of one key block's
-   walk) must exceed on every block it changes; CUDA-event times of the
-   first two shapes beside the plain versions, the bound, and SDPA (flash
+   walk) must exceed on every block it changes; the bf16 forward and dq
+   at both key tiles (128, the default, and 64), each held to these
+   bounds and controls; CUDA-event times of the first two shapes (both
+   key tiles) beside the plain versions, the bound, and SDPA (flash
    backend) forward and backward; achieved TF/s and share of the bound of
    each kernel, the pair dq + dk/dv and the whole autograd backward
    beside SDPA's backward.
@@ -133,7 +140,7 @@ Phases, one JSON line each; any failure exits non-zero:
    17.8 GB, ~21 s, cut for the speculator phases: the resume phase checks
    the final save of the same 2-layer model through the same entry),
    train-mamba (its 31.9 GB, ~32 s, cut for hf-eval: hf-eval's Mamba run
-   writes the final save of the same entry at 3 layers, reads it back
+   writes the final save of the same entry at 2 layers, reads it back
    through ``eval_ppl`` and exports it) and train-mixtral. A phase that
    saves (hf-eval's Mamba run) prints its blocking snapshot (ms), its
    background commit, payload write and manifest hashing (s), its bytes
@@ -151,7 +158,7 @@ Phases, one JSON line each; any failure exits non-zero:
    forked process workers (after ``torch.cuda.init()``, with a tensor
    live on the card; their first batches must equal the thread workers'
    and shutdown must reap them); the reservoir filled to 10,000 rows (or
-   the largest window the measured rate fills in ``LOADER_FILL_S``, 8 s
+   the largest window the measured rate fills in ``LOADER_FILL_S``, 4 s
    since the train-quant phase, flagged ``reduced``), the mix's corpus_a share within 0.02 of 0.75, then the
    loader state's bytes and the ms of ``save_to_path`` and of
    ``load_from_path`` on a fresh loader, whose continuation must equal
@@ -205,7 +212,8 @@ Phases, one JSON line each; any failure exits non-zero:
    --sharding_strategy=hsdp`` as a child under torchrun's environment
    (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT: so
    ``cuda:LOCAL_RANK`` and an NCCL group from ``env://``; the mesh all
-   ones), then ``main`` in this process under ddp and under fsdp (these
+   ones; started by the supervise phase, beside its children, since the
+   tune phase: its tokens/s are taken beside them), then ``main`` in this process under ddp and under fsdp (these
    two save nothing: on a world of one the three hold the same unsharded
    state, and the hsdp save is the one resumed): the three losses within
    ``SHARD_REL_TOL`` of each other; the hsdp run's DCP checkpoint
@@ -230,7 +238,7 @@ Phases, one JSON line each; any failure exits non-zero:
    corpus (``HF_EVAL_BATCHES`` batches of 2 x 4096): flash forward
    launches == layers x batches, the nll within ``HF_NLL_REL_TOL`` of the
    same entry through the einsum attention; eval tokens/s of the steps.
-   (c) ``main_training_mamba.main`` at mamba_9.8b width, 3 layers with
+   (c) ``main_training_mamba.main`` at mamba_9.8b width, 2 layers with
    attention at 1, one step, writes its final save; ``eval_ppl.main`` on
    it: SSD launches == Mamba layers x batches, flash == 1 x batches;
    ``python -m fms_fsdp_tpu_torch.fms_to_hf_mamba`` on it (a child
@@ -252,6 +260,18 @@ Phases, one JSON line each; any failure exits non-zero:
 16. train-kvgrid — the same trainer at 2 layers for one step with
    ``flash_kernel_variant="kvgrid"``, so the launches of the kv-streamed
    contracts are counted on the main path too.
+16b. tune  — the kernel tuner (``tune/``): each Hopper cost-model byte
+   count (``tune/candidates.py``) equals its kernel's ``*_smem_bytes`` C
+   function (flash forward and dq at both key tiles, dk/dv, the SSD scan
+   at one and two heads a block and L = 64/128/256); every shape of
+   ``scripts/torch_autotune_kernels.py``'s suite resolves through the
+   committed ``tune/kernel_tuning_h100.json`` by exact hit on chip
+   "h100"; then one step of the Llama entry at llama3_8b_4k width, 2
+   layers, per ``TUNE_RUNS``: the committed table (``kernel_tuning="auto"``,
+   through the fused CE), ``"off"``, a table pinning the 64-key
+   tile, and both again under the kvgrid contract. Each prints
+   ``choices()`` and the launches by contract and key tile, which must be
+   the tile it resolved; together they launch every (contract, key tile).
 
 17. ssd    — the fused SSD scan kernels (``ssd_sm90.cu`` for bf16,
    ``ssd.cu`` for fp32) against their plain version at the
@@ -341,7 +361,9 @@ Phases, one JSON line each; any failure exits non-zero:
    layer and pass, beside attention's 4), ``moe_drop_frac`` beside bf16's.
 
 Then a ``total`` line (seconds since ``main`` began, and each phase's),
-a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+a ``{"kernels": [...]}`` line (the flash forward and dq by contract and
+key tile; the paged decode's launches by contract summed over the
+serving runs), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -365,7 +387,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "serve", "serve-int8", "train-speculator",
           "serve-spec", "fleet", "flash", "train",
-          "loader", "resume", "supervise", "shard", "hf-eval", "train-kvgrid", "ssd",
+          "loader", "resume", "supervise", "shard", "hf-eval", "train-kvgrid", "tune", "ssd",
           "train-mamba",
           "serve-mamba", "train-mixtral", "serve-mixtral", "train-quant")
 
@@ -509,11 +531,13 @@ def phase_build(state):
         for q, kv, qc, kc in (("bf16", "bf16", 1, 1), ("fp32", "fp32", 0, 0),
                               ("bf16", "int8", 1, 3), ("bf16", "e4m3", 1, 4))
     }
-    report["flash_fwd_sm90"]["dynamic_smem_bytes"] = (
-        cuda_build.load("flash_fwd_sm90").lib.flash_fwd_sm90_smem_bytes())
+    fwd = cuda_build.load("flash_fwd_sm90").lib
+    report["flash_fwd_sm90"]["dynamic_smem_bytes"] = {
+        f"block_k={bk}": fwd.flash_fwd_sm90_smem_bytes(bk) for bk in (64, 128)}
     bwd = cuda_build.load("flash_bwd_sm90").lib
     report["flash_bwd_sm90"]["dynamic_smem_bytes"] = {
-        "dq": bwd.flash_bwd_sm90_smem_bytes(0), "dkv": bwd.flash_bwd_sm90_smem_bytes(1)}
+        **{f"dq block_k={bk}": bwd.flash_bwd_sm90_smem_bytes(0, bk) for bk in (64, 128)},
+        "dkv": bwd.flash_bwd_sm90_smem_bytes(1, 128)}
     scan = cuda_build.load("ssd_sm90").lib
     report["ssd_sm90"]["dynamic_smem_bytes"] = {
         f"{hb} heads a block, L={chunk}": scan.ssd_sm90_smem_bytes(hb, chunk)
@@ -524,18 +548,18 @@ def phase_build(state):
         raise AssertionError(f"kernels spill registers: {spills}")
 
 
-def _kernel_lens(gen, batch=B, maxp=MAXP):
+def _kernel_lens(gen, batch=B, maxp=MAXP, page=PAGE):
     """Seeded ragged positions with 0 and page-boundary values."""
     import torch
 
-    lens = [0, PAGE - 1, PAGE, 2 * PAGE - 1, maxp * PAGE - 1]
-    return lens + torch.randint(1, maxp * PAGE, (batch - len(lens),), generator=gen,
+    lens = [0, page - 1, page, 2 * page - 1, maxp * page - 1]
+    return lens + torch.randint(1, maxp * page, (batch - len(lens),), generator=gen,
                                 device="cuda").tolist()
 
 
-def _kernel_inputs(kind, gen, lens, copies, maxp=MAXP):
+def _kernel_inputs(kind, gen, lens, copies, maxp=MAXP, page=PAGE):
     """Seeded decode inputs at positions ``lens``: q, ``copies`` layers of
-    pools (+scales), page table, seq_lens."""
+    pools of ``page``-key pages (+scales), page table, seq_lens."""
     import torch
 
     from fms_fsdp_tpu_torch.ops.quant import kv_quantize
@@ -544,7 +568,7 @@ def _kernel_inputs(kind, gen, lens, copies, maxp=MAXP):
     batch = len(lens)
     q_dtype = torch.float32 if kind == "fp32" else torch.bfloat16
     num_pages = batch * maxp + 2
-    shape = (copies, num_pages, PAGE, NKV, H)
+    shape = (copies, num_pages, page, NKV, H)
     q = torch.randn((batch, NQ, H), generator=gen, device=dev).to(q_dtype)
     k = torch.randn(shape, generator=gen, device=dev)
     v = torch.randn(shape, generator=gen, device=dev)
@@ -559,27 +583,27 @@ def _kernel_inputs(kind, gen, lens, copies, maxp=MAXP):
     perm = (torch.randperm(num_pages - 2, generator=gen, device=dev) + 2).tolist()
     table = torch.zeros((batch, maxp), dtype=torch.int32)
     for b, pos in enumerate(lens):
-        n = pos // PAGE + 1
+        n = pos // page + 1
         table[b, :n] = torch.tensor(perm[b * maxp: b * maxp + n])
     seq_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
     return q, k, v, ks, vs, table.to(dev), seq_lens
 
 
-def _live_kv_bytes(kind, lens, maxp=MAXP):
+def _live_kv_bytes(kind, lens, maxp=MAXP, page=PAGE):
     """Bytes of the K/V rows (and row scales) a call's rows attend."""
     elem = {"bf16": 2, "fp32": 4, "int8": 1, "e4m3": 1}[kind]
-    keys = sum(min(p + 1, maxp * PAGE) for p in lens)
+    keys = sum(min(p + 1, maxp * page) for p in lens)
     return 2 * keys * (NKV * H * elem + (NKV * 4 if kind in ("int8", "e4m3") else 0))
 
 
-def _bound(kind, lens, maxp=MAXP):
+def _bound(kind, lens, maxp=MAXP, page=PAGE):
     """Least time for one call: bytes (each live K/V row, q, out, table
     and lens once) over HBM rate vs operations over the peak of their
     type; the larger one bounds."""
     q_elem = 4 if kind == "fp32" else 2
     batch = len(lens)
-    keys = sum(min(p + 1, maxp * PAGE) for p in lens)
-    nbytes = (_live_kv_bytes(kind, lens, maxp) + 2 * batch * NQ * H * q_elem
+    keys = sum(min(p + 1, maxp * page) for p in lens)
+    nbytes = (_live_kv_bytes(kind, lens, maxp, page) + 2 * batch * NQ * H * q_elem
               + batch * maxp * 4 + batch * 4)
     ops = 4 * keys * NQ * H  # QK^T and PV, 2 flops per MAC
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -589,16 +613,22 @@ def _bound(kind, lens, maxp=MAXP):
     return ops_ms, "operations", nbytes, ops
 
 
-# (label, pool type, pages per row, lengths): the four pool types at the
-# llama3_8b decode shape (seeded ragged lengths), and one bf16 row of
-# 16,383 keys
+# (label, pool type, keys a row can hold, lengths, tuned): the four pool
+# types at the llama3_8b decode shape (seeded ragged lengths) at the page
+# and split the tuning table holds for their signature (those the serving
+# phases run), and one bf16 row of 16,383 keys at page 64 and the
+# planner's split, then at the table's
 KERNEL_CASES = (
-    ("bf16", "bf16", MAXP, None),
-    ("fp32", "fp32", MAXP, None),
-    ("int8", "int8", MAXP, None),
-    ("e4m3", "e4m3", MAXP, None),
-    ("bf16_b1_16383", "bf16", 256, [16382]),
+    ("bf16", "bf16", MAXP * PAGE, None, True),
+    ("fp32", "fp32", MAXP * PAGE, None, True),
+    ("int8", "int8", MAXP * PAGE, None, True),
+    ("e4m3", "e4m3", MAXP * PAGE, None, True),
+    ("bf16_b1_16383", "bf16", 16384, [16382], False),
+    ("bf16_b1_16383_tuned", "bf16", 16384, [16382], True),
 )
+# pool types by the dtype names the tuning table keys paged decode on
+POOL_DTYPES = {"bf16": "bfloat16", "fp32": "float32", "int8": "int8",
+               "e4m3": "float8_e4m3fn"}
 
 
 def _row_rel_err(out, ref):
@@ -627,24 +657,31 @@ def phase_kernels(state):
     import torch.nn.functional as F
 
     from fms_fsdp_tpu_torch.ops import paged_attention as pa
+    from fms_fsdp_tpu_torch.tune.lookup import resolve_paged_decode
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     props = torch.cuda.get_device_properties(0)
     sm_count = props.multi_processor_count
     results = {}
-    for label, kind, maxp, case_lens in KERNEL_CASES:
-        lens_list = case_lens or _kernel_lens(gen, B, maxp)
+    for label, kind, cap, case_lens, tuned in KERNEL_CASES:
+        page, block_kv, how = PAGE, PAGE, "fixed"
+        if tuned:
+            page, block_kv, how = resolve_paged_decode(
+                len(case_lens or [0] * B), NQ, NKV, H, cap, POOL_DTYPES[kind])
+        maxp = cap // page
+        lens_list = case_lens or _kernel_lens(gen, B, maxp, page)
         batch = len(lens_list)
         copies = max(2, math.ceil(L2_SPAN * props.L2_cache_size
-                                  / _live_kv_bytes(kind, lens_list, maxp)))
-        q, k, v, ks, vs, table, lens = _kernel_inputs(kind, gen, lens_list, copies, maxp)
+                                  / _live_kv_bytes(kind, lens_list, maxp, page)))
+        q, k, v, ks, vs, table, lens = _kernel_inputs(kind, gen, lens_list, copies, maxp, page)
         scaled = ks is not None
         layer = lambda i: (k[i % copies], v[i % copies],  # noqa: E731
                            ks[i % copies] if scaled else None,
                            vs[i % copies] if scaled else None)
         kp, vp, ksp, vsp = layer(0)
-        split_keys, n_splits = pa.decode_splits(batch, NKV, maxp * PAGE, PAGE, sm_count)
-        out = pa.paged_attention_kernel(q, kp, vp, table, lens,
+        split_keys, n_splits = pa.decode_splits(batch, NKV, cap, page, sm_count,
+                                                None if block_kv == page else block_kv)
+        out = pa.paged_attention_kernel(q, kp, vp, table, lens, block_kv=block_kv,
                                         k_scales=ksp, v_scales=vsp)
         torch.cuda.synchronize()
         ref = pa.paged_attention_plain(q, kp, vp, table, lens, ksp, vsp)
@@ -664,7 +701,7 @@ def phase_kernels(state):
 
         def kernel(i):
             kp, vp, ksp, vsp = layer(i)
-            pa.paged_attention_kernel(q, kp, vp, table, lens,
+            pa.paged_attention_kernel(q, kp, vp, table, lens, block_kv=block_kv,
                                       k_scales=ksp, v_scales=vsp)
 
         def plain(i):
@@ -690,7 +727,7 @@ def phase_kernels(state):
                 kg, vg = pa.gather_pages(kp, table), pa.gather_pages(vp, table)
             caches.append((kg.transpose(1, 2).contiguous(),
                            vg.transpose(1, 2).contiguous()))
-        mask = (torch.arange(maxp * PAGE, device="cuda")[None, :]
+        mask = (torch.arange(cap, device="cuda")[None, :]
                 <= lens[:, None].long())[:, None, None, :]
         q4 = q[:, :, None, :]
 
@@ -701,8 +738,8 @@ def phase_kernels(state):
 
         library_eager_ms = cuda_time_ms(library, reps=50, warmup=5)
         library_ms = graph_time_ms(library, reps=64)
-        bound_ms, bound_by, nbytes, ops = _bound(kind, lens_list, maxp)
-        live = sum(-(-min(p + 1, maxp * PAGE) // split_keys) for p in lens_list)
+        bound_ms, bound_by, nbytes, ops = _bound(kind, lens_list, maxp, page)
+        live = sum(-(-min(p + 1, cap) // split_keys) for p in lens_list)
         results[label] = dict(
             pools=kind, batch=batch, max_abs_err=err, tol=TOL[kind], finite=finite,
             rel_err_rows=rel.tolist(), rel_tol=rel_tol, rel_err_control_min=rel_control,
@@ -711,6 +748,7 @@ def phase_kernels(state):
             kernel_over_library=ms / library_ms, bound_ms=bound_ms,
             bound_by=bound_by, bound_share=bound_ms / ms,
             achieved_gbytes_per_s=nbytes / ms / 1e6, bytes=nbytes, ops=ops,
+            page_size=page, block_kv=block_kv, tune_how=how,
             split_keys=split_keys, splits=n_splits, blocks=batch * NKV * n_splits,
             live_blocks=live * NKV, seq_lens=lens_list,
         )
@@ -749,6 +787,13 @@ def _llama3_8b_params(state):
     return state["params"]
 
 
+def _contract(eng) -> str:
+    """The Pallas contract an engine's paged-decode launches count under:
+    "v2" for quantized pools or a split the tuning table set (block_kv
+    other than the page size), else "v1"."""
+    return "v2" if eng._paged_kernel_impl() == 2 else "v1"
+
+
 def _serve(state, phase, kv_quant, n_requests, max_prompt, max_new, seed):
     import numpy as np
     import torch
@@ -772,7 +817,7 @@ def _serve(state, phase, kv_quant, n_requests, max_prompt, max_new, seed):
         for n in rng.randint(64, max_prompt + 1, size=n_requests)
     ]
     reqs = [eng.submit(p, max_new) for p in prompts]
-    key = "v2" if kv_quant != "none" else "v1"
+    key = _contract(eng)
 
     pa.reset_launches()
     t0 = time.perf_counter()
@@ -793,7 +838,8 @@ def _serve(state, phase, kv_quant, n_requests, max_prompt, max_new, seed):
         prompt_tokens=sum(len(p) for p in prompts),
         finished=sum(r.state == "finished" for r in reqs),
         all_lengths_ok=all(len(r.generated) == max_new for r in reqs),
-        decode_steps=steps, layers=cfg.nlayers,
+        decode_steps=steps, layers=cfg.nlayers, contract=key,
+        page_size=eng.page_size, block_kv=eng.block_kv, tune_how=eng.tune_how,
         kernel_launches=launches, other_contract_launches=other,
         decode_tokens_per_s=stats["tokens_per_s"],
         ttft_mean_s=float(np.mean(ttft)) if ttft else None,
@@ -900,19 +946,21 @@ def _serve_chunked(state, cfg, tol_step, problems):
     t0 = time.perf_counter()
     eng.run()
     torch.cuda.synchronize()
+    key = _contract(eng)
     out.update(
         engine_wall_s=time.perf_counter() - t0, decode_steps=eng.decode_steps,
         prefill_chunks=eng.serving_stats()["prefill_chunks"],
-        launches=dict(pa.LAUNCHES),
+        launches=dict(pa.LAUNCHES), contract=key,
         finished=sum(r.state == "finished" and len(r.generated) == 16 for r in reqs),
     )
     del eng
     torch.cuda.empty_cache()
     if out["chunked_vs_whole"] > tol or not math.isfinite(out["chunked_vs_whole"]):
         problems.append(f"chunked first-token logits off by {out['chunked_vs_whole']} > {tol}")
-    if out["launches"]["v1"] != out["decode_steps"] * cfg.nlayers or out["launches"]["v2"]:
+    if (out["launches"][key] != out["decode_steps"] * cfg.nlayers
+            or sum(out["launches"].values()) != out["launches"][key]):
         problems.append(f"chunked engine launches {out['launches']} != "
-                        f"{out['decode_steps']} steps x {cfg.nlayers}")
+                        f"{out['decode_steps']} steps x {cfg.nlayers} of {key}")
     if out["finished"] != len(prompts) or out["prefill_chunks"] != len(prompts) * chunks:
         problems.append(f"chunked engine: {out['finished']} finished, "
                         f"{out['prefill_chunks']} chunks")
@@ -942,7 +990,7 @@ def _serve_disagg(state, cfg, kv_quant, problems, n, defrag):
     from fms_fsdp_tpu_torch.serve.decode import paged_decode_step
     from fms_fsdp_tpu_torch.serve.disagg import unpack_handoff
 
-    key, tol = ("v2", TOL["int8"]) if kv_quant != "none" else ("v1", TOL["bf16"])
+    tol = TOL["int8"] if kv_quant != "none" else TOL["bf16"]
     rng = np.random.RandomState(6)
     prompts = [rng.randint(0, cfg.src_vocab_size, size=int(m)).tolist()
                for m in rng.randint(64, 513, size=n)]
@@ -990,7 +1038,7 @@ def _serve_disagg(state, cfg, kv_quant, problems, n, defrag):
         if kv_quant != "none":
             scales_fp32 &= arrays["k"].dtype == torch.int8 and "k_scale" in arrays
     out = {
-        "requests": n, "kv_quant": kv_quant, "contract": key,
+        "requests": n, "kv_quant": kv_quant,
         "handoff_bytes": [len(b) for b in frames],
         "handoff_bytes_per_request": sum(len(b) for b in frames) / n,
         "pack_s_per_request": pack_s / n, "scatter_s_per_request": scatter_s / n,
@@ -1007,7 +1055,8 @@ def _serve_disagg(state, cfg, kv_quant, problems, n, defrag):
         out["defrag"] = _defrag_check(de, paged_decode_step, pa, problems)
     de.run()
     torch.cuda.synchronize()
-    out.update(decode_steps=de.decode_steps, launches=dict(pa.LAUNCHES),
+    key = _contract(de)
+    out.update(decode_steps=de.decode_steps, launches=dict(pa.LAUNCHES), contract=key,
                finished=sum(r.state == "finished" and len(r.generated) == m
                             for r, m in zip(dreqs, max_new)))
     del de
@@ -1719,7 +1768,7 @@ def phase_serve_spec(state):
     sw = result["speculative"]
     if sw["paged_decode_launches"] != {"v1": 0, "v2": 0} or any(sw["flash_launches"].values()):
         problems.append("the verify step launched an attention kernel (it gathers)")
-    if result["plain"]["paged_decode_launches"]["v1"] == 0:
+    if not any(result["plain"]["paged_decode_launches"].values()):
         problems.append("the plain decode launched no paged-decode kernel")
     if not sw["verify_compare"]["ok"]:
         problems.append(f"verify step vs decode steps: {sw['verify_compare']}")
@@ -1759,14 +1808,16 @@ TRAIN_KW = {
 }
 
 
-def _flash_all(fa, q, k, v, do, kernel):
-    """[o, lse, dq, dk, dv] through the kernels or the plain versions,
-    delta from that path's own o."""
+def _flash_all(fa, q, k, v, do, kernel, block_k=None):
+    """[o, lse, dq, dk, dv] through the kernels (the forward and dq at key
+    tile ``block_k``, None for the default) or the plain versions, delta
+    from that path's own o."""
     fwd, dq_fn, dkv_fn = ((fa.flash_fwd, fa.flash_dq, fa.flash_dkv) if kernel else
                           (fa.flash_fwd_plain, fa.flash_dq_plain, fa.flash_dkv_plain))
-    o, lse = fwd(q, k, v, causal=True)
+    tile = {"block_k": block_k} if kernel and block_k else {}
+    o, lse = fwd(q, k, v, causal=True, **tile)
     delta = _delta(o, do)
-    dq = dq_fn(q, k, v, do, lse, delta, causal=True)
+    dq = dq_fn(q, k, v, do, lse, delta, causal=True, **tile)
     dk, dv = dkv_fn(q, k, v, do, lse, delta, causal=True)
     return [o, lse, dq, dk, dv]
 
@@ -1847,9 +1898,12 @@ def _flash_bound(kind, shape, products, nbytes):
     return (bytes_ms, "bytes", ops) if bytes_ms >= ops_ms else (ops_ms, "operations", ops)
 
 
-def _flash_times(fa, kind, dtype, shape, gen):
+def _flash_times(fa, kind, dtype, shape, gen, block_k=None, base=None):
     """Kernel, plain and SDPA times of the three kernels at one shape,
-    rotating over two input sets."""
+    rotating over two input sets. With ``block_k`` the forward and dq
+    kernels run at that key tile; with ``base`` (the default tile's
+    result) only they are timed, beside base's dk/dv, plain and SDPA
+    times."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -1867,16 +1921,18 @@ def _flash_times(fa, kind, dtype, shape, gen):
     def pick(i):
         return sets[i % len(sets)]
 
+    tile = {"block_k": block_k} if block_k else {}
     out = {}
-    out["fwd"] = _timed_ms(lambda i: fa.flash_fwd(*pick(i)[:3]))
-    out["dq"] = _timed_ms(lambda i: fa.flash_dq(*pick(i)[:4], *pick(i)[5:]))
-    out["dkv"] = _timed_ms(lambda i: fa.flash_dkv(*pick(i)[:4], *pick(i)[5:]))
+    out["fwd"] = _timed_ms(lambda i: fa.flash_fwd(*pick(i)[:3], **tile))
+    out["dq"] = _timed_ms(lambda i: fa.flash_dq(*pick(i)[:4], *pick(i)[5:], **tile))
+    out["dkv"] = (base["dkv"]["ms"] if base else
+                  _timed_ms(lambda i: fa.flash_dkv(*pick(i)[:4], *pick(i)[5:])))
     # the whole backward through autograd (delta, q2, both kernels, the
     # dk/dv casts) on retained graphs of the forward
     graphs = []
     for q, k, v, do, *_ in sets:
         leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-        graphs.append((leaves, fa.flash_attention(*leaves), do))
+        graphs.append((leaves, fa.flash_attention(*leaves, **tile), do))
 
     def autograd_bwd(i):
         leaves, o, do = graphs[i % 2]
@@ -1884,6 +1940,9 @@ def _flash_times(fa, kind, dtype, shape, gen):
 
     bwd_ms = _timed_ms(autograd_bwd)
     del graphs
+    if base:
+        return _flash_rows(kind, shape, dtype, out, {n: base[n]["plain_ms"] for n in out},
+                           base["sdpa"], bwd_ms)
     plain = {
         "fwd": _timed_ms(lambda i: fa.flash_fwd_plain(*pick(i)[:3]), 0, 2),
         "dq": _timed_ms(lambda i: fa.flash_dq_plain(*pick(i)[:4], *pick(i)[5:]), 0, 2),
@@ -1926,6 +1985,17 @@ def _flash_times(fa, kind, dtype, shape, gen):
         del graphs
     except RuntimeError as e:  # no SDPA kernel for this dtype/shape
         lib.update(fwd_ms=None, bwd_ms=None, fwd_bwd_ms=None, error=str(e)[:200])
+    del sets
+    return _flash_rows(kind, shape, dtype, out, plain, lib, bwd_ms)
+
+
+def _flash_rows(kind, shape, dtype, out, plain, lib, bwd_ms):
+    """The timed kernels' rows: ms beside the plain version, the bound
+    and SDPA; the backward pair and the autograd backward beside SDPA's
+    backward."""
+    import torch
+
+    b, sq, sk, nq, nkv = shape
     elem = 4 if dtype == torch.float32 else 2
     qb, kvb, stat = b * sq * nq * 128 * elem, b * sk * nkv * 128 * elem, b * nq * sq * 4
     nbytes = {"fwd": qb + 2 * kvb + qb + stat,
@@ -1953,7 +2023,6 @@ def _flash_times(fa, kind, dtype, shape, gen):
                            "over_pair_ms": bwd_ms - pair,
                            "kernel_over_library": bwd_ms / lib["bwd_ms"] if lib["bwd_ms"] else None}
     out["sdpa"] = lib
-    del sets
     return out
 
 
@@ -2228,51 +2297,78 @@ def phase_flash(state):
             k = torch.randn((b, sk, nkv, 128), generator=gen, device="cuda").to(dtype)
             v = torch.randn((b, sk, nkv, 128), generator=gen, device="cuda").to(dtype)
             do = torch.randn((b, sq, nq, 128), generator=gen, device="cuda").to(dtype)
-            fa.reset_launches()
-            got = _flash_all(fa, q, k, v, do, kernel=True)
-            torch.cuda.synchronize()
+            # the 16-bit forward and dq kernels at both key tiles (128 the
+            # default, 64), each held to the same bounds and controls; fp32
+            # has one tile
+            tiles = (128, 64) if kind == "bf16" else (None,)
+            runs = {}
+            for tile in tiles:
+                fa.reset_launches()
+                got = _flash_all(fa, q, k, v, do, kernel=True, block_k=tile)
+                torch.cuda.synchronize()
+                runs[tile] = (got, dict(fa.LAUNCHES),
+                              {op: dict(t) for op, t in fa.TILE_LAUNCHES.items()})
             kv = "_kvgrid" if fa._use_kvgrid(sk) else ""
-            launched = dict(fa.LAUNCHES)
             ref = _flash_all(fa, q, k, v, do, kernel=False)
             names = ("o", "lse", "dq", "dk", "dv")
-            rel_ok = True
             if kind == "fp32":
                 tols = [FLASH_FP32_REL_TOL * max(1.0, r.abs().max().item()) for r in ref]
-                dist = rel = per_block = None
+                dist = control = None
             else:
                 wide = _flash_all(fa, q.float(), k.float(), v.float(), do.float(), kernel=False)
                 dist = [(r.float() - w).abs().max().item() for r, w in zip(ref, wide)]
                 tols = [2 * d for d in dist]
                 del wide
                 control = _flash_control(fa, q, k, v, do)
-                rel = {n: {"kernel": _rel_err(a, r_), "control": _rel_err(c, r_),
-                           "tol": fa.BF16_REL_TOL[n]}
-                       for n, a, c, r_ in zip(names, got, control, ref)}
-                del control
-                rel_ok = all(x["kernel"] <= x["tol"] < x["control"] for x in rel.values())
-                per_block = _bwd_block_check(fa, q, k, v, do, got)
-                rel_ok = rel_ok and all(x["ok"] for x in per_block.values())
-            errs = [(a.float() - r.float()).abs().max().item() for a, r in zip(got, ref)]
-            finite = all(bool(torch.isfinite(a).all()) for a in got)
-            zero_tail = (sk <= sq or (torch.count_nonzero(got[3][:, sq:]) == 0
-                                      and torch.count_nonzero(got[4][:, sq:]) == 0))
+            checked = {}
+            for tile, (got, launched, by_tile) in runs.items():
+                rel = per_block = None
+                rel_ok = True
+                if control is not None:
+                    rel = {n: {"kernel": _rel_err(a, r_), "control": _rel_err(c, r_),
+                               "tol": fa.BF16_REL_TOL[n]}
+                           for n, a, c, r_ in zip(names, got, control, ref)}
+                    rel_ok = all(x["kernel"] <= x["tol"] < x["control"] for x in rel.values())
+                    per_block = _bwd_block_check(fa, q, k, v, do, got)
+                    rel_ok = rel_ok and all(x["ok"] for x in per_block.values())
+                errs = [(a.float() - r.float()).abs().max().item() for a, r in zip(got, ref)]
+                finite = all(bool(torch.isfinite(a).all()) for a in got)
+                zero_tail = (sk <= sq or (torch.count_nonzero(got[3][:, sq:]) == 0
+                                          and torch.count_nonzero(got[4][:, sq:]) == 0))
+                tile_ok = tile is None or all(
+                    by_tile[c] == {t: int(t == tile and c in ("fwd" + kv, "dq" + kv))
+                                   for t in by_tile[c]} for c in by_tile)
+                checked[tile] = {
+                    "block_k": tile, "launches": launched, "launches_by_block_k": by_tile,
+                    "max_abs_err": dict(zip(names, errs)),
+                    "rel_err_vs_plain_bf16": rel, "per_block_rel_err": per_block,
+                    "finite": finite, "zero_dkv_past_last_query": bool(zero_tail),
+                    "ok": (finite and bool(zero_tail) and rel_ok and tile_ok
+                           and all(e <= t for e, t in zip(errs, tols))
+                           and launched["fwd" + kv] == 1 and launched["dq" + kv] == 1
+                           and launched["dkv"] == 1),
+                }
+            first = checked[tiles[0]]
             r = {
                 "shape": {"B": b, "Sq": sq, "Sk": sk, "Nq": nq, "Nkv": nkv, "H": 128},
                 "contract": "kvgrid" if kv else "resident",
-                "launches": launched,
-                "max_abs_err": dict(zip(names, errs)), "tol": dict(zip(names, tols)),
+                "tol": dict(zip(names, tols)),
                 "plain_bf16_vs_fp32": dict(zip(names, dist)) if dist else None,
-                "rel_err_vs_plain_bf16": rel, "per_block_rel_err": per_block,
-                "finite": finite, "zero_dkv_past_last_query": bool(zero_tail),
+                **{key: first[key] for key in (
+                    "launches", "max_abs_err", "rel_err_vs_plain_bf16", "per_block_rel_err",
+                    "finite", "zero_dkv_past_last_query")},
             }
-            r["ok"] = (finite and bool(zero_tail) and rel_ok
-                       and all(e <= t for e, t in zip(errs, tols))
-                       and launched["fwd" + kv] == 1 and launched["dq" + kv] == 1
-                       and launched["dkv"] == 1)
-            del q, k, v, do, got, ref
+            if 64 in checked:
+                r["block_k_64"] = checked[64]
+            r["ok"] = all(c["ok"] for c in checked.values())
+            del q, k, v, do, got, ref, runs, control
             torch.cuda.empty_cache()
             if name in FLASH_TIMED:
-                r["times"] = _flash_times(fa, kind, dtype, (b, sq, sk, nq, nkv), gen)
+                shape = (b, sq, sk, nq, nkv)
+                r["times"] = _flash_times(fa, kind, dtype, shape, gen, block_k=tiles[0])
+                if kind == "bf16":
+                    r["times_block_k_64"] = _flash_times(fa, kind, dtype, shape, gen,
+                                                         block_k=64, base=r["times"])
                 torch.cuda.empty_cache()
             emit("flash", dtype=kind, case=name, **r)
             results[(kind, name)] = r
@@ -2415,6 +2511,7 @@ def _train(state, phase, overrides, expect, main=None, base=None, profile=False,
     from fms_fsdp_tpu_torch.ops import flash_attention as fa
     from fms_fsdp_tpu_torch.ops import ssd
     from fms_fsdp_tpu_torch.parallel.mesh import axis_sizes
+    from fms_fsdp_tpu_torch.tune import lookup
 
     if main is None:
         main = entry.main
@@ -2436,6 +2533,7 @@ def _train(state, phase, overrides, expect, main=None, base=None, profile=False,
     wall = time.perf_counter() - t0
     saves = res["checkpointer"].save_log
     launches = dict(fa.LAUNCHES, ssd_fused=ssd.LAUNCHES["fused"])
+    by_tile = {c: dict(t) for c, t in fa.TILE_LAUNCHES.items()}
     peak = torch.cuda.max_memory_allocated()
     reports = res["reports"]
     group = {"backend": torch.distributed.get_backend(),
@@ -2453,7 +2551,8 @@ def _train(state, phase, overrides, expect, main=None, base=None, profile=False,
         tokens_per_card_per_s=last["tokens_per_card_per_s"],
         mfu=last["mfu"], hfu=last["hfu"], peak_flops=989e12,
         skipped_batches=res["skipped_batches"], launches=launches,
-        expected_launches=want, max_memory_allocated=peak,
+        launches_by_block_k=by_tile, tuning=lookup.choices(), expected_launches=want,
+        max_memory_allocated=peak,
         final_save=_save_rows(saves), process_group=group, nvidia_smi=state["smi"],
     )
     if moe:
@@ -2595,6 +2694,135 @@ def phase_train_kvgrid(state):
            expect, save=False)
 
 # ---------------------------------------------------------------------------
+# the kernel tuner: cost model, committed table, tiles on the main path
+# ---------------------------------------------------------------------------
+
+# one step of the Llama entry at llama3_8b_4k width, 2 layers
+TUNE_KW = {"LlamaConfig.nlayers": 2, "num_steps": 1, "report_interval": 1}
+# (label, TrainConfig overrides, key tile of a table written for the run or
+# None): the committed table (through the fused CE, so its CE chunk
+# engages too), tuning off, and a table pinning the 64-key tile, each
+# contract: every (contract, key tile) launches on the main path
+TUNE_RUNS = (
+    ("auto", {"fused_loss": True}, None),
+    ("off", {"kernel_tuning": "off"}, None),
+    ("table_64", {}, 64),
+    ("off_kvgrid", {"kernel_tuning": "off", "flash_kernel_variant": "kvgrid"}, None),
+    ("table_64_kvgrid", {"flash_kernel_variant": "kvgrid"}, 64),
+)
+
+
+def _autotune_script():
+    """scripts/torch_autotune_kernels.py as a module (its suite and
+    ``lookup_suite``)."""
+    import importlib.util
+
+    path = os.path.join(REPO, "scripts", "torch_autotune_kernels.py")
+    spec = importlib.util.spec_from_file_location("torch_autotune_kernels", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _smem_model_check():
+    """{kernel and tile: (C function's bytes, the cost model's)}."""
+    from fms_fsdp_tpu_torch.ops import cuda_build
+    from fms_fsdp_tpu_torch.tune import candidates as cand
+
+    fwd = cuda_build.load("flash_fwd_sm90").lib
+    bwd = cuda_build.load("flash_bwd_sm90").lib
+    scan = cuda_build.load("ssd_sm90").lib
+    out = {}
+    for bk in cand.FLASH_BLOCK_K_CHOICES:
+        out[f"flash_fwd_sm90 block_k={bk}"] = (fwd.flash_fwd_sm90_smem_bytes(bk),
+                                               cand.flash_fwd_smem_bytes(bk))
+        out[f"flash_dq_sm90 block_k={bk}"] = (bwd.flash_bwd_sm90_smem_bytes(0, bk),
+                                              cand.flash_dq_smem_bytes(bk))
+    out["flash_dkv_sm90"] = (bwd.flash_bwd_sm90_smem_bytes(1, 128), cand.flash_dkv_smem_bytes())
+    for heads in (128, 3):  # two heads a block, one
+        sig = cand.ssd_sig((2, 4096, heads, 64), 1, 128)
+        hb = cand.ssd_heads_per_block(sig)
+        for chunk in (64, 128, 256):
+            out[f"ssd_sm90 {hb} heads a block, L={chunk}"] = (
+                scan.ssd_sm90_smem_bytes(hb, chunk), cand.ssd_smem_bytes(sig, "bfloat16", chunk))
+    return out
+
+
+def phase_tune(state):
+    """The tuner on the card: the Hopper cost model's shared-memory bytes
+    against each kernel's C function; every shape of the sweep's suite
+    resolved through the committed table by exact hit; one Llama step a
+    run (``TUNE_RUNS``) through the entry at full width, printing
+    ``choices()`` and the launches by contract and key tile, each run's
+    tile the one it asked for."""
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+    from fms_fsdp_tpu_torch.tune import candidates as cand
+    from fms_fsdp_tpu_torch.tune import lookup
+    from fms_fsdp_tpu_torch.tune.table import TuningTable, default_table_path
+
+    problems = []
+    smem = _smem_model_check()
+    bad = {k: v for k, v in smem.items() if v[0] != v[1]}
+    if bad:
+        problems.append(f"cost model != the kernels' shared memory: {bad}")
+    chip = lookup.chip_kind()
+    resolved = _autotune_script().lookup_suite(default_table_path(), chip)
+    misses = [r for r in resolved if r["resolved"]["how"] != "exact"]
+    if chip != "h100" or misses:
+        problems.append(f"chip {chip!r}; suite shapes without an exact hit: {misses}")
+    table = TuningTable.load(default_table_path())
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, over, pin in TUNE_RUNS:
+            if pin is not None:
+                t = TuningTable(json.loads(json.dumps(table.doc)), path=os.path.join(
+                    tmp, f"{label}.json"))
+                config, _ = table.lookup("flash_attention", "h100", "bfloat16",
+                                         resolved[0]["signature"])
+                t.add("flash_attention", "h100", "bfloat16", resolved[0]["signature"],
+                      dict(config, block_k=pin), source="measured", measured_ms=1.0)
+                over = dict(over, kernel_tuning_table=t.save())
+
+            def expect(m, cfg, steps):
+                n, rec = m.nlayers, lookup.choices()["flash"]
+                kv = "_kvgrid" if rec["kvgrid"] else ""
+                want = {"fwd": 0, "fwd_kvgrid": 0, "dq": 0, "dq_kvgrid": 0, "dkv": steps * n}
+                want["fwd" + kv] = steps * (n + _n_remat(m, cfg))
+                want["dq" + kv] = steps * n
+                return want
+
+            _train(state, f"tune-{label}", dict(TUNE_KW, **over), expect, save=False)
+            res = state.pop(f"tune-{label}")
+            rec = res["tuning"]["flash"]
+            kv = "_kvgrid" if rec["kvgrid"] else ""
+            ran = {c: {t: n for t, n in tiles.items() if n}
+                   for c, tiles in res["launches_by_block_k"].items() if any(tiles.values())}
+            want_tile = (pin or (cand.FLASH_DEFAULT_BLOCK_K if "off" in label
+                                 else resolved[0]["resolved"]["block_k"]))
+            runs[label] = {"tuning": res["tuning"], "launches_by_block_k": ran,
+                           "loss": res["losses"][0], "overrides": over}
+            if rec["block_k"] != want_tile or set(ran) != {"fwd" + kv, "dq" + kv} or any(
+                    set(t) != {want_tile} for t in ran.values()):
+                problems.append(f"{label}: ran {ran}, choices {rec}, expected key tile "
+                                f"{want_tile}")
+            if ("off" in label) != (rec["how"] == "off"):
+                problems.append(f"{label}: how {rec['how']}")
+    covered = {(c, t) for r in runs.values() for c, tiles in r["launches_by_block_k"].items()
+               for t in tiles}
+    missing = {(c, t) for c in fa.TILE_LAUNCHES for t in (64, 128)} - covered
+    if missing:
+        problems.append(f"(contract, key tile) never launched: {sorted(missing)}")
+    result = {"smem_bytes": {k: {"kernel": c, "cost_model": m} for k, (c, m) in smem.items()},
+              "chip": chip, "table": os.path.relpath(default_table_path(), REPO),
+              "card": table.doc.get("card"), "suite": resolved, "runs": runs,
+              "nvidia_smi": state["smi"]}
+    emit("tune", **result)
+    state["tune"] = result
+    if problems:
+        raise AssertionError("tune: " + "; ".join(problems))
+
+
+# ---------------------------------------------------------------------------
 # the streaming loader: arrow shards -> the seven layers -> the card
 # ---------------------------------------------------------------------------
 
@@ -2607,10 +2835,10 @@ CORPUS_DOCS_PER_SHARD = 2100
 LOADER_KW = dict(use_dummy_dataset=False, datasets="corpus_a,corpus_b", weights="3,1",
                  seq_length=4096, batch_size=2, vocab_size=128256, logical_shards=1024,
                  checkpoint_interval=1000)
-LOADER_RATE_S = 2.0  # each worker mode's timed window
-# the reservoir is filled to the largest window this allows (30 s, a full
-# 10,000-row window, before the train-quant phase's cuts)
-LOADER_FILL_S = 8.0
+LOADER_RATE_S = 1.0  # each worker mode's timed window (2 s before the tune phase)
+# the reservoir is filled to the largest window this allows (a full
+# 10,000-row window takes ~30 s; cut to pay for later phases)
+LOADER_FILL_S = 4.0
 
 
 def _corpus(state):
@@ -2874,7 +3102,7 @@ def _resume_serve(model_cfg, root, live_params, live_digests):
     pa.reset_launches()
     reqs, logits = first_step(eng)
     torch.cuda.synchronize()
-    launches, steps = pa.LAUNCHES["v1"], eng.decode_steps
+    launches, steps = pa.LAUNCHES[_contract(eng)], eng.decode_steps
     tokens = [list(r.generated) for r in reqs]
     del eng
     live = ServingEngine(live_params, model_cfg, scfg, seed=0)
@@ -3254,6 +3482,10 @@ def phase_supervise(state):
     # children pin their own and three checkpoints fill /dev/shm
     gc.collect()
     torch._C._host_emptyCache()
+    # the shard phase's hsdp child runs beside this phase's children (the
+    # parent idles in both; ~37 s of the run), joined by that phase
+    if "shard" in state["phases"]:
+        state["shard-child"] = _start_shard_child()
     root = _ckpt_dir("supervise")
     ckpt, obs, logs = (os.path.join(root, d) for d in ("ckpt", "obs", "logs"))
     ledger_path = os.path.join(root, "ledger.json")
@@ -3438,6 +3670,21 @@ def _torchrun_env():
                 LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
 
 
+def _start_shard_child():
+    """The shard phase's hsdp run, started: ``python -m
+    fms_fsdp_tpu_torch.main_training_llama --sharding_strategy=hsdp``
+    under torchrun's environment, in a new shard root (the child's
+    ``root``, ``ckpt`` and ``kw`` ride on it)."""
+    root = _ckpt_dir("shard")
+    ckpt = os.path.join(root, "hsdp")
+    kw = dict(SHARD_KW, sharding_strategy="hsdp", ckpt_save_path=ckpt, ckpt_load_path=ckpt)
+    child = _Child("fms_fsdp_tpu_torch.main_training_llama",
+                   [f"--{k}={v}" for k, v in kw.items()], os.path.join(root, "child.log"),
+                   SHARD_TIMEOUT_S, cwd=root, env=_torchrun_env())
+    child.root, child.ckpt, child.kw = root, ckpt, kw
+    return child
+
+
 def phase_shard(state):
     """``python -m fms_fsdp_tpu_torch.main_training_llama
     --sharding_strategy=hsdp`` as a child under torchrun's environment
@@ -3453,21 +3700,17 @@ def phase_shard(state):
     gc.collect()
     torch._C._host_emptyCache()
     result, problems = {"config": SHARD_KW, "nvidia_smi": state["smi"]}, []
-    root = _ckpt_dir("shard")
-    ckpt = os.path.join(root, "hsdp")
-    kw = dict(SHARD_KW, sharding_strategy="hsdp", ckpt_save_path=ckpt, ckpt_load_path=ckpt)
-    argv = [sys.executable, "-u", "-m", "fms_fsdp_tpu_torch.main_training_llama",
-            *(f"--{k}={v}" for k, v in kw.items())]
-    log = os.path.join(root, "child.log")
-    t0 = time.perf_counter()
-    with open(log, "w") as f:
-        rc = _run_group(argv, SHARD_TIMEOUT_S, cwd=root, stdout=f, stderr=subprocess.STDOUT,
-                        env=_torchrun_env())
-    with open(log) as f:
+    # the hsdp child, started by the supervise phase (it ran beside that
+    # phase's children), else now
+    hsdp = state.pop("shard-child", None) or _start_shard_child()
+    root, ckpt, kw = hsdp.root, hsdp.ckpt, hsdp.kw
+    rc, wall, _ = hsdp.join()
+    with open(hsdp.log) as f:
         out = f.read()
     losses = {"hsdp": _report_values(out, "loss:")}
     mesh_line = next((ln for ln in out.splitlines() if ln.startswith("Sharding strategy")), "")
-    result["hsdp"] = {"exit": rc, "wall_s": time.perf_counter() - t0, "mesh": mesh_line,
+    result["hsdp"] = {"exit": rc, "wall_s": wall, "mesh": mesh_line,
+                      "beside_supervise": "supervise" in state["phases"],
                       "tokens_per_card_per_s": _report_values(out, "current token per chip per sec:")}
     if rc != 0 or len(losses["hsdp"]) != SHARD_KW["num_steps"]:
         raise AssertionError(f"shard: the hsdp child exited {rc}:\n{out[-3000:]}")
@@ -3557,8 +3800,10 @@ def phase_shard(state):
 # ---------------------------------------------------------------------------
 
 HF_LLAMA = {"model_variant": "llama3_8b_4k", "LlamaConfig.nlayers": SHARD_KW["LlamaConfig.nlayers"]}
-# the Mamba hybrid at full width, 3 of 32 layers, attention at layer 1
-HF_MAMBA = {"model_variant": "mamba_9.8b", "MambaConfig.n_layer": 3,
+# the Mamba hybrid at full width, 2 of 32 layers: one Mamba layer and the
+# attention layer, the fewest that run both kernels (the exporter child on
+# this checkpoint is the phase's longest pole)
+HF_MAMBA = {"model_variant": "mamba_9.8b", "MambaConfig.n_layer": 2,
             "MambaConfig.attn_layer_idx": (1,)}
 HF_MAMBA_TRAIN_KW = {**HF_MAMBA, "seq_length": 4096, "batch_size": 2, "vocab_size": 128256,
                      "use_dummy_dataset": True, "num_steps": 1, "report_interval": 1,
@@ -3650,27 +3895,37 @@ def _cli(kw):
 class _Child:
     """An entry point's CLI (``python -m module args``) run as a child
     process beside this one's work, its output in ``log``; ``join`` waits
-    for it (at most ``timeout`` s) and returns its exit code and wall
-    seconds. The child runs in a session of its own, and ``kill`` ends
-    the whole group."""
+    for it (at most ``timeout`` s from the join) and returns its exit
+    code, its own wall seconds (start to exit) and its output's tail. The
+    child runs in a session of its own, and ``kill`` ends the whole
+    group."""
 
-    def __init__(self, module, args, log, timeout):
+    def __init__(self, module, args, log, timeout, cwd=REPO, env=None):
         self.log, self.timeout = log, timeout
         self._out = open(log, "w")
-        self.t0 = time.perf_counter()
+        self.t0 = self.t_end = time.perf_counter()
         self.proc = subprocess.Popen(
-            [sys.executable, "-u", "-m", module, *args], cwd=REPO, stdout=self._out,
+            [sys.executable, "-u", "-m", module, *args], cwd=cwd, stdout=self._out,
             stderr=subprocess.STDOUT, start_new_session=True,
-            env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="4"))
+            env=env or dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="4"))
+        self._reaper = threading.Thread(target=self._reap, daemon=True)
+        self._reaper.start()
+
+    def _reap(self):
+        self.proc.wait()
+        self.t_end = time.perf_counter()
 
     def join(self):
+        self._reaper.join(self.timeout)
         try:
-            rc = self.proc.wait(timeout=self.timeout)
+            if self._reaper.is_alive():
+                raise subprocess.TimeoutExpired(self.proc.args, self.timeout)
+            rc = self.proc.returncode
         finally:
             self.kill()
         with open(self.log) as f:
             tail = f.read()[-3000:]
-        return rc, time.perf_counter() - self.t0, tail
+        return rc, self.t_end - self.t0, tail
 
     def kill(self):
         if self.proc.poll() is None:
@@ -3770,10 +4025,12 @@ def _hf_eval_llama(state, ckpt):
     return out, problems
 
 
-def _hf_mamba(state, root):
-    """(c), first half: the Mamba entry writes a checkpoint; eval_ppl.main
-    on it through the SSD and flash kernels. Returns the exporter's child
-    (``fms_to_hf_mamba``'s CLI on that checkpoint), started last."""
+def _hf_mamba(state, root, children):
+    """(c), first half: the Mamba entry writes a checkpoint; the
+    exporter's child (``fms_to_hf_mamba``'s CLI on it) starts, and
+    eval_ppl.main runs on it beside the child through the SSD and flash
+    kernels. The child joins ``children`` (killed with them) and is
+    returned."""
     import torch
 
     from fms_fsdp_tpu_torch import eval_ppl
@@ -3793,6 +4050,13 @@ def _hf_mamba(state, root):
     torch.cuda.empty_cache()
     if saves != [(1, "final", "durable")]:
         problems.append(f"the Mamba entry's saves {saves}")
+    # the exporter reads the checkpoint beside the eval: its child is the
+    # phase's longest pole
+    export = _Child("fms_fsdp_tpu_torch.fms_to_hf_mamba",
+                    _cli(HF_MAMBA) + [f"--load_path={ckpt}/checkpoints",
+                                      f"--save_path={root}/mamba_ssm"],
+                    os.path.join(root, "fms_to_hf_mamba.log"), HF_CHILD_TIMEOUT_S)
+    children.append(export)
 
     kw = dict(HF_MAMBA_TRAIN_KW, ckpt_load_path=ckpt, eval_batches=HF_EVAL_BATCHES)
     t0 = time.perf_counter()
@@ -3804,10 +4068,6 @@ def _hf_mamba(state, root):
                        wall_s=time.perf_counter() - t0)
     if launches != want or not math.isfinite(res["nll"]):
         problems.append(f"Mamba eval {out['eval']}")
-    export = _Child("fms_fsdp_tpu_torch.fms_to_hf_mamba",
-                    _cli(HF_MAMBA) + [f"--load_path={ckpt}/checkpoints",
-                                      f"--save_path={root}/mamba_ssm"],
-                    os.path.join(root, "fms_to_hf_mamba.log"), HF_CHILD_TIMEOUT_S)
     return out, problems, (model_cfg, ckpt, export)
 
 
@@ -4028,8 +4288,7 @@ def phase_hf_eval(state):
             return rest
 
         # the Mamba checkpoint first, so its exporter's child starts early
-        (mamba_export,) = part("mamba", lambda: _hf_mamba(state, root))
-        children.append(mamba_export[2])
+        (mamba_export,) = part("mamba", lambda: _hf_mamba(state, root, children))
         part("llama_eval", lambda: _hf_eval_llama(state, ckpt))
         t0 = time.perf_counter()
         import transformers  # noqa: F401  (its import, timed apart)
@@ -5196,54 +5455,71 @@ def phase_train_quant(state):
 def kernels_line(state):
     k, s, s8 = state["kernels"], state["serve"], state["serve-int8"]
     entries = []
-    for name, key, kind, launches in (
-        ("paged_decode_v1", "v1", "bf16", s["kernel_launches"]),
-        ("paged_decode_v2", "v2", "int8", s8["kernel_launches"]),
-    ):
+
+    def by_contract(r):
+        if "launches" in r:
+            return r["launches"]
+        other = "v1" if r["contract"] == "v2" else "v2"
+        return {r["contract"]: r["kernel_launches"], other: r["other_contract_launches"]}
+
+    # launches of each contract on the serving main paths (the contract of
+    # an engine's launches follows its pools and the split the tuning table
+    # set): the serve waves, chunked prefill, the decode-role engines, and
+    # the fleet's decode children (their own counts, from their stats files)
+    runs = {"serve": s, "chunked": s["chunked"], "disagg": s["disagg"], "serve-int8": s8,
+            "disagg-int8": s8["disagg"]}
+    for name, key, kind in (("paged_decode_v1", "v1", "bf16"), ("paged_decode_v2", "v2", "int8")):
         r = k[kind]
-        entry = {
+        per_run = {run: by_contract(x)[key] for run, x in runs.items()}
+        per_run["fleet"] = state["fleet_launches_v1"] if key == "v1" else 0
+        entries.append({
             "name": name, "route": "cuda",
             "source": "fms_fsdp_tpu_torch/csrc/paged_decode.cu",
-            "replaces": REPLACES[key], "launches": launches,
+            "replaces": REPLACES[key], "launches": sum(per_run.values()),
+            "launches_by_run": per_run,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            # the decode-role engine on imported pages, counted on its run
-            "launches_disagg": (s if key == "v1" else s8)["disagg"]["launches"][key],
-        }
-        if key == "v1":
-            # after chunked prefill, and in the fleet's decode children
-            # (their own counts, from their stats files)
-            entry["launches_chunked"] = s["chunked"]["launches"]["v1"]
-            entry["launches_fleet"] = state["fleet_launches_v1"]
-        entries.append(entry)
+        })
     # bf16 readings: the training shape for the resident contracts, the
-    # 16384-token shape for the kvgrid ones; launches from the trainer
-    for contract, kernel, case, phase, outs in (
-        ("fwd", "fwd", "train", "train", ("o", "lse")),
-        ("fwd_kvgrid", "fwd", "kvgrid", "train-kvgrid", ("o", "lse")),
-        ("dq", "dq", "train", "train", ("dq",)),
-        ("dq_kvgrid", "dq", "kvgrid", "train-kvgrid", ("dq",)),
-        ("dkv", "dkv", "train", "train", ("dk", "dv")),
+    # 16384-token shape for the kvgrid ones; the forward and dq at each key
+    # tile (``*_bk64`` the 64-key instantiations), their launches those of
+    # that tile on the trainers' main paths (train, train-kvgrid and the
+    # tune phase's runs); dk/dv has one tile
+    main_runs = [state[p]["launches_by_block_k"] for p in ("train", "train-kvgrid")]
+    main_runs += [r["launches_by_block_k"] for r in state["tune"]["runs"].values()]
+    for contract, kernel, case, phase, outs, tile in (
+        ("fwd", "fwd", "train", "train", ("o", "lse"), 128),
+        ("fwd_kvgrid", "fwd", "kvgrid", "train-kvgrid", ("o", "lse"), 128),
+        ("dq", "dq", "train", "train", ("dq",), 128),
+        ("dq_kvgrid", "dq", "kvgrid", "train-kvgrid", ("dq",), 128),
+        ("fwd", "fwd", "train", "train", ("o", "lse"), 64),
+        ("fwd_kvgrid", "fwd", "kvgrid", "train-kvgrid", ("o", "lse"), 64),
+        ("dq", "dq", "train", "train", ("dq",), 64),
+        ("dq_kvgrid", "dq", "kvgrid", "train-kvgrid", ("dq",), 64),
+        ("dkv", "dkv", "train", "train", ("dk", "dv"), None),
     ):
         r = state["flash"][("bf16", case)]
-        t = r["times"][kernel]
+        t = r["times" if tile != 64 else "times_block_k_64"][kernel]
+        errs = (r if tile != 64 else r["block_k_64"])["max_abs_err"]
+        launches = (state[phase]["launches"][contract] if tile is None else
+                    sum(run.get(contract, {}).get(tile, 0) for run in main_runs))
         entry = {
-            "name": f"flash_{contract}", "route": "cuda",
+            "name": f"flash_{contract}" + ("_bk64" if tile == 64 else ""), "route": "cuda",
             "source": f"fms_fsdp_tpu_torch/csrc/flash_{'fwd' if kernel == 'fwd' else 'bwd'}_sm90.cu",
-            "replaces": REPLACES[contract],
-            "launches": state[phase]["launches"][contract],
-            "max_abs_err": max(r["max_abs_err"][o] for o in outs),
+            "replaces": REPLACES[contract], "block_k": tile or 128,
+            "launches": launches,
+            "max_abs_err": max(errs[o] for o in outs),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         }
-        if contract in ("fwd", "dq", "dkv"):
+        if contract in ("fwd", "dq", "dkv") and tile != 64:
             # the same contracts on the Mixtral training path, counted on
             # its own run, and under the quantized GEMMs (train-quant's
             # quantized runs of the three trainers together)
             entry["launches_train_mixtral"] = state["train-mixtral"]["launches"][contract]
             entry["launches_train_quant"] = state["train-quant"]["launches"][contract]
-        if contract == "fwd":
+        if contract == "fwd" and tile != 64:
             # the frozen base forward of the speculator's stage 1, and
             # eval_ppl's forwards (Llama and the Mamba hybrid's attention)
             entry["launches_train_speculator"] = state["train-speculator"]["launches"]["fwd"]
@@ -5254,7 +5530,7 @@ def kernels_line(state):
         if kernel != "fwd":
             # SDPA's one backward call computes dq, dk and dv together: set
             # it against the pair
-            entry["pair_ms"] = r["times"]["bwd_pair"]["ms"]
+            entry["pair_ms"] = r["times" if tile != 64 else "times_block_k_64"]["bwd_pair"]["ms"]
         entries.append(entry)
     r = state["ssd"][("bf16", "train")]
     t = r["times"]
@@ -5304,7 +5580,7 @@ def main(argv=None) -> int:
         "serve-spec": phase_serve_spec, "fleet": phase_fleet, "flash": phase_flash,
         "train": phase_train, "loader": phase_loader, "resume": phase_resume,
         "supervise": phase_supervise, "shard": phase_shard, "hf-eval": phase_hf_eval,
-        "train-kvgrid": phase_train_kvgrid,
+        "train-kvgrid": phase_train_kvgrid, "tune": phase_tune,
         "ssd": phase_ssd, "train-mamba": phase_train_mamba,
         "serve-mamba": phase_serve_mamba,
         "train-mixtral": phase_train_mixtral, "serve-mixtral": phase_serve_mixtral,
@@ -5326,6 +5602,9 @@ def main(argv=None) -> int:
                 run[p](state)
                 phase_seconds[p] = time.perf_counter() - t_phase
     finally:
+        # a child a failed phase started for a later one outlives no run
+        if "shard-child" in state:
+            state.pop("shard-child").kill()
         # a failed phase leaves its checkpoints behind: none outlives the run
         for root in CKPT_ROOTS.values():
             shutil.rmtree(root, ignore_errors=True)

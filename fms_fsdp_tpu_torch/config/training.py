@@ -9,8 +9,10 @@ fields that only shape a JAX compile have no effect in eager PyTorch:
 
 - ``scan_layers``: the layer stack is a Python loop either way;
 - ``low_cpu_fsdp``: parameters are made on the card directly;
-- ``kernel_tuning`` / ``kernel_tuning_table``: the CUDA kernels have
-  fixed tiles until the port has a tuner (ROADMAP.md A.13);
+- ``kernel_tuning`` / ``kernel_tuning_table`` read the port's own table
+  (``tune/kernel_tuning_h100.json``, written on the card by
+  ``scripts/torch_autotune_kernels.py``), never JAX's
+  ``KERNEL_TUNING.json``: its tiles are the Hopper kernels';
 - ``flash_kernel_variant``: one CUDA kernel fulfils both the resident
   and the kv-streamed (kvgrid) contract of the Pallas kernels; the field
   only picks which contract a launch is counted under
@@ -160,14 +162,14 @@ class TrainConfig:
     # like the kernel tiles above); nonzero pins the size, winning over
     # the table.
     dcn_bucket_mb: int = 0
-    # Kernel autotuning (docs/performance.md "Autotuning"): "auto" reads
-    # tile/block/chunk choices for flash, SSD, and fused-CE from the
-    # committed per-chip tuning table (KERNEL_TUNING.json), falling back
-    # nearest-signature -> static defaults; "off" forces today's static
-    # defaults bit-identically; a path reads that table instead. Resolved
-    # once per step build (like flash_kernel_variant) — pure table +
-    # cost-model lookup, never an on-device sweep. Regenerate the table
-    # with scripts/autotune_kernels.py on the target chip.
+    # Kernel autotuning: "auto" reads tile/chunk choices for flash, SSD,
+    # and fused-CE from the port's committed per-card tuning table
+    # (fms_fsdp_tpu_torch/tune/kernel_tuning_h100.json), falling back
+    # nearest-signature -> static defaults; "off" forces the static
+    # defaults; a path reads that table instead. Resolved once per step
+    # build (like flash_kernel_variant) -- pure table + cost-model lookup,
+    # never an on-device sweep. Regenerate the table with
+    # scripts/torch_autotune_kernels.py on the card.
     kernel_tuning: str = "auto"
     kernel_tuning_table: str = ""  # explicit table path; "" = committed default
 

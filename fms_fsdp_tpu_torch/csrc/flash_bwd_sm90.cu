@@ -35,8 +35,10 @@
 //     past a sequence arrive as zeros) into mbarrier-tracked rings;
 //   - dq: a block owns 128 query rows of one q head (64 per consumer). Q
 //     and dO are loaded once, Q scaled in place as in the forward; K/V
-//     tiles of 128 keys stream through a 2-stage ring. Per tile S = Q2.K^T
-//     and dP = dO.V^T are wgmma m64n128k16 with both operands in shared
+//     tiles of kDqKeys keys stream through a ring: 128 keys in 2 stages,
+//     or 64 keys in 4 (a template parameter the tuning table picks,
+//     tune/candidates.py). Per tile S = Q2.K^T and dP = dO.V^T are wgmma
+//     m64n128k16 (m64n64k16 at 64 keys) with both operands in shared
 //     memory, issued back to back; P and dS are formed in registers in
 //     the accumulator layout and dS, rounded, is the register A operand of
 //     dQ += dS.K, with K read through a transposed (MN-major) descriptor;
@@ -85,12 +87,20 @@ constexpr int kTile128 = 2 * kHalf128;
 constexpr int kHalf64 = 64 * 128;
 constexpr int kTile64 = 2 * kHalf64;
 
-// dq: 128 query rows a block, K/V tiles of 128 keys
+// dq: 128 query rows a block, K/V tiles of kDqKeys (64 or 128) keys: the
+// ring depth, one 64-column half and the tile, the barriers (q/dO, then
+// full and empty a stage) in whole 64-byte lines, and the block's dynamic
+// shared memory (Q, dO, then the K and V rings; barriers last)
 constexpr int kDqRows = 128;
-constexpr int kDqKeys = 128;
-constexpr int kDqStages = 2;
-// Q, dO, then the K and V rings; barriers last
-constexpr int kDqSmemBytes = 1024 + kTile128 * (2 + 2 * kDqStages) + 64;
+template <int kDqKeys>
+struct DqTile {
+  static_assert(kDqKeys == 64 || kDqKeys == 128, "key tiles of 64 or 128");
+  static constexpr int kStages = kDqKeys == 64 ? 4 : 2;
+  static constexpr int kHalf = kDqKeys * 128;
+  static constexpr int kTile = 2 * kHalf;
+  static constexpr int kBarBytes = 64 * ((8 * (1 + 2 * kStages) + 63) / 64);
+  static constexpr int kSmemBytes = 1024 + 2 * kTile128 + 2 * kStages * kTile + kBarBytes;
+};
 
 // dk/dv: 128 keys a block, query tiles of 64 rows
 constexpr int kDkvKeys = 128;
@@ -112,12 +122,14 @@ enum DType { kBF16 = 1, kF16 = 2 };
 // grid (Nq * B, ceil(Sq / 128)): x runs over the q heads of a batch, so
 // the heads of a kv group are launched side by side; y runs the query
 // tiles longest first.
-template <typename T>
+template <typename T, int kDqKeys>
 __global__ void __launch_bounds__(kThreads, 1) flash_dq_kernel_sm90(
     const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap do_map,
     const __grid_constant__ CUtensorMap k_map, const __grid_constant__ CUtensorMap v_map,
     const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dq, int sq,
     int sk, int nq, int nkv, int causal, float q_scale, float scale) {
+  using DT = DqTile<kDqKeys>;
+  constexpr int kDqStages = DT::kStages;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // TMA's 128-byte swizzle repeats every 1024 bytes: align the tiles to it
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
@@ -125,9 +137,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_kernel_sm90(
   unsigned char* smem = smem_raw + pad;
   const uint32_t s_q = raw + pad;
   const uint32_t s_do = s_q + kTile128;
-  const uint32_t s_k = s_do + kTile128;  // stage s at s_k + s * kTile128
-  const uint32_t s_v = s_k + kDqStages * kTile128;
-  const uint32_t s_bar = s_v + kDqStages * kTile128;
+  const uint32_t s_k = s_do + kTile128;  // stage s at s_k + s * DT::kTile
+  const uint32_t s_v = s_k + kDqStages * DT::kTile;
+  const uint32_t s_bar = s_v + kDqStages * DT::kTile;
   // barriers: q/dO full, full[kDqStages], empty[kDqStages]
   const uint32_t bar_q = s_bar;
   auto bar_full = [&](int s) { return s_bar + 8 * (1 + s); };
@@ -139,7 +151,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_kernel_sm90(
   const int kvh = h / (nq / nkv);
   const int q0 = qt * kDqRows;
   int n_kt = (sk + kDqKeys - 1) / kDqKeys;
-  if (causal) n_kt = min(n_kt, qt + 1);  // keys <= q0 + 127
+  if (causal) n_kt = min(n_kt, (q0 + kDqRows + kDqKeys - 1) / kDqKeys);  // keys <= q0 + 127
 
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
@@ -166,13 +178,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_kernel_sm90(
         const int s = kt % kDqStages;
         if (kt >= kDqStages) mbar_wait(bar_empty(s), ((kt / kDqStages) - 1) & 1);
         const uint32_t full = bar_full(s);
-        mbar_expect_tx(full, 2 * kTile128);
-        const uint32_t ks = s_k + s * kTile128;
-        const uint32_t vs = s_v + s * kTile128;
+        mbar_expect_tx(full, 2 * DT::kTile);
+        const uint32_t ks = s_k + s * DT::kTile;
+        const uint32_t vs = s_v + s * DT::kTile;
         tma_load(ks, &k_map, full, 0, kvh, kt * kDqKeys, b);
-        tma_load(ks + kHalf128, &k_map, full, 64, kvh, kt * kDqKeys, b);
+        tma_load(ks + DT::kHalf, &k_map, full, 64, kvh, kt * kDqKeys, b);
         tma_load(vs, &v_map, full, 0, kvh, kt * kDqKeys, b);
-        tma_load(vs + kHalf128, &v_map, full, 64, kvh, kt * kDqKeys, b);
+        tma_load(vs + DT::kHalf, &v_map, full, 64, kvh, kt * kDqKeys, b);
       }
     }
   } else {
@@ -209,48 +221,55 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_kernel_sm90(
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg));
 
-    float acc[64];  // dQ (64 x 128): acc[4j + e], columns 8j + 2t (+1), rows g (+8)
-    float s[64];    // S, then P, then dS (64 x 128), keys for columns
-    float dp[64];   // dP
+    constexpr int kJ = kDqKeys / 8;  // 8-column groups of S
+    float acc[64];         // dQ (64 x 128): acc[4j + e], columns 8j + 2t (+1), rows g (+8)
+    float s[kDqKeys / 2];   // S, then P, then dS (64 x kDqKeys), keys for columns
+    float dp[kDqKeys / 2];  // dP
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = s[i] = dp[i] = 0.f;
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kDqKeys / 2; ++i) s[i] = dp[i] = 0.f;
     const uint32_t q_rows = s_q + wg * 64 * 128;
     const uint32_t do_rows = s_do + wg * 64 * 128;
 
     for (int kt = 0; kt < n_kt; ++kt) {
       const int st = kt % kDqStages;
       mbar_wait(bar_full(st), (kt / kDqStages) & 1);
-      const uint32_t ks = s_k + st * kTile128;
-      const uint32_t vs = s_v + st * kTile128;
+      const uint32_t ks = s_k + st * DT::kTile;
+      const uint32_t vs = s_v + st * DT::kTile;
 
       // S = Q2 . K^T and dP = dO . V^T over the 128-wide head: k steps of
       // 16 walk 32 bytes inside a 128-byte swizzled row, then the second
-      // half of the tile
+      // half of each tile
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kHead / 16; ++kk) {
-        const uint32_t off = (kk >> 2) * kHalf128 + (kk & 3) * 32;
-        wgmma_ss(s, desc_sw128(q_rows + off, 16, 1024), desc_sw128(ks + off, 16, 1024),
+        const uint32_t a_off = (kk >> 2) * kHalf128 + (kk & 3) * 32;
+        const uint32_t b_off = (kk >> 2) * DT::kHalf + (kk & 3) * 32;
+        wgmma_ss(s, desc_sw128(q_rows + a_off, 16, 1024), desc_sw128(ks + b_off, 16, 1024),
                  kk > 0 ? 1 : 0, T());
       }
       wgmma_commit();
 #pragma unroll
       for (int kk = 0; kk < kHead / 16; ++kk) {
-        const uint32_t off = (kk >> 2) * kHalf128 + (kk & 3) * 32;
-        wgmma_ss(dp, desc_sw128(do_rows + off, 16, 1024), desc_sw128(vs + off, 16, 1024),
+        const uint32_t a_off = (kk >> 2) * kHalf128 + (kk & 3) * 32;
+        const uint32_t b_off = (kk >> 2) * DT::kHalf + (kk & 3) * 32;
+        wgmma_ss(dp, desc_sw128(do_rows + a_off, 16, 1024), desc_sw128(vs + b_off, 16, 1024),
                  kk > 0 ? 1 : 0, T());
       }
       wgmma_commit();
       wgmma_wait<1>();  // S is done; dP may still run
 
-      // mask the diagonal tile and keys past the end of the sequence, then
-      // P = exp2(S - lse * log2(e)) (masked: exp2(-inf) = 0)
+      // mask the diagonal tiles (one at 128 keys; two at 64, the second
+      // past every row of the first warpgroup) and keys past the end of
+      // the sequence, then P = exp2(S - lse * log2(e)) (masked: exp2(-inf)
+      // = 0, so a tile no row reaches adds nothing)
       const int key0 = kt * kDqKeys;
       if ((causal && key0 + kDqKeys - 1 > q0 + wg * 64) || key0 + kDqKeys > sk) {
         const int lim0 = causal ? min(r0, sk - 1) : sk - 1;
         const int lim1 = causal ? min(r1, sk - 1) : sk - 1;
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < kJ; ++j) {
           const int key = key0 + 8 * j + 2 * t;
           if (key > lim0) s[4 * j] = -INFINITY;
           if (key + 1 > lim0) s[4 * j + 1] = -INFINITY;
@@ -259,7 +278,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_kernel_sm90(
         }
       }
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kJ; ++j) {
         s[4 * j] = exp2f(s[4 * j] - lse0);
         s[4 * j + 1] = exp2f(s[4 * j + 1] - lse0);
         s[4 * j + 2] = exp2f(s[4 * j + 2] - lse1);
@@ -267,7 +286,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_kernel_sm90(
       }
       wgmma_wait<0>();  // dP is done
       // dS = P * (dP - delta) * scale, rounded to T as the A fragments of
-      // the 8 k steps (16 keys each)
+      // the kDqKeys / 16 k steps (16 keys each)
       uint32_t f[kDqKeys / 16][4];
 #pragma unroll
       for (int kk = 0; kk < kDqKeys / 16; ++kk) {
@@ -279,11 +298,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_kernel_sm90(
         }
       }
       // dQ += dS . K: K (keys x 128) MN-major, 16 keys = 2048 bytes per k
-      // step, the two 64-column halves kHalf128 apart
+      // step, the two 64-column halves DT::kHalf apart
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kDqKeys / 16; ++kk) {
-        wgmma_rs(acc, f[kk], desc_sw128(ks + kk * 2048, kHalf128, 1024), T());
+        wgmma_rs(acc, f[kk], desc_sw128(ks + kk * 2048, DT::kHalf, 1024), T());
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -552,10 +571,11 @@ CUtensorMapDataType map_type() {
                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
-template <typename T>
+template <typename T, int kDqKeys>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int batch, int sq, int sk,
                       int nq, int nkv, int causal, float q_scale, float scale, cudaStream_t s) {
+  constexpr int kDqSmemBytes = DqTile<kDqKeys>::kSmemBytes;
   const CUtensorMapDataType type = map_type<T>();
   CUtensorMap qm, dom, km, vm;
   if (!make_map(&qm, q, type, batch, sq, nq, kDqRows) ||
@@ -564,15 +584,27 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
       !make_map(&vm, v, type, batch, sk, nkv, kDqKeys)) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaFuncSetAttribute(flash_dq_kernel_sm90<T>,
+  cudaError_t err = cudaFuncSetAttribute(flash_dq_kernel_sm90<T, kDqKeys>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          kDqSmemBytes);
   if (err != cudaSuccess) return err;
-  flash_dq_kernel_sm90<T>
+  flash_dq_kernel_sm90<T, kDqKeys>
       <<<dim3(nq * batch, (sq + kDqRows - 1) / kDqRows), kThreads, kDqSmemBytes, s>>>(
           qm, dom, km, vm, static_cast<const float*>(lse), static_cast<const float*>(delta),
           static_cast<T*>(dq), sq, sk, nq, nkv, causal, q_scale, scale);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dq_tile(int block_k, const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse, const void* delta, void* dq,
+                           int batch, int sq, int sk, int nq, int nkv, int causal, float q_scale,
+                           float scale, cudaStream_t s) {
+  if (block_k == 64)
+    return launch_dq<T, 64>(q, k, v, dout, lse, delta, dq, batch, sq, sk, nq, nkv, causal,
+                            q_scale, scale, s);
+  return launch_dq<T, 128>(q, k, v, dout, lse, delta, dq, batch, sq, sk, nq, nkv, causal,
+                           q_scale, scale, s);
 }
 
 template <typename T>
@@ -608,10 +640,14 @@ bool bad_shape(int batch, int sq, int sk, int nq, int nkv, int head_dim) {
 
 }  // namespace
 
-// Dynamic shared memory of the dq kernel (which == 0) or the dk/dv kernel
-// (which == 1), reported by chip_smoke.py's build phase.
-extern "C" int flash_bwd_sm90_smem_bytes(int which) {
-  return which == 0 ? kDqSmemBytes : kDkvSmemBytes;
+// Dynamic shared memory of the dq kernel at a key tile of 64 or 128 (which
+// == 0; -1 for another tile) or of the dk/dv kernel (which == 1, one
+// tile), checked against tune/candidates.py by chip_smoke.py.
+extern "C" int flash_bwd_sm90_smem_bytes(int which, int block_k) {
+  if (which == 1) return kDkvSmemBytes;
+  if (block_k == 64) return DqTile<64>::kSmemBytes;
+  if (block_k == 128) return DqTile<128>::kSmemBytes;
+  return -1;
 }
 
 // Plain C entry points, bound with ctypes, with the arguments of flash_dq
@@ -620,20 +656,23 @@ extern "C" int flash_bwd_sm90_smem_bytes(int which) {
 // cudaErrorInvalidValue for shapes or types the kernels do not take or a
 // tensor map cuTensorMapEncodeTiled refuses. q_scale is scale * log2(e),
 // already rounded to the inputs' dtype; scale is the softmax scale in fp32;
-// flash_dkv_sm90 takes q already scaled (q2) beside q.
+// flash_dkv_sm90 takes q already scaled (q2) beside q; flash_dq_sm90 takes
+// its key tile, 64 or 128.
 extern "C" int flash_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dq, int batch, int sq,
                              int sk, int nq, int nkv, int head_dim, int causal, int dtype,
-                             float q_scale, float scale, void* stream) {
-  if (bad_shape(batch, sq, sk, nq, nkv, head_dim)) return cudaErrorInvalidValue;
+                             float q_scale, float scale, int block_k, void* stream) {
+  if (bad_shape(batch, sq, sk, nq, nkv, head_dim) || (block_k != 64 && block_k != 128)) {
+    return cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kBF16:
-      return launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, batch, sq, sk, nq, nkv,
-                                      causal, q_scale, scale, s);
+      return launch_dq_tile<__nv_bfloat16>(block_k, q, k, v, dout, lse, delta, dq, batch, sq, sk,
+                                           nq, nkv, causal, q_scale, scale, s);
     case kF16:
-      return launch_dq<__half>(q, k, v, dout, lse, delta, dq, batch, sq, sk, nq, nkv, causal,
-                               q_scale, scale, s);
+      return launch_dq_tile<__half>(block_k, q, k, v, dout, lse, delta, dq, batch, sq, sk, nq,
+                                    nkv, causal, q_scale, scale, s);
     default:
       return cudaErrorInvalidValue;
   }

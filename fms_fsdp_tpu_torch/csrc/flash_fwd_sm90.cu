@@ -26,12 +26,16 @@
 //   - a block owns 128 query rows of one q head: two consumer warpgroups of
 //     64 rows each and one producer warpgroup; setmaxnreg moves registers
 //     from the producer (40) to the consumers (232);
-//   - one producer thread loads Q once and K/V tiles of 128 keys into a
-//     2-stage ring with TMA (cp.async.bulk.tensor, 4-d tensor maps over the
+//   - one producer thread loads Q once and K/V tiles of kBK keys into a
+//     ring with TMA (cp.async.bulk.tensor, 4-d tensor maps over the
 //     unpermuted (B, S, N, H) tensors, 128-byte swizzle), completion and
 //     release tracked by mbarriers; rows past the end of a sequence arrive
-//     as zeros;
-//   - S = Q.K^T is wgmma m64n128k16 with both operands in shared memory;
+//     as zeros. The key tile is a template parameter, 128 or 64 (the
+//     tuning table picks it, tune/candidates.py): 128-key tiles in a
+//     2-stage ring, 64-key tiles in a 4-stage ring, the same bytes in
+//     flight;
+//   - S = Q.K^T is wgmma m64n128k16 (m64n64k16 at 64 keys) with both
+//     operands in shared memory;
 //     the softmax runs in registers in the accumulator layout; P is rounded
 //     to the input type in registers and is the register A operand of
 //     O += P.V, with V read from shared memory through a transposed (MN-
@@ -59,14 +63,25 @@ namespace {
 
 constexpr int kHead = 128;        // head dim
 constexpr int kBQ = 128;          // query rows of a block
-constexpr int kBK = 128;          // keys per tile
-constexpr int kStages = 2;        // K/V ring depth
 constexpr int kConsumers = 2;     // consumer warpgroups, 64 rows each
 constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kHalfBytes = 128 * 128;              // 128 rows x 64 elements x 2 bytes
 constexpr int kTileBytes = 2 * kHalfBytes;         // 128 rows x 128 elements
-constexpr int kSmemBytes = 1024 + kTileBytes * (1 + 2 * kStages) + 64;
 constexpr float kLn2 = 0.6931471805599453f;
+
+// a key tile of kBK keys: K/V ring depth, the bytes of one 64-column half
+// and of the tile, the barriers (q, then full and empty a stage) in whole
+// 64-byte lines, and the block's dynamic shared memory (the 1024-byte
+// swizzle alignment, Q, the K and V rings, the barriers)
+template <int kBK>
+struct KeyTile {
+  static_assert(kBK == 64 || kBK == 128, "key tiles of 64 or 128");
+  static constexpr int kStages = kBK == 64 ? 4 : 2;
+  static constexpr int kHalf = kBK * 128;
+  static constexpr int kTile = 2 * kHalf;
+  static constexpr int kBarBytes = 64 * ((8 * (1 + 2 * kStages) + 63) / 64);
+  static constexpr int kSmemBytes = 1024 + kTileBytes + 2 * kStages * kTile + kBarBytes;
+};
 
 // dtype codes shared with the Python wrapper
 enum DType { kBF16 = 1, kF16 = 2 };
@@ -77,20 +92,22 @@ enum DType { kBF16 = 1, kF16 = 2 };
 
 // grid (Nq, ceil(Sq / 128), B): x runs over the q heads, so the heads of a
 // kv group are launched side by side; y runs the q tiles longest first.
-template <typename T>
+template <typename T, int kBK>
 __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel_sm90(
     const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, T* __restrict__ o, float* __restrict__ lse,
     int sq, int sk, int nq, int nkv, int causal, float q_scale) {
+  using KT = KeyTile<kBK>;
+  constexpr int kStages = KT::kStages;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // TMA's 128-byte swizzle repeats every 1024 bytes: align the tiles to it
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;
   unsigned char* smem = smem_raw + pad;
   const uint32_t s_q = raw + pad;
-  const uint32_t s_k = s_q + kTileBytes;  // stage s at s_k + s * kTileBytes
-  const uint32_t s_v = s_k + kStages * kTileBytes;
-  const uint32_t s_bar = s_v + kStages * kTileBytes;
+  const uint32_t s_k = s_q + kTileBytes;  // stage s at s_k + s * KT::kTile
+  const uint32_t s_v = s_k + kStages * KT::kTile;
+  const uint32_t s_bar = s_v + kStages * KT::kTile;
   // barriers: q_full, full[kStages], empty[kStages]
   const uint32_t bar_q = s_bar;
   auto bar_full = [&](int s) { return s_bar + 8 * (1 + s); };
@@ -102,7 +119,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel_sm90(
   const int kvh = h / (nq / nkv);
   const int q0 = qt * kBQ;
   int n_kt = (sk + kBK - 1) / kBK;
-  if (causal) n_kt = min(n_kt, qt + 1);  // keys <= q0 + 127
+  if (causal) n_kt = min(n_kt, (q0 + kBQ + kBK - 1) / kBK);  // keys <= q0 + 127
 
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
@@ -127,13 +144,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel_sm90(
         const int s = kt % kStages;
         if (kt >= kStages) mbar_wait(bar_empty(s), ((kt / kStages) - 1) & 1);
         const uint32_t full = bar_full(s);
-        mbar_expect_tx(full, 2 * kTileBytes);
-        const uint32_t ks = s_k + s * kTileBytes;
-        const uint32_t vs = s_v + s * kTileBytes;
+        mbar_expect_tx(full, 2 * KT::kTile);
+        const uint32_t ks = s_k + s * KT::kTile;
+        const uint32_t vs = s_v + s * KT::kTile;
         tma_load(ks, &k_map, full, 0, kvh, kt * kBK, b);
-        tma_load(ks + kHalfBytes, &k_map, full, 64, kvh, kt * kBK, b);
+        tma_load(ks + KT::kHalf, &k_map, full, 64, kvh, kt * kBK, b);
         tma_load(vs, &v_map, full, 0, kvh, kt * kBK, b);
-        tma_load(vs + kHalfBytes, &v_map, full, 64, kvh, kt * kBK, b);
+        tma_load(vs + KT::kHalf, &v_map, full, 64, kvh, kt * kBK, b);
       }
     }
   } else {
@@ -164,10 +181,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel_sm90(
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg));
 
-    float acc[64];  // O (64 x 128): acc[4j + e], columns 8j + 2t (+1), rows g (+8)
-    float s[64];    // S (64 x 128) in the same layout, keys for columns
+    constexpr int kJ = kBK / 8;  // 8-column groups of S
+    float acc[64];   // O (64 x 128): acc[4j + e], columns 8j + 2t (+1), rows g (+8)
+    float s[kBK / 2];  // S (64 x kBK) in the same layout, keys for columns
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = s[i] = 0.f;
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) s[i] = 0.f;
     float m0 = -INFINITY, m1 = -INFINITY;  // running max (base 2), rows r0, r1
     float l0 = 0.f, l1 = 0.f;              // this thread's share of the sums
     const uint32_t q_rows = s_q + wg * 64 * 128;
@@ -175,28 +195,31 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel_sm90(
     for (int kt = 0; kt < n_kt; ++kt) {
       const int st = kt % kStages;
       mbar_wait(bar_full(st), (kt / kStages) & 1);
-      const uint32_t ks = s_k + st * kTileBytes;
-      const uint32_t vs = s_v + st * kTileBytes;
+      const uint32_t ks = s_k + st * KT::kTile;
+      const uint32_t vs = s_v + st * KT::kTile;
 
       // S = Q . K^T over the 128-wide head: k steps of 16 walk 32 bytes
-      // inside a 128-byte swizzled row, then the second half of the tile
+      // inside a 128-byte swizzled row, then the second half of each tile
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kHead / 16; ++kk) {
-        const uint32_t off = (kk >> 2) * kHalfBytes + (kk & 3) * 32;
-        wgmma_ss(s, desc_sw128(q_rows + off, 16, 1024), desc_sw128(ks + off, 16, 1024),
-                 kk > 0 ? 1 : 0, T());
+        const uint32_t in_row = (kk & 3) * 32;
+        wgmma_ss(s, desc_sw128(q_rows + (kk >> 2) * kHalfBytes + in_row, 16, 1024),
+                 desc_sw128(ks + (kk >> 2) * KT::kHalf + in_row, 16, 1024), kk > 0 ? 1 : 0,
+                 T());
       }
       wgmma_commit();
       wgmma_wait0();
 
-      // mask the diagonal tile and keys past the end of the sequence
+      // mask the diagonal tiles (one at 128 keys, two at 64: the one that
+      // crosses this warpgroup's rows and, for the first warpgroup, the
+      // next, which its rows do not reach) and keys past the sequence
       const int key0 = kt * kBK;
       if ((causal && key0 + kBK - 1 > q0 + wg * 64) || key0 + kBK > sk) {
         const int lim0 = causal ? min(r0, sk - 1) : sk - 1;
         const int lim1 = causal ? min(r1, sk - 1) : sk - 1;
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < kJ; ++j) {
           const int key = key0 + 8 * j + 2 * t;
           if (key > lim0) s[4 * j] = -INFINITY;
           if (key + 1 > lim0) s[4 * j + 1] = -INFINITY;
@@ -206,11 +229,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel_sm90(
       }
       float tm0 = -INFINITY, tm1 = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kJ; ++j) {
         tm0 = fmaxf(tm0, fmaxf(s[4 * j], s[4 * j + 1]));
         tm1 = fmaxf(tm1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
       }
-      // finite: every row sees the first key of every tile it visits
+      // finite: every row sees key 0 in the first tile, and a later tile
+      // its rows do not reach (a 64-key tile past the first warpgroup's
+      // rows) leaves the running max as it was
       const float mn0 = fmaxf(m0, quad_max(tm0));
       const float mn1 = fmaxf(m1, quad_max(tm1));
       const float al0 = exp2f(m0 - mn0);  // first tile: exp2(-inf) = 0
@@ -219,7 +244,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel_sm90(
       m1 = mn1;
       float ls0 = 0.f, ls1 = 0.f;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kJ; ++j) {
         s[4 * j] = exp2f(s[4 * j] - mn0);  // masked: exp2(-inf) = 0
         s[4 * j + 1] = exp2f(s[4 * j + 1] - mn0);
         s[4 * j + 2] = exp2f(s[4 * j + 2] - mn1);
@@ -236,7 +261,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel_sm90(
         acc[4 * j + 2] *= al1;
         acc[4 * j + 3] *= al1;
       }
-      // P rounded to T as the A fragments of the 8 k steps (16 keys each)
+      // P rounded to T as the A fragments of the kBK / 16 k steps (16 keys
+      // each)
       uint32_t p[kBK / 16][4];
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
@@ -246,11 +272,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel_sm90(
         p[kk][3] = pack2<T>(s[8 * kk + 6], s[8 * kk + 7]);
       }
       // O += P . V: V (keys x 128) MN-major, 16 keys = 2048 bytes per k
-      // step, the two 64-column halves kHalfBytes apart
+      // step, the two 64-column halves KT::kHalf apart
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
-        wgmma_rs(acc, p[kk], desc_sw128(vs + kk * 2048, kHalfBytes, 1024), T());
+        wgmma_rs(acc, p[kk], desc_sw128(vs + kk * 2048, KT::kHalf, 1024), T());
       }
       wgmma_commit();
       wgmma_wait0();
@@ -286,9 +312,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel_sm90(
 // host side
 // ---------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, int kBK>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
                    int sq, int sk, int nq, int nkv, int causal, float q_scale, cudaStream_t s) {
+  constexpr int kSmemBytes = KeyTile<kBK>::kSmemBytes;
   const CUtensorMapDataType type = std::is_same<T, __half>::value
                                        ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
@@ -297,39 +324,55 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
       !make_map(&vm, v, type, batch, sk, nkv, kBK)) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel_sm90<T>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel_sm90<T, kBK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel_sm90<T><<<dim3(nq, (sq + kBQ - 1) / kBQ, batch), kThreads, kSmemBytes, s>>>(
+  flash_fwd_kernel_sm90<T, kBK><<<dim3(nq, (sq + kBQ - 1) / kBQ, batch), kThreads, kSmemBytes, s>>>(
       qm, km, vm, static_cast<T*>(o), static_cast<float*>(lse), sq, sk, nq, nkv, causal,
       q_scale);
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_tile(int block_k, const void* q, const void* k, const void* v, void* o,
+                        void* lse, int batch, int sq, int sk, int nq, int nkv, int causal,
+                        float q_scale, cudaStream_t s) {
+  if (block_k == 64)
+    return launch<T, 64>(q, k, v, o, lse, batch, sq, sk, nq, nkv, causal, q_scale, s);
+  return launch<T, 128>(q, k, v, o, lse, batch, sq, sk, nq, nkv, causal, q_scale, s);
+}
+
 }  // namespace
 
-// Dynamic shared memory of the kernel (reported by chip_smoke.py's build
-// phase).
-extern "C" int flash_fwd_sm90_smem_bytes() { return kSmemBytes; }
+// Dynamic shared memory of the kernel at a key tile of 64 or 128 (-1 for
+// another), checked against tune/candidates.py by chip_smoke.py.
+extern "C" int flash_fwd_sm90_smem_bytes(int block_k) {
+  if (block_k == 64) return KeyTile<64>::kSmemBytes;
+  if (block_k == 128) return KeyTile<128>::kSmemBytes;
+  return -1;
+}
 
 // Plain C entry point, bound with ctypes: the 16-bit forward. Pointers and
 // the stream travel as void*; the return value is the cudaError_t of the
 // launch (0 on success), cudaErrorInvalidValue for shapes or types the
 // kernel does not take or a tensor map cuTensorMapEncodeTiled refuses. q_scale is
-// scale * log2(e), already rounded to the inputs' dtype.
+// scale * log2(e), already rounded to the inputs' dtype; block_k is the key
+// tile, 64 or 128.
 extern "C" int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, void* lse,
                               int batch, int sq, int sk, int nq, int nkv, int head_dim,
-                              int causal, int dtype, float q_scale, void* stream) {
+                              int causal, int dtype, float q_scale, int block_k, void* stream) {
   if (batch <= 0 || nkv <= 0 || nq % nkv != 0 || head_dim != kHead || sq <= 0 || sk <= 0 ||
-      sq % 64 != 0 || sk % 64 != 0) {
+      sq % 64 != 0 || sk % 64 != 0 || (block_k != 64 && block_k != 128)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kBF16:
-      return launch<__nv_bfloat16>(q, k, v, o, lse, batch, sq, sk, nq, nkv, causal, q_scale, s);
+      return launch_tile<__nv_bfloat16>(block_k, q, k, v, o, lse, batch, sq, sk, nq, nkv, causal,
+                                        q_scale, s);
     case kF16:
-      return launch<__half>(q, k, v, o, lse, batch, sq, sk, nq, nkv, causal, q_scale, s);
+      return launch_tile<__half>(block_k, q, k, v, o, lse, batch, sq, sk, nq, nkv, causal,
+                                 q_scale, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -31,6 +31,7 @@ from fms_fsdp_tpu_torch.obs.schema import SCHEMA_VERSION, validate_record
 from fms_fsdp_tpu_torch.obs.sinks import Heartbeat, Sink, build_sinks
 from fms_fsdp_tpu_torch.obs.timing import GoodputTracker, PhaseTimer
 from fms_fsdp_tpu_torch.resilience.exits import read_restart_ledger
+from fms_fsdp_tpu_torch.tune.lookup import attach_registry
 
 logger = logging.getLogger(__name__)
 
@@ -308,7 +309,7 @@ def build_observer(
             peak = peak_flops_per_card(torch.cuda.get_device_name(device))
 
     ledger = read_restart_ledger() or {}
-    return Observer(
+    obs = Observer(
         sinks=sinks,
         heartbeat=heartbeat,
         flops_per_token=flops,
@@ -316,10 +317,13 @@ def build_observer(
         peak_flops=peak,
         clock=clock,
         strict_schema=bool(getattr(cfg, "obs_strict_schema", False)),
-        # no tuner yet (ROADMAP.md A.13): the kernels' tiles are fixed
-        kernel_tuning=None,
+        kernel_tuning=getattr(cfg, "kernel_tuning", None),
         quantized_matmuls=getattr(cfg, "quantized_matmuls", None),
         quantized_reduce=getattr(cfg, "quantized_reduce", None),
         restarts=int(ledger.get("restarts", 0) or 0),
         restart_downtime_s=float(ledger.get("restart_downtime_s", 0.0) or 0.0),
     )
+    # resolved kernel tiles (kernel.tune.* gauges) land in this observer's
+    # registry; choices recorded before the attach are replayed
+    attach_registry(obs.registry)
+    return obs

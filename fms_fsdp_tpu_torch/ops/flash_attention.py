@@ -25,12 +25,21 @@ TMA kernels of ``csrc/flash_fwd_sm90.cu`` (forward) and
 the resident/kvgrid split is a VMEM limit; the CUDA forward and dq kernels
 always stream K/V, so one kernel fulfils both contracts. ``LAUNCHES``
 counts each launch under the contract the call fulfils: ``*_kvgrid`` where
-:func:`_use_kvgrid` holds for the call (``seq_k > MAX_KERNEL_SEQ``, or
-:func:`set_kernel_variant` pins it), as JAX dispatches.
+:func:`_use_kvgrid` holds for the call (the call's family from the tuning
+table, then :func:`set_kernel_variant`'s pin, then ``seq_k >
+MAX_KERNEL_SEQ``), as JAX dispatches.
+
+The 16-bit forward and dq kernels take a key tile of 64 or 128
+(``block_k``, a template parameter of each kernel); dk/dv and the fp32
+kernels have one tile each. ``TILE_LAUNCHES`` counts the 16-bit forward
+and dq launches by contract and key tile.
 
 :func:`flash_attention` is the differentiable entry: one
 ``torch.autograd.Function`` covers both of JAX's ``custom_vjp``s (o alone,
 and (o, lse) with lse differentiable, the ring-attention building block).
+Its tiles, family and quantized wire come from the tuning table
+(``tune/lookup.py::resolve_flash``) unless the caller names them; the
+plain versions ignore tiles, which change no arithmetic there.
 """
 
 import ctypes
@@ -41,6 +50,13 @@ from torch.profiler import record_function
 
 from fms_fsdp_tpu_torch.obs.scopes import scoped
 from fms_fsdp_tpu_torch.ops.quant import activation_roundtrip
+from fms_fsdp_tpu_torch.tune import candidates as _cand
+from fms_fsdp_tpu_torch.tune.lookup import (
+    note_block_degradation,
+    once_per_build,
+    record_final_flash_blocks,
+    resolve_flash,
+)
 
 LOG2E = 1.4426950408889634  # log2(e)
 LN2 = 0.6931471805599453
@@ -48,7 +64,7 @@ LN2 = 0.6931471805599453
 # The resident TPU kernels stage the whole per-head sequence in VMEM; past
 # this cap JAX switches to the kv-streamed kernels. Here it only decides
 # which contract a launch is counted under.
-MAX_KERNEL_SEQ = 8192
+MAX_KERNEL_SEQ = _cand.MAX_KERNEL_SEQ
 VARIANTS = (None, "auto", "resident", "kvgrid")
 # the pinned contract family ("resident" | "kvgrid"), None for the
 # sequence-length rule; TrainConfig.flash_kernel_variant, applied by
@@ -58,6 +74,9 @@ _VARIANT = None
 # launches of the CUDA kernels, by the Pallas contract each call fulfils;
 # counted where a kernel launches and nowhere else
 LAUNCHES = {"fwd": 0, "fwd_kvgrid": 0, "dq": 0, "dq_kvgrid": 0, "dkv": 0}
+# launches of the 16-bit forward and dq kernels (csrc/flash_*_sm90.cu) by
+# contract and key tile; counted where they launch
+TILE_LAUNCHES = {c: {64: 0, 128: 0} for c in ("fwd", "fwd_kvgrid", "dq", "dq_kvgrid")}
 
 # dtype codes of the csrc/flash_*.cu entry points
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -95,6 +114,9 @@ BWD_Q_TILE = 64
 def reset_launches() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+    for tiles in TILE_LAUNCHES.values():
+        for key in tiles:
+            tiles[key] = 0
 
 
 def set_kernel_variant(variant) -> None:
@@ -110,12 +132,58 @@ def set_kernel_variant(variant) -> None:
     _VARIANT = None if variant == "auto" else variant
 
 
-def _use_kvgrid(seq_k: int) -> bool:
-    """JAX's family rule (``flash_attention.py:863``): the pinned variant
-    first, then the sequence-length rule."""
+def _use_kvgrid(seq_k: int, variant=None) -> bool:
+    """JAX's family rule (``flash_attention.py:863``): the call's own
+    family (the tuning table's, threaded through the backward) first, then
+    the pinned variant, then the sequence-length rule."""
+    if variant in ("resident", "kvgrid"):
+        return variant == "kvgrid"
     if _VARIANT is not None:
         return _VARIANT == "kvgrid"
     return seq_k > MAX_KERNEL_SEQ
+
+
+def _kernel_block_k(dtype, block_k):
+    """The key tile a CUDA launch runs: ``block_k`` (None: the default,
+    128 for 16-bit inputs), one of the 16-bit kernels' tiles; the fp32
+    kernels have their one 64-key tile. Anything else raises."""
+    if dtype == torch.float32:
+        if block_k not in (None, _cand.FLASH_FP32_BLOCK):
+            raise ValueError(
+                f"the fp32 flash kernels have one {_cand.FLASH_FP32_BLOCK}-key "
+                f"tile; got block_k={block_k}"
+            )
+        return _cand.FLASH_FP32_BLOCK
+    if block_k is None:
+        return _cand.FLASH_DEFAULT_BLOCK_K
+    if block_k not in _cand.FLASH_BLOCK_K_CHOICES:
+        raise ValueError(
+            f"the 16-bit flash kernels take a key tile of "
+            f"{_cand.FLASH_BLOCK_K_CHOICES}; got block_k={block_k}"
+        )
+    return block_k
+
+
+def _pick_block(seq: int, target: int, kind: str, dtype) -> int:
+    """The tile that runs for a length ``seq``, JAX's ``_pick_block``
+    (``flash_attention.py:809``) for the CUDA kernels: they take any
+    length that is a multiple of 64 with any of their tiles (a block masks
+    the rows or keys past the end), so ``target`` runs as it is, except
+    past the length itself, where the largest of the kernel's tiles that
+    the length holds runs (the smallest if none does). A tile below half
+    the request is counted and warned of, as in JAX."""
+    if dtype == torch.float32:
+        tiles = (_cand.FLASH_FP32_BLOCK,)
+    elif kind == "q":
+        tiles = (_cand.FLASH_BLOCK_Q,)
+    else:
+        tiles = _cand.FLASH_BLOCK_K_CHOICES
+    b = target
+    if b > seq:
+        b = max([t for t in tiles if t <= seq], default=min(tiles))
+    if 2 * b < min(seq, target):
+        note_block_degradation(kind, seq, target, b)
+    return b
 
 
 def supports(q_shape, k_shape) -> bool:
@@ -321,6 +389,12 @@ _ARGTYPES = {
     "dq": [_P] * 7 + [_I] * 8 + [_F, _F, _P],
     "dkv": [_P] * 9 + [_I] * 8 + [_F, _P],
 }
+# the 16-bit entry points take the key tile before the stream
+_ARGTYPES_SM90 = {
+    "fwd": [_P] * 5 + [_I] * 8 + [_F, _I, _P],
+    "dq": [_P] * 7 + [_I] * 8 + [_F, _F, _I, _P],
+    "dkv": _ARGTYPES["dkv"],
+}
 
 
 def _entry(op: str, dtype: torch.dtype):
@@ -337,7 +411,7 @@ def _entry(op: str, dtype: torch.dtype):
         name = f"flash_{op}_sm90"
     fn = getattr(cuda_build.load(source).lib, name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[op]
+        fn.argtypes = (_ARGTYPES if dtype == torch.float32 else _ARGTYPES_SM90)[op]
         fn.restype = ctypes.c_int
     return fn, name
 
@@ -395,14 +469,29 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
 
 
-def flash_fwd(q, k, v, *, causal=True, scale=None):
+def _tile_args(dtype, block_k):
+    """The key-tile argument of a 16-bit entry point (none for fp32)."""
+    return () if dtype == torch.float32 else (block_k,)
+
+
+def _count(op, sk, dtype, block_k, variant):
+    contract = op + ("_kvgrid" if _use_kvgrid(sk, variant) else "")
+    LAUNCHES[contract] += 1
+    if dtype != torch.float32:
+        TILE_LAUNCHES[contract][block_k] += 1
+
+
+def flash_fwd(q, k, v, *, causal=True, scale=None, block_k=None, variant=None):
     """Forward: (o (B, Sq, Nq, H), lse (B, Nq, Sq) fp32). CPU tensors run
     :func:`flash_fwd_plain`; CUDA tensors launch ``flash_fwd_sm90``
-    (``csrc/flash_fwd_sm90.cu``) for bf16/fp16 and ``flash_fwd``
-    (``csrc/flash_attention.cu``) for fp32."""
+    (``csrc/flash_fwd_sm90.cu``) with the key tile ``block_k`` (64 or 128,
+    default 128) for bf16/fp16 and ``flash_fwd`` (``csrc/flash_attention.cu``)
+    for fp32. ``variant`` names the contract the launch is counted under
+    (:func:`_use_kvgrid`)."""
     if _device_of(q) == "cpu":
         return flash_fwd_plain(q, k, v, causal=causal, scale=scale)
     _check_cuda(q, k, v)
+    block_k = _kernel_block_k(q.dtype, block_k)
     b, sq, nq, h = q.shape
     sk, nkv = k.shape[1], k.shape[2]
     scale = float(scale if scale is not None else h**-0.5)
@@ -415,21 +504,24 @@ def flash_fwd(q, k, v, *, causal=True, scale=None):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             b, sq, sk, nq, nkv, h, int(causal), _CODES[q.dtype],
-            q_scale_for(scale, q.dtype), stream,
+            q_scale_for(scale, q.dtype), *_tile_args(q.dtype, block_k), stream,
         )
     _raise_on(err, name)
-    LAUNCHES["fwd_kvgrid" if _use_kvgrid(sk) else "fwd"] += 1
+    _count("fwd", sk, q.dtype, block_k, variant)
     return o, lse
 
 
-def flash_dq(q, k, v, dout, lse, delta, *, causal=True, scale=None):
+def flash_dq(q, k, v, dout, lse, delta, *, causal=True, scale=None, block_k=None,
+             variant=None):
     """dq (B, Sq, Nq, H) in q's dtype from the softmax stats lse and delta
     (B, Nq, Sq) fp32. CPU: :func:`flash_dq_plain`; CUDA: ``flash_dq_sm90``
-    (``csrc/flash_bwd_sm90.cu``) for bf16/fp16, ``flash_dq``
-    (``csrc/flash_attention.cu``) for fp32."""
+    (``csrc/flash_bwd_sm90.cu``) with the key tile ``block_k`` (64 or 128,
+    default 128) for bf16/fp16, ``flash_dq`` (``csrc/flash_attention.cu``)
+    for fp32."""
     if _device_of(q) == "cpu":
         return flash_dq_plain(q, k, v, dout, lse, delta, causal=causal, scale=scale)
     _check_cuda(q, k, v, dout=dout, lse=lse, delta=delta)
+    block_k = _kernel_block_k(q.dtype, block_k)
     b, sq, nq, h = q.shape
     sk, nkv = k.shape[1], k.shape[2]
     scale = float(scale if scale is not None else h**-0.5)
@@ -441,10 +533,10 @@ def flash_dq(q, k, v, dout, lse, delta, *, causal=True, scale=None):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             b, sq, sk, nq, nkv, h, int(causal), _CODES[q.dtype],
-            q_scale_for(scale, q.dtype), scale, stream,
+            q_scale_for(scale, q.dtype), scale, *_tile_args(q.dtype, block_k), stream,
         )
     _raise_on(err, name)
-    LAUNCHES["dq_kvgrid" if _use_kvgrid(sk) else "dq"] += 1
+    _count("dq", sk, q.dtype, block_k, variant)
     return dq
 
 
@@ -487,10 +579,11 @@ class _FlashAttention(torch.autograd.Function):
     ``delta - dlse`` (``:737``), so ring attention can merge partials."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        o, lse = flash_fwd(q, k, v, causal=causal, scale=scale)
+    def forward(ctx, q, k, v, causal, scale, block_k, variant):
+        o, lse = flash_fwd(q, k, v, causal=causal, scale=scale, block_k=block_k,
+                           variant=variant)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.block_k, ctx.variant = causal, scale, block_k, variant
         ctx.set_materialize_grads(False)
         return o, lse
 
@@ -506,9 +599,10 @@ class _FlashAttention(torch.autograd.Function):
             if dlse is not None:
                 delta = delta - dlse.float()
             kw = dict(causal=ctx.causal, scale=ctx.scale)
-            dq = flash_dq(q, k, v, dout, lse, delta, **kw)
+            dq = flash_dq(q, k, v, dout, lse, delta, block_k=ctx.block_k,
+                          variant=ctx.variant, **kw)
             dk, dv = flash_dkv(q, k, v, dout, lse, delta, **kw)
-            return dq, dk.to(k.dtype), dv.to(v.dtype), None, None
+            return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None, None
 
 
 class _WireSTE(torch.autograd.Function):
@@ -526,25 +620,58 @@ class _WireSTE(torch.autograd.Function):
         return g, None
 
 
+def _resolve_tiles(q_shape, k_shape, dtype, block_q, block_k, variant, quant):
+    """(block_q, block_k, family, quant) that run for one call's shapes:
+    the tuning table's resolution, then ``_pick_block``; recorded as what
+    runs (the tiles and the family after dispatch)."""
+    bq, bk, fam, qnt, _ = resolve_flash(
+        q_shape, k_shape, str(dtype).replace("torch.", ""),
+        requested_q=block_q, requested_k=block_k,
+        requested_variant=variant, requested_quant=quant,
+    )
+    block_q = _pick_block(q_shape[1], bq, "q", dtype)
+    block_k = _pick_block(k_shape[1], bk, "k", dtype)
+    record_final_flash_blocks(block_q, block_k, kvgrid=_use_kvgrid(k_shape[1], fam))
+    return block_q, block_k, fam, qnt
+
+
 @scoped("flash_attention_fwd")
 def flash_attention(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
-                    return_lse: bool = False, quant: Optional[str] = None):
+                    block_q: Optional[int] = None, block_k: Optional[int] = None,
+                    return_lse: bool = False, variant: Optional[str] = None,
+                    quant: Optional[str] = None):
     """q (B, Sq, Nq, H); k/v (B, Sk, Nkv, H) -> o (B, Sq, Nq, H).
 
+    ``block_q`` / ``block_k`` / ``variant`` / ``quant`` default to the
+    tuning table's resolution (``tune/lookup.py::resolve_flash``: exact
+    signature, nearest signature, then the static 128 x 128 tiles; the
+    fp32 kernels' one 64 x 64 tile); passing them pins them. ``block_k``
+    is the key tile of the 16-bit forward and dq kernels (64 or 128);
+    ``block_q`` is recorded (the 16-bit kernels have one 128-row query
+    tile); ``variant`` ("resident" / "kvgrid") names the contract the
+    launches are counted under. ``quant`` ("int8" / "fp8") selects the
+    quantized family: q and k go through the operand wire (per-row absmax
+    over the head dim, straight-through gradients) before the kernels, as
+    JAX's simulated quantized kernels; None (or "none") leaves every call
+    as it was.
+
     With ``return_lse`` also the per-query logsumexp (B, Sq, Nq, 1) fp32,
-    a differentiable output as in JAX. ``quant`` ("int8" / "fp8") selects
-    the quantized family: q and k go through the operand wire (per-row
-    absmax over the head dim, straight-through gradients) before the
-    kernels, as JAX's simulated quantized kernels; None (or "none")
-    leaves every call as it was.
+    a differentiable output as in JAX.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if quant not in (None, "none"):
-        q = _WireSTE.apply(q, quant)
-        k = _WireSTE.apply(k, quant)
+    # a per-call variant pins the family; else set_kernel_variant's pin;
+    # else the table may pick it
+    requested = (block_q, block_k, variant if variant is not None else _VARIANT, quant)
+    block_q, block_k, fam, qnt = once_per_build(
+        ("flash", tuple(q.shape), tuple(k.shape), q.dtype, requested),
+        lambda: _resolve_tiles(q.shape, k.shape, q.dtype, *requested))
+    if qnt not in (None, "none"):
+        q = _WireSTE.apply(q, qnt)
+        k = _WireSTE.apply(k, qnt)
     o, lse = _FlashAttention.apply(
         q.contiguous(), k.contiguous(), v.contiguous(), causal, float(scale),
+        block_k, fam,
     )
     if return_lse:
         return o, lse.transpose(1, 2).unsqueeze(-1)

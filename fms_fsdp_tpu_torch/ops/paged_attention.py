@@ -66,15 +66,18 @@ def reset_launches() -> None:
         LAUNCHES[key] = 0
 
 
-def decode_splits(batch, nkv, capacity, page_size, sm_count):
+def decode_splits(batch, nkv, capacity, page_size, sm_count, split_keys=None):
     """(split_keys, n_splits) of the kernel's grid (splits, Nkv, B).
 
     A split is a run of keys that is a whole number of pages and of
-    ``STAGE_KEYS``-key stages, ``SPLIT_KEYS`` to start with; it shrinks by
-    that unit while the grid has fewer than two blocks per SM and a smaller
-    split is possible. ``n_splits`` covers ``capacity`` (max_pages *
-    page_size). Shapes alone decide: the rows' lengths are on the card and
-    reading them would cost a host sync in every decode step.
+    ``STAGE_KEYS``-key stages. A ``split_keys`` resolved by the tuning
+    table (``tune/lookup.py::resolve_paged_decode``'s ``block_kv``) is the
+    split as it is and must be a multiple of that unit; without one the
+    planner starts at ``SPLIT_KEYS`` and shrinks by the unit while the grid
+    has fewer than two blocks per SM and a smaller split is possible.
+    ``n_splits`` covers ``capacity`` (max_pages * page_size). Shapes alone
+    decide: the rows' lengths are on the card and reading them would cost
+    a host sync in every decode step.
     """
     if min(batch, nkv, capacity, page_size, sm_count) <= 0:
         raise ValueError(
@@ -82,6 +85,13 @@ def decode_splits(batch, nkv, capacity, page_size, sm_count):
             f"capacity={capacity}, page_size={page_size}, sm_count={sm_count}"
         )
     unit = math.lcm(STAGE_KEYS, page_size)
+    if split_keys is not None:
+        if split_keys <= 0 or split_keys % unit:
+            raise ValueError(
+                f"split_keys={split_keys} must be a positive multiple of "
+                f"lcm({STAGE_KEYS}, page_size={page_size}) = {unit}"
+            )
+        return split_keys, -(-capacity // split_keys)
     split = max(unit, -(-SPLIT_KEYS // unit) * unit)
     # no split longer than the cache
     split = min(split, -(-capacity // unit) * unit)
@@ -250,13 +260,14 @@ def _check_cuda_args(q, k_pages, v_pages, page_table, seq_lens, k_scales,
                 )
 
 
-def _launch(q, k_pages, v_pages, page_table, seq_lens, k_scales, v_scales):
+def _launch(q, k_pages, v_pages, page_table, seq_lens, k_scales, v_scales, split_keys):
     b, nq, hd = q.shape
     _, ps, nkv, _ = k_pages.shape
     maxp = page_table.shape[1]
     group = nq // nkv
     out = torch.empty((b, nq * hd), dtype=q.dtype, device=q.device)
-    split_keys, n_splits = decode_splits(b, nkv, maxp * ps, ps, _sm_count(q.device))
+    split_keys, n_splits = decode_splits(b, nkv, maxp * ps, ps, _sm_count(q.device),
+                                         split_keys)
     # fp32 partials of every (row, kv head, split, query head): o, then m, l
     part_o = torch.empty((b, nkv, n_splits, group, hd), dtype=torch.float32,
                          device=q.device)
@@ -297,10 +308,13 @@ def paged_attention_kernel(
     scales (P, ps, Nkv, 1)) are dequantised in registers. CPU tensors run
     :func:`paged_attention_plain`.
 
-    ``block_kv`` keeps the JAX contract — a positive multiple of the page
-    size, default the page size — and picks which Pallas kernel's launch
-    count a call adds to; the CUDA kernel stages 64 keys either way.
-    ``compute_dtype`` must be q's dtype when given.
+    ``block_kv`` keeps the JAX contract -- a positive multiple of the page
+    size, default the page size -- and picks which Pallas kernel's launch
+    count a call adds to ("v2" where it differs from the page size). On
+    the card a ``block_kv`` other than the page size is the split length
+    (:func:`decode_splits`), so it must also be a multiple of
+    lcm(``STAGE_KEYS``, page size); the page size leaves the split to the
+    planner. ``compute_dtype`` must be q's dtype when given.
     """
     page_size = k_pages.shape[1]
     if block_kv is None:
@@ -321,7 +335,8 @@ def paged_attention_kernel(
         raise ValueError(f"paged_attention_kernel runs on cuda or cpu, not {q.device}")
     _check_cuda_args(q, k_pages, v_pages, page_table, seq_lens, k_scales,
                      v_scales, compute_dtype)
-    out = _launch(q, k_pages, v_pages, page_table, seq_lens, k_scales, v_scales)
+    out = _launch(q, k_pages, v_pages, page_table, seq_lens, k_scales, v_scales,
+                  None if block_kv == page_size else block_kv)
     LAUNCHES["v2" if k_scales is not None or block_kv != page_size else "v1"] += 1
     return out
 

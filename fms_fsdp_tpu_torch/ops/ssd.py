@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from fms_fsdp_tpu_torch.obs.scopes import scoped
+from fms_fsdp_tpu_torch.tune.lookup import resolve_ssd_chunk
 
 KERNELS = ("auto", "reference", "xla", "pallas")
 
@@ -442,14 +443,17 @@ class _SSDCore(torch.autograd.Function):
 @scoped("ssd_scan")
 def ssd_scan(x, dt, A, Bm, Cm, D=None, chunk_size: int = 256, kernel: str = "auto"):
     """Chunked selective scan. Returns y with x's shape, computed in fp32,
-    cast back to x.dtype. The chunk length is ``min(chunk_size, S)`` and
+    cast back to x.dtype. The chunk length is ``min(chunk_size, S)``
+    unless the tuning table overrides the default chunk
+    (``tune/lookup.py::resolve_ssd_chunk``, ``kernel_tuning="auto"``), and
     must divide S."""
     Bsz, S, H, P = x.shape
     if kernel not in KERNELS:
         raise ValueError(f"unknown ssd kernel {kernel!r}: expected one of {KERNELS}")
     if kernel == "reference":
         return ssd_scan_reference(x, dt, A, Bm, Cm, D)
-    L = min(chunk_size, S)
+    dtype = str(x.dtype).replace("torch.", "")
+    L = resolve_ssd_chunk(x.shape, Bm.shape[2], Bm.shape[3], dtype, requested=min(chunk_size, S))
     if S % L != 0:
         raise ValueError(f"seq len {S} must be a multiple of chunk {L}")
 

@@ -7,7 +7,9 @@ Counterpart of ``fms_fsdp_tpu/serve/engine.py``:
   ``checkpoints/`` root), cast to the compute dtype and moved to the
   device ONCE, at build;
 - a :class:`~fms_fsdp_tpu_torch.serve.kv_cache.PagedKVCache` pool whose
-  page size resolves statically (``tune/lookup.py``);
+  page size and decode split resolve once, at build, through the tuning
+  table (``tune/lookup.py::resolve_paged_decode``: table or static
+  defaults, ``tune_how`` says which);
 - the :class:`~fms_fsdp_tpu_torch.serve.scheduler.ContinuousBatchingScheduler`
   deciding admission / expiry / eviction each iteration;
 - one ragged decode step over the ``max_batch`` slots per iteration,
@@ -69,7 +71,7 @@ class ServeConfig:
     max_batch: int = 8  # decode slots
     max_seq_len: int = 2048  # per-sequence cache capacity
     num_pages: int = 0  # pool size; 0 = max_batch*max_seq_len + reserved
-    page_size: int = 0  # 0 = static default (tune/lookup.py)
+    page_size: int = 0  # 0 = the tuning table's, else the static default (tune/lookup.py)
     kv_quant: str = "none"  # "none" | "int8" | "fp8" page storage
     attn_impl: str = "auto"  # "reference" | "kernel" | "auto"
     compute_dtype: str = "bfloat16"
@@ -171,6 +173,7 @@ class ServingEngine:
         self.max_pages = self.adapter.max_pages
         self.attn_impl = self.adapter.attn_impl
         self.block_kv = self.adapter.block_kv
+        self.tune_how = self.adapter.tune_how
 
         self.scheduler = ContinuousBatchingScheduler(
             scfg.max_batch,

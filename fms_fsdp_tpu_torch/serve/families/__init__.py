@@ -127,6 +127,21 @@ def init_params_for(model_cfg):
     return lambda generator: init_llama_params(generator, model_cfg)
 
 
+def paged_decode_tiles(model_cfg, scfg):
+    """(page_size, block_kv, how) of a paged family's pool and decode
+    split, resolved once at engine build through the tuning table
+    (``tune/lookup.py::resolve_paged_decode``) on the full signature; the
+    table keys the pool's element type ("bfloat16", "int8",
+    "float8_e4m3fn"), so quantized pools get their own entries."""
+    from fms_fsdp_tpu_torch.tune.lookup import resolve_paged_decode
+
+    dtype = {"int8": "int8", "fp8": "float8_e4m3fn"}.get(scfg.kv_quant, scfg.compute_dtype)
+    return resolve_paged_decode(
+        scfg.max_batch, model_cfg.nheads, model_cfg.n_kv_heads, model_cfg.head_dim,
+        scfg.max_seq_len, dtype, requested_page_size=scfg.page_size or None,
+    )
+
+
 def resolve_adapter(params, model_cfg, serve_cfg, compute_dtype, device):
     """Params + config -> the family's adapter."""
     family = family_of(model_cfg)
@@ -183,6 +198,9 @@ class FamilyAdapter:
     max_pages: int = 0
     attn_impl: str = "none"
     block_kv: int = 0
+    # how the tuning table answered resolve_paged_decode at build ("exact",
+    # "nearest", "default", "pinned", "off"; "n/a" for a family without it)
+    tune_how: str = "n/a"
     # speculative serving (ServeConfig.speculator_path): an adapter that
     # loaded a speculator sets ``speculative``; the engine then steps
     # through ``decode_spec`` and budgets ``spec_draft_tokens`` positions

@@ -17,9 +17,8 @@ from fms_fsdp_tpu_torch.models.generation import decode_chunk, prefill, sample_t
 from fms_fsdp_tpu_torch.models.speculative import speculator_propose
 from fms_fsdp_tpu_torch.ops.rope import rope_table
 from fms_fsdp_tpu_torch.serve.decode import paged_decode_step, paged_verify_step
-from fms_fsdp_tpu_torch.serve.families import FamilyAdapter
+from fms_fsdp_tpu_torch.serve.families import FamilyAdapter, paged_decode_tiles
 from fms_fsdp_tpu_torch.serve.kv_cache import RESERVED_PAGES, PagedKVCache
-from fms_fsdp_tpu_torch.tune.lookup import resolve_paged_decode
 
 
 class LlamaAdapter(FamilyAdapter):
@@ -35,9 +34,7 @@ class LlamaAdapter(FamilyAdapter):
         self.device = torch.device(device)
 
         nlayers = int(params["layers"]["wq"].shape[0])
-        page_size, self.block_kv, _ = resolve_paged_decode(
-            scfg.max_seq_len, requested_page_size=scfg.page_size or None
-        )
+        page_size, self.block_kv, self.tune_how = paged_decode_tiles(model_cfg, scfg)
         self.page_size = page_size
         self.max_pages = scfg.max_seq_len // page_size
         num_pages = scfg.num_pages or (

@@ -21,9 +21,8 @@ import torch
 from fms_fsdp_tpu_torch.models.generation import sample_token
 from fms_fsdp_tpu_torch.models.mixtral import mixtral_paged_decode_step, mixtral_prefill
 from fms_fsdp_tpu_torch.ops.rope import rope_table
-from fms_fsdp_tpu_torch.serve.families import FamilyAdapter
+from fms_fsdp_tpu_torch.serve.families import FamilyAdapter, paged_decode_tiles
 from fms_fsdp_tpu_torch.serve.kv_cache import RESERVED_PAGES, PagedKVCache
-from fms_fsdp_tpu_torch.tune.lookup import resolve_paged_decode
 
 MOE_IMPLS = ("routed", "dense")
 
@@ -67,9 +66,7 @@ class MixtralAdapter(FamilyAdapter):
         self.attn_impl = "reference"
 
         nlayers = int(params["layers"]["wq"].shape[0])
-        page_size, self.block_kv, _ = resolve_paged_decode(
-            scfg.max_seq_len, requested_page_size=scfg.page_size or None
-        )
+        page_size, self.block_kv, self.tune_how = paged_decode_tiles(model_cfg, scfg)
         self.page_size = page_size
         self.max_pages = scfg.max_seq_len // page_size
         num_pages = scfg.num_pages or (

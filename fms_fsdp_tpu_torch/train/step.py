@@ -84,6 +84,7 @@ from fms_fsdp_tpu_torch.parallel.sharding import (
     quantized_grad_reduce,
 )
 from fms_fsdp_tpu_torch.resilience.faults import check_spec, fault_params
+from fms_fsdp_tpu_torch.tune.lookup import configure_kernel_tuning, resolve_ce_chunk
 from fms_fsdp_tpu_torch.utils.tree import tree_map
 
 # (TrainConfig field, is it set to something this port does not run yet,
@@ -312,6 +313,7 @@ def make_train_step(model_cfg, cfg, start_step: int = 0):
     """
     check_step_options(cfg)
     set_kernel_variant(cfg.flash_kernel_variant)
+    configure_kernel_tuning(cfg.kernel_tuning, cfg.kernel_tuning_table or None)
     policy = get_dtype_policy(cfg)
     _, forward_fn, n_layers = get_model_api(model_cfg)
     ac_mask = None
@@ -319,6 +321,16 @@ def make_train_step(model_cfg, cfg, start_step: int = 0):
         ac_mask = selective_ac_mask(n_layers, cfg.selective_checkpointing)
     schedule = get_lr_schedule(cfg, start_step)
     fused = cfg.fused_loss
+    chunk = cfg.loss_chunk_size
+    if fused:
+        # the logits-chunk knob is tunable: the table's chunk under
+        # kernel_tuning="auto", exactly cfg.loss_chunk_size when "off"
+        d_model = getattr(model_cfg, "emb_dim", None) or getattr(model_cfg, "d_model", 0)
+        vocab = getattr(model_cfg, "src_vocab_size", None) or getattr(
+            model_cfg, "vocab_size", 0)
+        chunk = resolve_ce_chunk(d_model, vocab,
+                                 str(policy.compute_dtype).replace("torch.", ""),
+                                 requested=chunk)
     guard_updates = bool(cfg.anomaly_skip_updates)
     nan_fault = fault_params("nan_loss")
     nan_window = None
@@ -347,9 +359,7 @@ def make_train_step(model_cfg, cfg, start_step: int = 0):
             aux = aux_stats["balance"]
             stats["moe_drop_frac"] = aux_stats["drop_frac"].detach()
         if fused:
-            ce = fused_linear_cross_entropy(
-                out, params_c["lm_head"], labels, cfg.loss_chunk_size, n=n
-            )
+            ce = fused_linear_cross_entropy(out, params_c["lm_head"], labels, chunk, n=n)
         else:
             ce = cross_entropy_loss(out, labels, n=n)
         return ce, aux, stats

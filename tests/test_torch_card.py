@@ -239,14 +239,16 @@ def _flash_case(device, dtype, b, sq, sk, nq, nkv, seed=21):
             for s in shapes]
 
 
-def _flash_all(fa, q, k, v, do, kernel, causal=True):
-    """o, lse, dq, dk, dv of one call through the kernels or the plain
+def _flash_all(fa, q, k, v, do, kernel, causal=True, block_k=None):
+    """o, lse, dq, dk, dv of one call through the kernels (the forward and
+    dq at key tile ``block_k``, None for the default) or the plain
     versions, with delta from the output of the same path."""
     fwd, dq_fn, dkv_fn = ((fa.flash_fwd, fa.flash_dq, fa.flash_dkv) if kernel else
                           (fa.flash_fwd_plain, fa.flash_dq_plain, fa.flash_dkv_plain))
-    o, lse = fwd(q, k, v, causal=causal)
+    tile = {"block_k": block_k} if kernel and block_k else {}
+    o, lse = fwd(q, k, v, causal=causal, **tile)
     delta = torch.einsum("bsnh,bsnh->bns", o.float(), do.float()).contiguous()
-    dq = dq_fn(q, k, v, do, lse, delta, causal=causal)
+    dq = dq_fn(q, k, v, do, lse, delta, causal=causal, **tile)
     dk, dv = dkv_fn(q, k, v, do, lse, delta, causal=causal)
     return [o, lse, dq, dk, dv]
 
@@ -377,6 +379,63 @@ def test_card_flash_more_shapes_match_plain(cuda_device, dtype, b, sq, sk, nq, n
     assert fa.LAUNCHES["fwd" + kv] == 1 and fa.LAUNCHES["dq" + kv] == 1
     assert fa.LAUNCHES["dkv"] == 1
     _check_flash(fa, q, k, v, do, got, causal)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,sq,sk,nq,nkv,causal", [
+    (2, 256, 256, 4, 1, True),      # two 64-key tiles cross each 128-row diagonal
+    (1, 512, 512, 2, 2, True),      # group 1
+    (1, 256, 512, 4, 2, True),      # causal cross length: keys past the last query
+    (1, 192, 192, 4, 1, True),      # a 64-row tail of a 128-row block
+    (1, 192, 320, 4, 4, True),      # tails and Sq != Sk
+    (2, 256, 512, 8, 2, False),     # non-causal cross length
+    (1, 8448, 8448, 2, 1, True),    # the kvgrid contract (seq_k > 8192)
+])
+def test_card_flash_key_tile_64_matches_plain(cuda_device, dtype, b, sq, sk, nq, nkv, causal):
+    """The 64-key instantiations of the forward and dq kernels (4-stage
+    rings, m64n64 score products): each launch counted once under its
+    contract and its key tile, and the checks of :func:`_check_flash`
+    (per 128-row dq block and 128-key dk/dv block, with the control)."""
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_case(cuda_device, dtype, b, sq, sk, nq, nkv, seed=41)
+    fa.reset_launches()
+    got = _flash_all(fa, q, k, v, do, kernel=True, causal=causal, block_k=64)
+    torch.cuda.synchronize()
+    kv = "_kvgrid" if sk > fa.MAX_KERNEL_SEQ else ""
+    assert fa.LAUNCHES["fwd" + kv] == 1 and fa.LAUNCHES["dq" + kv] == 1
+    assert fa.TILE_LAUNCHES["fwd" + kv] == {64: 1, 128: 0}
+    assert fa.TILE_LAUNCHES["dq" + kv] == {64: 1, 128: 0}
+    assert sum(n for t in fa.TILE_LAUNCHES.values() for n in t.values()) == 2
+    _check_flash(fa, q, k, v, do, got, causal)
+
+
+@pytest.mark.card
+def test_card_flash_smem_bytes_match_cost_model(cuda_device):
+    """Each kernel's dynamic shared memory from its C function equals the
+    tuner's Hopper cost model (tune/candidates.py), at both key tiles; a
+    tile the kernels lack reads -1 and a launch at it raises."""
+    from fms_fsdp_tpu_torch.ops import cuda_build
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+    from fms_fsdp_tpu_torch.tune import candidates as cand
+
+    fwd = cuda_build.load("flash_fwd_sm90").lib
+    bwd = cuda_build.load("flash_bwd_sm90").lib
+    scan = cuda_build.load("ssd_sm90").lib
+    for bk in (64, 128):
+        assert fwd.flash_fwd_sm90_smem_bytes(bk) == cand.flash_fwd_smem_bytes(bk)
+        assert bwd.flash_bwd_sm90_smem_bytes(0, bk) == cand.flash_dq_smem_bytes(bk)
+    assert bwd.flash_bwd_sm90_smem_bytes(1, 128) == cand.flash_dkv_smem_bytes()
+    assert fwd.flash_fwd_sm90_smem_bytes(96) == -1
+    for heads in (128, 3):  # two heads a block, one
+        sig = cand.ssd_sig((2, 4096, heads, 64), 1, 128)
+        for chunk in (64, 128, 256):
+            assert scan.ssd_sm90_smem_bytes(cand.ssd_heads_per_block(sig), chunk) == \
+                cand.ssd_smem_bytes(sig, "bfloat16", chunk)
+    q, k, v, _ = _flash_case(cuda_device, torch.bfloat16, 1, 256, 256, 4, 2)
+    with pytest.raises(ValueError, match="key tile"):
+        fa.flash_fwd(q, k, v, block_k=96)
 
 
 @pytest.mark.card

@@ -329,11 +329,24 @@ def test_cache_defaults_to_the_card():
 
 
 def test_resolve_paged_decode_static():
-    assert resolve_paged_decode(2048) == (64, 64, "off")
-    assert resolve_paged_decode(96) == (32, 32, "off")
-    assert resolve_paged_decode(64, requested_page_size=16) == (16, 16, "pinned")
-    with pytest.raises(ValueError):
-        resolve_paged_decode(100, requested_page_size=16)
+    """The static page and split, JAX's signature: with tuning off page 64
+    halved until it divides the capacity and the planner's split
+    (block_kv == page); a requested page pins and must divide it. The
+    table's answers are tests/test_torch_tune.py's."""
+    from fms_fsdp_tpu_torch.tune import lookup
+
+    geometry = (8, 32, 8, 128)
+    lookup.configure_kernel_tuning("off")
+    try:
+        assert resolve_paged_decode(*geometry, 2048, "bfloat16") == (64, 64, "off")
+        assert resolve_paged_decode(*geometry, 96, "bfloat16") == (32, 32, "off")
+        lookup.configure_kernel_tuning("auto", chip="cpu")
+        assert resolve_paged_decode(*geometry, 64, "bfloat16",
+                                    requested_page_size=16) == (16, 16, "pinned")
+        with pytest.raises(ValueError):
+            resolve_paged_decode(*geometry, 100, "bfloat16", requested_page_size=16)
+    finally:
+        lookup.configure_kernel_tuning(None)
 
 
 # ---------------------------------------------------------------------------
@@ -457,8 +470,9 @@ def test_families_llama_only():
 
 
 def test_port_imports_no_jax_and_no_jax_package():
-    """Every module of the port, imported in a fresh interpreter (this
-    process already holds jax: tests/conftest.py imports it)."""
+    """Every module of the port and scripts/torch_autotune_kernels.py,
+    imported in a fresh interpreter (this process already holds jax:
+    tests/conftest.py imports it)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import fms_fsdp_tpu_torch\n"
@@ -466,6 +480,10 @@ def test_port_imports_no_jax_and_no_jax_package():
         "    fms_fsdp_tpu_torch.__path__, 'fms_fsdp_tpu_torch.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
+        "import importlib.util\n"
+        "spec = importlib.util.spec_from_file_location(\n"
+        "    'torch_autotune_kernels', 'scripts/torch_autotune_kernels.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'fms_fsdp_tpu')]\n"
         "need = {'fms_fsdp_tpu_torch.' + m for m in (\n"
@@ -481,7 +499,8 @@ def test_port_imports_no_jax_and_no_jax_package():
         "    'resilience.supervisor', 'utils.train_utils', 'models.speculator',\n"
         "    'models.speculative', 'models.gpt_bigcode', 'train.speculator',\n"
         "    'speculator', 'speculator.train_speculator', 'models.hf_import',\n"
-        "    'eval_ppl', 'fms_to_hf_llama', 'fms_to_hf_mamba', 'fms_to_hf_mixtral')}\n"
+        "    'eval_ppl', 'fms_to_hf_llama', 'fms_to_hf_mamba', 'fms_to_hf_mixtral',\n"
+        "    'tune.candidates', 'tune.table', 'tune.lookup')}\n"
         "print(len(mods), bad, need - set(mods))\n"
         "sys.exit(1 if bad or len(mods) < 89 or need - set(mods) else 0)\n"
     )
