@@ -129,6 +129,40 @@ Phases, one JSON line each; any failure exits non-zero:
    backend) forward and backward; achieved TF/s and share of the bound of
    each kernel, the pair dq + dk/dv and the whole autograd backward
    beside SDPA's backward.
+9b. ring   — long context (``ops/ring_attention.py``): (a) the two modes
+   the ring adds to the flash kernels, at the flash phase's training shape
+   (B=2, S=4096, 32/8 heads, bf16): the non-causal forward, dq and dk/dv
+   at both key tiles against their plain versions (max abs within twice
+   the plain bf16 version's distance from fp32, relative error within
+   ``BF16_REL_TOL``, which the bf16-scores control exceeds, and per block
+   within ``BF16_BLOCK_REL_TOL`` with the dropped-tile control), and the
+   dq stored fp32 (``out_dtype=torch.float32``) per block against the
+   plain fp32-output dq with its control, and rounded to bf16 equal bit
+   for bit to the 16-bit dq; CUDA-event times of the four beside the plain
+   versions, SDPA's non-causal forward and backward and the bound. (b) The
+   ring at llama3_8b's attention widths, B=1, S=32768, cp=4, every chunk
+   on the card (``LocalRing``; local length 8192), causal, bf16: the
+   launches (10 forward, dq and dk/dv each; 6 of each non-causal; 10 dq
+   stored fp32) counted on that run; o, dq, dk and dv within twice the
+   full-sequence kernels' (kvgrid) relative distance from the plain fp32
+   versions of those kernels, a bound that a ring leaving out one visible
+   chunk (``RING_DROP``) exceeds; the ring's forward + backward ms beside
+   the full-sequence autograd's. (c) The ring at S=4096 against the same
+   ring through the plain versions (within twice the plain bf16 ring's
+   distance from the plain fp32 ring). (d) The ring through the Llama
+   forward and backward (``llama_forward(..., ring=LocalRing(4))``) at
+   llama3_8b's width, 2 layers, S=16384: the hidden states and the
+   attention weights' gradients within twice the whole-sequence bf16
+   model's relative distance from the whole-sequence fp32 model (a seeded
+   cotangent of the hidden states), a bound the ring without one visible
+   chunk exceeds; launches 2 x a ring's. (e)
+   ``ssd_scan_cp`` at mamba_9.8b's
+   SSD widths (B=1, S=16384, H=128, P=64, G=1, N=128, L=256, cp=4, bf16)
+   against ``ssd_scan`` through the SSD kernel, within twice the kernel's
+   relative distance from the fp32 einsums, which the ranks' scans without
+   the carried state exceed; no SSD kernel launched (the cp core is the
+   einsums, as JAX's is XLA); both times. The exchange across cards
+   (``GroupRing`` over NCCL) needs a card a process and is not run.
 10. train   — ``fms_fsdp_tpu_torch.main_training_llama.main`` at
    llama3_8b_4k width (4096 wide, 32/8 heads, hidden 14336, vocab
    128256) and 8 layers, seq 4096, batch 2, selective AC 1/2, dummy
@@ -362,8 +396,8 @@ Phases, one JSON line each; any failure exits non-zero:
 
 Then a ``total`` line (seconds since ``main`` began, and each phase's),
 a ``{"kernels": [...]}`` line (the flash forward and dq by contract and
-key tile; the paged decode's launches by contract summed over the
-serving runs), the ``nvidia-smi`` line, and last
+key tile, and the ring's non-causal and fp32-dq modes; the paged
+decode's launches by contract summed over the serving runs), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -386,7 +420,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "serve", "serve-int8", "train-speculator",
-          "serve-spec", "fleet", "flash", "train",
+          "serve-spec", "fleet", "flash", "ring", "train",
           "loader", "resume", "supervise", "shard", "hf-eval", "train-kvgrid", "tune", "ssd",
           "train-mamba",
           "serve-mamba", "train-mixtral", "serve-mixtral", "train-quant")
@@ -1808,21 +1842,21 @@ TRAIN_KW = {
 }
 
 
-def _flash_all(fa, q, k, v, do, kernel, block_k=None):
+def _flash_all(fa, q, k, v, do, kernel, block_k=None, causal=True):
     """[o, lse, dq, dk, dv] through the kernels (the forward and dq at key
     tile ``block_k``, None for the default) or the plain versions, delta
     from that path's own o."""
     fwd, dq_fn, dkv_fn = ((fa.flash_fwd, fa.flash_dq, fa.flash_dkv) if kernel else
                           (fa.flash_fwd_plain, fa.flash_dq_plain, fa.flash_dkv_plain))
     tile = {"block_k": block_k} if kernel and block_k else {}
-    o, lse = fwd(q, k, v, causal=True, **tile)
+    o, lse = fwd(q, k, v, causal=causal, **tile)
     delta = _delta(o, do)
-    dq = dq_fn(q, k, v, do, lse, delta, causal=True, **tile)
-    dk, dv = dkv_fn(q, k, v, do, lse, delta, causal=True)
+    dq = dq_fn(q, k, v, do, lse, delta, causal=causal, **tile)
+    dk, dv = dkv_fn(q, k, v, do, lse, delta, causal=causal)
     return [o, lse, dq, dk, dv]
 
 
-def _flash_control(fa, q, k, v, do):
+def _flash_control(fa, q, k, v, do, causal=True):
     """The plain versions with their scores rounded to bf16 before exp2: a
     fault of the kind a loose tolerance lets through, which the bf16
     check must catch."""
@@ -1831,24 +1865,24 @@ def _flash_control(fa, q, k, v, do):
     scores = fa._scores2
     fa._scores2 = lambda *a: scores(*a).to(torch.bfloat16).float()
     try:
-        return _flash_all(fa, q, k, v, do, kernel=False)
+        return _flash_all(fa, q, k, v, do, kernel=False, causal=causal)
     finally:
         fa._scores2 = scores
 
 
-def _bwd_block_check(fa, q, k, v, do, got):
+def _bwd_block_check(fa, q, k, v, do, got, causal=True, lse_delta=None):
     """dq per 128-row block and dk/dv per 128-key block of the backward
     kernels against the plain backward on the same inputs (the kernel
     forward's lse and delta), each within ``BF16_BLOCK_REL_TOL``; and the
     control, that plain backward with the last 64-row query tile of head 0
     (batch 0) left out of key block 0's walk, which must exceed that bound
     on every block it changes (one of each output)."""
-    lse, delta = got[1], _delta(got[0], do)
-    ref = [fa.flash_dq_plain(q, k, v, do, lse, delta),
-           *fa.flash_dkv_plain(q, k, v, do, lse, delta)]
+    lse, delta = lse_delta or (got[1], _delta(got[0], do))
+    ref = [fa.flash_dq_plain(q, k, v, do, lse, delta, causal=causal),
+           *fa.flash_dkv_plain(q, k, v, do, lse, delta, causal=causal)]
     control = fa.flash_bwd_drop_tile_plain(
         q, k, v, do, lse, delta, *ref, batch=0, head=0,
-        q_tile=q.shape[1] // fa.BWD_Q_TILE - 1, k_block=0)
+        q_tile=q.shape[1] // fa.BWD_Q_TILE - 1, k_block=0, causal=causal)
     out = {}
     for name, a, r, c in zip(("dq", "dk", "dv"), got[2:], ref, control):
         rel, ctl = fa.block_rel_err(a, r), fa.block_rel_err(c, r)
@@ -2377,6 +2411,418 @@ def phase_flash(state):
     state["flash"] = results
     if bad:
         raise AssertionError(f"flash kernels disagree with their plain versions: {bad}")
+
+
+# ---------------------------------------------------------------------------
+# the ring: long context (ops/ring_attention.py, ops/ssd.py::ssd_scan_cp)
+# ---------------------------------------------------------------------------
+
+# the non-causal and fp32-dq contracts at the flash phase's training shape
+# (B, S, Nq, Nkv)
+RING_CONTRACT_SHAPE = (2, 4096, 32, 8)
+# the ring at llama3_8b's attention widths: (B, S, Nq, Nkv, cp), every
+# chunk on the one card (LocalRing); S / cp = 8192, the resident contract
+RING_FULL = (1, 32768, 32, 8, 4)
+RING_SMALL = (1, 4096, 32, 8, 4)
+# the control ring leaves out one visible chunk: context rank 3's view of
+# chunk 1
+RING_DROP = (3, 1)
+# the ring through the Llama model: llama3_8b at (layers, S, cp)
+RING_MODEL = (2, 16384, 4)
+# ssd_scan_cp at mamba_9.8b's SSD widths: (B, S, H, G, L, cp)
+RING_SSD = (1, 16384, 128, 1, 256, 4)
+
+
+def _noncausal_times(fa, q, k, v, do, lse, delta):
+    """CUDA-event ms of the non-causal forward, dq, dk/dv and the fp32-output
+    dq (key tile 128) beside their plain versions, SDPA's non-causal
+    forward and backward, and each bound."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    b, s, nq, _ = q.shape
+    nkv = k.shape[2]
+    f32 = torch.float32
+    kernel = {
+        "fwd": lambda i: fa.flash_fwd(q, k, v, causal=False),
+        "dq": lambda i: fa.flash_dq(q, k, v, do, lse, delta, causal=False),
+        "dkv": lambda i: fa.flash_dkv(q, k, v, do, lse, delta, causal=False),
+        "dq_f32": lambda i: fa.flash_dq(q, k, v, do, lse, delta, causal=False, out_dtype=f32),
+    }
+    plain = {
+        "fwd": lambda i: fa.flash_fwd_plain(q, k, v, causal=False),
+        "dq": lambda i: fa.flash_dq_plain(q, k, v, do, lse, delta, causal=False),
+        "dkv": lambda i: fa.flash_dkv_plain(q, k, v, do, lse, delta, causal=False),
+        "dq_f32": lambda i: fa.flash_dq_plain(q, k, v, do, lse, delta, causal=False,
+                                              out_dtype=f32),
+    }
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        ot = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+    dot = do.transpose(1, 2)
+
+    def lib_fwd(i):
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]), torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+
+    lib_fwd_ms = _timed_ms(lib_fwd)
+    lib_bwd_ms = _timed_ms(lambda i: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                                         retain_graph=True))
+    qb, kvb, stat = b * s * nq * 128 * 2, b * s * nkv * 128 * 2, b * nq * s * 4
+    nbytes = {"fwd": 2 * qb + 2 * kvb + stat, "dq": 3 * qb + 2 * kvb + 2 * stat,
+              "dkv": 2 * qb + 2 * kvb + 2 * stat + 4 * kvb, "dq_f32": 4 * qb + 2 * kvb + 2 * stat}
+    products = {"fwd": 2, "dq": 3, "dkv": 4, "dq_f32": 3}
+    out = {}
+    for name in kernel:
+        ops = float(2 * products[name] * b * nq * 128 * s * s)  # every (query, key) pair
+        bytes_ms = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / PEAK_OPS["bf16"] * 1e3
+        ms = _timed_ms(kernel[name])
+        out[name] = {"ms": ms, "plain_ms": _timed_ms(plain[name], 0, 2),
+                     "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                     "achieved_tflops": ops / ms / 1e9,
+                     "library_ms": lib_fwd_ms if name == "fwd" else lib_bwd_ms}
+    return out
+
+
+def _ring_contracts(fa, gen, problems):
+    """The non-causal forward, dq and dk/dv at both key tiles and the
+    fp32-output dq, each against its plain version (see the phase)."""
+    import torch
+
+    b, s, nq, nkv = RING_CONTRACT_SHAPE
+    q, do = (torch.randn((b, s, nq, 128), generator=gen, device="cuda").to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn((b, s, nkv, 128), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    names = ("o", "lse", "dq", "dk", "dv")
+    ref = _flash_all(fa, q, k, v, do, kernel=False, causal=False)
+    wide = _flash_all(fa, q.float(), k.float(), v.float(), do.float(), kernel=False,
+                      causal=False)
+    tols = [2 * (r.float() - w).abs().max().item() for r, w in zip(ref, wide)]
+    del wide
+    control = _flash_control(fa, q, k, v, do, causal=False)
+    out = {"shape": {"B": b, "S": s, "Nq": nq, "Nkv": nkv, "H": 128},
+           "tol": dict(zip(names, tols))}
+    for tile in (128, 64):
+        fa.reset_launches()
+        got = _flash_all(fa, q, k, v, do, kernel=True, block_k=tile, causal=False)
+        lse, delta = got[1], _delta(got[0], do)
+        dq32 = fa.flash_dq(q, k, v, do, lse, delta, causal=False, block_k=tile,
+                           out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        launched = dict(fa.MODE_LAUNCHES)
+        rel = {n: {"kernel": _rel_err(a, r_), "control": _rel_err(c, r_),
+                   "tol": fa.BF16_REL_TOL[n]}
+               for n, a, c, r_ in zip(names, got, control, ref)}
+        per_block = _bwd_block_check(fa, q, k, v, do, got, causal=False)
+        errs = [(a.float() - r_.float()).abs().max().item() for a, r_ in zip(got, ref)]
+        # the fp32-output dq: per 128-row block against the plain fp32-output
+        # dq on the same stats, with the dropped-tile control; rounded to
+        # bf16 it is the 16-bit kernel's dq bit for bit
+        ref32 = fa.flash_dq_plain(q, k, v, do, lse, delta, causal=False,
+                                  out_dtype=torch.float32)
+        ctl32 = fa.flash_bwd_drop_tile_plain(
+            q, k, v, do, lse, delta, ref32, *ref[3:], batch=0, head=0,
+            q_tile=s // fa.BWD_Q_TILE - 1, k_block=0, causal=False)[0]
+        blk, blk_ctl = fa.block_rel_err(dq32, ref32), fa.block_rel_err(ctl32, ref32)
+        changed = blk_ctl > 0
+        tol = fa.BF16_BLOCK_REL_TOL["dq"]
+        dq_f32 = {"dtype": str(dq32.dtype), "max_abs_err": (dq32 - ref32).abs().max().item(),
+                  "per_block_max": blk.max().item(), "tol": tol,
+                  "control_min": blk_ctl[changed].min().item() if changed.any() else None,
+                  "control_blocks": int(changed.sum()),
+                  "rounded_equals_16bit_dq": bool(torch.equal(dq32.to(q.dtype), got[2]))}
+        dq_f32["ok"] = (dq32.dtype == torch.float32 and dq_f32["per_block_max"] <= tol
+                        and dq_f32["control_blocks"] == 1 and dq_f32["control_min"] > tol
+                        and dq_f32["rounded_equals_16bit_dq"])
+        want = {"fwd_noncausal": 1, "dq_noncausal": 2, "dkv_noncausal": 1, "dq_f32": 1}
+        r = {"block_k": tile, "launches": launched, "max_abs_err": dict(zip(names, errs)),
+             "rel_err_vs_plain_bf16": rel, "per_block_rel_err": per_block, "dq_f32": dq_f32,
+             "finite": all(bool(torch.isfinite(a).all()) for a in got)}
+        r["ok"] = (r["finite"] and launched == want and dq_f32["ok"]
+                   and all(e <= t for e, t in zip(errs, tols))
+                   and all(x["kernel"] <= x["tol"] < x["control"] for x in rel.values())
+                   and all(x["ok"] for x in per_block.values()))
+        out[f"block_k_{tile}"] = r
+        if not r["ok"]:
+            problems.append(f"non-causal / fp32-dq contracts at block_k={tile}")
+        if tile == 128:
+            out["times"] = _noncausal_times(fa, q, k, v, do, lse, delta)
+        del got, dq32, ref32, ctl32
+    return out
+
+
+@contextlib.contextmanager
+def _dropped_chunk(ring_mod, drop):
+    """Rings that leave out the visible chunk ``drop`` (context rank,
+    chunk): the control of the ring's checks. None leaves them whole."""
+    relation = ring_mod._relation
+    if drop is not None:
+        ring_mod._relation = lambda idx, src, causal: (
+            None if (idx, src) == drop else relation(idx, src, causal))
+    try:
+        yield
+    finally:
+        ring_mod._relation = relation
+
+
+def _ring_run(ring_mod, q, k, v, do, cp, drop=None):
+    """[o, dq, dk, dv] of ring attention over a LocalRing of ``cp``; with
+    ``drop`` (context rank, chunk) that visible chunk is left out."""
+    import torch
+
+    with _dropped_chunk(ring_mod, drop):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        o = ring_mod.ring_attention(*leaves, ring_mod.LocalRing(cp), causal=True)
+        grads = torch.autograd.grad(o, leaves, do)
+        return [o.detach(), *grads]
+
+
+@contextlib.contextmanager
+def _plain_partials(fa):
+    """The ring's partials through the plain versions (on card tensors)."""
+    saved = fa.flash_fwd, fa.flash_dq, fa.flash_dkv
+    fa.flash_fwd = lambda q, k, v, causal, scale, block_k=None: fa.flash_fwd_plain(
+        q, k, v, causal=causal, scale=scale)
+    fa.flash_dq = lambda *a, causal, scale, block_k=None, out_dtype=None: fa.flash_dq_plain(
+        *a, causal=causal, scale=scale, out_dtype=out_dtype)
+    fa.flash_dkv = lambda *a, causal, scale, q2=None: fa.flash_dkv_plain(
+        *a, causal=causal, scale=scale)
+    try:
+        yield
+    finally:
+        fa.flash_fwd, fa.flash_dq, fa.flash_dkv = saved
+
+
+def _ring_full(fa, ring_mod, gen, problems):
+    """The ring at S=32768, cp=4 against the full-sequence kernels."""
+    import torch
+
+    b, s, nq, nkv, cp = RING_FULL
+    q, do = (torch.randn((b, s, nq, 128), generator=gen, device="cuda").to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn((b, s, nkv, 128), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    # the main path of the phase: counts zeroed just before, read just after
+    fa.reset_launches()
+    got = _ring_run(ring_mod, q, k, v, do, cp)
+    torch.cuda.synchronize()
+    launched = {"by_contract": dict(fa.LAUNCHES), "by_mode": dict(fa.MODE_LAUNCHES),
+                "by_block_k": {c: dict(t) for c, t in fa.TILE_LAUNCHES.items()}}
+    n_diag, n_vis = cp, cp * (cp - 1) // 2
+    want = {"fwd": n_diag + n_vis, "fwd_kvgrid": 0, "dq": n_diag + n_vis, "dq_kvgrid": 0,
+            "dkv": n_diag + n_vis}
+    want_mode = {"fwd_noncausal": n_vis, "dq_noncausal": n_vis, "dkv_noncausal": n_vis,
+                 "dq_f32": n_diag + n_vis}
+    # the full-sequence kernels (the kvgrid contracts at this length), their
+    # dk/dv rounded to bf16 as autograd returns them; and the plain versions
+    # on the inputs widened to fp32
+    full = _flash_all(fa, q, k, v, do, kernel=True)
+    full = [full[0], full[2], full[3].to(k.dtype), full[4].to(v.dtype)]
+    wide = _flash_all(fa, q.float(), k.float(), v.float(), do.float(), kernel=False)
+    wide = [wide[0], wide[2], wide[3], wide[4]]
+    names = ("o", "dq", "dk", "dv")
+    tols = {n: 2 * _rel_err(f, w) for n, f, w in zip(names, full, wide)}
+    del wide
+    control = _ring_run(ring_mod, q, k, v, do, cp, drop=RING_DROP)
+    rel = {n: {"ring": _rel_err(a, f), "control": _rel_err(c, f), "tol": tols[n],
+               "max_abs_err": (a.float() - f.float()).abs().max().item()}
+           for n, a, c, f in zip(names, got, control, full)}
+    del control
+    res = {"shape": {"B": b, "S": s, "Nq": nq, "Nkv": nkv, "H": 128, "cp": cp,
+                     "S_local": s // cp},
+           "exchange": "LocalRing (every chunk on this card)",
+           "bytes": {"q": q.numel() * 2, "k": k.numel() * 2, "v": v.numel() * 2},
+           "launches": launched, "expected_launches": {"by_contract": want,
+                                                         "by_mode": want_mode},
+           "rel_err_vs_full_sequence_kernels": rel,
+           "finite": all(bool(torch.isfinite(a).all()) for a in got)}
+    res["ok"] = (res["finite"] and launched["by_contract"] == want
+                 and launched["by_mode"] == want_mode
+                 and all(x["ring"] <= x["tol"] < x["control"] for x in rel.values()))
+    if not res["ok"]:
+        problems.append("the S=32768 ring against the full-sequence kernels")
+
+    def full_autograd(i):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        torch.autograd.grad(fa.flash_attention(*leaves), leaves, do)
+
+    res["ring_fwd_bwd_ms"] = _timed_ms(lambda i: _ring_run(ring_mod, q, k, v, do, cp), 2000, 5)
+    res["full_sequence_fwd_bwd_ms"] = _timed_ms(full_autograd, 2000, 5)
+    res["ring_over_full"] = res["ring_fwd_bwd_ms"] / res["full_sequence_fwd_bwd_ms"]
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del got, full
+    return res
+
+
+def _ring_small(fa, ring_mod, gen, problems):
+    """The ring at S=4096, cp=4 against the ring through the plain versions,
+    within twice the plain bf16 ring's distance from the plain fp32 ring."""
+    import torch
+
+    b, s, nq, nkv, cp = RING_SMALL
+    q, do = (torch.randn((b, s, nq, 128), generator=gen, device="cuda").to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn((b, s, nkv, 128), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    got = _ring_run(ring_mod, q, k, v, do, cp)
+    with _plain_partials(fa):
+        plain = _ring_run(ring_mod, q, k, v, do, cp)
+        wide = _ring_run(ring_mod, q.float(), k.float(), v.float(), do.float(), cp)
+    names = ("o", "dq", "dk", "dv")
+    rel = {n: {"ring": _rel_err(a, p_), "tol": 2 * _rel_err(p_, w)}
+           for n, a, p_, w in zip(names, got, plain, wide)}
+    res = {"shape": {"B": b, "S": s, "Nq": nq, "Nkv": nkv, "cp": cp},
+           "rel_err_vs_plain_ring": rel}
+    res["ok"] = all(x["ring"] <= x["tol"] for x in rel.values())
+    if not res["ok"]:
+        problems.append("the S=4096 ring against the plain ring")
+    return res
+
+
+def _ring_ssd(gen, problems):
+    """ssd_scan_cp (LocalRing) against ssd_scan through the SSD kernel."""
+    import torch
+
+    from fms_fsdp_tpu_torch.ops import ssd
+    from fms_fsdp_tpu_torch.ops.ring_attention import LocalRing
+
+    b, s, h, g, chunk, cp = RING_SSD
+    x, dt, _, bm, cm, a_neg = _ssd_inputs(gen, torch.bfloat16, b, s, h, g)
+    with torch.no_grad():
+        ssd.reset_launches()
+        y = ssd.ssd_scan(x, dt, a_neg, bm, cm, chunk_size=chunk, kernel="pallas")
+        torch.cuda.synchronize()
+        kernel_launches = dict(ssd.LAUNCHES)
+        ssd.reset_launches()
+        ycp = ssd.ssd_scan_cp(x, dt, a_neg, bm, cm, ring=LocalRing(cp), chunk_size=chunk)
+        torch.cuda.synchronize()
+        cp_launches = dict(ssd.LAUNCHES)
+        y32 = ssd.ssd_scan(x.float(), dt, a_neg, bm.float(), cm.float(), chunk_size=chunk,
+                           kernel="xla")
+        # the control: each rank's scan from a zero state, no carried state
+        alone = torch.cat([ssd.ssd_scan(*(t[:, i * s // cp:(i + 1) * s // cp]
+                                          for t in (x, dt)), a_neg,
+                                        *(t[:, i * s // cp:(i + 1) * s // cp]
+                                          for t in (bm, cm)),
+                                        chunk_size=chunk, kernel="pallas")
+                           for i in range(cp)], dim=1)
+        tol = 2 * _rel_err(y, y32)
+        res = {"shape": {"B": b, "S": s, "H": h, "P": 64, "G": g, "N": 128, "L": chunk,
+                         "cp": cp},
+               "rel_err_vs_kernel": _rel_err(ycp, y), "rel_err_vs_fp32": _rel_err(ycp, y32),
+               "kernel_rel_err_vs_fp32": _rel_err(y, y32), "tol": tol,
+               "control_rel_err_vs_kernel": _rel_err(alone, y),
+               "max_abs_err_vs_kernel": (ycp.float() - y.float()).abs().max().item(),
+               "kernel_launches": kernel_launches, "cp_launches": cp_launches}
+        del y32, alone
+        res["ssd_scan_cp_ms"] = _timed_ms(lambda i: ssd.ssd_scan_cp(
+            x, dt, a_neg, bm, cm, ring=LocalRing(cp), chunk_size=chunk), 1000, 5)
+        res["ssd_scan_kernel_ms"] = _timed_ms(lambda i: ssd.ssd_scan(
+            x, dt, a_neg, bm, cm, chunk_size=chunk, kernel="pallas"), 1000, 10)
+    res["ok"] = (res["rel_err_vs_kernel"] <= tol and res["rel_err_vs_fp32"] <= tol
+                 < res["control_rel_err_vs_kernel"] and kernel_launches["fused"] == 1
+                 and cp_launches["fused"] == 0 and bool(torch.isfinite(ycp).all()))
+    if not res["ok"]:
+        problems.append("ssd_scan_cp against ssd_scan")
+    return res
+
+
+def _ring_model(fa, ring_mod, problems):
+    """The ring through the Llama forward and backward (``llama_forward``
+    with ``ring``): llama3_8b at full width, ``RING_MODEL`` layers and
+    tokens, against the same model on the whole sequence (the flash
+    kernels), each against the whole-sequence model in fp32."""
+    import torch
+
+    from fms_fsdp_tpu_torch.models.llama import init_llama_params, llama_forward
+    from fms_fsdp_tpu_torch.utils.config_utils import get_model_config
+    from fms_fsdp_tpu_torch.utils.tree import tree_map
+
+    n, s, cp = RING_MODEL
+    cfg = dataclasses.replace(get_model_config("llama3_8b"), nlayers=n)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    params = init_llama_params(gen, cfg, dtype=torch.bfloat16)
+    tokens = torch.randint(0, cfg.src_vocab_size, (1, s), generator=gen, device="cuda")
+    # a seeded cotangent of the hidden states (their squares' mean is ~1
+    # whatever the weights: the final RMSNorm, so its gradient is noise)
+    cot = torch.randn((1, s, cfg.emb_dim), generator=gen, device="cuda")
+    names = ("wq", "wk", "wv", "wo")
+
+    def run(p, ring=None, drop=None, dtype=torch.bfloat16):
+        for w in p["layers"].values():
+            w.requires_grad_(True)
+        with _dropped_chunk(ring_mod, drop):
+            hidden = llama_forward(p, tokens, cfg, compute_dtype=dtype, return_hidden=True,
+                                   ring=ring)
+            grads = torch.autograd.grad(hidden, [p["layers"][k] for k in names],
+                                        cot.to(hidden.dtype))
+            return [hidden.detach(), *grads]
+
+    fa.reset_launches()
+    got = run(params, ring_mod.LocalRing(cp))
+    torch.cuda.synchronize()
+    launched = {"by_contract": dict(fa.LAUNCHES), "by_mode": dict(fa.MODE_LAUNCHES)}
+    per_layer, vis = cp + cp * (cp - 1) // 2, cp * (cp - 1) // 2
+    want = {"by_contract": {"fwd": n * per_layer, "fwd_kvgrid": 0, "dq": n * per_layer,
+                            "dq_kvgrid": 0, "dkv": n * per_layer},
+            "by_mode": {"fwd_noncausal": n * vis, "dq_noncausal": n * vis,
+                        "dkv_noncausal": n * vis, "dq_f32": n * per_layer}}
+    whole = run(params)
+    control = run(params, ring_mod.LocalRing(cp), drop=RING_DROP)
+    wide = run(tree_map(lambda w: w.detach().float(), params), dtype=torch.float32)
+    rel = {}
+    for name, a, w, c, f in zip(("hidden",) + names, got, whole, control, wide):
+        tol = 2 * _rel_err(w, f)
+        rel[name] = {"ring": _rel_err(a, f), "whole": _rel_err(w, f), "tol": tol,
+                     "control": _rel_err(c, f), "ring_vs_whole": _rel_err(a, w)}
+    res = {"model": "llama3_8b", "layers": n, "tokens": s, "cp": cp,
+           "launches": launched, "expected_launches": want,
+           "rel_err_vs_fp32_whole_sequence": rel,
+           "finite": all(bool(torch.isfinite(a).all()) for a in got)}
+    res["ok"] = (res["finite"] and launched == want
+                 and all(x["ring"] <= x["tol"] < x["control"] for x in rel.values()))
+    if not res["ok"]:
+        problems.append("the ring through the Llama forward and backward")
+    del params, got, whole, control, wide
+    return res
+
+
+def phase_ring(state):
+    """Long context on the card (see the module docstring)."""
+    import torch
+
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+    from fms_fsdp_tpu_torch.ops import ring_attention as ring_mod
+
+    t0 = time.perf_counter()
+    state.pop("params", None)  # the serve phases' weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    problems = []
+    result = {"nvidia_smi": state["smi"],
+              "contracts": _ring_contracts(fa, gen, problems)}
+    torch.cuda.empty_cache()
+    result["ring"] = _ring_full(fa, ring_mod, gen, problems)
+    torch.cuda.empty_cache()
+    result["ring_small"] = _ring_small(fa, ring_mod, gen, problems)
+    torch.cuda.empty_cache()
+    result["ring_model"] = _ring_model(fa, ring_mod, problems)
+    torch.cuda.empty_cache()
+    result["ssd_scan_cp"] = _ring_ssd(gen, problems)
+    torch.cuda.empty_cache()
+    result["exchange_across_cards"] = ("not verified: one card (GroupRing over NCCL needs "
+                                       "one process a card)")
+    result["seconds"] = time.perf_counter() - t0
+    emit("ring", **result)
+    state["ring"] = result
+    if problems:
+        raise AssertionError("ring: " + "; ".join(problems))
 
 
 def _train_step_profile(res, steps=1, moe=False):
@@ -5532,6 +5978,29 @@ def kernels_line(state):
             # it against the pair
             entry["pair_ms"] = r["times" if tile != 64 else "times_block_k_64"]["bwd_pair"]["ms"]
         entries.append(entry)
+    # the two modes ring attention adds (non-causal, dq stored fp32), timed
+    # at the flash phase's training shape at key tile 128; their launches
+    # those of the ring phase's S=32768 ring
+    ring = state["ring"]
+    c128 = ring["contracts"]["block_k_128"]
+    by_mode = ring["ring"]["launches"]["by_mode"]
+    for name, kernel, mode, replaces, err in (
+        ("flash_fwd_noncausal", "fwd", "fwd_noncausal", "fwd",
+         max(c128["max_abs_err"]["o"], c128["max_abs_err"]["lse"])),
+        ("flash_dq_noncausal", "dq", "dq_noncausal", "dq", c128["max_abs_err"]["dq"]),
+        ("flash_dkv_noncausal", "dkv", "dkv_noncausal", "dkv",
+         max(c128["max_abs_err"]["dk"], c128["max_abs_err"]["dv"])),
+        ("flash_dq_f32", "dq_f32", "dq_f32", "dq", c128["dq_f32"]["max_abs_err"]),
+    ):
+        t = ring["contracts"]["times"][kernel]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"fms_fsdp_tpu_torch/csrc/flash_{'fwd' if kernel == 'fwd' else 'bwd'}_sm90.cu",
+            "replaces": REPLACES[replaces], "block_k": 128, "launches": by_mode[mode],
+            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
     r = state["ssd"][("bf16", "train")]
     t = r["times"]
     entries.append({
@@ -5578,6 +6047,7 @@ def main(argv=None) -> int:
         "kernels": phase_kernels, "serve": phase_serve,
         "serve-int8": phase_serve_int8, "train-speculator": phase_train_speculator,
         "serve-spec": phase_serve_spec, "fleet": phase_fleet, "flash": phase_flash,
+        "ring": phase_ring,
         "train": phase_train, "loader": phase_loader, "resume": phase_resume,
         "supervise": phase_supervise, "shard": phase_shard, "hf-eval": phase_hf_eval,
         "train-kvgrid": phase_train_kvgrid, "tune": phase_tune,

@@ -135,9 +135,10 @@ def current_fingerprint(
     """The live world's topology fingerprint, from TrainConfig and the
     world the run trains on: the process group's size (1 without one),
     one device per process, one slice. ``loader_files`` is the EXPECTED
-    per-rank loader state count (process_count x num_workers; 0 when the
-    run has no stateful loader): the save path substitutes 0 when no
-    dataloader actually rides along."""
+    per-rank loader state count (data-parallel ranks x num_workers, the
+    processes x num_workers without a context axis; 0 when the run has no
+    stateful loader): the save path substitutes 0 when no dataloader
+    actually rides along."""
     from fms_fsdp_tpu_torch.utils.dist import world_size
 
     pc = world_size() if process_count is None else int(process_count)
@@ -159,7 +160,7 @@ def current_fingerprint(
         "global_batch_rows": int(cfg.batch_size) * data_extent,
         "seq_length": int(cfg.seq_length),
         "n_logical_shards": int(getattr(cfg, "logical_shards", 0) or 0),
-        "loader_files": pc * workers if stateful_loader else 0,
+        "loader_files": data_extent * workers if stateful_loader else 0,
         "num_slices": n_slices,
         "slice_process_count": max(1, pc // n_slices),
         "slice_device_count": max(1, dc // n_slices),

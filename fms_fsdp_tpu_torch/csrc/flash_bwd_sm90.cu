@@ -13,8 +13,9 @@
 // Contract (ops/flash_attention.py::flash_dq, flash_dkv): q, dout, dq
 // (B, Sq, Nq, H); k, v (B, Sk, Nkv, H); lse and delta fp32 (B, Nq, Sq), lse
 // in natural log; all contiguous, read and written in that layout. dq
-// comes out in q's dtype, dk and dv fp32 (B, Sk, Nkv, H), summed over the
-// GQA group. Head dim 128; Sq and Sk multiples of 64; query head h reads kv
+// comes out in q's dtype, or fp32 on request (its fp32 accumulators stored
+// as they are: ring attention sums dq partials over the ring's steps), dk
+// and dv fp32 (B, Sk, Nkv, H), summed over the GQA group. Head dim 128; Sq and Sk multiples of 64; query head h reads kv
 // head h / (Nq / Nkv). Causal masking is top-left aligned: query i sees
 // keys <= i, also when Sq != Sk.
 //
@@ -119,14 +120,25 @@ enum DType { kBF16 = 1, kF16 = 2 };
 // dq
 // ---------------------------------------------------------------------------
 
+// two adjacent dq elements of one row: rounded to a 16-bit O and packed, or
+// fp32 as they were accumulated
+template <typename O>
+__device__ __forceinline__ void store_pair(O* p, float a, float b) {
+  if constexpr (std::is_same<O, float>::value) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  } else {
+    *reinterpret_cast<uint32_t*>(p) = pack2<O>(a, b);
+  }
+}
+
 // grid (Nq * B, ceil(Sq / 128)): x runs over the q heads of a batch, so
 // the heads of a kv group are launched side by side; y runs the query
-// tiles longest first.
-template <typename T, int kDqKeys>
+// tiles longest first. O is the type dq is stored in: T, or float.
+template <typename T, int kDqKeys, typename O>
 __global__ void __launch_bounds__(kThreads, 1) flash_dq_kernel_sm90(
     const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap do_map,
     const __grid_constant__ CUtensorMap k_map, const __grid_constant__ CUtensorMap v_map,
-    const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dq, int sq,
+    const float* __restrict__ lse, const float* __restrict__ delta, O* __restrict__ dq, int sq,
     int sk, int nq, int nkv, int causal, float q_scale, float scale) {
   using DT = DqTile<kDqKeys>;
   constexpr int kDqStages = DT::kStages;
@@ -310,18 +322,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_kernel_sm90(
     }
 
     if (r0 < sq) {
-      T* d0 = dq + ((static_cast<int64_t>(b) * sq + r0) * nq + h) * kHead;
+      O* d0 = dq + ((static_cast<int64_t>(b) * sq + r0) * nq + h) * kHead;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        *reinterpret_cast<uint32_t*>(d0 + 8 * j + 2 * t) = pack2<T>(acc[4 * j], acc[4 * j + 1]);
-      }
+      for (int j = 0; j < 16; ++j) store_pair<O>(d0 + 8 * j + 2 * t, acc[4 * j], acc[4 * j + 1]);
     }
     if (r1 < sq) {
-      T* d1 = dq + ((static_cast<int64_t>(b) * sq + r1) * nq + h) * kHead;
+      O* d1 = dq + ((static_cast<int64_t>(b) * sq + r1) * nq + h) * kHead;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
-        *reinterpret_cast<uint32_t*>(d1 + 8 * j + 2 * t) =
-            pack2<T>(acc[4 * j + 2], acc[4 * j + 3]);
+        store_pair<O>(d1 + 8 * j + 2 * t, acc[4 * j + 2], acc[4 * j + 3]);
       }
     }
   }
@@ -571,7 +580,7 @@ CUtensorMapDataType map_type() {
                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
-template <typename T, int kDqKeys>
+template <typename T, int kDqKeys, typename O>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int batch, int sq, int sk,
                       int nq, int nkv, int causal, float q_scale, float scale, cudaStream_t s) {
@@ -584,27 +593,39 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
       !make_map(&vm, v, type, batch, sk, nkv, kDqKeys)) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaFuncSetAttribute(flash_dq_kernel_sm90<T, kDqKeys>,
+  cudaError_t err = cudaFuncSetAttribute(flash_dq_kernel_sm90<T, kDqKeys, O>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          kDqSmemBytes);
   if (err != cudaSuccess) return err;
-  flash_dq_kernel_sm90<T, kDqKeys>
+  flash_dq_kernel_sm90<T, kDqKeys, O>
       <<<dim3(nq * batch, (sq + kDqRows - 1) / kDqRows), kThreads, kDqSmemBytes, s>>>(
           qm, dom, km, vm, static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<T*>(dq), sq, sk, nq, nkv, causal, q_scale, scale);
+          static_cast<O*>(dq), sq, sk, nq, nkv, causal, q_scale, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename O>
 cudaError_t launch_dq_tile(int block_k, const void* q, const void* k, const void* v,
                            const void* dout, const void* lse, const void* delta, void* dq,
                            int batch, int sq, int sk, int nq, int nkv, int causal, float q_scale,
                            float scale, cudaStream_t s) {
   if (block_k == 64)
-    return launch_dq<T, 64>(q, k, v, dout, lse, delta, dq, batch, sq, sk, nq, nkv, causal,
-                            q_scale, scale, s);
-  return launch_dq<T, 128>(q, k, v, dout, lse, delta, dq, batch, sq, sk, nq, nkv, causal,
-                           q_scale, scale, s);
+    return launch_dq<T, 64, O>(q, k, v, dout, lse, delta, dq, batch, sq, sk, nq, nkv, causal,
+                               q_scale, scale, s);
+  return launch_dq<T, 128, O>(q, k, v, dout, lse, delta, dq, batch, sq, sk, nq, nkv, causal,
+                              q_scale, scale, s);
+}
+
+template <typename T>
+cudaError_t launch_dq_out(int out_f32, int block_k, const void* q, const void* k,
+                          const void* v, const void* dout, const void* lse, const void* delta,
+                          void* dq, int batch, int sq, int sk, int nq, int nkv, int causal,
+                          float q_scale, float scale, cudaStream_t s) {
+  if (out_f32)
+    return launch_dq_tile<T, float>(block_k, q, k, v, dout, lse, delta, dq, batch, sq, sk, nq,
+                                    nkv, causal, q_scale, scale, s);
+  return launch_dq_tile<T, T>(block_k, q, k, v, dout, lse, delta, dq, batch, sq, sk, nq, nkv,
+                              causal, q_scale, scale, s);
 }
 
 template <typename T>
@@ -657,22 +678,23 @@ extern "C" int flash_bwd_sm90_smem_bytes(int which, int block_k) {
 // tensor map cuTensorMapEncodeTiled refuses. q_scale is scale * log2(e),
 // already rounded to the inputs' dtype; scale is the softmax scale in fp32;
 // flash_dkv_sm90 takes q already scaled (q2) beside q; flash_dq_sm90 takes
-// its key tile, 64 or 128.
+// its key tile, 64 or 128, and out_f32: 1 stores dq fp32, 0 in q's dtype.
 extern "C" int flash_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dq, int batch, int sq,
                              int sk, int nq, int nkv, int head_dim, int causal, int dtype,
-                             float q_scale, float scale, int block_k, void* stream) {
+                             float q_scale, float scale, int block_k, int out_f32,
+                             void* stream) {
   if (bad_shape(batch, sq, sk, nq, nkv, head_dim) || (block_k != 64 && block_k != 128)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kBF16:
-      return launch_dq_tile<__nv_bfloat16>(block_k, q, k, v, dout, lse, delta, dq, batch, sq, sk,
-                                           nq, nkv, causal, q_scale, scale, s);
+      return launch_dq_out<__nv_bfloat16>(out_f32, block_k, q, k, v, dout, lse, delta, dq,
+                                          batch, sq, sk, nq, nkv, causal, q_scale, scale, s);
     case kF16:
-      return launch_dq_tile<__half>(block_k, q, k, v, dout, lse, delta, dq, batch, sq, sk, nq,
-                                    nkv, causal, q_scale, scale, s);
+      return launch_dq_out<__half>(out_f32, block_k, q, k, v, dout, lse, delta, dq, batch, sq,
+                                   sk, nq, nkv, causal, q_scale, scale, s);
     default:
       return cudaErrorInvalidValue;
   }

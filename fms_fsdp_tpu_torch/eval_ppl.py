@@ -56,8 +56,13 @@ def make_eval_step(model_cfg, cfg):
     """(params, (input, label)) -> (summed token NLL, token count), as
     0-d tensors. Sums rather than means, so perplexity aggregates exactly
     over batches of unequal valid-token counts. Mixtral runs the exact
-    dense mix (no capacity drops)."""
+    dense mix (no capacity drops). A context axis is ROADMAP.md A.8b."""
     check_step_options(cfg)
+    if cfg.context_parallel_size > 1:
+        raise NotImplementedError(
+            f"context_parallel_size={cfg.context_parallel_size} for eval_ppl is not "
+            f"ported yet: ROADMAP.md A.8b"
+        )
     set_kernel_variant(cfg.flash_kernel_variant)
     policy = get_dtype_policy(cfg)
     _, forward_fn, _ = get_model_api(model_cfg)

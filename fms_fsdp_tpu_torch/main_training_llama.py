@@ -39,6 +39,17 @@ the reference, and only rank 0 prints:
         --use_dummy_dataset=True --batch_size=2 --seq_length=4096 \
         --vocab_size=128256 --num_steps=12
 
+``--context_parallel_size=cp`` splits each row's sequence over cp
+adjacent ranks (ring attention, and for Mamba the conv halo and
+``ssd_scan_cp``): the ranks of a context group read the same loader rows
+(at their data index, ``parallel/mesh.py::data_index``) and each trains
+its own S / cp chunk of inputs and labels; the world is data ranks x cp:
+
+    torchrun --nproc_per_node=4 -m fms_fsdp_tpu_torch.main_training_llama \
+        --sharding_strategy=fsdp --context_parallel_size=2 \
+        --model_variant=llama3_8b --use_dummy_dataset=True --batch_size=1 \
+        --seq_length=32768 --vocab_size=128256 --num_steps=12
+
 The observability and resilience options run as in JAX: ``--obs_dir``
 (``metrics.jsonl``, ``metrics.csv`` with ``--obs_sinks=jsonl,csv``, and
 ``heartbeat.json``), ``--use_profiler`` (a ``torch.profiler`` trace in
@@ -56,6 +67,7 @@ raise ``NotImplementedError`` naming their ROADMAP.md item.
 import os
 import sys
 
+import numpy as np
 import torch
 
 from fms_fsdp_tpu_torch.ckpt import build_checkpoint_manager
@@ -66,13 +78,14 @@ from fms_fsdp_tpu_torch.data.loader import (
     elastic_batch_size,
     get_data_loader,
     get_dummy_loader,
-    rebatch,
 )
 from fms_fsdp_tpu_torch.obs import build_observer
 from fms_fsdp_tpu_torch.parallel.mesh import (
     MeshConfig,
     axis_sizes,
     build_mesh,
+    context_index,
+    data_index,
     data_parallel_extent,
 )
 from fms_fsdp_tpu_torch.resilience.exits import classified_exit
@@ -87,6 +100,14 @@ from fms_fsdp_tpu_torch.utils.config_utils import get_model_config, update_confi
 from fms_fsdp_tpu_torch.utils.device import resolve_device
 from fms_fsdp_tpu_torch.utils.dist import init_distributed
 from fms_fsdp_tpu_torch.utils.train_utils import get_profiler, train
+
+
+def context_chunks(batches, index: int, cp: int):
+    """Each (inputs, labels) batch cut to chunk ``index`` of ``cp`` along
+    the sequence: the part a context rank trains."""
+    for batch in batches:
+        s = batch[0].shape[1] // cp
+        yield tuple(np.ascontiguousarray(t[:, index * s:(index + 1) * s]) for t in batch)
 
 
 def main(device=None, **kwargs):
@@ -131,12 +152,10 @@ def main(device=None, **kwargs):
 
     if rank == 0:
         print("Constructing datasets...")
-    if data_extent < world_size or data_extent % world_size != 0:
-        raise ValueError(
-            f"data-parallel extent {data_extent} (replica x fsdp x expert) must be a "
-            f"positive multiple of process count {world_size}; lower "
-            "tensor/context parallel sizes or add devices"
-        )
+    # one device a process: the processes are the data ranks x the context
+    # group's (the mesh checked the world divides)
+    cp = world_size // data_extent
+    data_rank = data_index(mesh)
     if resume_topology:
         cfg.batch_size = elastic_batch_size(cfg, resume_topology, data_extent, rank)
     # (re)stamp the fingerprint with the resolved batch size: what every
@@ -146,16 +165,16 @@ def main(device=None, **kwargs):
         allow_batch_change=cfg.allow_batch_change,
         allow_corpus_change=cfg.allow_corpus_change,
     )
-    local_batch = cfg.batch_size * (data_extent // world_size)
     if not cfg.use_dummy_dataset:
-        loader = get_data_loader(cfg, rank, world_size,
-                                 batch_multiplier=data_extent // world_size)
+        loader = get_data_loader(cfg, data_rank, data_extent)
         # interval/final/abort checkpoints persist this live loader's
-        # state next to the model (train(dataloader=))
+        # state next to the model (train(dataloader=)); context peers hold
+        # the same state, and context rank 0 alone writes it
         ckpt_loader = loader
     else:
-        loader = get_dummy_loader(cfg, rank, world_size)
+        loader = get_dummy_loader(cfg, data_rank, data_extent)
         ckpt_loader = None  # dummy stream is stateless
+    batches = loader if cp == 1 else context_chunks(loader, context_index(mesh), cp)
     if rank == 0:
         print("Datasets constructed!")
 
@@ -181,14 +200,14 @@ def main(device=None, **kwargs):
     # metrics registry, phase timing, sinks and heartbeat
     observer = build_observer(cfg, rank, model_cfg=model_cfg, device=device)
 
-    feed = DeviceFeed(rebatch(loader, local_batch, cfg.batch_size), device,
-                      prefetch=max(0, int(cfg.feed_prefetch)))
+    feed = DeviceFeed(batches, device, prefetch=max(0, int(cfg.feed_prefetch)))
     if rank == 0:
         print(f"Training for {cfg.num_steps} steps")
     batches = iter(feed)
     try:
         summary = train(cfg, state, step_fn, rank, batches, checkpointer,
-                        start_step, tokens_seen, dataloader=ckpt_loader,
+                        start_step, tokens_seen,
+                        dataloader=ckpt_loader if context_index(mesh) == 0 else None,
                         model_cfg=model_cfg, device=device, profiler=profiler,
                         observer=observer)
     finally:

@@ -17,7 +17,8 @@ holds the full width at a cut depth:
 It runs on ``cuda`` unless ``device="cpu"`` is passed to :func:`main`
 (``--device=cpu``), and raises without a card. The checkpoint,
 observability, resilience and data-parallel options are the Llama
-entry's; ``--expert_parallel_size`` above 1 is ROADMAP.md A.4b.
+entry's; ``--expert_parallel_size`` above 1 is ROADMAP.md A.4b and
+``--context_parallel_size`` above 1 A.8b.
 """
 
 import sys

@@ -14,7 +14,11 @@ so ``bridge.py`` moves JAX weights in and out without a transpose.
 ``fms_fsdp_tpu/models/llama.py:178``: RMSNorm, rotary, GQA attention
 through ``ops/attention.py::attention`` (the flash kernels on the card),
 SwiGLU, untied lm_head, with selective activation checkpointing by
-``torch.utils.checkpoint``. ``quant`` routes wq, wk, wv, wo, w1, w3 and w2
+``torch.utils.checkpoint``. With ``ring`` (a context exchange of
+``ops/ring_attention.py``, more than one rank) the tokens are this
+rank's part of the sequence: rotary runs at the part's positions and the
+attention is ring attention, as JAX's under a context axis
+(``llama.py:138-143``). ``quant`` routes wq, wk, wv, wo, w1, w3 and w2
 through ``ops/quant.py::matmul`` (int8 / fp8); the lm_head stays 16-bit,
 as in JAX. ``params["layers"]`` may also be a sequence of
 per-layer dicts (the train step differentiates such per-layer leaves, so
@@ -38,6 +42,7 @@ from fms_fsdp_tpu_torch.obs.scopes import scoped
 from fms_fsdp_tpu_torch.ops.attention import attention
 from fms_fsdp_tpu_torch.ops.norms import rms_norm
 from fms_fsdp_tpu_torch.ops.quant import matmul as qmatmul
+from fms_fsdp_tpu_torch.ops.ring_attention import ring_attention
 from fms_fsdp_tpu_torch.ops.rope import apply_rotary, rope_table
 from fms_fsdp_tpu_torch.utils.tree import tree_map
 
@@ -106,9 +111,10 @@ def _linear(x, w, quant):
 
 @scoped("attn")
 def attention_block(x, layer: Dict, cfg, cos, sin, *, attn_impl: str,
-                    quant: str = "none"):
+                    quant: str = "none", ring=None):
     """x + Attn(RMS(x)), the attention half of a Llama block. ``layer``
-    holds attn_norm / wq / wk / wv / wo, already in the compute dtype."""
+    holds attn_norm / wq / wk / wv / wo, already in the compute dtype;
+    ``ring`` a context exchange (ring attention) or None."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     nq, nkv = cfg.nheads, cfg.n_kv_heads
@@ -118,14 +124,18 @@ def attention_block(x, layer: Dict, cfg, cos, sin, *, attn_impl: str,
     v = _linear(h, layer["wv"], quant).reshape(b, s, nkv, hd)
     q = apply_rotary(q, cos, sin)
     k = apply_rotary(k, cos, sin)
-    o = attention(q, k, v, causal=True, impl=attn_impl)
+    if ring is not None and ring.cp > 1:
+        o = ring_attention(q, k, v, ring, causal=True, impl=attn_impl)
+    else:
+        o = attention(q, k, v, causal=True, impl=attn_impl)
     return x + _linear(o.reshape(b, s, nq * hd), layer["wo"], quant)
 
 
 def _llama_block(x, layer: Dict, cfg: LlamaConfig, cos, sin, *, attn_impl: str,
-                 quant: str = "none"):
+                 quant: str = "none", ring=None):
     """One decoder block: x + Attn(RMS(x)); then x + SwiGLU(RMS(x))."""
-    x = attention_block(x, layer, cfg, cos, sin, attn_impl=attn_impl, quant=quant)
+    x = attention_block(x, layer, cfg, cos, sin, attn_impl=attn_impl, quant=quant,
+                        ring=ring)
     with record_function("ffn"):
         h = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
         gate = F.silu(_linear(h, layer["w1"], quant))
@@ -163,6 +173,7 @@ def llama_forward(
     return_embeds: bool = False,
     return_hidden: bool = False,
     quant: str = "none",
+    ring=None,
 ):
     """tokens (B, S) integer -> logits (B, S, V) in the compute dtype.
 
@@ -182,14 +193,16 @@ def llama_forward(
     with record_function("embed"):
         x = F.embedding(tokens, params["embedding"])
     seq_len = tokens.shape[1]
-    cos, sin = rope_table(seq_len, cfg.head_dim, cfg.rope_theta, device=tokens.device)
+    offset = ring.seq_offset(seq_len) if ring is not None else 0
+    cos, sin = rope_table(seq_len, cfg.head_dim, cfg.rope_theta, device=tokens.device,
+                          offset=offset)
     ac_mask = ac_mask if ac_mask is not None else [False] * nlayers
     if len(ac_mask) != nlayers:
         raise ValueError(f"ac_mask has {len(ac_mask)} entries for {nlayers} layers")
     for i in range(nlayers):
         block = functools.partial(
             _indexed_block, layers=params["layers"], i=i, cfg=cfg,
-            cos=cos, sin=sin, attn_impl=attn_impl, quant=quant,
+            cos=cos, sin=sin, attn_impl=attn_impl, quant=quant, ring=ring,
         )
         if ac_mask[i]:
             x = checkpoint(block, x, use_reentrant=False)

@@ -39,8 +39,9 @@ from fms_fsdp_tpu_torch.ops.norms import rms_norm
 from fms_fsdp_tpu_torch.ops.paged_attention import gather_pages, gqa_attend
 from fms_fsdp_tpu_torch.ops.quant import check_quant_mode
 from fms_fsdp_tpu_torch.ops.quant import matmul as qmatmul
+from fms_fsdp_tpu_torch.ops.ring_attention import ring_attention
 from fms_fsdp_tpu_torch.ops.rope import apply_rotary, rope_table
-from fms_fsdp_tpu_torch.ops.ssd import causal_conv1d, ssd_scan
+from fms_fsdp_tpu_torch.ops.ssd import causal_conv1d_cp, ssd_scan, ssd_scan_cp
 from fms_fsdp_tpu_torch.utils.tree import tree_map
 
 Params = Dict[str, Any]
@@ -145,8 +146,11 @@ def init_mamba_params(generator: torch.Generator, cfg: MambaConfig,
 
 
 @scoped("mamba_mixer")
-def _mamba_mixer(x, p: Params, cfg: MambaConfig, kernel="auto", quant="none"):
-    """x (B, S, D) compute dtype -> (B, S, D)."""
+def _mamba_mixer(x, p: Params, cfg: MambaConfig, kernel="auto", quant="none", ring=None):
+    """x (B, S, D) compute dtype -> (B, S, D). Under a context ``ring``
+    the conv takes its halo from the previous rank and the scan is
+    ``ssd_scan_cp`` (JAX's ``mamba.py:154-165``, where GSPMD places the
+    conv's boundary)."""
     B, S, _ = x.shape
     H, Pd, G, N = cfg.nheads, cfg.headdim, cfg.ngroups, cfg.d_state
     d_inner = cfg.d_inner
@@ -156,7 +160,7 @@ def _mamba_mixer(x, p: Params, cfg: MambaConfig, kernel="auto", quant="none"):
     xBC = zxbcdt[..., d_inner : d_inner + _conv_dim(cfg)]
     dt_raw = zxbcdt[..., d_inner + _conv_dim(cfg) :]  # (B, S, H)
 
-    xBC = causal_conv1d(xBC, p["conv_w"], p["conv_b"], activation="silu")
+    xBC = causal_conv1d_cp(xBC, p["conv_w"], p["conv_b"], ring, activation="silu")
     xs = xBC[..., :d_inner].reshape(B, S, H, Pd)
     Bm = xBC[..., d_inner : d_inner + G * N].reshape(B, S, G, N)
     Cm = xBC[..., d_inner + G * N :].reshape(B, S, G, N)
@@ -164,7 +168,11 @@ def _mamba_mixer(x, p: Params, cfg: MambaConfig, kernel="auto", quant="none"):
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
 
-    y = ssd_scan(xs, dt, A, Bm, Cm, p["D"], chunk_size=cfg.chunk_size, kernel=kernel)
+    if ring is not None and ring.cp > 1:
+        y = ssd_scan_cp(xs, dt, A, Bm, Cm, p["D"], ring=ring, chunk_size=cfg.chunk_size,
+                        kernel=kernel)
+    else:
+        y = ssd_scan(xs, dt, A, Bm, Cm, p["D"], chunk_size=cfg.chunk_size, kernel=kernel)
     y = y.reshape(B, S, d_inner)
 
     # gated RMSNorm: norm(y * silu(z)) (mamba2 norm_before_gate=False)
@@ -185,7 +193,8 @@ def _partial_rotary(q, k, a, cos, sin, positions=None):
 
 
 @scoped("attn_mixer")
-def _attn_mixer(x, p: Params, cfg: MambaConfig, cos, sin, attn_impl, quant="none"):
+def _attn_mixer(x, p: Params, cfg: MambaConfig, cos, sin, attn_impl, quant="none",
+                ring=None):
     B, S, _ = x.shape
     a = cfg.attn_cfg
     hd = a.head_dim
@@ -193,7 +202,10 @@ def _attn_mixer(x, p: Params, cfg: MambaConfig, cos, sin, attn_impl, quant="none
     k = qmatmul(x, p["wk"], quant=quant).reshape(B, S, a.num_heads_kv, hd)
     v = qmatmul(x, p["wv"], quant=quant).reshape(B, S, a.num_heads_kv, hd)
     q, k = _partial_rotary(q, k, a, cos, sin)
-    o = attention(q, k, v, causal=a.causal, impl=attn_impl)
+    if ring is not None and ring.cp > 1:
+        o = ring_attention(q, k, v, ring, causal=a.causal, impl=attn_impl)
+    else:
+        o = attention(q, k, v, causal=a.causal, impl=attn_impl)
     return qmatmul(o.reshape(B, S, a.num_heads * hd), p["wo"], quant=quant)
 
 
@@ -204,12 +216,13 @@ def _mlp(x, p: Params, quant="none"):
 
 
 def _block(residual, layer, *, cfg, is_attn, cos, sin, attn_impl, mamba_kernel,
-           compute_dtype, quant="none"):
+           compute_dtype, quant="none", ring=None):
     h = rms_norm(residual.to(compute_dtype), layer["norm"], cfg.norm_eps)
     if is_attn:
-        out = _attn_mixer(h, layer["mixer"], cfg, cos, sin, attn_impl, quant)
+        out = _attn_mixer(h, layer["mixer"], cfg, cos, sin, attn_impl, quant, ring)
     else:
-        out = _mamba_mixer(h, layer["mixer"], cfg, kernel=mamba_kernel, quant=quant)
+        out = _mamba_mixer(h, layer["mixer"], cfg, kernel=mamba_kernel, quant=quant,
+                           ring=ring)
     residual = residual + out.float()
     if "mlp" in layer:
         h = rms_norm(residual.to(compute_dtype), layer["norm2"], cfg.norm_eps)
@@ -233,6 +246,7 @@ def mamba_forward(
     return_hidden: bool = False,
     quant: str = "none",
     mamba_kernel: str = "auto",
+    ring=None,
 ):
     """tokens (B, S) integer -> logits (B, S, padded_vocab) in the compute
     dtype. The whole tree is cast to the compute dtype first, as JAX does
@@ -240,7 +254,9 @@ def mamba_forward(
     norms are rounded to bf16 before their fp32 use. Layers whose
     ``ac_mask`` entry is True run under ``torch.utils.checkpoint``
     (non-reentrant), so their forward, the SSD kernel included, runs a
-    second time in the backward."""
+    second time in the backward. With a context ``ring`` the tokens are
+    this rank's part of the sequence (rotary at its positions, the conv's
+    halo, ``ssd_scan_cp``, ring attention)."""
     del scan_layers
     check_quant_mode(quant)
     params = tree_map(lambda w: w.to(compute_dtype), params)
@@ -252,8 +268,9 @@ def mamba_forward(
     residual = F.embedding(tokens, params["embedding"]).float()  # residual_in_fp32
 
     a = cfg.attn_cfg
+    offset = ring.seq_offset(tokens.shape[1]) if ring is not None else 0
     cos, sin = rope_table(tokens.shape[1], a.rotary_emb_dim or a.head_dim, 10000.0,
-                          device=tokens.device)
+                          device=tokens.device, offset=offset)
 
     layers = params["layers"]
     for i in range(n_layer):
@@ -263,7 +280,7 @@ def mamba_forward(
             _indexed_block, layers=layers, i=i, cfg=cfg,
             is_attn=i in cfg.attn_layer_idx, cos=cos, sin=sin,
             attn_impl=attn_impl, mamba_kernel=mamba_kernel, compute_dtype=compute_dtype,
-            quant=quant,
+            quant=quant, ring=ring,
         )
         if ac_mask[i]:
             residual = checkpoint(fn, residual, use_reentrant=False)

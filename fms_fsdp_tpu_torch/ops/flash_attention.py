@@ -32,7 +32,10 @@ MAX_KERNEL_SEQ``), as JAX dispatches.
 The 16-bit forward and dq kernels take a key tile of 64 or 128
 (``block_k``, a template parameter of each kernel); dk/dv and the fp32
 kernels have one tile each. ``TILE_LAUNCHES`` counts the 16-bit forward
-and dq launches by contract and key tile.
+and dq launches by contract and key tile, ``MODE_LAUNCHES`` the launches
+of the two modes ring attention (``ops/ring_attention.py``) adds to the
+training path's: non-causal (every kernel) and dq stored fp32
+(``flash_dq(out_dtype=torch.float32)``, JAX's ``out_dtype``).
 
 :func:`flash_attention` is the differentiable entry: one
 ``torch.autograd.Function`` covers both of JAX's ``custom_vjp``s (o alone,
@@ -77,6 +80,9 @@ LAUNCHES = {"fwd": 0, "fwd_kvgrid": 0, "dq": 0, "dq_kvgrid": 0, "dkv": 0}
 # launches of the 16-bit forward and dq kernels (csrc/flash_*_sm90.cu) by
 # contract and key tile; counted where they launch
 TILE_LAUNCHES = {c: {64: 0, 128: 0} for c in ("fwd", "fwd_kvgrid", "dq", "dq_kvgrid")}
+# launches with causal=False, and of dq stored fp32 from 16-bit inputs;
+# counted where the kernels launch
+MODE_LAUNCHES = {"fwd_noncausal": 0, "dq_noncausal": 0, "dkv_noncausal": 0, "dq_f32": 0}
 
 # dtype codes of the csrc/flash_*.cu entry points
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -117,6 +123,8 @@ def reset_launches() -> None:
     for tiles in TILE_LAUNCHES.values():
         for key in tiles:
             tiles[key] = 0
+    for key in MODE_LAUNCHES:
+        MODE_LAUNCHES[key] = 0
 
 
 def set_kernel_variant(variant) -> None:
@@ -290,19 +298,30 @@ def _ds(q, k, v, dout, lse, delta, i0, i1, causal, scale, c, kf, vf):
     return p, ds
 
 
-def flash_dq_plain(q, k, v, dout, lse, delta, *, causal=True, scale=None):
-    """dq (B, Sq, Nq, H) in q's dtype from the saved lse and delta
-    (B, Nq, Sq) fp32."""
+def flash_dq_plain(q, k, v, dout, lse, delta, *, causal=True, scale=None,
+                   out_dtype=None):
+    """dq (B, Sq, Nq, H) in ``out_dtype`` (default q's dtype) from the
+    saved lse and delta (B, Nq, Sq) fp32."""
     b, sq, nq, h = q.shape
     sk = k.shape[1]
     scale = float(scale if scale is not None else h**-0.5)
     c = q_scale_for(scale, q.dtype)
     kf, vf = k.float(), v.float()
-    dq = torch.empty_like(q)
+    out_dtype = _dq_dtype(q.dtype, out_dtype)
+    dq = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     for i0, i1 in _plain_chunks(b, nq, sq, sk):
         _, ds = _ds(q, k, v, dout, lse, delta, i0, i1, causal, scale, c, kf, vf)
-        dq[:, i0:i1] = _pv(ds, kf).to(q.dtype)
+        dq[:, i0:i1] = _pv(ds, kf).to(out_dtype)
     return dq
+
+
+def _dq_dtype(q_dtype, out_dtype):
+    """The dtype dq is stored in: q's, or fp32 (``out_dtype``)."""
+    if out_dtype is None or out_dtype == q_dtype:
+        return q_dtype
+    if out_dtype != torch.float32:
+        raise ValueError(f"dq is stored in q's dtype or fp32; got out_dtype={out_dtype}")
+    return out_dtype
 
 
 def flash_dkv_plain(q, k, v, dout, lse, delta, *, causal=True, scale=None):
@@ -392,7 +411,7 @@ _ARGTYPES = {
 # the 16-bit entry points take the key tile before the stream
 _ARGTYPES_SM90 = {
     "fwd": [_P] * 5 + [_I] * 8 + [_F, _I, _P],
-    "dq": [_P] * 7 + [_I] * 8 + [_F, _F, _I, _P],
+    "dq": [_P] * 7 + [_I] * 8 + [_F, _F, _I, _I, _P],
     "dkv": _ARGTYPES["dkv"],
 }
 
@@ -474,11 +493,13 @@ def _tile_args(dtype, block_k):
     return () if dtype == torch.float32 else (block_k,)
 
 
-def _count(op, sk, dtype, block_k, variant):
+def _count(op, sk, dtype, block_k, variant, causal):
     contract = op + ("_kvgrid" if _use_kvgrid(sk, variant) else "")
     LAUNCHES[contract] += 1
     if dtype != torch.float32:
         TILE_LAUNCHES[contract][block_k] += 1
+    if not causal:
+        MODE_LAUNCHES[op + "_noncausal"] += 1
 
 
 def flash_fwd(q, k, v, *, causal=True, scale=None, block_k=None, variant=None):
@@ -507,43 +528,53 @@ def flash_fwd(q, k, v, *, causal=True, scale=None, block_k=None, variant=None):
             q_scale_for(scale, q.dtype), *_tile_args(q.dtype, block_k), stream,
         )
     _raise_on(err, name)
-    _count("fwd", sk, q.dtype, block_k, variant)
+    _count("fwd", sk, q.dtype, block_k, variant, causal)
     return o, lse
 
 
 def flash_dq(q, k, v, dout, lse, delta, *, causal=True, scale=None, block_k=None,
-             variant=None):
-    """dq (B, Sq, Nq, H) in q's dtype from the softmax stats lse and delta
-    (B, Nq, Sq) fp32. CPU: :func:`flash_dq_plain`; CUDA: ``flash_dq_sm90``
-    (``csrc/flash_bwd_sm90.cu``) with the key tile ``block_k`` (64 or 128,
-    default 128) for bf16/fp16, ``flash_dq`` (``csrc/flash_attention.cu``)
-    for fp32."""
+             variant=None, out_dtype=None):
+    """dq (B, Sq, Nq, H) from the softmax stats lse and delta (B, Nq, Sq)
+    fp32, in ``out_dtype``: q's dtype (None) or ``torch.float32``, the
+    kernel's fp32 accumulators stored as they are (JAX's ``out_dtype``, for
+    partials summed over ring steps). CPU: :func:`flash_dq_plain`; CUDA:
+    ``flash_dq_sm90`` (``csrc/flash_bwd_sm90.cu``) with the key tile
+    ``block_k`` (64 or 128, default 128) for bf16/fp16, ``flash_dq``
+    (``csrc/flash_attention.cu``) for fp32."""
     if _device_of(q) == "cpu":
-        return flash_dq_plain(q, k, v, dout, lse, delta, causal=causal, scale=scale)
+        return flash_dq_plain(q, k, v, dout, lse, delta, causal=causal, scale=scale,
+                              out_dtype=out_dtype)
     _check_cuda(q, k, v, dout=dout, lse=lse, delta=delta)
     block_k = _kernel_block_k(q.dtype, block_k)
+    out_dtype = _dq_dtype(q.dtype, out_dtype)
+    out_f32 = q.dtype != torch.float32 and out_dtype == torch.float32
     b, sq, nq, h = q.shape
     sk, nkv = k.shape[1], k.shape[2]
     scale = float(scale if scale is not None else h**-0.5)
-    dq = torch.empty_like(q)
+    dq = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     fn, name = _entry("dq", q.dtype)
+    mode = () if q.dtype == torch.float32 else (block_k, int(out_f32))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             b, sq, sk, nq, nkv, h, int(causal), _CODES[q.dtype],
-            q_scale_for(scale, q.dtype), scale, *_tile_args(q.dtype, block_k), stream,
+            q_scale_for(scale, q.dtype), scale, *mode, stream,
         )
     _raise_on(err, name)
-    _count("dq", sk, q.dtype, block_k, variant)
+    _count("dq", sk, q.dtype, block_k, variant, causal)
+    if out_f32:
+        MODE_LAUNCHES["dq_f32"] += 1
     return dq
 
 
-def flash_dkv(q, k, v, dout, lse, delta, *, causal=True, scale=None):
+def flash_dkv(q, k, v, dout, lse, delta, *, causal=True, scale=None, q2=None):
     """(dk, dv), each (B, Sk, Nkv, H) fp32. CPU: :func:`flash_dkv_plain`;
     CUDA: ``flash_dkv_sm90`` for bf16/fp16, ``flash_dkv`` for fp32 (one
-    contract: JAX has no kv-streamed dk/dv)."""
+    contract: JAX has no kv-streamed dk/dv). ``q2`` is q scaled as
+    :func:`scaled_q` makes it, for a caller that runs many calls on one q
+    (the ring's steps); None scales it here."""
     if _device_of(q) == "cpu":
         return flash_dkv_plain(q, k, v, dout, lse, delta, causal=causal, scale=scale)
     _check_cuda(q, k, v, dout=dout, lse=lse, delta=delta)
@@ -552,9 +583,10 @@ def flash_dkv(q, k, v, dout, lse, delta, *, causal=True, scale=None):
     scale = float(scale if scale is not None else h**-0.5)
     dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
-    # q scaled once here (every k tile of a head reads each q tile), with
-    # the kernels' rounding: the fp32 product rounded to q's dtype
-    q2 = (q * q_scale_for(scale, q.dtype)).to(q.dtype)
+    if q2 is None:
+        q2 = scaled_q(q, scale)
+    elif q2.shape != q.shape or q2.dtype != q.dtype or not q2.is_contiguous():
+        raise ValueError("q2 must be contiguous and match q's shape and dtype")
     fn, name = _entry("dkv", q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -565,7 +597,16 @@ def flash_dkv(q, k, v, dout, lse, delta, *, causal=True, scale=None):
         )
     _raise_on(err, name)
     LAUNCHES["dkv"] += 1
+    if not causal:
+        MODE_LAUNCHES["dkv_noncausal"] += 1
     return dk, dv
+
+
+def scaled_q(q, scale):
+    """q scaled by ``scale * log2(e)`` with the kernels' rounding (the
+    fp32 product rounded to q's dtype): the dk/dv kernel's q2, made once
+    (every key tile of a head reads each query tile)."""
+    return (q * q_scale_for(scale, q.dtype)).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

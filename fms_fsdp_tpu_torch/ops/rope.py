@@ -10,12 +10,14 @@ import torch
 
 
 def rope_table(seq_len: int, head_dim: int, theta: float = 10000.0,
-               device=None):
-    """Return (cos, sin), each (seq_len, head_dim // 2), fp32."""
+               device=None, offset: int = 0):
+    """Return (cos, sin), each (seq_len, head_dim // 2), fp32, for the
+    positions offset .. offset + seq_len - 1 (a context rank's part of the
+    sequence: the same rows as the whole table's)."""
     half = head_dim // 2
     exponent = torch.arange(0, half, dtype=torch.float32, device=device) / half
     freqs = 1.0 / (theta ** exponent)
-    pos = torch.arange(seq_len, dtype=torch.float32, device=device)
+    pos = torch.arange(offset, offset + seq_len, dtype=torch.float32, device=device)
     angles = torch.outer(pos, freqs)  # (S, half)
     return torch.cos(angles), torch.sin(angles)
 

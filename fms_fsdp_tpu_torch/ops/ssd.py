@@ -31,6 +31,10 @@ package so that one command line drives both:
 - ``"auto"``: as ``"pallas"``. JAX's "auto" is the einsums; here a CUDA
   tensor launches the kernel or raises, and there is no fallback.
 
+:func:`ssd_scan_cp` is the scan with the sequence split over the context
+axis (``ops/ring_attention.py``'s exchange): its local core is the
+chunked einsums on every device, as JAX's is XLA.
+
 The mixed precision is JAX's: matmul operands stay in the input dtype and
 accumulate in fp32 (the einsums below widen the operands to fp32, which
 gives the exact products of the input-dtype values with an fp32 sum); the
@@ -191,9 +195,10 @@ def _ssd_core_xla(x, dtf, a, Bm, Cm, L, return_state: bool = False):
     return y
 
 
-def _ssd_core_xla_backward(inputs, L, cot, needs):
+def _ssd_core_xla_backward(inputs, L, cot, needs, d_final=None):
     """Cotangents of :func:`_ssd_core_xla`'s inputs (x, dtf, a, Bm, Cm)
-    for the cotangent ``cot`` of y; ``needs`` says which are wanted. What
+    for the cotangent ``cot`` of y (and ``d_final`` of the final carried
+    state, when it is an output); ``needs`` says which are wanted. What
     JAX's checkpointed scan does (``ssd.py:418``): a first sweep keeps only
     the state carried into each chunk, then the chunks are taken last to
     first, each one's body recomputed and differentiated with the
@@ -210,7 +215,7 @@ def _ssd_core_xla_backward(inputs, L, cot, needs):
             carried.append(torch.exp(cum[:, -1, :])[:, :, None, None] * carried[-1]
                            + _chunk_states(x[:, sl], dtf[:, sl], cum, Bm[:, sl], G))
     grads = [torch.empty_like(t) if need else None for t, need in zip(inputs, needs)]
-    d_state = None  # cotangent of the state a chunk hands on; none after the last
+    d_state = d_final  # cotangent of the state a chunk hands on
     for idx in reversed(range(len(chunks))):
         sl = chunks[idx]
         with torch.enable_grad():
@@ -440,6 +445,25 @@ class _SSDCore(torch.autograd.Function):
         return (*grads, None, None)
 
 
+class _SSDCoreState(torch.autograd.Function):
+    """:func:`_ssd_core_xla` with ``return_state``: (y, the final carried
+    state), both differentiable, the backward a chunk at a time as
+    :class:`_SSDCore`'s."""
+
+    @staticmethod
+    def forward(ctx, x, dtf, a, Bm, Cm, L):
+        ctx.save_for_backward(x, dtf, a, Bm, Cm)
+        ctx.L = L
+        return _ssd_core_xla(x, dtf, a, Bm, Cm, L, return_state=True)
+
+    @staticmethod
+    def backward(ctx, cot, d_final):
+        grads = _ssd_core_xla_backward(
+            ctx.saved_tensors, ctx.L, cot, ctx.needs_input_grad[:5], d_final=d_final
+        )
+        return (*grads, None)
+
+
 @scoped("ssd_scan")
 def ssd_scan(x, dt, A, Bm, Cm, D=None, chunk_size: int = 256, kernel: str = "auto"):
     """Chunked selective scan. Returns y with x's shape, computed in fp32,
@@ -467,13 +491,71 @@ def ssd_scan(x, dt, A, Bm, Cm, D=None, chunk_size: int = 256, kernel: str = "aut
     return y.to(x.dtype)
 
 
-def ssd_scan_cp(*args, **kwargs):
-    """The context-parallel scan of ``fms_fsdp_tpu/ops/ssd.py:431`` shards
-    the sequence over devices."""
-    raise NotImplementedError(
-        "ssd_scan_cp (context-parallel SSD) is not ported yet: ROADMAP.md "
-        "A.8 (long context)"
-    )
+@scoped("ssd_scan_cp")
+def ssd_scan_cp(x, dt, A, Bm, Cm, D=None, *, ring, chunk_size: int = 256,
+                kernel: str = "auto"):
+    """The scan with the sequence split over the context axis
+    (``fms_fsdp_tpu/ops/ssd.py:432``): x, dt, Bm, Cm are this process's
+    part of the sequence (all of it under a ``LocalRing``, S / cp under a
+    ``GroupRing``, ``ops/ring_attention.py``).
+
+    The recurrence is linear in the carried state: each context rank runs
+    its local chunk scan from a zero state (y0 and its final state Z_d),
+    the true initial state of rank d is the small recurrence
+
+        IN_0 = 0;  IN_d = T_{d-1} * IN_{d-1} + Z_{d-1}
+
+    over the local decays T_d = exp(sum_local a), unrolled over the
+    all-gathered (Z, T) pairs, and its part of the output is the chunk
+    body's inter-chunk term, y_t += exp(cumsum_t a) * C_t . IN. The local
+    core is the chunked einsums (JAX's is XLA), differentiated a chunk at
+    a time; ``kernel="pallas"`` warns that it does not apply. With one
+    context rank this is :func:`ssd_scan` with ``kernel`` as asked."""
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown ssd kernel {kernel!r}: expected one of {KERNELS}")
+    cp = 1 if ring is None else ring.cp
+    if cp == 1:
+        return ssd_scan(x, dt, A, Bm, Cm, D, chunk_size=chunk_size, kernel=kernel)
+    if kernel == "pallas":
+        import warnings
+
+        warnings.warn(
+            "ssd_scan_cp: kernel='pallas' has no cp implementation; running "
+            "the XLA core under the context axis",
+            stacklevel=2,
+        )
+    xs, dts, Bs, Cs = ring.split(x), ring.split(dt), ring.split(Bm), ring.split(Cm)
+    s_loc = xs[0].shape[1]
+    L = min(chunk_size, s_loc)
+    if s_loc % L:
+        raise ValueError(f"local sequence {s_loc} must be a multiple of chunk {L}")
+    Bsz, _, H, P = xs[0].shape
+    G, N = Bs[0].shape[2], Bs[0].shape[3]
+    Af = A.float()
+    parts, packed = [], []
+    for xl, dtl, Bl, Cl in zip(xs, dts, Bs, Cs):
+        dtf = dtl.float()
+        a = dtf * Af[None, None, :]
+        y0, z_fin = _SSDCoreState.apply(xl, dtf, a, Bl, Cl, L)
+        t_total = torch.exp(a.sum(dim=1))  # (B, H): the local decay product
+        parts.append((y0, torch.cumsum(a, dim=1), Cl))
+        packed.append(torch.cat([z_fin.reshape(Bsz, -1), t_total], dim=1))
+    gathered = ring.gather(packed)  # every rank's (Z, T), in context order
+    zs = [g[:, :-H].reshape(Bsz, H, P, N) for g in gathered]
+    ts = [g[:, -H:] for g in gathered]
+    ys = []
+    for idx, (y0, cum, Cl) in zip(ring.slots, parts):
+        carry = torch.zeros_like(zs[0])
+        for d in range(cp - 1):  # unrolled, as JAX's
+            upd = ts[d][..., None, None] * carry + zs[d]
+            # a select, not a skip: every rank's output reaches the gathered
+            # parts, so every rank runs the gather's backward collective
+            carry = torch.where(torch.tensor(d < idx, device=carry.device), upd, carry)
+        ys.append(y0 + _state_contribution(Cl, carry, cum, G))
+    y = ring.join(ys)
+    if D is not None:
+        y = y + D.float()[None, None, :, None] * x.float()
+    return y.to(x.dtype)
 
 
 def ssd_scan_reference(x, dt, A, Bm, Cm, D=None):
@@ -500,6 +582,27 @@ def ssd_scan_reference(x, dt, A, Bm, Cm, D=None):
     if D is not None:
         y = y + D.float()[None, None, :, None] * xf
     return y.to(x.dtype)
+
+
+def causal_conv1d_cp(x, weight, bias, ring, activation: str = "silu"):
+    """:func:`causal_conv1d` over a sequence split over the context axis
+    (``ops/ring_attention.py``'s exchange): each rank receives the
+    previous rank's last W - 1 rows (rank 0 zeros, the conv's own pad) and
+    convolves them ahead of its own, so every output is the whole
+    sequence's; the backward sends the halo's gradient back."""
+    from fms_fsdp_tpu_torch.ops.ring_attention import shift_from_previous
+
+    halo = weight.shape[-1] - 1
+    if ring is None or ring.cp == 1 or halo == 0:
+        return causal_conv1d(x, weight, bias, activation)
+    parts = ring.split(x)
+    if parts[0].shape[1] < halo:
+        raise ValueError(f"a context rank's {parts[0].shape[1]} positions are fewer than "
+                         f"the conv's halo of {halo}")
+    halos = shift_from_previous(ring, [p[:, -halo:] for p in parts])
+    outs = [causal_conv1d(torch.cat([h, p], dim=1), weight, bias, activation)[:, halo:]
+            for h, p in zip(halos, parts)]
+    return ring.join(outs)
 
 
 @scoped("causal_conv1d")

@@ -16,12 +16,19 @@ one 6-axis ``DeviceMesh`` with JAX's axis names:
         when the world spans hosts, else the world), replica = world /
         group (sharded inside a group, replicated across groups).
 
+- context: ``context_parallel_size`` ranks share one data index and each
+  holds S / cp of its rows' sequence (ring attention and the
+  context-parallel SSD scan exchange across them). With ``tensor`` = 1 it
+  is the innermost axis, as in JAX (``mesh.py:274``), so adjacent ranks
+  are context peers.
+
 One process drives one device, so a process's slot on the mesh is its
-rank. ``dcn``, ``expert``, ``context`` and ``tensor`` are built at size 1:
-:func:`mesh_shape` computes every axis as JAX does (the tests hold it to
-JAX's ``build_mesh``), and :func:`build_mesh` refuses an axis above 1
-naming the ROADMAP.md item that brings it. JAX's HLO collective
-attribution (``:377-497``) reads XLA programs and has no counterpart here.
+rank, in row-major order over ``MESH_AXES``. ``dcn``, ``expert`` and
+``tensor`` are built at size 1: :func:`mesh_shape` computes every axis as
+JAX does (the tests hold it to JAX's ``build_mesh``), and
+:func:`build_mesh` refuses one of them above 1 naming the ROADMAP.md item
+that brings it. JAX's HLO collective attribution (``:377-497``) reads XLA
+programs and has no counterpart here.
 """
 
 import os
@@ -47,7 +54,6 @@ SIM_SLICES_ENV = "FMS_SIM_SLICES"
 _UNPORTED_AXES = {
     AXIS_DCN: "A.6b (multi-slice)",
     AXIS_EXPERT: "A.4b (MoE expert parallelism)",
-    AXIS_CONTEXT: "A.8 (long context)",
     AXIS_TENSOR: "A.6b (tensor parallelism)",
 }
 
@@ -207,9 +213,26 @@ def axis_sizes(mesh) -> Dict[str, int]:
 
 
 def data_parallel_extent(mesh) -> int:
-    """Number of ways the global batch is split (product of DATA_AXES)."""
+    """Number of ways the global batch is split (product of DATA_AXES;
+    the context axis splits sequences, not rows)."""
     sizes = axis_sizes(mesh)
     out = 1
     for a in DATA_AXES:
         out *= sizes[a]
     return out
+
+
+def data_index(mesh) -> int:
+    """This process's index on the data axes (row-major over DATA_AXES):
+    which rows of the global batch it trains. Context peers share it."""
+    sizes = axis_sizes(mesh)
+    out = 0
+    for a in DATA_AXES:
+        out = out * sizes[a] + mesh.get_local_rank(a)
+    return out
+
+
+def context_index(mesh) -> int:
+    """This process's index on the context axis: which S / cp chunk of
+    its rows' sequence it holds."""
+    return mesh.get_local_rank(AXIS_CONTEXT)

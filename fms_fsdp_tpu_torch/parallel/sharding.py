@@ -28,9 +28,13 @@ collectives by hand:
   fsdp (a layer under activation checkpointing gathers again in its
   recomputed forward instead), none under ddp;
 - gradients are reduce-scattered over fsdp (in the gather's backward),
-  all-reduced over ``replica`` under hsdp, and a replicated leaf's are
-  all-reduced over the world. Every reduce is a SUM: each rank's loss is
-  its summed token loss over the GLOBAL count of labels != -100.
+  all-reduced over ``replica`` under hsdp and over ``context`` (the
+  ranks that hold parts of the same rows' sequence), and a replicated
+  leaf's are all-reduced over the world. Every reduce is a SUM: each
+  rank's loss is its summed token loss over the GLOBAL count of labels
+  != -100. :attr:`DataParallel.ring` is the context exchange the forward
+  runs (``ops/ring_attention.py::GroupRing``), None without a context
+  axis.
 
 The quantized gradient reduce (``:215-292``): :func:`quant_leaf_key`,
 :func:`init_amax_state` and :func:`quantized_grad_reduce`, on the
@@ -507,6 +511,10 @@ class DataParallel:
         self.replica_rank = mesh.get_local_rank(AXIS_REPLICA)
         self.fsdp_group = mesh.get_group(AXIS_FSDP) if self.fsdp > 1 else None
         self.replica_group = mesh.get_group(AXIS_REPLICA) if self.replica > 1 else None
+        from fms_fsdp_tpu_torch.ops.ring_attention import context_ring
+
+        self.ring = context_ring(mesh)
+        self.context_group = self.ring.group if self.ring is not None else None
         self.dims = dict(dims)
         self.shapes = dict(shapes)
         # the host snapshots' mesh, made here on every rank in one order
@@ -714,6 +722,8 @@ class DataParallel:
             self.all_reduce(whole, None)
         if parts and self.replica_group is not None:
             self.all_reduce(parts, self.replica_group)
+        if parts and self.context_group is not None:
+            self.all_reduce(parts, self.context_group)
 
     def grad_norm(self, grads, split) -> torch.Tensor:
         """The global gradient norm (fp32): each split leaf's local squares

@@ -103,8 +103,14 @@ def base_device(base_params) -> torch.device:
 
 
 def check_speculator_options(cfg) -> None:
-    """Tensor parallelism of the frozen base is ROADMAP.md A.6b. JAX reads
-    ``tp_size`` only under ``sharding_strategy="tp"``, and so does this."""
+    """Tensor parallelism of the frozen base is ROADMAP.md A.6b (JAX reads
+    ``tp_size`` only under ``sharding_strategy="tp"``, and so does this);
+    a context axis under the speculator is A.8b."""
+    if cfg.context_parallel_size > 1:
+        raise NotImplementedError(
+            f"context_parallel_size={cfg.context_parallel_size} for the speculator is "
+            f"not ported yet: ROADMAP.md A.8b"
+        )
     if cfg.sharding_strategy == "tp" or cfg.tensor_parallel_size > 1:
         raise NotImplementedError(
             f"sharding_strategy={cfg.sharding_strategy!r} (tp_size="

@@ -38,6 +38,15 @@ step computes it on the whole batch, whatever the ranks' shares of
 ignored labels. The gradient norm is global (the parts' squares summed
 over fsdp). So the non-finite decision is the same on every rank.
 
+Long context (``context_parallel_size``, Llama and Mamba): the ranks of
+a context group hold one data index's rows, each S / cp of their
+sequence; the forward runs ring attention, the conv halo and
+``ssd_scan_cp`` over the group (``state["dp"].ring``). The loss is each
+rank's token-loss sum over the global label count, summed over the
+world, and the gradients are summed over the context group before the
+norm and the clip, as over the data ranks. Mixtral and the speculator
+under a context axis are ROADMAP.md A.8b.
+
 Mixtral (``step.py:281-293,347-358`` in JAX) trains through the capacity
 dispatch and adds the load-balancing term (already weighted) to the
 objective; ``moe_drop_frac`` joins the metrics. Across processes the
@@ -91,7 +100,6 @@ from fms_fsdp_tpu_torch.utils.tree import tree_map
 # the ROADMAP.md item that brings it)
 _UNPORTED_STEP = (
     ("tensor_parallel_size", lambda v: v > 1, "A.6b (tensor parallelism)"),
-    ("context_parallel_size", lambda v: v > 1, "A.8 (long context)"),
     ("expert_parallel_size", lambda v: v > 1, "A.4b (MoE expert parallelism)"),
     ("num_slices", lambda v: v > 1, "A.6b (multi-slice)"),
     ("sharding_strategy", lambda v: v == "tp", "A.6b (tensor parallelism)"),
@@ -117,10 +125,16 @@ def check_step_options(cfg) -> None:
 
 def check_supported(cfg) -> None:
     """Every option of a training run (the entry point's check): the
-    step's, and a ``faults`` spec naming a site the port has no call site
-    for yet. ``divergence_check_interval`` compares the replicas across
-    processes; on one process it is inert, as in JAX."""
+    step's, a context axis for a model family that has none yet, and a
+    ``faults`` spec naming a site the port has no call site for yet.
+    ``divergence_check_interval`` compares the replicas across processes;
+    on one process it is inert, as in JAX."""
     check_step_options(cfg)
+    if cfg.context_parallel_size > 1 and cfg.model_variant.startswith("mixtral"):
+        raise NotImplementedError(
+            f"context_parallel_size={cfg.context_parallel_size} for Mixtral is not "
+            f"ported yet: ROADMAP.md A.8b (the routing of a context-split batch)"
+        )
     check_spec(cfg.faults)
 
 
@@ -339,6 +353,12 @@ def make_train_step(model_cfg, cfg, start_step: int = 0):
         nan_window = (at, at + int(nan_fault.get("count", 1)))
     extra_kwargs = {}
     moe = isinstance(model_cfg, MixtralConfig)
+    cp = int(cfg.context_parallel_size or 1)
+    if moe and cp > 1:
+        raise NotImplementedError(
+            f"context_parallel_size={cp} for Mixtral is not ported yet: ROADMAP.md "
+            f"A.8b (the routing of a context-split batch)"
+        )
     if isinstance(model_cfg, MambaConfig):
         extra_kwargs = {"mamba_kernel": cfg.mamba_kernel}
     elif moe:
@@ -346,10 +366,18 @@ def make_train_step(model_cfg, cfg, start_step: int = 0):
 
     def loss_fn(params_c, inputs, labels, n=None, dp=None):
         """(the token loss, the MoE balance term or None, extra metrics)"""
+        ring = {}
+        if cp > 1:
+            if dp is None or dp.ring is None or dp.ring.cp != cp:
+                raise ValueError(
+                    f"context_parallel_size={cp} needs a train state on a mesh whose "
+                    f"context axis has {cp} ranks (state['dp'].ring)"
+                )
+            ring = {"ring": dp.ring}
         out = forward_fn(
             params_c, inputs, model_cfg, compute_dtype=policy.compute_dtype,
             attn_impl=cfg.attention_kernel, ac_mask=ac_mask,
-            return_hidden=fused, quant=cfg.quantized_matmuls, **extra_kwargs,
+            return_hidden=fused, quant=cfg.quantized_matmuls, **ring, **extra_kwargs,
         )
         aux, stats = None, {}
         if moe:

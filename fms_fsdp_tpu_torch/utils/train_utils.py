@@ -317,9 +317,12 @@ def _train_loop(cfg, state, step_fn, rank, train_loader, checkpointer, start_ste
     divergence_interval = int(cfg.divergence_check_interval or 0) if world > 1 else 0
     last_divergence_check = start_step
 
-    # rows a card trains a step, and tokens the whole world trains
+    # rows a data rank trains a step, and tokens the whole world trains:
+    # the data ranks are the processes over the context group's size, as
+    # JAX's world_size (devices // tp // cp, train_utils.py:345-349)
     tokens_per_step = cfg.batch_size * cfg.seq_length
-    global_tokens_per_step = world * tokens_per_step
+    data_world = world // max(1, int(cfg.context_parallel_size or 1))
+    global_tokens_per_step = data_world * tokens_per_step
     window: List[Dict] = []
     reports: List[Dict] = []
     train_loss = -1.0  # until a window has a clean step, as JAX prints it

@@ -412,6 +412,93 @@ def test_card_flash_key_tile_64_matches_plain(cuda_device, dtype, b, sq, sk, nq,
 
 
 @pytest.mark.card
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("block_k", [128, 64])
+@pytest.mark.parametrize("b,sq,sk,nq,nkv", [
+    (1, 512, 512, 4, 1),     # group 4
+    (1, 256, 512, 4, 2),     # cross length: every key visible to every query
+    (1, 320, 320, 4, 4),     # the 64-row and 64-key tails, group 1
+])
+def test_card_flash_noncausal_and_fp32_dq_match_plain(cuda_device, dtype, block_k,
+                                                      b, sq, sk, nq, nkv):
+    """The two modes ring attention runs: the non-causal forward, dq and
+    dk/dv (the checks of :func:`_check_flash`), and dq stored fp32, which
+    rounded to the inputs' dtype is the 16-bit dq bit for bit and per
+    128-row block lies within ``BF16_BLOCK_REL_TOL`` of the plain
+    fp32-output dq, a bound the dropped-tile control exceeds. Each launch
+    is counted under its mode."""
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_case(cuda_device, dtype, b, sq, sk, nq, nkv, seed=43)
+    fa.reset_launches()
+    got = _flash_all(fa, q, k, v, do, kernel=True, causal=False, block_k=block_k)
+    lse = got[1]
+    delta = torch.einsum("bsnh,bsnh->bns", got[0].float(), do.float()).contiguous()
+    dq32 = fa.flash_dq(q, k, v, do, lse, delta, causal=False, block_k=block_k,
+                       out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert fa.MODE_LAUNCHES == {"fwd_noncausal": 1, "dq_noncausal": 2, "dkv_noncausal": 1,
+                                "dq_f32": 1}
+    assert fa.TILE_LAUNCHES["dq"] == {64: 2 * (block_k == 64), 128: 2 * (block_k == 128)}
+    _check_flash(fa, q, k, v, do, got, causal=False)
+    assert dq32.dtype == torch.float32 and torch.equal(dq32.to(dtype), got[2])
+    ref = fa.flash_dq_plain(q, k, v, do, lse, delta, causal=False, out_dtype=torch.float32)
+    dkv = fa.flash_dkv_plain(q, k, v, do, lse, delta, causal=False)
+    control = fa.flash_bwd_drop_tile_plain(
+        q, k, v, do, lse, delta, ref, *dkv, batch=0, head=0,
+        q_tile=sq // fa.BWD_Q_TILE - 1, k_block=0, causal=False)[0]
+    tol = fa.BF16_BLOCK_REL_TOL["dq"]
+    rel, ctl = fa.block_rel_err(dq32, ref), fa.block_rel_err(control, ref)
+    assert rel.max().item() <= tol < ctl[ctl > 0].min().item()
+    # the fp32 kernel is fp32 already: out_dtype asks nothing of it
+    q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+    o32, lse32 = fa.flash_fwd(q32, k32, v32, causal=False)
+    d32 = torch.einsum("bsnh,bsnh->bns", o32, do32).contiguous()
+    assert torch.equal(fa.flash_dq(q32, k32, v32, do32, lse32, d32, causal=False,
+                                   out_dtype=torch.float32),
+                       fa.flash_dq(q32, k32, v32, do32, lse32, d32, causal=False))
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("causal", [True, False])
+def test_card_ring_attention_matches_plain_ring(cuda_device, causal):
+    """Ring attention with every chunk on the card (cp=4, 256 positions a
+    chunk, bf16): o, dq, dk and dv within twice the plain bf16 ring's
+    distance from the plain fp32 ring, against the ring through the plain
+    versions (chip_smoke.py's ``_plain_partials``); the launches by chunk
+    relation (causal: 4 diagonal, 6 visible, 6 skipped; non-causal: 16
+    visible), every dq stored fp32."""
+    from chip_smoke import _plain_partials
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+    from fms_fsdp_tpu_torch.ops.ring_attention import LocalRing, ring_attention
+
+    q, k, v, do = _flash_case(cuda_device, torch.bfloat16, 1, 1024, 1024, 8, 2, seed=47)
+
+    def run(*xs, g):
+        leaves = [x.detach().requires_grad_() for x in xs]
+        o = ring_attention(*leaves, LocalRing(4), causal=causal)
+        return [o.detach(), *torch.autograd.grad(o, leaves, g)]
+
+    fa.reset_launches()
+    got = run(q, k, v, g=do)
+    torch.cuda.synchronize()
+    calls = 10 if causal else 16
+    noncausal = 6 if causal else 16
+    assert fa.LAUNCHES == {"fwd": calls, "fwd_kvgrid": 0, "dq": calls, "dq_kvgrid": 0,
+                           "dkv": calls}
+    assert fa.TILE_LAUNCHES["fwd"][128] == fa.TILE_LAUNCHES["dq"][128] == calls
+    assert fa.MODE_LAUNCHES == {"fwd_noncausal": noncausal, "dq_noncausal": noncausal,
+                                "dkv_noncausal": noncausal, "dq_f32": calls}
+    with _plain_partials(fa):
+        plain = run(q, k, v, g=do)
+        wide = run(q.float(), k.float(), v.float(), g=do.float())
+    for name, a, p_, w in zip(("o", "dq", "dk", "dv"), got, plain, wide):
+        assert torch.isfinite(a).all(), name
+        tol = 2 * _rel_err(p_, w)
+        assert _rel_err(a, p_) <= tol, (name, _rel_err(a, p_), tol)
+
+
+@pytest.mark.card
 def test_card_flash_smem_bytes_match_cost_model(cuda_device):
     """Each kernel's dynamic shared memory from its C function equals the
     tuner's Hopper cost model (tune/candidates.py), at both key tiles; a

@@ -227,8 +227,16 @@ def test_ssd_scan_refusals():
         ssd.ssd_scan(*_t(inp), kernel="triton")
     with pytest.raises(ValueError, match="multiple of chunk"):
         ssd.ssd_scan(*_t(inp), chunk_size=48)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        ssd.ssd_scan_cp(*_t(inp))
+    # the context-parallel scan runs: one rank is ssd_scan, two ranks (every
+    # chunk in this process) its einsum core from a zero state per rank
+    # plus the carried-state correction
+    from fms_fsdp_tpu_torch.ops.ring_attention import LocalRing
+
+    whole = ssd.ssd_scan(*_t(inp), chunk_size=16, kernel="xla")
+    assert torch.equal(ssd.ssd_scan_cp(*_t(inp), ring=LocalRing(1), chunk_size=16,
+                                       kernel="xla"), whole)
+    assert _err(ssd.ssd_scan_cp(*_t(inp), ring=LocalRing(2), chunk_size=16),
+                whole.numpy()) <= 2e-5
     # the kernel's own shape rule
     assert ssd.supports((2, 4096, 128, 64), (2, 4096, 1, 128), 256)
     assert ssd.supports((2, 512, 16, 64), (2, 512, 8, 128), 64)

@@ -175,7 +175,8 @@ def reference(tmp_path_factory):
 
 
 def _parity_spec(ref, tmp, strategy, world, **extra):
-    main = dict(_RUN, **ref["model"], sharding_strategy=strategy, batch_size=ROWS // world,
+    data_world = world // extra.get("context_parallel_size", 1)
+    main = dict(_RUN, **ref["model"], sharding_strategy=strategy, batch_size=ROWS // data_world,
                 ckpt_load_path=str(ref["tmp"] / "params.pkl"),
                 ckpt_save_path=str(tmp / "ck"), checkpoint_interval=1, **extra)
     return {"out": str(tmp / "out"), "main": main, "count_gathers": True,
@@ -442,3 +443,77 @@ def test_speculator_two_ranks_match_one_process(tmp_path):
         assert sorted(r["param_sums"]) == sorted(one["param_sums"])
         for key, want in one["param_sums"].items():
             assert r["param_sums"][key] == pytest.approx(want, rel=1e-6, abs=1e-6), key
+
+
+# ---------------------------------------------------------------------------
+# long context: the context axis across processes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("world,strategy", [(2, "fsdp"), (4, "fsdp")])
+def test_context_parallel_llama_matches_jax(world, strategy, reference, tmp_path):
+    """cp=2: adjacent ranks hold the two halves of the same rows' sequence
+    (ring attention over the pair, rotary at each half's positions); the
+    loss over the global label count and the gradient norm after the
+    context reduce equal JAX's one-process step. At world 4 the pairs
+    are also split 2-way over fsdp (each data index 4 of the 8 rows)."""
+    res, outs = _parity_run(reference, tmp_path, strategy, world=world,
+                            context_parallel_size=2)
+    _assert_matches_jax(res, reference)
+    fsdp = world // 2
+    assert (f"mesh = {{'dcn': 1, 'replica': 1, 'fsdp': {fsdp}, 'expert': 1, "
+            f"'context': 2, 'tensor': 1}}") in outs[0]
+    # the global tokens: the data ranks' rows, whole sequences
+    assert res[0]["tokens_seen"] == [s * ROWS * SEQ for s in (1, 2, 3)]
+    assert all(r["sharded"] == (fsdp > 1) for r in res)
+
+
+def test_context_parallel_mamba_matches_jax(tmp_path_factory, tmp_path):
+    """The hybrid at cp=2 on two ranks: the conv's halo from the previous
+    rank, ``ssd_scan_cp`` for the SSD layers and ring attention for the
+    attention layer; JAX's one-process losses and gradient norms."""
+    ref = _reference(tmp_path_factory.mktemp("mamba_cp_ref"), _MAMBA)
+    jax.clear_caches()
+    res, _ = _parity_run(ref, tmp_path, "fsdp", mamba_kernel="xla",
+                         context_parallel_size=2)
+    _assert_matches_jax(res, ref)
+
+
+def test_context_resume_to_one_rank_keeps_the_global_batch(tmp_path):
+    """Two context ranks (one data index) train 3 steps on arrow shards and
+    save: one loader state file (context rank 0 writes it), the train
+    state once. One process without a context axis resumes: the same
+    state, the same global batch (2 rows), the step and the stream
+    continued with no row trained again."""
+    corpus = build_arrow_corpus(tmp_path / "corpus", vocab=128)
+    base = dict(_MODEL, seq_length=SEQ, vocab_size=128, attention_kernel="xla",
+                mixed_precision=False, learning_rate=1e-3, report_interval=1,
+                use_dummy_dataset=False, data_path=corpus, datasets="dataset_1",
+                weights="1", file_type="arrow", logical_shards=8,
+                loader_shuffle_window=16, num_workers=1, feed_prefetch=0,
+                checkpoint_interval=1000, sharding_strategy="fsdp", batch_size=2,
+                ckpt_save_path=str(tmp_path / "ck"), ckpt_load_path=str(tmp_path / "ck"))
+    first, _ = _run(2, {"out": str(tmp_path / "a"), "record_rows": True,
+                        "main": dict(base, num_steps=3, context_parallel_size=2)}, tmp_path)
+    ckpt = tmp_path / "ck" / "checkpoints" / "step_3_ckp"
+    assert sorted(f for f in os.listdir(ckpt) if f.startswith("loader_state")) == [
+        "loader_state_0.pkl"]
+    with open(ckpt / "metadata.json") as f:
+        topo = json.load(f)["topology"]
+    assert (topo["context_parallel_size"], topo["global_batch_rows"]) == (2, 2)
+    # the context peers trained the same rows, each its half of every one
+    halves = [[len(row) for b in r["rows"] for row in b] for r in first]
+    assert halves == [[SEQ // 2] * len(halves[0])] * 2
+    whole = [[a + b for a, b in zip(b0, b1)] for b0, b1 in zip(first[0]["rows"],
+                                                                first[1]["rows"])]
+    assert first[0]["final_hash"] == first[1]["final_hash"]
+    second, outs = _run(1, {"out": str(tmp_path / "b"), "record_rows": True,
+                            "main": dict(base, num_steps=5)}, tmp_path)
+    resumed = second[0]
+    assert resumed["start_step"] == 3 and resumed["batch_size"] == 2
+    assert resumed["first_step_hash"] == first[0]["final_hash"]
+    assert resumed["steps"] == [4, 5]
+    assert resumed["tokens_seen"] == [4 * 2 * SEQ, 5 * 2 * SEQ]
+    trained = {tuple(row) for batch in whole[:3] for row in batch}
+    served = {tuple(row) for batch in resumed["rows"][:2] for row in batch}
+    assert len(trained) == 3 * 2 and len(served) == 2 * 2 and not trained & served

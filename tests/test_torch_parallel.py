@@ -97,12 +97,54 @@ def test_mesh_refusals_and_errors_match_jax():
     (dict(sharding_strategy="tp"), "A.6b"),
     (dict(sharding_strategy="fsdp", tensor_parallel_size=2), "A.6b"),
     (dict(sharding_strategy="fsdp", num_slices=2), "A.6b"),
-    (dict(sharding_strategy="fsdp", context_parallel_size=2), "A.8"),
     (dict(sharding_strategy="fsdp", expert_parallel_size=2), "A.4b"),
 ])
 def test_build_mesh_refuses_unported_axes(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         mesh.build_mesh(mesh.MeshConfig(**kw), device_type="cpu", world=4)
+
+
+class _RankMesh:
+    """A process's view of a row-major mesh: its local rank on each axis."""
+
+    mesh_dim_names = mesh.MESH_AXES
+
+    def __init__(self, shape, rank):
+        self.shape = shape
+        self.coords = dict(zip(shape, np.unravel_index(rank, tuple(shape.values()))))
+
+    def size(self, dim):
+        return self.shape[self.mesh_dim_names[dim]]
+
+    def get_local_rank(self, axis):
+        return int(self.coords[axis])
+
+
+@pytest.mark.parametrize("kw,n", [
+    (dict(sharding_strategy="fsdp", context_parallel_size=2), 8),
+    (dict(sharding_strategy="fsdp", context_parallel_size=4), 8),
+    (dict(sharding_strategy="hsdp", sharding_group_size=2, context_parallel_size=2), 8),
+    (dict(sharding_strategy="ddp", context_parallel_size=2), 4),
+])
+def test_context_mesh_matches_jax(kw, n):
+    """The context axis builds (no refusal): its axis sizes equal JAX's
+    mesh over n devices, and each rank's data index and context index are
+    the coordinates JAX's mesh gives device ``rank`` (context innermost:
+    adjacent ranks are context peers; the data index ravels DATA_AXES)."""
+    assert mesh.AXIS_CONTEXT not in mesh._UNPORTED_AXES
+    ref = j_mesh.build_mesh(j_mesh.MeshConfig(**kw), devices=jax.devices()[:n])
+    shape = mesh.mesh_shape(mesh.MeshConfig(**kw), n)
+    assert shape == dict(ref.shape)
+    ids = np.vectorize(lambda d: d.id)(ref.devices)
+    cp = shape[mesh.AXIS_CONTEXT]
+    for rank in range(n):
+        coords = dict(zip(mesh.MESH_AXES, (int(c[0]) for c in np.nonzero(ids == rank))))
+        fake = _RankMesh(shape, rank)
+        assert mesh.context_index(fake) == coords[mesh.AXIS_CONTEXT] == rank % cp
+        want = 0
+        for a in mesh.DATA_AXES:
+            want = want * shape[a] + coords[a]
+        assert mesh.data_index(fake) == want == rank // cp
 
 
 def test_slice_assignments_match_jax(monkeypatch):

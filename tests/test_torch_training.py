@@ -33,7 +33,9 @@ from fms_fsdp_tpu_torch.ops.fused_ce import (
 from fms_fsdp_tpu_torch.parallel.ac import selective_ac_mask
 from fms_fsdp_tpu_torch.resilience.guards import AnomalyGuard
 from fms_fsdp_tpu_torch.train.step import (
+    check_supported,
     get_lr_schedule,
+    init_train_state,
     make_train_step,
     state_from_params,
 )
@@ -434,7 +436,6 @@ def test_entry_needs_a_card_unless_cpu():
 
 @pytest.mark.parametrize("overrides,item", [
     ({"tensor_parallel_size": 2}, "A.6b"),
-    ({"context_parallel_size": 2}, "A.8"),
     ({"expert_parallel_size": 2}, "A.4b"),
     ({"sharding_strategy": "tp"}, "A.6b"),
     ({"model_variant": "mamba_9.8b", "tensor_parallel_size": 2}, "A.6b"),
@@ -445,6 +446,31 @@ def test_unported_options_raise(overrides, item):
     kw.update(overrides)
     with pytest.raises(NotImplementedError, match=item):
         main(device="cpu", **kw)
+
+
+@pytest.mark.parametrize("variant", ["llama2_7b", "mamba_9.8b"])
+def test_entry_accepts_context_parallel(variant):
+    """Llama and Mamba take ``context_parallel_size=2``: no refusal; on a
+    world of one the mesh then says, in JAX's words, that two context
+    ranks do not fit (tests/test_torch_multiprocess.py trains them on two
+    and four gloo ranks), and a step on a state without a context group
+    raises rather than train the whole sequence on each rank."""
+    check_supported(TrainConfig(model_variant=variant, context_parallel_size=2))
+    kw = dict(use_dummy_dataset=True, num_steps=1, **_ENTRY_OVERRIDES)
+    if variant != "llama2_7b":
+        kw = {k: v for k, v in kw.items() if not k.startswith("LlamaConfig.")}
+        kw.update(_MAMBA_ENTRY, vocab_size=128)
+    with pytest.raises(ValueError, match="not divisible by tensor\\*context\\*expert = 2"):
+        main(device="cpu", model_variant=variant, context_parallel_size=2, **kw)
+    if variant == "llama2_7b":
+        cfg = TrainConfig(context_parallel_size=2, attention_kernel="xla")
+        model_cfg = LlamaConfig(nlayers=1, emb_dim=32, nheads=2, kvheads=1,
+                                src_vocab_size=64, multiple_of=16)
+        state = init_train_state(torch.Generator().manual_seed(0), model_cfg, cfg)
+        step = make_train_step(model_cfg, cfg)
+        batch = (torch.zeros(1, 8, dtype=torch.long), torch.zeros(1, 8, dtype=torch.long))
+        with pytest.raises(ValueError, match="context axis has 2 ranks"):
+            step(state, batch)
 
 
 _MAMBA_ENTRY = {"MambaConfig.d_model": 64, "MambaConfig.d_intermediate": 128,

@@ -11,8 +11,9 @@ interpreter). Usage:
 
 SPEC_JSON holds ``out`` (this rank writes ``<out>/rank<R>.json``), the
 ``main`` keyword arguments, and optionally ``batches`` (a .npz of global
-``inputs``/``labels`` batches that replace the dummy stream: each rank
-takes its contiguous rows of each), ``record_rows`` (keep every row the
+``inputs``/``labels`` batches that replace the dummy stream: each data
+rank takes its contiguous rows of each, the rank and the data world the
+entry passes to ``get_dummy_loader``), ``record_rows`` (keep every row the
 feed served and hash the train state at the first step) and
 ``speculator`` (run the speculator entry instead of the Llama trainer,
 with ``fp32_base`` its frozen base in fp32) or ``eval`` (run
@@ -122,14 +123,17 @@ def main():
     if spec.get("batches"):
         data = np.load(spec["batches"])
         inputs, labels = data["inputs"], data["labels"]
-        per = inputs.shape[1] // world
 
         class RankRows:
-            def __iter__(self):
-                for x, y in zip(inputs, labels):
-                    yield (x[rank * per:(rank + 1) * per], y[rank * per:(rank + 1) * per])
+            def __init__(self, r, w):
+                self.r, self.per = r, inputs.shape[1] // w
 
-        entry.get_dummy_loader = lambda cfg, r, w: RankRows()
+            def __iter__(self):
+                lo, hi = self.r * self.per, (self.r + 1) * self.per
+                for x, y in zip(inputs, labels):
+                    yield (x[lo:hi], y[lo:hi])
+
+        entry.get_dummy_loader = lambda cfg, r, w: RankRows(r, w)
         spec_entry.get_dummy_loader = entry.get_dummy_loader
         eval_entry.get_dummy_loader = entry.get_dummy_loader
 
