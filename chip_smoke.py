@@ -60,10 +60,11 @@ Phases, one JSON line each; any failure exits non-zero:
    speculator (3 heads, width 4096, tied, scale_input: 1.084B
    parameters, fp32 with AdamW): seq 4096 (+4), batch 2, dummy data
    (``SteadyCounter`` modulo 4096: each token the previous plus one, the
-   same 4096 transitions every batch), 6 stage-1 steps
-   through the flash forward, then 2 stage-2 steps (``stage2_batch_size``
+   same 4096 transitions every batch), 4 stage-1 steps
+   through the flash forward, then 1 stage-2 step (``stage2_batch_size``
    32 and ``stage2_seq_length`` 32, cut from JAX's 96 and 256; prompts of
-   64), reports every step, no save of the train state (its 13 GB is cut
+   64; 6 and 2 steps before the ring phase's Mixtral part), reports every
+   step, no save of the train state (its 13 GB is cut
    for time; the CPU tests save and resume it). Checks: flash forward
    launches == stage-1 steps x layers and no dq, dk/dv or paged-decode
    launch; every loss and gradient norm finite; head 1's loss at the
@@ -71,8 +72,8 @@ Phases, one JSON line each; any failure exits non-zero:
    losses through the kernel and through the plain attention within
    ``TOL["bf16"]`` (relative). Prints tokens/s per stage, the peak
    bytes, each step's per-head losses, gradient norm and LR, and a
-   device profile of a stage-1 step (flash, the base's 16-bit GEMMs, the
-   speculator's GEMMs, CE, optimizer, other). ``save_speculator`` writes
+   device profile of one stage-1 step after a warm-up step (flash, the
+   base's 16-bit GEMMs, the speculator's GEMMs, CE, optimizer, other). ``save_speculator`` writes
    the trained speculator (4.3 GB) into the run's in-memory directory.
    Then two more stage-1 steps with ``quantized_matmuls="int8"`` on the
    same frozen base: 32 flash forward launches a step, 7 x 32 int8 GEMMs
@@ -161,8 +162,18 @@ Phases, one JSON line each; any failure exits non-zero:
    against ``ssd_scan`` through the SSD kernel, within twice the kernel's
    relative distance from the fp32 einsums, which the ranks' scans without
    the carried state exceed; no SSD kernel launched (the cp core is the
-   einsums, as JAX's is XLA); both times. The exchange across cards
-   (``GroupRing`` over NCCL) needs a card a process and is not run.
+   einsums, as JAX's is XLA); both times. (f) The ring through the
+   Mixtral forward and backward (``mixtral_forward(..., moe_impl=
+   "dispatch", ring=LocalRing(4))``) at mixtral_8x7b's width (4096 wide,
+   32/8 heads, 8 experts top-2, hidden 14336), 2 of 32 layers, S=16384,
+   bf16, capacity factor 1.0 (so that choices drop): each layer's chunked
+   routing (``models/mixtral.py::context_slots``) equal bit for bit to
+   ``_priority_slots`` over the run's own choices at the whole sequence's
+   capacity, while each chunk routed alone at the capacity of its own
+   length differs; the dropped share printed; the hidden states and the
+   attention weights' gradients bounded as (d), with the same control;
+   launches 2 x a ring's. The exchange across cards (``GroupRing`` over
+   NCCL) needs a card a process and is not run.
 10. train   — ``fms_fsdp_tpu_torch.main_training_llama.main`` at
    llama3_8b_4k width (4096 wide, 32/8 heads, hidden 14336, vocab
    128256) and 8 layers, seq 4096, batch 2, selective AC 1/2, dummy
@@ -1305,17 +1316,19 @@ def phase_serve_int8(state):
 # before the train-quant phase's cuts). The dummy
 # counter runs modulo 4096 (``vocab_size`` is only its modulus here; the
 # model's vocabulary stays 128256): every batch holds the same 4096
-# transitions, which 6 steps can learn. Modulo 128256 each step brings
-# tokens no step has seen, and the loss rises.
+# transitions, which 4 steps can learn (head 1 from 12.10 to 7.69 on an
+# H100). Modulo 128256 each step brings tokens no step has seen, and the
+# loss rises. Stage 1 cut from 6 steps and stage 2 from 2 to pay
+# for the ring phase's Mixtral part.
 SPEC_KW = {
     "model_variant": "llama3_8b", "vocab_size": 4096, "use_dummy_dataset": True,
-    "batch_size": 2, "seq_length": 4096, "num_steps": 8, "stage2_start_step": 6,
+    "batch_size": 2, "seq_length": 4096, "num_steps": 5, "stage2_start_step": 4,
     "stage2_batch_size": 32, "stage2_prompt_length": 64, "stage2_seq_length": 32,
     "report_interval": 1, "learning_rate": 1e-3, "checkpoint_interval": 1000,
 }
 
 
-def _spec_step_profile(model_cfg, cfg, scfg, base, state, batch, steps=2):
+def _spec_step_profile(model_cfg, cfg, scfg, base, state, batch, steps=1):
     """Device ms of one stage-1 step by part (torch.profiler): the flash
     forward, the frozen base's 16-bit GEMMs (from a profile of the base
     forward alone on the same batch), the speculator's GEMMs (the step's
@@ -1915,6 +1928,12 @@ def _timed_ms(fn, budget_ms=400.0, max_reps=20):
     return cuda_time_ms(fn, reps=reps, warmup=0)
 
 
+def _plain_ms(fn):
+    """One timed call after a warm-up call: the plain versions take 30-500
+    ms a call (two timed calls each before the ring phase's Mixtral part)."""
+    return cuda_time_ms(fn, reps=1, warmup=1)
+
+
 def _attention_flops(b, sq, sk, nq, h, products):
     """Operations of ``products`` (query x key x head) products over the
     causally attended (query, key) pairs (top-left diagonal), 2 flops a
@@ -1978,9 +1997,9 @@ def _flash_times(fa, kind, dtype, shape, gen, block_k=None, base=None):
         return _flash_rows(kind, shape, dtype, out, {n: base[n]["plain_ms"] for n in out},
                            base["sdpa"], bwd_ms)
     plain = {
-        "fwd": _timed_ms(lambda i: fa.flash_fwd_plain(*pick(i)[:3]), 0, 2),
-        "dq": _timed_ms(lambda i: fa.flash_dq_plain(*pick(i)[:4], *pick(i)[5:]), 0, 2),
-        "dkv": _timed_ms(lambda i: fa.flash_dkv_plain(*pick(i)[:4], *pick(i)[5:]), 0, 2),
+        "fwd": _plain_ms(lambda i: fa.flash_fwd_plain(*pick(i)[:3])),
+        "dq": _plain_ms(lambda i: fa.flash_dq_plain(*pick(i)[:4], *pick(i)[5:])),
+        "dkv": _plain_ms(lambda i: fa.flash_dkv_plain(*pick(i)[:4], *pick(i)[5:])),
     }
     # yardstick only (the port never calls it): SDPA, flash backend for
     # 16-bit inputs; forward, the backward of a retained graph (one
@@ -2431,6 +2450,10 @@ RING_DROP = (3, 1)
 RING_MODEL = (2, 16384, 4)
 # ssd_scan_cp at mamba_9.8b's SSD widths: (B, S, H, G, L, cp)
 RING_SSD = (1, 16384, 128, 1, 256, 4)
+# the ring through the Mixtral model: mixtral_8x7b at (layers, S, cp,
+# capacity factor); at the default 2.0 random weights drop nothing, so
+# the whole sequence's routing would go untested
+RING_MOE = (2, 16384, 4, 1.0)
 
 
 def _noncausal_times(fa, q, k, v, do, lse, delta):
@@ -2479,7 +2502,7 @@ def _noncausal_times(fa, q, k, v, do, lse, delta):
         bytes_ms = nbytes[name] / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / PEAK_OPS["bf16"] * 1e3
         ms = _timed_ms(kernel[name])
-        out[name] = {"ms": ms, "plain_ms": _timed_ms(plain[name], 0, 2),
+        out[name] = {"ms": ms, "plain_ms": _plain_ms(plain[name]),
                      "bound_ms": max(bytes_ms, ops_ms),
                      "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                      "achieved_tflops": ops / ms / 1e9,
@@ -2791,6 +2814,110 @@ def _ring_model(fa, ring_mod, problems):
     return res
 
 
+def _ring_moe(fa, ring_mod, problems):
+    """The ring through the Mixtral forward and backward (``mixtral_forward``
+    with ``ring``, the capacity dispatch): mixtral_8x7b at full width,
+    ``RING_MOE`` layers and tokens, bf16, against the same model on the
+    whole sequence, each against the whole-sequence model in fp32; the
+    chunks' routing against ``_priority_slots`` of the whole sequence."""
+    import torch
+
+    from fms_fsdp_tpu_torch.models import mixtral as tm
+    from fms_fsdp_tpu_torch.utils.config_utils import get_model_config
+    from fms_fsdp_tpu_torch.utils.tree import tree_map
+
+    n, s, cp, cf = RING_MOE
+    cfg = dataclasses.replace(get_model_config("mixtral_8x7b"), nlayers=n,
+                              capacity_factor=cf)
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    params = tm.init_mixtral_params(gen, cfg, dtype=torch.bfloat16)
+    tokens = torch.randint(0, cfg.src_vocab_size, (1, s), generator=gen, device="cuda")
+    cot = torch.randn((1, s, cfg.emb_dim), generator=gen, device="cuda")
+    names = ("wq", "wk", "wv", "wo")
+    routed = []
+    context_slots = tm.context_slots
+
+    def recording(top_idx, ring, E, C):
+        out = context_slots(top_idx, ring, E, C)
+        routed.append(([t.clone() for t in top_idx], [(a.clone(), b.clone()) for a, b in out],
+                       C))
+        return out
+
+    def run(p, ring=None, drop=None, dtype=torch.bfloat16):
+        leaves = [p["layers"][k].requires_grad_(True) for k in names]
+        with _dropped_chunk(ring_mod, drop):
+            hidden, aux = tm.mixtral_forward(p, tokens, cfg, compute_dtype=dtype,
+                                             moe_impl="dispatch", return_hidden=True,
+                                             return_aux=True, ring=ring)
+            grads = torch.autograd.grad(hidden, leaves, cot.to(hidden.dtype))
+        return [hidden.detach(), *grads], float(aux["drop_frac"])
+
+    def timed(*a, **k):
+        """run(), and its wall ms ended by a synchronize (one call)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(*a, **k)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    tm.context_slots = recording
+    try:
+        (got, drop_frac), ring_ms = timed(params, ring_mod.LocalRing(cp))
+    finally:
+        tm.context_slots = context_slots
+    launched = {"by_contract": dict(fa.LAUNCHES), "by_mode": dict(fa.MODE_LAUNCHES)}
+    per_layer, vis = cp + cp * (cp - 1) // 2, cp * (cp - 1) // 2
+    want = {"by_contract": {"fwd": n * per_layer, "fwd_kvgrid": 0, "dq": n * per_layer,
+                            "dq_kvgrid": 0, "dkv": n * per_layer},
+            "by_mode": {"fwd_noncausal": n * vis, "dq_noncausal": n * vis,
+                        "dkv_noncausal": n * vis, "dq_f32": n * per_layer}}
+    # the routing: bit for bit the whole sequence's priority slots over the
+    # run's own choices at the whole length's capacity; the control, each
+    # chunk routed alone at the capacity of its own length, differs
+    routing = []
+    for top_idx, out, C in routed:
+        slot, keep = tm._priority_slots(torch.cat(top_idx, 1), cfg.num_experts, C)
+        local = [tm._priority_slots(t, cfg.num_experts, tm.moe_capacity(cfg, s // cp))
+                 for t in top_idx]
+        routing.append({
+            "capacity": C, "capacity_chunk_local": tm.moe_capacity(cfg, s // cp),
+            "slot_equal": bool(torch.equal(torch.cat([a for a, _ in out], 1), slot)),
+            "keep_equal": bool(torch.equal(torch.cat([b for _, b in out], 1), keep)),
+            "dropped_share": 1.0 - float(keep.float().mean()),
+            "control_keep_differs": not torch.equal(torch.cat([b for _, b in local], 1), keep),
+            "control_slot_differs": not torch.equal(torch.cat([a for a, _ in local], 1), slot),
+        })
+    del routed
+    (whole, whole_drop), whole_ms = timed(params)
+    control, _ = run(params, ring_mod.LocalRing(cp), drop=RING_DROP)
+    wide, wide_drop = run(tree_map(lambda w: w.detach().float(), params), dtype=torch.float32)
+    rel = {}
+    for name, a, w, c, f in zip(("hidden",) + names, got, whole, control, wide):
+        tol = 2 * _rel_err(w, f)
+        rel[name] = {"ring": _rel_err(a, f), "whole": _rel_err(w, f), "tol": tol,
+                     "control": _rel_err(c, f), "ring_vs_whole": _rel_err(a, w)}
+    res = {"model": "mixtral_8x7b", "layers": n, "tokens": s, "cp": cp,
+           "capacity_factor": cf, "moe_impl": "dispatch",
+           "reduced": {"layers": f"{n} of 32"},
+           "moe_drop_frac": {"ring": drop_frac, "whole": whole_drop, "fp32_whole": wide_drop},
+           "routing": routing, "launches": launched, "expected_launches": want,
+           "rel_err_vs_fp32_whole_sequence": rel,
+           # one call each, the ring's with its routing recorded
+           "fwd_bwd_wall_ms": {"ring": ring_ms, "whole": whole_ms},
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "finite": all(bool(torch.isfinite(a).all()) for a in got)}
+    res["ok"] = (res["finite"] and launched == want and len(routing) == n
+                 and all(r["slot_equal"] and r["keep_equal"] and r["control_keep_differs"]
+                         and r["dropped_share"] > 0 for r in routing)
+                 and all(x["ring"] <= x["tol"] < x["control"] for x in rel.values()))
+    if not res["ok"]:
+        problems.append("the ring through the Mixtral forward and backward")
+    del params, got, whole, control, wide
+    return res
+
+
 def phase_ring(state):
     """Long context on the card (see the module docstring)."""
     import torch
@@ -2813,6 +2940,10 @@ def phase_ring(state):
     result["ring_small"] = _ring_small(fa, ring_mod, gen, problems)
     torch.cuda.empty_cache()
     result["ring_model"] = _ring_model(fa, ring_mod, problems)
+    torch.cuda.empty_cache()
+    t_moe = time.perf_counter()
+    result["ring_moe"] = _ring_moe(fa, ring_mod, problems)
+    result["ring_moe"]["seconds"] = time.perf_counter() - t_moe
     torch.cuda.empty_cache()
     result["ssd_scan_cp"] = _ring_ssd(gen, problems)
     torch.cuda.empty_cache()
@@ -5965,6 +6096,9 @@ def kernels_line(state):
             # quantized runs of the three trainers together)
             entry["launches_train_mixtral"] = state["train-mixtral"]["launches"][contract]
             entry["launches_train_quant"] = state["train-quant"]["launches"][contract]
+            # and on the ring through the Mixtral model (the ring phase)
+            entry["launches_ring_mixtral"] = (
+                state["ring"]["ring_moe"]["launches"]["by_contract"][contract])
         if contract == "fwd" and tile != 64:
             # the frozen base forward of the speculator's stage 1, and
             # eval_ppl's forwards (Llama and the Mamba hybrid's attention)
@@ -5980,10 +6114,12 @@ def kernels_line(state):
         entries.append(entry)
     # the two modes ring attention adds (non-causal, dq stored fp32), timed
     # at the flash phase's training shape at key tile 128; their launches
-    # those of the ring phase's S=32768 ring
+    # those of the ring phase's S=32768 ring, and beside them those of its
+    # ring through the Mixtral model
     ring = state["ring"]
     c128 = ring["contracts"]["block_k_128"]
     by_mode = ring["ring"]["launches"]["by_mode"]
+    moe_by_mode = ring["ring_moe"]["launches"]["by_mode"]
     for name, kernel, mode, replaces, err in (
         ("flash_fwd_noncausal", "fwd", "fwd_noncausal", "fwd",
          max(c128["max_abs_err"]["o"], c128["max_abs_err"]["lse"])),
@@ -5997,7 +6133,7 @@ def kernels_line(state):
             "name": name, "route": "cuda",
             "source": f"fms_fsdp_tpu_torch/csrc/flash_{'fwd' if kernel == 'fwd' else 'bwd'}_sm90.cu",
             "replaces": REPLACES[replaces], "block_k": 128, "launches": by_mode[mode],
-            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "launches_ring_mixtral": moe_by_mode[mode], "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })

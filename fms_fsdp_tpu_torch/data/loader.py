@@ -839,6 +839,14 @@ class _SimpleLoader:
             yield _stack([next(it) for _ in range(self.batch_size)])
 
 
+def context_chunks(batches, index: int, cp: int):
+    """Each (inputs, labels) batch cut to chunk ``index`` of ``cp`` along
+    the sequence: the part a context rank trains or evaluates."""
+    for batch in batches:
+        s = batch[0].shape[1] // cp
+        yield tuple(np.ascontiguousarray(t[:, index * s:(index + 1) * s]) for t in batch)
+
+
 def get_dummy_loader(cfg, rank, world_size):
     return _SimpleLoader(SteadyCounter(cfg.seq_length, cfg.vocab_size), cfg.batch_size)
 

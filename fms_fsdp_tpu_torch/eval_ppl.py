@@ -18,10 +18,15 @@ card) under ``torch.no_grad()``: nothing is kept for a backward pass.
 Smoke run on fresh weights: ``--use_dummy_dataset=True --ckpt_load_path=``
 (an empty load path initialises from ``seed``). A load path that holds
 no checkpoint raises: eval never falls back to fresh weights. Under
-``torchrun`` each rank evaluates its own shard of the stream and the
-sums are all-reduced, so every rank returns the global figures. It runs
-on ``cuda`` unless ``device="cpu"`` is passed (``--device=cpu``), and
-raises without a card.
+``torchrun`` the mesh is the train config's (``parallel/mesh.py``): each
+data index evaluates its own shard of the stream, and with
+``--context_parallel_size=cp`` the cp ranks of a context group read the
+same rows and each evaluates its S / cp chunk of them through the ring
+(ring attention; for Mamba the conv halo and ``ssd_scan_cp``; for
+Mixtral the ring and the dense mix). The sums are all-reduced over the
+world, which counts each token once, so every rank returns the global
+figures. It runs on ``cuda`` unless ``device="cpu"`` is passed
+(``--device=cpu``), and raises without a card.
 
 Prints one JSON line (rank 0): {"nll", "ppl", "tokens", "model_variant"}.
 """
@@ -37,11 +42,19 @@ import torch
 import fms_fsdp_tpu_torch.ckpt  # noqa: F401
 from fms_fsdp_tpu_torch.config import TrainConfig
 from fms_fsdp_tpu_torch.data.device_feed import DeviceFeed
-from fms_fsdp_tpu_torch.data.loader import get_data_loader, get_dummy_loader
+from fms_fsdp_tpu_torch.data.loader import context_chunks, get_data_loader, get_dummy_loader
 from fms_fsdp_tpu_torch.models import get_model_api
 from fms_fsdp_tpu_torch.models.configs import MixtralConfig
 from fms_fsdp_tpu_torch.ops.flash_attention import set_kernel_variant
 from fms_fsdp_tpu_torch.ops.fused_ce import IGNORE_INDEX
+from fms_fsdp_tpu_torch.ops.ring_attention import context_ring
+from fms_fsdp_tpu_torch.parallel.mesh import (
+    MeshConfig,
+    build_mesh,
+    context_index,
+    data_index,
+    data_parallel_extent,
+)
 from fms_fsdp_tpu_torch.parallel.mixed_precision import get_dtype_policy
 from fms_fsdp_tpu_torch.train.step import check_step_options
 from fms_fsdp_tpu_torch.utils.checkpointing import load_params_only
@@ -52,22 +65,21 @@ from fms_fsdp_tpu_torch.utils.dist import init_distributed
 from fms_fsdp_tpu_torch.utils.tree import tree_map
 
 
-def make_eval_step(model_cfg, cfg):
+def make_eval_step(model_cfg, cfg, ring=None):
     """(params, (input, label)) -> (summed token NLL, token count), as
     0-d tensors. Sums rather than means, so perplexity aggregates exactly
     over batches of unequal valid-token counts. Mixtral runs the exact
-    dense mix (no capacity drops). A context axis is ROADMAP.md A.8b."""
+    dense mix (no capacity drops). With a context ``ring``
+    (``ops/ring_attention.py``) the batch is this rank's chunk of the
+    sequence and the sums are its chunk's."""
     check_step_options(cfg)
-    if cfg.context_parallel_size > 1:
-        raise NotImplementedError(
-            f"context_parallel_size={cfg.context_parallel_size} for eval_ppl is not "
-            f"ported yet: ROADMAP.md A.8b"
-        )
     set_kernel_variant(cfg.flash_kernel_variant)
     policy = get_dtype_policy(cfg)
     _, forward_fn, _ = get_model_api(model_cfg)
     extra = ({"moe_impl": "dense", "return_aux": True}
              if isinstance(model_cfg, MixtralConfig) else {})
+    if ring is not None:
+        extra["ring"] = ring
 
     @torch.no_grad()
     def eval_step(params, batch):
@@ -103,14 +115,21 @@ def main(device=None, **kwargs):
     device = resolve_device(device)
     world = init_distributed(device)
     rank, world_size = world.rank, world.size
+    mesh = build_mesh(MeshConfig.from_train_config(cfg), device_type=device.type,
+                      local_world=world.local_size)
 
     model_cfg = get_model_config(cfg.model_variant)
     update_config(model_cfg, **kwargs)
-    eval_step = make_eval_step(model_cfg, cfg)
+    ring = context_ring(mesh)
+    eval_step = make_eval_step(model_cfg, cfg, ring)
+    # the loader by data index: the ranks of a context group read one
+    # shard of the stream, each its chunk of every row
+    data_rank, data_extent = data_index(mesh), data_parallel_extent(mesh)
     if not cfg.use_dummy_dataset:
-        loader = get_data_loader(cfg, rank, world_size)
+        loader = get_data_loader(cfg, data_rank, data_extent)
     else:
-        loader = get_dummy_loader(cfg, rank, world_size)
+        loader = get_dummy_loader(cfg, data_rank, data_extent)
+    rows = loader if ring is None else context_chunks(loader, context_index(mesh), ring.cp)
 
     # params only: no optimizer state is read (load_params_only skips the
     # moments), in the policy's storage dtype
@@ -124,7 +143,7 @@ def main(device=None, **kwargs):
         params = init_params(torch.Generator(device=device).manual_seed(cfg.seed),
                              model_cfg, dtype=policy.param_dtype)
 
-    batches = iter(DeviceFeed(loader, device, prefetch=2))
+    batches = iter(DeviceFeed(rows, device, prefetch=2))
     total_nll, total_tokens = 0.0, 0
     try:
         for _ in range(eval_batches):

@@ -67,7 +67,6 @@ raise ``NotImplementedError`` naming their ROADMAP.md item.
 import os
 import sys
 
-import numpy as np
 import torch
 
 from fms_fsdp_tpu_torch.ckpt import build_checkpoint_manager
@@ -75,6 +74,7 @@ from fms_fsdp_tpu_torch.ckpt.elastic import current_fingerprint
 from fms_fsdp_tpu_torch.config import TrainConfig
 from fms_fsdp_tpu_torch.data.device_feed import DeviceFeed
 from fms_fsdp_tpu_torch.data.loader import (
+    context_chunks,
     elastic_batch_size,
     get_data_loader,
     get_dummy_loader,
@@ -100,14 +100,6 @@ from fms_fsdp_tpu_torch.utils.config_utils import get_model_config, update_confi
 from fms_fsdp_tpu_torch.utils.device import resolve_device
 from fms_fsdp_tpu_torch.utils.dist import init_distributed
 from fms_fsdp_tpu_torch.utils.train_utils import get_profiler, train
-
-
-def context_chunks(batches, index: int, cp: int):
-    """Each (inputs, labels) batch cut to chunk ``index`` of ``cp`` along
-    the sequence: the part a context rank trains."""
-    for batch in batches:
-        s = batch[0].shape[1] // cp
-        yield tuple(np.ascontiguousarray(t[:, index * s:(index + 1) * s]) for t in batch)
 
 
 def main(device=None, **kwargs):

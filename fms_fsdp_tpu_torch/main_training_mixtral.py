@@ -16,9 +16,11 @@ holds the full width at a cut depth:
 
 It runs on ``cuda`` unless ``device="cpu"`` is passed to :func:`main`
 (``--device=cpu``), and raises without a card. The checkpoint,
-observability, resilience and data-parallel options are the Llama
-entry's; ``--expert_parallel_size`` above 1 is ROADMAP.md A.4b and
-``--context_parallel_size`` above 1 A.8b.
+observability, resilience, data-parallel and long-context options are
+the Llama entry's: under ``--context_parallel_size=cp`` the context peers
+read one data index's rows and each trains its S / cp chunk, with the
+capacity routing of the whole sequence (``models/mixtral.py::
+context_slots``). ``--expert_parallel_size`` above 1 is ROADMAP.md A.4b.
 """
 
 import sys

@@ -33,6 +33,21 @@ the kept choices, and the token count. A data-parallel step sums them
 over the ranks before forming the loss (``train/step.py``), so the loss
 is the global batch's, as JAX computes it.
 
+Long context (``ring``, an ``ops/ring_attention.py`` exchange): the
+attention runs the ring, the rotary table starts at the chunk's
+position, and the capacity routing is that of the whole sequence, as
+JAX's GSPMD program computes it along the full sequence dim
+(:func:`context_slots`): each chunk's per-round, per-expert choice
+counts (B, K, E) are gathered over the context group, a choice's slot
+is its in-round cumsum in its chunk plus every chunk's counts of the
+earlier rounds plus the earlier chunks' counts of its round, and the
+capacity is that of the whole length. Each chunk fills and computes
+its own kept choices in a buffer of the whole sequence's C rows per
+expert (the rows other chunks claim stay zero: up to cp times a chunk's
+share of the expert FLOPs). The dense mix is token by token and needs
+no exchange. The route sums are this process's chunks'; the step sums
+them over the world, the context group included.
+
 Routed decode (serving) groups the rows of a step by expert: each chosen
 expert's weights are read once, by three matmuls over its rows, and the
 weighted outputs are added back per row. That takes one host sync per
@@ -194,6 +209,53 @@ def _priority_slots(top_idx, E: int, C: int):
     return slot, slot < C
 
 
+def context_slots(top_idx: List[torch.Tensor], ring, E: int, C: int) -> List[Tuple]:
+    """:func:`_priority_slots` of the whole sequence for this process's
+    chunks of it (``top_idx`` one (B, S / cp, K) tensor a chunk, in
+    ``ring.split`` order): the chunks' per-round choice counts (B, K, E)
+    gathered over the context group (``ring.gather``); chunk r's slot of a
+    round-k choice is its cumsum within chunk r and round k, plus all
+    chunks' counts of rounds < k, plus chunks < r's counts of round k.
+    Returns one (slot, keep) a chunk, ``keep = slot < C``."""
+    counts = [F.one_hot(t, E).sum(dim=1) for t in top_idx]  # (B, K, E)
+    every = torch.stack(ring.gather(counts))  # (cp, B, K, E), context-rank order
+    rounds = every.sum(dim=0)
+    offset = (torch.cumsum(rounds, dim=1) - rounds)[None] + (
+        torch.cumsum(every, dim=0) - every)
+    out = []
+    for t, r in zip(top_idx, ring.slots):
+        slots = []
+        for k in range(t.shape[-1]):
+            mask_k = F.one_hot(t[:, :, k], E)
+            pos_k = torch.cumsum(mask_k, dim=1) - mask_k + offset[r][:, None, k]
+            slots.append(pos_k.gather(-1, t[:, :, k, None])[..., 0])
+        slot = torch.stack(slots, dim=-1)
+        out.append((slot, slot < C))
+    return out
+
+
+def _routed_chunks(h, lp, cfg: MixtralConfig, ring):
+    """The capacity routing of ``h`` (B, S, d) cut into ``ring``'s chunks
+    (one chunk without a ring): (chunks, their (top_idx, top_w, probs),
+    their (slot, keep), the capacity C of the whole sequence)."""
+    E = cfg.num_experts
+    if ring is None or ring.cp == 1:
+        C = moe_capacity(cfg, h.shape[1])
+        routed = [_router(h, lp["gate"], cfg)]
+        return [h], routed, [_priority_slots(routed[0][0], E, C)], C
+    parts = ring.split(h)
+    C = moe_capacity(cfg, parts[0].shape[1] * ring.cp)
+    routed = [_router(p, lp["gate"], cfg) for p in parts]
+    return parts, routed, context_slots([r[0] for r in routed], ring, E, C), C
+
+
+def _sum_routes(routes: List[Dict]) -> Dict[str, torch.Tensor]:
+    """One layer's routing sums over this process's chunks."""
+    if len(routes) == 1:
+        return routes[0]
+    return {k: torch.stack([r[k] for r in routes]).sum(dim=0) for k in routes[0]}
+
+
 # ---------------------------------------------------------------------------
 # the MoE FFN
 # ---------------------------------------------------------------------------
@@ -201,7 +263,8 @@ def _priority_slots(top_idx, E: int, C: int):
 
 @scoped("moe_dense")
 def _moe_ffn_dense(h, lp, cfg: MixtralConfig):
-    """Every expert computes every token. h (B, S, d)."""
+    """Every expert computes every token. h (B, S, d). Token by token: under
+    a context ring each process mixes its own chunk."""
     top_idx, top_w, probs = _router(h, lp["gate"], cfg)
     E = cfg.num_experts
     mix = (F.one_hot(top_idx, E).float() * top_w[..., None]).sum(dim=-2)  # (B, S, E)
@@ -252,40 +315,44 @@ def _combine_from_buffer(out_e, dest, top_w, S: int):
 
 
 @scoped("moe_dispatch")
-def _moe_ffn_dispatch(h, lp, cfg: MixtralConfig, quant: str = "none"):
-    """Capacity dispatch by scatter/gather (the training path)."""
-    B, S, D = h.shape
+def _moe_ffn_dispatch(h, lp, cfg: MixtralConfig, quant: str = "none", ring=None):
+    """Capacity dispatch by scatter/gather (the training path), chunk by
+    chunk under a context ``ring``."""
     E = cfg.num_experts
-    C = moe_capacity(cfg, S)
-    top_idx, top_w, probs = _router(h, lp["gate"], cfg)
-    slot, keep = _priority_slots(top_idx, E, C)
-    dest, xd = _fill_expert_buffer(h, top_idx, slot, keep, C, E)
-    out_e = _expert_ffn(xd, lp, quant)
-    y = _combine_from_buffer(out_e, dest, top_w, S)
-    return y, _route(top_idx, probs, keep, E)
+    parts, routed, slots, C = _routed_chunks(h, lp, cfg, ring)
+    ys, routes = [], []
+    for hp, (top_idx, top_w, probs), (slot, keep) in zip(parts, routed, slots):
+        dest, xd = _fill_expert_buffer(hp, top_idx, slot, keep, C, E)
+        out_e = _expert_ffn(xd, lp, quant)
+        ys.append(_combine_from_buffer(out_e, dest, top_w, hp.shape[1]))
+        routes.append(_route(top_idx, probs, keep, E))
+    y = ys[0] if len(ys) == 1 else ring.join(ys)
+    return y, _sum_routes(routes)
 
 
-def _moe_ffn_dispatch_einsum(h, lp, cfg: MixtralConfig, quant: str = "none"):
+def _moe_ffn_dispatch_einsum(h, lp, cfg: MixtralConfig, quant: str = "none", ring=None):
     """The same routing as (B, S, E, C) one-hot einsums: the oracle of
     :func:`_moe_ffn_dispatch`."""
-    B, S, D = h.shape
     E, K = cfg.num_experts, cfg.top_k
-    C = moe_capacity(cfg, S)
-    top_idx, top_w, probs = _router(h, lp["gate"], cfg)
-    slot, keep = _priority_slots(top_idx, E, C)
-    dispatch = h.new_zeros((B, S, E, C))
-    combine = h.new_zeros((B, S, E, C))
-    for k in range(K):
-        # a slot past the buffer one-hots to zeros, as jax.nn.one_hot
-        slot_1h = F.one_hot(slot[:, :, k].clamp(max=C), C + 1)[..., :C].float()
-        d_k = (F.one_hot(top_idx[:, :, k], E).float()[..., None]
-               * slot_1h[:, :, None, :] * keep[:, :, k, None, None]).to(h.dtype)
-        dispatch = dispatch + d_k
-        combine = combine + d_k * top_w[:, :, k, None, None].to(h.dtype)
-    xd = torch.einsum("bsec,bsd->ebcd", dispatch, h)
-    out_e = _expert_ffn(xd, lp, quant)
-    y = torch.einsum("bsec,ebcd->bsd", combine, out_e)
-    return y, _route(top_idx, probs, keep, E)
+    parts, routed, slots, C = _routed_chunks(h, lp, cfg, ring)
+    ys, routes = [], []
+    for hp, (top_idx, top_w, probs), (slot, keep) in zip(parts, routed, slots):
+        B, S, _ = hp.shape
+        dispatch = hp.new_zeros((B, S, E, C))
+        combine = hp.new_zeros((B, S, E, C))
+        for k in range(K):
+            # a slot past the buffer one-hots to zeros, as jax.nn.one_hot
+            slot_1h = F.one_hot(slot[:, :, k].clamp(max=C), C + 1)[..., :C].float()
+            d_k = (F.one_hot(top_idx[:, :, k], E).float()[..., None]
+                   * slot_1h[:, :, None, :] * keep[:, :, k, None, None]).to(hp.dtype)
+            dispatch = dispatch + d_k
+            combine = combine + d_k * top_w[:, :, k, None, None].to(hp.dtype)
+        xd = torch.einsum("bsec,bsd->ebcd", dispatch, hp)
+        out_e = _expert_ffn(xd, lp, quant)
+        ys.append(torch.einsum("bsec,ebcd->bsd", combine, out_e))
+        routes.append(_route(top_idx, probs, keep, E))
+    y = ys[0] if len(ys) == 1 else ring.join(ys)
+    return y, _sum_routes(routes)
 
 
 _MOE_FFN = {"dense": _moe_ffn_dense, "dispatch": _moe_ffn_dispatch,
@@ -298,16 +365,17 @@ _MOE_FFN = {"dense": _moe_ffn_dense, "dispatch": _moe_ffn_dispatch,
 
 
 def _mixtral_block(x, layer: Dict, cfg: MixtralConfig, cos, sin, *, attn_impl: str,
-                   quant: str, moe_impl: str):
+                   quant: str, moe_impl: str, ring=None):
     """x + Attn(RMS(x)); then x + MoE(RMS(x)). Returns (x, the layer's
     routing sums)."""
-    x = attention_block(x, layer, cfg, cos, sin, attn_impl=attn_impl, quant=quant)
+    x = attention_block(x, layer, cfg, cos, sin, attn_impl=attn_impl, quant=quant,
+                        ring=ring)
     with record_function("moe"):
         h = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
         if moe_impl == "dense":  # unquantized, as JAX's
             y, route = _moe_ffn_dense(h, layer, cfg)
         else:
-            y, route = _MOE_FFN[moe_impl](h, layer, cfg, quant)
+            y, route = _MOE_FFN[moe_impl](h, layer, cfg, quant, ring)
     return x + y, route
 
 
@@ -329,6 +397,7 @@ def mixtral_forward(
     return_hidden: bool = False,
     return_aux: bool = False,
     quant: str = "none",
+    ring=None,
 ):
     """tokens (B, S) -> logits (B, S, V) in the compute dtype, the
     counterpart of ``fms_fsdp_tpu/models/mixtral.py:706``.
@@ -340,7 +409,9 @@ def mixtral_forward(
     ``ac_mask`` entry is True run under ``torch.utils.checkpoint`` and
     index their weights inside it, as ``llama_forward``'s (so a
     data-parallel step's ``GatheredLayers`` gathers again in the
-    recomputation). ``scan_layers`` has no effect.
+    recomputation). ``scan_layers`` has no effect. ``ring`` is a context
+    exchange (module docstring): ``tokens`` are this process's part of
+    the sequence, as ``llama_forward``'s.
     """
     del scan_layers
     if moe_impl not in MOE_IMPLS:
@@ -350,8 +421,10 @@ def mixtral_forward(
     params = tree_map(lambda w: w.to(compute_dtype), params)
     with record_function("embed"):
         x = F.embedding(tokens, params["embedding"])
-    cos, sin = rope_table(tokens.shape[1], cfg.head_dim, cfg.rope_theta,
-                          device=tokens.device)
+    seq_len = tokens.shape[1]
+    offset = ring.seq_offset(seq_len) if ring is not None else 0
+    cos, sin = rope_table(seq_len, cfg.head_dim, cfg.rope_theta, device=tokens.device,
+                          offset=offset)
     ac_mask = ac_mask if ac_mask is not None else [False] * nlayers
     if len(ac_mask) != nlayers:
         raise ValueError(f"ac_mask has {len(ac_mask)} entries for {nlayers} layers")
@@ -359,7 +432,7 @@ def mixtral_forward(
     for i in range(nlayers):
         block = functools.partial(
             _indexed_block, layers=params["layers"], i=i, cfg=cfg, cos=cos, sin=sin,
-            attn_impl=attn_impl, quant=quant, moe_impl=moe_impl,
+            attn_impl=attn_impl, quant=quant, moe_impl=moe_impl, ring=ring,
         )
         if ac_mask[i]:
             x, route = checkpoint(block, x, use_reentrant=False)

@@ -958,6 +958,21 @@ class FleetRouter:
             self._ready[idx] = False
         self._started = True
 
+    def wait_ready(self, timeout_s: Optional[float] = None, tick_s: float = 0.01) -> None:
+        """Poll until every live replica has sent its first heartbeat, so
+        that a wave submitted next is spread over the whole fleet rather
+        than over the replicas that happened to start first. Raises
+        ``TimeoutError`` after ``timeout_s`` (default
+        ``startup_timeout_s``)."""
+        timeout_s = self.cfg.startup_timeout_s if timeout_s is None else timeout_s
+        deadline = self.clock() + timeout_s
+        while not all(self._ready.get(i) for i in self.supervisor.live_indices()):
+            if self.clock() > deadline:
+                cold = [i for i in self.supervisor.live_indices() if not self._ready.get(i)]
+                raise TimeoutError(f"replicas {cold} not ready after {timeout_s}s")
+            self.poll()
+            time.sleep(tick_s)
+
     def drain(self, timeout_s: Optional[float] = None) -> None:
         """Graceful wind-down: ask every live replica to drain (running
         streams finish, its queued work comes back for redispatch),

@@ -104,13 +104,10 @@ def base_device(base_params) -> torch.device:
 
 def check_speculator_options(cfg) -> None:
     """Tensor parallelism of the frozen base is ROADMAP.md A.6b (JAX reads
-    ``tp_size`` only under ``sharding_strategy="tp"``, and so does this);
-    a context axis under the speculator is A.8b."""
-    if cfg.context_parallel_size > 1:
-        raise NotImplementedError(
-            f"context_parallel_size={cfg.context_parallel_size} for the speculator is "
-            f"not ported yet: ROADMAP.md A.8b"
-        )
+    ``tp_size`` only under ``sharding_strategy="tp"``, and so does this).
+    ``context_parallel_size`` is taken: the speculator has no context axis
+    (JAX's mesh has none either) and the setting only divides the
+    report's per-chip world (:func:`report_chips`)."""
     if cfg.sharding_strategy == "tp" or cfg.tensor_parallel_size > 1:
         raise NotImplementedError(
             f"sharding_strategy={cfg.sharding_strategy!r} (tp_size="
@@ -118,6 +115,17 @@ def check_speculator_options(cfg) -> None:
             f"heads, which is not ported yet: ROADMAP.md A.6b (tensor "
             f"parallelism)"
         )
+
+
+def report_chips(cfg, world: int) -> int:
+    """The world the report's per-chip figures divide by: the processes
+    over the tensor and the context settings, at least 1
+    (``fms_fsdp_tpu/train/speculator.py:297-302``). Every process trains
+    its own rows whatever ``context_parallel_size`` says, so under cp > 1
+    the per-chip figures are cp times the tokens a chip trained, as
+    JAX's are."""
+    return max(1, world // max(1, getattr(cfg, "tensor_parallel_size", 1))
+               // max(1, getattr(cfg, "context_parallel_size", 1)))
 
 
 def get_speculator_lr_schedule(cfg, start_step: int = 0):
@@ -359,6 +367,7 @@ def train_speculator(
     if ckpt_loader is None and hasattr(train_loader, "save_to_path"):
         ckpt_loader = train_loader
     world = world_size()
+    chips = report_chips(cfg, world)
 
     if observer is None:
         observer = build_observer(cfg, rank, device=device)
@@ -431,7 +440,7 @@ def train_speculator(
                     print("LR:", float(fetched[-1]["lr"]))
                     print(
                         "overall token per chip per sec:",
-                        int(elapsed_tokens / world / elapsed_time),
+                        int(elapsed_tokens / chips / elapsed_time),
                     )
                     print(
                         "token per day:",
@@ -449,10 +458,10 @@ def train_speculator(
                     learning_rate=float(fetched[-1]["lr"]),
                     tokens_seen=n_tok + elapsed_tokens,
                     tokens_per_sec_per_chip=(
-                        window_steps * step_tok / world / window_wall
+                        window_steps * step_tok / chips / window_wall
                     ),
                     tokens_per_sec_per_chip_overall=(
-                        elapsed_tokens / world / max(1e-9, elapsed_time)
+                        elapsed_tokens / chips / max(1e-9, elapsed_time)
                     ),
                     step_time_s=window_wall / window_steps,
                     extra={
@@ -466,6 +475,7 @@ def train_speculator(
                     "tokens_seen": n_tok + elapsed_tokens,
                     "step_time_s": window_wall / window_steps,
                     "tokens_per_s": window_steps * step_tok / window_wall,
+                    "chips": chips,
                 })
                 start = time.time()
 

@@ -38,14 +38,15 @@ step computes it on the whole batch, whatever the ranks' shares of
 ignored labels. The gradient norm is global (the parts' squares summed
 over fsdp). So the non-finite decision is the same on every rank.
 
-Long context (``context_parallel_size``, Llama and Mamba): the ranks of
-a context group hold one data index's rows, each S / cp of their
-sequence; the forward runs ring attention, the conv halo and
-``ssd_scan_cp`` over the group (``state["dp"].ring``). The loss is each
-rank's token-loss sum over the global label count, summed over the
-world, and the gradients are summed over the context group before the
-norm and the clip, as over the data ranks. Mixtral and the speculator
-under a context axis are ROADMAP.md A.8b.
+Long context (``context_parallel_size``): the ranks of a context group
+hold one data index's rows, each S / cp of their sequence; the forward
+runs ring attention, the conv halo and ``ssd_scan_cp`` (Mamba) and the
+whole sequence's capacity routing (Mixtral) over the group
+(``state["dp"].ring``). The loss is each rank's token-loss sum over the
+global label count, summed over the world, and the gradients are summed
+over the context group before the norm and the clip, as over the data
+ranks. Mixtral's routing sums are summed over the world, the context
+group included, before the balance term is formed.
 
 Mixtral (``step.py:281-293,347-358`` in JAX) trains through the capacity
 dispatch and adds the load-balancing term (already weighted) to the
@@ -125,16 +126,10 @@ def check_step_options(cfg) -> None:
 
 def check_supported(cfg) -> None:
     """Every option of a training run (the entry point's check): the
-    step's, a context axis for a model family that has none yet, and a
-    ``faults`` spec naming a site the port has no call site for yet.
-    ``divergence_check_interval`` compares the replicas across processes;
-    on one process it is inert, as in JAX."""
+    step's, and a ``faults`` spec naming a site the port has no call site
+    for yet. ``divergence_check_interval`` compares the replicas across
+    processes; on one process it is inert, as in JAX."""
     check_step_options(cfg)
-    if cfg.context_parallel_size > 1 and cfg.model_variant.startswith("mixtral"):
-        raise NotImplementedError(
-            f"context_parallel_size={cfg.context_parallel_size} for Mixtral is not "
-            f"ported yet: ROADMAP.md A.8b (the routing of a context-split batch)"
-        )
     check_spec(cfg.faults)
 
 
@@ -354,11 +349,6 @@ def make_train_step(model_cfg, cfg, start_step: int = 0):
     extra_kwargs = {}
     moe = isinstance(model_cfg, MixtralConfig)
     cp = int(cfg.context_parallel_size or 1)
-    if moe and cp > 1:
-        raise NotImplementedError(
-            f"context_parallel_size={cp} for Mixtral is not ported yet: ROADMAP.md "
-            f"A.8b (the routing of a context-split batch)"
-        )
     if isinstance(model_cfg, MambaConfig):
         extra_kwargs = {"mamba_kernel": cfg.mamba_kernel}
     elif moe:

@@ -176,6 +176,10 @@ def test_subprocess_fleet_kill_token_identity(tmp_path):
     ), log=lambda m: None)
     router.start()
     try:
+        # the wave only once every replica is up: a decode replica still
+        # starting when the handoffs arrive would take none, and the kill
+        # on replica 1 would never fire
+        router.wait_ready(tick_s=0.002)
         rids = [router.submit(p, 6) for p in prompts]
         router.run_until_idle(timeout_s=240.0, tick_s=0.002)
         router.drain(timeout_s=30.0)

@@ -697,8 +697,6 @@ def test_entry_refusals(tmp_path, monkeypatch):
         entry.main(device="cpu", **dict(kw, model_path=hf))
     with pytest.raises(NotImplementedError, match="A.6b"):
         entry.main(device="cpu", **dict(kw, sharding_strategy="tp"))
-    with pytest.raises(NotImplementedError, match="A.8b"):
-        entry.main(device="cpu", **dict(kw, context_parallel_size=2))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry.main(**kw)
