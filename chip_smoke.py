@@ -405,6 +405,28 @@ Phases, one JSON line each; any failure exits non-zero:
    bf16, fp8_dgrad and int8, 3 steps: one 2-D GEMM an expert (3 x 8 a
    layer and pass, beside attention's 4), ``moe_drop_frac`` beside bf16's.
 
+23. tp — tensor parallelism in training: two children on the one card
+   (``python -m chip_smoke --tp-child``, each a rank of a world of 2
+   under torchrun's environment; the ranks share the card, so the world
+   is gloo, ``utils/dist.py``), each calling the trainers' entry
+   (``main_training_mixtral.main``, ``main_training_llama.main``) at
+   ``tensor_parallel_size=2``: the train-mixtral configuration for 2
+   steps, then llama3_8b_4k at ``SHARD_KW`` (2 layers, seq 4096, batch 2,
+   3 steps), neither saving. The loader phase starts them (they run
+   beside it and resume, which waits for their Mixtral run's memory);
+   this phase joins them. Checks: both exit 0, the mesh line names
+   ``'tensor': 2`` and the gloo group, the Llama losses and gradient
+   norms within ``SHARD_REL_TOL`` of the shard phase's hsdp run's and
+   the Mixtral ones of the train-mixtral phase's first two steps (at
+   random init with random labels the loss sits at ln V plus half the
+   logits' variance whatever the hidden states are, so the gradient norm
+   carries the check), the two ranks' losses equal, the
+   flash launches a step at 16 query and 4 KV heads a rank (the forward
+   per layer and rematerialised layer, dq and dk/dv per layer) and no
+   other head count; each child's peak memory. The control, one Llama
+   step whose forward drops the row-parallel reduces (the embedding's,
+   wo's and w2's), must fail that check.
+
 Then a ``total`` line (seconds since ``main`` began, and each phase's),
 a ``{"kernels": [...]}`` line (the flash forward and dq by contract and
 key tile, and the ring's non-causal and fp32-dq modes; the paged
@@ -434,7 +456,7 @@ PHASES = ("device", "build", "kernels", "serve", "serve-int8", "train-speculator
           "serve-spec", "fleet", "flash", "ring", "train",
           "loader", "resume", "supervise", "shard", "hf-eval", "train-kvgrid", "tune", "ssd",
           "train-mamba",
-          "serve-mamba", "train-mixtral", "serve-mixtral", "train-quant")
+          "serve-mamba", "train-mixtral", "serve-mixtral", "train-quant", "tp")
 
 # llama3_8b decode shapes of the kernel phase
 B, NQ, NKV, H, PAGE, MAXP = 8, 32, 8, 128, 64, 32
@@ -3478,6 +3500,11 @@ def phase_loader(state):
     from fms_fsdp_tpu_torch.data.device_feed import DeviceFeed
     from fms_fsdp_tpu_torch.data.loader import loader_mix_stats
 
+    if "tp" in state["phases"] and "tp-children" not in state:
+        # the tp phase's two ranks run beside this host-bound phase (their
+        # Mixtral run, 32 GB each, finishes before resume trains: below)
+        # and resume's first minutes (their Llama runs, 9 GB each)
+        state["tp-children"] = _start_tp_children()
     corpus = _corpus(state)
     root = _ckpt_dir("loader")
     torch.cuda.init()
@@ -3603,6 +3630,10 @@ def phase_loader(state):
     result["feed"] = dict(ms_per_batch=feed_ms, consumer_wait_ms_per_batch=feed_wait_ms,
                           stage_only_ms_per_batch=stage_ms, batches=n_feed)
     del live
+    if "tp-children" in state:
+        # the card holds the tp ranks' Mixtral run and resume's training
+        # together only after that run is done
+        result["tp_mixtral_wait_s"] = _wait_tp_marker(state["tp-children"], "mixtral")
     result["nvidia_smi"] = state["smi"]
     emit("loader", **result)
     state["loader"] = result
@@ -4286,6 +4317,8 @@ def phase_shard(state):
         out = f.read()
     losses = {"hsdp": _report_values(out, "loss:")}
     mesh_line = next((ln for ln in out.splitlines() if ln.startswith("Sharding strategy")), "")
+    # the hsdp run's gradient norms: the tp phase's reference beside the losses
+    result["gnorms"] = {"hsdp": _report_values(out, "gradient norm:")}
     result["hsdp"] = {"exit": rc, "wall_s": wall, "mesh": mesh_line,
                       "beside_supervise": "supervise" in state["phases"],
                       "tokens_per_card_per_s": _report_values(out, "current token per chip per sec:")}
@@ -6029,6 +6062,203 @@ def phase_train_quant(state):
         raise AssertionError("train-quant: " + "; ".join(problems))
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism: two ranks on the one card
+# ---------------------------------------------------------------------------
+
+TP_SIZE = 2
+TP_HEADS = "16/4"  # llama3_8b's and mixtral_8x7b's 32/8 heads over 2 ranks
+TP_RUNS = (
+    # (name, entry module, the entry's keyword arguments); Mixtral first,
+    # the largest (32 GB a rank), so that it runs beside the loader phase
+    ("mixtral", "main_training_mixtral",
+     dict(MIXTRAL_TRAIN_KW, sharding_strategy="fsdp", tensor_parallel_size=TP_SIZE,
+          num_steps=2)),
+    ("llama", "main_training_llama",
+     dict(SHARD_KW, sharding_strategy="fsdp", tensor_parallel_size=TP_SIZE)),
+    ("control", "main_training_llama",
+     dict(SHARD_KW, sharding_strategy="fsdp", tensor_parallel_size=TP_SIZE, num_steps=1)),
+)
+TP_TIMEOUT_S = 420
+# the phases whose runs the tp phase's runs are held against
+TP_REFERENCES = ("shard", "train-mixtral")
+TP_MARKER_TIMEOUT_S = 180
+
+
+def _tp_child(spec):
+    """One rank of the tp phase's world: each run of ``TP_RUNS`` through
+    its entry (no save), its losses, launches and peak memory into
+    ``<root>/tp_rank<R>.json``. The control run drops the forward's
+    row-parallel reduces (``TensorParallel.reduce`` the identity)."""
+    import importlib
+
+    import torch
+
+    from fms_fsdp_tpu_torch.ops import flash_attention as fa
+    from fms_fsdp_tpu_torch.parallel import tensor
+    from fms_fsdp_tpu_torch.parallel.mesh import axis_sizes
+
+    # every entry trains through the Llama entry's main: its checkpoint
+    # manager saves nothing here
+    shared = importlib.import_module("fms_fsdp_tpu_torch.main_training_llama")
+    rank = int(os.environ["RANK"])
+    out = {"rank": rank, "device": torch.cuda.get_device_name(0)}
+    for name, module, kw in TP_RUNS:
+        entry = importlib.import_module(f"fms_fsdp_tpu_torch.{module}")
+        ckpt = os.path.join(spec["root"], f"{name}_ck")
+        kw = dict(kw, **spec.get("overrides", {}), ckpt_save_path=ckpt, ckpt_load_path=ckpt)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        tensor.reset_collectives()
+        reduce = tensor.TensorParallel.reduce
+        if name == "control":
+            tensor.TensorParallel.reduce = lambda self, x: x
+        t0 = time.perf_counter()
+        try:
+            with _saves_nothing(shared):
+                res = entry.main(**kw)
+        finally:
+            tensor.TensorParallel.reduce = reduce
+        torch.cuda.synchronize()
+        reports = res["reports"]
+        out[name] = {
+            "wall_s": time.perf_counter() - t0, "steps": res["steps"],
+            "losses": [r["loss"] for r in reports], "gnorms": [r["gnorm"] for r in reports],
+            "step_time_s": [r["step_time_s"] for r in reports],
+            "tokens_per_card_per_s": reports[-1]["tokens_per_card_per_s"],
+            "mfu": reports[-1]["mfu"], "launches": dict(fa.LAUNCHES),
+            "head_launches": {k: dict(v) for k, v in fa.HEAD_LAUNCHES.items()},
+            "collectives": dict(tensor.COLLECTIVES),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "backend": torch.distributed.get_backend(), "mesh": axis_sizes(res["mesh"]),
+            "remat": _n_remat(res["model_cfg"], res["cfg"]),
+            "layers": res["model_cfg"].nlayers,
+        }
+        del res, reports
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the run's memory is back: a marker for the parent
+        open(os.path.join(spec["root"], f"{name}_done_rank{rank}"), "w").close()
+    with open(os.path.join(spec["root"], f"tp_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _wait_tp_marker(children, name):
+    """Seconds waited until every tp rank has finished run ``name`` and
+    released its memory (its marker file), or one has exited (the tp
+    phase reports why); raises after ``TP_MARKER_TIMEOUT_S``."""
+    t0 = time.perf_counter()
+    root = children[0].root
+    while not all(os.path.exists(os.path.join(root, f"{name}_done_rank{r}"))
+                  for r in range(len(children))):
+        if any(c.proc.poll() is not None for c in children):
+            break
+        if time.perf_counter() - t0 > TP_MARKER_TIMEOUT_S:
+            raise AssertionError(f"tp: the ranks' {name} run took over {TP_MARKER_TIMEOUT_S} s")
+        time.sleep(0.2)
+    return time.perf_counter() - t0
+
+
+def _start_tp_children():
+    """The tp phase's two ranks, started on the one card: torchrun's
+    environment for a world of 2 on this host (``LOCAL_WORLD_SIZE`` 2
+    over one card: the ranks share it, a gloo world)."""
+    import socket
+
+    root = _ckpt_dir("tp")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    spec = json.dumps({"root": root})
+    children = []
+    for r in range(TP_SIZE):
+        env = dict(os.environ, PYTHONPATH=REPO, RANK=str(r), WORLD_SIZE=str(TP_SIZE),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(TP_SIZE),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), OMP_NUM_THREADS="2")
+        child = _Child("chip_smoke", ["--tp-child", spec], os.path.join(root, f"rank{r}.log"),
+                       TP_TIMEOUT_S, cwd=root, env=env)
+        child.root = root
+        children.append(child)
+    return children
+
+
+def phase_tp(state):
+    """Tensor parallelism on the card (docstring, phase 23): the two
+    children (started by an earlier phase to run beside it, else now)
+    joined and checked."""
+    children = state.pop("tp-children", None) or _start_tp_children()
+    root = children[0].root
+    joins = [c.join() for c in children]
+    logs = []
+    for c in children:
+        with open(c.log) as f:
+            logs.append(f.read())
+    result = {"config": {name: kw for name, _, kw in TP_RUNS}, "nvidia_smi": state["smi"],
+              "exits": [j[0] for j in joins], "child_wall_s": [j[1] for j in joins]}
+    if any(j[0] != 0 for j in joins):
+        raise AssertionError("tp: a child exited "
+                             + "; ".join(f"{j[0]}:\n{log[-3000:]}" for j, log in zip(joins, logs)))
+    ranks = []
+    for r in range(TP_SIZE):
+        with open(os.path.join(root, f"tp_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    problems = []
+    mesh_lines = [ln for ln in logs[0].splitlines() if ln.startswith("Sharding strategy")]
+    result["mesh_lines"] = mesh_lines
+    if len(mesh_lines) != len(TP_RUNS) or not all(
+            "'tensor': 2}" in ln and "process group = gloo" in ln for ln in mesh_lines):
+        problems.append(f"mesh lines {mesh_lines}: expected 'tensor': 2 and a gloo group")
+    for name, _, _ in TP_RUNS:
+        runs = [rk[name] for rk in ranks]
+        result[name] = {k: [run[k] for run in runs] for k in runs[0]}
+        if any(run["backend"] != "gloo" or run["mesh"]["tensor"] != TP_SIZE for run in runs):
+            problems.append(f"{name}: process group / mesh {[(r['backend'], r['mesh']) for r in runs]}")
+        if name != "control" and runs[0]["losses"] != runs[1]["losses"]:
+            problems.append(f"{name}: the ranks' losses differ {[r['losses'] for r in runs]}")
+        if not all(math.isfinite(x) for run in runs for x in run["losses"]):
+            problems.append(f"{name}: non-finite losses")
+        for run in runs:
+            n, steps = run["layers"], run["steps"]
+            want = {"fwd": steps * (n + run["remat"]), "dq": steps * n, "dkv": steps * n}
+            got = {k: run["launches"][k] for k in want}
+            heads = {k: run["head_launches"][k] for k in want}
+            if got != want or heads != {k: {TP_HEADS: v} for k, v in want.items()}:
+                problems.append(f"{name}: launches {got}, by heads {heads}; expected {want} "
+                                f"at {TP_HEADS}")
+    # the references (``TP_REFERENCES``, which main makes run too): the
+    # shard phase's hsdp run, train-mixtral's first two steps (losses and
+    # gradient norms)
+    shard, mix = state["shard"], state["train-mixtral"]
+    refs = {"llama": {"losses": shard["losses"]["hsdp"], "gnorms": shard["gnorms"]["hsdp"]},
+            "mixtral": {"losses": mix["losses"][:2], "gnorms": mix["gnorms"][:2]}}
+    result["references"] = refs
+
+    def rel_diff(run, ref):
+        return max(abs(a - b) / abs(b) for key in ("losses", "gnorms")
+                   for a, b in zip(run[key], ref[key]))
+
+    for name in ("llama", "mixtral"):
+        result[f"{name}_max_rel_diff"] = rel_diff(ranks[0][name], refs[name])
+        if not result[f"{name}_max_rel_diff"] <= SHARD_REL_TOL:
+            problems.append(f"{name} losses / gradient norms {ranks[0][name]['losses']} / "
+                            f"{ranks[0][name]['gnorms']} vs {refs[name]}")
+    # the control's one step against the reference's first
+    result["control_rel_diff"] = rel_diff(ranks[0]["control"], refs["llama"])
+    if result["control_rel_diff"] <= SHARD_REL_TOL:
+        problems.append(f"the control passes the check: {ranks[0]['control']['losses']} / "
+                        f"{ranks[0]['control']['gnorms']}")
+    result["peak_bytes_per_child"] = [max(rk[n]["max_memory_allocated"] for n, _, _ in TP_RUNS)
+                                      for rk in ranks]
+    emit("tp", **result)
+    state["tp"] = result
+    shutil.rmtree(root)
+    if problems:
+        raise AssertionError("tp: " + "; ".join(problems))
+
+
 def kernels_line(state):
     k, s, s8 = state["kernels"], state["serve"], state["serve-int8"]
     entries = []
@@ -6099,6 +6329,11 @@ def kernels_line(state):
             # and on the ring through the Mixtral model (the ring phase)
             entry["launches_ring_mixtral"] = (
                 state["ring"]["ring_moe"]["launches"]["by_contract"][contract])
+            # and on the tp phase's two ranks (Llama and Mixtral, the
+            # control left out), every one at a rank's 16 / 4 heads
+            entry["launches_tp"] = sum(l[contract] for name in ("llama", "mixtral")
+                                       for l in state["tp"][name]["launches"])
+            entry["launches_tp_heads"] = TP_HEADS
         if contract == "fwd" and tile != 64:
             # the frozen base forward of the speculator's stage 1, and
             # eval_ppl's forwards (Llama and the Mamba hybrid's attention)
@@ -6160,11 +6395,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma list of {PHASES}")
+    ap.add_argument("--tp-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
+    missing = [p for p in TP_REFERENCES if "tp" in phases and p not in phases]
+    if missing:
+        ap.error(f"the tp phase checks its runs against the {missing} phases' runs: "
+                 "run them too")
 
     import torch
 
@@ -6174,6 +6414,9 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
     # the port must be importable beside this script; no fallback
     import fms_fsdp_tpu_torch.serve  # noqa: F401
+
+    if args.tp_child is not None:
+        return _tp_child(json.loads(args.tp_child))
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6190,7 +6433,7 @@ def main(argv=None) -> int:
         "ssd": phase_ssd, "train-mamba": phase_train_mamba,
         "serve-mamba": phase_serve_mamba,
         "train-mixtral": phase_train_mixtral, "serve-mixtral": phase_serve_mixtral,
-        "train-quant": phase_train_quant,
+        "train-quant": phase_train_quant, "tp": phase_tp,
     }
     if "device" not in phases:
         phases.insert(0, "device")
@@ -6211,6 +6454,8 @@ def main(argv=None) -> int:
         # a child a failed phase started for a later one outlives no run
         if "shard-child" in state:
             state.pop("shard-child").kill()
+        for child in state.pop("tp-children", []):
+            child.kill()
         # a failed phase leaves its checkpoints behind: none outlives the run
         for root in CKPT_ROOTS.values():
             shutil.rmtree(root, ignore_errors=True)

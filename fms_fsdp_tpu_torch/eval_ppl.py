@@ -23,7 +23,10 @@ data index evaluates its own shard of the stream, and with
 ``--context_parallel_size=cp`` the cp ranks of a context group read the
 same rows and each evaluates its S / cp chunk of them through the ring
 (ring attention; for Mamba the conv halo and ``ssd_scan_cp``; for
-Mixtral the ring and the dense mix). The sums are all-reduced over the
+Mixtral the ring and the dense mix). With ``--tensor_parallel_size=tp``
+the tp ranks of a tensor group read the same rows and each evaluates
+them with the whole params (the eval step holds no optimizer state), so
+tensor index 0 alone adds its sums. The sums are all-reduced over the
 world, which counts each token once, so every rank returns the global
 figures. It runs on ``cuda`` unless ``device="cpu"`` is passed
 (``--device=cpu``), and raises without a card.
@@ -54,6 +57,7 @@ from fms_fsdp_tpu_torch.parallel.mesh import (
     context_index,
     data_index,
     data_parallel_extent,
+    tensor_index,
 )
 from fms_fsdp_tpu_torch.parallel.mixed_precision import get_dtype_policy
 from fms_fsdp_tpu_torch.train.step import check_step_options
@@ -155,7 +159,11 @@ def main(device=None, **kwargs):
         if hasattr(loader, "shutdown"):
             loader.shutdown()
     if world_size > 1:
-        sums = torch.tensor([total_nll, total_tokens], dtype=torch.float64, device=device)
+        # tensor peers read the same rows and each evaluates them whole:
+        # one of them counts them
+        counted = float(tensor_index(mesh) == 0)
+        sums = torch.tensor([total_nll * counted, total_tokens * counted],
+                            dtype=torch.float64, device=device)
         torch.distributed.all_reduce(sums)
         total_nll, total_tokens = float(sums[0]), int(sums[1])
 

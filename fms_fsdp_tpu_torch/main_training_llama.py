@@ -50,6 +50,19 @@ its own S / cp chunk of inputs and labels; the world is data ranks x cp:
         --model_variant=llama3_8b --use_dummy_dataset=True --batch_size=1 \
         --seq_length=32768 --vocab_size=128256 --num_steps=12
 
+``--tensor_parallel_size=tp`` (or ``--sharding_strategy=tp``, fsdp over
+the rest) splits every layer over tp adjacent ranks in JAX's Megatron
+layout (``parallel/tensor.py``): the ranks of a tensor group read the
+same loader rows and each holds its block of the weights, the
+attention running on its heads; the world is data ranks x cp x tp, and
+the mesh line prints the ``tensor`` axis. Ranks that share one card
+(two ranks on one H100) form a gloo world (``utils/dist.py``):
+
+    torchrun --nproc_per_node=2 -m fms_fsdp_tpu_torch.main_training_llama \
+        --sharding_strategy=fsdp --tensor_parallel_size=2 \
+        --model_variant=llama3_8b_4k --use_dummy_dataset=True --batch_size=2 \
+        --seq_length=4096 --vocab_size=128256 --num_steps=3
+
 The observability and resilience options run as in JAX: ``--obs_dir``
 (``metrics.jsonl``, ``metrics.csv`` with ``--obs_sinks=jsonl,csv``, and
 ``heartbeat.json``), ``--use_profiler`` (a ``torch.profiler`` trace in
@@ -87,6 +100,7 @@ from fms_fsdp_tpu_torch.parallel.mesh import (
     context_index,
     data_index,
     data_parallel_extent,
+    tensor_index,
 )
 from fms_fsdp_tpu_torch.resilience.exits import classified_exit
 from fms_fsdp_tpu_torch.resilience.faults import configure_faults
@@ -119,7 +133,7 @@ def main(device=None, **kwargs):
         configure_faults(cfg.faults)
 
     world = init_distributed(device)
-    rank, world_size = world.rank, world.size
+    rank = world.rank
     if rank == 0:
         print(f"--> running with these configs {cfg}")
 
@@ -128,7 +142,8 @@ def main(device=None, **kwargs):
                       local_world=world.local_size)
     data_extent = data_parallel_extent(mesh)
     if rank == 0:
-        print(f"Sharding strategy = {cfg.sharding_strategy}, mesh = {axis_sizes(mesh)}")
+        print(f"Sharding strategy = {cfg.sharding_strategy}, mesh = {axis_sizes(mesh)}, "
+              f"process group = {torch.distributed.get_backend()}")
 
     # model config; dotted CLI overrides (LlamaConfig.param=value) apply here
     model_cfg = get_model_config(cfg.model_variant)
@@ -145,8 +160,9 @@ def main(device=None, **kwargs):
     if rank == 0:
         print("Constructing datasets...")
     # one device a process: the processes are the data ranks x the context
-    # group's (the mesh checked the world divides)
-    cp = world_size // data_extent
+    # group's x the tensor group's (the mesh checked the world divides);
+    # tensor peers read the same rows
+    cp = axis_sizes(mesh)["context"]
     data_rank = data_index(mesh)
     if resume_topology:
         cfg.batch_size = elastic_batch_size(cfg, resume_topology, data_extent, rank)
@@ -160,8 +176,8 @@ def main(device=None, **kwargs):
     if not cfg.use_dummy_dataset:
         loader = get_data_loader(cfg, data_rank, data_extent)
         # interval/final/abort checkpoints persist this live loader's
-        # state next to the model (train(dataloader=)); context peers hold
-        # the same state, and context rank 0 alone writes it
+        # state next to the model (train(dataloader=)); context and tensor
+        # peers hold the same state, and their rank 0 alone writes it
         ckpt_loader = loader
     else:
         loader = get_dummy_loader(cfg, data_rank, data_extent)
@@ -199,7 +215,8 @@ def main(device=None, **kwargs):
     try:
         summary = train(cfg, state, step_fn, rank, batches, checkpointer,
                         start_step, tokens_seen,
-                        dataloader=ckpt_loader if context_index(mesh) == 0 else None,
+                        dataloader=(ckpt_loader if context_index(mesh) == 0
+                                    and tensor_index(mesh) == 0 else None),
                         model_cfg=model_cfg, device=device, profiler=profiler,
                         observer=observer)
     finally:

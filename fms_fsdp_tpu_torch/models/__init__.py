@@ -36,6 +36,10 @@ class BaseModelAPI:
       unused logits; an eager forward would compute them);
     - ``generate(params, prompts, cfg, generator=..., ...)`` -> tokens
       and, with ``include_embeds``, embeds.
+
+    The Llama and Mixtral bases take ``tp`` (``parallel/tensor.py``) in
+    both: the params are then this rank's tensor blocks, and generation
+    samples from the logits gathered whole over tensor.
     """
 
     def __init__(self, arch, init_fn, forward_hidden, generate_fn):
@@ -85,14 +89,21 @@ def get_base_api(arch: str) -> BaseModelAPI:
         def hidden(params, tokens, cfg, **kw):
             return mixtral_forward(params, tokens, cfg, return_hidden=True, **kw)
 
-        def gen(params, prompts, cfg, **kw):
+        def gen(params, prompts, cfg, tp=None, **kw):
             # JAX's generate_simple runs mixtral_forward at its defaults:
             # the einsum attention, dense experts; the dtype is the params'
             dtype = params["embedding"].dtype
+            whole = tp is None or params["lm_head"].shape[-1] == cfg.src_vocab_size
 
             def forward(p, toks, c, **fkw):
-                return mixtral_forward(p, toks, c, attn_impl="xla",
-                                       compute_dtype=dtype, **fkw)
+                out = mixtral_forward(p, toks, c, attn_impl="xla", compute_dtype=dtype,
+                                      tp=tp, **fkw)
+                if whole:
+                    return out
+                # sample from the whole vocabulary on every tensor rank
+                if isinstance(out, tuple):
+                    return (tp.gather(out[0], -1),) + tuple(out[1:])
+                return tp.gather(out, -1)
 
             return generate_simple(params, prompts, cfg, forward, **kw)
 

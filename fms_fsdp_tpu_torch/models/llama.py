@@ -27,6 +27,17 @@ passes one that gathers a layer's weights when it is indexed
 (``parallel/sharding.py::GatheredLayers``), and a checkpointed layer
 indexes it inside its checkpoint, so its recomputed forward gathers
 again instead of keeping the weights.
+
+With ``tp`` (``parallel/tensor.py::TensorParallel``, more than one rank)
+the layers are this rank's blocks of JAX's Megatron layout
+(``fms_fsdp_tpu/models/llama.py:129,172,249``): wq, wk, wv, w1 and w3 by
+columns, wo and w2 by rows with a reduce after each, the norms whole,
+the embedding's rows and the lm_head's columns by vocabulary. The
+attention runs on this rank's heads, or on all of them under JAX's GQA
+guard (``ops/attention.py::project_qkv``); the logits are this rank's
+vocabulary block, which the loss reduces over tensor
+(``ops/fused_ce.py``). A leaf the tensor extent does not divide is whole
+and its product is whole compute on every rank.
 """
 
 import functools
@@ -39,11 +50,11 @@ from torch.utils.checkpoint import checkpoint
 
 from fms_fsdp_tpu_torch.models.configs import LlamaConfig
 from fms_fsdp_tpu_torch.obs.scopes import scoped
-from fms_fsdp_tpu_torch.ops.attention import attention
+from fms_fsdp_tpu_torch.ops.attention import attention, project_out, project_qkv
 from fms_fsdp_tpu_torch.ops.norms import rms_norm
-from fms_fsdp_tpu_torch.ops.quant import matmul as qmatmul
 from fms_fsdp_tpu_torch.ops.ring_attention import ring_attention
 from fms_fsdp_tpu_torch.ops.rope import apply_rotary, rope_table
+from fms_fsdp_tpu_torch.parallel.tensor import column_linears, is_split, row_linear
 from fms_fsdp_tpu_torch.utils.tree import tree_map
 
 
@@ -104,43 +115,61 @@ def init_llama_params(
 # ---------------------------------------------------------------------------
 
 
-def _linear(x, w, quant):
-    """x @ w, or its int8 / fp8 form (``ops/quant.py::matmul``)."""
-    return qmatmul(x, w, quant=quant)
-
-
 @scoped("attn")
 def attention_block(x, layer: Dict, cfg, cos, sin, *, attn_impl: str,
-                    quant: str = "none", ring=None):
+                    quant: str = "none", ring=None, tp=None):
     """x + Attn(RMS(x)), the attention half of a Llama block. ``layer``
-    holds attn_norm / wq / wk / wv / wo, already in the compute dtype;
-    ``ring`` a context exchange (ring attention) or None."""
-    b, s, _ = x.shape
+    holds attn_norm / wq / wk / wv / wo, already in the compute dtype
+    (under ``tp`` this rank's blocks); ``ring`` a context exchange (ring
+    attention) or None."""
     hd = cfg.head_dim
     nq, nkv = cfg.nheads, cfg.n_kv_heads
     h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-    q = _linear(h, layer["wq"], quant).reshape(b, s, nq, hd)
-    k = _linear(h, layer["wk"], quant).reshape(b, s, nkv, hd)
-    v = _linear(h, layer["wv"], quant).reshape(b, s, nkv, hd)
+    q, k, v, local = project_qkv(h, layer["wq"], layer["wk"], layer["wv"], nq, nkv, hd,
+                                 tp, quant)
     q = apply_rotary(q, cos, sin)
     k = apply_rotary(k, cos, sin)
     if ring is not None and ring.cp > 1:
         o = ring_attention(q, k, v, ring, causal=True, impl=attn_impl)
     else:
         o = attention(q, k, v, causal=True, impl=attn_impl)
-    return x + _linear(o.reshape(b, s, nq * hd), layer["wo"], quant)
+    return x + project_out(o, layer["wo"], nq, hd, tp, local, quant)
+
+
+def swiglu(h, w1, w3, w2, hidden: int, tp=None, quant: str = "none", expert: bool = False):
+    """SwiGLU(h) = (silu(h @ w1) * (h @ w3)) @ w2 in ``quant`` (per expert
+    with ``expert``); under ``tp`` w1 and w3 split by columns and w2 by
+    rows, reduced after (each whole where the tensor extent does not
+    divide ``hidden``)."""
+    (gate, up), split = column_linears(h, (w1, w3), (hidden, hidden), tp, quant, expert)
+    return row_linear(F.silu(gate) * up, w2, hidden, tp, split[0], quant, expert)
 
 
 def _llama_block(x, layer: Dict, cfg: LlamaConfig, cos, sin, *, attn_impl: str,
-                 quant: str = "none", ring=None):
+                 quant: str = "none", ring=None, tp=None):
     """One decoder block: x + Attn(RMS(x)); then x + SwiGLU(RMS(x))."""
     x = attention_block(x, layer, cfg, cos, sin, attn_impl=attn_impl, quant=quant,
-                        ring=ring)
+                        ring=ring, tp=tp)
     with record_function("ffn"):
         h = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
-        gate = F.silu(_linear(h, layer["w1"], quant))
-        up = _linear(h, layer["w3"], quant)
-        return x + _linear(gate * up, layer["w2"], quant)
+        return x + swiglu(h, layer["w1"], layer["w3"], layer["w2"], cfg.hidden_dim, tp,
+                          quant)
+
+
+def embed(table, tokens, vocab: int, tp=None):
+    """The token embedding: under ``tp`` a vocabulary-split table's
+    clamp / select / sum (``parallel/tensor.py::TensorParallel.embed``)."""
+    if is_split(tp, table.shape[0], vocab):
+        return tp.embed(table, tokens)
+    return F.embedding(tokens, table)
+
+
+def lm_head(x, w, vocab: int, tp=None):
+    """x @ lm_head: under ``tp`` a vocabulary-split lm_head gives this
+    rank's block of the logits, its input entering the parallel region."""
+    if is_split(tp, w.shape[-1], vocab):
+        x = tp.enter(x)
+    return x @ w
 
 
 def _indexed_block(x, *, layers, i: int, **kwargs):
@@ -174,8 +203,10 @@ def llama_forward(
     return_hidden: bool = False,
     quant: str = "none",
     ring=None,
+    tp=None,
 ):
-    """tokens (B, S) integer -> logits (B, S, V) in the compute dtype.
+    """tokens (B, S) integer -> logits (B, S, V) in the compute dtype
+    (under ``tp`` with a split lm_head, this rank's (B, S, V / tp) block).
 
     The params are cast to the compute dtype at entry (a no-op for leaves
     already in it), as JAX does (``llama.py:201``). Layers whose
@@ -191,7 +222,7 @@ def llama_forward(
     nlayers = n_layers_of(params)
     params = tree_map(lambda w: w.to(compute_dtype), params)
     with record_function("embed"):
-        x = F.embedding(tokens, params["embedding"])
+        x = embed(params["embedding"], tokens, cfg.src_vocab_size, tp)
     seq_len = tokens.shape[1]
     offset = ring.seq_offset(seq_len) if ring is not None else 0
     cos, sin = rope_table(seq_len, cfg.head_dim, cfg.rope_theta, device=tokens.device,
@@ -202,7 +233,7 @@ def llama_forward(
     for i in range(nlayers):
         block = functools.partial(
             _indexed_block, layers=params["layers"], i=i, cfg=cfg,
-            cos=cos, sin=sin, attn_impl=attn_impl, quant=quant, ring=ring,
+            cos=cos, sin=sin, attn_impl=attn_impl, quant=quant, ring=ring, tp=tp,
         )
         if ac_mask[i]:
             x = checkpoint(block, x, use_reentrant=False)
@@ -212,7 +243,7 @@ def llama_forward(
     if return_hidden:
         return x
     with record_function("lm_head"):
-        logits = x @ params["lm_head"]
+        logits = lm_head(x, params["lm_head"], cfg.src_vocab_size, tp)
     if return_embeds:
         return logits, x
     return logits

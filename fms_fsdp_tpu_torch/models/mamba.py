@@ -20,6 +20,16 @@ Layers are heterogeneous, so the params keep JAX's names and nesting with
 ``layers`` a **list** of per-layer dicts, and ``bridge.py`` moves JAX
 weights in and out without a transpose.
 
+Tensor parallelism (``tp``, ``parallel/tensor.py``): JAX's layout
+(``fms_fsdp_tpu/models/mamba.py:610-640``), ``in_proj`` split by columns
+and ``out_proj`` by rows, the attention layers and the MLP as Llama's.
+``in_proj``'s fused z|x|B|C|dt columns do not split by component, so its
+output is gathered whole over tensor and the conv, the gate and the norm
+run whole on every rank, as JAX's GSPMD program computes them. The SSD
+runs on this rank's heads and groups, under JAX's group guard
+(``ops/ssd.py:355-375``): where the heads or the groups do not divide the
+tensor extent (mamba_9.8b's one group), every rank runs every head.
+
 The second half is the recurrent decode of the serving path
 (``serve/families/mamba.py``): one token per step from O(1) state.
 """
@@ -34,14 +44,15 @@ from torch.utils.checkpoint import checkpoint
 
 from fms_fsdp_tpu_torch.models.configs import MambaConfig
 from fms_fsdp_tpu_torch.obs.scopes import scoped
-from fms_fsdp_tpu_torch.ops.attention import attention
+from fms_fsdp_tpu_torch.models.llama import embed, lm_head, swiglu
+from fms_fsdp_tpu_torch.ops.attention import attention, project_out, project_qkv
 from fms_fsdp_tpu_torch.ops.norms import rms_norm
 from fms_fsdp_tpu_torch.ops.paged_attention import gather_pages, gqa_attend
 from fms_fsdp_tpu_torch.ops.quant import check_quant_mode
-from fms_fsdp_tpu_torch.ops.quant import matmul as qmatmul
 from fms_fsdp_tpu_torch.ops.ring_attention import ring_attention
 from fms_fsdp_tpu_torch.ops.rope import apply_rotary, rope_table
 from fms_fsdp_tpu_torch.ops.ssd import causal_conv1d_cp, ssd_scan, ssd_scan_cp
+from fms_fsdp_tpu_torch.parallel.tensor import column_linears, row_linear
 from fms_fsdp_tpu_torch.utils.tree import tree_map
 
 Params = Dict[str, Any]
@@ -145,17 +156,26 @@ def init_mamba_params(generator: torch.Generator, cfg: MambaConfig,
 # ---------------------------------------------------------------------------
 
 
+def ssd_heads_split(nheads: int, ngroups: int, tp) -> bool:
+    """JAX's group guard: the SSD's heads and groups split over tensor
+    when both counts divide its extent."""
+    return tp is not None and nheads % tp.size == 0 and ngroups % tp.size == 0
+
+
 @scoped("mamba_mixer")
-def _mamba_mixer(x, p: Params, cfg: MambaConfig, kernel="auto", quant="none", ring=None):
+def _mamba_mixer(x, p: Params, cfg: MambaConfig, kernel="auto", quant="none", ring=None,
+                 tp=None):
     """x (B, S, D) compute dtype -> (B, S, D). Under a context ``ring``
     the conv takes its halo from the previous rank and the scan is
     ``ssd_scan_cp`` (JAX's ``mamba.py:154-165``, where GSPMD places the
-    conv's boundary)."""
+    conv's boundary). Under ``tp`` the module docstring's layout."""
     B, S, _ = x.shape
     H, Pd, G, N = cfg.nheads, cfg.headdim, cfg.ngroups, cfg.d_state
     d_inner = cfg.d_inner
 
-    zxbcdt = qmatmul(x, p["in_proj"], quant=quant)
+    (zxbcdt,), (split,) = column_linears(x, (p["in_proj"],), (_in_proj_dim(cfg),), tp, quant)
+    if split:
+        zxbcdt = tp.gather(zxbcdt, -1)
     z = zxbcdt[..., :d_inner]
     xBC = zxbcdt[..., d_inner : d_inner + _conv_dim(cfg)]
     dt_raw = zxbcdt[..., d_inner + _conv_dim(cfg) :]  # (B, S, H)
@@ -167,17 +187,25 @@ def _mamba_mixer(x, p: Params, cfg: MambaConfig, kernel="auto", quant="none", ri
 
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
+    D = p["D"]
+    local = ssd_heads_split(H, G, tp)
+    if local:
+        # this rank's heads and their groups; the whole y gathered after
+        xs, dt, Bm, Cm = (tp.split(t, 2) for t in (xs, dt, Bm, Cm))
+        A, D = tp.split(A, 0), tp.split(D, 0)
 
     if ring is not None and ring.cp > 1:
-        y = ssd_scan_cp(xs, dt, A, Bm, Cm, p["D"], ring=ring, chunk_size=cfg.chunk_size,
+        y = ssd_scan_cp(xs, dt, A, Bm, Cm, D, ring=ring, chunk_size=cfg.chunk_size,
                         kernel=kernel)
     else:
-        y = ssd_scan(xs, dt, A, Bm, Cm, p["D"], chunk_size=cfg.chunk_size, kernel=kernel)
+        y = ssd_scan(xs, dt, A, Bm, Cm, D, chunk_size=cfg.chunk_size, kernel=kernel)
+    if local:
+        y = tp.gather(y, 2)
     y = y.reshape(B, S, d_inner)
 
     # gated RMSNorm: norm(y * silu(z)) (mamba2 norm_before_gate=False)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return qmatmul(y, p["out_proj"], quant=quant)
+    return row_linear(y, p["out_proj"], d_inner, tp, False, quant)
 
 
 def _partial_rotary(q, k, a, cos, sin, positions=None):
@@ -194,39 +222,36 @@ def _partial_rotary(q, k, a, cos, sin, positions=None):
 
 @scoped("attn_mixer")
 def _attn_mixer(x, p: Params, cfg: MambaConfig, cos, sin, attn_impl, quant="none",
-                ring=None):
-    B, S, _ = x.shape
+                ring=None, tp=None):
     a = cfg.attn_cfg
     hd = a.head_dim
-    q = qmatmul(x, p["wq"], quant=quant).reshape(B, S, a.num_heads, hd)
-    k = qmatmul(x, p["wk"], quant=quant).reshape(B, S, a.num_heads_kv, hd)
-    v = qmatmul(x, p["wv"], quant=quant).reshape(B, S, a.num_heads_kv, hd)
+    q, k, v, local = project_qkv(x, p["wq"], p["wk"], p["wv"], a.num_heads,
+                                 a.num_heads_kv, hd, tp, quant)
     q, k = _partial_rotary(q, k, a, cos, sin)
     if ring is not None and ring.cp > 1:
         o = ring_attention(q, k, v, ring, causal=a.causal, impl=attn_impl)
     else:
         o = attention(q, k, v, causal=a.causal, impl=attn_impl)
-    return qmatmul(o.reshape(B, S, a.num_heads * hd), p["wo"], quant=quant)
+    return project_out(o, p["wo"], a.num_heads, hd, tp, local, quant)
 
 
 @scoped("mlp")
-def _mlp(x, p: Params, quant="none"):
-    gate = F.silu(qmatmul(x, p["w1"], quant=quant))
-    return qmatmul(gate * qmatmul(x, p["w3"], quant=quant), p["w2"], quant=quant)
+def _mlp(x, p: Params, cfg: MambaConfig, quant="none", tp=None):
+    return swiglu(x, p["w1"], p["w3"], p["w2"], cfg.d_intermediate, tp, quant)
 
 
 def _block(residual, layer, *, cfg, is_attn, cos, sin, attn_impl, mamba_kernel,
-           compute_dtype, quant="none", ring=None):
+           compute_dtype, quant="none", ring=None, tp=None):
     h = rms_norm(residual.to(compute_dtype), layer["norm"], cfg.norm_eps)
     if is_attn:
-        out = _attn_mixer(h, layer["mixer"], cfg, cos, sin, attn_impl, quant, ring)
+        out = _attn_mixer(h, layer["mixer"], cfg, cos, sin, attn_impl, quant, ring, tp)
     else:
         out = _mamba_mixer(h, layer["mixer"], cfg, kernel=mamba_kernel, quant=quant,
-                           ring=ring)
+                           ring=ring, tp=tp)
     residual = residual + out.float()
     if "mlp" in layer:
         h = rms_norm(residual.to(compute_dtype), layer["norm2"], cfg.norm_eps)
-        residual = residual + _mlp(h, layer["mlp"], quant).float()
+        residual = residual + _mlp(h, layer["mlp"], cfg, quant, tp).float()
     return residual
 
 
@@ -247,6 +272,7 @@ def mamba_forward(
     quant: str = "none",
     mamba_kernel: str = "auto",
     ring=None,
+    tp=None,
 ):
     """tokens (B, S) integer -> logits (B, S, padded_vocab) in the compute
     dtype. The whole tree is cast to the compute dtype first, as JAX does
@@ -256,7 +282,8 @@ def mamba_forward(
     (non-reentrant), so their forward, the SSD kernel included, runs a
     second time in the backward. With a context ``ring`` the tokens are
     this rank's part of the sequence (rotary at its positions, the conv's
-    halo, ``ssd_scan_cp``, ring attention)."""
+    halo, ``ssd_scan_cp``, ring attention). Under ``tp`` the logits are
+    this rank's vocabulary block (module docstring)."""
     del scan_layers
     check_quant_mode(quant)
     params = tree_map(lambda w: w.to(compute_dtype), params)
@@ -265,7 +292,8 @@ def mamba_forward(
     if len(ac_mask) != n_layer:
         raise ValueError(f"ac_mask has {len(ac_mask)} entries for {n_layer} layers")
 
-    residual = F.embedding(tokens, params["embedding"]).float()  # residual_in_fp32
+    # residual_in_fp32
+    residual = embed(params["embedding"], tokens, cfg.padded_vocab_size, tp).float()
 
     a = cfg.attn_cfg
     offset = ring.seq_offset(tokens.shape[1]) if ring is not None else 0
@@ -280,7 +308,7 @@ def mamba_forward(
             _indexed_block, layers=layers, i=i, cfg=cfg,
             is_attn=i in cfg.attn_layer_idx, cos=cos, sin=sin,
             attn_impl=attn_impl, mamba_kernel=mamba_kernel, compute_dtype=compute_dtype,
-            quant=quant, ring=ring,
+            quant=quant, ring=ring, tp=tp,
         )
         if ac_mask[i]:
             residual = checkpoint(fn, residual, use_reentrant=False)
@@ -290,7 +318,7 @@ def mamba_forward(
     x = rms_norm(residual.to(compute_dtype), params["norm_f"], cfg.norm_eps)
     if return_hidden:
         return x
-    return x @ params["lm_head"]
+    return lm_head(x, params["lm_head"], cfg.padded_vocab_size, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -423,7 +451,7 @@ def _stack_step(params: Params, x_t, cfg: MambaConfig, states, attn_cb):
         residual = residual + out.float()
         if "mlp" in layer:
             h2 = rms_norm(residual.to(compute_dtype), layer["norm2"], cfg.norm_eps)
-            residual = residual + _mlp(h2, layer["mlp"]).float()
+            residual = residual + _mlp(h2, layer["mlp"], cfg).float()
     return residual, new_states
 
 

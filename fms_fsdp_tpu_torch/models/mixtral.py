@@ -53,6 +53,16 @@ expert's weights are read once, by three matmuls over its rows, and the
 weighted outputs are added back per row. That takes one host sync per
 layer (the rows per expert). The expert-parallel all-to-all
 (``_moe_ffn_dispatch_a2a``) is ROADMAP.md A.4b.
+
+Tensor parallelism (``tp``, ``parallel/tensor.py``): the attention and
+the top-level leaves as Llama's; each expert's w1 and w3 split by
+columns and w2 by rows, as JAX's ``models/mixtral.py:103-130,424-434``,
+the router whole. The router reads the whole hidden state, so the
+routing is the same on every tensor rank; each rank runs its block of
+every expert's FFN over the dispatched rows and the expert outputs are
+reduced over tensor before the combine, so the router weights' gradient
+is whole on every rank. The route sums are counted once per data rank,
+not once per tensor rank (``DataParallel.sum_route``).
 """
 
 import functools
@@ -66,13 +76,21 @@ from torch.utils.checkpoint import checkpoint
 
 from fms_fsdp_tpu_torch.models.configs import MixtralConfig
 from fms_fsdp_tpu_torch.models.generation import _rope, check_params_dtype, decode_layer_qkv
-from fms_fsdp_tpu_torch.models.llama import attention_block, layer_params, n_layers_of
+from fms_fsdp_tpu_torch.models.llama import (
+    attention_block,
+    embed,
+    layer_params,
+    lm_head,
+    n_layers_of,
+    swiglu,
+)
 from fms_fsdp_tpu_torch.obs.scopes import scoped
 from fms_fsdp_tpu_torch.ops.attention import xla_attention
 from fms_fsdp_tpu_torch.ops.norms import rms_norm
 from fms_fsdp_tpu_torch.ops.paged_attention import gather_pages, gqa_attend
-from fms_fsdp_tpu_torch.ops.quant import check_quant_mode, expert_matmul
+from fms_fsdp_tpu_torch.ops.quant import check_quant_mode
 from fms_fsdp_tpu_torch.ops.rope import apply_rotary, rope_table
+from fms_fsdp_tpu_torch.parallel.tensor import is_split
 from fms_fsdp_tpu_torch.utils.tree import tree_map
 
 MOE_IMPLS = ("dense", "dispatch", "dispatch_einsum")
@@ -262,29 +280,34 @@ def _sum_routes(routes: List[Dict]) -> Dict[str, torch.Tensor]:
 
 
 @scoped("moe_dense")
-def _moe_ffn_dense(h, lp, cfg: MixtralConfig):
+def _moe_ffn_dense(h, lp, cfg: MixtralConfig, tp=None):
     """Every expert computes every token. h (B, S, d). Token by token: under
     a context ring each process mixes its own chunk."""
     top_idx, top_w, probs = _router(h, lp["gate"], cfg)
     E = cfg.num_experts
     mix = (F.one_hot(top_idx, E).float() * top_w[..., None]).sum(dim=-2)  # (B, S, E)
-    hidden = (F.silu(torch.einsum("bsd,edh->bseh", h, lp["w1"]))
-              * torch.einsum("bsd,edh->bseh", h, lp["w3"]))
+    split = is_split(tp, lp["w1"].shape[-1], cfg.hidden_dim)
+    hs = tp.enter(h) if split else h
+    hidden = (F.silu(torch.einsum("bsd,edh->bseh", hs, lp["w1"]))
+              * torch.einsum("bsd,edh->bseh", hs, lp["w3"]))
     expert_out = torch.einsum("bseh,ehd->bsed", hidden, lp["w2"])
+    if split:
+        expert_out = tp.reduce(expert_out)
     y = torch.einsum("bse,bsed->bsd", mix.to(h.dtype), expert_out)
     return y, _route(top_idx, probs, None, E)
 
 
 @scoped("expert_ffn")
-def _expert_ffn(xd, lp, quant: str = "none"):
+def _expert_ffn(xd, lp, quant: str = "none", tp=None, hidden: Optional[int] = None):
     """Each expert's SwiGLU over its E-major (E, B, C, d) buffer, as
     batched GEMMs over (E, B*C, d), or their int8 / fp8 forms
-    (``ops/quant.py::expert_matmul``)."""
+    (``ops/quant.py::expert_matmul``). Under ``tp`` this rank's block of
+    the ``hidden`` columns, the output reduced over tensor."""
     E, B, C, D = xd.shape
     x = xd.reshape(E, B * C, D)
-    hidden = (F.silu(expert_matmul(x, lp["w1"], quant=quant))
-              * expert_matmul(x, lp["w3"], quant=quant))
-    return expert_matmul(hidden, lp["w2"], quant=quant).reshape(E, B, C, D)
+    hidden = hidden or lp["w1"].shape[-1]
+    out = swiglu(x, lp["w1"], lp["w3"], lp["w2"], hidden, tp, quant, expert=True)
+    return out.reshape(E, B, C, D)
 
 
 def _fill_expert_buffer(h, top_idx, slot, keep, C: int, E: int):
@@ -315,7 +338,8 @@ def _combine_from_buffer(out_e, dest, top_w, S: int):
 
 
 @scoped("moe_dispatch")
-def _moe_ffn_dispatch(h, lp, cfg: MixtralConfig, quant: str = "none", ring=None):
+def _moe_ffn_dispatch(h, lp, cfg: MixtralConfig, quant: str = "none", ring=None,
+                      tp=None):
     """Capacity dispatch by scatter/gather (the training path), chunk by
     chunk under a context ``ring``."""
     E = cfg.num_experts
@@ -323,14 +347,15 @@ def _moe_ffn_dispatch(h, lp, cfg: MixtralConfig, quant: str = "none", ring=None)
     ys, routes = [], []
     for hp, (top_idx, top_w, probs), (slot, keep) in zip(parts, routed, slots):
         dest, xd = _fill_expert_buffer(hp, top_idx, slot, keep, C, E)
-        out_e = _expert_ffn(xd, lp, quant)
+        out_e = _expert_ffn(xd, lp, quant, tp, cfg.hidden_dim)
         ys.append(_combine_from_buffer(out_e, dest, top_w, hp.shape[1]))
         routes.append(_route(top_idx, probs, keep, E))
     y = ys[0] if len(ys) == 1 else ring.join(ys)
     return y, _sum_routes(routes)
 
 
-def _moe_ffn_dispatch_einsum(h, lp, cfg: MixtralConfig, quant: str = "none", ring=None):
+def _moe_ffn_dispatch_einsum(h, lp, cfg: MixtralConfig, quant: str = "none", ring=None,
+                             tp=None):
     """The same routing as (B, S, E, C) one-hot einsums: the oracle of
     :func:`_moe_ffn_dispatch`."""
     E, K = cfg.num_experts, cfg.top_k
@@ -348,7 +373,7 @@ def _moe_ffn_dispatch_einsum(h, lp, cfg: MixtralConfig, quant: str = "none", rin
             dispatch = dispatch + d_k
             combine = combine + d_k * top_w[:, :, k, None, None].to(hp.dtype)
         xd = torch.einsum("bsec,bsd->ebcd", dispatch, hp)
-        out_e = _expert_ffn(xd, lp, quant)
+        out_e = _expert_ffn(xd, lp, quant, tp, cfg.hidden_dim)
         ys.append(torch.einsum("bsec,ebcd->bsd", combine, out_e))
         routes.append(_route(top_idx, probs, keep, E))
     y = ys[0] if len(ys) == 1 else ring.join(ys)
@@ -365,17 +390,17 @@ _MOE_FFN = {"dense": _moe_ffn_dense, "dispatch": _moe_ffn_dispatch,
 
 
 def _mixtral_block(x, layer: Dict, cfg: MixtralConfig, cos, sin, *, attn_impl: str,
-                   quant: str, moe_impl: str, ring=None):
+                   quant: str, moe_impl: str, ring=None, tp=None):
     """x + Attn(RMS(x)); then x + MoE(RMS(x)). Returns (x, the layer's
     routing sums)."""
     x = attention_block(x, layer, cfg, cos, sin, attn_impl=attn_impl, quant=quant,
-                        ring=ring)
+                        ring=ring, tp=tp)
     with record_function("moe"):
         h = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
         if moe_impl == "dense":  # unquantized, as JAX's
-            y, route = _moe_ffn_dense(h, layer, cfg)
+            y, route = _moe_ffn_dense(h, layer, cfg, tp)
         else:
-            y, route = _MOE_FFN[moe_impl](h, layer, cfg, quant, ring)
+            y, route = _MOE_FFN[moe_impl](h, layer, cfg, quant, ring, tp)
     return x + y, route
 
 
@@ -398,9 +423,11 @@ def mixtral_forward(
     return_aux: bool = False,
     quant: str = "none",
     ring=None,
+    tp=None,
 ):
     """tokens (B, S) -> logits (B, S, V) in the compute dtype, the
-    counterpart of ``fms_fsdp_tpu/models/mixtral.py:706``.
+    counterpart of ``fms_fsdp_tpu/models/mixtral.py:706``; under ``tp``
+    this rank's vocabulary block of them (module docstring).
 
     ``return_aux`` also returns the stats dict: ``balance``,
     ``drop_frac`` and their ``route`` sums (module docstring).
@@ -420,7 +447,7 @@ def mixtral_forward(
     nlayers = n_layers_of(params)
     params = tree_map(lambda w: w.to(compute_dtype), params)
     with record_function("embed"):
-        x = F.embedding(tokens, params["embedding"])
+        x = embed(params["embedding"], tokens, cfg.src_vocab_size, tp)
     seq_len = tokens.shape[1]
     offset = ring.seq_offset(seq_len) if ring is not None else 0
     cos, sin = rope_table(seq_len, cfg.head_dim, cfg.rope_theta, device=tokens.device,
@@ -432,7 +459,7 @@ def mixtral_forward(
     for i in range(nlayers):
         block = functools.partial(
             _indexed_block, layers=params["layers"], i=i, cfg=cfg, cos=cos, sin=sin,
-            attn_impl=attn_impl, quant=quant, moe_impl=moe_impl, ring=ring,
+            attn_impl=attn_impl, quant=quant, moe_impl=moe_impl, ring=ring, tp=tp,
         )
         if ac_mask[i]:
             x, route = checkpoint(block, x, use_reentrant=False)
@@ -445,7 +472,7 @@ def mixtral_forward(
     if return_hidden:
         return (x, aux) if return_aux else x
     with record_function("lm_head"):
-        logits = x @ params["lm_head"]
+        logits = lm_head(x, params["lm_head"], cfg.src_vocab_size, tp)
     if return_embeds:
         return logits, x
     if return_aux:

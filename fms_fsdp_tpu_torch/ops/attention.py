@@ -11,6 +11,16 @@ behind one dispatcher:
 
 q: (B, S, Nq, H); k/v: (B, S, Nkv, H) with Nq % Nkv == 0. The GQA group
 is folded into the query head dim, so kv heads are never repeated.
+
+Under tensor parallelism (``parallel/tensor.py``) the q/k/v projections
+are split by columns and each rank attends over its own heads
+(:func:`project_qkv`), the flash kernels on the local head counts (16
+query and 4 KV heads a rank at llama3_8b and tp 2). JAX's GQA guard
+(``fms_fsdp_tpu/ops/attention.py:97-101``) holds: where the query and KV
+head counts do not both divide the tensor extent, the heads are not
+split and every rank runs all of them, the projections gathered whole
+first (``resolve_spec`` splits wk and wv by their nkv*hd columns, so at
+nkv 2 and tp 4 a split falls inside a head).
 """
 
 from typing import Optional
@@ -18,6 +28,7 @@ from typing import Optional
 import torch
 
 from fms_fsdp_tpu_torch.ops import flash_attention as _fa
+from fms_fsdp_tpu_torch.parallel.tensor import column_linears, row_linear
 
 IMPLS = ("auto", "pallas", "xla")
 
@@ -82,3 +93,34 @@ def attention(q, k, v, *, causal: bool = True, impl: str = "auto"):
     if use_kernel(impl, q.shape, k.shape, q.device.type):
         return _fa.flash_attention(q, k, v, causal=causal)
     return xla_attention(q, k, v, causal=causal)
+
+
+def heads_split(nq: int, nkv: int, tp) -> bool:
+    """JAX's GQA guard: the heads split over tensor when both the query
+    and the KV head counts divide its extent."""
+    return tp is not None and nq % tp.size == 0 and nkv % tp.size == 0
+
+
+def project_qkv(h, wq, wk, wv, nq: int, nkv: int, hd: int, tp, quant: str = "none"):
+    """The q, k, v projections of ``h`` (B, S, d) as (B, S, heads, hd), and
+    whether they hold this rank's heads (:func:`heads_split`) rather than
+    all of them. A weight's columns are whole or this rank's block
+    (``parallel/tensor.py::column_linears``, in ``quant``); under the
+    guard the split products are gathered whole."""
+    (q, k, v), split = column_linears(h, (wq, wk, wv), (nq * hd, nkv * hd, nkv * hd),
+                                      tp, quant)
+    local = heads_split(nq, nkv, tp) and all(split)
+    if not local:
+        q, k, v = (tp.gather(t, -1) if s else t for t, s in zip((q, k, v), split))
+    parts = tp.size if local else 1
+    b, s = h.shape[:2]
+    return (q.reshape(b, s, nq // parts, hd), k.reshape(b, s, nkv // parts, hd),
+            v.reshape(b, s, nkv // parts, hd), local)
+
+
+def project_out(o, wo, nq: int, hd: int, tp, local: bool, quant: str = "none"):
+    """The output projection of the attention ``o`` (B, S, heads, hd):
+    wo's rows whole or this rank's block, its partial sums reduced over
+    tensor (``parallel/tensor.py::row_linear``)."""
+    b, s = o.shape[:2]
+    return row_linear(o.reshape(b, s, -1), wo, nq * hd, tp, local, quant)

@@ -36,6 +36,8 @@ and dq launches by contract and key tile, ``MODE_LAUNCHES`` the launches
 of the two modes ring attention (``ops/ring_attention.py``) adds to the
 training path's: non-causal (every kernel) and dq stored fp32
 (``flash_dq(out_dtype=torch.float32)``, JAX's ``out_dtype``).
+``HEAD_LAUNCHES`` counts every launch by the query and KV head counts it
+ran at ("32/8"; "16/4" for a tensor rank's heads at llama3_8b and tp 2).
 
 :func:`flash_attention` is the differentiable entry: one
 ``torch.autograd.Function`` covers both of JAX's ``custom_vjp``s (o alone,
@@ -83,6 +85,9 @@ TILE_LAUNCHES = {c: {64: 0, 128: 0} for c in ("fwd", "fwd_kvgrid", "dq", "dq_kvg
 # launches with causal=False, and of dq stored fp32 from 16-bit inputs;
 # counted where the kernels launch
 MODE_LAUNCHES = {"fwd_noncausal": 0, "dq_noncausal": 0, "dkv_noncausal": 0, "dq_f32": 0}
+# launches by kernel and the head counts they ran at ({"fwd": {"16/4": n}});
+# counted where the kernels launch
+HEAD_LAUNCHES = {"fwd": {}, "dq": {}, "dkv": {}}
 
 # dtype codes of the csrc/flash_*.cu entry points
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -125,6 +130,13 @@ def reset_launches() -> None:
             tiles[key] = 0
     for key in MODE_LAUNCHES:
         MODE_LAUNCHES[key] = 0
+    for heads in HEAD_LAUNCHES.values():
+        heads.clear()
+
+
+def _count_heads(op, nq, nkv):
+    key = f"{nq}/{nkv}"
+    HEAD_LAUNCHES[op][key] = HEAD_LAUNCHES[op].get(key, 0) + 1
 
 
 def set_kernel_variant(variant) -> None:
@@ -493,7 +505,8 @@ def _tile_args(dtype, block_k):
     return () if dtype == torch.float32 else (block_k,)
 
 
-def _count(op, sk, dtype, block_k, variant, causal):
+def _count(op, sk, dtype, block_k, variant, causal, nq, nkv):
+    _count_heads(op, nq, nkv)
     contract = op + ("_kvgrid" if _use_kvgrid(sk, variant) else "")
     LAUNCHES[contract] += 1
     if dtype != torch.float32:
@@ -528,7 +541,7 @@ def flash_fwd(q, k, v, *, causal=True, scale=None, block_k=None, variant=None):
             q_scale_for(scale, q.dtype), *_tile_args(q.dtype, block_k), stream,
         )
     _raise_on(err, name)
-    _count("fwd", sk, q.dtype, block_k, variant, causal)
+    _count("fwd", sk, q.dtype, block_k, variant, causal, nq, nkv)
     return o, lse
 
 
@@ -563,7 +576,7 @@ def flash_dq(q, k, v, dout, lse, delta, *, causal=True, scale=None, block_k=None
             q_scale_for(scale, q.dtype), scale, *mode, stream,
         )
     _raise_on(err, name)
-    _count("dq", sk, q.dtype, block_k, variant, causal)
+    _count("dq", sk, q.dtype, block_k, variant, causal, nq, nkv)
     if out_f32:
         MODE_LAUNCHES["dq_f32"] += 1
     return dq
@@ -597,6 +610,7 @@ def flash_dkv(q, k, v, dout, lse, delta, *, causal=True, scale=None, q2=None):
         )
     _raise_on(err, name)
     LAUNCHES["dkv"] += 1
+    _count_heads("dkv", nq, nkv)
     if not causal:
         MODE_LAUNCHES["dkv_noncausal"] += 1
     return dk, dv

@@ -33,6 +33,15 @@ fp32 product of the fp8 values. :data:`GEMMS` counts the card's calls;
 each quantized product (its quantize passes, GEMM and dequant) runs
 under the profiler scope ``quant_matmul``.
 
+Under tensor parallelism (``tp``, ``parallel/tensor.py``) a product's
+``split`` names the side of it split over the tensor group: "rows" (the
+contraction: wo, w2, out_proj) or "cols" (the output columns: wq, wk, wv,
+w1, w3). Where a scale's dim spans the group, its absmax is the whole
+row's, a MAX over the group, as JAX's GSPMD program reduces it: a
+row-split forward's x rows and w columns, a column-split dgrad's g and w
+rows. The row-split partial products are then summed over tensor by the
+caller.
+
 The gradient wire (``wire_roundtrip``, the quantized reduce of
 ``parallel/sharding.py``), the attention operand wire
 (``activation_roundtrip``, ``flash_attention(quant=)``), delayed scaling
@@ -96,11 +105,20 @@ def _absmax_quant_fp8(x: torch.Tensor, dim=-1, dtype=FP8_E4M3, amax=None):
     return q, torch.where(scale == 0, torch.zeros_like(scale), scale)
 
 
-def _quant(x: torch.Tensor, dtype):
-    """Along the last axis into ``dtype`` (int8, e4m3 or e5m2)."""
+def _quant(x: torch.Tensor, dtype, amax=None):
+    """Along the last axis into ``dtype`` (int8, e4m3 or e5m2); ``amax``
+    replaces x's own (a row split across the tensor group)."""
     if dtype == torch.int8:
-        return _absmax_quant(x, -1)
-    return _absmax_quant_fp8(x, -1, dtype)
+        return _absmax_quant(x, -1, amax=amax)
+    return _absmax_quant_fp8(x, -1, dtype, amax=amax)
+
+
+def _row_amaxes(tp, *xs):
+    """Each of ``xs``'s absmax along its last axis, the whole row's over
+    the tensor group ``tp`` (its MAX); Nones without ``tp``."""
+    if tp is None:
+        return (None,) * len(xs)
+    return tuple(tp.all_max([absmax(x, -1) for x in xs]))
 
 
 # ---------------------------------------------------------------------------
@@ -164,25 +182,27 @@ def _fold(x: torch.Tensor) -> torch.Tensor:
 
 
 @record_function("quant_matmul")
-def _matmul_raw(x, w, dtype):
+def _matmul_raw(x, w, dtype, tp=None):
     """x (..., T, D) @ w (D, F) on the 1-byte path: per-row x scales,
-    per-column w scales."""
-    qx, sx = _quant(_fold(x), dtype)  # (M, D), (M, 1)
-    qwt, sw = _quant(w.t(), dtype)  # (F, D), (F, 1): w's column scales
+    per-column w scales; with ``tp`` the D dim is this rank's block of
+    the tensor group's and the scales are the whole rows'."""
+    ax, aw = _row_amaxes(tp, _fold(x), w.t())
+    qx, sx = _quant(_fold(x), dtype, ax)  # (M, D), (M, 1)
+    qwt, sw = _quant(w.t(), dtype, aw)  # (F, D), (F, 1): w's column scales
     acc = _gemm(qx, qwt, "fwd")
     out = (acc.float() * sx * sw.t()).to(x.dtype)
     return out.reshape(*x.shape[:-1], w.shape[1])
 
 
-def int8_matmul_raw(x, w):
+def int8_matmul_raw(x, w, tp=None):
     """x (..., T, D) @ w (D, F) through int8 with dynamic dequant."""
-    return _matmul_raw(x, w, torch.int8)
+    return _matmul_raw(x, w, torch.int8, tp)
 
 
-def fp8_matmul_raw(x, w):
+def fp8_matmul_raw(x, w, tp=None):
     """x (..., T, D) @ w (D, F) through e4m3 x e4m3 -> fp32, the same
     per-row / per-column dequant as the int8 path."""
-    return _matmul_raw(x, w, FP8_E4M3)
+    return _matmul_raw(x, w, FP8_E4M3, tp)
 
 
 def _wire_dtypes(wire):
@@ -191,16 +211,18 @@ def _wire_dtypes(wire):
     return FP8_E5M2, FP8_E4M3  # e5m2 gradient x e4m3 weight
 
 
-def _dgrad(g, w, wire):
+def _dgrad(g, w, wire, tp=None):
     """dx = g @ w^T, exact (``wire`` None) in g's dtype, or on the
     quantized path ("int8", "fp8") in fp32: per-row g scale and per-row w
-    scale, both over the F dim."""
+    scale, both over the F dim (with ``tp`` this rank's block of it, the
+    scales the whole rows')."""
     if wire is None:
         return g @ w.t()
     with record_function("quant_matmul"):
         g_dtype, w_dtype = _wire_dtypes(wire)
-        qg, sg = _quant(_fold(g), g_dtype)  # (M, F), (M, 1)
-        qw, sw = _quant(w, w_dtype)  # (D, F), (D, 1)
+        ag, aw = _row_amaxes(tp, _fold(g), w)
+        qg, sg = _quant(_fold(g), g_dtype, ag)  # (M, F), (M, 1)
+        qw, sw = _quant(w, w_dtype, aw)  # (D, F), (D, 1)
         acc = _gemm(qg, qw, "dgrad")
         out = acc.float() * sg * sw.squeeze(-1)
         return out.reshape(*g.shape[:-1], w.shape[0])
@@ -225,27 +247,29 @@ def _make_quant_matmul(raw_fn, dgrad_wire, dgrad_fn=None, wgrad_fn=None):
     dgrad_fn = dgrad_fn or _dgrad
     wgrad_fn = wgrad_fn or _wgrad
 
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, tp, split):
         ctx.save_for_backward(x, w)
-        return raw_fn(x, w)
+        ctx.tp = tp if split == "cols" else None
+        return raw_fn(x, w, tp if split == "rows" else None)
 
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = dgrad_fn(g, w, dgrad_wire).to(x.dtype)
+            dx = dgrad_fn(g, w, dgrad_wire, ctx.tp).to(x.dtype)
         if ctx.needs_input_grad[1]:
             dw = wgrad_fn(x, g).to(w.dtype)
-        return dx, dw
+        return dx, dw, None, None
 
     name = f"{raw_fn.__name__}_{dgrad_wire or 'exact'}_dgrad"
     fn = type(name, (torch.autograd.Function,),
               {"forward": staticmethod(forward), "backward": staticmethod(backward)})
 
-    def apply(x, w):
+    def apply(x, w, tp=None, split=None):
         if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-            return fn.apply(x, w)
-        return raw_fn(x, w)  # no graph: the forward alone
+            return fn.apply(x, w, tp, split)
+        # no graph: the forward alone
+        return raw_fn(x, w, tp if split == "rows" else None)
 
     return apply
 
@@ -264,15 +288,16 @@ def check_quant_mode(quant: str) -> None:
         raise ValueError(f"unknown quantized_matmuls value: {quant!r}")
 
 
-def matmul(x, w, *, quant: str = "none"):
+def matmul(x, w, *, quant: str = "none", tp=None, split=None):
     """The models' linear layers: "none" (x @ w), "int8" (int8 forward,
     exact backward), "int8_dgrad" (int8 forward and dx), "fp8" (e4m3
     forward), "fp8_dgrad" (e4m3 forward, e5m2 x e4m3 dx); the wgrad is
-    never quantized."""
+    never quantized. ``tp`` and ``split``: the module docstring's tensor
+    split."""
     if quant == "none":
         return x @ w
     check_quant_mode(quant)
-    return _MATMULS[quant](x, w)
+    return _MATMULS[quant](x, w, tp, split)
 
 
 # ---------------------------------------------------------------------------
@@ -281,33 +306,35 @@ def matmul(x, w, *, quant: str = "none"):
 
 
 @record_function("quant_matmul")
-def _expert_matmul_raw(x, w, dtype):
-    qx, sx = _quant(x, dtype)  # (E, N, K), (E, N, 1)
-    qwt, sw = _quant(w.transpose(1, 2), dtype)  # (E, F, K), (E, F, 1): over K
+def _expert_matmul_raw(x, w, dtype, tp=None):
+    ax, aw = _row_amaxes(tp, x, w.transpose(1, 2))
+    qx, sx = _quant(x, dtype, ax)  # (E, N, K), (E, N, 1)
+    qwt, sw = _quant(w.transpose(1, 2), dtype, aw)  # (E, F, K), (E, F, 1): over K
     acc = _expert_gemm(qx, qwt, "fwd")
     return (acc.float() * sx * sw.transpose(1, 2)).to(x.dtype)
 
 
-def int8_expert_matmul_raw(x, w):
+def int8_expert_matmul_raw(x, w, tp=None):
     """Per-expert x (E, N, K) @ w (E, K, F) -> (E, N, F) through int8;
     w scaled per (expert, column), over K."""
-    return _expert_matmul_raw(x, w, torch.int8)
+    return _expert_matmul_raw(x, w, torch.int8, tp)
 
 
-def fp8_expert_matmul_raw(x, w):
+def fp8_expert_matmul_raw(x, w, tp=None):
     """The e4m3 form of :func:`int8_expert_matmul_raw`."""
-    return _expert_matmul_raw(x, w, FP8_E4M3)
+    return _expert_matmul_raw(x, w, FP8_E4M3, tp)
 
 
-def _expert_dgrad(g, w, wire):
+def _expert_dgrad(g, w, wire, tp=None):
     """dx = g @ w^T per expert: g (E, N, F), w (E, K, F) -> (E, N, K);
     on the quantized path w is scaled per (expert, row), over F."""
     if wire is None:
         return torch.bmm(g, w.transpose(1, 2))
     with record_function("quant_matmul"):
         g_dtype, w_dtype = _wire_dtypes(wire)
-        qg, sg = _quant(g, g_dtype)  # (E, N, F), (E, N, 1)
-        qw, sw = _quant(w, w_dtype)  # (E, K, F), (E, K, 1)
+        ag, aw = _row_amaxes(tp, g, w)
+        qg, sg = _quant(g, g_dtype, ag)  # (E, N, F), (E, N, 1)
+        qw, sw = _quant(w, w_dtype, aw)  # (E, K, F), (E, K, 1)
         acc = _expert_gemm(qg, qw, "dgrad")
         return acc.float() * sg * sw.transpose(1, 2)
 
@@ -332,13 +359,13 @@ _EXPERT_MATMULS = {"int8": int8_expert_matmul, "int8_dgrad": int8_expert_matmul_
                    "fp8": fp8_expert_matmul, "fp8_dgrad": fp8_expert_matmul_dgrad}
 
 
-def expert_matmul(x, w, *, quant: str = "none"):
+def expert_matmul(x, w, *, quant: str = "none", tp=None, split=None):
     """The MoE expert GEMM x (E, N, K) @ w (E, K, F), the modes of
     :func:`matmul`."""
     if quant == "none":
         return torch.bmm(x, w)
     check_quant_mode(quant)
-    return _EXPERT_MATMULS[quant](x, w)
+    return _EXPERT_MATMULS[quant](x, w, tp, split)
 
 
 # ---------------------------------------------------------------------------

@@ -36,7 +36,12 @@ caller; neither stands in for the other:
   JAX's one-host virtual mesh); a rotation is a list rotation. The CPU op
   tests and the one-card ``chip_smoke.py`` use it.
 
-The tensor axis (JAX's head split) is ROADMAP.md A.6b.
+With a tensor axis beside the context axis the ring runs on each
+rank's heads, as JAX's splits them over ``tensor``
+(``ops/ring_attention.py:141-150``): the caller projects this rank's
+heads (``ops/attention.py::project_qkv``) under the same GQA guard, so
+where the query and KV head counts do not both divide the tensor extent
+every rank runs the ring over all heads.
 """
 
 from typing import List, Optional, Sequence

@@ -16,19 +16,27 @@ one 6-axis ``DeviceMesh`` with JAX's axis names:
         when the world spans hosts, else the world), replica = world /
         group (sharded inside a group, replicated across groups).
 
+- tp:   as fsdp, plus the tensor axis (JAX's ``mesh.py:304-309``: the
+        speculator's strategy, the base sharded over the tensor axis and
+        FSDP-style over the rest);
 - context: ``context_parallel_size`` ranks share one data index and each
   holds S / cp of its rows' sequence (ring attention and the
   context-parallel SSD scan exchange across them). With ``tensor`` = 1 it
   is the innermost axis, as in JAX (``mesh.py:274``), so adjacent ranks
-  are context peers.
+  are context peers;
+- tensor: ``tensor_parallel_size`` ranks share one data index and one
+  context chunk, each holding its block of JAX's Megatron layout
+  (``parallel/tensor.py``); the innermost axis, so adjacent ranks are
+  tensor peers. The loader's rank and world stay :func:`data_index` and
+  :func:`data_parallel_extent`: tensor peers read the same rows.
 
 One process drives one device, so a process's slot on the mesh is its
-rank, in row-major order over ``MESH_AXES``. ``dcn``, ``expert`` and
-``tensor`` are built at size 1: :func:`mesh_shape` computes every axis as
-JAX does (the tests hold it to JAX's ``build_mesh``), and
-:func:`build_mesh` refuses one of them above 1 naming the ROADMAP.md item
-that brings it. JAX's HLO collective attribution (``:377-497``) reads XLA
-programs and has no counterpart here.
+rank, in row-major order over ``MESH_AXES``. ``dcn`` and ``expert`` are
+built at size 1: :func:`mesh_shape` computes every axis as JAX does (the
+tests hold it to JAX's ``build_mesh``), and :func:`build_mesh` refuses
+one of them above 1 naming the ROADMAP.md item that brings it. JAX's HLO
+collective attribution (``:377-497``) reads XLA programs and has no
+counterpart here.
 """
 
 import os
@@ -54,13 +62,12 @@ SIM_SLICES_ENV = "FMS_SIM_SLICES"
 _UNPORTED_AXES = {
     AXIS_DCN: "A.6b (multi-slice)",
     AXIS_EXPERT: "A.4b (MoE expert parallelism)",
-    AXIS_TENSOR: "A.6b (tensor parallelism)",
 }
 
 
 @dataclass(frozen=True)
 class MeshConfig:
-    sharding_strategy: str = "hsdp"  # ddp | fsdp | hsdp (| tp: A.6b)
+    sharding_strategy: str = "hsdp"  # ddp | fsdp | hsdp | tp
     sharding_group_size: Optional[int] = None  # fsdp-axis size under hsdp
     tensor_parallel_size: int = 1
     context_parallel_size: int = 1
@@ -192,11 +199,6 @@ def build_mesh(mesh_config: Optional[MeshConfig] = None, *, device_type: str = "
 
     if mesh_config is None:
         mesh_config = MeshConfig(**overrides)
-    if mesh_config.sharding_strategy == "tp":
-        raise NotImplementedError(
-            "sharding_strategy='tp' is not ported yet: ROADMAP.md A.6b "
-            "(tensor parallelism)"
-        )
     world = world_size() if world is None else int(world)
     shape = mesh_shape(mesh_config, world, local_world)
     for axis, item in _UNPORTED_AXES.items():
@@ -236,3 +238,9 @@ def context_index(mesh) -> int:
     """This process's index on the context axis: which S / cp chunk of
     its rows' sequence it holds."""
     return mesh.get_local_rank(AXIS_CONTEXT)
+
+
+def tensor_index(mesh) -> int:
+    """This process's index on the tensor axis: which block of each
+    tensor-split leaf it holds."""
+    return mesh.get_local_rank(AXIS_TENSOR)

@@ -1,5 +1,5 @@
 """Where each leaf of the train state lives on the mesh, and the
-collectives of the data-parallel step.
+collectives of the data- and tensor-parallel step.
 
 Counterpart of ``fms_fsdp_tpu/parallel/sharding.py:35-215``,
 ``fms_fsdp_tpu/models/mamba.py:610`` and
@@ -9,17 +9,22 @@ decide each leaf's placement and :class:`DataParallel` runs the
 collectives by hand:
 
 - a leaf whose spec names ``fsdp`` on a dim the fsdp extent divides
-  (``resolve_spec``'s rule) is split on that dim over the fsdp axis; every
-  other leaf is replicated. Llama's stacked L axis is never split, so
-  ``wq`` (L, d, nq*hd) splits dim 1 and ``wo`` (L, nq*hd, d) dim 2. Adam's
-  moments split as their params (``infer_state_specs``);
+  (``resolve_spec``'s rule) is split on that dim over the fsdp axis, and
+  one that names ``tensor`` on a dim the tensor extent divides is split
+  on that dim over the tensor axis (the Megatron layout: wq, wk, wv, w1
+  and w3 by columns, wo and w2 by rows, the embedding and the lm_head by
+  vocabulary); every other dim is whole. Llama's stacked L axis is never
+  split, so ``wq`` (L, d, nq*hd) splits dim 1 over fsdp and dim 2 over
+  tensor. Adam's moments split as their params (``infer_state_specs``);
 - the train state holds each rank's *local* tensors in JAX's layout, so
   AdamW's elementwise update on them is exact per shard. For a checkpoint
   :meth:`DataParallel.dcp_view` wraps them, without a copy, as
   ``DTensor``\\s placed on the mesh, and DCP writes per-rank shards and
   reshards on load;
 - the forward gathers one layer at a time over fsdp, in the compute
-  dtype, when it reaches the layer (:class:`GatheredLayers`); a gathered
+  dtype, when it reaches the layer (:class:`GatheredLayers`): that yields
+  the layer's tensor block, which the forward's Megatron operators take
+  (``parallel/tensor.py``, :attr:`DataParallel.tp`); a gathered
   weight that autograd saves for the backward is kept as a handle and
   gathered again when the backward needs it
   (:meth:`DataParallel.release_saved`), so no layer's full weights live
@@ -29,18 +34,22 @@ collectives by hand:
   recomputed forward instead), none under ddp;
 - gradients are reduce-scattered over fsdp (in the gather's backward),
   all-reduced over ``replica`` under hsdp and over ``context`` (the
-  ranks that hold parts of the same rows' sequence), and a replicated
-  leaf's are all-reduced over the world. Every reduce is a SUM: each
-  rank's loss is its summed token loss over the GLOBAL count of labels
-  != -100. :attr:`DataParallel.ring` is the context exchange the forward
-  runs (``ops/ring_attention.py::GroupRing``), None without a context
-  axis.
+  ranks that hold parts of the same rows' sequence), and a leaf not split
+  over fsdp has its gradients all-reduced over the data group: the world
+  but the tensor axis (tensor peers train the same rows, so a sum over
+  them would count each row tp times). Every reduce is a SUM: each rank's loss is its summed token
+  loss over the GLOBAL count of labels != -100, counted over the data
+  group, and the loss and the MoE route sums are summed over it too.
+  The gradient norm adds a leaf's squares over each axis that splits
+  it, once. :attr:`DataParallel.ring` is the context exchange the
+  forward runs (``ops/ring_attention.py::GroupRing``), None without a
+  context axis.
 
 The quantized gradient reduce (``:215-292``): :func:`quant_leaf_key`,
 :func:`init_amax_state` and :func:`quantized_grad_reduce`, on the
 reduced gradients of the step's per-layer leaves. The serving layout
 (``:309-405``) is not ported: ``serve_layout`` stays refused in
-``serve/engine.py``, naming ROADMAP.md A.10.
+``serve/engine.py``, naming ROADMAP.md A.6b.
 """
 
 import math
@@ -241,18 +250,20 @@ def infer_state_specs(state_paths, specs, params_subtree: str = "params") -> Dic
     return out
 
 
-def shard_dims(params, specs, mesh_shape: Dict[str, int]) -> Dict[str, Optional[int]]:
-    """{"params.<path>": the dim split over fsdp, or None (replicated)}
-    for every param leaf."""
+def shard_dims(params, specs, mesh_shape: Dict[str, int],
+               axis: str = AXIS_FSDP) -> Dict[str, Optional[int]]:
+    """{"params.<path>": the dim split over ``axis`` (fsdp or tensor), or
+    None (whole over it)} for every param leaf, through
+    :func:`resolve_spec`: a dim the axis does not divide stays whole."""
     spec_of = {path: spec for path, spec in _paths(specs)}
     out = {}
     for path, leaf in _paths(params):
         spec = resolve_spec(spec_of[path], tuple(leaf.shape), mesh_shape)
         dim = None
-        if mesh_shape.get(AXIS_FSDP, 1) > 1:
+        if mesh_shape.get(axis, 1) > 1:
             for i, entry in enumerate(spec):
                 axes = entry if isinstance(entry, tuple) else (entry,)
-                if AXIS_FSDP in axes:
+                if axis in axes:
                     dim = i
         out["params." + ".".join(path)] = dim
     return out
@@ -296,11 +307,13 @@ def init_amax_state(params, history_len: int) -> Dict:
 class QuantLeaf(NamedTuple):
     """One differentiated leaf as the reduce wire sees it: its JAX key,
     the JAX leaf's rank (a stacked leaf's is its own plus one), and the
-    dim of this leaf split over fsdp (None when whole here)."""
+    dims of this leaf split over fsdp and over tensor (None when whole
+    here)."""
 
     key: str
     ndim: int
     split: Optional[int]
+    tsplit: Optional[int] = None
 
 
 def _all_max(values: List[torch.Tensor], group) -> List[torch.Tensor]:
@@ -331,7 +344,9 @@ def quantized_grad_reduce(grads: Sequence[torch.Tensor], mode: str, quant_state=
       do not see the stacking;
     - a row split over fsdp (a leaf split on its last dim: wo, w2,
       out_proj, the embedding; or a vector split at all) takes the whole
-      row's amax, all-reduced (MAX) over the fsdp group of ``dp``; under
+      row's amax, all-reduced (MAX) over the fsdp group of ``dp``, and a
+      row split over tensor (a leaf split on its last dim there: wq, w1,
+      the lm_head, in_proj; or a vector) over its tensor group; under
       fp8_delayed every split leaf's amax is. ``dp=None`` keeps each
       amax local."""
     from fms_fsdp_tpu_torch.ops.quant import (
@@ -343,18 +358,25 @@ def quantized_grad_reduce(grads: Sequence[torch.Tensor], mode: str, quant_state=
         wire_roundtrip,
     )
 
-    group = dp.fsdp_group if dp is not None and dp.sharded else None
+    group = dp.fsdp_group if dp is not None else None
+    tp = dp.tp if dp is not None else None
     if mode in ("int8", "fp8"):
-        amaxes, need = [], []
+        amaxes, need, tneed = [], [], []
         for i, (g, leaf) in enumerate(zip(grads, leaves)):
             dims = wire_dims(g, leaf.ndim)
             amaxes.append(absmax(g, dims))
-            # a scale over a dim split across the fsdp group: the whole one's
+            # a scale over a dim split across the fsdp or the tensor
+            # group: the whole one's
             spanned = (g.dim() - 1,) if dims == -1 else dims
             if group is not None and leaf.split in spanned:
                 need.append(i)
+            if tp is not None and leaf.tsplit in spanned:
+                tneed.append(i)
         if need:
             for i, a in zip(need, _all_max([amaxes[i] for i in need], group)):
+                amaxes[i] = a
+        if tneed:
+            for i, a in zip(tneed, tp.all_max([amaxes[i] for i in tneed])):
                 amaxes[i] = a
         return [wire_roundtrip(g, mode, amax=a, ndim=leaf.ndim)
                 for g, a, leaf in zip(grads, amaxes, leaves)], quant_state
@@ -362,16 +384,22 @@ def quantized_grad_reduce(grads: Sequence[torch.Tensor], mode: str, quant_state=
         raise ValueError(f"unknown quantized_reduce mode: {mode!r}")
     history = quant_state["amax_history"]
     current: Dict[str, torch.Tensor] = {}
-    split_keys = set()
+    split_keys, tsplit_keys = set(), set()
     for g, leaf in zip(grads, leaves):
         amax = leaf_amax(g)
         current[leaf.key] = amax if leaf.key not in current else torch.maximum(
             current[leaf.key], amax)
         if group is not None and leaf.split is not None:
             split_keys.add(leaf.key)
+        if tp is not None and leaf.tsplit is not None:
+            tsplit_keys.add(leaf.key)
     if split_keys:
         keys = sorted(split_keys)
         for key, a in zip(keys, _all_max([current[k] for k in keys], group)):
+            current[key] = a
+    if tsplit_keys:
+        keys = sorted(tsplit_keys)
+        for key, a in zip(keys, tp.all_max([current[k] for k in keys])):
             current[key] = a
     scales = {key: delayed_scale(history[key], amax) for key, amax in current.items()}
     out = [wire_roundtrip(g, "fp8_delayed", scale=scales[leaf.key])
@@ -435,17 +463,18 @@ class _Gather(torch.autograd.Function):
 
 
 class _SumOverWorld(torch.autograd.Function):
-    """All-reduce (sum) whose backward is the identity on each rank."""
+    """All-reduce (sum) over ``group`` whose backward is the identity on
+    each rank."""
 
     @staticmethod
-    def forward(ctx, t):
+    def forward(ctx, t, group):
         out = t.detach().clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        return grad
+        return grad, None
 
 
 _HANDLE = object()
@@ -498,28 +527,39 @@ class GatheredLayers:
 
 
 class DataParallel:
-    """The data-parallel layout of one run: the mesh, the fsdp/replica
-    process groups, and the split dim of every param leaf."""
+    """The parallel layout of one run: the mesh, the fsdp / replica /
+    tensor / data process groups, and the split dims of every param leaf
+    over fsdp (``dims``) and over tensor (``tdims``)."""
 
-    def __init__(self, mesh, dims: Dict[str, Optional[int]], shapes: Dict[str, Tuple]):
+    def __init__(self, mesh, dims: Dict[str, Optional[int]], shapes: Dict[str, Tuple],
+                 tdims: Optional[Dict[str, Optional[int]]] = None):
         self.mesh = mesh
         sizes = axis_sizes(mesh)
         self.fsdp = sizes[AXIS_FSDP]
         self.replica = sizes[AXIS_REPLICA]
+        self.tensor = sizes[AXIS_TENSOR]
         self.world = dist.get_world_size()
         self.fsdp_rank = mesh.get_local_rank(AXIS_FSDP)
         self.replica_rank = mesh.get_local_rank(AXIS_REPLICA)
+        self.tensor_rank = mesh.get_local_rank(AXIS_TENSOR)
         self.fsdp_group = mesh.get_group(AXIS_FSDP) if self.fsdp > 1 else None
         self.replica_group = mesh.get_group(AXIS_REPLICA) if self.replica > 1 else None
         from fms_fsdp_tpu_torch.ops.ring_attention import context_ring
+        from fms_fsdp_tpu_torch.parallel.tensor import tensor_groups
 
         self.ring = context_ring(mesh)
         self.context_group = self.ring.group if self.ring is not None else None
+        # the Megatron operators' group, and the ranks of this tensor index
+        # (every axis but tensor); both None without a tensor axis, where
+        # the data group is the world
+        self.tp, self.data_group = tensor_groups(mesh)
+        self.data_world = self.world // self.tensor
         self.dims = dict(dims)
+        self.tdims = dict(tdims or {})
         self.shapes = dict(shapes)
         # the host snapshots' mesh, made here on every rank in one order
         # (its groups' creation is collective), never from a writer thread
-        self.host_mesh = self._make_host_mesh() if self.fsdp > 1 else None
+        self.host_mesh = self._make_host_mesh() if self.sharded else None
 
     @classmethod
     def for_params(cls, mesh, params, model_cfg):
@@ -527,17 +567,30 @@ class DataParallel:
         from fms_fsdp_tpu_torch.ckpt.state import flatten
 
         flat = flatten("params", params, {})
-        return cls(mesh, shard_dims(params, param_specs(model_cfg), shape),
-                   {k: tuple(v.shape) for k, v in flat.items()})
+        specs = param_specs(model_cfg)
+        return cls(mesh, shard_dims(params, specs, shape),
+                   {k: tuple(v.shape) for k, v in flat.items()},
+                   shard_dims(params, specs, shape, AXIS_TENSOR))
 
     @property
     def sharded(self) -> bool:
+        """Whether a leaf is split across ranks (over fsdp or tensor)."""
+        return self.fsdp > 1 or self.tensor > 1
+
+    @property
+    def gathers(self) -> bool:
+        """Whether the step gathers layers over fsdp."""
         return self.fsdp > 1
 
     def dim_of(self, key: str) -> Optional[int]:
         return self.dims.get(param_key(key)) if self.fsdp > 1 else None
 
+    def tdim_of(self, key: str) -> Optional[int]:
+        return self.tdims.get(param_key(key)) if self.tensor > 1 else None
+
     def full_shape(self, local: torch.Tensor, dim: Optional[int]):
+        """The shape a gather over fsdp makes of ``local``: the tensor
+        block, not the whole leaf."""
         shape = list(local.shape)
         if dim is not None:
             shape[dim] *= self.fsdp
@@ -547,22 +600,31 @@ class DataParallel:
 
     def shard(self, flat: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """{key: whole tensor} -> {key: this rank's part} (a contiguous
-        copy of each split leaf; replicated leaves as they are)."""
+        copy of each split leaf: its tensor block, then its fsdp part of
+        that; whole leaves as they are)."""
         out = {}
         for key, t in flat.items():
-            d = self.dim_of(key)
-            out[key] = t if d is None else (
-                t.chunk(self.fsdp, dim=d)[self.fsdp_rank].clone(
-                    memory_format=torch.contiguous_format))
+            d, td = self.dim_of(key), self.tdim_of(key)
+            if td is not None:
+                t = t.chunk(self.tensor, dim=td)[self.tensor_rank]
+            if d is not None:
+                t = t.chunk(self.fsdp, dim=d)[self.fsdp_rank]
+            out[key] = t if d is None and td is None else t.clone(
+                memory_format=torch.contiguous_format)
         return out
 
     def unshard(self, flat: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """{key: local part} -> {key: whole tensor} (an all-gather per
-        split leaf; every rank gets the whole)."""
+        """{key: local part} -> {key: whole tensor} (an all-gather over
+        fsdp and one over tensor per split leaf; every rank gets the
+        whole)."""
         out = {}
         for key, t in flat.items():
-            d = self.dim_of(key)
-            out[key] = t if d is None else self.all_gather([t], [d], None)[0]
+            d, td = self.dim_of(key), self.tdim_of(key)
+            if d is not None:
+                t = self.all_gather([t], [d], None)[0]
+            if td is not None:
+                t = self.tp.all_gather(t, td)
+            out[key] = t
         return out
 
     def _make_host_mesh(self):
@@ -578,19 +640,26 @@ class DataParallel:
 
     def dcp_view(self, flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         """``flat`` (local parts) with every split leaf wrapped, without a
-        copy, as a ``DTensor`` over the mesh: what DCP saves and loads."""
+        copy, as a ``DTensor`` over the mesh, sharded on the fsdp and the
+        tensor mesh dims that split it: what DCP saves and loads."""
         from torch.distributed.tensor import DTensor, Replicate, Shard
 
         out = {}
         for key, t in flat.items():
-            d = self.dim_of(key)
-            if d is None:
+            d, td = self.dim_of(key), self.tdim_of(key)
+            if d is None and td is None:
                 out[key] = t
                 continue
             mesh = self.mesh if t.device.type == self.mesh.device_type else self.host_mesh
             placements = [Replicate()] * len(MESH_AXES)
-            placements[MESH_AXES.index(AXIS_FSDP)] = Shard(d)
-            shape = torch.Size(self.full_shape(t, d))
+            shape = list(t.shape)
+            if d is not None:
+                placements[MESH_AXES.index(AXIS_FSDP)] = Shard(d)
+                shape[d] *= self.fsdp
+            if td is not None:
+                placements[MESH_AXES.index(AXIS_TENSOR)] = Shard(td)
+                shape[td] *= self.tensor
+            shape = torch.Size(shape)
             stride = torch.empty(shape, device="meta").stride()  # contiguous
             out[key] = DTensor.from_local(t, mesh, placements, run_check=False,
                                           shape=shape, stride=stride)
@@ -685,55 +754,66 @@ class DataParallel:
 
     def global_count(self, labels: torch.Tensor, ignore_index: int = -100) -> torch.Tensor:
         """The number of labels != ``ignore_index`` over the global batch
-        (at least 1), as an fp32 tensor on the labels' device."""
+        (at least 1), as an fp32 tensor on the labels' device: summed over
+        the data group, so tensor peers' shared rows count once."""
         n = (labels != ignore_index).sum().to(torch.float32).reshape(1)
-        dist.all_reduce(n)
+        dist.all_reduce(n, group=self.data_group)
         return n.clamp(min=1)[0]
 
     def sum_route(self, route: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """A MoE forward's routing sums (``models/mixtral.py``) summed over
-        the world: the counts in one all-reduce without gradient, the
+        the data group: the counts in one all-reduce without gradient, the
         router probabilities' sums through :class:`_SumOverWorld`, whose
         backward hands each rank the gradient of the global sum as its
         own share's (every rank forms the same global loss term, and the
         ranks' gradients are summed)."""
         names = ("counts", "kept", "tokens")
         flat = torch.cat([route[k].detach().reshape(-1).float() for k in names])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=self.data_group)
         out, off = {}, 0
         for k in names:
             n = route[k].numel()
             out[k] = flat[off:off + n].view(route[k].shape)
             off += n
-        out["probs"] = _SumOverWorld.apply(route["probs"])
+        out["probs"] = _SumOverWorld.apply(route["probs"], self.data_group)
         return out
 
     def sum_over_world(self, value: torch.Tensor) -> torch.Tensor:
+        """``value`` summed over the data group (each tensor peer holds the
+        same value)."""
         out = value.detach().clone().reshape(1)
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=self.data_group)
         return out[0]
 
     def reduce_grads(self, grads, split) -> None:
-        """After the backward: sum over the world what is still per rank
-        (``split[i]``: grads[i] was reduce-scattered over fsdp)."""
+        """After the backward: sum over the data group what is still per
+        rank (``split[i]``: grads[i] was reduce-scattered over fsdp)."""
         whole = [g for g, s in zip(grads, split) if not s]
         parts = [g for g, s in zip(grads, split) if s]
-        if whole and self.world > 1:
-            self.all_reduce(whole, None)
+        if whole and self.data_world > 1:
+            self.all_reduce(whole, self.data_group)
         if parts and self.replica_group is not None:
             self.all_reduce(parts, self.replica_group)
         if parts and self.context_group is not None:
             self.all_reduce(parts, self.context_group)
 
-    def grad_norm(self, grads, split) -> torch.Tensor:
-        """The global gradient norm (fp32): each split leaf's local squares
-        summed over fsdp, each replicated leaf's counted once."""
+    def grad_norm(self, grads, split, tsplit=None) -> torch.Tensor:
+        """The global gradient norm (fp32): each leaf's local squares
+        summed over the axes that split it (``split``: fsdp, ``tsplit``:
+        tensor), a whole leaf's counted once."""
+        tsplit = tsplit if tsplit is not None else [False] * len(grads)
         sq = [torch.linalg.vector_norm(g, dtype=torch.float32) ** 2 for g in grads]
         dev = grads[0].device
-        parts = torch.stack([s for s, f in zip(sq, split) if f] or
-                            [torch.zeros((), device=dev)]).sum().reshape(1)
-        whole = torch.stack([s for s, f in zip(sq, split) if not f] or
-                            [torch.zeros((), device=dev)]).sum()
+
+        def total(f, t):
+            return torch.stack([s for s, a, b in zip(sq, split, tsplit) if (a, b) == (f, t)]
+                               or [torch.zeros((), device=dev)]).sum()
+
+        # [fsdp only, fsdp and tensor] over fsdp; [tensor only, both] over tensor
+        fsdp = torch.stack([total(True, False), total(True, True)])
         if self.fsdp_group is not None:
-            dist.all_reduce(parts, group=self.fsdp_group)
-        return torch.sqrt(parts[0] + whole)
+            dist.all_reduce(fsdp, group=self.fsdp_group)
+        tensor = torch.stack([total(False, True), fsdp[1]])
+        if self.tp is not None:
+            dist.all_reduce(tensor, group=self.tp.group)
+        return torch.sqrt(fsdp[0] + tensor.sum() + total(False, False))

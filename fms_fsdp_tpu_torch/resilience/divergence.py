@@ -10,9 +10,9 @@ the same. At report cadence, every ``divergence_check_interval`` steps:
 
 - each rank computes a **whole-state checksum**: every leaf of the train
   state (params, Adam's moments and count, the step) as its bits, summed
-  mod 2^32. The parts split over fsdp are summed over the fsdp group, the
-  whole leaves counted as the rank holds them, so the number is a
-  replica's answer, recomputed by each rank of it;
+  mod 2^32. The parts split over fsdp or tensor are summed over the
+  replica's ranks, the whole leaves counted as the rank holds them, so
+  the number is a replica's answer, recomputed by each rank of it;
 - the rows ``[rank, replica index, digest of the last window's loss and
   gradient norm, checksum parts]`` cross the world in one fixed-shape
   int64 all-gather on the gloo group beside the step's;
@@ -94,13 +94,13 @@ def leaf_checksum(t: torch.Tensor) -> int:
 
 
 def state_checksum_parts(state) -> Tuple[int, int]:
-    """(sum over the leaves split over fsdp, sum over the whole leaves),
-    each mod 2^32, of this rank's train state."""
+    """(sum over the leaves split over fsdp or tensor, sum over the whole
+    leaves), each mod 2^32, of this rank's train state."""
     dp = state.get("dp")
     split = whole = 0
     for key, t in checkpoint_state(state).items():
         c = leaf_checksum(t)
-        if dp is not None and dp.dim_of(key) is not None:
+        if dp is not None and (dp.dim_of(key) is not None or dp.tdim_of(key) is not None):
             split = (split + c) & 0xFFFFFFFF
         else:
             whole = (whole + c) & 0xFFFFFFFF

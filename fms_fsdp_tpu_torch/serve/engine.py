@@ -119,9 +119,10 @@ def _check_supported(scfg: ServeConfig) -> None:
         )
     if scfg.serve_layout:
         raise NotImplementedError(
-            f"serve_layout={scfg.serve_layout!r}: sharded replicas need "
-            f"tensor parallelism, which is not ported yet (ROADMAP.md "
-            f"A.6b); run single-card"
+            f"serve_layout={scfg.serve_layout!r}: a serving replica over a "
+            f"tensor-parallel mesh is not ported yet (ROADMAP.md A.6b, the "
+            f"serving layout; tensor parallelism runs in training); run "
+            f"single-card"
         )
 
 

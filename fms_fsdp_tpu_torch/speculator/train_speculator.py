@@ -20,7 +20,9 @@ The frozen base comes from one of three sources:
 
 In the last two the model config comes from ``model_variant`` (Llama) or
 those defaults, with the dotted overrides (``--GPTBigCodeConfig.nlayers``)
-applied. The base's params are bf16 on the device in every case.
+applied. The base's params are bf16 on the device in the last two,
+or fp32 with ``mixed_precision=False`` (JAX's entry reads no dtype
+setting and always runs bf16; ``train/speculator.py::base_dtype``).
 
 On a card, at llama3_8b width and depth:
 
@@ -40,6 +42,13 @@ and on the CPU with a TINY base (``--device=cpu``):
         --seq_length=64 --num_steps=4 --stage2_start_step=2 \\
         --stage2_batch_size=4 --stage2_prompt_length=8 \\
         --stage2_seq_length=16 --report_interval=1 --ckpt_save_path=CK
+
+Under ``torchrun`` each rank trains its own rows; with
+``--sharding_strategy=tp --tp_size=T`` (JAX's ``"tp"`` strategy) T
+adjacent ranks form the base's tensor group: each holds its blocks of
+the Llama or Mixtral base (``parallel/tensor.py``), the group reads one
+data index's rows, and the speculator's averages run over the data
+ranks (``train/speculator.py``).
 
 ``seq_length`` grows by ``n_speculator_heads + 1`` (room for every
 head's ground truth). ``main`` writes a final checkpoint at
@@ -67,9 +76,21 @@ from fms_fsdp_tpu_torch.models.gpt_bigcode import GPTBigCodeConfig
 from fms_fsdp_tpu_torch.models.hf_import import is_hf_checkpoint, load_hf_base
 from fms_fsdp_tpu_torch.models.speculator import SpeculatorConfig, init_speculator_params
 from fms_fsdp_tpu_torch.obs import build_observer
+from fms_fsdp_tpu_torch.parallel.mesh import (
+    MeshConfig,
+    axis_sizes,
+    build_mesh,
+    data_index,
+    data_parallel_extent,
+    tensor_index,
+)
+from fms_fsdp_tpu_torch.parallel.sharding import param_specs, shard_dims
+from fms_fsdp_tpu_torch.parallel.tensor import tensor_groups
 from fms_fsdp_tpu_torch.resilience.exits import classified_exit
 from fms_fsdp_tpu_torch.train.speculator import (
     base_device,
+    base_dtype,
+    base_tensor_size,
     check_speculator_options,
     speculator_state,
     train_speculator,
@@ -82,7 +103,7 @@ from fms_fsdp_tpu_torch.utils.train_utils import get_profiler
 from fms_fsdp_tpu_torch.utils.tree import tree_map
 
 
-def test_model(rank, base_params, model_cfg, base_api):
+def test_model(rank, base_params, model_cfg, base_api, tp=None):
     """Sanity generation on the loaded base
     (ref:speculator/train_speculator.py:34-60 analog)."""
     device = base_device(base_params)
@@ -90,6 +111,7 @@ def test_model(rank, base_params, model_cfg, base_api):
     out = base_api.generate(
         base_params, prompt, model_cfg, generator=None, max_seq_len=64,
         max_new_tokens=8, do_sample=False, include_embeds=False,
+        **({} if tp is None else {"tp": tp}),
     )
     if rank == 0:
         print(f"{time.time()} sanity generation:", np.asarray(out[0, -8:].cpu()))
@@ -113,22 +135,36 @@ def load_hf(cfg, base_api, device, rank):
 
 
 def load_base(cfg, base_api, model_cfg, device, rank):
-    """The frozen base params in bf16 on ``device`` from a native
-    checkpoint at ``model_path``, else a random init (module docstring)."""
+    """The frozen base params in ``base_dtype(cfg)`` on ``device`` from a
+    native checkpoint at ``model_path``, else a random init (module
+    docstring)."""
+    dtype = base_dtype(cfg)
     if cfg.model_path and os.path.exists(cfg.model_path):
         from fms_fsdp_tpu_torch.utils.checkpointing import load_params_only
 
         params = load_params_only(cfg.model_path)
         if rank == 0:
             print(f"{time.time()} base params loaded from {cfg.model_path}")
-        return tree_map(lambda w: w.to(device=device, dtype=torch.bfloat16), params)
+        return tree_map(lambda w: w.to(device=device, dtype=dtype), params)
     if rank == 0:
         print(
             f"No base checkpoint at {cfg.model_path}; using random init "
             "(smoke-test mode)"
         )
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
-    return base_api.init(generator, model_cfg, dtype=torch.bfloat16)
+    return base_api.init(generator, model_cfg, dtype=dtype)
+
+
+def tensor_blocks(base_params, model_cfg, mesh, tp):
+    """This rank's tensor blocks of the whole base (JAX's layout,
+    ``parallel/sharding.py``): each leaf split over ``tensor`` where the
+    tensor extent divides its dim, else whole."""
+    from fms_fsdp_tpu_torch.ckpt.state import flatten, unflatten
+
+    flat = flatten("params", base_params, {})
+    dims = shard_dims(base_params, param_specs(model_cfg), axis_sizes(mesh), "tensor")
+    return unflatten({k: t if dims[k] is None else tp.block(t, dims[k]).contiguous()
+                      for k, t in flat.items()}, "params")
 
 
 def main(device=None, **kwargs):
@@ -148,6 +184,19 @@ def main(device=None, **kwargs):
     rank, world_size = world.rank, world.size
     if rank == 0:
         print(f"{time.time()} running with these configs {cfg}")
+    # the base's tensor group ("tp": tp_size ranks, JAX's
+    # train_speculator.py:88); its ranks read one data index's rows
+    tp = data_group = None
+    data_rank, data_ranks = rank, world_size
+    if base_tensor_size(cfg) > 1:
+        mesh = build_mesh(MeshConfig(sharding_strategy=cfg.sharding_strategy,
+                                     sharding_group_size=cfg.sharding_group_size,
+                                     tensor_parallel_size=base_tensor_size(cfg)),
+                          device_type=device.type, local_world=world.local_size)
+        if rank == 0:
+            print(f"Sharding strategy = {cfg.sharding_strategy}, mesh = {axis_sizes(mesh)}")
+        tp, data_group = tensor_groups(mesh)
+        data_rank, data_ranks = data_index(mesh), data_parallel_extent(mesh)
 
     # the frozen base, from one of three sources (module docstring)
     base_api = get_base_api(cfg.model_arch)
@@ -159,8 +208,12 @@ def main(device=None, **kwargs):
                      "mixtral": MixtralConfig}[base_api.arch]()
         update_config(model_cfg, **kwargs)
         base_params = load_base(cfg, base_api, model_cfg, device, rank)
+    base_tp = None
+    if tp is not None and base_api.arch in ("llama", "mixtral"):
+        base_params = tensor_blocks(base_params, model_cfg, mesh, tp)
+        base_tp = tp
     with torch.no_grad():
-        test_model(rank, base_params, model_cfg, base_api)
+        test_model(rank, base_params, model_cfg, base_api, base_tp)
 
     # the speculator, replicated on every rank (the NO_SHARD analog)
     scfg = SpeculatorConfig.from_train_config(
@@ -173,10 +226,10 @@ def main(device=None, **kwargs):
 
     # raw packed sequences, no causal shift
     if not cfg.use_dummy_dataset:
-        loader = get_data_loader(cfg, rank, world_size, postprocess=[])
+        loader = get_data_loader(cfg, data_rank, data_ranks, postprocess=[])
         ckpt_loader = loader
     else:
-        loader = get_dummy_loader(cfg, rank, world_size)
+        loader = get_dummy_loader(cfg, data_rank, data_ranks)
         ckpt_loader = None
     observer = build_observer(cfg, rank, device=device)
     feed = DeviceFeed(_as_batches(rebatch(loader, cfg.batch_size, cfg.batch_size)),
@@ -202,8 +255,10 @@ def main(device=None, **kwargs):
         summary = train_speculator(
             cfg, base_params, model_cfg, spec_state, scfg, rank, batches,
             checkpointer, start_step, tokens_seen, profiler,
-            ckpt_loader=ckpt_loader, base_api=base_api, observer=observer,
-            device=device,
+            # tensor peers hold the same loader state: index 0 writes it
+            ckpt_loader=ckpt_loader if tp is None or tensor_index(mesh) == 0 else None,
+            base_api=base_api, observer=observer, device=device,
+            tp=base_tp, data_group=data_group,
         )
     finally:
         if profiler:

@@ -24,11 +24,18 @@ layout, so a checkpoint holds it under JAX's tree paths
 (``ckpt/state.py``). ``_apply`` clips by the fp32 global norm and sets
 the learning rate from the schedule at the state's own step.
 
-Across processes the base stays whole on every rank and the speculator
-is replicated; each rank's gradients and per-head losses are averaged
-over the world before the clip, so the step is that of the mean over
-the global batch, as JAX's loss is. Tensor parallelism of the base
-(``sharding_strategy="tp"``) is ROADMAP.md A.6b.
+Across processes the speculator is replicated; each rank's gradients
+and per-head losses are averaged over the data ranks before the clip, so
+the step is that of the mean over the global batch, as JAX's loss is.
+The base stays whole on every rank, except under
+``sharding_strategy="tp"`` (JAX's ``speculator/train_speculator.py:88``):
+then ``tp_size`` adjacent ranks form a tensor group, each holds its
+blocks of the Llama or Mixtral base's Megatron layout and runs the
+frozen forward and the generation through ``tp``
+(``parallel/tensor.py``), the ranks of a tensor group train the same
+rows, and the averages run over the data group (the world but the
+tensor axis). A GPTBigCode base has no tensor layout in the port's spec
+trees and stays whole on every rank.
 """
 
 import logging
@@ -103,18 +110,29 @@ def base_device(base_params) -> torch.device:
 
 
 def check_speculator_options(cfg) -> None:
-    """Tensor parallelism of the frozen base is ROADMAP.md A.6b (JAX reads
-    ``tp_size`` only under ``sharding_strategy="tp"``, and so does this).
-    ``context_parallel_size`` is taken: the speculator has no context axis
-    (JAX's mesh has none either) and the setting only divides the
-    report's per-chip world (:func:`report_chips`)."""
-    if cfg.sharding_strategy == "tp" or cfg.tensor_parallel_size > 1:
-        raise NotImplementedError(
-            f"sharding_strategy={cfg.sharding_strategy!r} (tp_size="
-            f"{cfg.tp_size}) shards the frozen base over tensor-parallel "
-            f"heads, which is not ported yet: ROADMAP.md A.6b (tensor "
-            f"parallelism)"
-        )
+    """The base's tensor group: ``tp_size`` ranks under
+    ``sharding_strategy="tp"`` (JAX reads ``tp_size`` only then, and so
+    does this; :func:`base_tensor_size`), at least one.
+    ``tensor_parallel_size`` and ``context_parallel_size`` are taken: the
+    speculator's mesh has no context axis and no tensor axis of their
+    sizes (JAX's neither), and the settings only divide the report's
+    per-chip world (:func:`report_chips`)."""
+    if base_tensor_size(cfg) < 1:
+        raise ValueError(f"tp_size={cfg.tp_size}: the base's tensor group needs a rank")
+
+
+def base_dtype(cfg) -> torch.dtype:
+    """The frozen base's dtype: bf16, JAX's always; fp32 with
+    ``mixed_precision=False`` (a setting JAX's speculator entry does not
+    read), which the tensor group's fp32 parity tests run."""
+    return torch.bfloat16 if cfg.mixed_precision else torch.float32
+
+
+def base_tensor_size(cfg) -> int:
+    """The ranks of the frozen base's tensor group: ``tp_size`` under
+    ``sharding_strategy="tp"``, else 1 (``speculator/train_speculator.py:
+    88`` in JAX)."""
+    return int(cfg.tp_size) if cfg.sharding_strategy == "tp" else 1
 
 
 def report_chips(cfg, world: int) -> int:
@@ -223,22 +241,31 @@ def stage2_loss(spec_params, targs, embeds, scfg: SpeculatorConfig, s2_seq: int)
     return _per_head_ce(logits, lambda i: targs[:, i + 1:n + i + 1])
 
 
-def _grads(state, loss_fn):
+def data_world(data_group=None) -> int:
+    """The data ranks: ``data_group``'s size, the world without one."""
+    if data_group is None:
+        return world_size()
+    return torch.distributed.get_world_size(data_group)
+
+
+def _grads(state, loss_fn, data_group=None):
     """(loss, per-head, grads) of ``loss_fn(params)`` over detached
-    aliases of the speculator's leaves, averaged over the world."""
+    aliases of the speculator's leaves, averaged over the data ranks
+    (``data_group``: the world but the base's tensor group; None: the
+    world)."""
     flat = flatten("params", state["params"], {})
     leaves = [t.detach().requires_grad_(True) for t in flat.values()]
     params = unflatten(dict(zip(flat, leaves)), "params")
     loss, per_head = loss_fn(params)
     grads = torch.autograd.grad(loss, leaves)
     per_head = per_head.detach()
-    world = world_size()
+    world = data_world(data_group)
     if world > 1:
         dist = torch.distributed
         for g in grads:
-            dist.all_reduce(g)
+            dist.all_reduce(g, group=data_group)
             g.div_(world)
-        dist.all_reduce(per_head)
+        dist.all_reduce(per_head, group=data_group)
         per_head.div_(world)
     return per_head.sum(), per_head, grads
 
@@ -262,12 +289,18 @@ def _apply(state, grads, schedule, loss, per_head, clip_thresh=1.0):
     return state, {"loss": loss.detach(), "per_head": per_head, "gnorm": gnorm, "lr": lr}
 
 
+def _tp_kw(tp):
+    return {} if tp is None else {"tp": tp}
+
+
 def make_stage1_step(base_params, model_cfg, scfg: SpeculatorConfig, cfg,
-                     base_api=None):
+                     base_api=None, tp=None, data_group=None):
     """(spec_state, inputs (B, L)) -> (spec_state, metrics)
     (ref:train_speculator_utils.py:122-171). The base's hidden states
     over inputs[:, :-n-1] come from the frozen forward through
-    ``cfg.attention_kernel`` (the flash kernels on the card)."""
+    ``cfg.attention_kernel`` (the flash kernels on the card); under a
+    tensor group ``tp`` the base holds this rank's blocks (module
+    docstring) and the averages run over ``data_group``."""
     base_api = base_api or get_base_api("embedllama")
     check_speculator_options(cfg)
     quant = _frozen_quant(cfg, base_api.arch)
@@ -279,9 +312,10 @@ def make_stage1_step(base_params, model_cfg, scfg: SpeculatorConfig, cfg,
             embeds = base_api.forward_hidden(
                 base_params, inputs[:, :-n_predict - 1], model_cfg,
                 attn_impl=cfg.attention_kernel, quant=quant,
+                compute_dtype=base_dtype(cfg), **_tp_kw(tp),
             )
         loss, per_head, grads = _grads(
-            state, lambda p: stage1_loss(p, embeds, inputs, scfg))
+            state, lambda p: stage1_loss(p, embeds, inputs, scfg), data_group)
         del embeds
         return _apply(state, grads, schedule, loss, per_head, cfg.grad_clip_thresh)
 
@@ -289,7 +323,7 @@ def make_stage1_step(base_params, model_cfg, scfg: SpeculatorConfig, cfg,
 
 
 def make_stage2_step(base_params, model_cfg, scfg: SpeculatorConfig, cfg,
-                     base_api=None):
+                     base_api=None, tp=None, data_group=None):
     """(spec_state, inputs, generator) -> (spec_state, metrics): the base
     generates stage2_seq_length tokens from stage2_prompt_length prompts
     (the batch reshaped to stage2_batch_size rows) and the speculator
@@ -309,10 +343,10 @@ def make_stage2_step(base_params, model_cfg, scfg: SpeculatorConfig, cfg,
             targs, embeds = base_api.generate(
                 base_params, prompts, model_cfg, generator=generator,
                 max_seq_len=s2_prompt + s2_seq, max_new_tokens=s2_seq,
-                do_sample=True, include_embeds=True,
+                do_sample=True, include_embeds=True, **_tp_kw(tp),
             )
         loss, per_head, grads = _grads(
-            state, lambda p: stage2_loss(p, targs, embeds, scfg, s2_seq))
+            state, lambda p: stage2_loss(p, targs, embeds, scfg, s2_seq), data_group)
         return _apply(state, grads, schedule, loss, per_head, cfg.grad_clip_thresh)
 
     return step
@@ -348,6 +382,8 @@ def train_speculator(
     base_api=None,
     observer=None,
     device=None,
+    tp=None,
+    data_group=None,
 ) -> Dict:
     """The speculator host loop with the reference's report and
     checkpoint cadence (ref:train_speculator_utils.py:263-427).
@@ -355,19 +391,22 @@ def train_speculator(
     ``ckpt_loader`` is the stateful loader whose state rides each
     checkpoint. The observer's records carry ``loss_head_<i>`` in
     ``extra`` and null MFU/HFU (the wall time is the frozen base's).
+    ``tp`` and ``data_group``: the base's tensor group and the data ranks'
+    group (module docstring), None without a tensor group.
     Returns {"state", "reports": one dict per report window, "steps"}."""
     from fms_fsdp_tpu_torch.obs import build_observer
     from fms_fsdp_tpu_torch.utils.train_utils import PreemptionGuard
 
     base_api = base_api or get_base_api("embedllama")
     device = torch.device(device) if device is not None else base_device(base_params)
-    stage1 = make_stage1_step(base_params, model_cfg, scfg, cfg, base_api)
+    stage1 = make_stage1_step(base_params, model_cfg, scfg, cfg, base_api, tp, data_group)
     stage2 = None  # built when stage 2 starts: its batch constraints apply then
     generator = torch.Generator(device=device).manual_seed(cfg.seed + 17)
     if ckpt_loader is None and hasattr(train_loader, "save_to_path"):
         ckpt_loader = train_loader
     world = world_size()
     chips = report_chips(cfg, world)
+    data_ranks = data_world(data_group)
 
     if observer is None:
         observer = build_observer(cfg, rank, device=device)
@@ -399,14 +438,14 @@ def train_speculator(
             with observer.phase("compute"):
                 if batch_idx <= cfg.stage2_start_step:
                     spec_state, metrics = stage1(spec_state, inputs)
-                    step_tok = inputs.numel() * world
+                    step_tok = inputs.numel() * data_ranks
                 else:
                     if stage2 is None:
                         stage2 = make_stage2_step(base_params, model_cfg, scfg, cfg,
-                                                  base_api)
+                                                  base_api, tp, data_group)
                     spec_state, metrics = stage2(spec_state, inputs, generator)
                     grow = cfg.stage2_batch_size // cfg.batch_size
-                    step_tok = (inputs.shape[0] * world * grow
+                    step_tok = (inputs.shape[0] * data_ranks * grow
                                 * cfg.stage2_seq_length)
             window.append(metrics)
 

@@ -55,6 +55,19 @@ term is formed once from the routing sums of the global batch
 (``DataParallel.sum_route``), as JAX forms it over the whole batch, and
 the loss counts it once.
 
+Tensor parallelism (``tensor_parallel_size``, ``sharding_strategy="tp"``):
+``state["dp"].tp`` holds the tensor group, the state holds each rank's
+tensor blocks of JAX's Megatron layout (``parallel/sharding.py``), and
+the forward runs the Megatron operators of ``parallel/tensor.py``: the
+attention on this rank's heads (the flash kernels at the local head
+counts), the FFN's and the experts' column and row blocks, the
+vocabulary-split embedding, and a loss that reduces the max, the sum of
+exponentials and the label's logit over tensor (``ops/fused_ce.py``).
+Tensor peers train the same rows, so the label count, the loss, the
+route sums and the gradients of a leaf not split over fsdp are summed
+over the data group (every axis but tensor), and the gradient norm adds
+a tensor-split leaf's squares over tensor.
+
 Quantized training (``TrainConfig.quantized_matmuls``, the forward's
 ``quant``; ``quantized_reduce``, the policy's ``reduce_quant``): the
 gradient norm is taken on the raw reduced gradients, then they go
@@ -62,7 +75,10 @@ through the reduce wire (``parallel/sharding.py::quantized_grad_reduce``),
 then the clip, as JAX orders its step (``step.py:395-470``). Under
 ``fp8_delayed`` the amax rows ride in ``state["quant"]``, replicated on
 every rank; a non-finite batch skipped by the guard leaves them as they
-were, and without the guard they roll as JAX's do.
+were, and without the guard they roll as JAX's do. Beside a tensor axis
+a quantized product's scales over a split dim, and the wire's amax of a
+row or leaf split over tensor, are the whole one's (a MAX over the tensor
+group), as JAX's GSPMD program reduces them.
 
 The DCN overlap belongs to ROADMAP.md A.6b.
 """
@@ -100,10 +116,8 @@ from fms_fsdp_tpu_torch.utils.tree import tree_map
 # (TrainConfig field, is it set to something this port does not run yet,
 # the ROADMAP.md item that brings it)
 _UNPORTED_STEP = (
-    ("tensor_parallel_size", lambda v: v > 1, "A.6b (tensor parallelism)"),
     ("expert_parallel_size", lambda v: v > 1, "A.4b (MoE expert parallelism)"),
     ("num_slices", lambda v: v > 1, "A.6b (multi-slice)"),
-    ("sharding_strategy", lambda v: v == "tp", "A.6b (tensor parallelism)"),
 )
 
 
@@ -261,15 +275,25 @@ def state_from_params(params: Dict, cfg, mesh=None, model_cfg=None) -> Dict:
     return state
 
 
+def tensor_flags(params: Dict, dp):
+    """Per differentiated leaf, in :func:`_per_layer`'s order: whether it
+    is split over tensor."""
+    return _per_layer(params, lambda w, key, stacked: dp.tdim_of(key) is not None)[1]
+
+
 def quant_leaves(params: Dict, dp=None):
     """The reduce wire's view of the step's differentiated leaves, in
     :func:`_per_layer`'s order: each leaf's JAX key (``g.layers.wq``), the
-    JAX leaf's rank, and its local fsdp split dim."""
+    JAX leaf's rank, and its local fsdp and tensor split dims."""
+
+    def local(d, stacked):
+        return None if d is None else d - int(stacked)
 
     def leaf(w, key, stacked):
         d = dp.dim_of(key) if dp is not None else None
+        td = dp.tdim_of(key) if dp is not None else None
         return QuantLeaf("g." + key[len("params."):], w.dim() + int(stacked),
-                         None if d is None else d - int(stacked))
+                         local(d, stacked), local(td, stacked))
 
     return _per_layer(params, leaf)[1]
 
@@ -284,7 +308,7 @@ def _compute_copy(params: Dict, dtype, dp=None):
     (``parallel/sharding.py::GatheredLayers``)."""
     tree, leaves = _per_layer(
         params, lambda w, *_: w.detach().to(dtype).requires_grad_(True))
-    if dp is None or not dp.sharded:
+    if dp is None or not dp.gathers:
         return tree, leaves, [False] * len(leaves)
 
     def local_dim(w, key, stacked):
@@ -333,10 +357,15 @@ def make_train_step(model_cfg, cfg, start_step: int = 0):
     chunk = cfg.loss_chunk_size
     if fused:
         # the logits-chunk knob is tunable: the table's chunk under
-        # kernel_tuning="auto", exactly cfg.loss_chunk_size when "off"
+        # kernel_tuning="auto", exactly cfg.loss_chunk_size when "off";
+        # at the vocabulary a rank holds (its block under tensor
+        # parallelism, when the tensor extent divides it)
         d_model = getattr(model_cfg, "emb_dim", None) or getattr(model_cfg, "d_model", 0)
         vocab = getattr(model_cfg, "src_vocab_size", None) or getattr(
             model_cfg, "vocab_size", 0)
+        tp_size = int(cfg.tensor_parallel_size or 1)
+        if vocab % tp_size == 0:
+            vocab //= tp_size
         chunk = resolve_ce_chunk(d_model, vocab,
                                  str(policy.compute_dtype).replace("torch.", ""),
                                  requested=chunk)
@@ -364,10 +393,12 @@ def make_train_step(model_cfg, cfg, start_step: int = 0):
                     f"context axis has {cp} ranks (state['dp'].ring)"
                 )
             ring = {"ring": dp.ring}
+        tp = dp.tp if dp is not None else None
         out = forward_fn(
             params_c, inputs, model_cfg, compute_dtype=policy.compute_dtype,
             attn_impl=cfg.attention_kernel, ac_mask=ac_mask,
-            return_hidden=fused, quant=cfg.quantized_matmuls, **ring, **extra_kwargs,
+            return_hidden=fused, quant=cfg.quantized_matmuls, tp=tp, **ring,
+            **extra_kwargs,
         )
         aux, stats = None, {}
         if moe:
@@ -376,10 +407,13 @@ def make_train_step(model_cfg, cfg, start_step: int = 0):
                 aux_stats = moe_stats(dp.sum_route(aux_stats["route"]), model_cfg)
             aux = aux_stats["balance"]
             stats["moe_drop_frac"] = aux_stats["drop_frac"].detach()
+        # the loss over a vocabulary-split lm_head reduces over tensor
+        ce_tp = tp if tp is not None and dp.tdim_of("params.lm_head") is not None else None
         if fused:
-            ce = fused_linear_cross_entropy(out, params_c["lm_head"], labels, chunk, n=n)
+            ce = fused_linear_cross_entropy(out, params_c["lm_head"], labels, chunk, n=n,
+                                            tp=ce_tp)
         else:
-            ce = cross_entropy_loss(out, labels, n=n)
+            ce = cross_entropy_loss(out, labels, n=n, tp=ce_tp)
         return ce, aux, stats
 
     @scoped("fwd_bwd")
@@ -390,7 +424,7 @@ def make_train_step(model_cfg, cfg, start_step: int = 0):
             loss, aux, stats = loss_fn(params_c, inputs, labels)
         else:
             n = dp.global_count(labels)
-            with dp.release_saved() if dp.sharded else nullcontext():
+            with dp.release_saved() if dp.gathers else nullcontext():
                 loss, aux, stats = loss_fn(params_c, inputs, labels, n, dp)
         del params_c
         grads = torch.autograd.grad(loss if aux is None else loss + aux, leaves)
@@ -427,7 +461,7 @@ def make_train_step(model_cfg, cfg, start_step: int = 0):
         loss, grads, split, stats = fwd_bwd(state, inputs, labels)
         dp = state.get("dp")
         if dp is not None and dp.sharded:
-            gnorm = dp.grad_norm(grads, split)
+            gnorm = dp.grad_norm(grads, split, tensor_flags(state["params"], dp))
         else:
             gnorm = torch.linalg.vector_norm(torch.stack([
                 torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads

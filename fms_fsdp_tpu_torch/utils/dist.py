@@ -7,7 +7,16 @@ device:
 - under ``torchrun`` (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
   ``MASTER_ADDR``, ``MASTER_PORT`` in the environment) the default group
   is initialised from that environment, NCCL for ``cuda`` and gloo for
-  ``cpu``, after ``torch.cuda.set_device(LOCAL_RANK)``;
+  ``cpu``, after ``torch.cuda.set_device`` of the rank's card;
+- ranks that share one card (more processes on a host than cards, as two
+  tensor ranks on the one H100 of a test machine) form a gloo world with
+  CUDA tensors: NCCL refuses two ranks on one device, and gloo stages a
+  card tensor's collective through the host. The rule is decided before
+  the group exists (:func:`shares_devices`, :func:`backend_for`), from
+  the environment and the card count alone; nothing tries NCCL and
+  falls back. The card of local rank r is ``r * cards //
+  LOCAL_WORLD_SIZE`` (:func:`local_device_index`): contiguous ranks on
+  one card, one rank a card when there are as many cards as ranks;
 - without that environment it is a world of one over a ``HashStore``:
   no TCP port, so many runs in one process (the tests, ``chip_smoke.py``)
   reuse it.
@@ -56,16 +65,43 @@ def local_rank() -> int:
     return int(os.environ.get("LOCAL_RANK", 0)) if launched_by_torchrun() else 0
 
 
+def local_world_size() -> int:
+    return int(os.environ.get("LOCAL_WORLD_SIZE", 1)) if launched_by_torchrun() else 1
+
+
+def shares_devices() -> bool:
+    """Whether this host runs more ranks than it has cards, so that ranks
+    share a card."""
+    return launched_by_torchrun() and local_world_size() > torch.cuda.device_count()
+
+
+def local_device_index() -> int:
+    """The card of this local rank: ``LOCAL_RANK * cards //
+    LOCAL_WORLD_SIZE`` when ranks share cards, else ``LOCAL_RANK``."""
+    if not shares_devices():
+        return local_rank()
+    return local_rank() * torch.cuda.device_count() // local_world_size()
+
+
+def backend_for(device: torch.device) -> str:
+    """The default group's backend: NCCL for one rank a card, gloo for
+    the CPU and for ranks that share a card (module docstring)."""
+    if device.type == "cuda" and not shares_devices():
+        return "nccl"
+    return "gloo"
+
+
 def init_distributed(device: torch.device) -> World:
     """Initialise the default group for ``device`` (once per process) and
     return this process's place in the world. An existing default group
     is reused: its backend must suit ``device``."""
-    backend = "nccl" if device.type == "cuda" else "gloo"
+    backend = backend_for(device)
     if not dist.is_initialized():
         if launched_by_torchrun():
             kwargs = {}
             if device.type == "cuda":
                 torch.cuda.set_device(device)
+            if backend == "nccl":
                 kwargs["device_id"] = device
             dist.init_process_group(backend=backend, init_method="env://", **kwargs)
         else:

@@ -318,10 +318,12 @@ def _train_loop(cfg, state, step_fn, rank, train_loader, checkpointer, start_ste
     last_divergence_check = start_step
 
     # rows a data rank trains a step, and tokens the whole world trains:
-    # the data ranks are the processes over the context group's size, as
-    # JAX's world_size (devices // tp // cp, train_utils.py:345-349)
+    # the data ranks are the processes over the tensor and the context
+    # groups' sizes, as JAX's world_size (devices // tp // cp,
+    # train_utils.py:345-349)
     tokens_per_step = cfg.batch_size * cfg.seq_length
-    data_world = world // max(1, int(cfg.context_parallel_size or 1))
+    data_world = (world // max(1, int(cfg.tensor_parallel_size or 1))
+                  // max(1, int(cfg.context_parallel_size or 1)))
     global_tokens_per_step = data_world * tokens_per_step
     window: List[Dict] = []
     reports: List[Dict] = []

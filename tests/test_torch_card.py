@@ -22,6 +22,7 @@ from fms_fsdp_tpu_torch.models.llama import init_llama_params
 from fms_fsdp_tpu_torch.ops import paged_attention as t_paged
 from fms_fsdp_tpu_torch.ops import quant as t_quant
 from fms_fsdp_tpu_torch.serve import ServeConfig, ServingEngine
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 # llama3_8b decode shapes: B=8, Nq=32, Nkv=8, H=128, page 64, 32 pages/row
 _LENS = [0, 63, 64, 127, 2047, 300, 1500, 1024]

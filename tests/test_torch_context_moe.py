@@ -37,6 +37,7 @@ from fms_fsdp_tpu_torch.models.configs import (
 from fms_fsdp_tpu_torch.ops.ring_attention import LocalRing
 from fms_fsdp_tpu_torch.train.speculator import check_speculator_options, report_chips
 from fms_fsdp_tpu_torch.train.step import check_supported
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TINY = dict(src_vocab_size=128, emb_dim=64, nheads=4, kvheads=2, nlayers=2,
             hidden_dim=96, num_experts=4, top_k=2, max_expected_seq_len=64)

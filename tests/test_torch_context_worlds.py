@@ -58,6 +58,7 @@ from test_torch_multiprocess import (
     _j_model_cfg,
     _run,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 CONTEXT_CHILD = os.path.join(REPO, "tests", "torch_context_child.py")
 CFS = (2.0, 0.5)

@@ -34,6 +34,7 @@ from fms_fsdp_tpu.config import TrainConfig as JTrainConfig
 from fms_fsdp_tpu_torch.config import TrainConfig
 from fms_fsdp_tpu_torch.data.device_feed import DeviceFeed
 from fms_fsdp_tpu_torch.resilience.retry import RetryingShardHandler
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 class _Pkg:

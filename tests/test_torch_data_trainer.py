@@ -33,6 +33,7 @@ from fms_fsdp_tpu_torch.data.synth import build_arrow_corpus
 from fms_fsdp_tpu_torch.main_training_llama import main as llama_main
 from fms_fsdp_tpu_torch.main_training_mamba import main as mamba_main
 from fms_fsdp_tpu_torch.models.configs import MambaAttnConfig
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 _LLAMA = {"model_variant": "llama2_7b", "LlamaConfig.nlayers": 2, "LlamaConfig.emb_dim": 64,
           "LlamaConfig.nheads": 4, "LlamaConfig.kvheads": 2, "LlamaConfig.src_vocab_size": 256,

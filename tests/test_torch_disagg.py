@@ -50,6 +50,7 @@ from fms_fsdp_tpu_torch.serve.disagg import handoff as t_handoff
 from fms_fsdp_tpu_torch.serve.disagg import slab as t_slab
 from fms_fsdp_tpu_torch.serve.disagg.handoff import HandoffError
 from fms_fsdp_tpu_torch.serve.kv_cache import SCRATCH_PAGE, ZERO_PAGE, PagedKVCache
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ATOL = 2e-5
 

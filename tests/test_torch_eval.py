@@ -36,6 +36,7 @@ from fms_fsdp_tpu_torch.models.configs import (
     MambaConfig,
     MixtralConfig,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 _MAMBA_ATTN = dict(head_dim=16, num_heads=4, num_heads_kv=2, rotary_emb_dim=8)
 _FAMILIES = {

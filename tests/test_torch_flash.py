@@ -21,6 +21,7 @@ from fms_fsdp_tpu.ops import flash_attention as j_fa
 from fms_fsdp_tpu.ops.attention import xla_attention as j_xla_attention
 from fms_fsdp_tpu_torch.ops import attention as t_attention
 from fms_fsdp_tpu_torch.ops import flash_attention as t_fa
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def _qkv(seed, b, sq, sk, nq, nkv, h=128):

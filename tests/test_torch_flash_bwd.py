@@ -24,6 +24,7 @@ import torch
 import chip_smoke
 from fms_fsdp_tpu_torch.ops import cuda_build
 from fms_fsdp_tpu_torch.ops import flash_attention as fa
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def _case(dtype, b, sq, sk, nq, nkv, seed):

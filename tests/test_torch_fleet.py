@@ -31,6 +31,7 @@ from fms_fsdp_tpu_torch.models.llama import init_llama_params
 from fms_fsdp_tpu_torch.serve import ServeConfig, ServingEngine
 from fms_fsdp_tpu_torch.serve.fleet import FleetConfig, FleetRouter, make_subprocess_spawn
 from torch_jax_cases import export_tests, port_cases
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 _FLEET = port_cases("test_fleet.py", start="import json")
 _DISAGG = port_cases(

@@ -46,6 +46,7 @@ from fms_fsdp_tpu_torch.models.configs import LlamaConfig, MambaAttnConfig, Mamb
 from fms_fsdp_tpu_torch.models.configs import MixtralConfig
 from fms_fsdp_tpu_torch.models.llama import llama_forward
 from fms_fsdp_tpu_torch.models.mixtral import mixtral_forward
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 _LLAMA_KW = dict(src_vocab_size=128, emb_dim=64, nheads=4, kvheads=2, nlayers=2,
                  multiple_of=16, max_expected_seq_len=64)

@@ -40,6 +40,7 @@ from fms_fsdp_tpu_torch.train.step import make_train_step, state_from_params
 from fms_fsdp_tpu_torch.utils import flops
 from fms_fsdp_tpu_torch.utils.cli import parse_cli_args
 from fms_fsdp_tpu_torch.utils.config_utils import get_model_config, update_config
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 # tests/test_mamba.py:25-40: hybrid, 3 layers
 _ATTN_KW = dict(head_dim=16, num_heads=4, num_heads_kv=2, rotary_emb_dim=8)

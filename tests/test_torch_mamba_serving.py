@@ -33,6 +33,7 @@ from fms_fsdp_tpu_torch.serve.families import (
     load_model_config,
 )
 from fms_fsdp_tpu_torch.serve.families.mamba import MambaAdapter
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ATOL = 2e-5
 

@@ -34,6 +34,7 @@ from fms_fsdp_tpu_torch.ops.fused_ce import cross_entropy_loss
 from fms_fsdp_tpu_torch.train.step import make_train_step, state_from_params
 from fms_fsdp_tpu_torch.utils import flops
 from fms_fsdp_tpu_torch.utils.config_utils import get_model_config
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TINY = dict(src_vocab_size=128, emb_dim=64, nheads=4, kvheads=2, nlayers=2,
             hidden_dim=96, num_experts=4, top_k=2, max_expected_seq_len=64)

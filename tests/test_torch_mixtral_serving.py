@@ -35,6 +35,7 @@ from fms_fsdp_tpu_torch.serve.families import (
     load_model_config,
 )
 from fms_fsdp_tpu_torch.serve.families.mixtral import MixtralAdapter
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ATOL = 1e-5
 _KW = dict(src_vocab_size=128, emb_dim=64, nheads=4, kvheads=2, nlayers=2,

@@ -33,6 +33,7 @@ from fms_fsdp_tpu.train import step as j_step
 from fms_fsdp_tpu.utils.config_utils import get_model_config as j_get_model_config
 from fms_fsdp_tpu.utils.config_utils import update_config as j_update_config
 from fms_fsdp_tpu_torch.data.synth import build_arrow_corpus
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD = os.path.join(REPO, "tests", "torch_mp_child.py")
@@ -174,6 +175,15 @@ def reference(tmp_path_factory):
     jax.clear_caches()
 
 
+@pytest.fixture(scope="module")
+def mamba_reference(tmp_path_factory):
+    """JAX's three hybrid steps, shared by the fsdp and the context
+    cases (one program on the same mesh)."""
+    ref = _reference(tmp_path_factory.mktemp("mamba_ref"), _MAMBA)
+    jax.clear_caches()
+    return ref
+
+
 def _parity_spec(ref, tmp, strategy, world, **extra):
     data_world = world // extra.get("context_parallel_size", 1)
     main = dict(_RUN, **ref["model"], sharding_strategy=strategy, batch_size=ROWS // data_world,
@@ -268,18 +278,16 @@ def test_hsdp_four_ranks_equal_fsdp(reference, tmp_path):
     assert [g["layer"] for g in res[0]["gathers"]] == [2 * N_LAYERS] * STEPS
 
 
-def test_two_ranks_mamba_fsdp_match_jax(tmp_path_factory, tmp_path):
+def test_two_ranks_mamba_fsdp_match_jax(mamba_reference, tmp_path):
     """The hybrid's unlike layers under fsdp: the leaves JAX's specs split
     (in_proj, conv_w and conv_b, out_proj, the attention and MLP weights)
     gathered a layer at a time, the rest (dt_bias, A_log, D, the norms)
     replicated; JAX's one-process losses and gradient norms, each layer
     gathered twice a step (the middle layer under activation
     checkpointing gathers again in its recomputed forward)."""
-    ref = _reference(tmp_path_factory.mktemp("mamba_ref"), _MAMBA)
-    jax.clear_caches()
-    res, _ = _parity_run(ref, tmp_path, "fsdp", mamba_kernel="xla",
+    res, _ = _parity_run(mamba_reference, tmp_path, "fsdp", mamba_kernel="xla",
                          fsdp_activation_checkpointing=True, selective_checkpointing=0.5)
-    _assert_matches_jax(res, ref)
+    _assert_matches_jax(res, mamba_reference)
     assert [g["layer"] for g in res[0]["gathers"]] == [2 * 3] * STEPS
     assert all(r["sharded"] for r in res)
 
@@ -415,8 +423,8 @@ def test_speculator_two_ranks_match_one_process(tmp_path):
     the port's one-process steps on the same global batches: the per-head
     losses, the gradient norm and the params after 3 steps within 1e-6.
     A rank-local gradient (no all-reduce) moves the norm far past it.
-    The frozen base runs in fp32 here (bf16 in the entry), and with it
-    the speculator: in bf16 the ranks' 2-row sums round apart from the
+    The frozen base runs in fp32 here (the entry's ``mixed_precision=False``;
+    bf16 by default), and with it the speculator: in bf16 the ranks' 2-row sums round apart from the
     4-row sums by ~1e-5 of the norm."""
     seq, steps = 32, 3
     rng = np.random.default_rng(11)
@@ -425,10 +433,10 @@ def test_speculator_two_ranks_match_one_process(tmp_path):
     main = dict(_MODEL, vocab_size=128, speculator_width=32, use_dummy_dataset=True,
                 seq_length=seq, num_steps=steps, stage2_start_step=100, report_interval=1,
                 attention_kernel="xla", learning_rate=1e-3, checkpoint_interval=1000,
-                feed_prefetch=0)
+                feed_prefetch=0, mixed_precision=False)
     results = {}
     for world in (1, 2):
-        spec = {"out": str(tmp_path / f"out{world}"), "speculator": True, "fp32_base": True,
+        spec = {"out": str(tmp_path / f"out{world}"), "speculator": True,
                 "batches": str(tmp_path / "spec_batches.npz"),
                 "main": dict(main, batch_size=4 // world,
                              ckpt_save_path=str(tmp_path / f"ck{world}"),
@@ -468,15 +476,13 @@ def test_context_parallel_llama_matches_jax(world, strategy, reference, tmp_path
     assert all(r["sharded"] == (fsdp > 1) for r in res)
 
 
-def test_context_parallel_mamba_matches_jax(tmp_path_factory, tmp_path):
+def test_context_parallel_mamba_matches_jax(mamba_reference, tmp_path):
     """The hybrid at cp=2 on two ranks: the conv's halo from the previous
     rank, ``ssd_scan_cp`` for the SSD layers and ring attention for the
     attention layer; JAX's one-process losses and gradient norms."""
-    ref = _reference(tmp_path_factory.mktemp("mamba_cp_ref"), _MAMBA)
-    jax.clear_caches()
-    res, _ = _parity_run(ref, tmp_path, "fsdp", mamba_kernel="xla",
+    res, _ = _parity_run(mamba_reference, tmp_path, "fsdp", mamba_kernel="xla",
                          context_parallel_size=2)
-    _assert_matches_jax(res, ref)
+    _assert_matches_jax(res, mamba_reference)
 
 
 def test_context_resume_to_one_rank_keeps_the_global_batch(tmp_path):

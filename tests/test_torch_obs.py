@@ -22,6 +22,7 @@ from fms_fsdp_tpu_torch.obs import observer as t_observer
 from fms_fsdp_tpu_torch.obs import schema as t_schema
 from fms_fsdp_tpu_torch.obs import sinks as t_sinks
 from fms_fsdp_tpu_torch.obs import timing as t_timing
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 PACKAGES = {
     "jax": (j_observer, j_schema, j_sinks, j_timing),

@@ -27,6 +27,7 @@ from fms_fsdp_tpu_torch.ops import norms as t_norms
 from fms_fsdp_tpu_torch.ops import paged_attention as t_paged
 from fms_fsdp_tpu_torch.ops import quant as t_quant
 from fms_fsdp_tpu_torch.ops import rope as t_rope
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ATOL_OPS = 2e-5
 ATOL_PAGED = 1e-5

@@ -37,6 +37,7 @@ from fms_fsdp_tpu_torch.models.configs import (
 )
 from fms_fsdp_tpu_torch.parallel import mesh, sharding
 from fms_fsdp_tpu_torch.resilience import divergence
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TINY_KW = dict(src_vocab_size=128, emb_dim=64, nheads=4, kvheads=2, nlayers=2,
                max_expected_seq_len=256)
@@ -99,9 +100,22 @@ def test_mesh_refusals_and_errors_match_jax():
     (dict(sharding_strategy="fsdp", num_slices=2), "A.6b"),
     (dict(sharding_strategy="fsdp", expert_parallel_size=2), "A.4b"),
 ])
-def test_build_mesh_refuses_unported_axes(kw, item):
+def test_build_mesh_refuses_unported_axes(kw, item, monkeypatch):
+    """The dcn and expert axes stay refused, naming their ROADMAP.md
+    item; the tensor axis and ``"tp"`` (A.6b's training half) reach the
+    device mesh with JAX's axis sizes."""
+    cfg = mesh.MeshConfig(**kw)
+    if cfg.tensor_parallel_size > 1 or cfg.sharding_strategy == "tp":
+        import torch.distributed.device_mesh as dm
+
+        seen = []
+        monkeypatch.setattr(dm, "init_device_mesh",
+                            lambda dev, shape, mesh_dim_names: seen.append(shape))
+        mesh.build_mesh(cfg, device_type="cpu", world=4)
+        assert seen == [tuple(mesh.mesh_shape(cfg, 4)[a] for a in mesh.MESH_AXES)]
+        return
     with pytest.raises(NotImplementedError, match=item):
-        mesh.build_mesh(mesh.MeshConfig(**kw), device_type="cpu", world=4)
+        mesh.build_mesh(cfg, device_type="cpu", world=4)
 
 
 class _RankMesh:

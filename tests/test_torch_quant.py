@@ -30,6 +30,7 @@ from fms_fsdp_tpu_torch.parallel.mixed_precision import (
     get_dtype_policy,
 )
 from fms_fsdp_tpu_torch.parallel.sharding import QuantLeaf, quantized_grad_reduce
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 MODES = ("int8", "int8_dgrad", "fp8", "fp8_dgrad")
 _DT = {"fp32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}

@@ -43,6 +43,7 @@ from fms_fsdp_tpu_torch.models.configs import (
 )
 from fms_fsdp_tpu_torch.resilience.faults import configure_faults
 from fms_fsdp_tpu_torch.train.step import make_train_step, state_from_params
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 _LLAMA_KW = dict(src_vocab_size=128, emb_dim=64, nheads=4, kvheads=2, nlayers=2,
                  multiple_of=16, max_expected_seq_len=64)

@@ -29,6 +29,7 @@ from fms_fsdp_tpu_torch.resilience import faults as t_faults
 from fms_fsdp_tpu_torch.resilience import guards as t_guards
 from fms_fsdp_tpu_torch.resilience import scrub as t_scrub
 from fms_fsdp_tpu_torch.resilience import supervisor as t_sup
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

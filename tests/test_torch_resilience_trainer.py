@@ -39,6 +39,7 @@ from fms_fsdp_tpu_torch.obs.schema import validate_record
 from fms_fsdp_tpu_torch.resilience import faults as t_faults
 from fms_fsdp_tpu_torch.train.step import make_train_step, state_from_params
 from fms_fsdp_tpu_torch.utils.train_utils import train
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _TINY_KW = dict(src_vocab_size=128, emb_dim=64, nheads=4, kvheads=2, nlayers=2,

@@ -32,6 +32,7 @@ from fms_fsdp_tpu_torch.models.configs import LlamaConfig, MambaAttnConfig, Mixt
 from fms_fsdp_tpu_torch.train.step import get_lr_schedule, make_train_step, state_from_params
 from fms_fsdp_tpu_torch.utils.checkpointing import Checkpointer
 from fms_fsdp_tpu_torch.utils.train_utils import train
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 _TINY_KW = dict(src_vocab_size=128, emb_dim=64, nheads=4, kvheads=2, nlayers=2,
                 max_expected_seq_len=256)

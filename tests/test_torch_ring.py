@@ -36,6 +36,7 @@ from fms_fsdp_tpu_torch.ops import flash_attention as t_fa
 from fms_fsdp_tpu_torch.ops import rope as t_rope
 from fms_fsdp_tpu_torch.ops import ssd as t_ssd
 from fms_fsdp_tpu_torch.ops.ring_attention import LocalRing, ring_attention
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 @pytest.fixture(autouse=True, scope="module")

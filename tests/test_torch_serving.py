@@ -50,6 +50,7 @@ from fms_fsdp_tpu_torch.serve.families import family_of, load_model_config
 from fms_fsdp_tpu_torch.serve.kv_cache import SCRATCH_PAGE, ZERO_PAGE
 from fms_fsdp_tpu_torch.tune.lookup import resolve_paged_decode
 from fms_fsdp_tpu_torch.utils import config_utils
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 2e-5

@@ -31,6 +31,7 @@ from fms_fsdp_tpu_torch.models.generation import prefill
 from fms_fsdp_tpu_torch.models.speculator import SpeculatorConfig, save_speculator
 from fms_fsdp_tpu_torch.serve import PagedKVCache, ServeConfig, ServingEngine
 from fms_fsdp_tpu_torch.serve.decode import paged_decode_step, paged_verify_step
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 _TINY_KW = dict(src_vocab_size=128, emb_dim=64, nheads=4, kvheads=2, nlayers=2,
                 max_expected_seq_len=256)

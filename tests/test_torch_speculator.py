@@ -51,6 +51,7 @@ from fms_fsdp_tpu_torch.models.speculative import speculative_decode, speculator
 from fms_fsdp_tpu_torch.obs.registry import MetricRegistry
 from fms_fsdp_tpu_torch.speculator import train_speculator as entry
 from fms_fsdp_tpu_torch.train import speculator as tts
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 _TINY_KW = dict(src_vocab_size=128, emb_dim=64, nheads=4, kvheads=2, nlayers=2,
                 multiple_of=16, max_expected_seq_len=128)
@@ -695,7 +696,9 @@ def test_entry_refusals(tmp_path, monkeypatch):
     transformers.GPT2Config(n_embd=32, n_layer=1, n_head=2).save_pretrained(hf)
     with pytest.raises(ValueError, match="unsupported HF base architecture 'gpt2'"):
         entry.main(device="cpu", **dict(kw, model_path=hf))
-    with pytest.raises(NotImplementedError, match="A.6b"):
+    # "tp" runs (tests/test_torch_tp_worlds.py); its tensor group of
+    # tp_size 8 needs a world that 8 divides
+    with pytest.raises(ValueError, match=r"tensor\*context\*expert = 8"):
         entry.main(device="cpu", **dict(kw, sharding_strategy="tp"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -15,6 +15,7 @@ import torch
 
 from fms_fsdp_tpu_torch.ops import cuda_build
 from fms_fsdp_tpu_torch.ops import ssd as t_ssd
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 _DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16, "fp32": torch.float32}
 

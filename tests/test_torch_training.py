@@ -42,6 +42,7 @@ from fms_fsdp_tpu_torch.train.step import (
 from fms_fsdp_tpu_torch.utils.cli import parse_cli_args
 from fms_fsdp_tpu_torch.utils.config_utils import get_model_config, update_config
 from fms_fsdp_tpu_torch.utils.train_utils import state_device, train
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 # head dim 128, the flash kernels' width
 _SMALL_KW = dict(src_vocab_size=512, emb_dim=256, nheads=2, kvheads=1, nlayers=2,
@@ -441,9 +442,26 @@ def test_entry_needs_a_card_unless_cpu():
     ({"model_variant": "mamba_9.8b", "tensor_parallel_size": 2}, "A.6b"),
     ({"num_slices": 2}, "A.6b"),
 ])
-def test_unported_options_raise(overrides, item):
+def test_unported_options_raise(overrides, item, tmp_path):
+    """Options the port does not run yet raise naming their ROADMAP.md
+    item. Tensor parallelism runs: a tensor axis of 2 needs a world it
+    divides (a world of one raises JAX's mesh error), and ``"tp"`` at
+    ``tensor_parallel_size=1`` trains as fsdp."""
     kw = dict(use_dummy_dataset=True, num_steps=4, **_ENTRY_OVERRIDES)
     kw.update(overrides)
+    if kw.get("tensor_parallel_size", 1) > 1:
+        with pytest.raises(ValueError, match="not divisible by tensor"):
+            main(device="cpu", **kw)
+        return
+    if kw.get("sharding_strategy") == "tp":
+        from fms_fsdp_tpu_torch.parallel.mesh import axis_sizes
+
+        res = main(device="cpu", **dict(kw, seq_length=64, batch_size=2, vocab_size=512,
+                                         attention_kernel="xla",
+                                         ckpt_save_path=str(tmp_path / "ck"),
+                                         ckpt_load_path=str(tmp_path / "ck")))
+        assert axis_sizes(res["mesh"])["tensor"] == 1 and res["steps"] == 4
+        return
     with pytest.raises(NotImplementedError, match=item):
         main(device="cpu", **kw)
 

@@ -31,6 +31,7 @@ from fms_fsdp_tpu_torch.serve.disagg import handoff as t_handoff
 from fms_fsdp_tpu_torch.serve.disagg import transport as t_transport
 from fms_fsdp_tpu_torch.serve.disagg.handoff import HandoffError
 from torch_jax_cases import export_tests, port_cases
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 _NS = port_cases("test_transport.py", end="jax = pytest.importorskip")
 JAX_CASES = export_tests(_NS, globals(), fixtures=("_clear_faults",))

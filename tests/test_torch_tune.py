@@ -41,6 +41,7 @@ from fms_fsdp_tpu_torch.train.step import make_train_step, state_from_params
 from fms_fsdp_tpu_torch.tune import candidates as cand
 from fms_fsdp_tpu_torch.tune import lookup
 from fms_fsdp_tpu_torch.tune import table as t_table
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(REPO, "scripts", "torch_autotune_kernels.py")

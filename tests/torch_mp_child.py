@@ -15,8 +15,8 @@ SPEC_JSON holds ``out`` (this rank writes ``<out>/rank<R>.json``), the
 rank takes its contiguous rows of each, the rank and the data world the
 entry passes to ``get_dummy_loader``), ``record_rows`` (keep every row the
 feed served and hash the train state at the first step) and
-``speculator`` (run the speculator entry instead of the Llama trainer,
-with ``fp32_base`` its frozen base in fp32) or ``eval`` (run
+``speculator`` (run the speculator entry instead of the Llama trainer)
+or ``eval`` (run
 ``eval_ppl.main`` and write its result) or ``wire`` (the quantized
 reduce on seeded gradients of a TINY Llama split over fsdp: each mode's
 round trip, and the same with every row amax kept local, gathered whole
@@ -150,23 +150,6 @@ def main():
         return
 
     if spec.get("speculator"):
-        if spec.get("fp32_base"):
-            # the frozen base (bf16 in the entry) in fp32, so the speculator
-            # runs in fp32 too
-            load = spec_entry.load_base
-            spec_entry.load_base = lambda *a, **k: {
-                n: (w.float() if torch.is_tensor(w) else {m: t.float() for m, t in w.items()})
-                for n, w in load(*a, **k).items()}
-            base_api = spec_entry.get_base_api
-
-            def fp32_api(arch):
-                api = base_api(arch)
-                hidden = api.forward_hidden
-                api.forward_hidden = lambda *a, **k: hidden(*a, compute_dtype=torch.float32,
-                                                            **k)
-                return api
-
-            spec_entry.get_base_api = fp32_api
         with classified_exit():
             res = spec_entry.main(device="cpu", **spec["main"])
         reports = res["reports"]
