@@ -405,7 +405,7 @@ Phases, one JSON line each; any failure exits non-zero:
    bf16, fp8_dgrad and int8, 3 steps: one 2-D GEMM an expert (3 x 8 a
    layer and pass, beside attention's 4), ``moe_drop_frac`` beside bf16's.
 
-23. tp — tensor parallelism in training: two children on the one card
+23. tp — tensor parallelism in training and serving: two children on the one card
    (``python -m chip_smoke --tp-child``, each a rank of a world of 2
    under torchrun's environment; the ranks share the card, so the world
    is gloo, ``utils/dist.py``), each calling the trainers' entry
@@ -426,6 +426,25 @@ Phases, one JSON line each; any failure exits non-zero:
    other head count; each child's peak memory. The control, one Llama
    step whose forward drops the row-parallel reduces (the embedding's,
    wo's and w2's), must fail that check.
+   Then the serving layout, in the same world: llama3_8b at full width
+   and 4 layers in fp32 (``TP_SERVE_*``; weights from a seed, whole on
+   each rank's host), 8 requests of 64-512 prompt tokens and 32 new,
+   every one prefilled in the first step. A ``serve_layout="tp=2"``
+   engine on both ranks, rank 0 driving it and rank 1 following
+   (``serve/layout.py``), the paged-decode kernel at each rank's 16
+   query and 4 KV heads; the same wave with the row-parallel reduces
+   dropped on both ranks (the control); the same wave on rank 0 through
+   a one-rank engine while rank 1 waits. Checks: the tp 2 wave's tokens
+   equal the one-rank wave's, its first decode step's logits within
+   ``TP_SERVE_REL_TOL`` (relative) of them while the control's are not;
+   on each rank paged-decode launches == decode steps x 4, all at 16/4;
+   ``serving_stats()["serve_layout"]`` 201. Then, on a refilled state,
+   one bf16 decode step at each rank's heads through the kernel, the
+   reference attention and fp32, held as the serve phase's
+   ``_compare_step`` holds them, and the kernel's first launch against
+   its plain version row by row within ``paged_attention.REL_TOL``.
+   Prints each wave's wall and decode tokens/s, the collectives a decode
+   step and each rank's peak memory.
 
 Then a ``total`` line (seconds since ``main`` began, and each phase's),
 a ``{"kernels": [...]}`` line (the flash forward and dq by contract and
@@ -6083,13 +6102,27 @@ TP_TIMEOUT_S = 420
 # the phases whose runs the tp phase's runs are held against
 TP_REFERENCES = ("shard", "train-mixtral")
 TP_MARKER_TIMEOUT_S = 180
+# the serving runs after TP_RUNS, in the same world: llama3_8b at full
+# width and the fleet phase's 4 layers, fp32, the kernel on the card
+TP_SERVE_LAYERS = 4
+TP_SERVE_WAVE = {"requests": 8, "min_prompt": 64, "max_prompt": 512, "max_new": 32, "seed": 21}
+# every request prefilled in the first step, so each decode step runs 8 rows
+TP_SERVE_KW = {"max_batch": 8, "max_seq_len": 1024, "compute_dtype": "float32",
+               "max_prefill_per_step": 8}
+# fp32: the first decode step's logits of the tp 2 wave against the
+# one-rank wave's, max |difference| over max |one-rank| (the row-split
+# products sum in another order: ~1e-6 expected); the control's must exceed it
+TP_SERVE_REL_TOL = 1e-4
+# decode steps the bf16 check's state is advanced past the refill
+TP_SERVE_BF16_STEPS = 4
 
 
 def _tp_child(spec):
     """One rank of the tp phase's world: each run of ``TP_RUNS`` through
-    its entry (no save), its losses, launches and peak memory into
-    ``<root>/tp_rank<R>.json``. The control run drops the forward's
-    row-parallel reduces (``TensorParallel.reduce`` the identity)."""
+    its entry (no save), its losses, launches and peak memory, then the
+    serving runs (``_tp_serve``), into ``<root>/tp_rank<R>.json``. The
+    control run drops the forward's row-parallel reduces
+    (``TensorParallel.reduce`` the identity)."""
     import importlib
 
     import torch
@@ -6141,9 +6174,224 @@ def _tp_child(spec):
         torch.cuda.empty_cache()
         # the run's memory is back: a marker for the parent
         open(os.path.join(spec["root"], f"{name}_done_rank{rank}"), "w").close()
+    out["serve"] = _tp_serve("cuda", _tp_serve_cfg(), rank)
     with open(os.path.join(spec["root"], f"tp_rank{rank}.json"), "w") as f:
         json.dump(out, f)
     return 0
+
+
+def _tp_serve_cfg():
+    import dataclasses as dc
+
+    from fms_fsdp_tpu_torch.utils.config_utils import get_model_config
+
+    return dc.replace(get_model_config("llama3_8b"), nlayers=TP_SERVE_LAYERS)
+
+
+def _tp_wave(eng, prompts, max_new):
+    """The leader's wave: every request to its end. Returns its figures
+    and the first decode step's logits (8 rows, fp32, kept off the
+    JSON)."""
+    import torch
+
+    from fms_fsdp_tpu_torch.parallel import tensor
+
+    reqs = [eng.submit(p, max_new) for p in prompts]
+    first, per_step = None, None
+    t0 = time.perf_counter()
+    while eng.has_work():
+        before, steps = dict(tensor.COLLECTIVES), eng.decode_steps
+        eng.step()
+        if eng.decode_steps > steps:
+            if first is None:
+                first = eng.last_logits.float().clone()
+            else:  # decode only: every prompt was prefilled in the first step
+                per_step = {k: tensor.COLLECTIVES[k] - before[k] for k in before}
+    if first is not None and first.is_cuda:
+        torch.cuda.synchronize()
+    stats = eng.serving_stats()
+    return {
+        "wall_s": time.perf_counter() - t0, "decode_steps": eng.decode_steps,
+        "tokens": [list(map(int, r.generated)) for r in reqs],
+        "finished": all(r.state == "finished" and len(r.generated) == max_new for r in reqs),
+        "decode_tokens_per_s": stats["tokens_per_s"], "serve_layout": stats["serve_layout"],
+        "collectives_per_decode_step": per_step,
+    }, first
+
+
+def _tp_bf16_step(eng, device):
+    """One bf16 decode step at this rank's heads (both ranks, after the
+    leader released them; the state the leader's refill left): through
+    the kernel, through the reference attention, and fp32 (reference),
+    held as ``_compare_step`` holds them; and the kernel's first launch
+    (layer 0, this rank's 16 query and 4 KV heads) against its plain
+    version row by row within ``paged_attention.REL_TOL``."""
+    import torch
+
+    from fms_fsdp_tpu_torch.ops import paged_attention as pa
+    from fms_fsdp_tpu_torch.serve import decode as sd
+    from fms_fsdp_tpu_torch.utils.dist import broadcast_obj
+    from fms_fsdp_tpu_torch.utils.tree import tree_map
+
+    ad = eng.adapter
+    slot_rids, lens, toks = broadcast_obj(
+        ([r.rid if r is not None else None for r in eng._slots], eng._lens.copy(),
+         eng._tokens.copy()) if eng.is_leader else None)
+    table = torch.from_numpy(ad.cache.page_table(slot_rids, ad.max_pages)).to(device)
+    lens, toks = torch.from_numpy(lens).to(device), torch.from_numpy(toks).to(device)
+    params16 = tree_map(lambda w: w.to(torch.bfloat16), eng.params)
+    first = []
+    real = sd.paged_attention_kernel
+
+    def spy(q, k, v, t, sl, **kw):
+        if not first:
+            first.append((q, k, v, t, sl, kw))
+        return real(q, k, v, t, sl, **kw)
+
+    def step(params, dtype, impl):
+        pools = {n: p.to(dtype, copy=True) for n, p in ad.cache.pools.items()}
+        out, _, _ = sd.paged_decode_step(
+            params, pools, table, lens, toks, eng.model_cfg, page_size=ad.page_size,
+            compute_dtype=dtype, attn_impl=impl, block_kv=ad.block_kv, rope=ad.rope, tp=ad.tp)
+        return out.float()
+
+    sd.paged_attention_kernel = spy
+    try:
+        kernel = step(params16, torch.bfloat16, "kernel")
+    finally:
+        sd.paged_attention_kernel = real
+    ref = step(params16, torch.bfloat16, "reference")
+    fp32 = step(eng.params, torch.float32, "reference")
+    q, k, v, t, sl, kw = first[0]
+    got, want = real(q, k, v, t, sl, **kw).float(), pa.paged_attention_plain(q, k, v, t, sl).float()
+    rows = [i for i, r in enumerate(slot_rids) if r is not None]
+    rel = [((got[i] - want[i]).norm() / want[i].norm()).item() for i in rows]
+    del params16
+
+    def dmax(a, b):
+        return (a - b).abs().max().item()
+
+    tol = 2 * dmax(ref, fp32)
+    out = {"heads": f"{q.shape[1]}/{k.shape[2]}", "rows": len(rows),
+           "kernel_vs_reference": dmax(kernel, ref), "reference_vs_fp32": dmax(ref, fp32),
+           "kernel_vs_fp32": dmax(kernel, fp32), "tolerance": tol,
+           "kernel_rel_max": max(rel), "rel_tol": pa.REL_TOL[torch.bfloat16]}
+    out["ok"] = (out["kernel_vs_reference"] <= tol and out["kernel_vs_fp32"] <= tol
+                 and out["kernel_rel_max"] <= out["rel_tol"])
+    return out
+
+
+def _tp_serve(device, cfg, rank):
+    """The tp phase's serving runs on this rank of the world of 2 (module
+    docstring, phase 23): the tp 2 wave (``serve_layout="tp=2"``: rank 0
+    drives the engine, rank 1 follows), the bf16 step at the ranks'
+    heads, the control wave (``TensorParallel.reduce`` the identity on
+    both ranks), then rank 0's one-rank wave while rank 1 waits. Rank
+    0's result holds the comparisons."""
+    import numpy as np
+    import torch
+
+    from fms_fsdp_tpu_torch.models.llama import init_llama_params
+    from fms_fsdp_tpu_torch.ops import paged_attention as pa
+    from fms_fsdp_tpu_torch.parallel import tensor
+    from fms_fsdp_tpu_torch.serve import ServeConfig, ServingEngine, layout
+    from fms_fsdp_tpu_torch.utils.dist import barrier
+    from fms_fsdp_tpu_torch.utils.tree import tree_map
+
+    cuda = device == "cuda"
+    wave = TP_SERVE_WAVE
+    t0 = time.perf_counter()
+    # the whole fp32 weights on the host (every rank, as a user's engine
+    # gets them); drawn on the card from the seed
+    gen = torch.Generator(device=device).manual_seed(wave["seed"])
+    params = tree_map(lambda w: w.cpu(), init_llama_params(gen, cfg))
+    rng = np.random.RandomState(wave["seed"])
+    prompts = [rng.randint(0, cfg.src_vocab_size, size=int(n)).tolist() for n in
+               rng.randint(wave["min_prompt"], wave["max_prompt"] + 1, size=wave["requests"])]
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    out = {"init_s": time.perf_counter() - t0, "layers": cfg.nlayers}
+    firsts = {}
+
+    def engine(serve_layout):
+        return ServingEngine(params, cfg, ServeConfig(**TP_SERVE_KW, serve_layout=serve_layout),
+                             device=device)
+
+    # the tp 2 wave: its launches counted on each rank; then a refill for
+    # the bf16 step
+    pa.reset_launches()
+    tensor.reset_collectives()
+    layout.reset_messages()
+    t0 = time.perf_counter()
+    eng = engine("tp=2")
+    out["build_s"] = time.perf_counter() - t0
+    if eng.is_leader:
+        out["tp"], firsts["tp"] = _tp_wave(eng, prompts, wave["max_new"])
+        out["tp"]["messages"] = dict(layout.MESSAGES)
+        eng.release_followers()
+    else:
+        out["follower_calls"] = eng.follow()
+    out["launches"] = dict(pa.LAUNCHES)
+    out["head_launches"] = dict(pa.HEAD_LAUNCHES)
+    out["pool_shape"] = list(eng.cache.pools["k"].shape)
+    if eng.is_leader:
+        for p in prompts:
+            eng.submit(p, wave["max_new"])
+        steps = eng.decode_steps
+        while eng.decode_steps < steps + TP_SERVE_BF16_STEPS:
+            eng.step()
+        eng.release_followers()
+    else:
+        eng.follow()
+    out["bf16_step"] = _tp_bf16_step(eng, device)
+    pa.reset_launches()
+    del eng
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # the control: the row-parallel reduces dropped on both ranks
+    reduce = tensor.TensorParallel.reduce
+    tensor.TensorParallel.reduce = lambda self, x: x
+    try:
+        eng = engine("tp=2")
+        if eng.is_leader:
+            out["control"], firsts["control"] = _tp_wave(eng, prompts, wave["max_new"])
+            eng.release_followers()
+        else:
+            eng.follow()
+    finally:
+        tensor.TensorParallel.reduce = reduce
+    del eng
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # one rank: rank 0's engine over no group, rank 1 waiting
+    if rank == 0:
+        eng = engine("")
+        out["one_rank"], firsts["one_rank"] = _tp_wave(eng, prompts, wave["max_new"])
+        del eng
+        one = firsts["one_rank"]
+
+        def rel(name):
+            return ((firsts[name] - one).abs().max() / one.abs().max()).item()
+
+        out["tokens_equal"] = out["tp"]["tokens"] == out["one_rank"]["tokens"]
+        out["control_tokens_equal"] = out["control"]["tokens"] == out["one_rank"]["tokens"]
+        out["first_logits_rel"] = rel("tp")
+        out["control_first_logits_rel"] = rel("control")
+        out["rel_tol"] = TP_SERVE_REL_TOL
+        for name in ("control", "one_rank"):
+            out[name].pop("tokens")
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    barrier()
+    if cuda:
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return out
 
 
 def _wait_tp_marker(children, name):
@@ -6252,11 +6500,55 @@ def phase_tp(state):
                         f"{ranks[0]['control']['gnorms']}")
     result["peak_bytes_per_child"] = [max(rk[n]["max_memory_allocated"] for n, _, _ in TP_RUNS)
                                       for rk in ranks]
+    result["serve"] = _tp_serve_checks([rk["serve"] for rk in ranks], problems)
     emit("tp", **result)
     state["tp"] = result
     shutil.rmtree(root)
     if problems:
         raise AssertionError("tp: " + "; ".join(problems))
+
+
+def _tp_serve_checks(serve, problems):
+    """The serving runs' checks (module docstring, phase 23): rank 0's
+    comparisons, each rank's launches and bf16 step. Returns what the tp
+    line prints of them."""
+    lead = serve[0]
+    steps = lead["tp"]["decode_steps"]
+    want = steps * TP_SERVE_LAYERS
+    for name in ("tp", "control", "one_rank"):
+        if not lead[name]["finished"]:
+            problems.append(f"serve {name}: not every request finished with max_new_tokens")
+    if not lead["tokens_equal"]:
+        problems.append("serve: the tp 2 wave's tokens differ from the one-rank wave's")
+    if not lead["first_logits_rel"] <= TP_SERVE_REL_TOL:
+        problems.append(f"serve: first-step logits {lead['first_logits_rel']} from the "
+                        f"one-rank wave's, over {TP_SERVE_REL_TOL}")
+    if lead["control_first_logits_rel"] <= TP_SERVE_REL_TOL:
+        problems.append(f"serve: the control passes the logits check "
+                        f"({lead['control_first_logits_rel']})")
+    if lead["tp"]["serve_layout"] != 201.0:
+        problems.append(f"serve: serving_stats serve_layout {lead['tp']['serve_layout']}")
+    for r, rank in enumerate(serve):
+        if sum(rank["launches"].values()) != want or rank["head_launches"] != {TP_HEADS: want}:
+            problems.append(f"serve rank {r}: paged-decode launches {rank['launches']}, by "
+                            f"heads {rank['head_launches']}; expected {steps} x "
+                            f"{TP_SERVE_LAYERS} at {TP_HEADS}")
+        if not rank["bf16_step"]["ok"] or rank["bf16_step"]["heads"] != TP_HEADS:
+            problems.append(f"serve rank {r}: bf16 step {rank['bf16_step']}")
+    out = {k: v for k, v in lead.items() if k not in ("tp", "control", "one_rank")}
+    out.update({f"{name}_{k}": lead[name][k] for name in ("tp", "control", "one_rank")
+                for k in ("wall_s", "decode_steps", "decode_tokens_per_s",
+                          "collectives_per_decode_step")})
+    out["tp_tokens_first_request"] = lead["tp"]["tokens"][0]
+    out["tp_messages"] = lead["tp"]["messages"]
+    out["config"] = {"layers": TP_SERVE_LAYERS, "wave": TP_SERVE_WAVE, "serve": TP_SERVE_KW}
+    out["ranks"] = [{k: rank.get(k) for k in ("launches", "head_launches", "pool_shape",
+                                              "bf16_step", "max_memory_allocated",
+                                              "follower_calls", "init_s", "build_s")}
+                    for rank in serve]
+    out["launches"] = {key: sum(rank["launches"][key] for rank in serve)
+                       for key in serve[0]["launches"]}
+    return out
 
 
 def kernels_line(state):
@@ -6279,6 +6571,8 @@ def kernels_line(state):
         r = k[kind]
         per_run = {run: by_contract(x)[key] for run, x in runs.items()}
         per_run["fleet"] = state["fleet_launches_v1"] if key == "v1" else 0
+        # the tp phase's fp32 wave at the ranks' 16 / 4 heads, both ranks
+        per_run["tp"] = state["tp"]["serve"]["launches"][key]
         entries.append({
             "name": name, "route": "cuda",
             "source": "fms_fsdp_tpu_torch/csrc/paged_decode.cu",

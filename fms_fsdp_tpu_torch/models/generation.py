@@ -21,7 +21,10 @@ of the Megatron layout, as the training forward's (``models/llama.py``):
 the projections on this rank's heads (or all of them under the GQA
 guard), the cache of its KV heads, the FFN's blocks reduced over tensor,
 and the logits gathered whole over tensor before sampling, so every
-tensor rank draws the same tokens from the same generator.
+tensor rank draws the same tokens from the same generator. A serving
+replica's params under fsdp (``parallel/sharding.py::ServeParams``) are
+gathered at use: the top-level leaves once a call, each layer as the
+loop reaches it.
 """
 
 from typing import Optional, Tuple
@@ -31,6 +34,7 @@ import torch.nn.functional as F
 
 from fms_fsdp_tpu_torch.models.configs import LlamaConfig
 from fms_fsdp_tpu_torch.models.llama import embed, lm_head, swiglu
+from fms_fsdp_tpu_torch.models.llama import layer_params as _layer
 from fms_fsdp_tpu_torch.ops.attention import (
     heads_split,
     project_out,
@@ -40,6 +44,7 @@ from fms_fsdp_tpu_torch.ops.attention import (
 from fms_fsdp_tpu_torch.ops.norms import rms_norm
 from fms_fsdp_tpu_torch.ops.paged_attention import gqa_attend
 from fms_fsdp_tpu_torch.ops.rope import apply_rotary, rope_table
+from fms_fsdp_tpu_torch.parallel.sharding import serve_top
 
 
 def check_params_dtype(params, compute_dtype) -> None:
@@ -52,8 +57,9 @@ def check_params_dtype(params, compute_dtype) -> None:
 
 
 def layer_params(params, i: int):
-    """Layer i's weights: views into the stacked (L, ...) tensors."""
-    return {name: w[i] for name, w in params["layers"].items()}
+    """Layer i's weights: views into the stacked (L, ...) tensors (a
+    serving replica's fsdp-split ones gathered: ``models/llama.py``)."""
+    return _layer(params["layers"], i)
 
 
 def _rope(cfg: LlamaConfig, seq_len: int, device, rope: Optional[Tuple]):
@@ -117,6 +123,7 @@ def prefill(
     of at least max_seq_len rows.
     """
     check_params_dtype(params, compute_dtype)
+    params = serve_top(params)
     b, s = tokens.shape
     hd, nkv = cfg.head_dim, cfg.n_kv_heads
     nlayers = params["layers"]["wq"].shape[0]
@@ -170,6 +177,7 @@ def decode_chunk(params, cache, tokens, pos: int, cfg: LlamaConfig,
     Updates ``cache`` in place (the JAX version returns a new one) and
     returns (logits (B, m, V), embeds (B, m, D), cache)."""
     check_params_dtype(params, compute_dtype)
+    params = serve_top(params)
     b, m = tokens.shape
     max_seq = cache["k"].shape[2]
     cos, sin = _rope(cfg, max_seq, tokens.device, rope)

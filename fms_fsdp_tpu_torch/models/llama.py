@@ -54,6 +54,7 @@ from fms_fsdp_tpu_torch.ops.attention import attention, project_out, project_qkv
 from fms_fsdp_tpu_torch.ops.norms import rms_norm
 from fms_fsdp_tpu_torch.ops.ring_attention import ring_attention
 from fms_fsdp_tpu_torch.ops.rope import apply_rotary, rope_table
+from fms_fsdp_tpu_torch.parallel.sharding import ServeLayers
 from fms_fsdp_tpu_torch.parallel.tensor import column_linears, is_split, row_linear
 from fms_fsdp_tpu_torch.utils.tree import tree_map
 
@@ -177,7 +178,11 @@ def _indexed_block(x, *, layers, i: int, **kwargs):
 
 
 def layer_params(layers, i: int) -> Dict:
-    """Layer ``i`` of stacked (L, ...) params, or of a per-layer sequence."""
+    """Layer ``i`` of stacked (L, ...) params, or of a per-layer sequence;
+    of a serving replica's fsdp-split layers, gathered
+    (``parallel/sharding.py::ServeLayers``)."""
+    if isinstance(layers, ServeLayers):
+        return layers.layer(i)
     if isinstance(layers, dict):
         return {name: w[i] for name, w in layers.items()}
     return layers[i]

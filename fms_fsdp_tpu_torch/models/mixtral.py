@@ -75,7 +75,14 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from fms_fsdp_tpu_torch.models.configs import MixtralConfig
-from fms_fsdp_tpu_torch.models.generation import _rope, check_params_dtype, decode_layer_qkv
+from fms_fsdp_tpu_torch.models.generation import (
+    _logits,
+    _out,
+    _qkv,
+    _rope,
+    check_params_dtype,
+    decode_layer_qkv,
+)
 from fms_fsdp_tpu_torch.models.llama import (
     attention_block,
     embed,
@@ -85,11 +92,12 @@ from fms_fsdp_tpu_torch.models.llama import (
     swiglu,
 )
 from fms_fsdp_tpu_torch.obs.scopes import scoped
-from fms_fsdp_tpu_torch.ops.attention import xla_attention
+from fms_fsdp_tpu_torch.ops.attention import heads_split, xla_attention
 from fms_fsdp_tpu_torch.ops.norms import rms_norm
 from fms_fsdp_tpu_torch.ops.paged_attention import gather_pages, gqa_attend
 from fms_fsdp_tpu_torch.ops.quant import check_quant_mode
 from fms_fsdp_tpu_torch.ops.rope import apply_rotary, rope_table
+from fms_fsdp_tpu_torch.parallel.sharding import serve_top
 from fms_fsdp_tpu_torch.parallel.tensor import is_split
 from fms_fsdp_tpu_torch.utils.tree import tree_map
 
@@ -486,12 +494,14 @@ def mixtral_forward(
 
 
 @scoped("moe_routed")
-def _moe_routed(h, lp, cfg: MixtralConfig):
+def _moe_routed(h, lp, cfg: MixtralConfig, tp=None):
     """The top-k mixture of the rows of ``h`` (B, m, d), grouped by
     expert: each chosen expert's weights are read once, by three matmuls
     over the rows that chose it, and its outputs, times the router
     weights, are added back per row in fp32. Reads the rows per expert on
-    the host (one sync)."""
+    the host (one sync). Under ``tp`` each expert's hidden columns are
+    this rank's block: the fp32 mixture of partial outputs is reduced
+    over tensor once a layer."""
     b, m, d = h.shape
     E, K = cfg.num_experts, cfg.top_k
     top_idx, top_w, _ = _router(h, lp["gate"], cfg)
@@ -512,23 +522,28 @@ def _moe_routed(h, lp, cfg: MixtralConfig):
         xe = x.index_select(0, r)
         ye = (F.silu(xe @ lp["w1"][e]) * (xe @ lp["w3"][e])) @ lp["w2"][e]
         out.index_add_(0, r, ye.float() * weight[sel, None])
+    if is_split(tp, lp["w1"].shape[-1], cfg.hidden_dim):
+        out = tp.reduce(out)
     return out.to(h.dtype).reshape(b, m, d)
 
 
-def _moe_token(h, lp, cfg: MixtralConfig, moe_impl: str = "dense"):
+def _moe_token(h, lp, cfg: MixtralConfig, moe_impl: str = "dense", tp=None):
     """The MoE FFN of decode positions; h (B, m, d) after ffn_norm."""
     if moe_impl == "dense":
-        return _moe_ffn_dense(h, lp, cfg)[0]
+        return _moe_ffn_dense(h, lp, cfg, tp)[0]
     if moe_impl != "routed":
         raise ValueError(f"unknown decode moe_impl {moe_impl!r}")
-    return _moe_routed(h, lp, cfg)
+    return _moe_routed(h, lp, cfg, tp)
 
 
-def _mixtral_decode_layer_out(x, layer, cfg: MixtralConfig, o, moe_impl: str):
-    """Post-attention half of one decode layer: residual + MoE."""
-    x = x + o @ layer["wo"]
+def _mixtral_decode_layer_out(x, layer, cfg: MixtralConfig, o, moe_impl: str, tp=None):
+    """Post-attention half of one decode layer: residual + MoE. ``o`` is
+    (B, m, heads * hd), under ``tp`` of this rank's heads where they
+    split."""
+    local = o.shape[-1] != cfg.nheads * cfg.head_dim
+    x = x + _out(o, layer, cfg, tp, local)
     h2 = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
-    return x + _moe_token(h2, layer, cfg, moe_impl)
+    return x + _moe_token(h2, layer, cfg, moe_impl, tp)
 
 
 def mixtral_prefill(
@@ -539,37 +554,45 @@ def mixtral_prefill(
     compute_dtype=torch.bfloat16,
     full_logits: bool = False,
     rope: Optional[Tuple] = None,
+    tp=None,
 ):
     """The prompt through the model (plain attention, the dense MoE),
     building the dense kv cache (L, B, max_seq_len, Nkv, H), zeros past
     the prompt. Returns (logits (B, 1 or S, V), embeds, {"k", "v"}). The
-    params must already be in ``compute_dtype``."""
+    params must already be in ``compute_dtype``. Under ``tp`` the params
+    are this rank's blocks and the cache holds its KV heads, as the
+    Llama prefill's (``models/generation.py::prefill``)."""
     check_params_dtype(params, compute_dtype)
+    params = serve_top(params)
     b, s = tokens.shape
-    hd, nkv = cfg.head_dim, cfg.n_kv_heads
     nlayers = params["layers"]["wq"].shape[0]
     cos, sin = _rope(cfg, max_seq_len, tokens.device, rope)
-    x = params["embedding"][tokens]
-    cache_shape = (nlayers, b, max_seq_len, nkv, hd)
-    k_cache = torch.zeros(cache_shape, dtype=compute_dtype, device=tokens.device)
+    if tp is None:
+        x = params["embedding"][tokens]
+    else:
+        x = embed(params["embedding"], tokens, cfg.src_vocab_size, tp)
+    # the KV heads this rank holds
+    nkv = cfg.n_kv_heads
+    if heads_split(cfg.nheads, nkv, tp):
+        nkv //= tp.size
+    k_cache = torch.zeros((nlayers, b, max_seq_len, nkv, cfg.head_dim), dtype=compute_dtype,
+                          device=tokens.device)
     v_cache = torch.zeros_like(k_cache)
     for i in range(nlayers):
         layer = layer_params(params["layers"], i)
         h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-        q = (h @ layer["wq"]).reshape(b, s, cfg.nheads, hd)
-        k = (h @ layer["wk"]).reshape(b, s, nkv, hd)
-        v = (h @ layer["wv"]).reshape(b, s, nkv, hd)
+        q, k, v, local = _qkv(h, layer, cfg, tp)
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
         o = xla_attention(q, k, v, causal=True)
-        x = x + o.reshape(b, s, cfg.nheads * hd) @ layer["wo"]
+        x = x + _out(o, layer, cfg, tp, local)
         h2 = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
-        x = x + _moe_ffn_dense(h2, layer, cfg)[0]
+        x = x + _moe_ffn_dense(h2, layer, cfg, tp)[0]
         k_cache[i, :, :s] = k
         v_cache[i, :, :s] = v
     embeds = rms_norm(x, params["norm"], cfg.norm_eps)
     src = embeds if full_logits else embeds[:, -1:]
-    logits = src @ params["lm_head"]
+    logits = _logits(src, params, cfg, tp)
     return logits, embeds, {"k": k_cache, "v": v_cache}
 
 
@@ -609,30 +632,37 @@ def mixtral_paged_decode_step(
     compute_dtype=torch.bfloat16,
     moe_impl: str = "dense",
     rope: Optional[Tuple] = None,
+    tp=None,
 ):
     """One ragged paged decode step: ``serve/decode.py::paged_decode_step``
     with the MoE FFN and the reference attention over gathered pages (JAX's
     Mixtral serving runs no attention kernel). tokens (B,) at positions
     ``seq_lens``; the pools are updated in place. Returns (logits (B, V),
-    pools)."""
+    pools). Under ``tp`` (a serving layout) the attention runs this
+    rank's heads against its KV heads' pools and each expert's FFN its
+    block of the hidden columns; the logits are gathered whole."""
     check_params_dtype(params, compute_dtype)
+    params = serve_top(params)
     b = tokens.shape[0]
     max_seq = page_table.shape[1] * page_size
     cos, sin = _rope(cfg, max_seq, tokens.device, rope)
     positions = seq_lens[:, None].long()
-    x = params["embedding"][tokens[:, None].long()]
+    if tp is None:
+        x = params["embedding"][tokens[:, None].long()]
+    else:
+        x = embed(params["embedding"], tokens[:, None].long(), cfg.src_vocab_size, tp)
     rows = torch.arange(b, device=tokens.device)
     page_ids = page_table[rows, (seq_lens // page_size).long()].long()
     slots = (seq_lens % page_size).long()
     for i in range(params["layers"]["wq"].shape[0]):
         layer = layer_params(params["layers"], i)
-        q, k, v = decode_layer_qkv(x, layer, cfg, cos, sin, positions)
+        q, k, v = decode_layer_qkv(x, layer, cfg, cos, sin, positions, tp)
         pk, pv = pools["k"][i], pools["v"][i]
         pk.index_put_((page_ids, slots), k[:, 0])
         pv.index_put_((page_ids, slots), v[:, 0])
         o = gqa_attend(q, gather_pages(pk, page_table), gather_pages(pv, page_table),
                        positions)
-        x = _mixtral_decode_layer_out(x, layer, cfg, o, moe_impl)
+        x = _mixtral_decode_layer_out(x, layer, cfg, o, moe_impl, tp)
     embeds = rms_norm(x, params["norm"], cfg.norm_eps)
-    logits = embeds @ params["lm_head"]
+    logits = _logits(embeds, params, cfg, tp)
     return logits[:, 0], pools

@@ -35,6 +35,9 @@ LOG2E = 1.4426950408889634  # log2(e)
 # and "v2" (quantized pools, or a wider block_kv). Counted where the
 # kernel launches and nowhere else.
 LAUNCHES = {"v1": 0, "v2": 0}
+# launches by the query and KV head counts they ran at ("32/8"; "16/4" at a
+# tensor rank's heads of llama3_8b at tp 2), counted with LAUNCHES
+HEAD_LAUNCHES = {}
 
 # dtype codes of csrc/paged_decode.cu
 _CODES = {
@@ -64,6 +67,7 @@ REL_TOL = {torch.bfloat16: 1e-2, torch.float16: 1e-2, torch.float32: 1e-5}
 def reset_launches() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+    HEAD_LAUNCHES.clear()
 
 
 def decode_splits(batch, nkv, capacity, page_size, sm_count, split_keys=None):
@@ -338,6 +342,8 @@ def paged_attention_kernel(
     out = _launch(q, k_pages, v_pages, page_table, seq_lens, k_scales, v_scales,
                   None if block_kv == page_size else block_kv)
     LAUNCHES["v2" if k_scales is not None or block_kv != page_size else "v1"] += 1
+    heads = f"{q.shape[1]}/{k_pages.shape[2]}"
+    HEAD_LAUNCHES[heads] = HEAD_LAUNCHES.get(heads, 0) + 1
     return out
 
 

@@ -47,9 +47,20 @@ collectives by hand:
 
 The quantized gradient reduce (``:215-292``): :func:`quant_leaf_key`,
 :func:`init_amax_state` and :func:`quantized_grad_reduce`, on the
-reduced gradients of the step's per-layer leaves. The serving layout
-(``:309-405``) is not ported: ``serve_layout`` stays refused in
-``serve/engine.py``, naming ROADMAP.md A.6b.
+reduced gradients of the step's per-layer leaves.
+
+The serving layout (``:296-407``): :func:`parse_serve_layout`,
+:func:`serve_layout_code`, :func:`serve_kv_pool_specs`,
+:func:`serve_param_specs` and :func:`build_serve_mesh`, whose
+:class:`ServeMesh` is JAX's 2-axis ``(fsdp, tensor)`` mesh over the
+replica's processes, one rank each. :meth:`ServeMesh.place` keeps this
+rank's blocks of the whole params (the training rulebooks through
+:func:`resolve_spec` on the mesh's sizes), cast to the compute dtype and
+only then moved to the device. Under fsdp the split leaves are gathered
+at use, never kept whole between steps: a layer at a time
+(:class:`ServeLayers`, through ``models/llama.py::layer_params``) and
+the top-level leaves once a step (:func:`serve_top`); both count in
+:data:`GATHERS`.
 """
 
 import math
@@ -817,3 +828,235 @@ class DataParallel:
         if self.tp is not None:
             dist.all_reduce(tensor, group=self.tp.group)
         return torch.sqrt(fsdp[0] + tensor.sum() + total(False, False))
+
+
+# ---------------------------------------------------------------------------
+# the serving layout (ServeConfig.serve_layout)
+# ---------------------------------------------------------------------------
+
+# a serving replica's mesh: fsdp (weights split ZeRO-style) and tensor
+# (the Megatron layout). The training rulebooks name no other axis on a
+# weight, so resolve_spec reads them on this mesh unchanged
+SERVE_MESH_AXES = (AXIS_FSDP, AXIS_TENSOR)
+
+
+def parse_serve_layout(layout: str) -> Dict[str, int]:
+    """``"tp=2"`` / ``"tp=2,fsdp=2"`` -> {"tensor": 2, "fsdp": 2}; the
+    empty string is the single-card layout. Unknown keys and extents
+    that are not positive integers are config errors (JAX's messages)."""
+    out = {AXIS_TENSOR: 1, AXIS_FSDP: 1}
+    if not layout:
+        return out
+    names = {"tp": AXIS_TENSOR, "tensor": AXIS_TENSOR, "fsdp": AXIS_FSDP}
+    for part in layout.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        key, _, val = part.partition("=")
+        axis = names.get(key.strip())
+        if axis is None:
+            raise ValueError(
+                f"unknown serve_layout axis {key.strip()!r} in "
+                f"{layout!r}: expected 'tp' and/or 'fsdp' "
+                f"(e.g. \"tp=2\" or \"tp=2,fsdp=2\")"
+            )
+        try:
+            extent = int(val)
+        except ValueError:
+            extent = 0
+        if extent <= 0:
+            raise ValueError(
+                f"serve_layout axis {key.strip()!r} needs a positive "
+                f"integer extent, got {val!r} in {layout!r}"
+            )
+        out[axis] = extent
+    return out
+
+
+def serve_layout_code(layout: str) -> int:
+    """The layout as a number for flat str->number stats
+    (``serving_stats()["serve_layout"]``): ``100 * tp + fsdp``, 0 for
+    the single-card layout."""
+    if not layout:
+        return 0
+    ext = parse_serve_layout(layout)
+    return 100 * ext[AXIS_TENSOR] + ext[AXIS_FSDP]
+
+
+def serve_kv_pool_specs(quant: str = "none") -> Dict[str, P]:
+    """The specs of the PagedKVCache pools on a serving mesh: the
+    (L, P, page_size, Nkv, H) pools and their (L, P, page_size, Nkv, 1)
+    scale pools split the KV-head dim over tensor; :func:`resolve_spec`
+    keeps them whole where Nkv does not divide the tensor extent."""
+    spec = P(None, None, None, AXIS_TENSOR, None)
+    out = {"k": spec, "v": spec}
+    if quant != "none":
+        out["k_scale"] = spec
+        out["v_scale"] = spec
+    return out
+
+
+def serve_param_specs(family: str):
+    """Family -> the spec tree a serving replica places its weights by:
+    the training rulebooks of Llama and Mixtral; None for a family that
+    refuses a layout (Mamba)."""
+    if family == "llama":
+        return llama_param_specs(scan=True)
+    if family == "mixtral":
+        return mixtral_param_specs(scan=True)
+    return None
+
+
+class ServeLayers(dict):
+    """A serving replica's stacked (L, ...) layer leaves, this rank's
+    blocks of them; under fsdp, :meth:`layer` gives layer ``i`` with its
+    fsdp-split leaves gathered whole (one all-gather a layer)."""
+
+    def __init__(self, leaves, dims: Dict[str, Optional[int]], mesh):
+        super().__init__(leaves)
+        self.dims = dims  # leaf -> its dim split over fsdp, or None
+        self.mesh = mesh
+
+    def layer(self, i: int) -> Dict[str, torch.Tensor]:
+        out = {name: w[i] for name, w in self.items()}
+        split = [name for name in out if self.dims.get(name) is not None]
+        if split:
+            GATHERS["layer"] += 1
+            # a stacked leaf's dims count L first
+            fulls = self.mesh.gather([out[n] for n in split], [self.dims[n] - 1 for n in split])
+            out.update(zip(split, fulls))
+        return out
+
+
+class ServeParams(dict):
+    """A serving replica's params under fsdp: this rank's blocks, the
+    layers a :class:`ServeLayers`. :meth:`gathered` gives the top-level
+    leaves whole over fsdp, for one step."""
+
+    def __init__(self, leaves, dims: Dict[str, Optional[int]], mesh):
+        super().__init__(leaves)
+        self.dims = dims
+        self.mesh = mesh
+
+    def gathered(self) -> Dict:
+        out = dict(self)
+        split = [name for name in out if self.dims.get(name) is not None]
+        if split:
+            GATHERS["top"] += 1
+            out.update(zip(split, self.mesh.gather([out[n] for n in split],
+                                                   [self.dims[n] for n in split])))
+        return out
+
+
+def serve_top(params):
+    """The params one step reads: under a serving layout's fsdp
+    (:class:`ServeParams`) the top-level leaves gathered, else ``params``
+    itself."""
+    return params.gathered() if isinstance(params, ServeParams) else params
+
+
+class ServeMesh:
+    """A serving replica's ranks as JAX's ``(fsdp, tensor)`` mesh, tensor
+    innermost: rank ``f * tensor + t``. :attr:`tp` is the tensor axis's
+    :class:`~fms_fsdp_tpu_torch.parallel.tensor.TensorParallel` (None at
+    tensor 1); :attr:`fsdp_group` the ranks that share this rank's tensor
+    index (None at fsdp 1). Groups are made on every rank, in one order
+    (``new_group`` is collective)."""
+
+    def __init__(self, layout: str, fsdp: int, tensor: int):
+        from fms_fsdp_tpu_torch.parallel.tensor import TensorParallel
+
+        self.layout = layout
+        self.fsdp, self.tensor = int(fsdp), int(tensor)
+        self.rank = dist.get_rank()
+        self.fsdp_rank, self.tensor_rank = divmod(self.rank, self.tensor)
+        grid = [[f * self.tensor + t for t in range(self.tensor)] for f in range(self.fsdp)]
+        self.tp = self.fsdp_group = None
+        if self.tensor > 1:
+            group, _ = dist.new_subgroups_by_enumeration(grid)
+            self.tp = TensorParallel(group, self.tensor, self.tensor_rank)
+        if self.fsdp > 1:
+            self.fsdp_group, _ = dist.new_subgroups_by_enumeration(
+                [list(col) for col in zip(*grid)])
+
+    @property
+    def sizes(self) -> Dict[str, int]:
+        return {AXIS_FSDP: self.fsdp, AXIS_TENSOR: self.tensor}
+
+    def gather(self, leaves: List[torch.Tensor], dims: List[int]) -> List[torch.Tensor]:
+        """The fsdp blocks of ``leaves`` (one dtype) joined whole along
+        ``dims``, in one all-gather over fsdp."""
+        flat = torch.cat([t.reshape(-1) for t in leaves])
+        out = torch.empty(self.fsdp * flat.numel(), dtype=flat.dtype, device=flat.device)
+        _quiet(dist.all_gather_into_tensor, out, flat, group=self.fsdp_group)
+        out = out.view(self.fsdp, -1)
+        fulls, off = [], 0
+        for t, d in zip(leaves, dims):
+            n = t.numel()
+            fulls.append(torch.cat([out[r, off:off + n].view(t.shape)
+                                    for r in range(self.fsdp)], dim=d))
+            off += n
+        return fulls
+
+    def place(self, params, specs, device, dtype):
+        """This rank's blocks of the whole ``params`` (nested dicts, every
+        leaf whole on every rank) by the spec tree ``specs``: a leaf's
+        tensor block, then its fsdp block of that, each copied out
+        contiguous, cast to ``dtype`` and only then moved to ``device``.
+        Under fsdp the result is a :class:`ServeParams`."""
+        spec_of = dict(_paths(specs))
+
+        def dims_of(path, shape):
+            spec = resolve_spec(spec_of[path], shape, self.sizes)
+            found = {AXIS_FSDP: None, AXIS_TENSOR: None}
+            for i, entry in enumerate(spec):
+                for axis in (entry if isinstance(entry, tuple) else (entry,)):
+                    if axis in found and self.sizes[axis] > 1:
+                        found[axis] = i
+            return found[AXIS_FSDP], found[AXIS_TENSOR]
+
+        def one(path, w):
+            fd, td = dims_of(path, tuple(w.shape))
+            if td is not None:
+                w = w.chunk(self.tensor, dim=td)[self.tensor_rank]
+            if fd is not None:
+                w = w.chunk(self.fsdp, dim=fd)[self.fsdp_rank]
+            w = w.contiguous().to(dtype)
+            return w.to(device), fd
+
+        out, top_dims = {}, {}
+        for name, node in params.items():
+            if isinstance(node, dict):
+                leaves, dims = {}, {}
+                for key, w in node.items():
+                    leaves[key], dims[key] = one((name, key), w)
+                out[name] = ServeLayers(leaves, dims, self) if self.fsdp > 1 else leaves
+            else:
+                out[name], top_dims[name] = one((name,), node)
+        return ServeParams(out, top_dims, self) if self.fsdp > 1 else out
+
+
+def build_serve_mesh(layout: str, device) -> Optional[ServeMesh]:
+    """``serve_layout`` -> the replica's :class:`ServeMesh` over the
+    process group, one rank a process (None for a layout of one rank:
+    ``""``, ``"tp=1"``). Under ``torchrun`` the group is opened here for
+    ``device`` when no one has yet (``utils/dist.py::init_distributed``).
+    The world must hold exactly tensor x fsdp ranks: a sharded replica
+    that silently ran on fewer would misreport its capacity, and a rank
+    outside the mesh would have no work."""
+    from fms_fsdp_tpu_torch.utils.dist import init_distributed, launched_by_torchrun, world_size
+
+    ext = parse_serve_layout(layout)
+    n = ext[AXIS_FSDP] * ext[AXIS_TENSOR]
+    if n <= 1:
+        return None
+    if launched_by_torchrun() and not dist.is_initialized():
+        init_distributed(torch.device(device))
+    world = world_size()
+    if world != n:
+        raise ValueError(
+            f"serve_layout {layout!r} needs {n} ranks (fsdp={ext[AXIS_FSDP]} x "
+            f"tensor={ext[AXIS_TENSOR]}) but the process group holds {world}: start "
+            f"one process a rank (torchrun --nproc_per_node {n})"
+        )
+    return ServeMesh(layout, ext[AXIS_FSDP], ext[AXIS_TENSOR])

@@ -10,6 +10,16 @@ serving.
 
 The pools are written in place with ``index_put_`` (JAX scatters into
 donated buffers, which XLA also updates in place).
+
+Under a serving layout (``tp``, ``parallel/tensor.py``) the params are
+this rank's Megatron blocks and the pools hold its KV heads: the
+embedding lookup goes through ``TensorParallel.embed`` where the
+vocabulary is split, the layers run ``decode_layer_qkv`` /
+``decode_layer_out`` on the rank's heads (the kernel at Nq / tp query
+and Nkv / tp KV heads), and the logits are gathered whole
+(``models/generation.py::_logits``). Without ``tp`` the step runs as on
+one card. Under fsdp the split leaves are gathered at use
+(``parallel/sharding.py::serve_top``, ``ServeLayers``).
 """
 
 from typing import Optional, Tuple
@@ -18,11 +28,13 @@ import torch
 
 from fms_fsdp_tpu_torch.models.configs import LlamaConfig
 from fms_fsdp_tpu_torch.models.generation import (
+    _logits,
     check_params_dtype,
     decode_layer_out,
     decode_layer_qkv,
     layer_params,
 )
+from fms_fsdp_tpu_torch.models.llama import embed
 from fms_fsdp_tpu_torch.ops.norms import rms_norm
 from fms_fsdp_tpu_torch.ops.paged_attention import (
     gather_pages,
@@ -31,6 +43,15 @@ from fms_fsdp_tpu_torch.ops.paged_attention import (
 )
 from fms_fsdp_tpu_torch.ops.quant import kv_dequantize, kv_quantize
 from fms_fsdp_tpu_torch.ops.rope import rope_table
+from fms_fsdp_tpu_torch.parallel.sharding import serve_top
+
+
+def _embed(params, tokens, cfg: LlamaConfig, tp):
+    """The token rows: indexed directly without ``tp``, as on one card;
+    under ``tp`` the vocabulary-split lookup where the table is split."""
+    if tp is None:
+        return params["embedding"][tokens]
+    return embed(params["embedding"], tokens, cfg.src_vocab_size, tp)
 
 
 def paged_decode_step(
@@ -47,6 +68,7 @@ def paged_decode_step(
     attn_impl: str = "reference",
     block_kv=None,
     rope: Optional[Tuple] = None,
+    tp=None,
 ):
     """One decode step for a ragged batch.
 
@@ -57,16 +79,18 @@ def paged_decode_step(
     Returns (logits (B, V), embeds (B, D), pools). Under the kernel impl,
     quantized pools are read natively (the kernel dequantises as it
     stages each tile). ``rope`` is an optional precomputed (cos, sin)
-    table covering max_pages * page_size positions.
+    table covering max_pages * page_size positions. ``tp``: the module
+    docstring's serving layout.
     """
     check_params_dtype(params, compute_dtype)
+    params = serve_top(params)
     b = tokens.shape[0]
     max_seq = page_table.shape[1] * page_size
     if rope is None:
         rope = rope_table(max_seq, cfg.head_dim, cfg.rope_theta, device=tokens.device)
     cos, sin = rope
     positions = seq_lens[:, None].long()  # (B, 1)
-    x = params["embedding"][tokens[:, None].long()]  # (B, 1, D)
+    x = _embed(params, tokens[:, None].long(), cfg, tp)  # (B, 1, D)
 
     rows = torch.arange(b, device=tokens.device)
     page_ids = page_table[rows, (seq_lens // page_size).long()].long()  # (B,)
@@ -95,7 +119,7 @@ def paged_decode_step(
     for i in range(params["layers"]["wq"].shape[0]):
         layer = layer_params(params, i)
         lp = {name: pool[i] for name, pool in pools.items()}
-        q, k, v = decode_layer_qkv(x, layer, cfg, cos, sin, positions)
+        q, k, v = decode_layer_qkv(x, layer, cfg, cos, sin, positions, tp)
         # this step's k/v to each row's (page, slot); idle rows' tables
         # point every slot at the scratch page
         if quantized:
@@ -109,9 +133,9 @@ def paged_decode_step(
             lp["k"].index_put_((page_ids, slots), k[:, 0])
             lp["v"].index_put_((page_ids, slots), v[:, 0])
         o = attend(q, lp)
-        x = decode_layer_out(x, layer, cfg, o)
+        x = decode_layer_out(x, layer, cfg, o, tp)
     embeds = rms_norm(x, params["norm"], cfg.norm_eps)
-    logits = embeds @ params["lm_head"]
+    logits = _logits(embeds, params, cfg, tp)
     return logits[:, 0], embeds[:, 0], pools
 
 
@@ -127,6 +151,7 @@ def paged_verify_step(
     compute_dtype=torch.bfloat16,
     quant: str = "none",
     rope: Optional[Tuple] = None,
+    tp=None,
 ):
     """Score m candidate tokens per row in one ragged forward: the
     speculative verify step (``serve/decode.py:133`` in JAX).
@@ -141,9 +166,11 @@ def paged_verify_step(
     round trip as that branch. Returns (logits (B, m, V), embeds (B, m,
     D), pools), the pools written in place. Positions past a row's
     accepted prefix keep stale k/v, which the <= position mask hides
-    until a later write replaces them.
+    until a later write replaces them. ``tp``: the module docstring's
+    serving layout.
     """
     check_params_dtype(params, compute_dtype)
+    params = serve_top(params)
     b, m = tokens.shape
     max_seq = page_table.shape[1] * page_size
     if rope is None:
@@ -151,7 +178,7 @@ def paged_verify_step(
     cos, sin = rope
     positions = (seq_lens[:, None].long()
                  + torch.arange(m, device=tokens.device)[None, :])  # (B, m)
-    x = params["embedding"][tokens.long()]  # (B, m, D)
+    x = _embed(params, tokens.long(), cfg, tp)  # (B, m, D)
     rows = torch.arange(b, device=tokens.device)[:, None]
     page_ids = page_table[rows, positions // page_size].long()  # (B, m)
     slots = positions % page_size
@@ -171,7 +198,7 @@ def paged_verify_step(
     for i in range(params["layers"]["wq"].shape[0]):
         layer = layer_params(params, i)
         lp = {name: pool[i] for name, pool in pools.items()}
-        q, k, v = decode_layer_qkv(x, layer, cfg, cos, sin, positions)
+        q, k, v = decode_layer_qkv(x, layer, cfg, cos, sin, positions, tp)
         if quantized:
             qk, sk = kv_quantize(k, quant)
             qv, sv = kv_quantize(v, quant)
@@ -182,7 +209,7 @@ def paged_verify_step(
         else:
             lp["k"].index_put_((page_ids, slots), k)
             lp["v"].index_put_((page_ids, slots), v)
-        x = decode_layer_out(x, layer, cfg, attend(q, lp))
+        x = decode_layer_out(x, layer, cfg, attend(q, lp), tp)
     embeds = rms_norm(x, params["norm"], cfg.norm_eps)
-    logits = embeds @ params["lm_head"]
+    logits = _logits(embeds, params, cfg, tp)
     return logits, embeds, pools

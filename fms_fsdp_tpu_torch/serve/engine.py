@@ -32,8 +32,16 @@ admits those bytes (``submit_handoff``) and continues the stream with no
 prefill. ``pack_stream`` packs a live stream without retiring it (the
 drain-and-migrate read of ``serve/replica.py``). Chunked prefill
 (``prefill_chunk_tokens``) advances long prompts one chunk per step,
-interleaved with decode. Serving layouts (``serve_layout``) are refused
-at build, naming ROADMAP.md A.6b.
+interleaved with decode.
+
+Serving layouts (``serve_layout``, ``"tp=2"`` / ``"tp=2,fsdp=2"``): one
+replica over T x F processes of one ``torch.distributed`` world, each
+holding its Megatron blocks of the weights and its KV heads
+(``parallel/sharding.py::ServeMesh``), Llama and Mixtral only. Every
+rank builds the engine from the whole params; rank 0 (:attr:`is_leader`)
+drives it, and its adapter calls reach the other ranks, which sit in
+:meth:`follow` until the leader calls :meth:`release_followers`
+(``serve/layout.py``). ``"tp=1"`` runs on one card.
 """
 
 import time
@@ -45,7 +53,10 @@ import torch
 
 from fms_fsdp_tpu_torch.models.generation import sample_token
 from fms_fsdp_tpu_torch.obs.registry import MetricRegistry
+from fms_fsdp_tpu_torch.parallel.mesh import AXIS_FSDP, AXIS_TENSOR
+from fms_fsdp_tpu_torch.parallel.sharding import parse_serve_layout, serve_layout_code
 from fms_fsdp_tpu_torch.serve.families import FAMILY_CODES, resolve_adapter
+from fms_fsdp_tpu_torch.serve.layout import LeaderAdapter, follow, register, release_followers
 from fms_fsdp_tpu_torch.serve.scheduler import (
     REJECT_DEADLINE_UNMEETABLE,
     REJECT_OVERLOADED,
@@ -65,8 +76,7 @@ _DTYPES = {
 
 @dataclass(frozen=True)
 class ServeConfig:
-    """Engine knobs, named as in the JAX ``ServeConfig``. ``serve_layout``
-    is refused by :class:`ServingEngine` at build unless left empty."""
+    """Engine knobs, named as in the JAX ``ServeConfig``."""
 
     max_batch: int = 8  # decode slots
     max_seq_len: int = 2048  # per-sequence cache capacity
@@ -99,7 +109,9 @@ class ServeConfig:
     speculator_path: str = ""
     # draft tokens per verify step (the checkpoint's n_predict when 0)
     spec_draft_tokens: int = 0
-    serve_layout: str = ""  # not served yet (ROADMAP.md A.6b)
+    # the replica's ranks: "" one card; "tp=2" / "tp=2,fsdp=2" a tensor x
+    # fsdp group of processes (the module docstring)
+    serve_layout: str = ""
     # disaggregation role: "unified" serves end to end; "prefill" packs a
     # handoff after the first token instead of decoding; "decode" also
     # admits submit_handoff() resumes (and can still prefill: eviction
@@ -116,13 +128,6 @@ def _check_supported(scfg: ServeConfig) -> None:
     if scfg.role not in ROLES:
         raise ValueError(
             f"unknown serving role {scfg.role!r}: expected one of {ROLES}"
-        )
-    if scfg.serve_layout:
-        raise NotImplementedError(
-            f"serve_layout={scfg.serve_layout!r}: a serving replica over a "
-            f"tensor-parallel mesh is not ported yet (ROADMAP.md A.6b, the "
-            f"serving layout; tensor parallelism runs in training); run "
-            f"single-card"
         )
 
 
@@ -145,18 +150,32 @@ class ServingEngine:
     ):
         scfg = serve_cfg or ServeConfig()
         _check_supported(scfg)
+        layout = parse_serve_layout(scfg.serve_layout)
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.serve_cfg = scfg
         self.registry = registry or MetricRegistry()
         self.clock = clock
         self.compute_dtype = _DTYPES[scfg.compute_dtype]
-        # the one cast of the weights to the compute dtype
-        self.params = _to_device(params, self.device, self.compute_dtype)
+        if layout[AXIS_TENSOR] * layout[AXIS_FSDP] == 1:
+            # the one cast of the weights to the compute dtype
+            params = _to_device(params, self.device, self.compute_dtype)
+        # else the adapter keeps this rank's blocks, cast, then moved
 
         self.adapter = resolve_adapter(
-            self.params, model_cfg, scfg, self.compute_dtype, self.device
+            params, model_cfg, scfg, self.compute_dtype, self.device
         )
+        if scfg.serve_layout and not self.adapter.supports_layout:
+            raise ValueError(
+                f"serve_layout={scfg.serve_layout!r} is not supported for the "
+                f"{self.adapter.family} family yet — run it single-card"
+            )
+        self.params = self.adapter.params
+        self.mesh = self.adapter.mesh
+        if self.mesh is not None:
+            key = register(self.adapter)
+            if self.is_leader:
+                self.adapter = LeaderAdapter(self.adapter, key)
         self.family = self.adapter.family
         if scfg.role != "unified" and not self.adapter.supports_handoff:
             raise ValueError(
@@ -224,6 +243,29 @@ class ServingEngine:
 
         return cls(load_params_only(path), model_cfg, serve_cfg, **kw)
 
+    # -- serving layout ----------------------------------------------------
+
+    @property
+    def is_leader(self) -> bool:
+        """Whether this process drives the engine: always on one card;
+        rank 0 of a layout's ranks."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def follow(self) -> int:
+        """A layout's other ranks: run the leader's adapter calls on this
+        rank's shards until it calls :meth:`release_followers` (they
+        reach every layout engine of this process). Returns the calls
+        run."""
+        if self.mesh is None:
+            raise RuntimeError("follow() is for the ranks of a serving layout")
+        return follow()
+
+    def release_followers(self) -> None:
+        """The leader: end the other ranks' :meth:`follow`."""
+        if self.mesh is None or not self.is_leader:
+            raise RuntimeError("release_followers() is for a layout's leader (rank 0)")
+        release_followers()
+
     # -- request side ------------------------------------------------------
 
     def submit(
@@ -266,7 +308,7 @@ class ServingEngine:
             need = cache.pages_needed(
                 self.adapter._padded_len(len(prompt), self.serve_cfg.prefill_bucket)
             )
-            est = need * cache.page_bytes()
+            est = need * self.adapter.handoff_page_bytes()
             if est > self.serve_cfg.handoff_max_bytes:
                 self._reject(
                     REJECT_TOO_LARGE,
@@ -704,7 +746,8 @@ class ServingEngine:
 
     def serving_stats(self) -> Dict[str, float]:
         """The flat str->number ``serving`` map of the JAX engine (obs
-        schema v15); ``serve_layout`` is 0, the single-card layout."""
+        schema v15); ``serve_layout`` is ``100 * tp + fsdp``, 0 on one
+        card."""
         from fms_fsdp_tpu_torch.serve.disagg import ROLE_CODES
 
         ttft = self.registry.hist("serve.ttft_s").reduce(clear=False)
@@ -731,7 +774,7 @@ class ServingEngine:
                 self.adapter.state_bytes_per_stream
             ),
             "role": float(ROLE_CODES[self.serve_cfg.role]),
-            "serve_layout": 0.0,
+            "serve_layout": float(serve_layout_code(self.serve_cfg.serve_layout)),
             "handoff_bytes": float(self._handoff_bytes),
             "handoff_s": float(self._handoff_wall),
             "spec_accept_rate": (

@@ -10,6 +10,18 @@ ragged batched decode step computes, and how params resolve to a family.
 recurrent slab, plus paged KV for the hybrid attention layers) and
 ``mixtral`` (paged KV through the reference attention, routed top-k
 experts).
+
+Serving layouts (``ServeConfig.serve_layout``, JAX's ``:282-330``):
+families that set ``supports_layout`` (Llama, Mixtral) call
+:meth:`FamilyAdapter._init_layout` first, which builds the replica's
+``ServeMesh`` (``parallel/sharding.py``) and keeps this rank's blocks of
+the params by the family's training rulebook (``serve_param_specs``).
+Their pools hold the rank's KV heads (``serve_kv_pool_specs``: Nkv / tp
+where the heads split), and the page handoff gathers a page's KV-head
+blocks over tensor into JAX's head order on export and gives each rank
+its block on import: a layout replica's ``FMSH`` frames have a one-card
+replica's header and leaves, and a page set written in and read out
+again is the same bytes.
 """
 
 from typing import Optional
@@ -127,19 +139,38 @@ def init_params_for(model_cfg):
     return lambda generator: init_llama_params(generator, model_cfg)
 
 
-def paged_decode_tiles(model_cfg, scfg):
+def paged_decode_tiles(model_cfg, scfg, tp=None):
     """(page_size, block_kv, how) of a paged family's pool and decode
     split, resolved once at engine build through the tuning table
     (``tune/lookup.py::resolve_paged_decode``) on the full signature; the
     table keys the pool's element type ("bfloat16", "int8",
-    "float8_e4m3fn"), so quantized pools get their own entries."""
+    "float8_e4m3fn"), so quantized pools get their own entries.
+
+    Under a layout whose heads split over ``tp`` the split is looked up
+    at the heads the kernel runs (Nq / tp, Nkv / tp) while the page size
+    stays the whole model's, so a layout replica's pages are a one-card
+    replica's (the handoff carries them); a local entry at another page
+    size gives the planner's split at the whole model's page size (JAX
+    keys both by the whole heads)."""
+    from fms_fsdp_tpu_torch.ops.attention import heads_split
     from fms_fsdp_tpu_torch.tune.lookup import resolve_paged_decode
 
     dtype = {"int8": "int8", "fp8": "float8_e4m3fn"}.get(scfg.kv_quant, scfg.compute_dtype)
-    return resolve_paged_decode(
-        scfg.max_batch, model_cfg.nheads, model_cfg.n_kv_heads, model_cfg.head_dim,
-        scfg.max_seq_len, dtype, requested_page_size=scfg.page_size or None,
-    )
+    nq, nkv = model_cfg.nheads, model_cfg.n_kv_heads
+
+    def resolve(parts):
+        return resolve_paged_decode(
+            scfg.max_batch, nq // parts, nkv // parts, model_cfg.head_dim,
+            scfg.max_seq_len, dtype, requested_page_size=scfg.page_size or None,
+        )
+
+    whole = resolve(1)
+    if not heads_split(nq, nkv, tp):
+        return whole
+    page_size, block_kv, how = resolve(tp.size)
+    if page_size != whole[0]:
+        return whole[0], whole[0], "default"
+    return page_size, block_kv, how
 
 
 def resolve_adapter(params, model_cfg, serve_cfg, compute_dtype, device):
@@ -179,7 +210,16 @@ class FamilyAdapter:
       only: draft ``spec_draft_tokens`` tokens a row, verify them in one
       forward; returns (tokens to commit (B, n+1), how many of them (B,),
       the logits row of the last committed position (B, V)).
+    - ``defrag()`` — compact the page pool (paged families).
     - ``pages_in_use`` / ``state_bytes_per_stream`` — obs.
+
+    Serving layouts: ``supports_layout`` families call
+    :meth:`_init_layout` before they build anything; ``mesh`` (the
+    ``ServeMesh``), ``tp`` and ``kv_split`` (whether the pools hold
+    this rank's KV heads) say what it found. The engine drives such an
+    adapter on the leader rank through ``serve/layout.py``, which sends
+    every call that writes state or launches work to the other ranks
+    first.
 
     Disaggregation: paged families set ``supports_handoff`` and inherit
     the generic ``export_handoff`` / ``check_handoff_header`` /
@@ -206,6 +246,11 @@ class FamilyAdapter:
     # through ``decode_spec`` and budgets ``spec_draft_tokens`` positions
     speculative: bool = False
     spec_draft_tokens: int = 0
+    # serving layout (ServeConfig.serve_layout): set by _init_layout
+    supports_layout: bool = False
+    mesh = None  # the ServeMesh, None on one card
+    tp = None  # the mesh's TensorParallel, None without a tensor axis
+    kv_split: bool = False  # the pools hold this rank's KV heads
 
     def admission_error(self, prompt_len: int, max_new: int) -> Optional[str]:
         raise NotImplementedError
@@ -228,6 +273,34 @@ class FamilyAdapter:
     def decode_spec(self, slot_rids, lens, tokens):
         raise NotImplementedError
 
+    # -- serving layout (ServeConfig.serve_layout) ---------------------------
+
+    def _init_layout(self, scfg, params, compute_dtype, device):
+        """Build the replica's serving mesh for ``scfg.serve_layout`` and
+        return this rank's blocks of the whole ``params`` (cast, then on
+        ``device``); on one card (no layout, ``"tp=1"``) ``params`` as
+        they are: the engine moved them already."""
+        from fms_fsdp_tpu_torch.ops.attention import heads_split
+        from fms_fsdp_tpu_torch.parallel.sharding import build_serve_mesh, serve_param_specs
+
+        self.mesh = build_serve_mesh(scfg.serve_layout, device)
+        if self.mesh is None:
+            return params
+        self.tp = self.mesh.tp
+        self.kv_split = heads_split(self.model_cfg.nheads, self.model_cfg.n_kv_heads, self.tp)
+        return self.mesh.place(params, serve_param_specs(self.family), device, compute_dtype)
+
+    @property
+    def kv_heads(self) -> int:
+        """The KV heads this rank's pools hold."""
+        nkv = self.model_cfg.n_kv_heads
+        return nkv // self.tp.size if self.kv_split else nkv
+
+    def defrag(self) -> int:
+        """Compact the page pool (``PagedKVCache.defrag``)."""
+        self._require_pages()
+        return self.cache.defrag()
+
     # -- chunked prefill (ServeConfig.prefill_chunk_tokens) ----------------
 
     def prefill_start(self, rid: int, slot: int, prompt) -> None:
@@ -248,11 +321,19 @@ class FamilyAdapter:
         for ``serve/disagg/handoff.py::pack_handoff``. The pages ship in
         their storage dtype; the engine adds the sampling fields. ``slot``
         is unused here (the page set is keyed by rid) and read by families
-        with slot-indexed state (the Mamba slab)."""
+        with slot-indexed state (the Mamba slab). Under a layout whose
+        pools hold this rank's KV heads, each leaf's head blocks are
+        gathered over tensor, in rank order, which is JAX's head order:
+        every tensor rank must call it."""
         from fms_fsdp_tpu_torch.serve.disagg.handoff import PAGE_CODEC_VERSION
 
         self._require_pages()
         cache = self.cache
+        if self.kv_split:
+            arrays = {name: self.tp.all_gather(a, 3).cpu()
+                      for name, a in cache.gather_pages(rid, to_host=False).items()}
+        else:
+            arrays = cache.gather_pages(rid)
         return (
             {
                 "family": self.family,
@@ -260,12 +341,12 @@ class FamilyAdapter:
                 "codec_version": PAGE_CODEC_VERSION,
                 "quant": cache.quant,
                 "page_size": cache.page_size,
-                "n_kv_heads": cache.n_kv_heads,
+                "n_kv_heads": self.model_cfg.n_kv_heads,
                 "head_dim": cache.head_dim,
                 "n_layers": cache.n_layers,
                 "alloc_tokens": cache.tokens_of(rid),
             },
-            cache.gather_pages(rid),
+            arrays,
         )
 
     def check_handoff_header(self, header) -> None:
@@ -285,7 +366,7 @@ class FamilyAdapter:
             ("family", self.family),
             ("quant", cache.quant),
             ("page_size", cache.page_size),
-            ("n_kv_heads", cache.n_kv_heads),
+            ("n_kv_heads", self.model_cfg.n_kv_heads),
             ("head_dim", cache.head_dim),
             ("n_layers", cache.n_layers),
         ):
@@ -299,9 +380,18 @@ class FamilyAdapter:
 
     def import_handoff(self, rid: int, slot: int, header, arrays) -> bool:
         """Allocate rid's pages in this pool and write the shipped leaves
-        in, bit-exact. False when the pool cannot hold them right now."""
+        in, bit-exact. False when the pool cannot hold them right now.
+        Under a layout whose pools hold this rank's KV heads, the rank
+        writes its block of each leaf's heads."""
         self.check_handoff_header(header)
+        if self.kv_split:
+            arrays = {name: self.tp.block(a, 3).contiguous() for name, a in arrays.items()}
         return self.cache.scatter_pages(rid, arrays, int(header["alloc_tokens"]))
+
+    def handoff_page_bytes(self) -> int:
+        """The bytes one page adds to a handoff: every KV head's."""
+        parts = self.tp.size if self.kv_split else 1
+        return self.cache.page_bytes() * parts
 
     def _require_pages(self) -> None:
         if not self.supports_handoff or self.cache is None:

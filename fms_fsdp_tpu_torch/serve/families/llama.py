@@ -3,7 +3,9 @@
 Counterpart of ``fms_fsdp_tpu/serve/families/llama.py`` (pool build,
 capacity, prefill, chunked prefill, release, decode with the page-table
 upload cache, speculative decode with ``ServeConfig.speculator_path``,
-and the page handoff of the base class).
+the page handoff of the base class, and serving layouts: this rank's
+Megatron blocks and KV heads, the paged-decode kernel at Nq / tp and
+Nkv / tp heads).
 The rotary table is built once per adapter on its device; the JAX path
 rebuilds it inside each jitted step, where XLA folds it to a constant.
 """
@@ -25,16 +27,17 @@ class LlamaAdapter(FamilyAdapter):
     family = "llama"
     supports_handoff = True
     supports_chunked_prefill = True
+    supports_layout = True
 
     def __init__(self, params, model_cfg, scfg, compute_dtype, device):
-        self.params = params
         self.model_cfg = model_cfg
         self.scfg = scfg
         self.compute_dtype = compute_dtype
         self.device = torch.device(device)
+        self.params = params = self._init_layout(scfg, params, compute_dtype, self.device)
 
         nlayers = int(params["layers"]["wq"].shape[0])
-        page_size, self.block_kv, self.tune_how = paged_decode_tiles(model_cfg, scfg)
+        page_size, self.block_kv, self.tune_how = paged_decode_tiles(model_cfg, scfg, self.tp)
         self.page_size = page_size
         self.max_pages = scfg.max_seq_len // page_size
         num_pages = scfg.num_pages or (
@@ -44,7 +47,7 @@ class LlamaAdapter(FamilyAdapter):
             nlayers,
             num_pages,
             page_size,
-            model_cfg.n_kv_heads,
+            self.kv_heads,
             model_cfg.head_dim,
             dtype=compute_dtype,
             quant=scfg.kv_quant,
@@ -144,6 +147,7 @@ class LlamaAdapter(FamilyAdapter):
                 compute_dtype=self.compute_dtype,
                 quant=self.scfg.kv_quant,
                 rope=self.rope,
+                tp=self.tp,
             )
             base_next = torch.argmax(logits, dim=-1)  # (B, n+1)
             match = torch.cumprod((props == base_next[:, :-1]).long(), dim=1)
@@ -207,6 +211,7 @@ class LlamaAdapter(FamilyAdapter):
             compute_dtype=self.compute_dtype,
             full_logits=full_logits,
             rope=self.rope,
+            tp=self.tp,
         )
         self.cache.write_prompt(rid, kv["k"][:, 0], kv["v"][:, 0])
         if self.speculative:
@@ -234,7 +239,7 @@ class LlamaAdapter(FamilyAdapter):
         toks = torch.zeros((1, p_pad), dtype=torch.long)
         toks[0, :p] = torch.as_tensor(prompt, dtype=torch.long)
         nlayers = int(self.params["layers"]["wq"].shape[0])
-        shape = (nlayers, 1, p_pad, self.model_cfg.n_kv_heads, self.model_cfg.head_dim)
+        shape = (nlayers, 1, p_pad, self.kv_heads, self.model_cfg.head_dim)
         self._chunk_state[rid] = {
             "slot": slot, "toks": toks.to(self.device), "p": p, "p_pad": p_pad,
             "s_pad": s_pad, "pos": 0, "row": None, "embed": None,
@@ -250,7 +255,7 @@ class LlamaAdapter(FamilyAdapter):
         m = min(self.scfg.prefill_chunk_tokens, st["p_pad"] - pos)
         logits, embeds, _ = decode_chunk(
             self.params, st["cache"], st["toks"][:, pos:pos + m], pos,
-            self.model_cfg, compute_dtype=self.compute_dtype, rope=self.rope,
+            self.model_cfg, compute_dtype=self.compute_dtype, rope=self.rope, tp=self.tp,
         )
         last = st["p"] - 1
         if pos <= last < pos + m:
@@ -300,6 +305,7 @@ class LlamaAdapter(FamilyAdapter):
             attn_impl=self.attn_impl,
             block_kv=self.block_kv,
             rope=self.rope,
+            tp=self.tp,
         )
         tok = sample_token(
             logits, generator, scfg.temperature, scfg.top_k, scfg.do_sample

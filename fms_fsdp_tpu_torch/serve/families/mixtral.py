@@ -10,7 +10,9 @@ The FFN half routes each decoded token through its top-k experts
 runs each chosen expert once over the rows that chose it, ``"dense"``
 runs every expert and mixes (the parity mode). Both compute the same
 mixture; they differ by rounding only. The page handoff is the base
-class's generic one (``supports_handoff``).
+class's generic one (``supports_handoff``). Serving layouts as Llama's:
+the attention at this rank's heads, each expert's FFN split inside the
+expert over tensor (E stays whole: the serving mesh has no expert axis).
 """
 
 from typing import Optional
@@ -30,6 +32,7 @@ MOE_IMPLS = ("routed", "dense")
 class MixtralAdapter(FamilyAdapter):
     family = "mixtral"
     supports_handoff = True  # the generic page codec
+    supports_layout = True
 
     def __init__(self, params, model_cfg, scfg, compute_dtype, device):
         moe_impl = getattr(scfg, "moe_impl", "routed")
@@ -57,16 +60,16 @@ class MixtralAdapter(FamilyAdapter):
                 "Mixtral serving has no speculative decode path (the "
                 "speculator's verify loop is Llama's): unset speculator_path"
             )
-        self.params = params
         self.model_cfg = model_cfg
         self.scfg = scfg
         self.compute_dtype = compute_dtype
         self.device = torch.device(device)
         self.moe_impl = moe_impl
         self.attn_impl = "reference"
+        self.params = params = self._init_layout(scfg, params, compute_dtype, self.device)
 
         nlayers = int(params["layers"]["wq"].shape[0])
-        page_size, self.block_kv, self.tune_how = paged_decode_tiles(model_cfg, scfg)
+        page_size, self.block_kv, self.tune_how = paged_decode_tiles(model_cfg, scfg, self.tp)
         self.page_size = page_size
         self.max_pages = scfg.max_seq_len // page_size
         num_pages = scfg.num_pages or (
@@ -76,7 +79,7 @@ class MixtralAdapter(FamilyAdapter):
             nlayers,
             num_pages,
             page_size,
-            model_cfg.n_kv_heads,
+            self.kv_heads,
             model_cfg.head_dim,
             dtype=compute_dtype,
             quant="none",
@@ -134,6 +137,7 @@ class MixtralAdapter(FamilyAdapter):
             compute_dtype=self.compute_dtype,
             full_logits=full_logits,
             rope=self.rope,
+            tp=self.tp,
         )
         self.cache.write_prompt(rid, kv["k"][:, 0], kv["v"][:, 0])
         # logits of the last REAL position predict the next token
@@ -160,6 +164,7 @@ class MixtralAdapter(FamilyAdapter):
             compute_dtype=self.compute_dtype,
             moe_impl=self.moe_impl,
             rope=self.rope,
+            tp=self.tp,
         )
         tok = sample_token(
             logits, generator, scfg.temperature, scfg.top_k, scfg.do_sample

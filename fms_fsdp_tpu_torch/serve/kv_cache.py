@@ -6,6 +6,9 @@ of fixed-size pages, one pool per k and v:
 
     pools["k"]: (L, P, page_size, Nkv, H)   P = num_pages
 
+(on a serving layout's rank, Nkv is the KV heads that rank holds:
+``parallel/sharding.py::serve_kv_pool_specs``)
+
 and each sequence owns an ordered list of page ids; logical cache
 position ``t`` of a sequence lives at (pages[t // page_size],
 t % page_size). The page table handed to the decode step is the padded
@@ -242,14 +245,16 @@ class PagedKVCache:
 
     # -- page export / import (serve/disagg/ handoff) ----------------------
 
-    def gather_pages(self, seq_id: int) -> Dict[str, torch.Tensor]:
-        """seq_id's pages as host tensors: leaf name -> (L, n_pages,
-        page_size, Nkv, H|1) in the pool's STORAGE dtype."""
+    def gather_pages(self, seq_id: int, to_host: bool = True) -> Dict[str, torch.Tensor]:
+        """seq_id's pages: leaf name -> (L, n_pages, page_size, Nkv, H|1)
+        in the pool's STORAGE dtype, on the host (on the pool's device
+        when ``to_host`` is False)."""
         pages = self._seq_pages.get(seq_id, [])
         if not pages:
             raise ValueError(f"sequence {seq_id} holds no pages to gather")
         ids = torch.tensor(pages, device=self.device)
-        return {name: pool[:, ids].cpu() for name, pool in self.pools.items()}
+        return {name: pool[:, ids].cpu() if to_host else pool[:, ids]
+                for name, pool in self.pools.items()}
 
     def scatter_pages(self, seq_id: int, arrays: Dict, n_tokens: int) -> bool:
         """The unpack half: allocate exactly the shipped page count for

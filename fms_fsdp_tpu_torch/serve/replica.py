@@ -37,7 +37,9 @@ Engine failures exit through :func:`classified_exit` as
 or ``--init-seed`` (random init from a seeded generator on the engine's
 device: two replicas, or a replica and an in-process engine, given the
 same seed hold the same weights). The engine runs on the card unless
-``--device cpu``.
+``--device cpu``. A serving layout (``serve_layout``) is refused: this
+process would have to start and supervise its replica's followers
+(ROADMAP.md A.6b, the fleet replica over a rank group).
 
 ``--stats-path``: when the replica drains or is preempted it writes
 there, as one JSON object, its own paged-decode kernel launches
@@ -106,6 +108,13 @@ def build_engine(args):
         model_cfg = load_model_config(json.load(f))
     with open(args.serve_cfg) as f:
         serve_cfg = ServeConfig(**json.load(f))
+    if serve_cfg.serve_layout:
+        raise NotImplementedError(
+            f"serve_layout={serve_cfg.serve_layout!r}: a fleet replica over a group "
+            f"of ranks (its followers started and supervised with it) is not ported "
+            f"yet (ROADMAP.md A.6b, the fleet replica over a rank group); run the "
+            f"fleet's replicas single-card"
+        )
     device = resolve_device(args.device or None)
     if args.params:
         return ServingEngine.from_checkpoint(

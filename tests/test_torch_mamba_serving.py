@@ -284,16 +284,14 @@ def test_mamba_state_bytes_match_jax(kind, dtype):
     ("speculator_path", "spec.pkl", "speculator_path"),
 ])
 def test_mamba_refused_knobs_raise(np_params, field, value, match):
-    """The adapter's four refusals, each naming its knob. The engine
-    refuses serve_layout, whose path is not ported at all, before it
-    builds the adapter."""
+    """The adapter's four refusals, each naming its knob, through the
+    adapter and through the engine (a layout's too: JAX's "single-chip"
+    refusal, before any group is needed)."""
     params = params_from_numpy(np_params["pure"])
     scfg = ServeConfig(compute_dtype="float32", **{field: value})
     with pytest.raises(ValueError, match=match):
         MambaAdapter(params, CFG["pure"], scfg, torch.float32, "cpu")
-    expected = (ValueError if field in ("attn_impl", "kv_quant", "speculator_path")
-                else NotImplementedError)
-    with pytest.raises(expected, match=match):
+    with pytest.raises(ValueError, match=match):
         ServingEngine(params, CFG["pure"], scfg, device="cpu")
 
 

@@ -258,8 +258,8 @@ def test_moments_placed_as_their_params():
 def test_unported_reduce_and_layout_refused():
     """JAX's quantized reduce is ported: the policy carries the mode as
     JAX's does, and the amax rows are replicated (their flat keys match
-    no param's spec). The serving layout stays refused where the port
-    reads it, naming A.6b (it needs tensor parallelism)."""
+    no param's spec). A serving layout without an extent ("tp") is
+    refused with JAX's message (``parse_serve_layout``)."""
     from fms_fsdp_tpu.parallel.mixed_precision import get_dtype_policy as j_policy
     from fms_fsdp_tpu_torch.parallel.mixed_precision import get_dtype_policy
     from fms_fsdp_tpu_torch.serve import ServeConfig, ServingEngine
@@ -269,7 +269,7 @@ def test_unported_reduce_and_layout_refused():
     specs = sharding.llama_param_specs(scan=True)
     key = "quant.amax_history.g.layers.wq"
     assert sharding.infer_state_specs([key], specs)[key] == sharding.P()
-    with pytest.raises(NotImplementedError, match="A.6b"):
+    with pytest.raises(ValueError, match="positive integer extent"):
         ServingEngine({}, LlamaConfig(**TINY_KW), ServeConfig(serve_layout="tp"), device="cpu")
 
 

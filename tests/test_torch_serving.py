@@ -433,11 +433,13 @@ def test_engine_without_cuda_raises_unless_cpu_asked(params, monkeypatch):
                                          ("prefill_chunk_tokens", 16),
                                          ("serve_layout", "tp=2")])
 def test_engine_refuses_unported_options(params, field, value):
-    """Only the serving layout is still refused (it needs A.6b's tensor
-    parallelism); disaggregation roles and chunked prefill are served."""
+    """Disaggregation roles and chunked prefill are served; a serving
+    layout is served by a world of its ranks (tests/
+    test_torch_serve_layout.py) and refused in a process without one,
+    rather than run on one card."""
     scfg = ServeConfig(compute_dtype="float32", **{field: value})
     if field == "serve_layout":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.6b"):
+        with pytest.raises(ValueError, match="needs 2 ranks"):
             ServingEngine(params, TINY, scfg, device="cpu")
         return
     eng = ServingEngine(params, TINY, scfg, device="cpu")
@@ -501,7 +503,8 @@ def test_port_imports_no_jax_and_no_jax_package():
         "    'models.speculative', 'models.gpt_bigcode', 'train.speculator',\n"
         "    'speculator', 'speculator.train_speculator', 'models.hf_import',\n"
         "    'eval_ppl', 'fms_to_hf_llama', 'fms_to_hf_mamba', 'fms_to_hf_mixtral',\n"
-        "    'tune.candidates', 'tune.table', 'tune.lookup', 'ops.ring_attention')}\n"
+        "    'tune.candidates', 'tune.table', 'tune.lookup', 'ops.ring_attention',\n"
+        "    'parallel.sharding', 'parallel.tensor', 'serve.layout')}\n"
         "print(len(mods), bad, need - set(mods))\n"
         "sys.exit(1 if bad or len(mods) < 90 or need - set(mods) else 0)\n"
     )
