@@ -92,23 +92,41 @@ Phases, one JSON line each; any failure exits non-zero:
    greedy for every request, and an oracle drafter (the plain stream's
    own continuation) commits every draft (accept rate 1.0) with the same
    tokens. Needs the train-speculator phase.
-8. fleet   — ``FleetRouter`` over three ``SubprocessReplica`` children on
-   the card (``python -m fms_fsdp_tpu_torch.serve.replica``): one prefill
-   and two decode replicas, llama3_8b at full width and 4 of 32 layers in
-   fp32 (7.7 GB a child), the chunked transport, 16 requests of 64-512
-   prompt and 32 new tokens. In one run: ``replica_kill`` on decode
-   replica 1 after it imported handoffs, ``handoff_chunk_corrupt`` on
-   one chunk the router sends, and once replica 1's relaunch is ready
-   (and the wave's second half is in) a ``preempt`` (SIGTERM,
-   drain-and-migrate) of decode replica 2 while it holds live streams.
-   Checks: every request completes once with the tokens of an in-process
-   unified engine on the same seed's weights; a ``replica_loss``
-   relaunch in the ledger, availability below 1, ``chunks_resent`` and
-   ``drain_migrations`` >= 1; from each child's stats file its
-   paged-decode launches == its decode steps x 4 (decode) or 0
-   (prefill); the stats map valid under the port's schema. Prints TTFT,
-   latency, handoff bytes, transfer seconds, restart downtime and each
-   child's start-up seconds. The serve phases' weights are freed first.
+8. fleet   — two ``FleetRouter`` fleets of replica children on the card
+   (``python -m fms_fsdp_tpu_torch.serve.replica``), ticked in one loop:
+   the layout fleet starts first and the one-card fleet once the layout
+   replicas are ready, so that the 7 processes' weight draws (7.7 GB of
+   model, 9.8 GB at a draw's peak) do not all meet; both llama3_8b at full
+   width and 4 of 32 layers in fp32, the chunked transport,
+   the same 16 requests of 64-512 prompt and 32 new tokens, held against
+   one in-process unified engine on the same seed's weights. The
+   one-card fleet: one prefill and two decode replicas. In one run:
+   ``replica_kill`` on decode replica 1 after it imported handoffs,
+   ``handoff_chunk_corrupt`` on one chunk the router sends to replica 2,
+   and once replica 1's relaunch is ready (and the wave's second half is
+   in) a ``preempt`` (SIGTERM, drain-and-migrate) of decode replica 2
+   while it holds live streams. Checks: every request completes once
+   with the reference tokens; a ``replica_loss`` relaunch in the ledger,
+   availability below 1, ``chunks_resent`` and ``drain_migrations`` >= 1;
+   from each child's stats file its paged-decode launches == its decode
+   steps x 4 (decode) or 0 (prefill); the stats map valid under the
+   port's schema. The layout fleet (``serve_layout="tp=2"``): a prefill
+   and a decode replica, each a leader child and the follower it starts
+   (``serve/replica.py``), 4 processes and two gloo worlds. Once the
+   decode replica holds live streams of imported handoffs its follower
+   (rank 1) is SIGKILLed, and the rest of the wave goes in. Checks: every
+   request completes once with the reference tokens; exactly one
+   ``replica_loss`` relaunch, of replica 1; no rank of the killed
+   incarnation runs when its relaunch is ready; from the stats files of
+   the 4 ranks of the live incarnations, each decode rank's paged-decode
+   launches == its decode steps x 4, all at 16/4 heads, and the prefill
+   ranks' 0; every follower exits 0 after its release; the stats map
+   valid. Prints TTFT, latency, handoff bytes, transfer seconds, restart
+   downtime, each incarnation's start-up seconds, and for the layout
+   fleet (``layout``) the time from the kill to the relaunch's readiness,
+   the wave's wall and each rank's figures; the card's peak memory in
+   use (all processes) and the children alive then. The serve phases'
+   weights are freed first.
 9. flash   — the flash-attention kernels (wgmma + TMA for bf16: forward,
    dq, dk/dv; scalar for fp32) against their plain versions for bf16 and
    fp32: the training shape
@@ -270,8 +288,9 @@ Phases, one JSON line each; any failure exits non-zero:
    nothing. The hsdp child's checkpoint (step 3) is left for hf-eval,
    which deletes it.
 15. hf-eval — HF interop and native eval. (a) ``python -m
-   fms_fsdp_tpu_torch.fms_to_hf_llama`` (a child process, beside the
-   card work of (b)-(e)) on the shard phase's hsdp checkpoint (llama3_8b_4k, 2 layers,
+   fms_fsdp_tpu_torch.fms_to_hf_llama`` (a child process, started by the
+   shard phase once the checkpoint exists and running beside the rest of
+   it and the card work of (b)-(e)) on the shard phase's hsdp checkpoint (llama3_8b_4k, 2 layers,
    bf16; one step of the same config when shard did not run) writes an
    HF directory (fp32 safetensors); ``load_hf_base`` reads it back, equal
    to the saved params bitwise; on one batch of S=4096 the port's forward
@@ -443,8 +462,14 @@ Phases, one JSON line each; any failure exits non-zero:
    reference attention and fp32, held as the serve phase's
    ``_compare_step`` holds them, and the kernel's first launch against
    its plain version row by row within ``paged_attention.REL_TOL``.
+   Then the same three waves of mixtral_8x7b at full width and 2 layers
+   in fp32 (``serve_mixtral``; 12.6 GB of weights drawn on each rank):
+   tokens equal, first-step logits within ``TP_SERVE_REL_TOL`` and the
+   control outside it; Mixtral's serving decodes through the reference
+   attention, so no rank launches the kernel.
    Prints each wave's wall and decode tokens/s, the collectives a decode
-   step and each rank's peak memory.
+   step, each rank's peak memory (the weights' draw apart) and each
+   model's wall in the children.
 
 Then a ``total`` line (seconds since ``main`` began, and each phase's),
 a ``{"kernels": [...]}`` line (the flash forward and dq by contract and
@@ -2138,6 +2163,9 @@ FLEET_CHUNK_BYTES, FLEET_INFLIGHT_BYTES = 1 << 20, 4 << 20
 # pumps its channel once an engine step, the router once a poll) before
 # its sender gives up; JAX's default window is ~1.5 s
 FLEET_RETRIES, FLEET_BACKOFF_S = 8, 0.25
+# the layout fleet beside it: a prefill and a decode replica of 2 ranks
+# each, 4 processes on the card in two gloo worlds
+FLEET_LAYOUT = "tp=2"
 
 
 def _fleet_record(stats):
@@ -2179,33 +2207,250 @@ def _fleet_dump(router, workdir, log):
                 print(f"--- {name} ---\n{f.read()[-3000:]}", file=sys.stderr)
 
 
+def _proc_children(pid):
+    try:
+        with open(f"/proc/{pid}/task/{pid}/children") as f:
+            return [int(p) for p in f.read().split()]
+    except OSError:
+        return []
+
+
+def _proc_alive(pid) -> bool:
+    """Whether ``pid`` runs (a zombie waiting for its reaper does not)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] not in ("Z", "X")
+    except OSError:
+        return False
+
+
+class _FleetRun:
+    """One fleet of the fleet phase: a router over replica children of
+    llama3_8b at ``FLEET_LAYERS`` layers, replica 0 the prefill replica,
+    the phase's transport settings; the start-up seconds and the ranks'
+    pids of each incarnation (read at its readiness), its timeline, the
+    router's stats once its wave is done."""
+
+    def __init__(self, name, cfg, scfg, n_replicas, faults=""):
+        from fms_fsdp_tpu_torch.serve.fleet import FleetConfig, FleetRouter, make_subprocess_spawn
+
+        self.workdir = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+        self.log = []
+        spawn = make_subprocess_spawn(
+            self.workdir, dataclasses.asdict(cfg), scfg, init_seed=FLEET_SEED,
+            prefill_replicas=1, faults=faults, env_extra={"OMP_NUM_THREADS": "2"},
+            chunk_bytes=FLEET_CHUNK_BYTES,
+            inflight_bytes=FLEET_INFLIGHT_BYTES, retries=FLEET_RETRIES,
+            backoff_s=FLEET_BACKOFF_S,
+        )
+        self.router = FleetRouter(spawn, FleetConfig(
+            n_replicas=n_replicas, prefill_replicas=1, max_seq_len=scfg["max_seq_len"],
+            max_inflight_per_replica=8, startup_timeout_s=300.0, stall_timeout_s=60.0,
+            restart_backoff_s=0.1, journal_path=os.path.join(self.workdir, "journal.jsonl"),
+            ledger_path=os.path.join(self.workdir, "ledger.json"),
+            transport_chunk_bytes=FLEET_CHUNK_BYTES,
+            transport_inflight_bytes=FLEET_INFLIGHT_BYTES,
+            transport_retries=FLEET_RETRIES, transport_backoff_s=FLEET_BACKOFF_S,
+        ), log=self.log.append)
+        self.sup = self.router.supervisor
+        self.ready_at, self.pids, self.events, self.rids = {}, {}, {}, []
+        self.stats = None
+        self.started = False
+        self.live = True  # shut down once its script ends
+
+    def start(self):
+        self.router.start()
+        self.started = True
+
+    def tick(self):
+        if not self.started:
+            return
+        self.router.poll()
+        now = time.monotonic()
+        for idx in self.sup.live_indices():
+            run = self.sup.run_id(idx)
+            if self.router._ready.get(idx) and run not in self.ready_at:
+                self.ready_at[run] = now - self.sup.slots[idx].started
+                leader = self.sup.handle(idx).proc.pid
+                self.pids[run] = [leader] + _proc_children(leader)
+
+    def holds_streams(self, idx) -> bool:
+        router = self.router
+        return bool(router._ready.get(idx) and router.journal.inflight(self.sup.run_id(idx))
+                    and router._hb_stats.get(idx, {}).get("slots_busy", 0) > 0)
+
+    def drain(self, timeout_s):
+        """``FleetRouter.drain`` as steps of a script: the live replicas
+        told to drain, then polled (by the phase's loop) until every ready
+        one has exited or ``timeout_s`` passes; a relaunch still starting
+        is stopped by the shutdown."""
+        for idx in self.sup.live_indices():
+            handle = self.sup.handle(idx)
+            if handle is not None:
+                handle.send({"type": "drain"})
+        deadline = time.monotonic() + timeout_s
+        while (any(self.router._ready.get(i) for i in self.sup.live_indices())
+               and time.monotonic() < deadline):
+            yield
+
+    def shutdown(self):
+        if self.live:
+            self.live = False
+            self.router.shutdown()
+
+    def reports(self):
+        """Each child's stats file (a layout follower's too), by run id."""
+        out = {}
+        for name in sorted(os.listdir(self.workdir)):
+            if name.endswith(".stats.json"):
+                with open(os.path.join(self.workdir, name)) as f:
+                    out[name[:-len(".stats.json")]] = json.load(f)
+        return out
+
+    def read(self, ref_tokens):
+        """(ledger, reports, the figures every fleet prints)."""
+        from fms_fsdp_tpu_torch.obs.schema import validate_record
+
+        recs = self.router.journal.records
+        tokens = [recs[r].tokens for r in self.rids]
+        with open(os.path.join(self.workdir, "ledger.json")) as f:
+            ledger = json.load(f)
+        ttft = [recs[r].engine_ttft for r in self.rids if recs[r].engine_ttft is not None]
+        latency = [recs[r].latency for r in self.rids]
+        return ledger, self.reports(), {
+            "completed_once": (sorted(r.rid for r in self.router.completed)
+                               == sorted(self.rids)),
+            "tokens_equal_reference": sum(t == r for t, r in zip(tokens, ref_tokens)),
+            "first_mismatch": next(({"request": i, "fleet": t, "reference": r}
+                                    for i, (t, r) in enumerate(zip(tokens, ref_tokens))
+                                    if t != r), None),
+            "stats": self.stats, "schema_errors": validate_record(_fleet_record(self.stats)),
+            "restarts": [{k: e[k] for k in ("replica", "incarnation", "classification",
+                                            "exit_code", "downtime_s")}
+                         for e in ledger["entries"]],
+            "restart_downtime_s": ledger["replica_downtime_s"],
+            "ttft_s": {"p50": _pct(ttft, 0.5), "p99": _pct(ttft, 0.99)},
+            "latency_s": {"p50": _pct(latency, 0.5), "p99": _pct(latency, 0.99)},
+            "startup_s": self.ready_at, "timeline_s": self.events,
+        }
+
+
+def _one_card_fleet(f, prompts, t_start, after):
+    """The one-card fleet's schedule (module docstring, phase 8), begun
+    once the ``after`` fleet's replicas are ready: its children draw
+    their weights (9.8 GB a process at the peak) when the layout ranks
+    have kept their halves."""
+    router, sup = f.router, f.sup
+    half = FLEET_REQUESTS // 2
+    while len(after.ready_at) < after.router.cfg.n_replicas:
+        yield
+    f.start()
+    f.events["start_s"] = time.monotonic() - t_start
+    while len(f.ready_at) < 3:
+        yield
+    f.events["all_ready_s"] = time.monotonic() - t_start
+    f.rids += [router.submit(p, FLEET_NEW) for p in prompts[:half]]
+    # the kill, then its relaunch ready
+    while not (sup.slots[1].incarnation >= 1 and "replica1-i1" in f.ready_at):
+        yield
+    f.events["replica1_relaunch_ready_s"] = time.monotonic() - t_start
+    f.rids += [router.submit(p, FLEET_NEW) for p in prompts[half:]]
+    # preempt decode replica 2 while it holds live streams
+    while not f.holds_streams(2):
+        if router.journal.outstanding() == 0:
+            raise AssertionError("the wave finished before replica 2 held a stream")
+        yield
+    f.events["preempt_s"] = time.monotonic() - t_start
+    router.preempt(2)
+    while router.journal.outstanding():
+        yield
+    f.events["wave_done_s"] = time.monotonic() - t_start
+    f.stats = router.stats()
+    # replicas 0 and 1 drain and write their stats at once; replica 2's
+    # relaunch, still starting, is stopped by the shutdown
+    yield from f.drain(30.0)
+    f.events["drained_s"] = time.monotonic() - t_start
+
+
+def _layout_fleet(f, prompts, t_start):
+    """The layout fleet's schedule (module docstring, phase 8), its
+    router already started: once decode replica 1 holds live streams of
+    imported handoffs, its follower (rank 1) is SIGKILLed and the rest of
+    the wave goes in."""
+    router = f.router
+    half = FLEET_REQUESTS // 2
+    while len(f.ready_at) < 2:
+        yield
+    f.events["all_ready_s"] = t_wave = time.monotonic() - t_start
+    f.rids += [router.submit(p, FLEET_NEW) for p in prompts[:half]]
+    while not f.holds_streams(1):
+        yield
+    dead = f.pids["replica1-i0"]
+    t_kill = time.monotonic()
+    f.events["kill_s"] = t_kill - t_start
+    f.events["killed_with_streams"] = router.journal.inflight("replica1-i0")
+    os.kill(dead[1], signal.SIGKILL)
+    f.rids += [router.submit(p, FLEET_NEW) for p in prompts[half:]]
+    while "replica1-i1" not in f.ready_at:
+        yield
+    f.events["kill_to_ready_s"] = time.monotonic() - t_kill
+    # the killed incarnation's ranks, leader included, still running at
+    # its relaunch's readiness (none expected)
+    f.events["dead_ranks_alive_at_ready"] = [p for p in dead if _proc_alive(p)]
+    while router.journal.outstanding():
+        yield
+    f.events["wave_done_s"] = time.monotonic() - t_start
+    f.events["wave_wall_s"] = f.events["wave_done_s"] - t_wave
+    f.stats = router.stats()
+    yield from f.drain(60.0)
+    f.events["drained_s"] = time.monotonic() - t_start
+
+
+def _layout_rank_checks(reports, problems):
+    """The layout fleet's ranks, from their stats files: the 4 ranks of
+    each live incarnation (the prefill replica's and the decode
+    relaunch's); each decode rank's paged-decode launches == its decode
+    steps x layers, all at ``TP_HEADS``, a follower's decode calls the
+    leader's decode steps (the warmup's included); the prefill ranks
+    launch none; every follower exited 0 after its release."""
+    want_runs = {"replica0-i0", "replica0-i0.rank1", "replica1-i1", "replica1-i1.rank1"}
+    if not want_runs <= set(reports):
+        problems.append(f"layout: missing rank stats {sorted(want_runs - set(reports))}")
+        return
+    for run in sorted(want_runs):
+        rep = reports[run]
+        steps = rep["decode_steps"]
+        launched = sum(rep["launches"].values())
+        if rep["role"] == "prefill":
+            ok = launched == 0 and steps == 0
+        else:
+            want = steps * FLEET_LAYERS
+            ok = steps > 0 and launched == want and rep["head_launches"] == {TP_HEADS: want}
+        if not ok:
+            problems.append(f"layout {run}: launches {rep['launches']} by heads "
+                            f"{rep['head_launches']} for {steps} decode steps ({rep['role']})")
+    for leader in ("replica0-i0", "replica1-i1"):
+        lead, rank = reports[leader], reports[f"{leader}.rank1"]
+        if lead["follower_exits"] != [0]:
+            problems.append(f"layout {leader}: follower exits {lead['follower_exits']}")
+        if rank["decode_steps"] != lead["decode_steps"] + lead["warmup_decode_steps"]:
+            problems.append(f"layout {leader}: rank 1 ran {rank['decode_steps']} decode steps, "
+                            f"the leader {lead['decode_steps']} + "
+                            f"{lead['warmup_decode_steps']} warmup")
+
+
 def phase_fleet(state):
-    """``FleetRouter`` over three ``SubprocessReplica`` children on the one
-    card (``python -m fms_fsdp_tpu_torch.serve.replica``): a prefill
-    replica and two decode replicas, llama3_8b at full width and
-    ``FLEET_LAYERS`` layers in fp32, the chunked transport (1 MiB chunks,
-    4 MiB in flight), a seeded wave of 16 requests (prompts of 64-512,
-    32 new tokens). Faults in one run: ``replica_kill`` on decode replica
-    1 at its iteration ``FLEET_KILL_STEP`` (after it has imported
-    handoffs); ``handoff_chunk_corrupt`` on one chunk the router sends;
-    once replica 1's relaunch is ready the second half of the wave goes in
-    and decode replica 2 is preempted (SIGTERM: drain-and-migrate) while
-    it holds live streams. Checks: every request completes once with the
-    tokens of an in-process unified engine on the same seed's weights (in
-    fp32 the tokens do not depend on the batch a row decodes in); the
-    ledger shows a ``replica_loss`` relaunch and availability below 1;
-    ``chunks_resent`` >= 1 and ``drain_migrations`` >= 1; from the
-    children's own stats files, each decode replica's paged-decode
-    launches == its decode steps x layers (v1, fp32 pools) and the prefill
-    replica's 0; the stats map valid under the port's schema."""
+    """Two fleets on the one card, ticked in one loop (module docstring,
+    phase 8): the layout fleet (two replicas of ``serve_layout="tp=2"``:
+    four processes, two gloo worlds), then the one-card fleet (three
+    ``SubprocessReplica`` children), the same wave against one in-process
+    reference."""
     import numpy as np
     import torch
 
     from fms_fsdp_tpu_torch.models.llama import init_llama_params
-    from fms_fsdp_tpu_torch.obs.schema import validate_record
     from fms_fsdp_tpu_torch.resilience.faults import configure_faults
     from fms_fsdp_tpu_torch.serve import ServeConfig, ServingEngine
-    from fms_fsdp_tpu_torch.serve.fleet import FleetConfig, FleetRouter, make_subprocess_spawn
     from fms_fsdp_tpu_torch.utils.config_utils import get_model_config
 
     state.pop("params", None)  # the serve phases' 16 GB of bf16 weights
@@ -2218,126 +2463,94 @@ def phase_fleet(state):
     prompts = [rng.randint(0, cfg.src_vocab_size, size=int(m)).tolist()
                for m in rng.randint(FLEET_PROMPT[0], FLEET_PROMPT[1] + 1, size=FLEET_REQUESTS)]
 
-    # the reference: one unified engine in this process, the same weights
-    t0 = time.perf_counter()
-    params = init_llama_params(torch.Generator(device="cuda").manual_seed(FLEET_SEED), cfg)
-    ref = ServingEngine(params, cfg, ServeConfig(**scfg), seed=0)
-    rreqs = [ref.submit(p, FLEET_NEW) for p in prompts]
-    ref.run()
-    ref_tokens = [list(r.generated) for r in rreqs]
-    ref_s = time.perf_counter() - t0
-    del ref, params, rreqs
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
-    log = []
-    spawn = make_subprocess_spawn(
-        workdir, dataclasses.asdict(cfg), scfg, init_seed=FLEET_SEED, prefill_replicas=1,
-        faults=f"replica_kill:replica=1:step={FLEET_KILL_STEP}",
-        chunk_bytes=FLEET_CHUNK_BYTES, inflight_bytes=FLEET_INFLIGHT_BYTES,
-        retries=FLEET_RETRIES, backoff_s=FLEET_BACKOFF_S,
-    )
-    router = FleetRouter(spawn, FleetConfig(
-        n_replicas=3, prefill_replicas=1, max_seq_len=scfg["max_seq_len"],
-        max_inflight_per_replica=8, startup_timeout_s=300.0, stall_timeout_s=60.0,
-        restart_backoff_s=0.1, journal_path=os.path.join(workdir, "journal.jsonl"),
-        ledger_path=os.path.join(workdir, "ledger.json"),
-        transport_chunk_bytes=FLEET_CHUNK_BYTES,
-        transport_inflight_bytes=FLEET_INFLIGHT_BYTES,
-        transport_retries=FLEET_RETRIES, transport_backoff_s=FLEET_BACKOFF_S,
-    ), log=log.append)
-    # the router's own sender corrupts one chunk on its way to a replica
-    configure_faults("handoff_chunk_corrupt:transport=rtr:times=1")
-    sup = router.supervisor
-    ready_at, events, rids = {}, {}, []
-    t_start = time.monotonic()
-
-    def tick():
-        router.poll()
-        now = time.monotonic()
-        for idx in sup.live_indices():
-            run_id = sup.run_id(idx)
-            if router._ready.get(idx) and run_id not in ready_at:
-                ready_at[run_id] = now - sup.slots[idx].started
-        if now - t_start > 420:
-            raise TimeoutError(f"fleet phase stuck: {router.journal.counts()} {events}")
-        time.sleep(0.001)
-
+    one = _FleetRun("fleet", cfg, scfg, 3, faults=f"replica_kill:replica=1:step={FLEET_KILL_STEP}")
+    lay = _FleetRun("fleet_layout", cfg, dict(scfg, serve_layout=FLEET_LAYOUT), 2)
+    fleets = (one, lay)
+    total = torch.cuda.mem_get_info()[1]
+    peak, t_mem = {"used_bytes": 0}, 0.0
     try:
-        router.start()
-        while len(ready_at) < 3:
-            tick()
-        events["all_ready_s"] = time.monotonic() - t_start
-        half = FLEET_REQUESTS // 2
-        rids += [router.submit(p, FLEET_NEW) for p in prompts[:half]]
-        # the kill, then its relaunch ready
-        while not (sup.slots[1].incarnation >= 1 and "replica1-i1" in ready_at):
-            tick()
-        events["replica1_relaunch_ready_s"] = time.monotonic() - t_start
-        rids += [router.submit(p, FLEET_NEW) for p in prompts[half:]]
-        # preempt decode replica 2 while it holds live streams
-        while True:
-            tick()
-            hb = router._hb_stats.get(2, {})
-            if router.journal.inflight(sup.run_id(2)) and hb.get("slots_busy", 0) > 0:
-                break
-            if router.journal.outstanding() == 0:
-                raise AssertionError("the wave finished before replica 2 held a stream")
-        events["preempt_s"] = time.monotonic() - t_start
-        router.preempt(2)
-        while router.journal.outstanding():
-            tick()
-        events["wave_done_s"] = time.monotonic() - t_start
-        stats = router.stats()
-        # replicas 0 and 1 drain and write their stats at once; replica 2's
-        # relaunch, still starting, is stopped by shutdown
-        router.drain(timeout_s=5.0)
-        events["drained_s"] = time.monotonic() - t_start
+        # the layout fleet starts first; its children import torch while
+        # the reference runs here
+        t_start = time.monotonic()
+        lay.start()
+        # the reference: one unified engine in this process, the same weights
+        t0 = time.perf_counter()
+        params = init_llama_params(torch.Generator(device="cuda").manual_seed(FLEET_SEED), cfg)
+        ref = ServingEngine(params, cfg, ServeConfig(**scfg), seed=0)
+        rreqs = [ref.submit(p, FLEET_NEW) for p in prompts]
+        ref.run()
+        ref_tokens = [list(r.generated) for r in rreqs]
+        ref_s = time.perf_counter() - t0
+        del ref, params, rreqs
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the router's own sender corrupts one chunk on its way to a replica
+        # (replica 2: the one-card fleet's only)
+        configure_faults("handoff_chunk_corrupt:transport=rtr2:times=1")
+        scripts = {lay: _layout_fleet(lay, prompts, t_start),
+                   one: _one_card_fleet(one, prompts, t_start, after=lay)}
+        while scripts:
+            for f, script in list(scripts.items()):
+                f.tick()
+                try:
+                    next(script)
+                except StopIteration:
+                    del scripts[f]
+                    f.shutdown()  # its children's memory back for the other
+            now = time.monotonic()
+            if now - t_mem > 0.1:
+                t_mem = now
+                used = total - torch.cuda.mem_get_info()[0]
+                if used > peak["used_bytes"]:
+                    peak = {"used_bytes": used, "total_bytes": total,
+                            "this_process_reserved_bytes": torch.cuda.memory_reserved(),
+                            "at_s": now - t_start,
+                            "children": len(one.sup.live_indices())
+                            + TP_SIZE * len(lay.sup.live_indices())}
+            if now - t_start > 420:
+                raise TimeoutError(f"fleet phase stuck: {one.events} {lay.events}")
+            time.sleep(0.001)
     except BaseException:
-        _fleet_dump(router, workdir, log)
+        for f in fleets:
+            _fleet_dump(f.router, f.workdir, f.log)
         raise
     finally:
         configure_faults(None)
-        router.shutdown()
-    recs = router.journal.records
-    tokens = [recs[r].tokens for r in rids]
-    ledger = json.load(open(os.path.join(workdir, "ledger.json")))
-    reports = {}
-    for name in sorted(os.listdir(workdir)):
-        if name.endswith(".stats.json"):
-            reports[name[:-len(".stats.json")]] = json.load(open(os.path.join(workdir, name)))
-    journal = [json.loads(line) for line in open(os.path.join(workdir, "journal.jsonl"))]
+        for f in fleets:
+            f.shutdown()
+
+    ledger, reports, figures = one.read(ref_tokens)
+    journal = [json.loads(line) for line in open(os.path.join(one.workdir, "journal.jsonl"))]
     begun = {e["transfer_id"]: e["t"] for e in journal if e["event"] == "transfer_begin"}
     transfer_s = [e["t"] - begun[e["transfer_id"]] for e in journal
                   if e["event"] == "transfer_complete" and e["transfer_id"] in begun]
-    ttft = [recs[r].engine_ttft for r in rids if recs[r].engine_ttft is not None]
-    latency = [recs[r].latency for r in rids]
-    same = [t == r for t, r in zip(tokens, ref_tokens)]
+    lay_ledger, lay_reports, lay_figures = lay.read(ref_tokens)
+    stats = one.stats
     result = {
         "model": "llama3_8b", "layers": FLEET_LAYERS, "dtype": "float32",
         "replicas": {"prefill": 1, "decode": 2}, "transport": "chunked",
-        "requests": FLEET_REQUESTS, "max_new_tokens": FLEET_NEW,
-        "completed_once": sorted(r.rid for r in router.completed) == sorted(rids),
-        "tokens_equal_reference": sum(same),
-        "first_mismatch": next(({"request": i, "fleet": t, "reference": r}
-                                for i, (t, r) in enumerate(zip(tokens, ref_tokens)) if t != r),
-                               None),
-        "stats": stats, "schema_errors": validate_record(_fleet_record(stats)),
-        "restarts": [{k: e[k] for k in ("replica", "incarnation", "classification",
-                                        "exit_code", "downtime_s")}
-                     for e in ledger["entries"]],
-        "restart_downtime_s": ledger["replica_downtime_s"],
-        "ttft_s": {"p50": _pct(ttft, 0.5), "p99": _pct(ttft, 0.99)},
-        "latency_s": {"p50": _pct(latency, 0.5), "p99": _pct(latency, 0.99)},
+        "requests": FLEET_REQUESTS, "max_new_tokens": FLEET_NEW, **figures,
         "handoff_bytes": stats["handoff_bytes"],
         "transfer_s": {"count": len(transfer_s), "p50": _pct(transfer_s, 0.5),
                        "max": max(transfer_s) if transfer_s else None},
-        "startup_s": ready_at, "timeline_s": events, "reference_s": ref_s,
+        "reference_s": ref_s,
         "children": {run: {k: rep[k] for k in ("role", "decode_steps", "launches",
-                                                "startup_s", "layers")}
+                                                "startup_s", "startup_parts", "loop_s",
+                                                "iterations", "layers")}
                      for run, rep in reports.items()},
-        "phase_s": time.perf_counter() - t_phase, "nvidia_smi": state["smi"],
+        "layout": {
+            "serve_layout": FLEET_LAYOUT, "replicas": {"prefill": 1, "decode": 1},
+            "processes": TP_SIZE * 2, **lay_figures,
+            "kill_to_ready_s": lay.events.get("kill_to_ready_s"),
+            "wave_wall_s": lay.events.get("wave_wall_s"),
+            "ranks": {run: {k: rep.get(k) for k in ("role", "decode_steps", "launches",
+                                                     "head_launches", "startup_s",
+                                                     "startup_parts", "loop_s", "iterations",
+                                                     "follower_exits")}
+                      for run, rep in lay_reports.items()},
+        },
+        "peak_card_bytes": peak, "phase_s": time.perf_counter() - t_phase,
+        "nvidia_smi": state["smi"],
     }
     emit("fleet", **result)
     state["fleet"] = result
@@ -2367,10 +2580,29 @@ def phase_fleet(state):
                             f"{rep['decode_steps']} decode steps ({rep['role']})")
     if "replica0-i0" not in reports or "replica2-i0" not in reports or not decode_steps:
         problems.append(f"missing child stats: {sorted(reports)}")
+    # the layout fleet
+    lay_result = result["layout"]
+    if (not lay_result["completed_once"]
+            or lay_result["tokens_equal_reference"] != FLEET_REQUESTS):
+        problems.append("layout: a request did not complete once with the reference tokens")
+    losses = [(e["replica"], e["incarnation"]) for e in lay_ledger["entries"]
+              if e["classification"] == "replica_loss"]
+    if losses != [(1, 0)] or len(lay_ledger["entries"]) != 3:
+        problems.append(f"layout: ledger {lay_result['restarts']}, expected one replica_loss "
+                        f"relaunch of replica 1 and two clean exits")
+    if not lay.events.get("killed_with_streams") or lay.events["dead_ranks_alive_at_ready"]:
+        problems.append(f"layout: the kill {lay.events}")
+    if lay_result["schema_errors"]:
+        problems.append(f"layout stats: {lay_result['schema_errors']}")
+    _layout_rank_checks(lay_reports, problems)
     state["fleet_launches_v1"] = sum(r["launches"]["v1"] for r in reports.values())
+    state["fleet_layout_launches"] = {key: sum(r["launches"][key] for r in lay_reports.values())
+                                      for key in ("v1", "v2")}
     if problems:
-        _fleet_dump(router, workdir, log)
-    shutil.rmtree(workdir, ignore_errors=True)
+        for f in fleets:
+            _fleet_dump(f.router, f.workdir, f.log)
+    for f in fleets:
+        shutil.rmtree(f.workdir, ignore_errors=True)
     if problems:
         raise AssertionError("fleet: " + "; ".join(problems))
 
@@ -4343,6 +4575,10 @@ def phase_shard(state):
                       "tokens_per_card_per_s": _report_values(out, "current token per chip per sec:")}
     if rc != 0 or len(losses["hsdp"]) != SHARD_KW["num_steps"]:
         raise AssertionError(f"shard: the hsdp child exited {rc}:\n{out[-3000:]}")
+    if "hf-eval" in state["phases"]:
+        # hf-eval's Llama exporter reads this checkpoint: it starts now and
+        # runs beside the rest of this phase (host work)
+        state["hf-llama-child"] = _start_hf_llama_child(ckpt)
     if "'replica': 1, 'fsdp': 1" not in mesh_line:
         problems.append(f"hsdp mesh on one card: {mesh_line}")
     # ddp and fsdp save nothing (8.9 GB and ~8 s each, cut for the
@@ -4519,6 +4755,19 @@ def _bf16_rule(kernel, plain, fp32, theirs):
 
 def _cli(kw):
     return [f"--{k}={v}" for k, v in kw.items()]
+
+
+def _start_hf_llama_child(ckpt):
+    """hf-eval's Llama exporter (``fms_to_hf_llama``'s CLI) on the
+    trainer checkpoint ``ckpt``, as a child; its directory is hf-eval's
+    root (``.root``)."""
+    root = _ckpt_dir("hf-eval")
+    child = _Child("fms_fsdp_tpu_torch.fms_to_hf_llama",
+                   _cli(HF_LLAMA) + [f"--load_path={ckpt}/checkpoints",
+                                     f"--save_path={root}/hf_llama"],
+                   os.path.join(root, "fms_to_hf_llama.log"), HF_CHILD_TIMEOUT_S)
+    child.root = root
+    return child
 
 
 class _Child:
@@ -4880,7 +5129,8 @@ def phase_hf_eval(state):
     (c) the Mamba eval through the SSD kernel and its export, (d) the
     Mixtral exporter, (e) the GPTBigCode base from an HF directory. The
     two file exporters run as child processes of their CLIs beside this
-    process's card work (host work: no card is touched there)."""
+    process's card work (host work: no card is touched there); the Llama
+    one from the shard phase on, which wrote its checkpoint."""
     import torch
 
     from fms_fsdp_tpu_torch.main_training_llama import main
@@ -4889,22 +5139,23 @@ def phase_hf_eval(state):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     result, problems = {"nvidia_smi": state["smi"]}, []
-    root = _ckpt_dir("hf-eval")
     # the Llama checkpoint: the shard phase's hsdp run (left for this
-    # phase), else one step of the same config
+    # phase, its exporter child started there), else one step of the
+    # same config
     shard_root = state.pop("shard-root", None)
+    children, timings = [], {}
     if shard_root is not None:
         ckpt = os.path.join(shard_root, "hsdp")
+        children.append(state.pop("hf-llama-child"))
+        root = children[0].root
     else:
+        root = _ckpt_dir("hf-eval")
         ckpt = os.path.join(root, "llama")
         main(**dict(SHARD_KW, num_steps=1, ckpt_save_path=ckpt, ckpt_load_path=ckpt))
     result["llama_checkpoint"] = sorted(os.listdir(os.path.join(ckpt, "checkpoints")))
-    children, timings = [], {}
     try:
-        children.append(_Child("fms_fsdp_tpu_torch.fms_to_hf_llama",
-                               _cli(HF_LLAMA) + [f"--load_path={ckpt}/checkpoints",
-                                                 f"--save_path={root}/hf_llama"],
-                               os.path.join(root, "fms_to_hf_llama.log"), HF_CHILD_TIMEOUT_S))
+        if not children:
+            children.append(_start_hf_llama_child(ckpt))
 
         def part(name, fn):
             t0 = time.perf_counter()
@@ -6103,8 +6354,11 @@ TP_TIMEOUT_S = 420
 TP_REFERENCES = ("shard", "train-mixtral")
 TP_MARKER_TIMEOUT_S = 180
 # the serving runs after TP_RUNS, in the same world: llama3_8b at full
-# width and the fleet phase's 4 layers, fp32, the kernel on the card
+# width and the fleet phase's 4 layers, fp32, the kernel on the card; then
+# mixtral_8x7b at full width and 2 layers, fp32 (12.6 GB of weights drawn
+# on each rank), whose decode runs the reference attention (no kernel)
 TP_SERVE_LAYERS = 4
+TP_SERVE_MIXTRAL_LAYERS = 2
 TP_SERVE_WAVE = {"requests": 8, "min_prompt": 64, "max_prompt": 512, "max_new": 32, "seed": 21}
 # every request prefilled in the first step, so each decode step runs 8 rows
 TP_SERVE_KW = {"max_batch": 8, "max_seq_len": 1024, "compute_dtype": "float32",
@@ -6174,18 +6428,22 @@ def _tp_child(spec):
         torch.cuda.empty_cache()
         # the run's memory is back: a marker for the parent
         open(os.path.join(spec["root"], f"{name}_done_rank{rank}"), "w").close()
-    out["serve"] = _tp_serve("cuda", _tp_serve_cfg(), rank)
+    out["serve"] = _tp_serve("cuda", _tp_serve_cfg("llama3_8b", TP_SERVE_LAYERS), rank)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["serve_mixtral"] = _tp_serve(
+        "cuda", _tp_serve_cfg("mixtral_8x7b", TP_SERVE_MIXTRAL_LAYERS), rank)
     with open(os.path.join(spec["root"], f"tp_rank{rank}.json"), "w") as f:
         json.dump(out, f)
     return 0
 
 
-def _tp_serve_cfg():
+def _tp_serve_cfg(variant, layers):
     import dataclasses as dc
 
     from fms_fsdp_tpu_torch.utils.config_utils import get_model_config
 
-    return dc.replace(get_model_config("llama3_8b"), nlayers=TP_SERVE_LAYERS)
+    return dc.replace(get_model_config(variant), nlayers=layers)
 
 
 def _tp_wave(eng, prompts, max_new):
@@ -6282,36 +6540,41 @@ def _tp_bf16_step(eng, device):
 
 
 def _tp_serve(device, cfg, rank):
-    """The tp phase's serving runs on this rank of the world of 2 (module
-    docstring, phase 23): the tp 2 wave (``serve_layout="tp=2"``: rank 0
-    drives the engine, rank 1 follows), the bf16 step at the ranks'
-    heads, the control wave (``TensorParallel.reduce`` the identity on
-    both ranks), then rank 0's one-rank wave while rank 1 waits. Rank
-    0's result holds the comparisons."""
+    """The tp phase's serving runs of one model on this rank of the world
+    of 2 (module docstring, phase 23): the tp 2 wave
+    (``serve_layout="tp=2"``: rank 0 drives the engine, rank 1 follows),
+    for Llama the bf16 step at the ranks' heads, the control wave
+    (``TensorParallel.reduce`` the identity on both ranks), then rank 0's
+    one-rank wave while rank 1 waits. Rank 0's result holds the
+    comparisons."""
     import numpy as np
     import torch
 
-    from fms_fsdp_tpu_torch.models.llama import init_llama_params
     from fms_fsdp_tpu_torch.ops import paged_attention as pa
     from fms_fsdp_tpu_torch.parallel import tensor
     from fms_fsdp_tpu_torch.serve import ServeConfig, ServingEngine, layout
+    from fms_fsdp_tpu_torch.serve.families import family_of, init_params_for
     from fms_fsdp_tpu_torch.utils.dist import barrier
     from fms_fsdp_tpu_torch.utils.tree import tree_map
 
     cuda = device == "cuda"
+    llama = family_of(cfg) == "llama"  # Mixtral decodes without the kernel
     wave = TP_SERVE_WAVE
     t0 = time.perf_counter()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
     # the whole fp32 weights on the host (every rank, as a user's engine
     # gets them); drawn on the card from the seed
     gen = torch.Generator(device=device).manual_seed(wave["seed"])
-    params = tree_map(lambda w: w.cpu(), init_llama_params(gen, cfg))
+    params = tree_map(lambda w: w.cpu(), init_params_for(cfg)(gen))
     rng = np.random.RandomState(wave["seed"])
     prompts = [rng.randint(0, cfg.src_vocab_size, size=int(n)).tolist() for n in
                rng.randint(wave["min_prompt"], wave["max_prompt"] + 1, size=wave["requests"])]
+    out = {"init_s": time.perf_counter() - t0, "layers": cfg.nlayers}
     if cuda:
+        out["draw_peak_bytes"] = torch.cuda.max_memory_allocated()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    out = {"init_s": time.perf_counter() - t0, "layers": cfg.nlayers}
     firsts = {}
 
     def engine(serve_layout):
@@ -6335,16 +6598,17 @@ def _tp_serve(device, cfg, rank):
     out["launches"] = dict(pa.LAUNCHES)
     out["head_launches"] = dict(pa.HEAD_LAUNCHES)
     out["pool_shape"] = list(eng.cache.pools["k"].shape)
-    if eng.is_leader:
-        for p in prompts:
-            eng.submit(p, wave["max_new"])
-        steps = eng.decode_steps
-        while eng.decode_steps < steps + TP_SERVE_BF16_STEPS:
-            eng.step()
-        eng.release_followers()
-    else:
-        eng.follow()
-    out["bf16_step"] = _tp_bf16_step(eng, device)
+    if llama:
+        if eng.is_leader:
+            for p in prompts:
+                eng.submit(p, wave["max_new"])
+            steps = eng.decode_steps
+            while eng.decode_steps < steps + TP_SERVE_BF16_STEPS:
+                eng.step()
+            eng.release_followers()
+        else:
+            eng.follow()
+        out["bf16_step"] = _tp_bf16_step(eng, device)
     pa.reset_launches()
     del eng
     gc.collect()
@@ -6391,6 +6655,7 @@ def _tp_serve(device, cfg, rank):
     barrier()
     if cuda:
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["wall_s"] = time.perf_counter() - t0
     return out
 
 
@@ -6501,6 +6766,8 @@ def phase_tp(state):
     result["peak_bytes_per_child"] = [max(rk[n]["max_memory_allocated"] for n, _, _ in TP_RUNS)
                                       for rk in ranks]
     result["serve"] = _tp_serve_checks([rk["serve"] for rk in ranks], problems)
+    result["serve_mixtral"] = _tp_serve_checks([rk["serve_mixtral"] for rk in ranks], problems,
+                                               "mixtral")
     emit("tp", **result)
     state["tp"] = result
     shutil.rmtree(root)
@@ -6508,43 +6775,49 @@ def phase_tp(state):
         raise AssertionError("tp: " + "; ".join(problems))
 
 
-def _tp_serve_checks(serve, problems):
-    """The serving runs' checks (module docstring, phase 23): rank 0's
-    comparisons, each rank's launches and bf16 step. Returns what the tp
-    line prints of them."""
+def _tp_serve_checks(serve, problems, model="llama"):
+    """The serving runs' checks of one model (module docstring, phase
+    23): rank 0's comparisons, each rank's launches (Llama: decode steps
+    x layers at ``TP_HEADS``; Mixtral: none) and Llama's bf16 step.
+    Returns what the tp line prints of them."""
     lead = serve[0]
+    layers = lead["layers"]
     steps = lead["tp"]["decode_steps"]
-    want = steps * TP_SERVE_LAYERS
+    want = steps * layers if model == "llama" else 0
+    tag = "serve" if model == "llama" else f"serve {model}"
     for name in ("tp", "control", "one_rank"):
         if not lead[name]["finished"]:
-            problems.append(f"serve {name}: not every request finished with max_new_tokens")
+            problems.append(f"{tag} {name}: not every request finished with max_new_tokens")
     if not lead["tokens_equal"]:
-        problems.append("serve: the tp 2 wave's tokens differ from the one-rank wave's")
+        problems.append(f"{tag}: the tp 2 wave's tokens differ from the one-rank wave's")
     if not lead["first_logits_rel"] <= TP_SERVE_REL_TOL:
-        problems.append(f"serve: first-step logits {lead['first_logits_rel']} from the "
+        problems.append(f"{tag}: first-step logits {lead['first_logits_rel']} from the "
                         f"one-rank wave's, over {TP_SERVE_REL_TOL}")
     if lead["control_first_logits_rel"] <= TP_SERVE_REL_TOL:
-        problems.append(f"serve: the control passes the logits check "
+        problems.append(f"{tag}: the control passes the logits check "
                         f"({lead['control_first_logits_rel']})")
     if lead["tp"]["serve_layout"] != 201.0:
-        problems.append(f"serve: serving_stats serve_layout {lead['tp']['serve_layout']}")
+        problems.append(f"{tag}: serving_stats serve_layout {lead['tp']['serve_layout']}")
     for r, rank in enumerate(serve):
-        if sum(rank["launches"].values()) != want or rank["head_launches"] != {TP_HEADS: want}:
-            problems.append(f"serve rank {r}: paged-decode launches {rank['launches']}, by "
-                            f"heads {rank['head_launches']}; expected {steps} x "
-                            f"{TP_SERVE_LAYERS} at {TP_HEADS}")
-        if not rank["bf16_step"]["ok"] or rank["bf16_step"]["heads"] != TP_HEADS:
-            problems.append(f"serve rank {r}: bf16 step {rank['bf16_step']}")
+        heads = {TP_HEADS: want} if want else {}
+        if sum(rank["launches"].values()) != want or rank["head_launches"] != heads:
+            problems.append(f"{tag} rank {r}: paged-decode launches {rank['launches']}, by "
+                            f"heads {rank['head_launches']}; expected {want} ({steps} "
+                            f"decode steps) at {TP_HEADS}")
+        if model == "llama" and (not rank["bf16_step"]["ok"]
+                                 or rank["bf16_step"]["heads"] != TP_HEADS):
+            problems.append(f"{tag} rank {r}: bf16 step {rank['bf16_step']}")
     out = {k: v for k, v in lead.items() if k not in ("tp", "control", "one_rank")}
     out.update({f"{name}_{k}": lead[name][k] for name in ("tp", "control", "one_rank")
                 for k in ("wall_s", "decode_steps", "decode_tokens_per_s",
                           "collectives_per_decode_step")})
     out["tp_tokens_first_request"] = lead["tp"]["tokens"][0]
     out["tp_messages"] = lead["tp"]["messages"]
-    out["config"] = {"layers": TP_SERVE_LAYERS, "wave": TP_SERVE_WAVE, "serve": TP_SERVE_KW}
+    out["config"] = {"layers": layers, "wave": TP_SERVE_WAVE, "serve": TP_SERVE_KW}
     out["ranks"] = [{k: rank.get(k) for k in ("launches", "head_launches", "pool_shape",
                                               "bf16_step", "max_memory_allocated",
-                                              "follower_calls", "init_s", "build_s")}
+                                              "draw_peak_bytes", "follower_calls", "init_s",
+                                              "build_s", "wall_s")}
                     for rank in serve]
     out["launches"] = {key: sum(rank["launches"][key] for rank in serve)
                        for key in serve[0]["launches"]}
@@ -6564,13 +6837,17 @@ def kernels_line(state):
     # launches of each contract on the serving main paths (the contract of
     # an engine's launches follows its pools and the split the tuning table
     # set): the serve waves, chunked prefill, the decode-role engines, and
-    # the fleet's decode children (their own counts, from their stats files)
+    # the fleets' decode children and ranks (their own counts, from their
+    # stats files)
     runs = {"serve": s, "chunked": s["chunked"], "disagg": s["disagg"], "serve-int8": s8,
             "disagg-int8": s8["disagg"]}
     for name, key, kind in (("paged_decode_v1", "v1", "bf16"), ("paged_decode_v2", "v2", "int8")):
         r = k[kind]
         per_run = {run: by_contract(x)[key] for run, x in runs.items()}
         per_run["fleet"] = state["fleet_launches_v1"] if key == "v1" else 0
+        # the layout fleet's ranks at 16 / 4 heads (a follower counts from
+        # its start, its warmup's decode steps included)
+        per_run["fleet_layout"] = state["fleet_layout_launches"][key]
         # the tp phase's fp32 wave at the ranks' 16 / 4 heads, both ranks
         per_run["tp"] = state["tp"]["serve"]["launches"][key]
         entries.append({
@@ -6746,8 +7023,9 @@ def main(argv=None) -> int:
                 phase_seconds[p] = time.perf_counter() - t_phase
     finally:
         # a child a failed phase started for a later one outlives no run
-        if "shard-child" in state:
-            state.pop("shard-child").kill()
+        for child in ("shard-child", "hf-llama-child"):
+            if child in state:
+                state.pop(child).kill()
         for child in state.pop("tp-children", []):
             child.kill()
         # a failed phase leaves its checkpoints behind: none outlives the run

@@ -65,6 +65,39 @@ _UNPORTED_AXES = {
 }
 
 
+def parse_serve_layout(layout: str) -> Dict[str, int]:
+    """``"tp=2"`` / ``"tp=2,fsdp=2"`` -> {"tensor": 2, "fsdp": 2}; the
+    empty string is the single-card layout. Unknown keys and extents
+    that are not positive integers are config errors (JAX's messages)."""
+    out = {AXIS_TENSOR: 1, AXIS_FSDP: 1}
+    if not layout:
+        return out
+    names = {"tp": AXIS_TENSOR, "tensor": AXIS_TENSOR, "fsdp": AXIS_FSDP}
+    for part in layout.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        key, _, val = part.partition("=")
+        axis = names.get(key.strip())
+        if axis is None:
+            raise ValueError(
+                f"unknown serve_layout axis {key.strip()!r} in "
+                f"{layout!r}: expected 'tp' and/or 'fsdp' "
+                f"(e.g. \"tp=2\" or \"tp=2,fsdp=2\")"
+            )
+        try:
+            extent = int(val)
+        except ValueError:
+            extent = 0
+        if extent <= 0:
+            raise ValueError(
+                f"serve_layout axis {key.strip()!r} needs a positive "
+                f"integer extent, got {val!r} in {layout!r}"
+            )
+        out[axis] = extent
+    return out
+
+
 @dataclass(frozen=True)
 class MeshConfig:
     sharding_strategy: str = "hsdp"  # ddp | fsdp | hsdp | tp

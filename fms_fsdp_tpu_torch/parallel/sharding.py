@@ -80,6 +80,9 @@ from fms_fsdp_tpu_torch.parallel.mesh import (
     MESH_AXES,
     axis_sizes,
 )
+# JAX keeps it here; the port defines it beside the mesh, which imports
+# no torch (a replica child reads its layout before torch)
+from fms_fsdp_tpu_torch.parallel.mesh import parse_serve_layout  # noqa: F401
 
 # gathers since the last reset: "layer" (one per layer and pass) and
 # "top" (embedding and lm_head together)
@@ -838,39 +841,6 @@ class DataParallel:
 # (the Megatron layout). The training rulebooks name no other axis on a
 # weight, so resolve_spec reads them on this mesh unchanged
 SERVE_MESH_AXES = (AXIS_FSDP, AXIS_TENSOR)
-
-
-def parse_serve_layout(layout: str) -> Dict[str, int]:
-    """``"tp=2"`` / ``"tp=2,fsdp=2"`` -> {"tensor": 2, "fsdp": 2}; the
-    empty string is the single-card layout. Unknown keys and extents
-    that are not positive integers are config errors (JAX's messages)."""
-    out = {AXIS_TENSOR: 1, AXIS_FSDP: 1}
-    if not layout:
-        return out
-    names = {"tp": AXIS_TENSOR, "tensor": AXIS_TENSOR, "fsdp": AXIS_FSDP}
-    for part in layout.split(","):
-        part = part.strip()
-        if not part:
-            continue
-        key, _, val = part.partition("=")
-        axis = names.get(key.strip())
-        if axis is None:
-            raise ValueError(
-                f"unknown serve_layout axis {key.strip()!r} in "
-                f"{layout!r}: expected 'tp' and/or 'fsdp' "
-                f"(e.g. \"tp=2\" or \"tp=2,fsdp=2\")"
-            )
-        try:
-            extent = int(val)
-        except ValueError:
-            extent = 0
-        if extent <= 0:
-            raise ValueError(
-                f"serve_layout axis {key.strip()!r} needs a positive "
-                f"integer extent, got {val!r} in {layout!r}"
-            )
-        out[axis] = extent
-    return out
 
 
 def serve_layout_code(layout: str) -> int:

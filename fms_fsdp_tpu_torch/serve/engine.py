@@ -55,7 +55,7 @@ from fms_fsdp_tpu_torch.models.generation import sample_token
 from fms_fsdp_tpu_torch.obs.registry import MetricRegistry
 from fms_fsdp_tpu_torch.parallel.mesh import AXIS_FSDP, AXIS_TENSOR
 from fms_fsdp_tpu_torch.parallel.sharding import parse_serve_layout, serve_layout_code
-from fms_fsdp_tpu_torch.serve.families import FAMILY_CODES, resolve_adapter
+from fms_fsdp_tpu_torch.serve.families import FAMILY_CODES, adapter_class, resolve_adapter
 from fms_fsdp_tpu_torch.serve.layout import LeaderAdapter, follow, register, release_followers
 from fms_fsdp_tpu_torch.serve.scheduler import (
     REJECT_DEADLINE_UNMEETABLE,
@@ -162,14 +162,10 @@ class ServingEngine:
             params = _to_device(params, self.device, self.compute_dtype)
         # else the adapter keeps this rank's blocks, cast, then moved
 
+        adapter_class(model_cfg).check_layout(scfg)
         self.adapter = resolve_adapter(
             params, model_cfg, scfg, self.compute_dtype, self.device
         )
-        if scfg.serve_layout and not self.adapter.supports_layout:
-            raise ValueError(
-                f"serve_layout={scfg.serve_layout!r} is not supported for the "
-                f"{self.adapter.family} family yet — run it single-card"
-            )
         self.params = self.adapter.params
         self.mesh = self.adapter.mesh
         if self.mesh is not None:
@@ -261,7 +257,8 @@ class ServingEngine:
         return follow()
 
     def release_followers(self) -> None:
-        """The leader: end the other ranks' :meth:`follow`."""
+        """The leader: end the other ranks' :meth:`follow` (a no-op when
+        they were released and nothing was sent since)."""
         if self.mesh is None or not self.is_leader:
             raise RuntimeError("release_followers() is for a layout's leader (rank 0)")
         release_followers()

@@ -173,21 +173,26 @@ def paged_decode_tiles(model_cfg, scfg, tp=None):
     return page_size, block_kv, how
 
 
-def resolve_adapter(params, model_cfg, serve_cfg, compute_dtype, device):
-    """Params + config -> the family's adapter."""
+def adapter_class(model_cfg):
+    """Config -> the family's adapter class."""
     family = family_of(model_cfg)
-    check_params_family(params, family)
     if family == "mamba":
         from fms_fsdp_tpu_torch.serve.families.mamba import MambaAdapter
 
-        return MambaAdapter(params, model_cfg, serve_cfg, compute_dtype, device)
+        return MambaAdapter
     if family == "mixtral":
         from fms_fsdp_tpu_torch.serve.families.mixtral import MixtralAdapter
 
-        return MixtralAdapter(params, model_cfg, serve_cfg, compute_dtype, device)
+        return MixtralAdapter
     from fms_fsdp_tpu_torch.serve.families.llama import LlamaAdapter
 
-    return LlamaAdapter(params, model_cfg, serve_cfg, compute_dtype, device)
+    return LlamaAdapter
+
+
+def resolve_adapter(params, model_cfg, serve_cfg, compute_dtype, device):
+    """Params + config -> the family's adapter."""
+    check_params_family(params, family_of(model_cfg))
+    return adapter_class(model_cfg)(params, model_cfg, serve_cfg, compute_dtype, device)
 
 
 class FamilyAdapter:
@@ -251,6 +256,16 @@ class FamilyAdapter:
     mesh = None  # the ServeMesh, None on one card
     tp = None  # the mesh's TensorParallel, None without a tensor axis
     kv_split: bool = False  # the pools hold this rank's KV heads
+
+    @classmethod
+    def check_layout(cls, scfg) -> None:
+        """Refuse ``scfg.serve_layout`` where the family serves on one
+        card only; a fleet replica asks before it starts a rank."""
+        if scfg.serve_layout and not cls.supports_layout:
+            raise ValueError(
+                f"serve_layout={scfg.serve_layout!r} is not supported for the "
+                f"{cls.family} family yet — run it single-card"
+            )
 
     def admission_error(self, prompt_len: int, max_new: int) -> Optional[str]:
         raise NotImplementedError
@@ -415,6 +430,7 @@ class FamilyAdapter:
 __all__ = [
     "FAMILY_CODES",
     "FamilyAdapter",
+    "adapter_class",
     "check_params_family",
     "family_of",
     "init_params_for",

@@ -60,6 +60,17 @@ class MambaAdapter(FamilyAdapter):
     family = "mamba"
     supports_handoff = True  # through the slab codec, not the page codec
 
+    @classmethod
+    def check_layout(cls, scfg) -> None:
+        if scfg.serve_layout:
+            raise ValueError(
+                "mamba serving has no sharded layout yet: the recurrent "
+                "slab (conv window + SSD state) has no sharding rulebook"
+                " — run mamba replicas single-chip (serve_layout=\"\") "
+                "and scale them out data-parallel through the fleet "
+                "router"
+            )
+
     def __init__(self, params, model_cfg, scfg, compute_dtype, device):
         self.params = params
         self.model_cfg = model_cfg
@@ -69,14 +80,7 @@ class MambaAdapter(FamilyAdapter):
         cfg = model_cfg
         self._hybrid = bool(cfg.attn_layer_idx)
 
-        if scfg.serve_layout:
-            raise ValueError(
-                "mamba serving has no sharded layout yet: the recurrent "
-                "slab (conv window + SSD state) has no sharding rulebook"
-                " — run mamba replicas single-chip (serve_layout=\"\") "
-                "and scale them out data-parallel through the fleet "
-                "router"
-            )
+        self.check_layout(scfg)
         if scfg.attn_impl == "kernel":
             raise ValueError(
                 "mamba serving has no paged-attention kernel path yet: "

@@ -766,7 +766,14 @@ def make_subprocess_spawn(
     and its in-flight cap, ``retries`` / ``backoff_s`` its retransmits (0
     and -1: the transport's defaults); give them FleetConfig's
     ``transport_*`` values so both directions of a handoff share one
-    budget. ``device`` is the child's ``--device`` (empty: the card)."""
+    budget. ``device`` is the child's ``--device`` (empty: the card).
+
+    A ``serve_cfg`` with ``serve_layout="tp=T[,fsdp=F]"`` makes each
+    replica T x F processes: the child launched here leads them and
+    starts the other T x F - 1 itself (``serve/replica.py``), so the
+    router still sees one process a replica, and a death of any rank
+    reaches it as that child's ``replica_loss``. A layout's followers
+    write ``<run_id>.rank<r>.stats.json`` beside the leader's stats file."""
     os.makedirs(workdir, exist_ok=True)
     mpath = os.path.join(workdir, "model_cfg.json")
     spath = os.path.join(workdir, "serve_cfg.json")

@@ -37,15 +37,52 @@ Engine failures exit through :func:`classified_exit` as
 or ``--init-seed`` (random init from a seeded generator on the engine's
 device: two replicas, or a replica and an in-process engine, given the
 same seed hold the same weights). The engine runs on the card unless
-``--device cpu``. A serving layout (``serve_layout``) is refused: this
-process would have to start and supervise its replica's followers
-(ROADMAP.md A.6b, the fleet replica over a rank group).
+``--device cpu``.
+
+A serving layout (``serve_layout="tp=T[,fsdp=F]"``) makes this process
+the leader, rank 0, of a replica over T x F processes. JAX's sharded
+replica is one process over its devices; here one process drives one
+device, so the leader starts the T x F - 1 followers itself, first
+thing, before it imports torch (this module again, ``--follower-rank
+r``; stdin from ``/dev/null``, output to the leader's stderr log, no data
+channel), then hosts the group's rendezvous on a port of its own
+(``utils/dist.py::local_store``) and sends each follower the port
+through a pipe. Every rank builds the engine on its blocks of the
+weights; the followers sit in
+``engine.follow()`` (``serve/layout.py``) and the leader serves. To the
+router the group is one replica: one pid, one protocol and one data
+channel, one log, one exit code, one relaunch. A death on either side is
+the replica's:
+
+- a follower that exits before it is released (or never joins) ends the
+  leader: a watcher thread polls the followers every ``WATCH_S`` and
+  hard-exits ``replica_loss``, as the ``replica_kill`` site does, without
+  waiting for a collective to time out;
+- a follower dies with its leader (``PR_SET_PDEATHSIG``): a kill fault,
+  the stall watchdog's SIGKILL or a crash leaves no follower holding the
+  card.
+
+At drain and at preemption (after the live streams were packed, which
+the followers take part in) the leader releases the followers, joins
+them, and only then exits; each follower writes its own stats file
+first. No fallback: a replica never serves on fewer ranks than its
+layout names. Mamba refuses a layout (JAX's "single-chip" message)
+before the group forms; its followers end with it.
+
+The data channel moves on a thread of its own as well as in the loop
+(``WIRE_S``): a layout's engine step waits on its ranks' collectives, and
+a channel read only between steps would move a socket buffer's worth a
+step.
 
 ``--stats-path``: when the replica drains or is preempted it writes
 there, as one JSON object, its own paged-decode kernel launches
-(``ops/paged_attention.py::LAUNCHES``, counted from after the warmup), its
-decode steps and iterations over the same span, its role and layer count,
-and its start-up seconds (process start to the readiness heartbeat).
+(``ops/paged_attention.py::LAUNCHES``, and by heads ``HEAD_LAUNCHES``,
+counted from after the warmup), its decode steps and iterations over the
+same span, its role and layer count, and its start-up seconds (process
+start to the readiness heartbeat); a layout's leader adds its followers'
+exit codes. A follower writes ``<stem>.rank<r>.stats.json`` beside it:
+the calls it ran by name, its launches by heads and its decode calls,
+both counted from its start (the warmup's included).
 """
 
 import argparse
@@ -53,6 +90,7 @@ import base64
 import json
 import os
 import signal
+import subprocess
 import sys
 import threading
 import time
@@ -61,8 +99,16 @@ from queue import Empty, Queue
 # how long a preempted replica keeps pumping its migrate transfers before
 # giving up and exiting (unfinished rids fall back to requeue)
 MIGRATE_GRACE_S = 20.0
+# a layout leader's watch over its followers (seconds between polls), and
+# how long it waits for them to exit once released
+WATCH_S = 0.02
+JOIN_S = 60.0
+# seconds between the data channel thread's turns
+WIRE_S = 0.002
 
 _T_START = time.monotonic()
+# seconds from process start to each step of the start-up, for the stats
+STARTUP = {}
 # the protocol channel: the process's stdout as it was at start (main()
 # points fd 1 and sys.stdout at stderr for everything else)
 _PROTO = sys.stdout
@@ -95,62 +141,221 @@ def _stdin_reader(q: Queue) -> None:
     q.put({"type": "drain"})  # stdin closed: the router is gone, wind down
 
 
-def build_engine(args):
-    """The engine from the two config files, on ``args.device`` (the card
-    when empty)."""
-    import torch
-
-    from fms_fsdp_tpu_torch.serve.engine import ServeConfig, ServingEngine
-    from fms_fsdp_tpu_torch.serve.families import init_params_for, load_model_config
-    from fms_fsdp_tpu_torch.utils.device import resolve_device
+def load_configs(args):
+    """(model config, ServeConfig) from the two config files."""
+    from fms_fsdp_tpu_torch.serve.engine import ServeConfig
+    from fms_fsdp_tpu_torch.serve.families import load_model_config
 
     with open(args.model_cfg) as f:
         model_cfg = load_model_config(json.load(f))
     with open(args.serve_cfg) as f:
         serve_cfg = ServeConfig(**json.load(f))
-    if serve_cfg.serve_layout:
-        raise NotImplementedError(
-            f"serve_layout={serve_cfg.serve_layout!r}: a fleet replica over a group "
-            f"of ranks (its followers started and supervised with it) is not ported "
-            f"yet (ROADMAP.md A.6b, the fleet replica over a rank group); run the "
-            f"fleet's replicas single-card"
-        )
+    return model_cfg, serve_cfg
+
+
+def layout_ranks(serve_cfg_path: str) -> int:
+    """The processes of the replica's layout (1 on one card), read from
+    the serving config file without importing torch."""
+    from fms_fsdp_tpu_torch.parallel.mesh import parse_serve_layout
+
+    with open(serve_cfg_path) as f:
+        ext = parse_serve_layout(json.load(f).get("serve_layout", ""))
+    return ext["tensor"] * ext["fsdp"]
+
+
+def build_engine(args, store=None):
+    """The engine from the two config files, on ``args.device`` (the card
+    when empty). A layout's rank joins its group at ``store`` first
+    (``utils/dist.py::init_distributed``); it draws the whole seeded
+    weights on its device, as a one-card replica does, and keeps its
+    blocks of them."""
+    import torch
+
+    from fms_fsdp_tpu_torch.serve.engine import ServingEngine
+    from fms_fsdp_tpu_torch.serve.families import init_params_for
+    from fms_fsdp_tpu_torch.utils.device import resolve_device
+    from fms_fsdp_tpu_torch.utils.dist import init_distributed
+
+    model_cfg, serve_cfg = load_configs(args)
     device = resolve_device(args.device or None)
+    if store is not None:
+        init_distributed(device, store=store)
+        STARTUP["group_joined"] = time.monotonic() - _T_START
     if args.params:
         return ServingEngine.from_checkpoint(
             args.params, model_cfg, serve_cfg, device=device
         )
     gen = torch.Generator(device=device).manual_seed(args.init_seed)
     params = init_params_for(model_cfg)(gen)
-    return ServingEngine(params, model_cfg, serve_cfg, device=device)
+    engine = ServingEngine(params, model_cfg, serve_cfg, device=device)
+    if device.type == "cuda":
+        # the draw's scratch, and a layout rank's whole model beside the
+        # blocks it keeps, back to the card
+        del params
+        torch.cuda.empty_cache()
+    return engine
 
 
-def _write_stats(path: str, engine, base: dict, ready_s: float) -> None:
+def _write_json(path: str, obj: dict) -> None:
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+    os.replace(tmp, path)
+
+
+def _write_stats(path: str, engine, base: dict, ready_s: float, loop_s: dict,
+                 extra: dict) -> None:
     from fms_fsdp_tpu_torch.ops import paged_attention as pa
 
-    stats = {
+    heads = base["head_launches"]
+    _write_json(path, {
         "role": engine.serve_cfg.role,
         "layers": int(engine.adapter.cache.n_layers) if engine.cache is not None else 0,
         "decode_steps": engine.decode_steps - base["decode_steps"],
+        "warmup_decode_steps": base["decode_steps"],
         "iterations": engine.iterations - base["iterations"],
         "launches": {k: v - base["launches"][k] for k, v in pa.LAUNCHES.items()},
+        "head_launches": {k: v - heads.get(k, 0) for k, v in pa.HEAD_LAUNCHES.items()
+                          if v - heads.get(k, 0)},
         "startup_s": ready_s,
+        "startup_parts": STARTUP,
+        "loop_s": loop_s,
         "serving": engine.serving_stats(),
-    }
-    tmp = path + ".tmp"
-    with open(tmp, "w") as f:
-        json.dump(stats, f)
-    os.replace(tmp, path)
+        **extra,
+    })
+
+
+def rank_stats_path(path: str, rank: int) -> str:
+    """A follower's stats file beside its leader's ``<stem>.stats.json``."""
+    stem = path[:-len(".stats.json")] if path.endswith(".stats.json") else path
+    return f"{stem}.rank{rank}.stats.json"
+
+
+class Followers:
+    """A layout leader's other ranks: started first thing, before this
+    process imports torch, so that their start-up overlaps the leader's;
+    watched until released, then joined. Puts torchrun's environment for
+    rank 0 of ``n`` into this process's. :meth:`open_store` opens the
+    group's rendezvous once torch is in, and hands each follower its port
+    through a pipe: a leader that dies first leaves the pipe at end of
+    file."""
+
+    def __init__(self, args, n: int):
+        self.replica = args.replica
+        os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE=str(n),
+                          LOCAL_WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1")
+        env = dict(os.environ)
+        env.pop("FMS_FAULTS", None)  # the fault sites are the leader's
+        argv = [sys.executable, "-m", "fms_fsdp_tpu_torch.serve.replica",
+                "--model-cfg", args.model_cfg, "--serve-cfg", args.serve_cfg,
+                "--replica", str(args.replica), "--init-seed", str(args.init_seed),
+                "--leader-pid", str(os.getpid())]
+        for flag, value in (("--params", args.params), ("--device", args.device)):
+            if value:
+                argv += [flag, value]
+        self.procs, self._ports = [], []
+        for r in range(1, n):
+            stats = ["--stats-path", rank_stats_path(args.stats_path, r)] if args.stats_path else []
+            read, write = os.pipe()
+            self.procs.append(subprocess.Popen(
+                argv + stats + ["--follower-rank", str(r), "--port-fd", str(read)],
+                stdin=subprocess.DEVNULL, stdout=2, stderr=2, pass_fds=(read,),
+                env=dict(env, RANK=str(r), LOCAL_RANK=str(r))))
+            os.close(read)
+            self._ports.append(write)
+        self.released = threading.Event()
+        threading.Thread(target=self._watch, daemon=True, name="followers").start()
+
+    def open_store(self):
+        """The group's rendezvous (``utils/dist.py::local_store``), its
+        port sent to every follower."""
+        from fms_fsdp_tpu_torch.utils.dist import local_store
+
+        store = local_store()
+        os.environ["MASTER_PORT"] = str(store.port)
+        for fd in self._ports:
+            os.write(fd, f"{store.port}\n".encode())
+            os.close(fd)
+        return store
+
+    def _watch(self) -> None:
+        from fms_fsdp_tpu_torch.resilience.exits import EXIT_CODES
+
+        while not self.released.wait(WATCH_S):
+            for r, proc in enumerate(self.procs, 1):
+                code = proc.poll()
+                if code is not None and not self.released.is_set():
+                    sys.stderr.write(f"replica {self.replica}: follower rank {r} (pid "
+                                     f"{proc.pid}) exited {code} before its release: "
+                                     f"the replica is lost\n")
+                    sys.stderr.flush()
+                    os._exit(EXIT_CODES["replica_loss"])
+
+    def release(self, engine) -> dict:
+        """End the followers' loop and wait for them (each writes its
+        stats file first); their exit codes, for the leader's stats."""
+        self.released.set()
+        engine.release_followers()
+        codes = []
+        for proc in self.procs:
+            try:
+                codes.append(proc.wait(timeout=JOIN_S))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                codes.append(proc.wait())
+        return {"follower_exits": codes}
+
+
+def _die_with_leader(leader_pid: int) -> None:
+    """A follower: the kernel kills this process when its leader dies;
+    a leader that died before this call ends it now."""
+    import ctypes
+
+    pr_set_pdeathsig = 1
+    if ctypes.CDLL(None, use_errno=True).prctl(pr_set_pdeathsig, signal.SIGKILL, 0, 0, 0):
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_PDEATHSIG) failed")
+    if os.getppid() != leader_pid:
+        os._exit(1)
+
+
+def follower_main(args) -> None:
+    """Rank ``args.follower_rank`` of a layout replica: join the leader's
+    group, build the engine, follow until released, write the stats."""
+    _die_with_leader(args.leader_pid)
+    from fms_fsdp_tpu_torch.ops import paged_attention as pa
+    from fms_fsdp_tpu_torch.resilience.exits import classified_exit
+    from fms_fsdp_tpu_torch.serve import layout
+    from fms_fsdp_tpu_torch.utils.dist import local_store
+
+    with os.fdopen(args.port_fd, "rb") as f:
+        port = f.readline().strip()
+    if not port:
+        os._exit(1)  # the leader died before it opened the group
+    os.environ["MASTER_PORT"] = port.decode()
+    with classified_exit():
+        engine = build_engine(args, store=local_store(int(port)))
+        ready_s = STARTUP["engine_built"] = time.monotonic() - _T_START
+        engine.follow()
+        if args.stats_path:
+            _write_json(args.stats_path, {
+                "rank": args.follower_rank, "role": engine.serve_cfg.role,
+                "layers": int(engine.cache.n_layers) if engine.cache is not None else 0,
+                "calls": dict(layout.CALLS), "decode_steps": layout.CALLS.get("decode", 0),
+                "launches": dict(pa.LAUNCHES), "head_launches": dict(pa.HEAD_LAUNCHES),
+                "startup_s": ready_s, "startup_parts": STARTUP,
+            })
 
 
 def serve_loop(engine, replica_idx: int, idle_sleep_s: float = 0.02,
                data_fd: int = -1, preempt_evt=None, stats_path: str = "",
                chunk_bytes: int = 0, inflight_bytes: int = 0, retries: int = -1,
-               backoff_s: float = 0.0):
+               backoff_s: float = 0.0, release=None):
     """The replica's life: drain router messages, step the engine, stream
     completions and heartbeats. Returns when drained; a SIGTERM
     (``preempt_evt``) instead migrates live streams and hard-exits
-    ``preempted``."""
+    ``preempted``. ``release`` (a layout leader's
+    :meth:`Followers.release`, bound to the engine) runs on either way
+    out, before the stats are written."""
     from fms_fsdp_tpu_torch.ops import paged_attention as pa
     from fms_fsdp_tpu_torch.resilience.exits import EXIT_CODES
     from fms_fsdp_tpu_torch.resilience.faults import fire_fault
@@ -202,9 +407,18 @@ def serve_loop(engine, replica_idx: int, idle_sleep_s: float = 0.02,
             _emit({"type": "reject", "rid": meta["rid"],
                    "reason": f"handoff_error: {e}"})
 
-    def pump_channel() -> None:
-        if channel is None:
-            return
+    # the channel moves on a thread of its own as well as in the loop, so
+    # that a long engine step (a layout's) holds up neither the acks nor
+    # the chunks: a socketpair buffers a few hundred KB, so a peer that
+    # reads only between steps caps the wire at that much a step. ``wire``
+    # guards the channel and the transfer tables; only the loop emits and
+    # admits
+    wire = threading.Lock()
+    lost_out = []  # rids whose outbound transfer failed, for the loop
+
+    def move_chunks() -> None:
+        """Read the channel, ack and file inbound chunks, send the due
+        outbound ones (under ``wire``)."""
         for m in channel.pump():
             if m["kind"] == KIND_ACK:
                 ent = out_senders.get(m["transfer_id"])
@@ -225,29 +439,47 @@ def serve_loop(engine, replica_idx: int, idle_sleep_s: float = 0.02,
             try:
                 sender.pump()
             except TransportError as e:
-                # permanent loss: the frame never reached the router, which
-                # holds no timeout for it; hand the rid back so it requeues
-                # (a handoff re-prefills, a migration resumes from its
-                # journaled bytes or recomputes)
                 sys.stderr.write(f"replica {replica_idx} transfer {tid} failed: {e}\n")
                 sys.stderr.flush()
                 del out_senders[tid]
-                _emit({"type": "returned", "rid": rid})
+                lost_out.append(rid)
                 continue
             if sender.done:
                 del out_senders[tid]
-        for tid in list(in_receivers):
-            receiver, meta = in_receivers[tid]
-            if meta is not None and receiver.complete:
-                del in_receivers[tid]
-                done_tids.add(tid)
-                if draining:
-                    # a resume that completes after the drain notice would
-                    # be refused "overloaded" (a terminal failure at the
-                    # router): hand it back for another replica instead
-                    _emit({"type": "returned", "rid": meta["rid"]})
-                else:
-                    admit_resume(meta, receiver.assemble())
+
+    def move_chunks_forever() -> None:
+        while True:
+            time.sleep(WIRE_S)
+            with wire:
+                move_chunks()
+
+    def pump_channel() -> None:
+        if channel is None:
+            return
+        with wire:
+            move_chunks()
+            lost, lost_out[:] = lost_out[:], []
+            complete = []
+            for tid in list(in_receivers):
+                receiver, meta = in_receivers[tid]
+                if meta is not None and receiver.complete:
+                    del in_receivers[tid]
+                    done_tids.add(tid)
+                    complete.append((meta, receiver))
+        for rid in lost:
+            # permanent loss: the frame never reached the router, which
+            # holds no timeout for it; hand the rid back so it requeues
+            # (a handoff re-prefills, a migration resumes from its
+            # journaled bytes or recomputes)
+            _emit({"type": "returned", "rid": rid})
+        for meta, receiver in complete:
+            if draining:
+                # a resume that completes after the drain notice would
+                # be refused "overloaded" (a terminal failure at the
+                # router): hand it back for another replica instead
+                _emit({"type": "returned", "rid": meta["rid"]})
+            else:
+                admit_resume(meta, receiver.assemble())
 
     def ship(kind: str, rid: int, data: bytes, ttft=None) -> None:
         """A packed frame toward the router: chunked on the data channel
@@ -257,14 +489,15 @@ def serve_loop(engine, replica_idx: int, idle_sleep_s: float = 0.02,
             msg["ttft"] = ttft
         if channel is not None:
             tid = next_transfer_id()
-            sender = ChunkSender(
-                channel, rid, tid, data, label=label + ".tx",
-                chunk_bytes=chunk_bytes or DEFAULT_CHUNK_BYTES,
-                max_inflight_bytes=inflight_bytes or DEFAULT_MAX_INFLIGHT_BYTES,
-                retries=DEFAULT_RETRIES if retries < 0 else retries,
-                backoff_s=backoff_s or DEFAULT_BACKOFF_S,
-            )
-            out_senders[tid] = (sender, rid)
+            with wire:
+                sender = ChunkSender(
+                    channel, rid, tid, data, label=label + ".tx",
+                    chunk_bytes=chunk_bytes or DEFAULT_CHUNK_BYTES,
+                    max_inflight_bytes=inflight_bytes or DEFAULT_MAX_INFLIGHT_BYTES,
+                    retries=DEFAULT_RETRIES if retries < 0 else retries,
+                    backoff_s=backoff_s or DEFAULT_BACKOFF_S,
+                )
+                out_senders[tid] = (sender, rid)
             msg.update(transfer_id=tid, total=sender.total)
         else:
             msg["data"] = base64.b64encode(data).decode("ascii")
@@ -280,7 +513,7 @@ def serve_loop(engine, replica_idx: int, idle_sleep_s: float = 0.02,
         engine.step()
     warmup_completed = engine.scheduler.completed
     base = {"decode_steps": engine.decode_steps, "iterations": engine.iterations,
-            "launches": dict(pa.LAUNCHES)}
+            "launches": dict(pa.LAUNCHES), "head_launches": dict(pa.HEAD_LAUNCHES)}
 
     def heartbeat():
         h = engine.health()
@@ -311,13 +544,18 @@ def serve_loop(engine, replica_idx: int, idle_sleep_s: float = 0.02,
                 _emit({"type": "returned", "rid": ent[1]})
         engine.scheduler.queue.clear()
 
-    def write_stats():
+    def finish():
+        extra = release() if release is not None else {}
         if stats_path:
-            _write_stats(stats_path, engine, base, ready_s)
+            _write_stats(stats_path, engine, base, ready_s, loop_s, extra)
 
+    if channel is not None:
+        threading.Thread(target=move_chunks_forever, daemon=True, name="wire").start()
     heartbeat()  # readiness: the router dispatches only after this
-    ready_s = time.monotonic() - _T_START
+    ready_s = STARTUP["ready"] = time.monotonic() - _T_START
     last_idle_hb = 0.0
+    # seconds the loop spent stepping the engine and moving transfer chunks
+    loop_s = {"step": 0.0, "pump": 0.0}
     while True:
         # 0) preemption notice: drain, pack live streams, migrate
         if preempt_evt is not None and preempt_evt.is_set() and not preempting:
@@ -343,10 +581,12 @@ def serve_loop(engine, replica_idx: int, idle_sleep_s: float = 0.02,
             # heartbeating, then exit with the preempted code
             pump_channel()
             heartbeat()
-            if not out_senders or time.monotonic() - preempt_t0 > MIGRATE_GRACE_S:
-                for _, rid in out_senders.values():
+            with wire:
+                unsent = [rid for _, rid in out_senders.values()]
+            if not unsent or time.monotonic() - preempt_t0 > MIGRATE_GRACE_S:
+                for rid in unsent:
                     _emit({"type": "returned", "rid": rid})
-                write_stats()
+                finish()
                 sys.stderr.write(
                     f"replica {replica_idx} preempted: drained + migrated, "
                     f"exiting clean\n"
@@ -376,12 +616,14 @@ def serve_loop(engine, replica_idx: int, idle_sleep_s: float = 0.02,
                     admit_resume(msg, base64.b64decode(msg["data"]))
                 else:
                     tid = msg["transfer_id"]
-                    ent = in_receivers.get(tid)
-                    if ent is None:
-                        in_receivers[tid] = [
-                            ChunkReceiver(msg["rid"], tid, msg["total"], label=label), msg]
-                    else:
-                        ent[1] = msg
+                    with wire:
+                        ent = in_receivers.get(tid)
+                        if ent is None:
+                            in_receivers[tid] = [
+                                ChunkReceiver(msg["rid"], tid, msg["total"], label=label),
+                                msg]
+                        else:
+                            ent[1] = msg
             elif msg.get("type") == "drain":
                 draining = True
                 engine.drain()
@@ -398,11 +640,16 @@ def serve_loop(engine, replica_idx: int, idle_sleep_s: float = 0.02,
             os._exit(int(p.get("code", EXIT_CODES["replica_loss"])))
 
         # 3) move transfer chunks and acks (both directions, non-blocking)
+        t0 = time.perf_counter()
         pump_channel()
+        t1 = time.perf_counter()
+        loop_s["pump"] += t1 - t0
 
         # 4) step + stream completions
         if engine.has_work():
-            for req in engine.step():
+            done = engine.step()
+            loop_s["step"] += time.perf_counter() - t1
+            for req in done:
                 ent = by_req.pop(id(req), None)
                 if ent is None:
                     continue
@@ -426,7 +673,7 @@ def serve_loop(engine, replica_idx: int, idle_sleep_s: float = 0.02,
                 heartbeat()
                 last_idle_hb = now
             if draining and not out_senders and not in_receivers:
-                write_stats()
+                finish()
                 return
             # a transfer in flight wants the channel pumped again soon (its
             # idle heartbeats stay at one per idle_sleep_s)
@@ -459,7 +706,13 @@ def main(argv=None) -> None:
                     help="resends a chunk may take (-1: the transport's default)")
     ap.add_argument("--transport-backoff-s", type=float, default=0.0,
                     help="first retransmit backoff (0: the transport's default)")
+    # a layout's follower, started by its leader (module docstring)
+    ap.add_argument("--follower-rank", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--port-fd", type=int, default=-1, help=argparse.SUPPRESS)
+    ap.add_argument("--leader-pid", type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.follower_rank:
+        return follower_main(args)
     _claim_stdout()
 
     from fms_fsdp_tpu_torch.resilience.exits import classified_exit
@@ -471,12 +724,24 @@ def main(argv=None) -> None:
 
     with classified_exit():
         try:
-            engine = build_engine(args)
+            n = layout_ranks(args.serve_cfg)
+            followers = Followers(args, n) if n > 1 else None
+            from fms_fsdp_tpu_torch.serve.families import adapter_class
+
+            model_cfg, serve_cfg = load_configs(args)
+            adapter_class(model_cfg).check_layout(serve_cfg)
+            store = None
+            if followers is not None:
+                store = followers.open_store()
+                STARTUP["store_opened"] = time.monotonic() - _T_START
+            engine = build_engine(args, store=store)
+            STARTUP["engine_built"] = time.monotonic() - _T_START
             serve_loop(
                 engine, args.replica, data_fd=args.data_fd, preempt_evt=preempt_evt,
                 stats_path=args.stats_path, chunk_bytes=args.chunk_bytes,
                 inflight_bytes=args.inflight_bytes, retries=args.transport_retries,
                 backoff_s=args.transport_backoff_s,
+                release=(lambda: followers.release(engine)) if followers else None,
             )
         except (SystemExit, KeyboardInterrupt):
             raise

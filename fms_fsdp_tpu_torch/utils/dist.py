@@ -19,7 +19,13 @@ device:
   one card, one rank a card when there are as many cards as ranks;
 - without that environment it is a world of one over a ``HashStore``:
   no TCP port, so many runs in one process (the tests, ``chip_smoke.py``)
-  reuse it.
+  reuse it;
+- a group whose ranks one of them starts itself (a serving layout's
+  replica child, ``serve/replica.py``) carries torchrun's environment, so
+  the rules above decide its backend and cards, but meets at a store
+  that its rank 0 opened on a port of its own (:func:`local_store`):
+  no port is probed free and then bound by another, so replicas that
+  start together cannot collide.
 
 Work beside the step runs on gloo groups of its own (:func:`aux_group`),
 so it never runs collectives on the group the step's stream uses (nor,
@@ -37,6 +43,7 @@ Every helper is the identity on a world of one: no collective runs.
 import atexit
 import os
 from dataclasses import dataclass
+from datetime import timedelta
 from typing import Any
 
 import numpy as np
@@ -48,6 +55,8 @@ _TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT
 # the gloo groups beside the default one, by use, made once per default
 # group
 _AUX = {"groups": {}, "owner": None}
+# how long a rank waits to reach a local_store
+STORE_TIMEOUT_S = 120.0
 
 
 @dataclass(frozen=True)
@@ -91,19 +100,33 @@ def backend_for(device: torch.device) -> str:
     return "gloo"
 
 
-def init_distributed(device: torch.device) -> World:
+def local_store(port: int = 0) -> "dist.TCPStore":
+    """The rendezvous of a group on this host: ``port`` 0 opens it (rank
+    0; the kernel picks the port, read back as ``.port``), another port
+    joins it. A rank that cannot reach it within ``STORE_TIMEOUT_S``
+    raises."""
+    return dist.TCPStore("127.0.0.1", port, is_master=port == 0, wait_for_workers=False,
+                         timeout=timedelta(seconds=STORE_TIMEOUT_S))
+
+
+def init_distributed(device: torch.device, store=None) -> World:
     """Initialise the default group for ``device`` (once per process) and
     return this process's place in the world. An existing default group
-    is reused: its backend must suit ``device``."""
+    is reused: its backend must suit ``device``. ``store`` (a
+    :func:`local_store`) replaces torchrun's ``env://`` rendezvous; the
+    rank and world still come from the environment."""
     backend = backend_for(device)
     if not dist.is_initialized():
         if launched_by_torchrun():
-            kwargs = {}
+            kwargs = {"init_method": "env://"}
+            if store is not None:
+                kwargs = {"store": store, "rank": int(os.environ["RANK"]),
+                          "world_size": int(os.environ["WORLD_SIZE"])}
             if device.type == "cuda":
                 torch.cuda.set_device(device)
             if backend == "nccl":
                 kwargs["device_id"] = device
-            dist.init_process_group(backend=backend, init_method="env://", **kwargs)
+            dist.init_process_group(backend=backend, **kwargs)
         else:
             dist.init_process_group(backend=backend, store=dist.HashStore(),
                                     rank=0, world_size=1)
@@ -137,11 +160,14 @@ def rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
-def aux_group(use: str = "host"):
+def aux_group(use: str = "host", timeout_s: float = 0.0):
     """The gloo group over the whole world for ``use`` ("host": the main
-    thread's agreements; "writer": the checkpoint writer); None without a
+    thread's agreements; "writer": the checkpoint writer; "serve": a
+    serving layout's messages, ``serve/layout.py``); None without a
     default group. Every process must create them in the same order: the
-    entry point makes both before it trains."""
+    entry point makes "host" and "writer" before it trains. ``timeout_s``
+    (0: torch's default) bounds each of the group's operations; it is
+    read when the group is made."""
     if not dist.is_initialized():
         return None
     default = dist.group.WORLD
@@ -149,7 +175,8 @@ def aux_group(use: str = "host"):
         _AUX["groups"] = {}
         _AUX["owner"] = default
     if use not in _AUX["groups"]:
-        _AUX["groups"][use] = dist.new_group(backend="gloo")
+        timeout = timedelta(seconds=timeout_s) if timeout_s else None
+        _AUX["groups"][use] = dist.new_group(backend="gloo", timeout=timeout)
     return _AUX["groups"][use]
 
 

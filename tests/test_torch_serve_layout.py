@@ -24,8 +24,9 @@ over as numpy (``bridge.py``). TINY of tests/test_serving.py:47, fp32:
 - the control (the row-parallel reduces dropped) fails the logits check;
 - in process: ``parse_serve_layout`` / ``serve_layout_code`` and the
   pool and param specs follow JAX's, Mamba refuses a layout
-  ("single-chip"), a fleet replica child refuses one, a layout needs a
-  world of its size, and the tuning lookup reads the local heads.
+  ("single-chip"), a layout needs a world of its size, and the tuning
+  lookup reads the local heads. The fleet's replicas over rank groups:
+  tests/test_torch_fleet_layout.py.
 """
 
 import json
@@ -295,18 +296,6 @@ def test_mamba_refuses_a_layout():
     with pytest.raises(ValueError, match="single-chip"):
         ServingEngine(params, cfg, ServeConfig(serve_layout="tp=2", compute_dtype="float32"),
                       device="cpu")
-
-
-def test_replica_child_refuses_a_layout(tmp_path):
-    from fms_fsdp_tpu_torch.serve.replica import build_engine
-
-    (tmp_path / "model.json").write_text(json.dumps(dict(LLAMA_KW, family="llama")))
-    (tmp_path / "serve.json").write_text(json.dumps(dict(SCFG, serve_layout="tp=2")))
-    args = types.SimpleNamespace(model_cfg=str(tmp_path / "model.json"),
-                                 serve_cfg=str(tmp_path / "serve.json"), device="cpu",
-                                 params="", init_seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6b, the fleet replica"):
-        build_engine(args)
 
 
 def test_layout_needs_a_world_of_its_size():

@@ -13,6 +13,11 @@ builds each case's engines; rank 0 drives them and the others follow
 (``serve/layout.py``). Rank 0 also runs the one-card engines the cases
 are held against, with no group. The module's constants (the TINY
 configs, the prompts, the engine knobs) are the test's too.
+
+With ``idle`` in SPEC_JSON (``timeout_s``, ``keepalive_s``, ``idle_s``)
+the world of 2 runs only the idle case (tests/test_torch_fleet_layout.py):
+the message group's timeout and the leader's keep-alive set to those,
+a wave, an idle spell, the same wave again.
 """
 
 import hashlib
@@ -20,6 +25,7 @@ import json
 import os
 import pickle
 import sys
+import time
 
 import torch
 
@@ -30,6 +36,7 @@ from fms_fsdp_tpu_torch.models.configs import LlamaConfig, MixtralConfig  # noqa
 from fms_fsdp_tpu_torch.parallel import sharding, tensor  # noqa: E402
 from fms_fsdp_tpu_torch.resilience.exits import classified_exit  # noqa: E402
 from fms_fsdp_tpu_torch.serve import ServeConfig, ServingEngine  # noqa: E402
+from fms_fsdp_tpu_torch.serve import layout as layout_wire  # noqa: E402
 from fms_fsdp_tpu_torch.serve.disagg import pack_handoff, unpack_handoff  # noqa: E402
 from fms_fsdp_tpu_torch.utils.dist import init_distributed  # noqa: E402
 
@@ -171,6 +178,26 @@ def _defrag_case(params, leader):
     return out
 
 
+def _idle_case(params, leader, idle):
+    """A tp 2 engine that serves, sits idle for ``idle_s`` (the followers
+    waiting in follow()), then serves the same prompts again. The leader
+    records the second wave's tokens, or the error that ended it."""
+    layout_wire.SERVE_TIMEOUT_S = idle["timeout_s"]
+    layout_wire.KEEPALIVE_S = idle["keepalive_s"]
+    eng = ServingEngine(params["llama"], CFG["llama"], scfg(serve_layout="tp=2"), device="cpu")
+    if not leader:
+        return {"calls": eng.follow()}
+    out = {"before": drive(eng, PROMPTS)[0]}
+    time.sleep(idle["idle_s"])
+    try:
+        out["after"] = drive(eng, PROMPTS)[0]
+        eng.release_followers()
+    except RuntimeError as e:
+        out["error"] = repr(e)
+    out["keepalives"] = layout_wire.MESSAGES["keepalive"]
+    return out
+
+
 def _compare_wires(tp_wire: bytes, one_wire: bytes):
     """A tp 2 prefill's wire against a one-card prefill's for the same
     request: their headers, leaf names, shapes and dtypes, and the
@@ -196,10 +223,14 @@ def main():
     with classified_exit():
         init_distributed(torch.device("cpu"))
         leader = rank == 0
-        for name, family, layout, over, flags in (CASES_2 if spec["world"] == 2 else CASES_4):
-            results[name] = _layout_case(params, name, family, layout, over, flags,
-                                         spec["speculator"], leader)
-        if spec["world"] == 2:
+        if "idle" in spec:
+            results["idle"] = _idle_case(params, leader, spec["idle"])
+        else:
+            for name, family, layout, over, flags in (CASES_2 if spec["world"] == 2
+                                                      else CASES_4):
+                results[name] = _layout_case(params, name, family, layout, over, flags,
+                                             spec["speculator"], leader)
+        if spec["world"] == 2 and "idle" not in spec:
             results["handoff"] = _handoff_case(params, leader)
             results["defrag"] = _defrag_case(params, leader)
     with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
