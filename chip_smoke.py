@@ -470,6 +470,26 @@ Phases, one JSON line each; any failure exits non-zero:
    Prints each wave's wall and decode tokens/s, the collectives a decode
    step, each rank's peak memory (the weights' draw apart) and each
    model's wall in the children.
+   Between the control and the serving runs, multi-slice training in the
+   same world (``num_slices=2``, the mesh's dcn axis; each rank a slice
+   of one), llama3_8b_4k at ``SHARD_KW``, every rank holding the whole
+   model at 32 query and 8 KV heads: ``slices`` (fsdp, ``dcn_overlap``
+   auto: the mesh ``{'dcn': 2, 'replica': 1, 'fsdp': 1, ...}``, so every
+   gradient crosses the slice boundary, bucket by bucket inside the
+   backward), ``slices-off`` (the same, the overlap off), ``ddp`` (one
+   slice, replica 2: the same ranks, rows and sum) and
+   ``slices-control`` (one step of ``slices`` with
+   ``DataParallel.dcn_reduce`` the identity). Checks: each run's mesh
+   line; ``slices`` and ``slices-off`` bit-equal losses and gradient
+   norms; ``slices`` within ``SHARD_REL_TOL`` of ``ddp`` (0 expected: a
+   sum of two is the same either way); the plan's buckets >= 2 and
+   ``DCN_REDUCES`` == steps x buckets on ``slices``, 0 on ``slices-off``
+   and ``ddp``; the ``slices`` record's ``dcn_collective_s`` > 0 and
+   ``dcn_overlap_frac`` in [0, 1]; flash launches a rank == steps x (2 +
+   rematerialised layers) forward and steps x 2 dq and dk/dv, all at
+   32/8; the control outside ``SHARD_REL_TOL`` of ``ddp``. gloo stages
+   each step's ~3 GB of bf16 gradients through the host, so no time of
+   the cross-slice reduce here is a DCN figure.
 
 Then a ``total`` line (seconds since ``main`` began, and each phase's),
 a ``{"kernels": [...]}`` line (the flash forward and dq by contract and
@@ -6163,33 +6183,35 @@ def _quant_reduce(state, problems):
     from fms_fsdp_tpu_torch.data.device_feed import DeviceFeed
     from fms_fsdp_tpu_torch.data.loader import get_dummy_loader
     from fms_fsdp_tpu_torch.main_training_llama import main
+    from fms_fsdp_tpu_torch.parallel import overlap
     from fms_fsdp_tpu_torch.resilience.faults import configure_faults
     from fms_fsdp_tpu_torch.train import step as step_mod
 
     runs = {}
     for mode in ("int8", "fp8", "fp8_delayed"):
         side, heads = [], []
-        real = step_mod.quantized_grad_reduce
+        # the step's wire (bucket by bucket with a DCN plan; one slice here)
+        real = overlap.bucketed_quantized_grad_reduce
 
-        def spy(grads, wire, quant_state, leaves, dp=None):
+        def spy(grads, wire, quant_state, plan, leaves, dp=None):
             amax = {}
             for g, leaf in zip(grads, leaves):
                 a = g.detach().float().abs().max()
                 amax[leaf.key] = a if leaf.key not in amax else torch.maximum(amax[leaf.key], a)
             side.append({k: float(v) for k, v in amax.items()})
-            return real(grads, wire, quant_state, leaves, dp)
+            return real(grads, wire, quant_state, plan, leaves, dp)
 
         def watch(st, m):
             if "quant" in st:
                 heads.append({k: float(v[0]) for k, v in st["quant"]["amax_history"].items()})
 
-        step_mod.quantized_grad_reduce = spy
+        overlap.bucketed_quantized_grad_reduce = spy
         try:
             runs[mode], res = _quant_run(f"reduce-{mode}", main,
                                          dict(QUANT_LLAMA_KW, num_steps=3, quantized_reduce=mode),
                                          watch=watch)
         finally:
-            step_mod.quantized_grad_reduce = real
+            overlap.bucketed_quantized_grad_reduce = real
         r = runs[mode]
         if not all(math.isfinite(x) for x in r["losses"]):
             problems.append(f"reduce {mode}: non-finite loss {r['losses']}")
@@ -6338,6 +6360,7 @@ def phase_train_quant(state):
 
 TP_SIZE = 2
 TP_HEADS = "16/4"  # llama3_8b's and mixtral_8x7b's 32/8 heads over 2 ranks
+SLICE_HEADS = "32/8"  # a slice of one rank holds the whole model
 TP_RUNS = (
     # (name, entry module, the entry's keyword arguments); Mixtral first,
     # the largest (32 GB a rank), so that it runs beside the loader phase
@@ -6348,7 +6371,29 @@ TP_RUNS = (
      dict(SHARD_KW, sharding_strategy="fsdp", tensor_parallel_size=TP_SIZE)),
     ("control", "main_training_llama",
      dict(SHARD_KW, sharding_strategy="fsdp", tensor_parallel_size=TP_SIZE, num_steps=1)),
+    # two slices of one rank each, the overlap on and off; one slice of
+    # two replicas, the reference; the control without the cross-slice sum
+    ("slices", "main_training_llama",
+     dict(SHARD_KW, sharding_strategy="fsdp", num_slices=TP_SIZE, dcn_overlap="auto")),
+    ("slices-off", "main_training_llama",
+     dict(SHARD_KW, sharding_strategy="fsdp", num_slices=TP_SIZE, dcn_overlap="off")),
+    ("ddp", "main_training_llama", dict(SHARD_KW, sharding_strategy="ddp")),
+    ("slices-control", "main_training_llama",
+     dict(SHARD_KW, sharding_strategy="fsdp", num_slices=TP_SIZE, num_steps=1)),
 )
+TP_CONTROLS = ("control", "slices-control")
+SLICE_RUNS = ("slices", "slices-off", "slices-control")
+
+
+def _tp_expected_mesh(name):
+    """The mesh a ``TP_RUNS`` run builds on the world of 2, and the heads
+    its ranks run attention at."""
+    mesh = dict(dcn=1, replica=1, fsdp=1, expert=1, context=1, tensor=1)
+    if name in SLICE_RUNS:
+        return dict(mesh, dcn=TP_SIZE), SLICE_HEADS
+    if name == "ddp":
+        return dict(mesh, replica=TP_SIZE), SLICE_HEADS
+    return dict(mesh, tensor=TP_SIZE), TP_HEADS
 TP_TIMEOUT_S = 420
 # the phases whose runs the tp phase's runs are held against
 TP_REFERENCES = ("shard", "train-mixtral")
@@ -6376,14 +6421,16 @@ def _tp_child(spec):
     its entry (no save), its losses, launches and peak memory, then the
     serving runs (``_tp_serve``), into ``<root>/tp_rank<R>.json``. The
     control run drops the forward's row-parallel reduces
-    (``TensorParallel.reduce`` the identity)."""
+    (``TensorParallel.reduce`` the identity), the slices' control the
+    cross-slice sum (``DataParallel.dcn_reduce`` does nothing)."""
     import importlib
 
     import torch
 
     from fms_fsdp_tpu_torch.ops import flash_attention as fa
-    from fms_fsdp_tpu_torch.parallel import tensor
+    from fms_fsdp_tpu_torch.parallel import overlap, tensor
     from fms_fsdp_tpu_torch.parallel.mesh import axis_sizes
+    from fms_fsdp_tpu_torch.parallel.sharding import DataParallel
 
     # every entry trains through the Llama entry's main: its checkpoint
     # manager saves nothing here
@@ -6399,17 +6446,22 @@ def _tp_child(spec):
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launches()
         tensor.reset_collectives()
-        reduce = tensor.TensorParallel.reduce
+        overlap.reset_dcn_reduces()
+        reduce, dcn_reduce = tensor.TensorParallel.reduce, DataParallel.dcn_reduce
         if name == "control":
             tensor.TensorParallel.reduce = lambda self, x: x
+        if name == "slices-control":
+            DataParallel.dcn_reduce = lambda self, flat, async_op=False: None
         t0 = time.perf_counter()
         try:
             with _saves_nothing(shared):
                 res = entry.main(**kw)
         finally:
             tensor.TensorParallel.reduce = reduce
+            DataParallel.dcn_reduce = dcn_reduce
         torch.cuda.synchronize()
         reports = res["reports"]
+        record = res["observer"].last_record
         out[name] = {
             "wall_s": time.perf_counter() - t0, "steps": res["steps"],
             "losses": [r["loss"] for r in reports], "gnorms": [r["gnorm"] for r in reports],
@@ -6422,8 +6474,11 @@ def _tp_child(spec):
             "backend": torch.distributed.get_backend(), "mesh": axis_sizes(res["mesh"]),
             "remat": _n_remat(res["model_cfg"], res["cfg"]),
             "layers": res["model_cfg"].nlayers,
+            "plan": overlap.plan_summary(), "dcn_reduces": overlap.DCN_REDUCES["bucket"],
+            "collective_split": {k: record[k] for k in (
+                "ici_collective_s", "dcn_collective_s", "dcn_overlap_frac", "compute_s")},
         }
-        del res, reports
+        del res, reports, record
         gc.collect()
         torch.cuda.empty_cache()
         # the run's memory is back: a marker for the parent
@@ -6721,15 +6776,20 @@ def phase_tp(state):
     problems = []
     mesh_lines = [ln for ln in logs[0].splitlines() if ln.startswith("Sharding strategy")]
     result["mesh_lines"] = mesh_lines
-    if len(mesh_lines) != len(TP_RUNS) or not all(
-            "'tensor': 2}" in ln and "process group = gloo" in ln for ln in mesh_lines):
-        problems.append(f"mesh lines {mesh_lines}: expected 'tensor': 2 and a gloo group")
+    if len(mesh_lines) != len(TP_RUNS):
+        problems.append(f"mesh lines {mesh_lines}: expected one a run of {len(TP_RUNS)}")
+    for (name, _, _), line in zip(TP_RUNS, mesh_lines):
+        # each run's own mesh, on the gloo group
+        if f"mesh = {_tp_expected_mesh(name)[0]}" not in line or "process group = gloo" not in line:
+            problems.append(f"{name}: mesh line {line!r}: expected {_tp_expected_mesh(name)[0]} "
+                            f"and a gloo group")
     for name, _, _ in TP_RUNS:
         runs = [rk[name] for rk in ranks]
         result[name] = {k: [run[k] for run in runs] for k in runs[0]}
-        if any(run["backend"] != "gloo" or run["mesh"]["tensor"] != TP_SIZE for run in runs):
+        mesh, heads_at = _tp_expected_mesh(name)
+        if any(run["backend"] != "gloo" or run["mesh"] != mesh for run in runs):
             problems.append(f"{name}: process group / mesh {[(r['backend'], r['mesh']) for r in runs]}")
-        if name != "control" and runs[0]["losses"] != runs[1]["losses"]:
+        if name not in TP_CONTROLS and runs[0]["losses"] != runs[1]["losses"]:
             problems.append(f"{name}: the ranks' losses differ {[r['losses'] for r in runs]}")
         if not all(math.isfinite(x) for run in runs for x in run["losses"]):
             problems.append(f"{name}: non-finite losses")
@@ -6738,9 +6798,10 @@ def phase_tp(state):
             want = {"fwd": steps * (n + run["remat"]), "dq": steps * n, "dkv": steps * n}
             got = {k: run["launches"][k] for k in want}
             heads = {k: run["head_launches"][k] for k in want}
-            if got != want or heads != {k: {TP_HEADS: v} for k, v in want.items()}:
+            if got != want or heads != {k: {heads_at: v} for k, v in want.items()}:
                 problems.append(f"{name}: launches {got}, by heads {heads}; expected {want} "
-                                f"at {TP_HEADS}")
+                                f"at {heads_at}")
+    _tp_slice_checks(ranks, result, problems)
     # the references (``TP_REFERENCES``, which main makes run too): the
     # shard phase's hsdp run, train-mixtral's first two steps (losses and
     # gradient norms)
@@ -6765,6 +6826,8 @@ def phase_tp(state):
                         f"{ranks[0]['control']['gnorms']}")
     result["peak_bytes_per_child"] = [max(rk[n]["max_memory_allocated"] for n, _, _ in TP_RUNS)
                                       for rk in ranks]
+    result["peak_bytes_by_run"] = {n: [rk[n]["max_memory_allocated"] for rk in ranks]
+                                   for n, _, _ in TP_RUNS}
     result["serve"] = _tp_serve_checks([rk["serve"] for rk in ranks], problems)
     result["serve_mixtral"] = _tp_serve_checks([rk["serve_mixtral"] for rk in ranks], problems,
                                                "mixtral")
@@ -6773,6 +6836,41 @@ def phase_tp(state):
     shutil.rmtree(root)
     if problems:
         raise AssertionError("tp: " + "; ".join(problems))
+
+
+def _tp_slice_checks(ranks, result, problems):
+    """The multi-slice runs' checks (module docstring, phase 23) on both
+    ranks' results; what the tp line prints of them goes into
+    ``result["slices_checks"]``."""
+    def rel_diff(run, ref):
+        return max(abs(a - b) / abs(b) for key in ("losses", "gnorms")
+                   for a, b in zip(run[key], ref[key]))
+
+    out = {}
+    for r, rk in enumerate(ranks):
+        on, off, ddp, control = (rk[n] for n in ("slices", "slices-off", "ddp",
+                                                 "slices-control"))
+        if (on["losses"], on["gnorms"]) != (off["losses"], off["gnorms"]):
+            problems.append(f"slices: rank {r}'s overlap on {on['losses']} / {on['gnorms']} "
+                            f"and off {off['losses']} / {off['gnorms']} are not bit-equal")
+        out[f"rank{r}_slices_vs_ddp_max_rel_diff"] = d = rel_diff(on, ddp)
+        if not d <= SHARD_REL_TOL:
+            problems.append(f"slices: rank {r} {d} from ddp, over {SHARD_REL_TOL}")
+        out[f"rank{r}_control_vs_ddp_rel_diff"] = c = rel_diff(control, ddp)
+        if c <= SHARD_REL_TOL:
+            problems.append(f"slices-control: rank {r} passes the check ({c})")
+        plan = on["plan"] or {}
+        if plan.get("buckets", 0) < 2 or on["dcn_reduces"] != on["steps"] * plan["buckets"]:
+            problems.append(f"slices: rank {r} plan {plan}, {on['dcn_reduces']} cross-slice "
+                            f"reduces over {on['steps']} steps")
+        if off["plan"] is not None or off["dcn_reduces"] or ddp["dcn_reduces"]:
+            problems.append(f"slices-off / ddp: rank {r} plan {off['plan']}, reduces "
+                            f"{off['dcn_reduces']} / {ddp['dcn_reduces']}")
+        split = on["collective_split"]
+        if not (split["dcn_collective_s"] > 0 and 0.0 <= split["dcn_overlap_frac"] <= 1.0):
+            problems.append(f"slices: rank {r}'s record {split}")
+    out["buckets"] = ranks[0]["slices"]["plan"]
+    result["slices_checks"] = out
 
 
 def _tp_serve_checks(serve, problems, model="llama"):
@@ -6905,6 +7003,11 @@ def kernels_line(state):
             entry["launches_tp"] = sum(l[contract] for name in ("llama", "mixtral")
                                        for l in state["tp"][name]["launches"])
             entry["launches_tp_heads"] = TP_HEADS
+            # and on its multi-slice runs (the controls left out), both
+            # ranks, every one at the whole model's 32 / 8 heads
+            entry["launches_slices"] = sum(l[contract] for name in ("slices", "slices-off")
+                                           for l in state["tp"][name]["launches"])
+            entry["launches_slices_heads"] = SLICE_HEADS
         if contract == "fwd" and tile != 64:
             # the frozen base forward of the speculator's stage 1, and
             # eval_ppl's forwards (Llama and the Mamba hybrid's attention)

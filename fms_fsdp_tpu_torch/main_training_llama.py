@@ -63,6 +63,20 @@ the mesh line prints the ``tensor`` axis. Ranks that share one card
         --model_variant=llama3_8b_4k --use_dummy_dataset=True --batch_size=2 \
         --seq_length=4096 --vocab_size=128256 --num_steps=3
 
+``--num_slices=S`` (or ``FMS_SIM_SLICES=S``) splits the world into S
+contiguous slices, the mesh's dcn axis: each gradient is summed inside
+its slice, then once across the slices, bucket by bucket inside the
+backward under ``--dcn_overlap=auto`` (``parallel/overlap.py``). With
+``--slice_heartbeat_dir`` (or ``--obs_dir``) and ``--slice_timeout_s``
+a dead slice ends the survivors with ``slice_loss`` (exit 3), and the
+supervisor relaunches one slice smaller. A 2-slice gloo world on the
+CPU:
+
+    FMS_SIM_SLICES=2 torchrun --nproc_per_node=4 \
+        -m fms_fsdp_tpu_torch.main_training_llama --device=cpu \
+        --sharding_strategy=fsdp --use_dummy_dataset=True \
+        --slice_heartbeat_dir=/tmp/hb --slice_timeout_s=10 ...
+
 The observability and resilience options run as in JAX: ``--obs_dir``
 (``metrics.jsonl``, ``metrics.csv`` with ``--obs_sinks=jsonl,csv``, and
 ``heartbeat.json``), ``--use_profiler`` (a ``torch.profiler`` trace in
@@ -93,6 +107,7 @@ from fms_fsdp_tpu_torch.data.loader import (
     get_dummy_loader,
 )
 from fms_fsdp_tpu_torch.obs import build_observer
+from fms_fsdp_tpu_torch.obs.collectives import make_collective_split_probe
 from fms_fsdp_tpu_torch.parallel.mesh import (
     MeshConfig,
     axis_sizes,
@@ -102,6 +117,7 @@ from fms_fsdp_tpu_torch.parallel.mesh import (
     data_parallel_extent,
     tensor_index,
 )
+from fms_fsdp_tpu_torch.parallel.overlap import plan_summary
 from fms_fsdp_tpu_torch.resilience.exits import classified_exit
 from fms_fsdp_tpu_torch.resilience.faults import configure_faults
 from fms_fsdp_tpu_torch.train.step import (
@@ -203,10 +219,17 @@ def main(device=None, **kwargs):
     if not is_resuming:
         start_step = 0
     # the schedule runs from the state's own restored step, as JAX's does
-    step_fn = make_train_step(model_cfg, cfg)
+    step_fn = make_train_step(model_cfg, cfg, mesh=mesh)
     profiler = get_profiler(cfg, rank, device=device)
     # metrics registry, phase timing, sinks and heartbeat
     observer = build_observer(cfg, rank, model_cfg=model_cfg, device=device)
+    # on more than one slice: the report-cadence probe of the within- and
+    # cross-slice reduces (None on one slice), replaying the step's bucket
+    # plan when it resolved one, and that plan for dcn_overlap_frac
+    overlap_schedule = plan_summary()
+    observer.attach_collective_probe(
+        make_collective_split_probe(mesh, observer.timer, schedule=overlap_schedule))
+    observer.attach_overlap_schedule(overlap_schedule)
 
     feed = DeviceFeed(batches, device, prefetch=max(0, int(cfg.feed_prefetch)))
     if rank == 0:

@@ -4,8 +4,8 @@ the heartbeat, and the ``Observer`` the train loop drives.
 
 Counterpart of ``fms_fsdp_tpu/obs/``, host code only: its inputs are host
 timestamps and the metric scalars the loop fetches once per report
-interval. The collective probe of multi-slice runs waits for ROADMAP.md
-A.6b.
+interval, and the collective probe of multi-slice runs
+(``collectives``), which the Observer runs at each report.
 """
 
 from fms_fsdp_tpu_torch.obs.observer import Observer, build_observer

@@ -13,11 +13,14 @@ touches it in three ways:
 
 Ranks other than 0 get the same timer and registry but no sinks. MFU and
 HFU are against the card's peak (``utils/flops.py::peak_flops_per_card``)
-and only on a card. The multi-slice collective split and the DCN overlap
-estimate (``ici_collective_s``, ``dcn_collective_s``, ``dcn_overlap_frac``)
-stay 0.0: the port has no slices and no collective probe yet (ROADMAP.md
-A.6b). The trainer's records carry the world's ``process_count`` in
-``extra``.
+and only on a card. On more than one slice the entry attaches the
+collective probe (``obs/collectives.py``), which every rank runs at the
+start of each report: its seconds fill ``ici_collective_s`` and
+``dcn_collective_s``, and with the step's DCN-overlap plan attached
+(``attach_overlap_schedule``) ``dcn_overlap_frac`` estimates the share
+of the cross-slice time the buckets hide under the backward. On one
+slice the three stay 0.0. The trainer's records carry the world's
+``process_count`` in ``extra``.
 """
 
 import logging
@@ -84,12 +87,43 @@ class Observer:
         # set by the loop: drains the verification window for
         # integrity_verify_s / scrub_verified / divergence_checks
         self._integrity_stats: Optional[Callable[[], Dict]] = None
+        # set by the entry on more than one slice (obs/collectives.py):
+        # the report-cadence probe of ici_collective_s / dcn_collective_s
+        self._collective_probe: Optional[Callable[[], None]] = None
+        # set by the entry when the step resolved a DCN-overlap plan
+        # (parallel/overlap.py plan_summary()): the buckets that
+        # dcn_overlap_frac reasons about
+        self._overlap_schedule: Optional[Dict] = None
 
     def attach_checkpoint_stats(self, fn: Callable[[], Dict]) -> None:
         self._ckpt_stats = fn
 
     def attach_integrity_stats(self, fn: Callable[[], Dict]) -> None:
         self._integrity_stats = fn
+
+    def attach_collective_probe(self, fn: Optional[Callable[[], None]]) -> None:
+        self._collective_probe = fn
+
+    def attach_overlap_schedule(self, schedule: Optional[Dict]) -> None:
+        self._overlap_schedule = dict(schedule) if schedule else None
+
+    def _overlap_frac(self, window: Dict) -> float:
+        """The estimated share of the window's cross-slice time that the
+        bucket schedule hides under the backward: with K buckets the
+        first bucket's reduce has nothing to hide under, so the exposed
+        time is ~d/K plus whatever exceeds the backward's share of the
+        window's compute (2/3 of it). Clamped to [0, 1]; 0.0 without a
+        schedule or a probe reading. An estimate for trends, not a
+        profile."""
+        if not self._overlap_schedule:
+            return 0.0
+        d = float(window.get("dcn_collective", 0.0))
+        if d <= 0.0:
+            return 0.0
+        k = max(1, int(self._overlap_schedule.get("buckets", 1)))
+        c = float(window.get("compute", 0.0)) * (2.0 / 3.0)
+        exposed = d / k + max(0.0, d - d / k - c)
+        return max(0.0, min(1.0, 1.0 - exposed / d))
 
     # -- hot-loop hooks ----------------------------------------------------
 
@@ -133,6 +167,10 @@ class Observer:
         """Close the phase window, derive goodput/MFU, emit to sinks.
 
         Returns the record (also kept as ``last_record``)."""
+        if self._collective_probe is not None:
+            # inside the closing window, so its seconds land in the record
+            # they describe; a collective, run by every rank at this step
+            self._collective_probe()
         window = self.timer.window()
         goodput_w, goodput_all = self.goodput.update(
             window, steps_in_window, skipped_steps_window
@@ -188,7 +226,7 @@ class Observer:
             "checkpoint_in_flight": int(ckpt_stats.get("in_flight", 0)),
             "ici_collective_s": window.get("ici_collective", 0.0),
             "dcn_collective_s": window.get("dcn_collective", 0.0),
-            "dcn_overlap_frac": 0.0,
+            "dcn_overlap_frac": self._overlap_frac(window),
             "integrity_verify_s": float(integ.get("verify_s", 0.0)),
             "scrub_verified": int(integ.get("scrub_verified", 0)),
             "divergence_checks": int(integ.get("divergence_checks", 0)),

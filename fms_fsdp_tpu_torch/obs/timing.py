@@ -9,7 +9,7 @@ loop's wall clock splits into phases:
 - ``checkpoint`` — inside a save (the blocking snapshot under the async
   manager);
 - ``ici_collective`` / ``dcn_collective`` — the multi-slice collective
-  split, 0.0 on one card;
+  split (``obs/collectives.py``), 0.0 on one slice;
 - ``other``    — the remainder (Python, prints, sinks).
 
 Goodput is compute time scaled by the window's clean-step fraction over

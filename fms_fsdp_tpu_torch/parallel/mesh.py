@@ -30,11 +30,19 @@ one 6-axis ``DeviceMesh`` with JAX's axis names:
   tensor peers. The loader's rank and world stay :func:`data_index` and
   :func:`data_parallel_extent`: tensor peers read the same rows.
 
+- dcn:  the slices (``num_slices``, or ``FMS_SIM_SLICES`` splitting the
+        world into contiguous equal blocks): the outermost data axis. No
+        leaf is split over it; a gradient is summed inside its slice
+        first and then across the slices, once
+        (``parallel/sharding.py::DataParallel.reduce_grads``,
+        ``parallel/overlap.py``). :func:`slice_data_groups` gives the two
+        groups of that sum.
+
 One process drives one device, so a process's slot on the mesh is its
-rank, in row-major order over ``MESH_AXES``. ``dcn`` and ``expert`` are
-built at size 1: :func:`mesh_shape` computes every axis as JAX does (the
-tests hold it to JAX's ``build_mesh``), and :func:`build_mesh` refuses
-one of them above 1 naming the ROADMAP.md item that brings it. JAX's HLO
+rank, in row-major order over ``MESH_AXES``. :func:`mesh_shape`
+computes every axis as JAX does (the tests hold it to JAX's
+``build_mesh``); ``expert`` is built at size 1, and :func:`build_mesh`
+refuses it above 1 naming the ROADMAP.md item that brings it. JAX's HLO
 collective attribution (``:377-497``) reads XLA programs and has no
 counterpart here.
 """
@@ -60,7 +68,6 @@ SIM_SLICES_ENV = "FMS_SIM_SLICES"
 
 # axis -> the ROADMAP.md item that brings it above size 1
 _UNPORTED_AXES = {
-    AXIS_DCN: "A.6b (multi-slice)",
     AXIS_EXPERT: "A.4b (MoE expert parallelism)",
 }
 
@@ -241,6 +248,45 @@ def build_mesh(mesh_config: Optional[MeshConfig] = None, *, device_type: str = "
             )
     return init_device_mesh(device_type, tuple(shape[a] for a in MESH_AXES),
                             mesh_dim_names=MESH_AXES)
+
+
+def num_mesh_slices(mesh) -> int:
+    """The slice count a mesh was built with (its dcn extent); 1 without
+    a mesh."""
+    if mesh is None:
+        return 1
+    return int(mesh.size(mesh.mesh_dim_names.index(AXIS_DCN)))
+
+
+def slice_data_groups(mesh):
+    """(the within-slice data group, the dcn group) of this rank on a
+    multi-slice ``mesh``: the ranks that share its slice and its tensor
+    index (``DATA_AXES`` but dcn, and context; None when that is this
+    rank alone), and the ranks that share everything but the slice. Both
+    None on one slice, where no group is made. The within-slice groups
+    are made once a mesh, on every rank for every (slice, tensor index)
+    (``new_group`` is collective)."""
+    import torch.distributed as dist
+
+    sizes = axis_sizes(mesh)
+    if sizes[AXIS_DCN] <= 1:
+        return None, None
+    made = _SLICE_GROUPS.get(id(mesh))
+    if made is not None:
+        return made[1], made[2]
+    inner = None
+    ranks = mesh.mesh.movedim(MESH_AXES.index(AXIS_TENSOR), 1)
+    rows = ranks.reshape(sizes[AXIS_DCN] * sizes[AXIS_TENSOR], -1).tolist()
+    if len(rows[0]) > 1:
+        inner, _ = dist.new_subgroups_by_enumeration(rows)
+    _SLICE_GROUPS[id(mesh)] = (mesh, inner, mesh.get_group(AXIS_DCN))
+    return inner, mesh.get_group(AXIS_DCN)
+
+
+# id(mesh) -> (the mesh, its within-slice group, its dcn group): a mesh's
+# groups are made once, whoever asks first (the step's layout, the probe);
+# the mesh is kept here so that its id is never reused
+_SLICE_GROUPS: Dict[int, tuple] = {}
 
 
 def axis_sizes(mesh) -> Dict[str, int]:

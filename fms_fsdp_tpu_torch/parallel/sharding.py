@@ -43,7 +43,17 @@ collectives by hand:
   The gradient norm adds a leaf's squares over each axis that splits
   it, once. :attr:`DataParallel.ring` is the context exchange the
   forward runs (``ops/ring_attention.py::GroupRing``), None without a
-  context axis.
+  context axis;
+- on more than one slice (the ``dcn`` axis, ``num_slices``) a gradient
+  is summed inside its slice first, in the order above (the fsdp
+  reduce-scatter, the replica and context all-reduces; a whole leaf's
+  over the slice's data group), then once over the slices
+  (:attr:`DataParallel.dcn_group`, :meth:`DataParallel.dcn_reduce`),
+  as JAX's hierarchical reduce runs ICI inside a slice and one DCN
+  all-reduce across slices. No leaf is split over dcn: the gradients,
+  and so the params, are the same on every slice. With the DCN overlap
+  on, ``parallel/overlap.py`` starts those two steps bucket by bucket
+  inside the backward instead.
 
 The quantized gradient reduce (``:215-292``): :func:`quant_leaf_key`,
 :func:`init_amax_state` and :func:`quantized_grad_reduce`, on the
@@ -79,6 +89,7 @@ from fms_fsdp_tpu_torch.parallel.mesh import (
     DATA_AXES,
     MESH_AXES,
     axis_sizes,
+    slice_data_groups,
 )
 # JAX keeps it here; the port defines it beside the mesh, which imports
 # no torch (a replica child reads its layout before torch)
@@ -542,8 +553,9 @@ class GatheredLayers:
 
 class DataParallel:
     """The parallel layout of one run: the mesh, the fsdp / replica /
-    tensor / data process groups, and the split dims of every param leaf
-    over fsdp (``dims``) and over tensor (``tdims``)."""
+    tensor / data process groups (and on more than one slice the
+    within-slice data group and the dcn group), and the split dims of
+    every param leaf over fsdp (``dims``) and over tensor (``tdims``)."""
 
     def __init__(self, mesh, dims: Dict[str, Optional[int]], shapes: Dict[str, Tuple],
                  tdims: Optional[Dict[str, Optional[int]]] = None):
@@ -568,6 +580,10 @@ class DataParallel:
         # the data group is the world
         self.tp, self.data_group = tensor_groups(mesh)
         self.data_world = self.world // self.tensor
+        # on more than one slice: the ranks of this slice and tensor index
+        # (None when alone) and the ranks of every slice at this rank's
+        # place in its slice; both None on one slice, where no group is made
+        self.slice_group, self.dcn_group = slice_data_groups(mesh)
         self.dims = dict(dims)
         self.tdims = dict(tdims or {})
         self.shapes = dict(shapes)
@@ -655,7 +671,8 @@ class DataParallel:
     def dcp_view(self, flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         """``flat`` (local parts) with every split leaf wrapped, without a
         copy, as a ``DTensor`` over the mesh, sharded on the fsdp and the
-        tensor mesh dims that split it: what DCP saves and loads."""
+        tensor mesh dims that split it and replicated on the others (dcn
+        among them): what DCP saves and loads."""
         from torch.distributed.tensor import DTensor, Replicate, Shard
 
         out = {}
@@ -721,6 +738,17 @@ class DataParallel:
 
     def all_reduce(self, tensors: List[torch.Tensor], group) -> None:
         """Sum ``tensors`` in place over ``group``, in flattened buckets."""
+        self._bucketed(tensors, lambda flat: dist.all_reduce(flat, group=group))
+
+    def dcn_reduce(self, flat: torch.Tensor, async_op: bool = False):
+        """Sum ``flat`` in place over the slices (:attr:`dcn_group`): the
+        one cross-slice all-reduce a gradient takes. Returns the work
+        handle under ``async_op``, else None."""
+        return dist.all_reduce(flat, group=self.dcn_group, async_op=async_op)
+
+    def _bucketed(self, tensors: List[torch.Tensor], reduce) -> None:
+        """``reduce`` (in place) over flattened buckets of ``tensors``, one
+        dtype a bucket, the results copied back."""
         by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
         for t in tensors:
             by_dtype.setdefault(t.dtype, []).append(t)
@@ -733,7 +761,7 @@ class DataParallel:
                         size += t.numel()
                         continue
                     flat = torch.cat([b.reshape(-1) for b in bucket])
-                    dist.all_reduce(flat, group=group)
+                    reduce(flat)
                     off = 0
                     for b in bucket:
                         b.copy_(flat[off:off + b.numel()].view(b.shape))
@@ -801,11 +829,29 @@ class DataParallel:
 
     def reduce_grads(self, grads, split) -> None:
         """After the backward: sum over the data group what is still per
-        rank (``split[i]``: grads[i] was reduce-scattered over fsdp)."""
+        rank (``split[i]``: grads[i] was reduce-scattered over fsdp). On
+        more than one slice, inside the slice first
+        (:meth:`reduce_within_slice`), then over the slices."""
         whole = [g for g, s in zip(grads, split) if not s]
         parts = [g for g, s in zip(grads, split) if s]
+        if self.dcn_group is not None:
+            self.reduce_within_slice(whole, parts)
+            self._bucketed(whole + parts, self.dcn_reduce)
+            return
         if whole and self.data_world > 1:
             self.all_reduce(whole, self.data_group)
+        if parts and self.replica_group is not None:
+            self.all_reduce(parts, self.replica_group)
+        if parts and self.context_group is not None:
+            self.all_reduce(parts, self.context_group)
+
+    def reduce_within_slice(self, whole, parts) -> None:
+        """The in-slice half of a multi-slice gradient sum, in place: the
+        whole leaves' over the slice's data group, the fsdp parts' over
+        replica and then context (the reduce-scatter over fsdp ran in the
+        backward)."""
+        if whole and self.slice_group is not None:
+            self.all_reduce(whole, self.slice_group)
         if parts and self.replica_group is not None:
             self.all_reduce(parts, self.replica_group)
         if parts and self.context_group is not None:
@@ -814,7 +860,8 @@ class DataParallel:
     def grad_norm(self, grads, split, tsplit=None) -> torch.Tensor:
         """The global gradient norm (fp32): each leaf's local squares
         summed over the axes that split it (``split``: fsdp, ``tsplit``:
-        tensor), a whole leaf's counted once."""
+        tensor), a whole leaf's counted once. No sum runs over dcn: after
+        :meth:`reduce_grads` every slice holds the same gradients."""
         tsplit = tsplit if tsplit is not None else [False] * len(grads)
         sq = [torch.linalg.vector_norm(g, dtype=torch.float32) ** 2 for g in grads]
         dev = grads[0].device

@@ -14,7 +14,9 @@ error               1     any unclassified exception (the interpreter's
                           default; never exited explicitly)
 watchdog_stall      2     ``StepWatchdog`` (resilience/guards.py): no
                           progress inside ``step_timeout_s``
-slice_loss          3     the multi-slice monitor (ROADMAP.md A.6b)
+slice_loss          3     ``SliceHealthMonitor`` (resilience/slices.py):
+                          every process of another slice went silent;
+                          ``SliceLostError`` through the entry wrapper
 anomaly_abort       4     ``AnomalyAbort`` through the entry wrapper: K
                           non-finite steps in a row, checkpoint saved,
                           aborting on purpose
@@ -135,11 +137,13 @@ def classify_exception(e: BaseException) -> Optional[str]:
     from fms_fsdp_tpu_torch.data.loader import LoaderWorkerError
     from fms_fsdp_tpu_torch.data.streaming import CorpusLossError
     from fms_fsdp_tpu_torch.resilience.divergence import StateDivergenceError
+    from fms_fsdp_tpu_torch.resilience.slices import SliceLostError
     from fms_fsdp_tpu_torch.serve.fleet import ReplicaLostError
     from fms_fsdp_tpu_torch.utils.train_utils import AnomalyAbort
 
     for typ, name in (
         (AnomalyAbort, "anomaly_abort"),
+        (SliceLostError, "slice_loss"),
         (LoaderWorkerError, "loader_death"),
         (CorpusLossError, "corpus_loss"),
         (StateDivergenceError, "state_divergence"),

@@ -66,7 +66,8 @@ class StepWatchdog:
     (obs/sinks.py::Heartbeat); the stall report quotes its last contents,
     so the post-mortem states how far the run got. ``process_index`` is
     passed in by the trainer (the thread asks no library for it) and tags
-    the report. ``run_id`` (default: the supervisor's ``FMS_RUN_ID``)
+    the report; ``slice_index`` (on more than one slice) names the
+    process's fault domain beside it, ``[proc N slice K]``. ``run_id`` (default: the supervisor's ``FMS_RUN_ID``)
     labels a heartbeat left by an earlier incarnation as stale, so a
     restarted run's report never claims the dead run's progress.
     """
@@ -79,6 +80,7 @@ class StepWatchdog:
         poll_s: float = None,
         heartbeat_path=None,
         process_index=None,
+        slice_index=None,
         run_id=None,
     ):
         if not timeout_s > 0:
@@ -87,11 +89,14 @@ class StepWatchdog:
         self.poll_s = min(1.0, timeout_s / 4) if poll_s is None else poll_s
         self.heartbeat_path = heartbeat_path
         self.process_index = process_index
+        self.slice_index = slice_index
         self.run_id = current_run_id() if run_id is None else run_id
         if process_index is None:
             self._tag = "step watchdog"
-        else:
+        elif slice_index is None:
             self._tag = f"step watchdog [proc {process_index}]"
+        else:
+            self._tag = f"step watchdog [proc {process_index} slice {slice_index}]"
         self._last_beat = time.monotonic()
         self._paused = 0
         self._stop = threading.Event()

@@ -76,6 +76,7 @@ from fms_fsdp_tpu_torch.models.gpt_bigcode import GPTBigCodeConfig
 from fms_fsdp_tpu_torch.models.hf_import import is_hf_checkpoint, load_hf_base
 from fms_fsdp_tpu_torch.models.speculator import SpeculatorConfig, init_speculator_params
 from fms_fsdp_tpu_torch.obs import build_observer
+from fms_fsdp_tpu_torch.obs.collectives import make_collective_split_probe
 from fms_fsdp_tpu_torch.parallel.mesh import (
     MeshConfig,
     axis_sizes,
@@ -186,7 +187,7 @@ def main(device=None, **kwargs):
         print(f"{time.time()} running with these configs {cfg}")
     # the base's tensor group ("tp": tp_size ranks, JAX's
     # train_speculator.py:88); its ranks read one data index's rows
-    tp = data_group = None
+    tp = data_group = mesh = None
     data_rank, data_ranks = rank, world_size
     if base_tensor_size(cfg) > 1:
         mesh = build_mesh(MeshConfig(sharding_strategy=cfg.sharding_strategy,
@@ -232,6 +233,9 @@ def main(device=None, **kwargs):
         loader = get_dummy_loader(cfg, data_rank, data_ranks)
         ckpt_loader = None
     observer = build_observer(cfg, rank, device=device)
+    # the multi-slice collective split, without a bucket plan (None on one
+    # slice, and without a mesh)
+    observer.attach_collective_probe(make_collective_split_probe(mesh, observer.timer))
     feed = DeviceFeed(_as_batches(rebatch(loader, cfg.batch_size, cfg.batch_size)),
                       device, prefetch=max(0, int(cfg.feed_prefetch)))
 

@@ -80,7 +80,20 @@ a quantized product's scales over a split dim, and the wire's amax of a
 row or leaf split over tensor, are the whole one's (a MAX over the tensor
 group), as JAX's GSPMD program reduces them.
 
-The DCN overlap belongs to ROADMAP.md A.6b.
+Multi-slice training (``num_slices``, the mesh's dcn axis): a gradient
+is summed inside its slice, then once over the slices
+(``DataParallel.reduce_grads``). With the DCN overlap on
+(``dcn_overlap``; ``"auto"`` turns it on above one slice), the step
+build resolves a bucket plan as JAX's does (``step.py:301-324``):
+``overlap_enabled``, then ``resolve_dcn_bucket``, then
+``assign_buckets`` on the param shapes (a meta-device init), then
+``set_plan_summary`` (``set_plan_summary(None)`` when it is off). The
+backward then starts each bucket's cross-slice sum as soon as its
+gradients are final (``parallel/overlap.py::BucketReducer``), the step
+waits for every bucket before the gradient norm, and the reduce wire
+runs bucket by bucket (``bucketed_quantized_grad_reduce``). The
+gradients, and so the step, are the same with overlap on and off. On
+one slice under ``"auto"`` no plan exists and the step is unchanged.
 """
 
 import math
@@ -100,24 +113,29 @@ from fms_fsdp_tpu_torch.ops.fused_ce import (
     fused_linear_cross_entropy,
 )
 from fms_fsdp_tpu_torch.ops.quant import check_quant_mode
+from fms_fsdp_tpu_torch.parallel import overlap as dcn_overlap
 from fms_fsdp_tpu_torch.parallel.ac import selective_ac_mask
+from fms_fsdp_tpu_torch.parallel.mesh import num_mesh_slices
 from fms_fsdp_tpu_torch.parallel.mixed_precision import get_dtype_policy
 from fms_fsdp_tpu_torch.parallel.sharding import (
     DataParallel,
     GatheredLayers,
     QuantLeaf,
+    _paths,
     init_amax_state,
-    quantized_grad_reduce,
 )
 from fms_fsdp_tpu_torch.resilience.faults import check_spec, fault_params
-from fms_fsdp_tpu_torch.tune.lookup import configure_kernel_tuning, resolve_ce_chunk
+from fms_fsdp_tpu_torch.tune.lookup import (
+    configure_kernel_tuning,
+    resolve_ce_chunk,
+    resolve_dcn_bucket,
+)
 from fms_fsdp_tpu_torch.utils.tree import tree_map
 
 # (TrainConfig field, is it set to something this port does not run yet,
 # the ROADMAP.md item that brings it)
 _UNPORTED_STEP = (
     ("expert_parallel_size", lambda v: v > 1, "A.4b (MoE expert parallelism)"),
-    ("num_slices", lambda v: v > 1, "A.6b (multi-slice)"),
 )
 
 
@@ -275,6 +293,45 @@ def state_from_params(params: Dict, cfg, mesh=None, model_cfg=None) -> Dict:
     return state
 
 
+class _MetaGenerator(torch.Generator):
+    """A generator whose device is ``meta``: a model's init over it makes
+    meta tensors of the params' shapes and draws nothing."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def param_shapes(model_cfg, dtype=torch.float32) -> Dict:
+    """The whole params of ``model_cfg`` as meta tensors (JAX's
+    ``eval_shape`` of the init): the tree and the shapes, no memory."""
+    init_params, _, _ = get_model_api(model_cfg)
+    return init_params(_MetaGenerator(), model_cfg, dtype=dtype)
+
+
+def resolve_bucket_plan(model_cfg, cfg, mesh, policy):
+    """The DCN-overlap bucket plan of a step build, published with
+    ``set_plan_summary`` (None when overlap is off), as JAX's
+    ``step.py:301-324``."""
+    dcn_overlap.set_plan_summary(None)
+    if not dcn_overlap.overlap_enabled(getattr(cfg, "dcn_overlap", "auto"), mesh):
+        return None
+    shapes = param_shapes(model_cfg, policy.param_dtype)
+    wire = dcn_overlap.wire_bytes_per_element(policy.reduce_quant)
+    leaves = [leaf for _, leaf in _paths(shapes)]
+    total_wire = sum(leaf.numel() for leaf in leaves) * wire
+    bucket_mb = resolve_dcn_bucket(
+        grad_mb=-(-total_wire // dcn_overlap.MB),
+        leaves=len(leaves),
+        slices=num_mesh_slices(mesh),
+        wire_bytes=wire,
+        requested=int(getattr(cfg, "dcn_bucket_mb", 0) or 0),
+    )
+    plan = dcn_overlap.assign_buckets(shapes, bucket_mb, wire)
+    dcn_overlap.set_plan_summary(plan.summary())
+    return plan
+
+
 def tensor_flags(params: Dict, dp):
     """Per differentiated leaf, in :func:`_per_layer`'s order: whether it
     is split over tensor."""
@@ -335,14 +392,16 @@ def wrap_step_fn(step_fn, timer):
     return stepped
 
 
-def make_train_step(model_cfg, cfg, start_step: int = 0):
+def make_train_step(model_cfg, cfg, start_step: int = 0, mesh=None):
     """Build the step: (state, (inputs, labels)) -> metrics.
 
     metrics = {loss, gnorm (the pre-clip global gradient norm, fp32), lr,
     nonfinite (1.0 when the batch's loss or gradient norm was not finite;
     its update was skipped when ``anomaly_skip_updates``)}, and for
     Mixtral moe_drop_frac; loss, gnorm and moe_drop_frac stay tensors on
-    the device until the loop fetches a report window.
+    the device until the loop fetches a report window. ``mesh`` (the
+    run's ``DeviceMesh``, None for one process) decides the DCN overlap
+    under ``dcn_overlap="auto"``.
     """
     check_step_options(cfg)
     set_kernel_variant(cfg.flash_kernel_variant)
@@ -369,6 +428,7 @@ def make_train_step(model_cfg, cfg, start_step: int = 0):
         chunk = resolve_ce_chunk(d_model, vocab,
                                  str(policy.compute_dtype).replace("torch.", ""),
                                  requested=chunk)
+    bucket_plan = resolve_bucket_plan(model_cfg, cfg, mesh, policy)
     guard_updates = bool(cfg.anomaly_skip_updates)
     nan_fault = fault_params("nan_loss")
     nan_window = None
@@ -420,6 +480,13 @@ def make_train_step(model_cfg, cfg, start_step: int = 0):
     def fwd_bwd(state, inputs, labels):
         dp = state.get("dp")
         params_c, leaves, split = _compute_copy(state["params"], policy.compute_dtype, dp)
+        reducer = None
+        if bucket_plan is not None and dp is not None and dp.dcn_group is not None:
+            # each bucket's cross-slice sum starts in the backward
+            reducer = dcn_overlap.BucketReducer(
+                dp, bucket_plan, [leaf.key for leaf in quant_leaves(state["params"], dp)],
+                split)
+            reducer.attach(leaves)
         if dp is None:
             loss, aux, stats = loss_fn(params_c, inputs, labels)
         else:
@@ -428,8 +495,11 @@ def make_train_step(model_cfg, cfg, start_step: int = 0):
                 loss, aux, stats = loss_fn(params_c, inputs, labels, n, dp)
         del params_c
         grads = torch.autograd.grad(loss if aux is None else loss + aux, leaves)
-        if dp is not None:
+        if reducer is not None:
+            grads = reducer.finish(grads)
+        elif dp is not None:
             dp.reduce_grads(grads, split)
+        if dp is not None:
             loss = dp.sum_over_world(loss)
         if aux is not None:
             # the global term, once, beside the ranks' summed token loss
@@ -449,8 +519,8 @@ def make_train_step(model_cfg, cfg, start_step: int = 0):
         into the state."""
         dp = state.get("dp")
         with record_function("quant_reduce"):
-            grads, new_quant = quantized_grad_reduce(
-                grads, reduce_quant, state.get("quant"),
+            grads, new_quant = dcn_overlap.bucketed_quantized_grad_reduce(
+                grads, reduce_quant, state.get("quant"), bucket_plan,
                 quant_leaves(state["params"], dp), dp)
         if new_quant is not None:
             state["quant"] = new_quant

@@ -25,12 +25,22 @@ processes so every rank saves at the same step (then a clean exit), the
 ``sdc_grad_flip`` site at the step boundary and the cross-replica
 divergence compare at report cadence (``resilience/divergence.py``; a
 world of one has nothing to compare, as in JAX), and the windowed
-``torch.profiler`` trace. The slice health monitor waits for ROADMAP.md
-A.6b.
+``torch.profiler`` trace.
+
+On more than one slice (``parallel/mesh.py::process_slice_context``) the
+fault sites fire at the rank's own slice, the watchdog and the abort
+line name it (``[proc R slice K]``), and with ``slice_heartbeat_dir``
+(or ``obs_dir/slice_health``) and ``slice_timeout_s`` set a
+``SliceHealthMonitor`` (``resilience/slices.py``) beats each step: a
+dead slice ends every survivor with ``slice_loss``, from the monitor's
+thread when the survivor waits in a collective, or through
+``SliceLostError`` when the collective fails in the transport and the
+liveness verdict names the slice.
 """
 
 import os
 import signal
+import sys
 import time
 from contextlib import nullcontext
 from dataclasses import asdict
@@ -46,6 +56,7 @@ from fms_fsdp_tpu_torch.resilience.exits import EXIT_CODES
 from fms_fsdp_tpu_torch.resilience.faults import fire_fault
 from fms_fsdp_tpu_torch.resilience.guards import AnomalyGuard, StepWatchdog
 from fms_fsdp_tpu_torch.resilience.integrity import drain_integrity_events
+from fms_fsdp_tpu_torch.resilience.slices import SliceHealthMonitor, SliceLostError
 from fms_fsdp_tpu_torch.utils.dist import any_flag, world_size
 
 
@@ -257,10 +268,14 @@ def train(cfg, state, step_fn, rank, train_loader, checkpointer=None,
                                   tracker_fn=tracker_fn, device=device)
     elif tracker_fn is not None:
         observer.sinks.append(TrackerSink(tracker_fn))
+    lost = False
     try:
         return _train_loop(cfg, state, step_fn, rank, train_loader, checkpointer,
                            start_step, tokens_seen, dataloader, device, profiler,
                            observer)
+    except SliceLostError:
+        lost = True
+        raise
     finally:
         if profiler:
             profiler.close()
@@ -268,22 +283,42 @@ def train(cfg, state, step_fn, rank, train_loader, checkpointer=None,
             if checkpointer is not None:
                 # joins the in-flight writer and surfaces its error
                 checkpointer.finalize()
+        except Exception as e:
+            # a lost slice breaks the writer's collectives too: the
+            # classified loss stays the error, the writer's is its echo
+            if not lost:
+                raise
+            print(f"checkpoint writer after the slice loss: {e!r}", file=sys.stderr)
         finally:
             observer.close()
 
 
 def _train_loop(cfg, state, step_fn, rank, train_loader, checkpointer, start_step,
                 tokens_seen, dataloader, device, profiler, observer) -> Dict:
+    from fms_fsdp_tpu_torch.parallel.mesh import process_slice_context
     from fms_fsdp_tpu_torch.train.step import wrap_step_fn
 
+    n_slices, slice_idx = process_slice_context(cfg)
+    slice_tag = f"[proc {rank} slice {slice_idx}] " if n_slices > 1 else ""
     guard = AnomalyGuard(max_consecutive=max(1, cfg.anomaly_max_consecutive))
     preemption = PreemptionGuard().install()
     watchdog = None
     if cfg.step_timeout_s > 0:
         hb = observer.heartbeat.path if observer.heartbeat else None
-        # rank is passed in: the watchdog's thread asks no library for it
+        # rank is passed in: the watchdog's thread asks no library for it;
+        # the slice rides along on more than one slice
         watchdog = StepWatchdog(cfg.step_timeout_s, heartbeat_path=hb,
-                                process_index=rank).start()
+                                process_index=rank,
+                                slice_index=slice_idx if n_slices > 1 else None).start()
+    monitor = None
+    if n_slices > 1:
+        hb_dir = str(getattr(cfg, "slice_heartbeat_dir", "") or "")
+        if not hb_dir and getattr(cfg, "obs_dir", ""):
+            hb_dir = os.path.join(cfg.obs_dir, "slice_health")
+        slice_timeout = float(getattr(cfg, "slice_timeout_s", 0.0) or 0.0)
+        if hb_dir and slice_timeout > 0:
+            monitor = SliceHealthMonitor(hb_dir, n_slices, slice_idx, rank,
+                                         slice_timeout).start()
 
     train_loader = observer.wrap_data_iter(train_loader)
     step_fn = wrap_step_fn(step_fn, observer.timer)
@@ -448,12 +483,15 @@ def _train_loop(cfg, state, step_fn, rank, train_loader, checkpointer, start_ste
                 break
             if watchdog:
                 watchdog.beat()
-            # step-boundary fault sites: a slice kill ends this process, a
-            # wedged reduce parks it for the watchdog (one slice: slice 0)
-            kill = fire_fault("slice_kill", step=step, slice=0)
+            if monitor:
+                monitor.beat(step)
+            # step-boundary fault sites at this rank's slice: a slice kill
+            # ends every process of the slice, a wedged cross-slice reduce
+            # parks this one
+            kill = fire_fault("slice_kill", step=step, slice=slice_idx)
             if kill is not None:
                 os._exit(int(kill.get("code", EXIT_CODES["injected_kill"])))
-            stall = fire_fault("dcn_reduce_stall", step=step, slice=0)
+            stall = fire_fault("dcn_reduce_stall", step=step, slice=slice_idx)
             if stall is not None:
                 time.sleep(float(stall.get("seconds", 3600)))
             sdc = fire_fault("sdc_grad_flip", step=step, proc=rank)
@@ -493,7 +531,7 @@ def _train_loop(cfg, state, step_fn, rank, train_loader, checkpointer, start_ste
                     if checkpointer is not None:
                         save(step, "abort")
                     raise AnomalyAbort(
-                        f"anomaly guard: {guard.consecutive} consecutive non-finite "
+                        f"{slice_tag}anomaly guard: {guard.consecutive} consecutive non-finite "
                         f"steps (threshold {guard.max_consecutive}); checkpoint "
                         f"saved at step {step}, aborting"
                     )
@@ -518,10 +556,24 @@ def _train_loop(cfg, state, step_fn, rank, train_loader, checkpointer, start_ste
                           f"step {step}, exiting clean")
                 break
         flush(step, drain=True)
+    except Exception as e:
+        # a dead slice can reach a survivor as a transport error of a
+        # cross-slice collective rather than a hang: wait for the liveness
+        # verdict and raise it classified (slice_loss). The loop's own
+        # aborts and a divergence (every rank raises it from one compare)
+        # are whole-world failures and skip the wait
+        if monitor is not None and not isinstance(
+                e, (AnomalyAbort, _divergence.StateDivergenceError)):
+            dead = monitor.wait_classify()
+            if dead is not None:
+                raise SliceLostError(monitor.describe_loss(dead)) from e
+        raise
     finally:
         preemption.uninstall()
         if watchdog:
             watchdog.stop()
+        if monitor:
+            monitor.stop()
         if scrubber is not None:
             scrubber.stop()
     return {"final_loss": train_loss, "reports": reports,

@@ -101,11 +101,12 @@ def test_mesh_refusals_and_errors_match_jax():
     (dict(sharding_strategy="fsdp", expert_parallel_size=2), "A.4b"),
 ])
 def test_build_mesh_refuses_unported_axes(kw, item, monkeypatch):
-    """The dcn and expert axes stay refused, naming their ROADMAP.md
-    item; the tensor axis and ``"tp"`` (A.6b's training half) reach the
-    device mesh with JAX's axis sizes."""
+    """The expert axis stays refused, naming its ROADMAP.md item; the
+    tensor axis, ``"tp"`` (A.6b's training half) and the dcn axis (A.6b's
+    multi-slice: two slices of two) reach the device mesh with JAX's axis
+    sizes."""
     cfg = mesh.MeshConfig(**kw)
-    if cfg.tensor_parallel_size > 1 or cfg.sharding_strategy == "tp":
+    if cfg.tensor_parallel_size > 1 or cfg.sharding_strategy == "tp" or cfg.num_slices > 1:
         import torch.distributed.device_mesh as dm
 
         seen = []

@@ -446,9 +446,16 @@ def test_unported_options_raise(overrides, item, tmp_path):
     """Options the port does not run yet raise naming their ROADMAP.md
     item. Tensor parallelism runs: a tensor axis of 2 needs a world it
     divides (a world of one raises JAX's mesh error), and ``"tp"`` at
-    ``tensor_parallel_size=1`` trains as fsdp."""
+    ``tensor_parallel_size=1`` trains as fsdp. Two slices pass the step's
+    check and need a world they split (a world of one raises JAX's
+    error; tests/test_torch_multislice.py trains them on four ranks)."""
     kw = dict(use_dummy_dataset=True, num_steps=4, **_ENTRY_OVERRIDES)
     kw.update(overrides)
+    if kw.get("num_slices", 0) > 1:
+        check_supported(TrainConfig(num_slices=kw["num_slices"]))
+        with pytest.raises(ValueError, match="cannot split into 2 equal slices"):
+            main(device="cpu", **kw)
+        return
     if kw.get("tensor_parallel_size", 1) > 1:
         with pytest.raises(ValueError, match="not divisible by tensor"):
             main(device="cpu", **kw)
