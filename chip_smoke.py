@@ -490,6 +490,24 @@ Phases, one JSON line each; any failure exits non-zero:
    32/8; the control outside ``SHARD_REL_TOL`` of ``ddp``. gloo stages
    each step's ~3 GB of bf16 gradients through the host, so no time of
    the cross-slice reduce here is a DCN figure.
+   Right after the Mixtral tp run, expert parallelism in the same world
+   at the train-mixtral configuration (mixtral_8x7b, 2 layers, seq 4096,
+   batch 1 a rank) with bf16 params and moments (``EP_KW``), 2 steps: ``ep`` (``expert_parallel_size=2``: the mesh
+   ``{..., 'expert': 2, ...}``, each rank 4 of the 8 experts, the routed
+   tokens moved by the all-to-all of ``parallel/expert.py``), ``ep-ref``
+   (fsdp 2 without the expert axis: the same ranks, rows and global
+   batch) and ``ep-control`` (one step of ``ep`` with each rank keeping
+   its own chunks in place of its peer's). The loader phase waits for the
+   control's marker (``TP_MIXTRAL_MARKER``) before resume trains. Checks:
+   each run's mesh line; ``ep``'s losses and gradient norms within
+   ``SHARD_REL_TOL`` of ``ep-ref``'s, the ranks' losses equal, the
+   control outside it; ``EXPERT_A2A`` on ``ep`` == steps x 2 x (2 x
+   layers + rematerialised layers), 0 on ``ep-ref``; the first step's
+   ``moe_drop_frac`` equal on both and the second within
+   ``EP_DROP_ABS_TOL``; flash launches a rank == steps x (2 +
+   rematerialised layers) forward and steps x 2 dq and dk/dv at 32/8;
+   each run's step time and peak memory a rank. gloo stages the exchange
+   through the host: no time of it here is a cross-card figure.
 
 Then a ``total`` line (seconds since ``main`` began, and each phase's),
 a ``{"kernels": [...]}`` line (the flash forward and dq by contract and
@@ -3904,7 +3922,7 @@ def phase_loader(state):
     if "tp-children" in state:
         # the card holds the tp ranks' Mixtral run and resume's training
         # together only after that run is done
-        result["tp_mixtral_wait_s"] = _wait_tp_marker(state["tp-children"], "mixtral")
+        result["tp_mixtral_wait_s"] = _wait_tp_marker(state["tp-children"], TP_MIXTRAL_MARKER)
     result["nvidia_smi"] = state["smi"]
     emit("loader", **result)
     state["loader"] = result
@@ -6359,6 +6377,11 @@ def phase_train_quant(state):
 # ---------------------------------------------------------------------------
 
 TP_SIZE = 2
+# the expert-parallel runs: the train-mixtral configuration with bf16
+# params and moments. Under bfSixteen ep-ref (fsdp 2) peaks at ~38 GB a
+# rank (its layer's whole bf16 gradients and their reduce-scatter buffer
+# beside 19 GB of fp32 params and moments): two ranks pass the card's 79 GB
+EP_KW = dict(MIXTRAL_TRAIN_KW, sharding_strategy="fsdp", pure_bf16=True)
 TP_HEADS = "16/4"  # llama3_8b's and mixtral_8x7b's 32/8 heads over 2 ranks
 SLICE_HEADS = "32/8"  # a slice of one rank holds the whole model
 TP_RUNS = (
@@ -6367,6 +6390,15 @@ TP_RUNS = (
     ("mixtral", "main_training_mixtral",
      dict(MIXTRAL_TRAIN_KW, sharding_strategy="fsdp", tensor_parallel_size=TP_SIZE,
           num_steps=2)),
+    # expert parallelism at the same width (each rank 4 of the 8 experts),
+    # its reference on the same ranks, rows and global batch without the
+    # expert axis (fsdp 2), and the control with the exchange broken; bf16
+    # params and moments (``EP_KW``)
+    ("ep", "main_training_mixtral",
+     dict(EP_KW, expert_parallel_size=TP_SIZE, num_steps=2)),
+    ("ep-ref", "main_training_mixtral", dict(EP_KW, num_steps=2)),
+    ("ep-control", "main_training_mixtral",
+     dict(EP_KW, expert_parallel_size=TP_SIZE, num_steps=1)),
     ("llama", "main_training_llama",
      dict(SHARD_KW, sharding_strategy="fsdp", tensor_parallel_size=TP_SIZE)),
     ("control", "main_training_llama",
@@ -6381,8 +6413,15 @@ TP_RUNS = (
     ("slices-control", "main_training_llama",
      dict(SHARD_KW, sharding_strategy="fsdp", num_slices=TP_SIZE, num_steps=1)),
 )
-TP_CONTROLS = ("control", "slices-control")
+TP_CONTROLS = ("control", "slices-control", "ep-control")
 SLICE_RUNS = ("slices", "slices-off", "slices-control")
+EP_RUNS = ("ep", "ep-control")
+# the dropped share of a later step, ep against ep-ref: 16 of a layer's
+# 16,384 choices
+EP_DROP_ABS_TOL = 1e-3
+# the last run at Mixtral's width (32 GB a rank): the loader phase waits
+# for it before resume trains
+TP_MIXTRAL_MARKER = "ep-control"
 
 
 def _tp_expected_mesh(name):
@@ -6393,11 +6432,17 @@ def _tp_expected_mesh(name):
         return dict(mesh, dcn=TP_SIZE), SLICE_HEADS
     if name == "ddp":
         return dict(mesh, replica=TP_SIZE), SLICE_HEADS
+    if name in EP_RUNS:
+        return dict(mesh, expert=TP_SIZE), SLICE_HEADS
+    if name == "ep-ref":
+        return dict(mesh, fsdp=TP_SIZE), SLICE_HEADS
     return dict(mesh, tensor=TP_SIZE), TP_HEADS
-TP_TIMEOUT_S = 420
+# with the expert-parallel runs the children take ~220 s alone on an H100,
+# and gloo stages their collectives through a host the other phases share
+TP_TIMEOUT_S = 600
 # the phases whose runs the tp phase's runs are held against
 TP_REFERENCES = ("shard", "train-mixtral")
-TP_MARKER_TIMEOUT_S = 180
+TP_MARKER_TIMEOUT_S = 300
 # the serving runs after TP_RUNS, in the same world: llama3_8b at full
 # width and the fleet phase's 4 layers, fp32, the kernel on the card; then
 # mixtral_8x7b at full width and 2 layers, fp32 (12.6 GB of weights drawn
@@ -6422,13 +6467,16 @@ def _tp_child(spec):
     serving runs (``_tp_serve``), into ``<root>/tp_rank<R>.json``. The
     control run drops the forward's row-parallel reduces
     (``TensorParallel.reduce`` the identity), the slices' control the
-    cross-slice sum (``DataParallel.dcn_reduce`` does nothing)."""
+    cross-slice sum (``DataParallel.dcn_reduce`` does nothing), the expert
+    control breaks the all-to-all (``ExpertParallel.exchange`` keeps each
+    rank's own chunks in place of its peer's)."""
     import importlib
+    import resource
 
     import torch
 
     from fms_fsdp_tpu_torch.ops import flash_attention as fa
-    from fms_fsdp_tpu_torch.parallel import overlap, tensor
+    from fms_fsdp_tpu_torch.parallel import expert, overlap, tensor
     from fms_fsdp_tpu_torch.parallel.mesh import axis_sizes
     from fms_fsdp_tpu_torch.parallel.sharding import DataParallel
 
@@ -6447,11 +6495,15 @@ def _tp_child(spec):
         fa.reset_launches()
         tensor.reset_collectives()
         overlap.reset_dcn_reduces()
+        expert.reset_exchanges()
         reduce, dcn_reduce = tensor.TensorParallel.reduce, DataParallel.dcn_reduce
+        exchange = expert.ExpertParallel.exchange
         if name == "control":
             tensor.TensorParallel.reduce = lambda self, x: x
         if name == "slices-control":
             DataParallel.dcn_reduce = lambda self, flat, async_op=False: None
+        if name == "ep-control":
+            expert.ExpertParallel.exchange = lambda self, t: t.contiguous().clone()
         t0 = time.perf_counter()
         try:
             with _saves_nothing(shared):
@@ -6459,6 +6511,7 @@ def _tp_child(spec):
         finally:
             tensor.TensorParallel.reduce = reduce
             DataParallel.dcn_reduce = dcn_reduce
+            expert.ExpertParallel.exchange = exchange
         torch.cuda.synchronize()
         reports = res["reports"]
         record = res["observer"].last_record
@@ -6475,12 +6528,18 @@ def _tp_child(spec):
             "remat": _n_remat(res["model_cfg"], res["cfg"]),
             "layers": res["model_cfg"].nlayers,
             "plan": overlap.plan_summary(), "dcn_reduces": overlap.DCN_REDUCES["bucket"],
+            "expert_a2a": expert.EXPERT_A2A["all_to_all"],
+            "drop_frac": [r.get("moe_drop_frac") for r in reports],
             "collective_split": {k: record[k] for k in (
                 "ici_collective_s", "dcn_collective_s", "dcn_overlap_frac", "compute_s")},
         }
         del res, reports, record
         gc.collect()
         torch.cuda.empty_cache()
+        _empty_host_cache(torch)
+        out[name]["host_rss_bytes"] = _host_rss_bytes()
+        # the process's peak so far (Linux reports it in KiB)
+        out[name]["host_peak_rss_bytes"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
         # the run's memory is back: a marker for the parent
         open(os.path.join(spec["root"], f"{name}_done_rank{rank}"), "w").close()
     out["serve"] = _tp_serve("cuda", _tp_serve_cfg("llama3_8b", TP_SERVE_LAYERS), rank)
@@ -6491,6 +6550,24 @@ def _tp_child(spec):
     with open(os.path.join(spec["root"], f"tp_rank{rank}.json"), "w") as f:
         json.dump(out, f)
     return 0
+
+
+def _empty_host_cache(torch):
+    """Give the pinned host blocks that torch's caching host allocator
+    keeps back to the system: gloo stages each collective of card tensors
+    through such blocks, and after ep-ref's layer gathers (GBs each) a
+    rank's cache would hold them beside the phases that run meanwhile."""
+    empty = getattr(torch.accelerator, "empty_host_cache", None)
+    (empty or torch._C._host_emptyCache)()
+
+
+def _host_rss_bytes():
+    """This process's resident host memory (``VmRSS``)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no VmRSS in /proc/self/status")
 
 
 def _tp_serve_cfg(variant, layers):
@@ -6736,6 +6813,13 @@ def _start_tp_children():
     over one card: the ranks share it, a gloo world)."""
     import socket
 
+    import torch
+
+    # the card's memory for the two ranks' Mixtral-width runs (ep-ref peaks
+    # at ~36 GB a rank): nothing cached here, and the children's
+    # allocators grow their segments rather than keep unused blocks
+    gc.collect()
+    torch.cuda.empty_cache()
     root = _ckpt_dir("tp")
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -6745,7 +6829,8 @@ def _start_tp_children():
     for r in range(TP_SIZE):
         env = dict(os.environ, PYTHONPATH=REPO, RANK=str(r), WORLD_SIZE=str(TP_SIZE),
                    LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(TP_SIZE),
-                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), OMP_NUM_THREADS="2")
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), OMP_NUM_THREADS="2",
+                   PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
         child = _Child("chip_smoke", ["--tp-child", spec], os.path.join(root, f"rank{r}.log"),
                        TP_TIMEOUT_S, cwd=root, env=env)
         child.root = root
@@ -6759,13 +6844,16 @@ def phase_tp(state):
     joined and checked."""
     children = state.pop("tp-children", None) or _start_tp_children()
     root = children[0].root
+    t_join = time.perf_counter()
     joins = [c.join() for c in children]
+    join_wait_s = time.perf_counter() - t_join
     logs = []
     for c in children:
         with open(c.log) as f:
             logs.append(f.read())
     result = {"config": {name: kw for name, _, kw in TP_RUNS}, "nvidia_smi": state["smi"],
-              "exits": [j[0] for j in joins], "child_wall_s": [j[1] for j in joins]}
+              "exits": [j[0] for j in joins], "child_wall_s": [j[1] for j in joins],
+              "join_wait_s": join_wait_s}
     if any(j[0] != 0 for j in joins):
         raise AssertionError("tp: a child exited "
                              + "; ".join(f"{j[0]}:\n{log[-3000:]}" for j, log in zip(joins, logs)))
@@ -6802,6 +6890,7 @@ def phase_tp(state):
                 problems.append(f"{name}: launches {got}, by heads {heads}; expected {want} "
                                 f"at {heads_at}")
     _tp_slice_checks(ranks, result, problems)
+    _tp_expert_checks(ranks, result, problems)
     # the references (``TP_REFERENCES``, which main makes run too): the
     # shard phase's hsdp run, train-mixtral's first two steps (losses and
     # gradient norms)
@@ -6871,6 +6960,43 @@ def _tp_slice_checks(ranks, result, problems):
             problems.append(f"slices: rank {r}'s record {split}")
     out["buckets"] = ranks[0]["slices"]["plan"]
     result["slices_checks"] = out
+
+
+def _tp_expert_checks(ranks, result, problems):
+    """The expert-parallel runs' checks (module docstring, phase 23) on
+    both ranks' results, into ``result["ep_checks"]``: ``ep`` within
+    ``SHARD_REL_TOL`` of ``ep-ref`` (losses and gradient norms), the
+    control outside it at its one step, the exchanges a step (two a layer
+    in the forward, in the rematerialised forward and in the backward:
+    ``EXPERT_A2A``) on ``ep`` and none on ``ep-ref``, the dropped share
+    of the first step equal on both (the routing is each rank's rows'
+    under the same weights) and of each later step within
+    ``EP_DROP_ABS_TOL`` (the weights equal up to the gradients'
+    rounding: a router near-tie may flip)."""
+    def rel_diff(run, ref):
+        return max(abs(a - b) / abs(b) for key in ("losses", "gnorms")
+                   for a, b in zip(run[key], ref[key]))
+
+    out = {}
+    for r, rk in enumerate(ranks):
+        ep, ref, control = (rk[n] for n in ("ep", "ep-ref", "ep-control"))
+        out[f"rank{r}_ep_vs_ref_max_rel_diff"] = d = rel_diff(ep, ref)
+        if not d <= SHARD_REL_TOL:
+            problems.append(f"ep: rank {r} {d} from ep-ref, over {SHARD_REL_TOL}")
+        out[f"rank{r}_control_vs_ref_rel_diff"] = c = rel_diff(control, ref)
+        if c <= SHARD_REL_TOL:
+            problems.append(f"ep-control: rank {r} passes the check ({c})")
+        want = ep["steps"] * 2 * (2 * ep["layers"] + ep["remat"])
+        out[f"rank{r}_expert_a2a"] = [ep["expert_a2a"], ref["expert_a2a"]]
+        if ep["expert_a2a"] != want or ref["expert_a2a"] != 0:
+            problems.append(f"ep: rank {r} exchanges {ep['expert_a2a']} (expected {want}), "
+                            f"ep-ref {ref['expert_a2a']} (expected 0)")
+        out[f"rank{r}_drop_frac"] = [ep["drop_frac"], ref["drop_frac"]]
+        drops = list(zip(ep["drop_frac"], ref["drop_frac"]))
+        if drops[0][0] != drops[0][1] or any(abs(a - b) > EP_DROP_ABS_TOL for a, b in drops):
+            problems.append(f"ep: rank {r} dropped shares {ep['drop_frac']} vs ep-ref "
+                            f"{ref['drop_frac']}")
+    result["ep_checks"] = out
 
 
 def _tp_serve_checks(serve, problems, model="llama"):
@@ -7008,6 +7134,11 @@ def kernels_line(state):
             entry["launches_slices"] = sum(l[contract] for name in ("slices", "slices-off")
                                            for l in state["tp"][name]["launches"])
             entry["launches_slices_heads"] = SLICE_HEADS
+            # and on its expert-parallel runs and their reference (the
+            # control left out), both ranks, at the whole 32 / 8 heads
+            entry["launches_ep"] = sum(l[contract] for name in ("ep", "ep-ref")
+                                       for l in state["tp"][name]["launches"])
+            entry["launches_ep_heads"] = SLICE_HEADS
         if contract == "fwd" and tile != 64:
             # the frozen base forward of the speculator's stage 1, and
             # eval_ppl's forwards (Llama and the Mamba hybrid's attention)

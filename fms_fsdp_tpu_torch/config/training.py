@@ -3,8 +3,7 @@
 A copy of ``fms_fsdp_tpu/config/training.py::TrainConfig`` with the same
 fields and defaults, so one command line runs both packages. The port's
 trainer (``main_training_llama.py``) reads the fields of the Llama
-training path; what it does not port yet raises ``NotImplementedError``
-naming its ROADMAP.md item (``train/step.py::check_supported``), and
+training path and checks them (``train/step.py::check_supported``), and
 fields that only shape a JAX compile have no effect in eager PyTorch:
 
 - ``scan_layers``: the layer stack is a Python loop either way;

@@ -20,7 +20,11 @@ observability, resilience, data-parallel and long-context options are
 the Llama entry's: under ``--context_parallel_size=cp`` the context peers
 read one data index's rows and each trains its S / cp chunk, with the
 capacity routing of the whole sequence (``models/mixtral.py::
-context_slots``). ``--expert_parallel_size`` above 1 is ROADMAP.md A.4b.
+context_slots``). Under ``--expert_parallel_size=ep`` each rank holds E / ep
+of every layer's experts and its own rows, and the routed tokens move to
+their experts' ranks and back by an all-to-all (``models/mixtral.py::
+_moe_ffn_dispatch_a2a``); it composes with fsdp/hsdp/ddp, the tensor and
+context axes and the slices, and the mesh line prints ``'expert': ep``.
 """
 
 import sys

@@ -51,8 +51,20 @@ them over the world, the context group included.
 Routed decode (serving) groups the rows of a step by expert: each chosen
 expert's weights are read once, by three matmuls over its rows, and the
 weighted outputs are added back per row. That takes one host sync per
-layer (the rows per expert). The expert-parallel all-to-all
-(``_moe_ffn_dispatch_a2a``) is ROADMAP.md A.4b.
+layer (the rows per expert).
+
+Expert parallelism (``ep``, ``parallel/expert.py``): each rank holds E /
+ep of every layer's experts and trains its own rows. Under ``"dispatch"``
+(:func:`_use_expert_a2a`) the FFN is JAX's ``_moe_ffn_dispatch_a2a``: the
+router, the priority slots and the route sums run on the rank's own
+rows, before the exchange; the rank's full (E, B, C, d) buffer goes to
+the experts' ranks by an all-to-all, each rank runs its experts' SwiGLU
+over (E / ep, B * ep, C, d) (under ``tp`` the tensor reduce on that
+local block), and the inverse all-to-all brings the rows home for the
+weighted combine. Under a context ring each chunk's buffer of the whole
+sequence's C rows is exchanged with the expert peers that hold the same
+chunk. The route sums stay per rank: the step sums them over the data
+group, the expert axis among it, so each drop counts once.
 
 Tensor parallelism (``tp``, ``parallel/tensor.py``): the attention and
 the top-level leaves as Llama's; each expert's w1 and w3 split by
@@ -345,21 +357,75 @@ def _combine_from_buffer(out_e, dest, top_w, S: int):
     return (gathered.float() * w[..., None]).sum(dim=2).to(out_e.dtype)
 
 
-@scoped("moe_dispatch")
-def _moe_ffn_dispatch(h, lp, cfg: MixtralConfig, quant: str = "none", ring=None,
-                      tp=None):
-    """Capacity dispatch by scatter/gather (the training path), chunk by
-    chunk under a context ``ring``."""
+def _scatter_dispatch(h, lp, cfg: MixtralConfig, quant: str, ring, tp, ep):
+    """Capacity dispatch by scatter/gather, chunk by chunk under a context
+    ``ring``; under ``ep`` each chunk's buffer through the expert
+    all-to-all and back around the experts' FFN."""
     E = cfg.num_experts
     parts, routed, slots, C = _routed_chunks(h, lp, cfg, ring)
     ys, routes = [], []
     for hp, (top_idx, top_w, probs), (slot, keep) in zip(parts, routed, slots):
         dest, xd = _fill_expert_buffer(hp, top_idx, slot, keep, C, E)
+        if ep is not None:
+            xd = ep.dispatch(xd)  # (E / ep, B * ep, C, d)
         out_e = _expert_ffn(xd, lp, quant, tp, cfg.hidden_dim)
+        if ep is not None:
+            out_e = ep.combine(out_e)  # (E, B, C, d), this rank's rows
         ys.append(_combine_from_buffer(out_e, dest, top_w, hp.shape[1]))
         routes.append(_route(top_idx, probs, keep, E))
     y = ys[0] if len(ys) == 1 else ring.join(ys)
     return y, _sum_routes(routes)
+
+
+@scoped("moe_dispatch")
+def _moe_ffn_dispatch(h, lp, cfg: MixtralConfig, quant: str = "none", ring=None,
+                      tp=None):
+    """Capacity dispatch by scatter/gather (the training path), chunk by
+    chunk under a context ``ring``."""
+    return _scatter_dispatch(h, lp, cfg, quant, ring, tp, None)
+
+
+def _use_expert_a2a(cfg: MixtralConfig, ep, batch_size: int) -> bool:
+    """Whether the all-to-all path applies (JAX's ``models/mixtral.py:324``,
+    its warnings in its words): ``ep`` (an ``ExpertParallel``, None
+    without an expert axis) has more than one rank, divides the expert
+    count, and divides ``batch_size``, the rows the expert group
+    exchanges (each rank holds its own rows, so in a step it always
+    does)."""
+    import warnings
+
+    if ep is None or ep.size <= 1:
+        return False
+    if cfg.num_experts % ep.size != 0:
+        warnings.warn(
+            f"num_experts={cfg.num_experts} is not divisible by the expert"
+            f" axis extent {ep.size}: falling back to the GSPMD dispatch, whose"
+            " expert reshard replicates the token buffer across the expert"
+            " axis (~E/top_k x the minimal all-to-all traffic). Pick"
+            " expert_parallel_size dividing num_experts.",
+            stacklevel=3,
+        )
+        return False
+    if batch_size % ep.size != 0:
+        warnings.warn(
+            f"global batch {batch_size} is not divisible by the expert axis"
+            f" extent {ep.size}: falling back to the GSPMD dispatch. Pick a batch"
+            " size divisible by expert_parallel_size to enable the explicit"
+            " all-to-all EP exchange.",
+            stacklevel=3,
+        )
+        return False
+    return True
+
+
+@scoped("moe_dispatch_a2a")
+def _moe_ffn_dispatch_a2a(h, lp, cfg: MixtralConfig, ep, quant: str = "none", ring=None,
+                          tp=None):
+    """Capacity dispatch with the expert all-to-all (module docstring):
+    ``lp``'s expert weights are this rank's E / ep experts, ``h`` its own
+    rows. The routing, the slots and the route sums are
+    :func:`_moe_ffn_dispatch`'s on the same rows."""
+    return _scatter_dispatch(h, lp, cfg, quant, ring, tp, ep)
 
 
 def _moe_ffn_dispatch_einsum(h, lp, cfg: MixtralConfig, quant: str = "none", ring=None,
@@ -398,14 +464,24 @@ _MOE_FFN = {"dense": _moe_ffn_dense, "dispatch": _moe_ffn_dispatch,
 
 
 def _mixtral_block(x, layer: Dict, cfg: MixtralConfig, cos, sin, *, attn_impl: str,
-                   quant: str, moe_impl: str, ring=None, tp=None):
+                   quant: str, moe_impl: str, ring=None, tp=None, ep=None):
     """x + Attn(RMS(x)); then x + MoE(RMS(x)). Returns (x, the layer's
-    routing sums)."""
+    routing sums). Under ``ep`` the capacity dispatch exchanges its
+    buffer with the expert peers (JAX's ``:695``); any other route needs
+    every expert here."""
     x = attention_block(x, layer, cfg, cos, sin, attn_impl=attn_impl, quant=quant,
                         ring=ring, tp=tp)
     with record_function("moe"):
         h = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
-        if moe_impl == "dense":  # unquantized, as JAX's
+        if moe_impl == "dispatch" and ep is not None and _use_expert_a2a(
+                cfg, ep, h.shape[0] * ep.size):
+            y, route = _moe_ffn_dispatch_a2a(h, layer, cfg, ep, quant, ring, tp)
+        elif layer["w1"].shape[0] != cfg.num_experts:
+            raise ValueError(
+                f"moe_impl={moe_impl!r} needs all {cfg.num_experts} experts on the "
+                f"rank, which holds {layer['w1'].shape[0]}: only the capacity "
+                f"dispatch exchanges with the expert group")
+        elif moe_impl == "dense":  # unquantized, as JAX's
             y, route = _moe_ffn_dense(h, layer, cfg, tp)
         else:
             y, route = _MOE_FFN[moe_impl](h, layer, cfg, quant, ring, tp)
@@ -432,10 +508,13 @@ def mixtral_forward(
     quant: str = "none",
     ring=None,
     tp=None,
+    ep=None,
 ):
     """tokens (B, S) -> logits (B, S, V) in the compute dtype, the
     counterpart of ``fms_fsdp_tpu/models/mixtral.py:706``; under ``tp``
-    this rank's vocabulary block of them (module docstring).
+    this rank's vocabulary block of them, under ``ep`` (the expert
+    group's ``ExpertParallel``) the expert weights this rank's experts
+    (module docstring).
 
     ``return_aux`` also returns the stats dict: ``balance``,
     ``drop_frac`` and their ``route`` sums (module docstring).
@@ -467,7 +546,7 @@ def mixtral_forward(
     for i in range(nlayers):
         block = functools.partial(
             _indexed_block, layers=params["layers"], i=i, cfg=cfg, cos=cos, sin=sin,
-            attn_impl=attn_impl, quant=quant, moe_impl=moe_impl, ring=ring, tp=tp,
+            attn_impl=attn_impl, quant=quant, moe_impl=moe_impl, ring=ring, tp=tp, ep=ep,
         )
         if ac_mask[i]:
             x, route = checkpoint(block, x, use_reentrant=False)

@@ -37,16 +37,23 @@ one 6-axis ``DeviceMesh`` with JAX's axis names:
         (``parallel/sharding.py::DataParallel.reduce_grads``,
         ``parallel/overlap.py``). :func:`slice_data_groups` gives the two
         groups of that sum.
+- expert: ``expert_parallel_size`` ranks, each holding E / ep of every
+        layer's experts (``parallel/sharding.py``) and its own rows (a
+        data axis: :func:`data_index` counts it); the MoE FFN moves the
+        routed tokens to their experts' rank and back by an all-to-all
+        over the expert group (``parallel/expert.py``). A gradient of a
+        leaf split over expert is summed over every data axis but
+        expert, any other over every data axis: :func:`expert_groups`
+        gives the groups of those sums.
 
 One process drives one device, so a process's slot on the mesh is its
 rank, in row-major order over ``MESH_AXES``. :func:`mesh_shape`
 computes every axis as JAX does (the tests hold it to JAX's
-``build_mesh``); ``expert`` is built at size 1, and :func:`build_mesh`
-refuses it above 1 naming the ROADMAP.md item that brings it. JAX's HLO
-collective attribution (``:377-497``) reads XLA programs and has no
-counterpart here.
+``build_mesh``). JAX's HLO collective attribution (``:377-497``) reads
+XLA programs and has no counterpart here.
 """
 
+import math
 import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -65,11 +72,6 @@ DATA_AXES = (AXIS_DCN, AXIS_REPLICA, AXIS_FSDP, AXIS_EXPERT)
 # the gloo simulation knob: the process world split into this many
 # contiguous equal slices
 SIM_SLICES_ENV = "FMS_SIM_SLICES"
-
-# axis -> the ROADMAP.md item that brings it above size 1
-_UNPORTED_AXES = {
-    AXIS_EXPERT: "A.4b (MoE expert parallelism)",
-}
 
 
 def parse_serve_layout(layout: str) -> Dict[str, int]:
@@ -231,8 +233,7 @@ def build_mesh(mesh_config: Optional[MeshConfig] = None, *, device_type: str = "
                world: Optional[int] = None, local_world: Optional[int] = None,
                **overrides):
     """The 6-axis ``DeviceMesh`` of the live process group (initialise it
-    first: ``utils/dist.py::init_distributed``). Raises
-    ``NotImplementedError`` for an axis this port does not run yet."""
+    first: ``utils/dist.py::init_distributed``)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from fms_fsdp_tpu_torch.utils.dist import world_size
@@ -241,11 +242,6 @@ def build_mesh(mesh_config: Optional[MeshConfig] = None, *, device_type: str = "
         mesh_config = MeshConfig(**overrides)
     world = world_size() if world is None else int(world)
     shape = mesh_shape(mesh_config, world, local_world)
-    for axis, item in _UNPORTED_AXES.items():
-        if shape[axis] > 1:
-            raise NotImplementedError(
-                f"a {axis} axis of {shape[axis]} is not ported yet: ROADMAP.md {item}"
-            )
     return init_device_mesh(device_type, tuple(shape[a] for a in MESH_AXES),
                             mesh_dim_names=MESH_AXES)
 
@@ -266,19 +262,13 @@ def slice_data_groups(mesh):
     None on one slice, where no group is made. The within-slice groups
     are made once a mesh, on every rank for every (slice, tensor index)
     (``new_group`` is collective)."""
-    import torch.distributed as dist
-
     sizes = axis_sizes(mesh)
     if sizes[AXIS_DCN] <= 1:
         return None, None
     made = _SLICE_GROUPS.get(id(mesh))
     if made is not None:
         return made[1], made[2]
-    inner = None
-    ranks = mesh.mesh.movedim(MESH_AXES.index(AXIS_TENSOR), 1)
-    rows = ranks.reshape(sizes[AXIS_DCN] * sizes[AXIS_TENSOR], -1).tolist()
-    if len(rows[0]) > 1:
-        inner, _ = dist.new_subgroups_by_enumeration(rows)
+    inner = _groups_sharing(mesh, (AXIS_DCN, AXIS_TENSOR))
     _SLICE_GROUPS[id(mesh)] = (mesh, inner, mesh.get_group(AXIS_DCN))
     return inner, mesh.get_group(AXIS_DCN)
 
@@ -287,6 +277,50 @@ def slice_data_groups(mesh):
 # groups are made once, whoever asks first (the step's layout, the probe);
 # the mesh is kept here so that its id is never reused
 _SLICE_GROUPS: Dict[int, tuple] = {}
+
+
+def _groups_sharing(mesh, axes):
+    """This rank's group of the ranks that share its index on every axis
+    of ``axes`` (None when that is this rank alone). The groups are made
+    on every rank for every such index (``new_group`` is collective)."""
+    import torch.distributed as dist
+
+    sizes = axis_sizes(mesh)
+    ranks = mesh.mesh.movedim([MESH_AXES.index(a) for a in axes],
+                              list(range(len(axes))))
+    rows = ranks.reshape(math.prod(sizes[a] for a in axes), -1).tolist()
+    if len(rows[0]) == 1:
+        return None
+    group, _ = dist.new_subgroups_by_enumeration(rows)
+    return group
+
+
+def expert_groups(mesh):
+    """(the expert group, the data group without expert, the within-slice
+    data group without expert) of this rank on ``mesh``: the ranks that
+    differ from it only in their expert index; those that share its
+    expert and tensor indices (every data axis but expert, and context:
+    where a gradient of a leaf split over expert is summed); on more than
+    one slice, those that also share its slice. Each is None when it
+    would hold this rank alone (the third also on one slice); all three
+    None without an expert axis, where no group is made. Made once a
+    mesh, on every rank in one order."""
+    sizes = axis_sizes(mesh)
+    if sizes[AXIS_EXPERT] <= 1:
+        return None, None, None
+    made = _EXPERT_GROUPS.get(id(mesh))
+    if made is None:
+        inner = None
+        data = _groups_sharing(mesh, (AXIS_EXPERT, AXIS_TENSOR))
+        if sizes[AXIS_DCN] > 1:
+            inner = _groups_sharing(mesh, (AXIS_DCN, AXIS_EXPERT, AXIS_TENSOR))
+        made = _EXPERT_GROUPS[id(mesh)] = (mesh, mesh.get_group(AXIS_EXPERT), data, inner)
+    return made[1:]
+
+
+# id(mesh) -> (the mesh, its expert group, its data and within-slice data
+# groups without expert), as ``_SLICE_GROUPS``
+_EXPERT_GROUPS: Dict[int, tuple] = {}
 
 
 def axis_sizes(mesh) -> Dict[str, int]:

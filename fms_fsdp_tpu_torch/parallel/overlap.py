@@ -63,6 +63,10 @@ MB = 1024 * 1024
 # step)
 DCN_REDUCES = {"bucket": 0}
 
+# the kinds of leaf in a bucket's buffer, in order: (fsdp part, split over
+# expert), as ``DataParallel._kinds`` lists them
+_KINDS = ((False, False), (False, True), (True, False), (True, True))
+
 
 def reset_dcn_reduces() -> None:
     DCN_REDUCES["bucket"] = 0
@@ -152,20 +156,24 @@ class BucketReducer:
     """The cross-slice reduce of one step's gradients, bucket by bucket,
     inside the backward.
 
-    ``keys[i]`` and ``split[i]`` are the JAX leaf name of the step's
-    differentiated leaf ``i`` and whether its gradient is an fsdp part.
-    :meth:`attach` hooks each bucket's leaves; when a bucket's gradients
-    are all computed the last hook copies them into one flat buffer a dtype
-    (the whole leaves first, then the parts), sums the whole leaves'
-    span over the slice's data group and the parts' span over replica
-    and context, then starts the all-reduce over the slices
-    (``DataParallel.dcn_reduce``, ``async_op=True``). :meth:`finish`
-    waits on every handle and hands back the step's gradients with each
-    bucket's leaves replaced by views of its reduced buffer."""
+    ``keys[i]``, ``split[i]`` and ``esplit[i]`` are the JAX leaf name of
+    the step's differentiated leaf ``i``, whether its gradient is an fsdp
+    part and whether it is split over expert. :meth:`attach` hooks each
+    bucket's leaves; when a bucket's gradients are all computed the last
+    hook copies them into one flat buffer a dtype, one span a kind of
+    leaf (``DataParallel._kinds``' order: whole, whole split over
+    expert, parts, parts split over expert), sums each span in the
+    slice as ``DataParallel.reduce_within_slice`` sums its kind, then
+    starts the all-reduce over the slices (``DataParallel.dcn_reduce``,
+    ``async_op=True``). :meth:`finish` waits on every handle and hands
+    back the step's gradients with each bucket's leaves replaced by
+    views of its reduced buffer."""
 
-    def __init__(self, dp, plan: BucketPlan, keys: Sequence[str], split: Sequence[bool]):
+    def __init__(self, dp, plan: BucketPlan, keys: Sequence[str], split: Sequence[bool],
+                 esplit: Optional[Sequence[bool]] = None):
         self.dp = dp
         self.split = list(split)
+        self.esplit = list(esplit) if esplit is not None else [False] * len(self.split)
         bucket_of = {k: bi for bi, bucket in enumerate(plan.buckets) for k in bucket}
         members: Dict[int, List[int]] = {}
         for i, key in enumerate(keys):
@@ -195,26 +203,32 @@ class BucketReducer:
                 by_dtype.setdefault(g.dtype, []).append(j)
             records = []
             for js in by_dtype.values():
-                order = ([j for j in js if not self.split[idx[j]]]
-                         + [j for j in js if self.split[idx[j]]])
-                n_whole = sum(grads[j].numel() for j in order if not self.split[idx[j]])
+                kinds = [[j for j in js if (self.split[idx[j]], self.esplit[idx[j]]) == kind]
+                         for kind in _KINDS]
+                order = [j for kind in kinds for j in kind]
                 with torch.no_grad():
                     flat = torch.cat([grads[j].reshape(-1) for j in order])
-                self._within_slice(flat, n_whole)
+                self._within_slice(flat, [sum(grads[j].numel() for j in kind)
+                                          for kind in kinds])
                 handle = self.dp.dcn_reduce(flat, async_op=True)
                 records.append((flat, handle, [(idx[j], tuple(grads[j].shape))
                                                for j in order]))
             self._started[bi] = records
         DCN_REDUCES["bucket"] += 1
 
-    def _within_slice(self, flat: torch.Tensor, n_whole: int) -> None:
-        dp = self.dp
-        if n_whole and dp.slice_group is not None:
-            dist.all_reduce(flat[:n_whole], group=dp.slice_group)
-        if n_whole < flat.numel():
-            for group in (dp.replica_group, dp.context_group):
+    def _within_slice(self, flat: torch.Tensor, sizes: Sequence[int]) -> None:
+        """Each kind's span of ``flat`` (``sizes`` elements each, in
+        ``_KINDS`` order) summed in the slice as its kind is."""
+        dp, off = self.dp, 0
+        for (part, expert), n in zip(_KINDS, sizes):
+            span = flat[off:off + n]
+            off += n
+            if not n:
+                continue
+            groups = dp.part_groups(expert) if part else [dp.slice_whole_group(expert)]
+            for group in groups:
                 if group is not None:
-                    dist.all_reduce(flat[n_whole:], group=group)
+                    dist.all_reduce(span, group=group)
 
     def finish(self, grads: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
         out = list(grads)

@@ -13,9 +13,12 @@ collectives by hand:
   one that names ``tensor`` on a dim the tensor extent divides is split
   on that dim over the tensor axis (the Megatron layout: wq, wk, wv, w1
   and w3 by columns, wo and w2 by rows, the embedding and the lm_head by
-  vocabulary); every other dim is whole. Llama's stacked L axis is never
+  vocabulary), and Mixtral's expert weights split their E dim over the
+  expert axis; every other dim is whole. Llama's stacked L axis is never
   split, so ``wq`` (L, d, nq*hd) splits dim 1 over fsdp and dim 2 over
-  tensor. Adam's moments split as their params (``infer_state_specs``);
+  tensor, and ``w1`` (L, E, d, h) dim 1 over expert, dim 2 over fsdp and
+  dim 3 over tensor. Adam's moments split as their params
+  (``infer_state_specs``);
 - the train state holds each rank's *local* tensors in JAX's layout, so
   AdamW's elementwise update on them is exact per shard. For a checkpoint
   :meth:`DataParallel.dcp_view` wraps them, without a copy, as
@@ -44,6 +47,16 @@ collectives by hand:
   it, once. :attr:`DataParallel.ring` is the context exchange the
   forward runs (``ops/ring_attention.py::GroupRing``), None without a
   context axis;
+- the expert axis is a data axis: each expert rank trains its own rows,
+  and the MoE FFN exchanges the routed tokens with the ranks that hold
+  their experts (:attr:`DataParallel.ep`, ``parallel/expert.py``), so an
+  expert leaf's gradient comes out of the backward summed over the
+  expert peers' rows already. A leaf split over expert is summed over
+  every data axis but expert (the whole ones over
+  :attr:`DataParallel.data_group_ne`, the fsdp parts over replica and
+  context); every other leaf over the expert axis too (the fsdp parts
+  then over :attr:`DataParallel.expert_group`). JAX's ``DATA_AXES``
+  sums each leaf the same way;
 - on more than one slice (the ``dcn`` axis, ``num_slices``) a gradient
   is summed inside its slice first, in the order above (the fsdp
   reduce-scatter, the replica and context all-reduces; a whole leaf's
@@ -80,6 +93,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from fms_fsdp_tpu_torch.parallel.expert import ExpertParallel
 from fms_fsdp_tpu_torch.parallel.mesh import (
     AXIS_CONTEXT,
     AXIS_EXPERT,
@@ -89,6 +103,7 @@ from fms_fsdp_tpu_torch.parallel.mesh import (
     DATA_AXES,
     MESH_AXES,
     axis_sizes,
+    expert_groups,
     slice_data_groups,
 )
 # JAX keeps it here; the port defines it beside the mesh, which imports
@@ -196,8 +211,8 @@ def mamba_param_specs(cfg) -> Dict[str, Any]:
 def mixtral_param_specs(scan: bool = True) -> Dict[str, Any]:
     """The spec tree of the Mixtral params: attention as Llama's; the
     router ``gate`` replicated; each expert's matrices split as Llama's
-    FFN, with E over ``expert`` (size 1 here, so E is never split:
-    expert parallelism is ROADMAP.md A.4b)."""
+    FFN, with E over ``expert`` (JAX's ``models/mixtral.py:103-130``:
+    expert parallelism composes with fsdp and tensor)."""
     lead = (None,) if scan else ()
     specs = llama_param_specs(scan)
     specs["layers"].update({
@@ -277,8 +292,8 @@ def infer_state_specs(state_paths, specs, params_subtree: str = "params") -> Dic
 
 def shard_dims(params, specs, mesh_shape: Dict[str, int],
                axis: str = AXIS_FSDP) -> Dict[str, Optional[int]]:
-    """{"params.<path>": the dim split over ``axis`` (fsdp or tensor), or
-    None (whole over it)} for every param leaf, through
+    """{"params.<path>": the dim split over ``axis`` (fsdp, tensor or
+    expert), or None (whole over it)} for every param leaf, through
     :func:`resolve_spec`: a dim the axis does not divide stays whole."""
     spec_of = {path: spec for path, spec in _paths(specs)}
     out = {}
@@ -332,13 +347,14 @@ def init_amax_state(params, history_len: int) -> Dict:
 class QuantLeaf(NamedTuple):
     """One differentiated leaf as the reduce wire sees it: its JAX key,
     the JAX leaf's rank (a stacked leaf's is its own plus one), and the
-    dims of this leaf split over fsdp and over tensor (None when whole
-    here)."""
+    dims of this leaf split over fsdp, over tensor and over expert (None
+    when whole here)."""
 
     key: str
     ndim: int
     split: Optional[int]
     tsplit: Optional[int] = None
+    esplit: Optional[int] = None
 
 
 def _all_max(values: List[torch.Tensor], group) -> List[torch.Tensor]:
@@ -371,9 +387,10 @@ def quantized_grad_reduce(grads: Sequence[torch.Tensor], mode: str, quant_state=
       out_proj, the embedding; or a vector split at all) takes the whole
       row's amax, all-reduced (MAX) over the fsdp group of ``dp``, and a
       row split over tensor (a leaf split on its last dim there: wq, w1,
-      the lm_head, in_proj; or a vector) over its tensor group; under
-      fp8_delayed every split leaf's amax is. ``dp=None`` keeps each
-      amax local."""
+      the lm_head, in_proj; or a vector) over its tensor group, and one
+      split over expert over the expert group (an expert leaf's E dim);
+      under fp8_delayed every split leaf's amax is. ``dp=None`` keeps
+      each amax local."""
     from fms_fsdp_tpu_torch.ops.quant import (
         absmax,
         delayed_scale,
@@ -385,23 +402,29 @@ def quantized_grad_reduce(grads: Sequence[torch.Tensor], mode: str, quant_state=
 
     group = dp.fsdp_group if dp is not None else None
     tp = dp.tp if dp is not None else None
+    egroup = dp.expert_group if dp is not None else None
     if mode in ("int8", "fp8"):
-        amaxes, need, tneed = [], [], []
+        amaxes, need, tneed, eneed = [], [], [], []
         for i, (g, leaf) in enumerate(zip(grads, leaves)):
             dims = wire_dims(g, leaf.ndim)
             amaxes.append(absmax(g, dims))
-            # a scale over a dim split across the fsdp or the tensor
-            # group: the whole one's
+            # a scale over a dim split across the fsdp, the tensor or the
+            # expert group: the whole one's
             spanned = (g.dim() - 1,) if dims == -1 else dims
             if group is not None and leaf.split in spanned:
                 need.append(i)
             if tp is not None and leaf.tsplit in spanned:
                 tneed.append(i)
+            if egroup is not None and leaf.esplit in spanned:
+                eneed.append(i)
         if need:
             for i, a in zip(need, _all_max([amaxes[i] for i in need], group)):
                 amaxes[i] = a
         if tneed:
             for i, a in zip(tneed, tp.all_max([amaxes[i] for i in tneed])):
+                amaxes[i] = a
+        if eneed:
+            for i, a in zip(eneed, _all_max([amaxes[i] for i in eneed], egroup)):
                 amaxes[i] = a
         return [wire_roundtrip(g, mode, amax=a, ndim=leaf.ndim)
                 for g, a, leaf in zip(grads, amaxes, leaves)], quant_state
@@ -409,7 +432,7 @@ def quantized_grad_reduce(grads: Sequence[torch.Tensor], mode: str, quant_state=
         raise ValueError(f"unknown quantized_reduce mode: {mode!r}")
     history = quant_state["amax_history"]
     current: Dict[str, torch.Tensor] = {}
-    split_keys, tsplit_keys = set(), set()
+    split_keys, tsplit_keys, esplit_keys = set(), set(), set()
     for g, leaf in zip(grads, leaves):
         amax = leaf_amax(g)
         current[leaf.key] = amax if leaf.key not in current else torch.maximum(
@@ -418,6 +441,8 @@ def quantized_grad_reduce(grads: Sequence[torch.Tensor], mode: str, quant_state=
             split_keys.add(leaf.key)
         if tp is not None and leaf.tsplit is not None:
             tsplit_keys.add(leaf.key)
+        if egroup is not None and leaf.esplit is not None:
+            esplit_keys.add(leaf.key)
     if split_keys:
         keys = sorted(split_keys)
         for key, a in zip(keys, _all_max([current[k] for k in keys], group)):
@@ -425,6 +450,10 @@ def quantized_grad_reduce(grads: Sequence[torch.Tensor], mode: str, quant_state=
     if tsplit_keys:
         keys = sorted(tsplit_keys)
         for key, a in zip(keys, tp.all_max([current[k] for k in keys])):
+            current[key] = a
+    if esplit_keys:
+        keys = sorted(esplit_keys)
+        for key, a in zip(keys, _all_max([current[k] for k in keys], egroup)):
             current[key] = a
     scales = {key: delayed_scale(history[key], amax) for key, amax in current.items()}
     out = [wire_roundtrip(g, "fp8_delayed", scale=scales[leaf.key])
@@ -553,21 +582,25 @@ class GatheredLayers:
 
 class DataParallel:
     """The parallel layout of one run: the mesh, the fsdp / replica /
-    tensor / data process groups (and on more than one slice the
-    within-slice data group and the dcn group), and the split dims of
-    every param leaf over fsdp (``dims``) and over tensor (``tdims``)."""
+    tensor / expert / data process groups (and on more than one slice
+    the within-slice data groups and the dcn group), and the split dims
+    of every param leaf over fsdp (``dims``), over tensor (``tdims``)
+    and over expert (``edims``)."""
 
     def __init__(self, mesh, dims: Dict[str, Optional[int]], shapes: Dict[str, Tuple],
-                 tdims: Optional[Dict[str, Optional[int]]] = None):
+                 tdims: Optional[Dict[str, Optional[int]]] = None,
+                 edims: Optional[Dict[str, Optional[int]]] = None):
         self.mesh = mesh
         sizes = axis_sizes(mesh)
         self.fsdp = sizes[AXIS_FSDP]
         self.replica = sizes[AXIS_REPLICA]
         self.tensor = sizes[AXIS_TENSOR]
+        self.expert = sizes[AXIS_EXPERT]
         self.world = dist.get_world_size()
         self.fsdp_rank = mesh.get_local_rank(AXIS_FSDP)
         self.replica_rank = mesh.get_local_rank(AXIS_REPLICA)
         self.tensor_rank = mesh.get_local_rank(AXIS_TENSOR)
+        self.expert_rank = mesh.get_local_rank(AXIS_EXPERT)
         self.fsdp_group = mesh.get_group(AXIS_FSDP) if self.fsdp > 1 else None
         self.replica_group = mesh.get_group(AXIS_REPLICA) if self.replica > 1 else None
         from fms_fsdp_tpu_torch.ops.ring_attention import context_ring
@@ -584,8 +617,16 @@ class DataParallel:
         # (None when alone) and the ranks of every slice at this rank's
         # place in its slice; both None on one slice, where no group is made
         self.slice_group, self.dcn_group = slice_data_groups(mesh)
+        # with an expert axis: the expert group, and the data groups (in
+        # the slice) without expert, where a leaf split over expert is
+        # summed; all None without one, where no group is made
+        self.expert_group, self.data_group_ne, self.slice_group_ne = expert_groups(mesh)
+        # the MoE FFN's exchange (None without an expert axis)
+        self.ep = (ExpertParallel(self.expert_group, self.expert, self.expert_rank)
+                   if self.expert > 1 else None)
         self.dims = dict(dims)
         self.tdims = dict(tdims or {})
+        self.edims = dict(edims or {})
         self.shapes = dict(shapes)
         # the host snapshots' mesh, made here on every rank in one order
         # (its groups' creation is collective), never from a writer thread
@@ -600,12 +641,14 @@ class DataParallel:
         specs = param_specs(model_cfg)
         return cls(mesh, shard_dims(params, specs, shape),
                    {k: tuple(v.shape) for k, v in flat.items()},
-                   shard_dims(params, specs, shape, AXIS_TENSOR))
+                   shard_dims(params, specs, shape, AXIS_TENSOR),
+                   shard_dims(params, specs, shape, AXIS_EXPERT))
 
     @property
     def sharded(self) -> bool:
-        """Whether a leaf is split across ranks (over fsdp or tensor)."""
-        return self.fsdp > 1 or self.tensor > 1
+        """Whether a leaf may be split across ranks (over fsdp, tensor or
+        expert)."""
+        return self.fsdp > 1 or self.tensor > 1 or self.expert > 1
 
     @property
     def gathers(self) -> bool:
@@ -617,6 +660,9 @@ class DataParallel:
 
     def tdim_of(self, key: str) -> Optional[int]:
         return self.tdims.get(param_key(key)) if self.tensor > 1 else None
+
+    def edim_of(self, key: str) -> Optional[int]:
+        return self.edims.get(param_key(key)) if self.expert > 1 else None
 
     def full_shape(self, local: torch.Tensor, dim: Optional[int]):
         """The shape a gather over fsdp makes of ``local``: the tensor
@@ -630,30 +676,37 @@ class DataParallel:
 
     def shard(self, flat: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """{key: whole tensor} -> {key: this rank's part} (a contiguous
-        copy of each split leaf: its tensor block, then its fsdp part of
-        that; whole leaves as they are)."""
+        copy of each split leaf: its experts, their tensor block, then its
+        fsdp part of that; whole leaves as they are)."""
         out = {}
         for key, t in flat.items():
-            d, td = self.dim_of(key), self.tdim_of(key)
+            d, td, ed = self.dim_of(key), self.tdim_of(key), self.edim_of(key)
+            if ed is not None:
+                t = t.chunk(self.expert, dim=ed)[self.expert_rank]
             if td is not None:
                 t = t.chunk(self.tensor, dim=td)[self.tensor_rank]
             if d is not None:
                 t = t.chunk(self.fsdp, dim=d)[self.fsdp_rank]
-            out[key] = t if d is None and td is None else t.clone(
+            out[key] = t if d is None and td is None and ed is None else t.clone(
                 memory_format=torch.contiguous_format)
         return out
 
     def unshard(self, flat: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """{key: local part} -> {key: whole tensor} (an all-gather over
-        fsdp and one over tensor per split leaf; every rank gets the
-        whole)."""
+        fsdp, one over tensor and one over expert per split leaf; every
+        rank gets the whole)."""
         out = {}
         for key, t in flat.items():
-            d, td = self.dim_of(key), self.tdim_of(key)
+            d, td, ed = self.dim_of(key), self.tdim_of(key), self.edim_of(key)
             if d is not None:
                 t = self.all_gather([t], [d], None)[0]
             if td is not None:
                 t = self.tp.all_gather(t, td)
+            if ed is not None:
+                t = t.contiguous()
+                parts = [torch.empty_like(t) for _ in range(self.expert)]
+                dist.all_gather(parts, t, group=self.expert_group)
+                t = torch.cat(parts, ed)
             out[key] = t
         return out
 
@@ -670,15 +723,15 @@ class DataParallel:
 
     def dcp_view(self, flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         """``flat`` (local parts) with every split leaf wrapped, without a
-        copy, as a ``DTensor`` over the mesh, sharded on the fsdp and the
-        tensor mesh dims that split it and replicated on the others (dcn
-        among them): what DCP saves and loads."""
+        copy, as a ``DTensor`` over the mesh, sharded on the fsdp, tensor
+        and expert mesh dims that split it and replicated on the others
+        (dcn among them): what DCP saves and loads."""
         from torch.distributed.tensor import DTensor, Replicate, Shard
 
         out = {}
         for key, t in flat.items():
-            d, td = self.dim_of(key), self.tdim_of(key)
-            if d is None and td is None:
+            d, td, ed = self.dim_of(key), self.tdim_of(key), self.edim_of(key)
+            if d is None and td is None and ed is None:
                 out[key] = t
                 continue
             mesh = self.mesh if t.device.type == self.mesh.device_type else self.host_mesh
@@ -690,6 +743,9 @@ class DataParallel:
             if td is not None:
                 placements[MESH_AXES.index(AXIS_TENSOR)] = Shard(td)
                 shape[td] *= self.tensor
+            if ed is not None:
+                placements[MESH_AXES.index(AXIS_EXPERT)] = Shard(ed)
+                shape[ed] *= self.expert
             shape = torch.Size(shape)
             stride = torch.empty(shape, device="meta").stride()  # contiguous
             out[key] = DTensor.from_local(t, mesh, placements, run_check=False,
@@ -827,44 +883,84 @@ class DataParallel:
         dist.all_reduce(out, group=self.data_group)
         return out[0]
 
-    def reduce_grads(self, grads, split) -> None:
-        """After the backward: sum over the data group what is still per
-        rank (``split[i]``: grads[i] was reduce-scattered over fsdp). On
-        more than one slice, inside the slice first
-        (:meth:`reduce_within_slice`), then over the slices."""
-        whole = [g for g, s in zip(grads, split) if not s]
-        parts = [g for g, s in zip(grads, split) if s]
+    def slice_whole_group(self, expert_split: bool):
+        """Where a gradient not split over fsdp is summed inside its
+        slice: the slice's data group, without expert for a leaf split
+        over expert (None when this rank is alone in it)."""
+        return self.slice_group_ne if expert_split else self.slice_group
+
+    def part_groups(self, expert_split: bool) -> list:
+        """The groups an fsdp part of a gradient is summed over after the
+        reduce-scatter, in order: replica, context, then expert unless the
+        leaf is split over it."""
+        groups = [self.replica_group, self.context_group]
+        if not expert_split:
+            groups.append(self.expert_group)
+        return [g for g in groups if g is not None]
+
+    def reduce_grads(self, grads, split, esplit=None) -> None:
+        """After the backward: sum what is still per rank (``split[i]``:
+        grads[i] was reduce-scattered over fsdp; ``esplit[i]``: it is
+        split over expert): a whole leaf over the data group, an fsdp
+        part over :meth:`part_groups`, a leaf split over expert over
+        neither the expert group nor its axis. On more than one slice,
+        inside the slice first (:meth:`reduce_within_slice`), then over
+        the slices."""
+        esplit = esplit if esplit is not None else [False] * len(grads)
+        kinds = self._kinds(grads, split, esplit)
         if self.dcn_group is not None:
-            self.reduce_within_slice(whole, parts)
-            self._bucketed(whole + parts, self.dcn_reduce)
+            self.reduce_within_slice(*kinds)
+            self._bucketed([g for kind in kinds for g in kind], self.dcn_reduce)
             return
+        whole, ewhole, parts, eparts = kinds
         if whole and self.data_world > 1:
             self.all_reduce(whole, self.data_group)
-        if parts and self.replica_group is not None:
-            self.all_reduce(parts, self.replica_group)
-        if parts and self.context_group is not None:
-            self.all_reduce(parts, self.context_group)
+        if ewhole and self.data_group_ne is not None:
+            self.all_reduce(ewhole, self.data_group_ne)
+        for leaves, e in ((parts, False), (eparts, True)):
+            for group in self.part_groups(e) if leaves else ():
+                self.all_reduce(leaves, group)
 
-    def reduce_within_slice(self, whole, parts) -> None:
+    @staticmethod
+    def _kinds(grads, split, esplit):
+        """(whole, whole split over expert, fsdp parts, fsdp parts split
+        over expert) of ``grads``."""
+        kinds = {(False, False): [], (False, True): [], (True, False): [], (True, True): []}
+        for g, s, e in zip(grads, split, esplit):
+            kinds[(bool(s), bool(e))].append(g)
+        return (kinds[(False, False)], kinds[(False, True)], kinds[(True, False)],
+                kinds[(True, True)])
+
+    def reduce_within_slice(self, whole, ewhole, parts, eparts) -> None:
         """The in-slice half of a multi-slice gradient sum, in place: the
-        whole leaves' over the slice's data group, the fsdp parts' over
-        replica and then context (the reduce-scatter over fsdp ran in the
-        backward)."""
-        if whole and self.slice_group is not None:
-            self.all_reduce(whole, self.slice_group)
-        if parts and self.replica_group is not None:
-            self.all_reduce(parts, self.replica_group)
-        if parts and self.context_group is not None:
-            self.all_reduce(parts, self.context_group)
+        whole leaves' over the slice's data group (without expert for a
+        leaf split over it), the fsdp parts' over :meth:`part_groups`
+        (the reduce-scatter over fsdp ran in the backward)."""
+        for leaves, e in ((whole, False), (ewhole, True)):
+            group = self.slice_whole_group(e)
+            if leaves and group is not None:
+                self.all_reduce(leaves, group)
+        for leaves, e in ((parts, False), (eparts, True)):
+            for group in self.part_groups(e) if leaves else ():
+                self.all_reduce(leaves, group)
 
-    def grad_norm(self, grads, split, tsplit=None) -> torch.Tensor:
+    def grad_norm(self, grads, split, tsplit=None, esplit=None) -> torch.Tensor:
         """The global gradient norm (fp32): each leaf's local squares
         summed over the axes that split it (``split``: fsdp, ``tsplit``:
-        tensor), a whole leaf's counted once. No sum runs over dcn: after
-        :meth:`reduce_grads` every slice holds the same gradients."""
+        tensor, ``esplit``: expert), a whole leaf's counted once. No sum
+        runs over dcn: after :meth:`reduce_grads` every slice holds the
+        same gradients."""
         tsplit = tsplit if tsplit is not None else [False] * len(grads)
         sq = [torch.linalg.vector_norm(g, dtype=torch.float32) ** 2 for g in grads]
         dev = grads[0].device
+        if self.expert_group is not None and esplit is not None and any(esplit):
+            # an expert leaf's squares over its experts first, in one
+            # all-reduce; then it counts as any leaf of its other splits
+            idx = [i for i, e in enumerate(esplit) if e]
+            summed = torch.stack([sq[i] for i in idx])
+            dist.all_reduce(summed, group=self.expert_group)
+            for j, i in enumerate(idx):
+                sq[i] = summed[j]
 
         def total(f, t):
             return torch.stack([s for s, a, b in zip(sq, split, tsplit) if (a, b) == (f, t)]

@@ -94,13 +94,14 @@ def leaf_checksum(t: torch.Tensor) -> int:
 
 
 def state_checksum_parts(state) -> Tuple[int, int]:
-    """(sum over the leaves split over fsdp or tensor, sum over the whole
-    leaves), each mod 2^32, of this rank's train state."""
+    """(sum over the leaves split over fsdp, tensor or expert, sum over the
+    whole leaves), each mod 2^32, of this rank's train state."""
     dp = state.get("dp")
     split = whole = 0
     for key, t in checkpoint_state(state).items():
         c = leaf_checksum(t)
-        if dp is not None and (dp.dim_of(key) is not None or dp.tdim_of(key) is not None):
+        if dp is not None and any(d is not None for d in (
+                dp.dim_of(key), dp.tdim_of(key), dp.edim_of(key))):
             split = (split + c) & 0xFFFFFFFF
         else:
             whole = (whole + c) & 0xFFFFFFFF

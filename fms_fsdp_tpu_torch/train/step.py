@@ -68,6 +68,17 @@ route sums and the gradients of a leaf not split over fsdp are summed
 over the data group (every axis but tensor), and the gradient norm adds
 a tensor-split leaf's squares over tensor.
 
+Expert parallelism (``expert_parallel_size``, the mesh's expert axis;
+Mixtral): ``state["dp"].ep`` holds the expert group, the state holds this
+rank's experts of each expert leaf, and the MoE FFN exchanges the routed
+tokens with the ranks of their experts (``models/mixtral.py::
+_moe_ffn_dispatch_a2a``, ``parallel/expert.py``). The expert axis is a
+data axis: the label count, the loss and the route sums run over the
+data group as before, a leaf split over expert is summed over every data
+axis but expert and any other over every data axis
+(``DataParallel.reduce_grads``), and the gradient norm adds an expert
+leaf's squares over the expert group.
+
 Quantized training (``TrainConfig.quantized_matmuls``, the forward's
 ``quant``; ``quantized_reduce``, the policy's ``reduce_quant``): the
 gradient norm is taken on the raw reduced gradients, then they go
@@ -132,22 +143,9 @@ from fms_fsdp_tpu_torch.tune.lookup import (
 )
 from fms_fsdp_tpu_torch.utils.tree import tree_map
 
-# (TrainConfig field, is it set to something this port does not run yet,
-# the ROADMAP.md item that brings it)
-_UNPORTED_STEP = (
-    ("expert_parallel_size", lambda v: v > 1, "A.4b (MoE expert parallelism)"),
-)
-
-
 def check_step_options(cfg) -> None:
-    """The step's options: ``NotImplementedError`` naming the ROADMAP.md
-    item for each one this port does not run yet, rather than ignore it."""
-    for field, unported, item in _UNPORTED_STEP:
-        value = getattr(cfg, field)
-        if unported(value):
-            raise NotImplementedError(
-                f"{field}={value!r} is not ported yet: ROADMAP.md {item}"
-            )
+    """The step's options: a ``ValueError`` for a GEMM mode or a flash
+    variant the step does not know."""
     check_quant_mode(cfg.quantized_matmuls)
     if cfg.flash_kernel_variant not in VARIANTS:
         raise ValueError(
@@ -338,10 +336,16 @@ def tensor_flags(params: Dict, dp):
     return _per_layer(params, lambda w, key, stacked: dp.tdim_of(key) is not None)[1]
 
 
+def expert_flags(params: Dict, dp):
+    """Per differentiated leaf, in :func:`_per_layer`'s order: whether it
+    is split over expert (this rank's experts of a Mixtral expert leaf)."""
+    return _per_layer(params, lambda w, key, stacked: dp.edim_of(key) is not None)[1]
+
+
 def quant_leaves(params: Dict, dp=None):
     """The reduce wire's view of the step's differentiated leaves, in
     :func:`_per_layer`'s order: each leaf's JAX key (``g.layers.wq``), the
-    JAX leaf's rank, and its local fsdp and tensor split dims."""
+    JAX leaf's rank, and its local fsdp, tensor and expert split dims."""
 
     def local(d, stacked):
         return None if d is None else d - int(stacked)
@@ -349,8 +353,9 @@ def quant_leaves(params: Dict, dp=None):
     def leaf(w, key, stacked):
         d = dp.dim_of(key) if dp is not None else None
         td = dp.tdim_of(key) if dp is not None else None
+        ed = dp.edim_of(key) if dp is not None else None
         return QuantLeaf("g." + key[len("params."):], w.dim() + int(stacked),
-                         local(d, stacked), local(td, stacked))
+                         local(d, stacked), local(td, stacked), local(ed, stacked))
 
     return _per_layer(params, leaf)[1]
 
@@ -445,19 +450,21 @@ def make_train_step(model_cfg, cfg, start_step: int = 0, mesh=None):
 
     def loss_fn(params_c, inputs, labels, n=None, dp=None):
         """(the token loss, the MoE balance term or None, extra metrics)"""
-        ring = {}
+        exchanges = {}  # the forward's context ring and MoE all-to-all
         if cp > 1:
             if dp is None or dp.ring is None or dp.ring.cp != cp:
                 raise ValueError(
                     f"context_parallel_size={cp} needs a train state on a mesh whose "
                     f"context axis has {cp} ranks (state['dp'].ring)"
                 )
-            ring = {"ring": dp.ring}
+            exchanges["ring"] = dp.ring
+        if moe and dp is not None and dp.ep is not None:
+            exchanges["ep"] = dp.ep
         tp = dp.tp if dp is not None else None
         out = forward_fn(
             params_c, inputs, model_cfg, compute_dtype=policy.compute_dtype,
             attn_impl=cfg.attention_kernel, ac_mask=ac_mask,
-            return_hidden=fused, quant=cfg.quantized_matmuls, tp=tp, **ring,
+            return_hidden=fused, quant=cfg.quantized_matmuls, tp=tp, **exchanges,
             **extra_kwargs,
         )
         aux, stats = None, {}
@@ -480,12 +487,13 @@ def make_train_step(model_cfg, cfg, start_step: int = 0, mesh=None):
     def fwd_bwd(state, inputs, labels):
         dp = state.get("dp")
         params_c, leaves, split = _compute_copy(state["params"], policy.compute_dtype, dp)
+        esplit = expert_flags(state["params"], dp) if dp is not None else None
         reducer = None
         if bucket_plan is not None and dp is not None and dp.dcn_group is not None:
             # each bucket's cross-slice sum starts in the backward
             reducer = dcn_overlap.BucketReducer(
                 dp, bucket_plan, [leaf.key for leaf in quant_leaves(state["params"], dp)],
-                split)
+                split, esplit)
             reducer.attach(leaves)
         if dp is None:
             loss, aux, stats = loss_fn(params_c, inputs, labels)
@@ -498,7 +506,7 @@ def make_train_step(model_cfg, cfg, start_step: int = 0, mesh=None):
         if reducer is not None:
             grads = reducer.finish(grads)
         elif dp is not None:
-            dp.reduce_grads(grads, split)
+            dp.reduce_grads(grads, split, esplit)
         if dp is not None:
             loss = dp.sum_over_world(loss)
         if aux is not None:
@@ -531,7 +539,8 @@ def make_train_step(model_cfg, cfg, start_step: int = 0, mesh=None):
         loss, grads, split, stats = fwd_bwd(state, inputs, labels)
         dp = state.get("dp")
         if dp is not None and dp.sharded:
-            gnorm = dp.grad_norm(grads, split, tensor_flags(state["params"], dp))
+            gnorm = dp.grad_norm(grads, split, tensor_flags(state["params"], dp),
+                                 expert_flags(state["params"], dp))
         else:
             gnorm = torch.linalg.vector_norm(torch.stack([
                 torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads

@@ -26,9 +26,10 @@ The payload is ``torch.distributed.checkpoint`` (DCP) with
 ``FileSystemWriter`` / ``FileSystemReader``, keys as in ``ckpt/state.py``
 (the JAX train state's tree paths). With a process group up, DCP runs
 over the gloo groups of ``utils/dist.py::aux_group``: every rank writes its own
-parts (``state/__<rank>_<i>.distcp``), each leaf split over fsdp as a
-``DTensor`` (``parallel/sharding.py::DataParallel.dcp_view``), a
-replicated leaf once; rank 0 writes ``state/.metadata``, and after a
+parts (``state/__<rank>_<i>.distcp``), each leaf split over fsdp, tensor
+or expert as a ``DTensor`` (``parallel/sharding.py::DataParallel.dcp_view``:
+a Mixtral expert leaf and its Adam moments cut along E), a replicated
+leaf once; rank 0 writes ``state/.metadata``, and after a
 barrier the manifest and the commit marker. DCP reshards on load, as
 Orbax does for JAX, so a checkpoint of one world loads into another.
 The multi-process agreement of the JAX package runs here too: rank 0's

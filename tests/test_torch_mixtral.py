@@ -364,7 +364,16 @@ def test_entry_needs_a_card_unless_cpu():
     ({"expert_parallel_size": 2}, "A.4b"),
 ])
 def test_unported_options_raise(overrides, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """Expert parallelism (``item``, ROADMAP.md A.4b) is no longer refused:
+    the step's check passes it, and on a world of one the mesh says, in
+    JAX's words, that two expert ranks do not fit
+    (tests/test_torch_expert_parallel.py trains it on two and four gloo
+    ranks)."""
+    from fms_fsdp_tpu_torch.config import TrainConfig
+    from fms_fsdp_tpu_torch.train.step import check_supported
+
+    check_supported(TrainConfig(**overrides))
+    with pytest.raises(ValueError, match="not divisible by tensor\\*context\\*expert = 2"):
         main(device="cpu", use_dummy_dataset=True, num_steps=4, **overrides,
              **ENTRY_OVERRIDES)
 

@@ -101,22 +101,24 @@ def test_mesh_refusals_and_errors_match_jax():
     (dict(sharding_strategy="fsdp", expert_parallel_size=2), "A.4b"),
 ])
 def test_build_mesh_refuses_unported_axes(kw, item, monkeypatch):
-    """The expert axis stays refused, naming its ROADMAP.md item; the
-    tensor axis, ``"tp"`` (A.6b's training half) and the dcn axis (A.6b's
-    multi-slice: two slices of two) reach the device mesh with JAX's axis
+    """No axis is refused any more (``item``: the ROADMAP.md item that
+    brought it): the tensor axis, ``"tp"`` (A.6b's training half), the
+    dcn axis (A.6b's multi-slice: two slices of two) and the expert axis
+    (A.4b: expert 2 x fsdp 2) reach the device mesh with JAX's axis
     sizes."""
-    cfg = mesh.MeshConfig(**kw)
-    if cfg.tensor_parallel_size > 1 or cfg.sharding_strategy == "tp" or cfg.num_slices > 1:
-        import torch.distributed.device_mesh as dm
+    import torch.distributed.device_mesh as dm
 
-        seen = []
-        monkeypatch.setattr(dm, "init_device_mesh",
-                            lambda dev, shape, mesh_dim_names: seen.append(shape))
-        mesh.build_mesh(cfg, device_type="cpu", world=4)
-        assert seen == [tuple(mesh.mesh_shape(cfg, 4)[a] for a in mesh.MESH_AXES)]
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        mesh.build_mesh(cfg, device_type="cpu", world=4)
+    cfg = mesh.MeshConfig(**kw)
+    seen = []
+    monkeypatch.setattr(dm, "init_device_mesh",
+                        lambda dev, shape, mesh_dim_names: seen.append(shape))
+    mesh.build_mesh(cfg, device_type="cpu", world=4)
+    shape = mesh.mesh_shape(cfg, 4)
+    assert seen == [tuple(shape[a] for a in mesh.MESH_AXES)]
+    ref = j_mesh.build_mesh(j_mesh.MeshConfig(**kw), devices=jax.devices()[:4])
+    assert shape == dict(ref.shape)
+    if item == "A.4b":
+        assert (shape["expert"], shape["fsdp"]) == (2, 2)
 
 
 class _RankMesh:
@@ -146,7 +148,7 @@ def test_context_mesh_matches_jax(kw, n):
     mesh over n devices, and each rank's data index and context index are
     the coordinates JAX's mesh gives device ``rank`` (context innermost:
     adjacent ranks are context peers; the data index ravels DATA_AXES)."""
-    assert mesh.AXIS_CONTEXT not in mesh._UNPORTED_AXES
+    assert not hasattr(mesh, "_UNPORTED_AXES")  # no axis is refused
     ref = j_mesh.build_mesh(j_mesh.MeshConfig(**kw), devices=jax.devices()[:n])
     shape = mesh.mesh_shape(mesh.MeshConfig(**kw), n)
     assert shape == dict(ref.shape)
@@ -238,9 +240,26 @@ def test_placement_plan_matches_jax_resolved_specs(family, strategy, n, group):
         # the stacked L axis is never split
         assert dims["params.layers.wq"] == 1 and dims["params.layers.wo"] == 2
     if family == "mixtral" and shape["fsdp"] > 1:
-        # the expert dim is never split (A.4b); the router is replicated
+        # E is not split over fsdp; the router is replicated
         assert dims["params.layers.w1"] == 2 and dims["params.layers.w2"] == 3
         assert dims["params.layers.gate"] is None
+    if family == "mixtral":
+        # at ep 2 the dim JAX's resolved spec puts ``expert`` on: E (dim 1)
+        # of every expert leaf, no other leaf
+        ep_kw = dict(sharding_strategy=strategy, sharding_group_size=group,
+                     expert_parallel_size=2)
+        jmesh = j_mesh.build_mesh(j_mesh.MeshConfig(**ep_kw), devices=jax.devices()[:n])
+        shape = mesh.mesh_shape(mesh.MeshConfig(**ep_kw), n)
+        assert shape == dict(jmesh.shape)
+        edims = sharding.shard_dims(np_params, t_specs, shape, mesh.AXIS_EXPERT)
+        for path, leaf in _leaves(np_params):
+            ref = j_sharding.resolve_spec(_spec_at(j_specs, path), leaf.shape, jmesh)
+            want = [i for i, e in enumerate(ref)
+                    if "expert" in (e if isinstance(e, tuple) else (e,))]
+            assert edims[_key(path)] == (want[0] if want else None), _key(path)
+        assert sorted(k for k, d in edims.items() if d is not None) == [
+            "params.layers.w1", "params.layers.w2", "params.layers.w3"]
+        assert {edims["params.layers.w1"], edims["params.layers.w2"]} == {1}
 
 
 def test_moments_placed_as_their_params():

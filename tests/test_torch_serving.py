@@ -505,7 +505,8 @@ def test_port_imports_no_jax_and_no_jax_package():
         "    'eval_ppl', 'fms_to_hf_llama', 'fms_to_hf_mamba', 'fms_to_hf_mixtral',\n"
         "    'tune.candidates', 'tune.table', 'tune.lookup', 'ops.ring_attention',\n"
         "    'parallel.sharding', 'parallel.tensor', 'serve.layout',\n"
-        "    'parallel.overlap', 'resilience.slices', 'obs.collectives')}\n"
+        "    'parallel.overlap', 'resilience.slices', 'obs.collectives',\n"
+        "    'parallel.expert')}\n"
         "print(len(mods), bad, need - set(mods))\n"
         "sys.exit(1 if bad or len(mods) < 90 or need - set(mods) else 0)\n"
     )

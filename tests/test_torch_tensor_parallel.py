@@ -73,7 +73,7 @@ def test_tensor_mesh_matches_jax(kw, n):
     indices are the coordinates JAX's mesh gives device ``rank`` (tensor
     innermost: adjacent ranks are tensor peers, and they share a data
     index, so they read the same rows)."""
-    assert mesh.AXIS_TENSOR not in mesh._UNPORTED_AXES
+    assert not hasattr(mesh, "_UNPORTED_AXES")  # no axis is refused
     ref = j_mesh.build_mesh(j_mesh.MeshConfig(**kw), devices=jax.devices()[:n])
     shape = mesh.mesh_shape(mesh.MeshConfig(**kw), n)
     assert shape == dict(ref.shape)
@@ -93,7 +93,7 @@ def test_tensor_mesh_matches_jax(kw, n):
 
 def test_build_mesh_reaches_the_tensor_axis(monkeypatch):
     """``build_mesh`` hands the tensor axis and ``"tp"`` to the device
-    mesh; the dcn and expert axes stay refused."""
+    mesh, and the expert axis beside them."""
     import torch.distributed.device_mesh as dm
 
     seen = []
@@ -103,10 +103,9 @@ def test_build_mesh_reaches_the_tensor_axis(monkeypatch):
                     world=8)
     mesh.build_mesh(mesh.MeshConfig("fsdp", tensor_parallel_size=4, context_parallel_size=2),
                     device_type="cpu", world=8)
-    assert seen == [(1, 1, 4, 1, 1, 2), (1, 1, 1, 1, 2, 4)]
-    with pytest.raises(NotImplementedError, match="A.4b"):
-        mesh.build_mesh(mesh.MeshConfig("fsdp", expert_parallel_size=2), device_type="cpu",
-                        world=4)
+    mesh.build_mesh(mesh.MeshConfig("fsdp", expert_parallel_size=2, tensor_parallel_size=2),
+                    device_type="cpu", world=8)
+    assert seen == [(1, 1, 4, 1, 1, 2), (1, 1, 1, 1, 2, 4), (1, 1, 2, 2, 1, 2)]
 
 
 def _family(name):

@@ -443,12 +443,15 @@ def test_entry_needs_a_card_unless_cpu():
     ({"num_slices": 2}, "A.6b"),
 ])
 def test_unported_options_raise(overrides, item, tmp_path):
-    """Options the port does not run yet raise naming their ROADMAP.md
-    item. Tensor parallelism runs: a tensor axis of 2 needs a world it
+    """The options that once raised naming their ROADMAP.md item (``item``)
+    all run now. Tensor parallelism: a tensor axis of 2 needs a world it
     divides (a world of one raises JAX's mesh error), and ``"tp"`` at
     ``tensor_parallel_size=1`` trains as fsdp. Two slices pass the step's
     check and need a world they split (a world of one raises JAX's
-    error; tests/test_torch_multislice.py trains them on four ranks)."""
+    error; tests/test_torch_multislice.py trains them on four ranks). An
+    expert axis of 2 (A.4b) passes the step's check and needs a world it
+    divides (tests/test_torch_expert_parallel.py trains it on two and
+    four ranks)."""
     kw = dict(use_dummy_dataset=True, num_steps=4, **_ENTRY_OVERRIDES)
     kw.update(overrides)
     if kw.get("num_slices", 0) > 1:
@@ -456,21 +459,19 @@ def test_unported_options_raise(overrides, item, tmp_path):
         with pytest.raises(ValueError, match="cannot split into 2 equal slices"):
             main(device="cpu", **kw)
         return
-    if kw.get("tensor_parallel_size", 1) > 1:
+    if kw.get("tensor_parallel_size", 1) > 1 or kw.get("expert_parallel_size", 1) > 1:
+        check_supported(TrainConfig(**overrides))
         with pytest.raises(ValueError, match="not divisible by tensor"):
             main(device="cpu", **kw)
         return
-    if kw.get("sharding_strategy") == "tp":
-        from fms_fsdp_tpu_torch.parallel.mesh import axis_sizes
+    from fms_fsdp_tpu_torch.parallel.mesh import axis_sizes
 
-        res = main(device="cpu", **dict(kw, seq_length=64, batch_size=2, vocab_size=512,
-                                         attention_kernel="xla",
-                                         ckpt_save_path=str(tmp_path / "ck"),
-                                         ckpt_load_path=str(tmp_path / "ck")))
-        assert axis_sizes(res["mesh"])["tensor"] == 1 and res["steps"] == 4
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        main(device="cpu", **kw)
+    assert kw.get("sharding_strategy") == "tp", overrides
+    res = main(device="cpu", **dict(kw, seq_length=64, batch_size=2, vocab_size=512,
+                                     attention_kernel="xla",
+                                     ckpt_save_path=str(tmp_path / "ck"),
+                                     ckpt_load_path=str(tmp_path / "ck")))
+    assert axis_sizes(res["mesh"])["tensor"] == 1 and res["steps"] == 4
 
 
 @pytest.mark.parametrize("variant", ["llama2_7b", "mamba_9.8b"])
